@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version and with a launch counter (``<wrapper>.launches``).
+
+Sources live in ``janus_tpu_torch/csrc/``; ``build`` compiles them with
+``nvcc`` on first use. Nothing here imports or builds anything at import
+time.
+"""
+
+from janus_tpu_torch.kernels.pnc_apply import pnc_apply, pnc_apply_plain  # noqa: F401
+from janus_tpu_torch.kernels.replica_join import (  # noqa: F401
+    replica_join, replica_join_plain)
+
+WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join}
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    """``{kernel name: launches since the last reset}``."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

@@ -1,0 +1,65 @@
+"""``replica_join``: in-place replica-axis join of the PN-Counter
+(kernel source: csrc/replica_join.cu).
+
+Replaces janus_tpu/runtime/store.py ``converge`` (``join_all`` by
+``pncounter.merge`` = ``lattice.join_max``, then a broadcast to all R
+rows). Bound on the H100 by bytes: P and N are each read once and written
+once; see the source note for the design.
+
+The wrapper launches the CUDA kernel for CUDA tensors (or raises) and
+runs ``replica_join_plain`` only for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from janus_tpu_torch.kernels import build
+
+
+def replica_join_plain(p: torch.Tensor, n: torch.Tensor) -> None:
+    """Plain PyTorch version: ``amax(0)`` followed by a copy into every
+    replica row, in place. ``p``, ``n``: int32[R, ...]."""
+    for x in (p, n):
+        x.copy_(x.amax(0).expand_as(x))
+
+
+def _lib():
+    lib = build.load("replica_join")
+    if lib.replica_join_launch.argtypes is None:
+        ptr = ctypes.c_void_p
+        lib.replica_join_launch.argtypes = [
+            ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr]
+        lib.replica_join_launch.restype = ctypes.c_int
+    return lib
+
+
+def replica_join(p: torch.Tensor, n: torch.Tensor) -> None:
+    """Set every replica row of ``p`` and ``n`` to the max over the
+    replica (leading) axis, in place. ``p``, ``n``: int32[R, ...]."""
+    if p.device.type == "cpu" and n.device.type == "cpu":
+        return replica_join_plain(p, n)
+    dev = p.device
+    if dev.type != "cuda" or n.device != dev:
+        raise ValueError("replica_join: p and n must lie on one CUDA device")
+    if p.shape != n.shape or p.dim() < 1:
+        raise ValueError(f"replica_join: shapes {tuple(p.shape)} / "
+                         f"{tuple(n.shape)} differ")
+    for x in (p, n):
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError("replica_join: tensors must be contiguous int32")
+    R = p.shape[0]
+    row = p[0].numel() if R else 0
+    if R * row == 0:
+        return
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.replica_join_launch(p.data_ptr(), n.data_ptr(), R, row,
+                                     stream)
+    build.check_launch("replica_join", rc)
+    replica_join.launches += 1
+
+
+replica_join.launches = 0

@@ -1,0 +1,80 @@
+"""The port stands alone: it imports without JAX and loads nothing of the
+JAX package, and its entry points refuse to run when no GPU is present
+unless the caller asks for the CPU."""
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+MODULES = (
+    "janus_tpu_torch",
+    "janus_tpu_torch.device",
+    "janus_tpu_torch.convert",
+    "janus_tpu_torch.ops",
+    "janus_tpu_torch.ops.lattice",
+    "janus_tpu_torch.models",
+    "janus_tpu_torch.models.base",
+    "janus_tpu_torch.models.pncounter",
+    "janus_tpu_torch.kernels",
+    "janus_tpu_torch.kernels.build",
+    "janus_tpu_torch.kernels.pnc_apply",
+    "janus_tpu_torch.kernels.replica_join",
+    "janus_tpu_torch.runtime",
+    "janus_tpu_torch.runtime.store",
+    "janus_tpu_torch.runtime.engine",
+    "janus_tpu_torch.runtime.safecrdt",
+    "janus_tpu_torch.consensus",
+    "janus_tpu_torch.consensus.dag",
+    "janus_tpu_torch.consensus.tusk",
+    "janus_tpu_torch.bench",
+    "janus_tpu_torch.bench.workloads",
+)
+
+
+def test_port_imports_without_jax_and_loads_no_jax_package():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None  # any import of jax now fails
+        for name in {MODULES!r}:
+            importlib.import_module(name)
+        loaded = [m for m in sys.modules
+                  if m == "janus_tpu" or m.startswith("janus_tpu.")
+                  or m == "jax" and sys.modules[m] is not None
+                  or m.startswith("jax.") or m.startswith("jaxlib")]
+        assert not loaded, loaded
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """With no GPU, ``device=None`` raises instead of running on the CPU;
+    ``device="cpu"`` is the only way onto the CPU."""
+    from janus_tpu_torch import resolve_device
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import pncounter
+    from janus_tpu_torch.runtime import engine, store
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.make_tick(pncounter.SPEC, device=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.make_local_tick(pncounter.SPEC)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        store.replicated_init(pncounter.SPEC, 2, num_keys=4, num_writers=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SafeKV(DagConfig(4, 8), pncounter.SPEC, ops_per_block=4,
+               num_keys=4, num_writers=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    SafeKV(DagConfig(4, 8), pncounter.SPEC, ops_per_block=4, device="cpu",
+           num_keys=4, num_writers=4)
