@@ -10,14 +10,18 @@ non-zero. Phases, one JSON line each:
 1. device     the card's name and power limit (nvidia-smi)
 2. build      both hand kernels compiled from csrc/ with nvcc, in parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
-              card, bit-equal, at the fast-path shapes and at ragged ones
+              card, bit-equal, at the fast-path shapes, at the consensus
+              path's submit and delta-apply shapes, and at ragged ones
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
 5. consensus  SafeKV for the PN-Counter at 4 nodes, window 8, 4000-op
               blocks, 100 keys: 64 rounds with half the ops safe, then idle
               rounds until drained; checked for acceptance, safe acks,
-              identical total order and stable == prospective == numpy sum
+              identical total order, stable == prospective == numpy sum,
+              and P and N per writer lane against a numpy scatter; the
+              pnc_apply calls of its warm-up rounds are recorded and
+              replayed through the kernel and its plain version, bit-equal
 6. the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
@@ -101,6 +105,34 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+def pnc_err(kernels, state, ops) -> int:
+    """Max abs difference of ``pnc_apply`` from its plain version on one
+    input (``state`` takes the plain version's result)."""
+    a = {f: v.clone() for f, v in state.items()}
+    kernels.pnc_apply(a["p"], a["n"], ops)
+    kernels.pnc_apply_plain(state["p"], state["n"], ops)
+    torch.cuda.synchronize()
+    return max(max_abs_err(a[f], state[f]) for f in "pn")
+
+
+def pnc_case(kernels, cases, name, state, ops):
+    """``pnc_apply`` against its plain version on one input, bit-equal."""
+    err = pnc_err(kernels, state, ops)
+    cases.append({"kernel": "pnc_apply", "case": name, "max_abs_err": err})
+    check(err == 0, f"pnc_apply {name}: max_abs_err {err}")
+
+
+def join_case(kernels, cases, name, state):
+    """``replica_join`` against its plain version on one input, bit-equal."""
+    a = {f: v.clone() for f, v in state.items()}
+    kernels.replica_join(a["p"], a["n"])
+    kernels.replica_join_plain(state["p"], state["n"])
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a[f], state[f]) for f in "pn")
+    cases.append({"kernel": "replica_join", "case": name, "max_abs_err": err})
+    check(err == 0, f"replica_join {name}: max_abs_err {err}")
+
+
 def kernel_checks(dev, kernels, workloads):
     """Each kernel bit-equal to its plain version on the card."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -108,35 +140,77 @@ def kernel_checks(dev, kernels, workloads):
     R, K, W, B = (FAST[k] for k in "RKWB")
     cases = []
 
-    def pnc_case(name, state, ops):
-        a = {f: v.clone() for f, v in state.items()}
-        kernels.pnc_apply(a["p"], a["n"], ops)
-        kernels.pnc_apply_plain(state["p"], state["n"], ops)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(a[f], state[f]) for f in "pn")
-        cases.append({"kernel": "pnc_apply", "case": name, "max_abs_err": err})
-        check(err == 0, f"pnc_apply {name}: max_abs_err {err}")
-
-    def join_case(name, state):
-        a = {f: v.clone() for f, v in state.items()}
-        kernels.replica_join(a["p"], a["n"])
-        kernels.replica_join_plain(state["p"], state["n"])
-        torch.cuda.synchronize()
-        err = max(max_abs_err(a[f], state[f]) for f in "pn")
-        cases.append({"kernel": "replica_join", "case": name, "max_abs_err": err})
-        check(err == 0, f"replica_join {name}: max_abs_err {err}")
-
     fast_ops = workloads.ops_to_device(workloads.pnc_uniform(rng, R, K, B), dev)
-    pnc_case("fast_path", rand_state((R, K, W), dev, gen), fast_ops)
-    join_case("fast_path", rand_state((R, K, W), dev, gen))
+    pnc_case(kernels, cases, "fast_path", rand_state((R, K, W), dev, gen),
+             fast_ops)
+    join_case(kernels, cases, "fast_path", rand_state((R, K, W), dev, gen))
     for r, k, w, b, keys in ((5, 37, 13, 1000, None), (3, 33, 12, 4097, None),
                              (7, 11, 3, 999, np.array([0, 1, -1]))):
         ops = workloads.ops_to_device(ragged_ops(rng, r, b, k, w, keys), dev)
         near_max = rand_state((r, k, w), dev, gen, lo=2**31 - 1000)
-        pnc_case(f"R{r}_K{k}_W{w}_B{b}", near_max, ops)
-        join_case(f"R{r}_K{k}_W{w}", rand_state((r, k, w), dev, gen))
+        pnc_case(kernels, cases, f"R{r}_K{k}_W{w}_B{b}", near_max, ops)
+        join_case(kernels, cases, f"R{r}_K{k}_W{w}",
+                  rand_state((r, k, w), dev, gen))
+    # the consensus path's shapes, keys drawn as that phase draws them: a
+    # submit batch [N, B] (writer lane = node) and a delta-apply batch
+    # [N, 4N*B] (SafeKV's default apply budget) holding blocks of every
+    # origin node, a quarter of them masked to no-ops
+    n, k, b = (CONS[x] for x in ("nodes", "keys", "ops_per_block"))
+    for width, mixed in ((b, False), (4 * n * b, True)):
+        host = workloads.pnc_uniform(rng, n, k, width)
+        if mixed:
+            host["writer"] = rng.integers(0, n, (n, width)).astype(np.int32)
+            host["op"] = np.where(rng.random((n, width)) < 0.25, 0,
+                                  host["op"]).astype(np.int32)
+        pnc_case(kernels, cases, f"consensus_R{n}_K{k}_W{n}_B{width}",
+                 rand_state((n, k, n), dev, gen, lo=-1000, hi=1000),
+                 workloads.ops_to_device(host, dev))
     emit("kernels", cases=cases)
     return fast_ops, cases
+
+
+def record_pnc_apply(pncounter, fn):
+    """Run ``fn`` with the inputs of every PN-Counter ``pnc_apply`` call
+    cloned just before the kernel runs; returns ``[(state, ops), ...]``."""
+    calls = []
+    real = pncounter.pnc_apply
+
+    def recording(p, n, ops):
+        calls.append(({"p": p.clone(), "n": n.clone()},
+                      {f: v.clone() for f, v in ops.items()}))
+        real(p, n, ops)
+
+    pncounter.pnc_apply = recording
+    try:
+        fn()
+    finally:
+        pncounter.pnc_apply = real
+    return calls
+
+
+def replay_consensus_calls(kernels, cases, calls, n, b):
+    """Replay the ``pnc_apply`` calls of real SafeKV rounds (submit: B
+    columns; delta-apply: a multiple of B) through the kernel and its
+    plain version, bit-equal. Each width must carry live ops of all N
+    writer lanes, so a wrong writer index cannot pass unseen."""
+    widths = sorted({ops["op"].shape[1] for _, ops in calls})
+    check(len(widths) == 2 and widths[0] == b,
+          f"consensus: pnc_apply widths {widths}, expected B={b} and a "
+          f"delta-apply width")
+    for width in widths:
+        mine = [c for c in calls if c[1]["op"].shape[1] == width]
+        live = [((ops["op"] == 1) | (ops["op"] == 2)) for _, ops in mine]
+        writers = torch.cat([ops["writer"][m] for (_, ops), m in zip(mine, live)])
+        lanes = torch.unique(writers).tolist()
+        check(lanes == list(range(n)), f"consensus: live writer lanes "
+              f"{lanes} in the recorded B={width} calls, expected 0..{n - 1}")
+        err = max(pnc_err(kernels, state, ops) for state, ops in mine)
+        name = f"consensus_recorded_R{n}_B{width}"
+        cases.append({"kernel": "pnc_apply", "case": name, "max_abs_err": err,
+                      "calls": len(mine),
+                      "live_ops": int(sum(int(m.sum()) for m in live)),
+                      "writer_lanes": lanes})
+        check(err == 0, f"pnc_apply {name}: max_abs_err {err}")
 
 
 def fast_path(dev, kernels, workloads):
@@ -192,7 +266,7 @@ def fast_path(dev, kernels, workloads):
     return launches
 
 
-def consensus_path(dev, kernels, workloads):
+def consensus_path(dev, kernels, workloads, cases):
     from janus_tpu_torch.consensus import DagConfig, tusk
     from janus_tpu_torch.consensus import dag as dagmod
     from janus_tpu_torch.models import pncounter
@@ -212,10 +286,14 @@ def consensus_path(dev, kernels, workloads):
     idle = workloads.ops_to_device(
         {f: np.zeros((n, b), np.int32) for f in host[0]}, dev)
 
-    warm = make_kv()  # first-use costs of torch's kernels, off the clock
-    for t in range(4):
-        warm.step(batches[t], safe[t])
+    # first-use costs of torch's kernels, off the clock; the warm-up rounds'
+    # pnc_apply calls are recorded and replayed against the plain version
+    warm = make_kv()
+    calls = record_pnc_apply(pncounter, lambda: [
+        warm.step(batches[t], safe[t]) for t in range(4)])
     torch.cuda.synchronize()
+    replay_consensus_calls(kernels, cases, calls, n, b)
+    emit("consensus_kernels", cases=cases[-2:])
 
     kernels.reset_launches()
     kv = make_kv()
@@ -254,6 +332,20 @@ def consensus_path(dev, kernels, workloads):
     check((prosp == expect[None]).all() and (stable == expect[None]).all(),
           "consensus: values differ from the numpy sum of accepted ops")
     check(launches["pnc_apply"] > 0, "consensus: pnc_apply never launched")
+    # per writer lane: P and N of every view, prospective and stable, equal
+    # an independent numpy scatter over [key, writer]
+    exp_lane = {f: np.zeros((k, n), np.int64) for f in "pn"}
+    for o in host:
+        for f, code in (("p", 1), ("n", 2)):
+            m = o["op"] == code
+            np.add.at(exp_lane[f], (o["key"][m], o["writer"][m]),
+                      o["a0"][m].astype(np.int64))
+    for name, st in (("prospective", kv.prospective), ("stable", kv.stable)):
+        for f in "pn":
+            check(np.array_equal(st[f].cpu().numpy(),
+                                 np.broadcast_to(wrap32(exp_lane[f]), (n, k, n))),
+                  f"consensus: {name} {f} differs per writer lane from the "
+                  f"numpy scatter")
     lag = kv.commit_latencies()
 
     # no host synchronisation while a round is queued (the one fetch per
@@ -403,7 +495,7 @@ def main() -> int:
 
     fast_ops, cases = kernel_checks(dev, kernels, workloads)
     fast_launches = fast_path(dev, kernels, workloads)
-    cons_launches = consensus_path(dev, kernels, workloads)
+    cons_launches = consensus_path(dev, kernels, workloads, cases)
     line = kernels_line(dev, kernels, fast_launches, cons_launches, fast_ops,
                         cases)
     print(json.dumps({"kernels": line}), flush=True)

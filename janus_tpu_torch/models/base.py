@@ -121,8 +121,8 @@ class CRDTTypeSpec:
     prepare_ops_batch: Callable[[Any, OpBatch], OpBatch] | None = None
     replay_safe: bool = False
     # In-place join of the leading replica axis: every replica row set to
-    # the join of all rows. A type with a hand kernel for it sets this;
-    # ``runtime.store.converge`` falls back to ``join_all`` without it.
+    # the join of all rows (a hand kernel); ``runtime.store.converge``
+    # needs it.
     join_replicas: Callable[[Any], Any] | None = None
 
 

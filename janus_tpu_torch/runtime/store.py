@@ -63,13 +63,6 @@ def join_all(spec: base.CRDTTypeSpec, state: Any) -> Any:
 
 def converge(spec: base.CRDTTypeSpec, state: Any) -> Any:
     """Full anti-entropy, in place: every replica row ends at the global
-    join, bit-equal across the replica axis. A type's ``join_replicas``
-    (a hand kernel) does it in one pass; otherwise the halving tree's
-    result is copied into every row."""
-    if spec.join_replicas is not None:
-        return spec.join_replicas(state)
-    if next(iter(state.values())).shape[0] > 1:
-        joined = join_all(spec, state)
-        for f, x in state.items():
-            x.copy_(joined[f].expand_as(x))
-    return state
+    join, bit-equal across the replica axis, by the type's
+    ``join_replicas`` (a hand kernel)."""
+    return spec.join_replicas(state)

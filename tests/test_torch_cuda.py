@@ -102,3 +102,55 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
            ("op", "key", "a0", "writer")}
     with pytest.raises(ValueError):
         kernels.pnc_apply(p, p.clone(), ops)
+    # a field with fewer columns than ``op`` would be read past its end
+    ops = {f: v.to(cuda_device) for f, v in ops.items()}
+    ops["key"] = ops["key"][:, :4].contiguous()
+    with pytest.raises(ValueError, match="'key'"):
+        kernels.pnc_apply(p, p.clone(), ops)
+
+
+@pytest.mark.cuda
+def test_safekv_on_card_matches_safekv_on_cpu(cuda_device):
+    """SafeKV for the PN-Counter (submit and delta-apply through
+    ``pnc_apply``) at N=4, window 8, 64-op blocks, 16 keys, with node 3
+    crashed for rounds 5-9: every device tensor and the packed output
+    bit-equal, round by round, between the card and the CPU."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.runtime import safecrdt
+
+    n, w, b, k = 4, 8, 64, 16
+    rng = np.random.default_rng(12)
+    kvs = {dev.type: safecrdt.SafeKV(DagConfig(n, w), pncounter.SPEC,
+                                     ops_per_block=b, device=dev,
+                                     num_keys=k, num_writers=n)
+           for dev in (cuda_device, torch.device("cpu"))}
+    before = kernels.pnc_apply.launches
+    for t in range(20):
+        ops = workloads.pnc_uniform(rng, n, k, b)
+        safe = rng.random((n, b)) < 0.5
+        active = np.array([True] * 3 + [not 5 <= t < 10])
+        packed = {}
+        for name, kv in kvs.items():
+            packed[name], meta = kv.step_dispatch(
+                workloads.ops_to_device(ops, kv.device), safe, active=active)
+            kv.step_absorb(packed[name], meta)
+        assert torch.equal(packed["cuda"].cpu(), packed["cpu"])
+        st = {name: convert.tree_to_numpy(
+            {f: getattr(kv, f) for f in safecrdt.DEVICE_FIELDS})
+            for name, kv in kvs.items()}
+        _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
+    assert kernels.pnc_apply.launches == before + 3 * 20
+    assert kvs["cuda"].stats == kvs["cpu"].stats
+    assert kvs["cuda"].stats["state_transfers"] > 0
+
+
+def _assert_trees_equal(a, b, where):
+    assert a.keys() == b.keys(), where
+    for key in a:
+        if isinstance(a[key], dict):
+            _assert_trees_equal(a[key], b[key], f"{where}.{key}")
+        else:
+            assert a[key].dtype == b[key].dtype, (where, key)
+            np.testing.assert_array_equal(a[key], b[key],
+                                          err_msg=f"{where}.{key}")

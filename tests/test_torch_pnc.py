@@ -140,6 +140,21 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert kernels.launches() == {"pnc_apply": 0, "replica_join": 0}
 
 
+@pytest.mark.parametrize("field", ["op", "key", "a0", "writer"])
+def test_pnc_apply_refuses_an_op_field_of_another_shape(field):
+    """Every field the kernel reads must be [R, B] with the B of ``op``:
+    one column short, or one replica row short, raises before any
+    version runs."""
+    rng = np.random.default_rng(8)
+    state, ops = _torch(_state(rng, (2,))), _torch(_ops(rng, (2, 16)))
+    before = {f: v.clone() for f, v in state.items()}
+    for short in (ops[field][:, :15], ops[field][:1]):
+        with pytest.raises(ValueError, match="op field"):
+            kernels.pnc_apply(state["p"], state["n"], {**ops, field: short})
+    for f in "pn":
+        assert torch.equal(state[f], before[f])
+
+
 def test_make_op_batch_pads_and_checks_shapes():
     ops = base.make_op_batch(op=[1, 2], key=[0, 1], batch=4, device="cpu")
     assert all(v.shape == (4,) and v.dtype == torch.int32 for v in ops.values())

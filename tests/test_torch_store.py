@@ -5,8 +5,6 @@ tensors) with the JAX package.
 Inputs are made with numpy from a seed and fed to both. Every comparison
 is bit-equal (int32 state; tolerance exactly 0).
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -24,8 +22,6 @@ from janus_tpu_torch.models import pncounter
 from janus_tpu_torch.runtime import engine, store
 
 K, W = 6, 9
-# the store's generic path: the same type without the hand join
-GENERIC = dataclasses.replace(pncounter.SPEC, join_replicas=None)
 
 
 def _state(rng, r):
@@ -50,13 +46,11 @@ def test_join_all_matches_jax(r):
         np.testing.assert_array_equal(out[f].numpy(), np.asarray(ref[f]))
 
 
-@pytest.mark.parametrize("spec", [pncounter.SPEC, GENERIC],
-                         ids=["replica_join", "join_all"])
 @pytest.mark.parametrize("r", [1, 3, 4, 7])
-def test_converge_matches_jax_and_is_materialized(r, spec):
+def test_converge_matches_jax_and_is_materialized(r):
     st = _state(np.random.default_rng(10 + r), r)
     ref = jax_store.converge(jax_pnc.SPEC, _jnp(st))
-    out = store.converge(spec, _torch(st))
+    out = store.converge(pncounter.SPEC, _torch(st))
     for f in "pn":
         np.testing.assert_array_equal(out[f].numpy(), np.asarray(ref[f]))
         # a real [R, K, W] buffer, not R aliases of one row
