@@ -6,11 +6,18 @@ Sources live in ``janus_tpu_torch/csrc/``; ``build`` compiles them with
 time.
 """
 
+from janus_tpu_torch.kernels.causal_closure import (  # noqa: F401
+    causal_closure, causal_closure_plain)
+from janus_tpu_torch.kernels.dag_round import dag_round, dag_round_plain  # noqa: F401
 from janus_tpu_torch.kernels.pnc_apply import pnc_apply, pnc_apply_plain  # noqa: F401
 from janus_tpu_torch.kernels.replica_join import (  # noqa: F401
     replica_join, replica_join_plain)
+from janus_tpu_torch.kernels.tusk_commit import (  # noqa: F401
+    tusk_commit, tusk_commit_plain)
 
-WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join}
+WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join,
+            "tusk_commit": tusk_commit, "causal_closure": causal_closure,
+            "dag_round": dag_round}
 
 
 def reset_launches() -> None:

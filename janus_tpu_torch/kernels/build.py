@@ -5,8 +5,9 @@ into its own shared library with a plain C interface,
 ``janus_tpu_torch/build/lib<name>.so``, and loaded with ``ctypes``. A
 library is rebuilt when it is missing or older than its source. The build
 happens on first use, or up front for every kernel at once with
-``build_all`` (one ``nvcc`` per source, all started together). A failed
-build raises.
+``build_all`` (one ``nvcc`` per source, all started together). A library
+is also rebuilt when a shared header (``csrc/*.cuh``) is newer than it. A
+failed build raises.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import threading
 import time
 from pathlib import Path
 
-KERNELS = ("pnc_apply", "replica_join")
+KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
+           "dag_round")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,8 +49,11 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    lib, src = library_path(name), CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    lib = library_path(name)
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def _start(name: str):

@@ -1,0 +1,103 @@
+"""``dag_round``: one synchronous DAG protocol round in one launch
+(kernel source: csrc/dag_round.cu).
+
+Replaces janus_tpu/consensus/dag.py ``round_step``: create, deliver
+blocks, sign, form certificates, deliver certificates, advance, under the
+optional crash, withhold and invalid masks. The plain version runs the
+phase functions of ``dag_phases`` in that order.
+
+The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
+``dag_round_plain`` only for tensors that lie on the CPU. Both return a
+new state dict; ``slot_round`` and ``base_round`` are carried over as the
+same tensors, every other field is new.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from janus_tpu_torch.kernels import build, dag_phases, operands
+
+_BOOL_FIELDS = ("edges", "block_exists", "block_seen", "acks", "cert_exists",
+                "cert_seen")
+_OUT_FIELDS = _BOOL_FIELDS + ("node_round",)
+
+
+def dag_round_plain(cfg, state, active: Optional[torch.Tensor] = None,
+                    withhold: Optional[torch.Tensor] = None,
+                    invalid: Optional[torch.Tensor] = None):
+    """Plain PyTorch version: the six phases in order. Crashed nodes
+    neither create, sign, nor receive, and a crashed creator cannot
+    aggregate a certificate."""
+    act_mask = None
+    wh = withhold
+    if active is not None:
+        act_mask = active[:, None, None].expand(
+            cfg.num_nodes, cfg.num_rounds, cfg.num_nodes)
+        crash_wh = (~active)[None, :].expand(cfg.num_rounds, cfg.num_nodes)
+        wh = crash_wh if wh is None else (wh | crash_wh)
+    state = dag_phases.create_blocks(cfg, state, active)
+    state = dag_phases.deliver_blocks(cfg, state, act_mask)
+    state = dag_phases.sign_blocks(cfg, state, act_mask, invalid)
+    state = dag_phases.form_certificates(cfg, state, wh)
+    state = dag_phases.deliver_certificates(cfg, state, act_mask)
+    state = dag_phases.advance_rounds(cfg, state)
+    return state
+
+
+def _lib():
+    lib = build.load("dag_round")
+    if lib.dag_round_launch.argtypes is None:
+        ptr, c_int = ctypes.c_void_p, ctypes.c_int
+        lib.dag_round_launch.argtypes = [ptr] * 19 + [c_int, c_int, c_int, ptr]
+        lib.dag_round_launch.restype = c_int
+    return lib
+
+
+def shared_bytes(n: int, w: int) -> int:
+    """Dynamic shared memory of the one block (csrc/dag_round.cu)."""
+    return 8 * (4 * w * n + 4 * w + 1)
+
+
+def dag_round(cfg, state, active: Optional[torch.Tensor] = None,
+              withhold: Optional[torch.Tensor] = None,
+              invalid: Optional[torch.Tensor] = None):
+    """One protocol round for every node (``dag.round_step``). ``state``
+    as in ``janus_tpu_torch.consensus.dag``; ``active`` bool[N],
+    ``withhold`` and ``invalid`` bool[W,N], each optional."""
+    n, w = cfg.num_nodes, cfg.num_rounds
+    b, i32 = torch.bool, torch.int32
+    shapes = {"edges": (w, n, n), "block_exists": (w, n),
+              "block_seen": (n, w, n), "acks": (w, n, n),
+              "cert_exists": (w, n), "cert_seen": (n, w, n)}
+    dev = operands.placement("dag_round", [
+        *((f, state[f], b, shapes[f]) for f in _BOOL_FIELDS),
+        ("node_round", state["node_round"], i32, (n,)),
+        ("slot_round", state["slot_round"], i32, (w,)),
+        ("base_round", state["base_round"], i32, ()),
+        ("active", active, b, (n,)), ("withhold", withhold, b, (w, n)),
+        ("invalid", invalid, b, (w, n))])
+    if dev is None:
+        return dag_round_plain(cfg, state, active, withhold, invalid)
+    operands.check_fits("dag_round", n, shared_bytes(n, w))
+    out = dict(state)
+    for f in _OUT_FIELDS:
+        out[f] = torch.empty_like(state[f])
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dag_round_launch(
+            *(state[f].data_ptr() for f in _OUT_FIELDS),
+            state["slot_round"].data_ptr(), state["base_round"].data_ptr(),
+            *(None if m is None else m.data_ptr()  # null: mask absent
+              for m in (active, withhold, invalid)),
+            *(out[f].data_ptr() for f in _OUT_FIELDS), n, w, cfg.quorum,
+            stream)
+    build.check_launch("dag_round", rc)
+    dag_round.launches += 1
+    return out
+
+
+dag_round.launches = 0

@@ -1,0 +1,50 @@
+"""Operand checks shared by every kernel wrapper.
+
+A wrapper runs its plain version only when every tensor lies on the CPU;
+otherwise every tensor must lie on one CUDA device with the dtype the
+kernel reads and be contiguous, or the wrapper raises.
+"""
+from __future__ import annotations
+
+import torch
+
+# the consensus kernels hold each DAG row as a 64-bit mask over nodes
+MAX_NODES = 64
+# dynamic shared memory one block can use on Hopper
+MAX_SHARED_BYTES = 232448
+
+
+def placement(name: str, operands) -> torch.device | None:
+    """``operands``: (label, tensor or None, dtype, shape) tuples; a None
+    tensor is an absent optional input. Raises on a wrong shape. Returns
+    None when every tensor lies on the CPU, else the one CUDA device all
+    of them lie on, after checking dtype and contiguity."""
+    present = [op for op in operands if op[1] is not None]
+    for label, t, _, shape in present:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+    if all(t.device.type == "cpu" for _, t, _, _ in present):
+        return None
+    dev = present[0][1].device
+    if dev.type != "cuda" or any(t.device != dev for _, t, _, _ in present):
+        raise ValueError(f"{name}: all tensors must lie on one CUDA device")
+    for label, t, dtype, _ in present:
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} "
+                             f"tensor, got {t.dtype}"
+                             f"{'' if t.is_contiguous() else ' (strided)'}")
+    return dev
+
+
+def check_fits(name: str, num_nodes: int, shared_bytes: int) -> None:
+    """Raise unless the card path takes ``num_nodes`` and the shared
+    memory one block of the kernel needs."""
+    if num_nodes > MAX_NODES:
+        raise ValueError(f"{name}: {num_nodes} nodes, but the CUDA kernel "
+                         f"holds a DAG row as a 64-bit mask (at most "
+                         f"{MAX_NODES} nodes)")
+    if shared_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: needs {shared_bytes} bytes of shared "
+                         f"memory per block, more than {MAX_SHARED_BYTES}")
+

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from janus_tpu_torch.kernels import build
+from janus_tpu_torch.kernels import build, operands
 from janus_tpu_torch.models.base import scatter_index
 
 OP_INC = 1  # reference opId 1 = Increment
@@ -52,24 +52,18 @@ def pnc_apply(p: torch.Tensor, n: torch.Tensor, ops) -> None:
     """Add every op's ``a0`` into ``p`` (op 1) or ``n`` (op 2) at
     ``[r, key, writer]``, in place. ``p``, ``n``: int32[R, K, W]; op
     fields int32[R, B]."""
-    if p.dim() != 3 or p.shape != n.shape:
-        raise ValueError(f"pnc_apply: state shapes {tuple(p.shape)} / "
-                         f"{tuple(n.shape)} are not one [R, K, W]")
+    if p.dim() != 3:
+        raise ValueError(f"pnc_apply: state shape {tuple(p.shape)} is not "
+                         f"[R, K, W]")
     R, K, W = p.shape
     B = ops["op"].shape[1] if ops["op"].dim() == 2 else -1
-    for f in _FIELDS:  # the kernel reads B columns of every field
-        if tuple(ops[f].shape) != (R, B):
-            raise ValueError(f"pnc_apply: op field {f!r} shape "
-                             f"{tuple(ops[f].shape)} is not [{R}, B] with "
-                             f"the B of 'op'")
-    tensors = [p, n] + [ops[f] for f in _FIELDS]
-    if all(t.device.type == "cpu" for t in tensors):
+    i32 = torch.int32
+    # the kernel reads B columns of every op field
+    dev = operands.placement("pnc_apply", [
+        ("p", p, i32, (R, K, W)), ("n", n, i32, (R, K, W)),
+        *((f"op field {f!r}", ops[f], i32, (R, B)) for f in _FIELDS)])
+    if dev is None:
         return pnc_apply_plain(p, n, ops)
-    dev = p.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("pnc_apply: all tensors must lie on one CUDA device")
-    if any(t.dtype != torch.int32 or not t.is_contiguous() for t in tensors):
-        raise ValueError("pnc_apply: tensors must be contiguous int32")
     if R * B == 0:
         return
     lib = _lib()

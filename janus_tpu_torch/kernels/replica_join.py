@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from janus_tpu_torch.kernels import build
+from janus_tpu_torch.kernels import build, operands
 
 
 def replica_join_plain(p: torch.Tensor, n: torch.Tensor) -> None:
@@ -38,17 +38,13 @@ def _lib():
 def replica_join(p: torch.Tensor, n: torch.Tensor) -> None:
     """Set every replica row of ``p`` and ``n`` to the max over the
     replica (leading) axis, in place. ``p``, ``n``: int32[R, ...]."""
-    if p.device.type == "cpu" and n.device.type == "cpu":
+    if p.dim() < 1:
+        raise ValueError("replica_join: p has no replica axis")
+    i32 = torch.int32
+    dev = operands.placement("replica_join", [
+        ("p", p, i32, p.shape), ("n", n, i32, p.shape)])
+    if dev is None:
         return replica_join_plain(p, n)
-    dev = p.device
-    if dev.type != "cuda" or n.device != dev:
-        raise ValueError("replica_join: p and n must lie on one CUDA device")
-    if p.shape != n.shape or p.dim() < 1:
-        raise ValueError(f"replica_join: shapes {tuple(p.shape)} / "
-                         f"{tuple(n.shape)} differ")
-    for x in (p, n):
-        if x.dtype != torch.int32 or not x.is_contiguous():
-            raise ValueError("replica_join: tensors must be contiguous int32")
     R = p.shape[0]
     row = p[0].numel() if R else 0
     if R * row == 0:

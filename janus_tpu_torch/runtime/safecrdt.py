@@ -16,7 +16,9 @@ quorum-based GC frontier recycles finished slots. The device part of a
 round (``_step_device``) reads no tensor value on the host; its outputs
 the host needs are packed into one int32 vector, fetched once per round
 by ``step_absorb``. The PN-Counter's apply runs through the ``pnc_apply``
-hand kernel in ``_submit_device`` and ``_delta_apply``.
+hand kernel in ``_submit_device`` and ``_delta_apply``; the DAG round, the
+causal closure and the Tusk commit are one hand-kernel launch each
+(``dag_round``, ``causal_closure``, ``tusk_commit``).
 
 Not in this port yet: the split ``submit``/``tick`` path, compaction,
 ``resize_block``, checkpoint/restore, ``MultiKV``, and the flight
@@ -30,7 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from janus_tpu_torch import convert
+from janus_tpu_torch import convert, kernels
 from janus_tpu_torch.consensus import dag as dagmod
 from janus_tpu_torch.consensus import tusk
 from janus_tpu_torch.device import resolve_device
@@ -191,15 +193,9 @@ class SafeKV:
         """Blocks applicable in each view: certificate held, not yet
         applied, and every referenced predecessor already applied (or
         becoming applicable this tick, earlier in round order); the slot
-        holding ``base_round`` has its predecessor applied by definition."""
-        edges = dag_state["edges"]
-        cert_seen = dag_state["cert_seen"]
-        is_base = (dag_state["slot_round"] == dag_state["base_round"])[None, :, None]
-        for _ in range(self.cfg.num_rounds):
-            prev_applied = torch.roll(applied, 1, dims=1) | is_base
-            viol = (edges[None] & ~prev_applied[:, :, None, :]).any(-1)
-            applied = applied | (cert_seen & ~applied & ~viol)
-        return applied
+        holding ``base_round`` has its predecessor applied by definition.
+        One ``causal_closure`` kernel launch."""
+        return kernels.causal_closure(self.cfg, dag_state, applied)
 
     def _delta_apply(self, state, ops_buffer, select, order_key):
         """Apply the op batches of selected blocks, lowest key first,

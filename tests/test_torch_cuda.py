@@ -112,7 +112,8 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
 @pytest.mark.cuda
 def test_safekv_on_card_matches_safekv_on_cpu(cuda_device):
     """SafeKV for the PN-Counter (submit and delta-apply through
-    ``pnc_apply``) at N=4, window 8, 64-op blocks, 16 keys, with node 3
+    ``pnc_apply``; DAG round, causal closure and commit through
+    ``dag_round``, ``causal_closure`` and ``tusk_commit``) at N=4, window 8, 64-op blocks, 16 keys, with node 3
     crashed for rounds 5-9: every device tensor and the packed output
     bit-equal, round by round, between the card and the CPU."""
     from janus_tpu_torch import convert
@@ -125,7 +126,7 @@ def test_safekv_on_card_matches_safekv_on_cpu(cuda_device):
                                      ops_per_block=b, device=dev,
                                      num_keys=k, num_writers=n)
            for dev in (cuda_device, torch.device("cpu"))}
-    before = kernels.pnc_apply.launches
+    before = kernels.launches()
     for t in range(20):
         ops = workloads.pnc_uniform(rng, n, k, b)
         safe = rng.random((n, b)) < 0.5
@@ -140,7 +141,11 @@ def test_safekv_on_card_matches_safekv_on_cpu(cuda_device):
             {f: getattr(kv, f) for f in safecrdt.DEVICE_FIELDS})
             for name, kv in kvs.items()}
         _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
-    assert kernels.pnc_apply.launches == before + 3 * 20
+    grew = {k: v - before[k] for k, v in kernels.launches().items()}
+    assert grew["pnc_apply"] == 3 * 20
+    # the card's rounds ran through the consensus kernels, once per round
+    for name in ("dag_round", "causal_closure", "tusk_commit"):
+        assert grew[name] == 20, (name, grew)
     assert kvs["cuda"].stats == kvs["cpu"].stats
     assert kvs["cuda"].stats["state_transfers"] > 0
 
@@ -154,3 +159,112 @@ def _assert_trees_equal(a, b, where):
             assert a[key].dtype == b[key].dtype, (where, key)
             np.testing.assert_array_equal(a[key], b[key],
                                           err_msg=f"{where}.{key}")
+
+
+def _consensus_inputs(dev, n, w, seed):
+    """Random states (``workloads.consensus_state``) on ``dev``: every
+    third one wraps int32; masks from ``workloads.round_masks``."""
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(6):
+        d, c, applied = workloads.consensus_state(rng, n, w, wrap=i % 3 == 2)
+        masks = workloads.round_masks(rng, n, w)
+        to = (lambda tree: {f: torch.as_tensor(v, device=dev)
+                            for f, v in tree.items()})
+        out.append((DagConfig(n, w), to(d), to(c),
+                    torch.as_tensor(applied, device=dev),
+                    [torch.as_tensor(m, device=dev) for m in masks]))
+    return out
+
+
+def _assert_outputs_equal(got, ref):
+    if isinstance(got, dict):
+        assert got.keys() == ref.keys()
+        got, ref = list(got.values()), [ref[k] for k in got]
+    elif isinstance(got, torch.Tensor):
+        got, ref = [got], [ref]
+    for a, b in zip(got, ref, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(4, 8), (16, 8)])
+def test_tusk_commit_kernel_matches_plain(cuda_device, n, w):
+    """steps 2 and W//2, seeds 0 and 1; at least one state commits."""
+    committed = 0
+    for cfg, d, c, _, _ in _consensus_inputs(cuda_device, n, w, seed=n):
+        for steps in (2, w // 2):
+            for seed in (0, 1):
+                before = kernels.tusk_commit.launches
+                got = kernels.tusk_commit(cfg, d, c, seed, steps)
+                ref = kernels.tusk_commit_plain(cfg, d, c, seed, steps)
+                torch.cuda.synchronize()
+                assert kernels.tusk_commit.launches == before + 1
+                _assert_outputs_equal(got, ref)
+                committed += int((got[4] != c["commit_counter"]).any())
+    assert committed > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(4, 8), (16, 8)])
+def test_causal_closure_kernel_matches_plain(cuda_device, n, w):
+    for cfg, d, _, applied, _ in _consensus_inputs(cuda_device, n, w, seed=n):
+        before = kernels.causal_closure.launches
+        got = kernels.causal_closure(cfg, d, applied)
+        ref = kernels.causal_closure_plain(cfg, d, applied)
+        torch.cuda.synchronize()
+        assert kernels.causal_closure.launches == before + 1
+        _assert_outputs_equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(4, 8), (16, 8)])
+def test_dag_round_kernel_matches_plain(cuda_device, n, w):
+    """Every combination of the three optional masks."""
+    for cfg, d, _, _, masks in _consensus_inputs(cuda_device, n, w, seed=n):
+        for keep in range(8):
+            sel = [m if keep >> j & 1 else None for j, m in enumerate(masks)]
+            before = kernels.dag_round.launches
+            got = kernels.dag_round(cfg, d, *sel)
+            ref = kernels.dag_round_plain(cfg, d, *sel)
+            torch.cuda.synchronize()
+            assert kernels.dag_round.launches == before + 1
+            _assert_outputs_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_consensus_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """Mixed devices, a strided tensor, a wrong dtype and N > 64 raise
+    ValueError before anything launches."""
+    from janus_tpu_torch.consensus import DagConfig, dag, tusk
+
+    def calls(cfg, d, c, applied):
+        return (lambda: kernels.tusk_commit(cfg, d, c, 0, 2),
+                lambda: kernels.causal_closure(cfg, d, applied),
+                lambda: kernels.dag_round(cfg, d))
+
+    [(cfg, d, c, applied, _)] = _consensus_inputs(cuda_device, 4, 8, 1)[:1]
+    before = kernels.launches()
+    bad = []
+    mixed = dict(d, cert_seen=d["cert_seen"].cpu())
+    bad.append(calls(cfg, mixed, c, applied))
+    strided = dict(d, edges=d["edges"].transpose(1, 2))
+    bad.append(calls(cfg, strided, c, applied))
+    wrong = dict(d, node_round=d["node_round"].long(),
+                 edges=d["edges"].to(torch.uint8))
+    bad.append(calls(cfg, wrong, dict(c, eval_wave=c["eval_wave"].long()),
+                     applied.to(torch.uint8)))
+    for fns in bad:
+        for fn in fns:
+            with pytest.raises(ValueError):
+                fn()
+    cfg65 = DagConfig(65, 4)
+    d65, c65 = dag.init(cfg65, cuda_device), tusk.init_commit(cfg65, cuda_device)
+    for fn in calls(cfg65, d65, c65, torch.zeros((65, 4, 65), dtype=torch.bool,
+                                                 device=cuda_device)):
+        with pytest.raises(ValueError, match="64"):
+            fn()
+    assert kernels.launches() == before

@@ -21,6 +21,12 @@ MODULES = (
     "janus_tpu_torch.kernels.build",
     "janus_tpu_torch.kernels.pnc_apply",
     "janus_tpu_torch.kernels.replica_join",
+    "janus_tpu_torch.kernels.operands",
+    "janus_tpu_torch.kernels.tusk_commit",
+    "janus_tpu_torch.kernels.causal_closure",
+    "janus_tpu_torch.kernels.dag_round",
+    "janus_tpu_torch.kernels.dag_phases",
+    "janus_tpu_torch.kernels.leader",
     "janus_tpu_torch.runtime",
     "janus_tpu_torch.runtime.store",
     "janus_tpu_torch.runtime.engine",
