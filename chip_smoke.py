@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path on the card through its own entry points and
+Drives the port's main paths on the card through its own entry points and
 checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all five hand kernels compiled from csrc/ with nvcc, in
+2. build      all nine hand kernels compiled from csrc/ with nvcc, in
               parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
@@ -17,7 +17,11 @@ non-zero. Phases, one JSON line each:
               (phase dag_kernels) on random states at four (N, W), on a
               constructed back-chain DAG, and on the recorded calls of real
               SafeKV rounds at 4 nodes and at 16 nodes, each with a crashed
-              node
+              node; slot_union, orset_capture, orset_replay and orset_apply
+              (phase orset_kernels) on random rows (full and non-canonical
+              ones), hazard ops (duplicate tags, SENTINEL lanes, keys in
+              [-K, 2K)), path A's ops all on one key, and the recorded calls
+              of an OR-Set SafeKV run and an OR-Set store run
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
@@ -29,11 +33,22 @@ non-zero. Phases, one JSON line each:
               pnc_apply calls of its warm-up rounds are recorded and
               replayed through the kernel and its plain version, bit-equal;
               each consensus kernel must launch once per SafeKV round
-6. profiler_check  the kernels torch.profiler saw over 20 calls of a
+6. orset_store  path B, the OR-Set anti-entropy store: R=64 replicas, K=500
+              keys of 256 slots, B=64 ops per replica per tick in a Zipf
+              hot window of 32 keys, 24 ticks of apply + full converge;
+              replica rows bit-equal after every tick, the final state
+              equal to an independent numpy model
+7. orset_consensus  path A, SafeKV for the OR-Set at 4 nodes, window 8,
+              8192-op blocks, 100 keys of 64 slots, capture width 4: the
+              first 5 rounds bit-equal to the same run on the CPU (a GC
+              advance and a compaction among them), 24 timed rounds, idle
+              rounds until every view's stable state is bit-equal, rows
+              canonical with no tag twice
+8. profiler_check  the kernels torch.profiler saw over 20 calls of a
               plain torch kernel, and of causal_closure right after a
               profile of tusk_commit's plain version (the kernels line
               gives each wrapper's count beside its own launch count)
-7. the kernels line, the nvidia-smi line, and the result line.
+9. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -66,6 +81,17 @@ RECORDED = (dict(nodes=4, window=8, ops_per_block=4000, keys=100, rounds=16,
             dict(nodes=16, window=8, ops_per_block=500, keys=100, rounds=8,
                  crash=(2, 8)))
 CONSENSUS_KERNELS = ("tusk_commit", "causal_closure", "dag_round")
+# path B, the OR-Set anti-entropy store: R replicas, K keys of C slots, B
+# uncaptured ops per replica per tick, Zipf keys in a rotating hot window
+ORSET_STORE = dict(R=64, K=500, C=256, rm=8, B=64, hot=32, ticks=24,
+                   recorded_ticks=2)
+# path A, SafeKV for the OR-Set at the reference's peak geometry; the first
+# cpu_rounds are held against the same run on the CPU
+ORSET_CONS = dict(nodes=4, window=8, keys=100, ops_per_block=8192,
+                  capacity=64, rm=4, budget=8, rounds=24, warmup=4,
+                  cpu_rounds=5, min_idle=16, max_idle=64, profile_rounds=3,
+                  recorded_rounds=6)
+ORSET_KERNELS = ("slot_union", "orset_capture", "orset_replay", "orset_apply")
 # the TPU-era functions each hand kernel replaces
 REPLACES = {
     "pnc_apply": "janus_tpu/models/pncounter.py:36",
@@ -73,6 +99,10 @@ REPLACES = {
     "tusk_commit": "janus_tpu/consensus/tusk.py:219",
     "causal_closure": "janus_tpu/runtime/safecrdt.py:349",
     "dag_round": "janus_tpu/consensus/dag.py:328",
+    "slot_union": "janus_tpu/ops/setops.py:61",
+    "orset_capture": "janus_tpu/models/orset.py:111",
+    "orset_replay": "janus_tpu/models/orset.py:217",
+    "orset_apply": "janus_tpu/models/orset.py:384",
 }
 
 
@@ -105,6 +135,17 @@ def time_cuda(fn, reps=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_reps(fn, budget_ms=300.0) -> int:
+    """Calls of ``fn`` that fit ``budget_ms``, between 3 and 20, from one
+    timed call (a slow plain version is timed over fewer calls)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = 1e3 * (time.perf_counter() - t0)
+    return int(max(3, min(20, budget_ms // max(one, 1e-3))))
 
 
 def device_profile(fn, reps=10):
@@ -338,15 +379,16 @@ def plain_of(kernels, name):
 
 def record_calls(kernels, names, fn):
     """Run ``fn`` with the inputs of every call of the named wrappers
-    (module attributes of ``kernels``, which the consensus modules call)
-    cloned just before the call; returns ``{name: [args, ...]}``."""
+    (module attributes of ``kernels``, which the consensus and model
+    modules call) cloned just before the call; returns
+    ``{name: [(args, kwargs), ...]}``."""
     calls = {name: [] for name in names}
     real = {name: getattr(kernels, name) for name in names}
 
     def recorder(name):
-        def call(*args):
-            calls[name].append(tree_map(torch.Tensor.clone, args))
-            return real[name](*args)
+        def call(*args, **kwargs):
+            calls[name].append(tree_map(torch.Tensor.clone, (args, kwargs)))
+            return real[name](*args, **kwargs)
         return call
 
     for name in names:
@@ -360,17 +402,24 @@ def record_calls(kernels, names, fn):
 
 
 class CaseLog:
-    """Per-kernel counts of the consensus kernels' checks."""
+    """Per-kernel counts of the checks of the named kernels."""
 
-    def __init__(self):
-        self.by = {name: {"cases": 0, "max_abs_err": 0} for name in CONSENSUS_KERNELS}
-        self.by["tusk_commit"]["committed_cases"] = 0
+    def __init__(self, names):
+        self.by = {name: {"cases": 0, "max_abs_err": 0} for name in names}
+        if "tusk_commit" in self.by:
+            self.by["tusk_commit"]["committed_cases"] = 0
 
-    def add(self, kernels, name, args, what):
-        """The kernel against its plain version on one input, bit-equal;
-        returns the kernel's output."""
-        out = kernels.WRAPPERS[name](*args)
-        err = tree_err(out, plain_of(kernels, name)(*args))
+    def add(self, kernels, name, args, what, kwargs=None):
+        """The kernel against its plain version on clones of one input,
+        bit-equal, outputs and drop/overflow counts included (and the
+        state a kernel updates in place); returns the kernel's output."""
+        kwargs = kwargs or {}
+        mine = tree_map(torch.Tensor.clone, (args, kwargs))
+        ref = tree_map(torch.Tensor.clone, (args, kwargs))
+        out = kernels.WRAPPERS[name](*mine[0], **mine[1])
+        want = plain_of(kernels, name)(*ref[0], **ref[1])
+        torch.cuda.synchronize()
+        err = tree_err((mine, out), (ref, want))
         check(err == 0, f"{name} {what}: max_abs_err {err}")
         rec = self.by[name]
         rec["cases"] += 1
@@ -409,7 +458,7 @@ def consensus_kernel_checks(dev, kernels, workloads, cases):
     inputs of the kernels line)."""
     from janus_tpu_torch.consensus import DagConfig
 
-    log = CaseLog()
+    log = CaseLog(CONSENSUS_KERNELS)
     rng = np.random.default_rng(2)
 
     def on_dev(tree):
@@ -457,13 +506,13 @@ def consensus_kernel_checks(dev, kernels, workloads, cases):
                   f"recorded {tag}: {len(calls[name])} {name} calls in "
                   f"{geo['rounds']} rounds")
             outs = [log.add(kernels, name, args, f"recorded {tag} round {j}")
-                    for j, args in enumerate(calls[name])]
+                    for j, (args, _) in enumerate(calls[name])]
             if name == "tusk_commit":
                 committing = sum(bool((out[4] != args[2]["commit_counter"]).any())
-                                 for out, args in zip(outs, calls[name]))
-        bases = [args[1]["base_round"].item() for args in calls["tusk_commit"]]
+                                 for out, (args, _) in zip(outs, calls[name]))
+        bases = [args[1]["base_round"].item() for args, _ in calls["tusk_commit"]]
         crashed = sum(args[2] is not None and not bool(args[2].all())
-                      for args in calls["dag_round"])
+                      for args, _ in calls["dag_round"])
         check(crashed > 0 and committing > 0, f"recorded {tag}: {crashed} "
               f"rounds with a crashed node, {committing} committing calls")
         recorded[tag] = {"rounds": geo["rounds"], "crashed_rounds": crashed,
@@ -531,6 +580,17 @@ def fast_path(dev, kernels, workloads):
          launches={k: launches[k] - before[k] for k in launches},
          launches_incl_warmup=launches)
     return launches
+
+
+def cuda_kernels_of(fn) -> int:
+    """CUDA kernels the profiler sees in one call of ``fn`` (memcpy and
+    memset included, as the consensus phase counts them)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in p.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def consensus_path(dev, kernels, workloads, cases):
@@ -665,23 +725,16 @@ def consensus_path(dev, kernels, workloads, cases):
                  or "memset" in e.name.lower())
     dev_us = sum(e.time_range.elapsed_us() for e in dev_events)
 
-    def launches_of(fn):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            fn()
-            torch.cuda.synchronize()
-        return sum(1 for e in p.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-
     # the functional phases of a round, each alone on the current state
     cfg = kv.cfg
     by_phase = {
-        "state_transfer": launches_of(lambda: kv._state_transfer(
+        "state_transfer": cuda_kernels_of(lambda: kv._state_transfer(
             kv.prospective, kv.stable, kv.dag, kv.commit, kv.prosp_applied,
             kv.stable_applied, kv.force_transfer)),
-        "round_step": launches_of(lambda: dagmod.round_step(cfg, kv.dag)),
-        "causal_closure": launches_of(
+        "round_step": cuda_kernels_of(lambda: dagmod.round_step(cfg, kv.dag)),
+        "causal_closure": cuda_kernels_of(
             lambda: kv._causal_closure(kv.dag, kv.prosp_applied)),
-        "commit_view": launches_of(lambda: tusk.commit_view(
+        "commit_view": cuda_kernels_of(lambda: tusk.commit_view(
             cfg, kv.dag, kv.commit, seed=kv.seed, steps=COMMIT_STEPS)),
     }
     per_round = (len(dev_events) - memcpy) / n_prof
@@ -707,8 +760,449 @@ def consensus_path(dev, kernels, workloads, cases):
     return launches
 
 
-def kernels_line(dev, kernels, fast_launches, cons_launches, fast_ops, cases,
-                 timing_calls):
+def orset_kernel_checks(dev, kernels, workloads, cases):
+    """slot_union, orset_capture, orset_replay and orset_apply against
+    their plain versions on the card, bit-equal: (a) random canonical rows
+    at several (K, C, B, r_cap), full rows among them, and non-canonical
+    rows; (b) duplicate tags, SENTINEL lanes and keys in [-K, 2K); (c) all
+    of path A's ops on one key at B=8192; (d) the recorded calls of a path
+    A run and a path B run. Returns, per kernel, the (args, kwargs) of the
+    recorded call the kernels line times."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime.engine import make_tick
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+    from janus_tpu_torch.runtime.store import replicated_init
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    log = CaseLog(ORSET_KERNELS)
+    rng = np.random.default_rng(9)
+
+    def on_dev(tree):
+        return {f: torch.as_tensor(np.asarray(v), device=dev)
+                for f, v in tree.items()}
+
+    def slots(shape, c, **kw):
+        return on_dev(workloads.orset_slots(rng, shape, c, **kw))
+
+    def captured(st, ops, r_cap):
+        cap = kernels.orset_capture_plain(st, ops, r_cap)
+        host = {f: x.cpu().numpy() for f, x in ops.items()}
+        host.update({f: x.cpu().numpy() for f, x in
+                     zip(("rm_rep", "rm_ctr", "rm_elem"), cap)})
+        return on_dev(workloads.with_capture_hazards(rng, host))
+
+    # (a) + (b): random rows, hazard ops
+    for lead, ca, cb, cap, canon in (((4, 100), 64, 64, 64, True),
+                                     ((8, 500), 256, 256, 256, True),
+                                     ((3, 5), 6, 6, 6, False),
+                                     ((2, 4), 5, 3, 8, False)):
+        a = slots(lead, ca, canonical=canon, dup_rows=0.3, full_rows=0.4)
+        b = slots(lead, cb, canonical=canon, dup_rows=0.3, full_rows=0.4)
+        log.add(kernels, "slot_union", (a, b, cap),
+                f"random {'x'.join(map(str, lead))} C{ca}+{cb}->{cap}")
+    for v, k, c, b, r_cap, canon in ((4, 100, 64, 8192, 4, True),
+                                     (3, 5, 6, 24, 3, True),
+                                     (2, 4, 8, 32, 8, False),
+                                     (1, 7, 8, 16384, 2, True)):
+        st = slots((v, k), c, canonical=canon, full_rows=0.4)
+        ops = on_dev(workloads.orset_mixed_ops(rng, (v, b), k, c))
+        log.add(kernels, "orset_capture", (st, ops, r_cap),
+                f"random V{v} K{k} C{c} B{b} r{r_cap}")
+        if b <= 8192:
+            log.add(kernels, "orset_replay", (st, captured(st, ops, r_cap)),
+                    f"random V{v} K{k} C{c} B{b} r{r_cap}")
+    for r, k, c, b, canon in ((8, 500, 256, 64, True), (3, 5, 6, 24, False),
+                              (4, 2, 4, 32, True)):
+        st = slots((r, k), c, canonical=canon, full_rows=0.5)
+        ops = on_dev(workloads.orset_mixed_ops(rng, (r, b), k, c))
+        log.add(kernels, "orset_apply", (st, ops), f"random R{r} K{k} C{c} B{b}")
+
+    # (c) path A's ops all on one key
+    n, k, b, c, r_cap = (ORSET_CONS[x] for x in
+                         ("nodes", "keys", "ops_per_block", "capacity", "rm"))
+    minters = [TagMinter(i) for i in range(n)]
+    hot = workloads.orset_add_remove(rng, minters, k, b)
+    hot["key"][:] = 0
+    st = slots((n, k), c, full_rows=0.5)
+    ops = on_dev(hot)
+    log.add(kernels, "orset_capture", (st, ops, r_cap), "hot key B8192")
+    cap_ops = dict(ops, **dict(zip(("rm_rep", "rm_ctr", "rm_elem"),
+                                   kernels.orset_capture_plain(st, ops, r_cap))))
+    out, _ = log.add(kernels, "orset_replay", (st, cap_ops), "hot key B8192")
+    log.add(kernels, "orset_apply", (st, ops), "hot key B8192")
+    log.add(kernels, "slot_union",
+            ({f: x[:2] for f, x in out.items()},
+             {f: x[2:] for f, x in out.items()}, c), "hot key replayed views")
+
+    # (d) recorded calls of the two paths
+    def path_a():
+        kv = SafeKV(DagConfig(n, ORSET_CONS["window"]), orset.SPEC,
+                    ops_per_block=b, apply_budget=ORSET_CONS["budget"],
+                    collect_logs=False, device=dev, num_keys=k, capacity=c,
+                    rm_capacity=r_cap)
+        mint = [TagMinter(i) for i in range(n)]
+        for _ in range(ORSET_CONS["recorded_rounds"]):
+            kv.step(workloads.ops_to_device(
+                workloads.orset_add_remove(rng, mint, k, b), dev))
+
+    R, K, C, B = (ORSET_STORE[x] for x in "RKCB")
+
+    def path_b():
+        state = replicated_init(orset.SPEC, R, device=dev, num_keys=K,
+                                capacity=C, rm_capacity=ORSET_STORE["rm"])
+        tick = make_tick(orset.SPEC, device=dev)
+        mint = [TagMinter(i) for i in range(R)]
+        for t in range(ORSET_STORE["recorded_ticks"]):
+            tick(state, workloads.ops_to_device(workloads.orset_hot_window(
+                rng, mint, K, B, t, ORSET_STORE["hot"]), dev))
+
+    timing = {}
+    for path, fn, names in (("A", path_a, ("orset_capture", "orset_replay")),
+                            ("B", path_b, ("orset_apply", "slot_union"))):
+        calls = record_calls(kernels, names, fn)
+        torch.cuda.synchronize()
+        for name in names:
+            check(calls[name], f"recorded path {path}: no {name} call")
+            for j, (args, kw) in enumerate(calls[name]):
+                log.add(kernels, name, args, f"recorded path {path}", kw)
+        if path == "A":
+            timing["orset_capture"] = calls["orset_capture"][-1]
+            # the widest replay: a delta apply of the whole budget
+            timing["orset_replay"] = max(
+                calls["orset_replay"], key=lambda c: c[0][1]["op"].shape[1])
+        else:
+            timing["orset_apply"] = calls["orset_apply"][-1]
+            timing["slot_union"] = calls["slot_union"][0]  # first level
+            levels = int(np.ceil(np.log2(R)))
+            check(len(calls["slot_union"]) == levels * ORSET_STORE["recorded_ticks"],
+                  f"recorded path B: {len(calls['slot_union'])} slot_union "
+                  f"calls in {ORSET_STORE['recorded_ticks']} ticks")
+        del calls
+    for name, rec in log.by.items():
+        cases.append({"kernel": name, "case": "orset_kernels",
+                      "cases": rec["cases"], "max_abs_err": rec["max_abs_err"]})
+    emit("orset_kernels", by_kernel=log.by)
+    return timing
+
+
+def orset_store_model(host_ops, R, K, C):
+    """Independent numpy model of path B: each tick, every replica applies
+    its ops in lane order to its copy of the converged rows (add: set the
+    elem of a present tag, else insert and keep the C smallest tags;
+    remove/clear: tombstone), then the rows of all replicas are united per
+    key, a tag's tombstone ORed over its copies, the C smallest tags kept.
+    Returns ``{field: [K, C] array}`` in the canonical layout."""
+    SENT = np.iinfo(np.int32).max
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, bool))
+    rows = {}  # key -> (tag int64 sorted, elem, removed)
+    for ops in host_ops:
+        touched = {}
+        for r in range(R):
+            mine = {}
+            for b in range(ops["op"].shape[1]):
+                key, op = int(ops["key"][r, b]), int(ops["op"][r, b])
+                if key not in mine:
+                    tag, el, rm = rows.get(key, empty)
+                    mine[key] = [tag.copy(), el.copy(), rm.copy()]
+                tag, el, rm = mine[key]
+                a0 = int(ops["a0"][r, b])
+                if op == 1:
+                    t = (int(ops["a1"][r, b]) << 32) + int(ops["a2"][r, b])
+                    at = int(np.searchsorted(tag, t))
+                    if at < tag.size and tag[at] == t:
+                        el[at] = a0
+                    else:
+                        mine[key] = [np.insert(tag, at, t)[:C],
+                                     np.insert(el, at, a0)[:C],
+                                     np.insert(rm, at, False)[:C]]
+                elif op == 2:
+                    rm |= el == a0
+                elif op == 3:
+                    rm[:] = True
+            for key, row in mine.items():
+                touched.setdefault(key, []).append(row)
+        for key, rs in touched.items():
+            if len(rs) < R:  # replicas that did not touch the key hold it
+                rs.append(list(rows.get(key, empty)))
+            tag = np.concatenate([x[0] for x in rs])
+            el = np.concatenate([x[1] for x in rs])
+            rm = np.concatenate([x[2] for x in rs])
+            order = np.argsort(tag, kind="stable")
+            tag, el, rm = tag[order], el[order], rm[order]
+            uniq, first = np.unique(tag, return_index=True)
+            rm_or = np.logical_or.reduceat(rm, first)
+            rows[key] = (uniq[:C], el[first][:C], rm_or[:C])
+    out = {"tag_rep": np.full((K, C), SENT, np.int32),
+           "tag_ctr": np.full((K, C), SENT, np.int32),
+           "elem": np.zeros((K, C), np.int32),
+           "removed": np.zeros((K, C), bool), "valid": np.zeros((K, C), bool)}
+    for key, (tag, el, rm) in rows.items():
+        m = tag.size
+        out["tag_rep"][key, :m] = tag >> 32
+        out["tag_ctr"][key, :m] = tag & 0xFFFFFFFF
+        out["elem"][key, :m] = el
+        out["removed"][key, :m] = rm
+        out["valid"][key, :m] = True
+    return out
+
+
+def orset_store(dev, kernels, workloads):
+    """Path B timed: the OR-Set anti-entropy store at R=64 replicas, K=500
+    keys of 256 slots, B=64 uncaptured ops per replica per tick in a Zipf
+    hot window of 32 keys, a full converge every tick. Replica rows are
+    checked bit-equal after every tick, the final state against the numpy
+    model."""
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime.engine import make_tick
+    from janus_tpu_torch.runtime.store import replicated_init
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    R, K, C, B, hot, ticks = (ORSET_STORE[x] for x in
+                              ("R", "K", "C", "B", "hot", "ticks"))
+    rng = np.random.default_rng(3)
+    minters = [TagMinter(i) for i in range(R)]
+    host = [workloads.orset_hot_window(rng, minters, K, B, t, hot)
+            for t in range(ticks + 1)]
+    ops = [workloads.ops_to_device(o, dev) for o in host]
+    state = replicated_init(orset.SPEC, R, device=dev, num_keys=K, capacity=C,
+                            rm_capacity=ORSET_STORE["rm"])
+    tick = make_tick(orset.SPEC, device=dev)
+    kernels.reset_launches()
+    state = tick(state, ops[0])  # warm-up tick
+    torch.cuda.synchronize()
+    before = kernels.launches()
+    tick_ms = []
+    for t in range(1, ticks + 1):
+        t0 = time.perf_counter()
+        state = tick(state, ops[t])
+        torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        for f in ("tag_rep", "tag_ctr", "elem", "removed", "valid"):
+            x = state[f]
+            check(torch.equal(x, x[:1].expand_as(x)),
+                  f"orset_store: replica rows of {f} differ after tick {t}")
+    launches = kernels.launches()
+    grew = {name: launches[name] - before[name] for name in launches}
+    levels = int(np.ceil(np.log2(R)))
+    check(grew["orset_apply"] == ticks and grew["slot_union"] == levels * ticks,
+          f"orset_store: {grew['orset_apply']} orset_apply and "
+          f"{grew['slot_union']} slot_union launches in {ticks} ticks, "
+          f"expected 1 and {levels} per tick")
+    t0 = time.perf_counter()
+    want = orset_store_model(host, R, K, C)
+    model_s = time.perf_counter() - t0
+    for f, x in want.items():
+        check(np.array_equal(state[f][0].cpu().numpy(), x),
+              f"orset_store: {f} differs from the numpy model")
+    dt = sum(tick_ms) / 1e3
+    live = int(orset.live_count(state)[0].sum())
+    emit("orset_store", replicas=R, keys=K, capacity=C, ops_per_replica=B,
+         hot_window=hot, ticks=ticks, seconds=dt, ms_per_tick=1e3 * dt / ticks,
+         ms_per_tick_min=min(tick_ms), ms_per_tick_max=max(tick_ms),
+         converged_ops_per_s=R * B * ticks / dt,
+         launches_per_tick={"orset_apply": grew["orset_apply"] / ticks,
+                            "slot_union": grew["slot_union"] / ticks},
+         state_mb=R * K * C * 14 / 1e6, live_tags=live,
+         occupied_slots=int(orset.element_count(state)[0].sum()),
+         model_seconds=model_s, launches_incl_warmup=launches)
+    return launches
+
+
+def canonical_rows(st) -> bool:
+    """Rows sorted by tag with every valid slot before every invalid one,
+    no tag twice, invalid slots SENTINEL keys and zero payloads."""
+    v = st["valid"]
+    SENT = torch.iinfo(torch.int32).max
+    if bool((v[..., 1:] & ~v[..., :-1]).any()):
+        return False
+    tag = st["tag_rep"].long() * 2**32 + st["tag_ctr"].long()
+    both = v[..., 1:] & v[..., :-1]
+    if bool((both & (tag[..., 1:] <= tag[..., :-1])).any()):
+        return False
+    inv = ~v
+    return bool(((st["tag_rep"] == SENT) | v).all()
+                and ((st["tag_ctr"] == SENT) | v).all()
+                and ((st["elem"] == 0) | v).all()
+                and (~(st["removed"] & inv)).all())
+
+
+def orset_consensus(dev, kernels, workloads):
+    """Path A timed: SafeKV for the OR-Set at 4 nodes, window 8, 8192-op
+    blocks, 100 keys of 64 slots, capture width 4, apply budget 8, 50/50
+    add/remove. The first rounds are held bit-equal against the same run
+    on the CPU (through a GC advance and a compaction); then 24 timed
+    rounds after warm-up, idle rounds until drained, and the checks: every
+    view's stable state bit-equal, rows canonical, no tag twice."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig, tusk
+    from janus_tpu_torch.consensus import dag as dagmod
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime import safecrdt
+    from janus_tpu_torch.runtime.safecrdt import COMMIT_STEPS, SafeKV
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    g = ORSET_CONS
+    n, w, k, b = g["nodes"], g["window"], g["keys"], g["ops_per_block"]
+    rounds, warm = g["rounds"], g["warmup"]
+
+    def make_kv(device):
+        return SafeKV(DagConfig(n, w), orset.SPEC, ops_per_block=b,
+                      apply_budget=g["budget"], collect_logs=False,
+                      device=device, num_keys=k, capacity=g["capacity"],
+                      rm_capacity=g["rm"])
+
+    def device_state(kv):
+        return convert.tree_to_numpy(
+            {f: getattr(kv, f) for f in safecrdt.DEVICE_FIELDS})
+
+    def same(a, b_):
+        if isinstance(a, dict):
+            return a.keys() == b_.keys() and all(same(a[x], b_[x]) for x in a)
+        return a.dtype == b_.dtype and np.array_equal(a, b_)
+
+    # the first rounds against the CPU
+    rng = np.random.default_rng(6)
+    minters = [TagMinter(i) for i in range(n)]
+    first = [workloads.orset_add_remove(rng, minters, k, b)
+             for _ in range(g["cpu_rounds"])]
+    card, cpu = make_kv(dev), make_kv("cpu")
+    t0 = time.perf_counter()
+    for t, host_ops in enumerate(first):
+        packed = {}
+        for name, kv in (("card", card), ("cpu", cpu)):
+            packed[name], meta = kv.step_dispatch(
+                workloads.ops_to_device(host_ops, kv.device))
+            kv.step_absorb(packed[name], meta)
+        check(torch.equal(packed["card"].cpu(), packed["cpu"]),
+              f"orset_consensus: packed output of round {t} differs from "
+              f"the CPU run")
+        check(same(device_state(card), device_state(cpu)),
+              f"orset_consensus: device state after round {t} differs from "
+              f"the CPU run")
+    cpu_s = time.perf_counter() - t0
+    check(card.stats == cpu.stats and card.stats["gc_advances"] > 0
+          and card.stats["compactions"] > 0,
+          f"orset_consensus: CPU rounds stats {card.stats} / {cpu.stats}: "
+          f"need equal, with a GC advance and a compaction")
+    cpu_stats = dict(card.stats)
+    del card, cpu
+
+    # the timed run
+    rng = np.random.default_rng(7)
+    minters = [TagMinter(i) for i in range(n)]
+    host = [workloads.orset_add_remove(rng, minters, k, b)
+            for _ in range(warm + rounds + g["profile_rounds"])]
+    batches = [workloads.ops_to_device(o, dev) for o in host]
+    idle = workloads.ops_to_device(
+        {f: np.zeros((n, b), np.int32) for f in host[0]}, dev)
+    kv = make_kv(dev)
+    for t in range(warm):
+        kv.step(batches[t])
+    torch.cuda.synchronize()
+    kv.latency_log.clear()
+    stats0 = dict(kv.stats)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(warm, warm + rounds):
+        info = kv.step(batches[t])
+        check(info["accepted"].all(), f"orset_consensus: round {t} rejected")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    committed = kv.stats["own_commits"] - stats0["own_commits"]
+    idle_rounds = 0
+
+    def views_agree():
+        return all(torch.equal(x, x[:1].expand_as(x))
+                   for f, x in kv.stable.items() if f != "_rm_cap")
+
+    while idle_rounds < g["max_idle"]:
+        if idle_rounds >= g["min_idle"] and views_agree():
+            break
+        kv.step(idle, record=False)
+        idle_rounds += 1
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    check(views_agree(), f"orset_consensus: stable states of the views "
+          f"differ after {idle_rounds} idle rounds")
+    for name, st in (("stable", kv.stable), ("prospective", kv.prospective)):
+        check(canonical_rows(st), f"orset_consensus: {name} rows not "
+              f"canonical (or a tag twice in a row)")
+    stepped = rounds + idle_rounds
+    expect = {"orset_capture": stepped, "orset_replay": 3 * stepped,
+              **{name: stepped for name in CONSENSUS_KERNELS}}
+    for name, want in expect.items():
+        check(launches[name] == want, f"orset_consensus: {name} launched "
+              f"{launches[name]} times in {stepped} rounds, expected {want}")
+    check(kv.stats["compactions"] > stats0["compactions"],
+          "orset_consensus: no compaction in the timed rounds")
+    lag = kv.commit_latencies()
+
+    # kernels per round and per phase, by the profiler
+    from torch.profiler import ProfilerActivity, profile
+    extra = batches[warm + rounds:]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for ops in extra:
+            kv.step(ops)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_round = len(dev_events) / len(extra)
+    dev_us = sum(e.time_range.elapsed_us() for e in dev_events) / len(extra)
+    cfg = kv.cfg
+    everything = torch.ones((n, w, n), dtype=torch.bool, device=dev)
+    order = torch.zeros((n, w, n), dtype=torch.int32, device=dev)
+    by_phase = {
+        "submit": cuda_kernels_of(lambda: kv._submit_device(
+            kv.prospective, kv.dag, kv.ops_buffer, kv.buffer_filled,
+            kv.prosp_applied, extra[0])),
+        "state_transfer": cuda_kernels_of(lambda: kv._state_transfer(
+            kv.prospective, kv.stable, kv.dag, kv.commit, kv.prosp_applied,
+            kv.stable_applied, kv.force_transfer)),
+        "round_step": cuda_kernels_of(lambda: dagmod.round_step(cfg, kv.dag)),
+        "causal_closure": cuda_kernels_of(
+            lambda: kv._causal_closure(kv.dag, kv.prosp_applied)),
+        "commit_view": cuda_kernels_of(lambda: tusk.commit_view(
+            cfg, kv.dag, kv.commit, seed=kv.seed, steps=COMMIT_STEPS)),
+        "delta_apply_x2": 2 * cuda_kernels_of(lambda: kv._delta_apply(
+            kv.stable, kv.ops_buffer, everything, order)),
+        "compaction_at_gc": cuda_kernels_of(lambda: kv._compact_device(
+            kv.prospective, kv.stable, kv.ops_buffer)),
+    }
+    emit("orset_consensus", nodes=n, window=w, ops_per_block=b, keys=k,
+         capacity=g["capacity"], rm_capacity=g["rm"],
+         apply_budget=g["budget"], warmup_rounds=warm, rounds=rounds,
+         idle_rounds_to_drain=idle_rounds, seconds=dt,
+         ms_per_round=1e3 * dt / rounds, ops_per_s=rounds * n * b / dt,
+         committed_ops_per_s=committed * b / dt,
+         commit_lag_ticks_p50=float(np.percentile(lag, 50)),
+         commit_lag_ticks_p99=float(np.percentile(lag, 99)),
+         blocks_committed=int(lag.size), launches=launches,
+         profiled_rounds=len(extra), cuda_kernels_per_round=per_round,
+         profiled_device_us_per_round=dev_us, cuda_kernels_by_phase=by_phase,
+         slots_dropped=kv.stats["slots_dropped"] - stats0["slots_dropped"],
+         compactions=kv.stats["compactions"] - stats0["compactions"],
+         gc_advances=kv.stats["gc_advances"] - stats0["gc_advances"],
+         stats=kv.stats, cpu_check={"rounds": g["cpu_rounds"],
+                                    "seconds": cpu_s, "stats": cpu_stats})
+    return launches
+
+
+def apply_rows_touched(state, ops):
+    """The ``(replica, row)`` pairs an ``orset_apply`` call must move: the
+    rows its op lanes gather (JAX's clamp rule) and those it writes back
+    (in-range keys), counted once each."""
+    from janus_tpu_torch.models.base import gather_index, scatter_index
+
+    R, K, _ = state["valid"].shape
+    r = torch.arange(R, device=ops["key"].device).view(R, 1).expand_as(ops["key"])
+    wi, ok = scatter_index(ops["key"], K)
+    return dict(rows_read=torch.unique(r * K + gather_index(ops["key"], K)).numel(),
+                rows_written=torch.unique((r * K + wi)[ok]).numel())
+
+
+def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
+                 orset_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -719,9 +1213,15 @@ def kernels_line(dev, kernels, fast_launches, cons_launches, fast_ops, cases,
     before the device started it. The profiler's count of the kernels it
     saw over 20 calls is given beside the wrappers' own count of those
     launches, and a consensus row gives its plain version's device time by
-    the profiler. A consensus kernel's bytes are the operands its wrapper
-    hands it plus its outputs, and its operations one per input element, a
-    lower bound on its work."""
+    the profiler. A consensus or OR-Set kernel's bytes are the operands its
+    wrapper hands it plus its outputs (``orset_capture`` reads no
+    tombstone; ``orset_apply`` reads only the rows its ops gather and
+    writes back only those in range), and its operations one per input
+    element it reads, a lower bound on its work. The OR-Set kernels are timed
+    on recorded calls of the two OR-Set paths: ``slot_union`` on the first
+    level of path B's converge, ``orset_apply`` on path B's apply (repeated
+    on the state it leaves), ``orset_capture`` on a path A submit and
+    ``orset_replay`` on a path A delta apply of the whole budget."""
     from janus_tpu_torch.kernels import operands
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -760,7 +1260,7 @@ def kernels_line(dev, kernels, fast_launches, cons_launches, fast_ops, cases,
              bytes=2 * 2 * R * K * W * 4, operations=2 * (R - 1) * K * W),
     ]
     for name in CONSENSUS_KERNELS:
-        args = timing_calls[name][-1]
+        args, _ = timing_calls[name][-1]
         fn = kernels.WRAPPERS[name]
         ins, outs = kernel_operands(operands, fn, args)
         kerns.append(dict(
@@ -769,7 +1269,51 @@ def kernels_line(dev, kernels, fast_launches, cons_launches, fast_ops, cases,
             library=None, shape=f"N{args[0].num_nodes} W{args[0].num_rounds}, "
             f"last recorded SafeKV call",
             bytes=sum(t.numel() * t.element_size() for t in ins + outs),
-            operations=sum(t.numel() for t in ins)))
+            operations=sum(t.numel() for t in ins),
+            library_note="no single PyTorch call computes it: a protocol "
+                         "rule over the DAG's masks"))
+    shapes = {
+        "slot_union": "first converge level of path B: 32 x 500 rows, "
+                      "256 + 256 slots",
+        "orset_apply": "path B apply: R64 K500 C256 B64",
+        "orset_capture": "path A submit: V4 K100 C64 B8192 r4",
+        "orset_replay": "path A delta apply: V4 K100 C64 B65536 r4",
+    }
+    for name in ORSET_KERNELS:
+        args, kw = orset_calls[name]
+        fn = kernels.WRAPPERS[name]
+        ins, outs = kernel_operands(operands, lambda *a, fn=fn, kw=kw: fn(*a, **kw),
+                                    args)
+        extra = {}
+        if name == "orset_capture":  # reads no tombstone
+            ins = [t for t in ins if t is not args[0]["removed"]]
+        if name == "orset_apply":
+            # the op lanes, the drop counts, and each row an op gathers
+            # (read) or writes back (written), not the whole state
+            rows = args[0]
+            ins = [t for t in ins if not any(t is x for x in rows.values())]
+            extra = apply_rows_touched(rows, args[1])
+            row_bytes = sum(x[0, 0].numel() * x.element_size()
+                            for x in rows.values())
+            row_elems = sum(x[0, 0].numel() for x in rows.values())
+        nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+        nops = sum(t.numel() for t in ins)
+        if extra:
+            nbytes += row_bytes * (extra["rows_read"] + extra["rows_written"])
+            nops += row_elems * extra["rows_read"]
+        kerns.append(dict(
+            name=name, call=lambda fn=fn, args=args, kw=kw: fn(*args, **kw),
+            plain=lambda name=name, args=args, kw=kw: plain_of(kernels, name)(
+                *args, **kw),
+            library=None, shape=shapes[name], bytes=nbytes, operations=nops,
+            **extra,
+            library_note="no single PyTorch call computes it: a tag-keyed "
+                         "union with a tombstone fold and a capacity cut"
+                         if name in ("slot_union", "orset_replay") else
+                         "no single PyTorch call computes it: a per-row "
+                         "sequential apply" if name == "orset_apply" else
+                         "no single PyTorch call computes it: per-lane "
+                         "observed-tag capture"))
 
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
@@ -786,9 +1330,12 @@ def kernels_line(dev, kernels, fast_launches, cons_launches, fast_ops, cases,
     for kern in kerns:
         name = kern["name"]
         row = {k: kern[k] for k in ("bytes", "operations", "shape",
-                                    "cells_touched") if k in kern}
+                                    "cells_touched", "rows_read",
+                                    "rows_written", "library_note")
+               if k in kern}
         row["ms"] = time_cuda(kern["call"])
-        row["plain_ms"] = time_cuda(kern["plain"])
+        row["plain_ms"] = time_cuda(kern["plain"], reps=plain_reps(kern["plain"]),
+                                    warmup=1)
         row["library_ms"] = (None if kern["library"] is None
                              else time_cuda(kern["library"]))
         row["device_ms"] = device_burst_ms(kern["call"])
@@ -805,9 +1352,9 @@ def kernels_line(dev, kernels, fast_launches, cons_launches, fast_ops, cases,
             "name": name, "route": "cuda",
             "source": f"janus_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": fast_launches[name] + cons_launches[name],
-            "launches_by_path": {"fast_path": fast_launches[name],
-                                 "consensus": cons_launches[name]},
+            "launches": sum(p[name] for p in path_launches.values()),
+            "launches_by_path": {path: p[name]
+                                 for path, p in path_launches.items()},
             "max_abs_err": err[name],
             "ms": row.pop("ms"), "plain_ms": row.pop("plain_ms"),
             "bound_ms": max(t_bytes, t_ops),
@@ -828,6 +1375,7 @@ def main() -> int:
     from janus_tpu_torch.bench import workloads
     from janus_tpu_torch.kernels import build
 
+    started = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = nvidia_smi_line()
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
@@ -840,12 +1388,29 @@ def main() -> int:
     emit("build", seconds=res["seconds"], nvcc=build.nvcc(),
          flags=" ".join(build.NVCC_FLAGS), ptxas=ptxas)
 
-    fast_ops, cases = kernel_checks(dev, kernels, workloads)
-    timing_calls = consensus_kernel_checks(dev, kernels, workloads, cases)
-    fast_launches = fast_path(dev, kernels, workloads)
-    cons_launches = consensus_path(dev, kernels, workloads, cases)
-    line = kernels_line(dev, kernels, fast_launches, cons_launches, fast_ops,
-                        cases, timing_calls)
+    phase_s = {"build": res["seconds"]}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    fast_ops, cases = timed("kernels", kernel_checks, dev, kernels, workloads)
+    timing_calls = timed("dag_kernels", consensus_kernel_checks, dev, kernels,
+                         workloads, cases)
+    orset_calls = timed("orset_kernels", orset_kernel_checks, dev, kernels,
+                        workloads, cases)
+    paths = {"fast_path": timed("fast_path", fast_path, dev, kernels, workloads),
+             "consensus": timed("consensus", consensus_path, dev, kernels,
+                                workloads, cases),
+             "orset_store": timed("orset_store", orset_store, dev, kernels,
+                                  workloads),
+             "orset_consensus": timed("orset_consensus", orset_consensus, dev,
+                                      kernels, workloads)}
+    line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
+                 cases, timing_calls, orset_calls)
+    emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

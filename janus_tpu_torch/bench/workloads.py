@@ -12,7 +12,8 @@ import torch
 from janus_tpu_torch.consensus.dag import DagConfig
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.kernels import leader
-from janus_tpu_torch.models import base, pncounter
+from janus_tpu_torch.models import base, orset, pncounter
+from janus_tpu_torch.ops.lattice import SENTINEL
 
 
 def pnc_uniform(rng: np.random.Generator, num_replicas: int, num_keys: int,
@@ -29,6 +30,148 @@ def pnc_uniform(rng: np.random.Generator, num_replicas: int, num_keys: int,
     }
     return {f: np.ascontiguousarray(ops[f], np.int32) if f in ops
             else np.zeros(shape, np.int32) for f in base.OP_FIELDS}
+
+
+def _op_batch(shape, **fields) -> dict:
+    """int32 numpy op batch of ``shape``; missing fields are zero."""
+    return {f: np.ascontiguousarray(np.broadcast_to(fields[f], shape), np.int32)
+            if f in fields else np.zeros(shape, np.int32)
+            for f in base.OP_FIELDS}
+
+
+def _mint_adds(minters, is_add: np.ndarray) -> np.ndarray:
+    """[R, B, 2] tags: fresh per-replica tags in the add lanes, zero
+    elsewhere (removes ignore a1/a2)."""
+    tags = np.zeros(is_add.shape + (2,), np.int32)
+    for i, m in enumerate(minters):
+        lanes = np.nonzero(is_add[i])[0]
+        if lanes.size:
+            tags[i, lanes] = m.mint_many(lanes.size)
+    return tags
+
+
+def orset_add_remove(rng: np.random.Generator, minters, num_keys: int,
+                     batch: int, num_elems: int = 64,
+                     add_ratio: float = 0.5) -> dict:
+    """Add/remove mix over uniform keys with fresh per-replica tags for
+    the adds (one ``utils.ids.TagMinter`` per replica). Returns int32
+    ``[len(minters), batch]`` numpy arrays."""
+    shape = (len(minters), batch)
+    is_add = rng.random(shape) < add_ratio
+    op = np.where(is_add, orset.OP_ADD, orset.OP_REMOVE)
+    tags = _mint_adds(minters, is_add)
+    return _op_batch(shape, op=op, key=rng.integers(0, num_keys, shape),
+                     a0=rng.integers(0, num_elems, shape),
+                     a1=tags[..., 0], a2=tags[..., 1])
+
+
+def zipf_keys(rng: np.random.Generator, num_keys: int, shape,
+              theta: float = 0.99) -> np.ndarray:
+    """Zipf-distributed key choice (rank r drawn with weight r^-theta)."""
+    ranks = np.arange(1, num_keys + 1, dtype=np.float64)
+    probs = 1.0 / ranks**theta
+    probs /= probs.sum()
+    return rng.choice(num_keys, size=shape, p=probs).astype(np.int32)
+
+
+def orset_hot_window(rng: np.random.Generator, minters, num_keys: int,
+                     batch: int, tick: int, hot: int,
+                     theta: float = 0.99, num_elems: int = 64) -> dict:
+    """One tick of the anti-entropy store's OR-Set traffic: a 50/50
+    add/remove mix whose keys are Zipf-skewed inside a hot window of
+    ``hot`` keys that rotates by ``hot`` every tick, so the whole key
+    space is touched over a run. The draws follow the JAX harness's
+    OR-Set half of its store geometry (adds, tags, keys, elements)."""
+    shape = (len(minters), batch)
+    base_key = (tick * hot) % num_keys
+    is_add = rng.random(shape) < 0.5
+    tags = _mint_adds(minters, is_add)
+    keys = (base_key + zipf_keys(rng, hot, shape, theta)) % num_keys
+    return _op_batch(shape, op=np.where(is_add, orset.OP_ADD, orset.OP_REMOVE),
+                     key=keys, a0=rng.integers(0, num_elems, shape),
+                     a1=tags[..., 0], a2=tags[..., 1])
+
+
+def orset_slots(rng: np.random.Generator, shape, capacity: int,
+                full_rows: float = 0.25, fill: float = 0.6, reps: int = 4,
+                num_elems: int = 8, removed: float = 0.3,
+                canonical: bool = True, dup_rows: float = 0.0) -> dict:
+    """Random OR-Set slot rows ``shape + (capacity,)`` as numpy arrays
+    (``tag_rep``, ``tag_ctr``, ``elem``, ``removed``, ``valid``).
+
+    A ``full_rows`` share of rows is full, the rest hold up to ``fill`` of
+    the capacity; tags are distinct within a row, with ``reps`` minting
+    replicas and counters from 1. Canonical rows are sorted by tag with
+    SENTINEL keys and zero payloads in invalid slots. Otherwise slots are
+    shuffled, invalid slots hold junk, and a ``dup_rows`` share of rows
+    repeats one valid tag in a second slot."""
+    c = capacity
+    rows = int(np.prod(shape, dtype=np.int64))
+    space = max(4 * c, reps)
+    pick = np.argsort(rng.random((rows, space)), axis=1)[:, :c]
+    n = np.where(rng.random(rows) < full_rows, c,
+                 rng.integers(0, int(fill * c) + 1, rows))
+    valid = np.arange(c)[None, :] < n[:, None]
+    tag = np.where(valid, pick, space)
+    tag.sort(axis=1)
+    valid = tag < space
+    per = -(-space // reps)  # counters per minting replica
+    rep = np.where(valid, tag // per, SENTINEL).astype(np.int32)
+    ctr = np.where(valid, tag % per + 1, SENTINEL).astype(np.int32)
+    elem = np.where(valid, rng.integers(0, num_elems, (rows, c)), 0)
+    rm = valid & (rng.random((rows, c)) < removed)
+    out = {"tag_rep": rep, "tag_ctr": ctr, "elem": elem.astype(np.int32),
+           "removed": rm, "valid": valid}
+    if not canonical:
+        junk = ~valid
+        out["tag_rep"] = np.where(junk, rng.integers(-5, 5, (rows, c)), rep)
+        out["tag_ctr"] = np.where(junk, rng.integers(-5, 5, (rows, c)), ctr)
+        out["elem"] = np.where(junk, rng.integers(-5, 5, (rows, c)), elem)
+        out["removed"] = np.where(junk, rng.random((rows, c)) < 0.5, rm)
+        for r in np.nonzero((rng.random(rows) < dup_rows) & (n >= 2))[0]:
+            src, dst = rng.choice(n[r], 2, replace=False)
+            for f in ("tag_rep", "tag_ctr"):
+                out[f][r, dst] = out[f][r, src]
+        perm = np.argsort(rng.random((rows, c)), axis=1)
+        out = {f: np.take_along_axis(x, perm, 1) for f, x in out.items()}
+    return {f: np.ascontiguousarray(x.reshape(tuple(shape) + (c,)),
+                                    bool if f in ("removed", "valid") else np.int32)
+            for f, x in out.items()}
+
+
+def orset_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
+                    capacity: int, hazards: bool = True) -> dict:
+    """OR-Set op lanes of every code (0 no-op, 1 add, 2 remove, 3 clear)
+    whose tags collide with ``orset_slots``' tags and with each other's,
+    as int32 numpy arrays of ``shape``. With ``hazards``, keys fall in
+    [-K, 2K) and 5% of the adds carry a SENTINEL tag."""
+    k = num_keys
+    ops = {
+        "op": rng.choice(4, shape, p=[0.1, 0.45, 0.35, 0.1]),
+        "key": rng.integers(-k, 2 * k, shape) if hazards else rng.integers(0, k, shape),
+        "a0": rng.integers(0, 8, shape),
+        "a1": rng.integers(0, 4, shape),
+        "a2": rng.integers(1, capacity + 2, shape),
+        "writer": np.zeros(shape),
+    }
+    if hazards:
+        ops["a1"] = np.where(rng.random(shape) < 0.05, SENTINEL, ops["a1"])
+    return {f: v.astype(np.int32) for f, v in ops.items()}
+
+
+def with_capture_hazards(rng: np.random.Generator, ops: dict) -> dict:
+    """A captured op batch (numpy, ``[..., B]`` fields with ``[..., B, R]``
+    captures, B >= 8) with the replay's hazards mixed in: 10% of the
+    captured lanes SENTINEL, and lanes 5-7 turned into removes of lane 1's
+    key that capture lane 1's tag (so one tag arrives up to four times)."""
+    out = {f: np.array(x, copy=True) for f, x in ops.items()}
+    holes = rng.random(out["rm_rep"].shape) < 0.1
+    out["rm_rep"] = np.where(holes, SENTINEL, out["rm_rep"]).astype(np.int32)
+    for f, src in (("rm_rep", "a1"), ("rm_ctr", "a2"), ("rm_elem", "a0")):
+        out[f][..., 5:8, 0] = out[src][..., 1:2]
+    out["op"][..., 5:8] = orset.OP_REMOVE
+    out["key"][..., 5:8] = out["key"][..., 1:2]
+    return out
 
 
 def ops_to_device(ops: dict, device=None) -> dict:

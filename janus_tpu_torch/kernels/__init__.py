@@ -9,15 +9,25 @@ time.
 from janus_tpu_torch.kernels.causal_closure import (  # noqa: F401
     causal_closure, causal_closure_plain)
 from janus_tpu_torch.kernels.dag_round import dag_round, dag_round_plain  # noqa: F401
+from janus_tpu_torch.kernels.orset_apply import (  # noqa: F401
+    orset_apply, orset_apply_plain)
+from janus_tpu_torch.kernels.orset_capture import (  # noqa: F401
+    orset_capture, orset_capture_plain)
+from janus_tpu_torch.kernels.orset_replay import (  # noqa: F401
+    orset_replay, orset_replay_plain)
 from janus_tpu_torch.kernels.pnc_apply import pnc_apply, pnc_apply_plain  # noqa: F401
 from janus_tpu_torch.kernels.replica_join import (  # noqa: F401
     replica_join, replica_join_plain)
+from janus_tpu_torch.kernels.slot_union import (  # noqa: F401
+    slot_union, slot_union_plain)
 from janus_tpu_torch.kernels.tusk_commit import (  # noqa: F401
     tusk_commit, tusk_commit_plain)
 
 WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join,
             "tusk_commit": tusk_commit, "causal_closure": causal_closure,
-            "dag_round": dag_round}
+            "dag_round": dag_round, "slot_union": slot_union,
+            "orset_capture": orset_capture, "orset_replay": orset_replay,
+            "orset_apply": orset_apply}
 
 
 def reset_launches() -> None:

@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
-           "dag_round")
+           "dag_round", "slot_union", "orset_capture", "orset_replay",
+           "orset_apply")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"

@@ -12,6 +12,8 @@ import torch
 MAX_NODES = 64
 # dynamic shared memory one block can use on Hopper
 MAX_SHARED_BYTES = 232448
+# static shared memory of the block-wide prefix sums (csrc/slot_sort.cuh)
+SCAN_SHARED_BYTES = 4 * 1024 + 4 * 34
 
 
 def placement(name: str, operands) -> torch.device | None:
@@ -44,6 +46,11 @@ def check_fits(name: str, num_nodes: int, shared_bytes: int) -> None:
         raise ValueError(f"{name}: {num_nodes} nodes, but the CUDA kernel "
                          f"holds a DAG row as a 64-bit mask (at most "
                          f"{MAX_NODES} nodes)")
+    check_shared(name, shared_bytes)
+
+
+def check_shared(name: str, shared_bytes: int) -> None:
+    """Raise unless one block of the kernel fits in shared memory."""
     if shared_bytes > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: needs {shared_bytes} bytes of shared "
                          f"memory per block, more than {MAX_SHARED_BYTES}")

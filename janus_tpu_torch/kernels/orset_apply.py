@@ -1,0 +1,128 @@
+"""``orset_apply``: the OR-Set's sequential apply of uncaptured ops, per
+replica, in place (kernel source: csrc/orset_apply.cu).
+
+Replaces the uncaptured ``lax.scan`` of janus_tpu/models/orset.py
+``_apply_ops_impl`` (vmapped over the replicas). Ops apply in lane order,
+each to the row of its key (gathered by JAX's gather rule, written back by
+its scatter rule, so an op whose key is out of range after negative
+normalisation changes nothing but may count a drop):
+
+- add (a0=elem, a1/a2=tag): fold into the slot holding the tag (first
+  hit), setting its elem; else append it and keep the C smallest tags, a
+  full row evicting the largest (possibly the newcomer) and counting one
+  drop;
+- remove: tombstone the valid slots of elem a0; clear: every valid slot;
+- every op with an in-range key leaves its row canonical.
+
+The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
+``orset_apply_plain`` only for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from janus_tpu_torch.kernels import build, operands
+from janus_tpu_torch.kernels.orset_rows import (
+    FIELDS, KEY_FIELDS, OP_ADD, OP_CLEAR, OP_REMOVE, canonical_row,
+    op_operands, slot_operands)
+from janus_tpu_torch.models.base import OP_NOOP, gather_index, scatter_index
+from janus_tpu_torch.ops.setops import row_find
+
+
+def orset_apply_plain(state, ops) -> torch.Tensor:
+    """Plain PyTorch version: the JAX scan as a Python loop over the op
+    lanes with the replica axis as a batch dimension. ``state``: the
+    five slot fields ``[R, K, C]``, updated in place; op fields
+    ``[R, B]``. Returns the drop count per replica, int32 ``[R]``."""
+    R, K, C = state["valid"].shape
+    B = ops["op"].shape[-1]
+    dev = state["valid"].device
+    rr = torch.arange(R, device=dev)
+    gi = gather_index(ops["key"], K)
+    wi, wok = scatter_index(ops["key"], K)
+    dropped = torch.zeros((R,), dtype=torch.int32, device=dev)
+    for b in range(B):
+        row = {f: state[f][rr, gi[:, b]] for f in FIELDS}          # [R, C]
+        op, a0, a1, a2 = (ops[f][:, b] for f in ("op", "a0", "a1", "a2"))
+        en = op != OP_NOOP
+        do_add = en & (op == OP_ADD)
+        found, fidx = row_find(row, KEY_FIELDS, (a1, a2))
+        dropped += (do_add & ~found & row["valid"].all(-1)).to(torch.int32)
+        folded = dict(row)
+        folded["elem"] = row["elem"].scatter(-1, fidx.long()[:, None],
+                                             a0[:, None])
+        appended = canonical_row({
+            "tag_rep": torch.cat([row["tag_rep"], a1[:, None]], -1),
+            "tag_ctr": torch.cat([row["tag_ctr"], a2[:, None]], -1),
+            "elem": torch.cat([row["elem"], a0[:, None]], -1),
+            "removed": torch.cat([row["removed"],
+                                  torch.zeros_like(row["removed"][:, :1])], -1),
+            "valid": torch.cat([row["valid"],
+                                torch.ones_like(row["valid"][:, :1])], -1),
+        })
+        add, fnd = do_add[:, None], found[:, None]
+        added = {f: torch.where(add, torch.where(fnd, folded[f],
+                                                 appended[f][:, :C]), row[f])
+                 for f in FIELDS}
+        rm_mask = row["valid"] & (row["elem"] == a0[:, None])
+        tomb = torch.where((en & (op == OP_REMOVE))[:, None], rm_mask,
+                           (en & (op == OP_CLEAR))[:, None] & row["valid"])
+        added["removed"] = added["removed"] | tomb
+        new_row = canonical_row(added)
+        ok = wok[:, b]
+        for f in FIELDS:
+            state[f][rr[ok], wi[ok, b]] = new_row[f][ok]
+    return dropped
+
+
+def _lib():
+    lib = build.load("orset_apply")
+    if lib.orset_apply_launch.argtypes is None:
+        ptr = ctypes.c_void_p
+        lib.orset_apply_launch.argtypes = [ptr] * 11 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+        lib.orset_apply_launch.restype = ctypes.c_int
+    return lib
+
+
+def shared_bytes(c: int) -> int:
+    """Shared memory of one block (csrc/orset_apply.cu): a 16-byte sort
+    record and two 14-byte row copies per slot, the lane list of a tile
+    of 128 ops, and a few words."""
+    return 16 * c + 2 * (-(-14 * c // 16) * 16) + 4 * 128 + 256
+
+
+def orset_apply(state, ops) -> torch.Tensor:
+    """Apply uncaptured op lanes in order to every replica's rows, in
+    place. ``state``: the five slot fields ``[R, K, C]``; op fields int32
+    ``[R, B]``. Returns the drop count per replica, int32 ``[R]``."""
+    if state["valid"].dim() != 3 or ops["op"].dim() != 2:
+        raise ValueError("orset_apply: state must be [R, K, C] and op "
+                         "fields [R, B]")
+    R, K, C = state["valid"].shape
+    B = ops["op"].shape[1]
+    dev = operands.placement("orset_apply", [
+        *slot_operands("state.", state, (R, K, C)), *op_operands(ops, (R, B))])
+    if dev is None:
+        return orset_apply_plain(state, ops)
+    operands.check_shared("orset_apply", shared_bytes(C))
+    if K == 0 and R * B > 0:
+        raise ValueError("orset_apply: no key rows to gather from")
+    dropped = torch.zeros((R,), dtype=torch.int32, device=dev)
+    if R * K * B == 0:
+        return dropped
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.orset_apply_launch(
+            *(state[f].data_ptr() for f in FIELDS),
+            *(ops[f].data_ptr() for f in ("op", "key", "a0", "a1", "a2")),
+            dropped.data_ptr(), R, K, C, B, stream)
+    build.check_launch("orset_apply", rc)
+    orset_apply.launches += 1
+    return dropped
+
+
+orset_apply.launches = 0

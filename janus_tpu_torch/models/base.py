@@ -78,6 +78,14 @@ def scatter_index(idx: torch.Tensor, size: int):
     return torch.where(valid, idx, 0).long(), valid
 
 
+def gather_index(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """JAX's gather index rule (``x[idx]``): an index in ``[-size, 0)``
+    counts from the end, and what is still out of range after that is
+    clamped into ``[0, size)``. Returns the int64 index."""
+    idx = torch.where(idx < 0, idx + size, idx)
+    return idx.clamp(0, max(size - 1, 0)).long()
+
+
 def op_dirty_rows(ops: OpBatch, num_keys: int) -> torch.Tensor:
     """bool[..., K]: key rows touched by non-noop ops of one batch (the
     per-batch dirty set for delta convergence); batches over leading
@@ -114,12 +122,26 @@ class CRDTTypeSpec:
     merge: Callable[[Any, Any], Any]
     queries: Dict[str, Callable]
     op_codes: Dict[str, int]
+    # Effect capture: extra per-op payload fields (name -> trailing width,
+    # an int or a dim name resolved against the type's init dims) filled
+    # at submit time by ``prepare_ops_batch(origin_state, ops) -> ops``.
+    op_extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # ``apply_ops_delta(state, ops) -> (state, delta_info(...))``
     apply_ops_delta: "Callable[[Any, OpBatch], Any] | None" = None
-    # effect capture (the types that need it are not ported yet)
+    # dim-name defaults for op_extras resolution (e.g. OR-Set
+    # rm_capacity -> capacity)
+    dim_defaults: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # single-op capture (not ported: its sequential scan serves one-op
+    # batches only)
     prepare_ops: Callable[[Any, OpBatch], OpBatch] | None = None
+    # batched exact capture: each op observes the pre-batch state plus the
+    # earlier lanes of its own batch; the prepared batch applies at once
     prepare_ops_batch: Callable[[Any, OpBatch], OpBatch] | None = None
     replay_safe: bool = False
+    # ``compact_fence(state, live_ops) -> state``: reclaims dead slots at
+    # a GC fence, protecting those an op of the live consensus window may
+    # still reference (``live_ops``: the flattened op-buffer fields)
+    compact_fence: Callable[[Any, OpBatch], Any] | None = None
     # In-place join of the leading replica axis: every replica row set to
     # the join of all rows (a hand kernel); ``runtime.store.converge``
     # needs it.
@@ -127,13 +149,18 @@ class CRDTTypeSpec:
 
 
 def capture_and_apply(spec: CRDTTypeSpec, state: Any, ops: OpBatch):
-    """Origin-side submit: returns ``(post_state, prepared_ops)``. Types
-    without effect capture apply the batch as one (their apply reads no
-    local state). The capture branches come with the types that need
-    them."""
-    if spec.prepare_ops_batch is not None or spec.prepare_ops is not None:
+    """Origin-side submit: returns ``(post_state, prepared_ops)``; the
+    prepared ops are what ships in the consensus payload and what every
+    replica replays. A type with batched capture captures the whole batch
+    (each op observing the pre-batch state and the earlier lanes of its
+    batch) and applies the prepared batch at once; a type without capture
+    applies the batch as one (its apply reads no local state)."""
+    if spec.prepare_ops_batch is not None:
+        prepared = spec.prepare_ops_batch(state, ops)
+        return spec.apply_ops(state, prepared), prepared
+    if spec.prepare_ops is not None:
         raise NotImplementedError(
-            f"effect capture for type {spec.name!r} is not ported yet")
+            f"single-op effect capture for type {spec.name!r} is not ported")
     return spec.apply_ops(state, ops), ops
 
 

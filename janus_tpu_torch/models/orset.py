@@ -1,0 +1,244 @@
+"""Observed-Remove Set over fixed-capacity tag-slot tensors
+(counterpart: janus_tpu/models/orset.py).
+
+Per key a block of C slots, each slot one tag: ``tag_rep``/``tag_ctr``
+(minting replica x per-replica counter), ``elem`` (interned element id)
+and a ``removed`` tombstone bit; ``valid`` marks used slots. An element is
+present iff some valid slot of it is not tombstoned. Rows stay canonical
+(sorted by tag, invalid slots last with SENTINEL keys and zero payloads),
+so set-equal states are bit-equal tensors. ``_rm_cap``, a zero-width
+``[r_cap, 0]`` int32 leaf, carries the capture width of remove/clear ops.
+
+The device work runs through four hand kernels (``janus_tpu_torch.kernels``):
+
+- ``orset_capture``  batched effect capture at submit (``prepare_ops_batch``)
+- ``orset_replay``   captured batches: the consensus path's apply
+- ``orset_apply``    uncaptured batches: the sequential per-op apply, in place
+- ``slot_union``     the join (``merge``) and the replica-axis converge
+                     (``join_replicas``)
+
+Every function batches over leading axes of the state (``[..., K, C]``
+with op fields ``[..., B]``). ``compact`` and ``compact_fence`` are plain
+PyTorch. The duplicate-tag fold (JAX's ``_combine``) and the canonical row
+order (``_canonical_row``) are ``kernels.orset_rows.fold_duplicate`` and
+``canonical_row``, which the kernels' plain versions share. The single-op
+capture (``prepare_ops``) is not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from janus_tpu_torch import kernels
+from janus_tpu_torch.device import resolve_device
+from janus_tpu_torch.kernels.orset_rows import (  # noqa: F401
+    CAPTURE_FIELDS, FIELDS, KEY_FIELDS, OP_ADD, OP_CLEAR, OP_REMOVE)
+from janus_tpu_torch.models import base
+from janus_tpu_torch.models.base import gather_index
+from janus_tpu_torch.ops.lattice import SENTINEL
+from janus_tpu_torch.ops.setops import make_slots
+
+State = Dict[str, torch.Tensor]  # fields [..., K, C], plus "_rm_cap"
+
+
+def init(num_keys: int, capacity: int, rm_capacity: int | None = None,
+         device=None) -> State:
+    """Empty state of ``num_keys`` rows of ``capacity`` slots.
+    ``rm_capacity`` (default ``capacity``) bounds how many observed tags
+    one remove/clear captures; a remove observing more tombstones the
+    first ``rm_capacity`` in tag order."""
+    dev = resolve_device(device)
+    st = make_slots(capacity,
+                    {"tag_rep": torch.int32, "tag_ctr": torch.int32,
+                     "elem": torch.int32, "removed": torch.bool},
+                    batch=(num_keys,), key_fields=KEY_FIELDS, device=dev)
+    r = capacity if rm_capacity is None else int(rm_capacity)
+    st["_rm_cap"] = torch.zeros((r, 0), dtype=torch.int32, device=dev)
+    return st
+
+
+def _views(state: State, ops: base.OpBatch):
+    """The state's fields as ``[V, K, C]`` views (V = the leading axes,
+    1 for none), the op fields as ``[V, B, ...]``, and the leading axes."""
+    lead = tuple(state["valid"].shape[:-2])
+    K, C = state["valid"].shape[-2:]
+    v = math.prod(lead)
+    flat = {f: state[f].view(v, K, C) for f in FIELDS}
+    if tuple(ops["op"].shape[:-1]) != lead:
+        raise ValueError(f"op batch shape {tuple(ops['op'].shape)} does not "
+                         f"match state leading axes {lead}")
+    B = ops["op"].shape[-1]
+    fops = {f: x.reshape((v, B) + tuple(x.shape[len(lead) + 1:]))
+            for f, x in ops.items()}
+    return flat, fops, lead
+
+
+def prepare_ops_batch(state: State, ops: base.OpBatch) -> base.OpBatch:
+    """Batched effect capture (the ``orset_capture`` kernel): a remove or
+    clear at lane i records the tags it observes in the pre-batch state
+    and in the adds of earlier lanes of its batch and key, so replicated
+    replay tombstones exactly those tags whatever the delivery order.
+    Adds ``rm_rep``/``rm_ctr``/``rm_elem`` (``[..., B, r_cap]``)."""
+    flat, fops, lead = _views(state, ops)
+    r_cap = state["_rm_cap"].shape[-2]
+    B = ops["op"].shape[-1]
+    cap = kernels.orset_capture(flat, fops, r_cap)
+    return {**ops, **{f: x.reshape(lead + (B, r_cap))
+                      for f, x in zip(CAPTURE_FIELDS, cap)}}
+
+
+def _apply_ops_impl(state: State, ops: base.OpBatch):
+    """``(state, dropped[...])``: captured batches of more than one op
+    replay as one set union per key (``orset_replay``, new tensors);
+    uncaptured batches apply op by op (``orset_apply``, in place)."""
+    flat, fops, lead = _views(state, ops)
+    if "rm_rep" in ops:
+        if ops["op"].shape[-1] <= 1:
+            raise NotImplementedError(
+                "the one-op captured scan is not ported; captured batches "
+                "need at least two lanes")
+        new, dropped = kernels.orset_replay(flat, fops)
+        K, C = state["valid"].shape[-2:]
+        out = {f: new[f].view(lead + (K, C)) for f in FIELDS}
+        out["_rm_cap"] = state["_rm_cap"]
+        return out, dropped.reshape(lead)
+    dropped = kernels.orset_apply(flat, fops)
+    return state, dropped.reshape(lead)
+
+
+def apply_ops(state: State, ops: base.OpBatch) -> State:
+    """Apply add/remove/clear ops; returns the new state (the same dict,
+    updated in place, for uncaptured ops).
+
+    add:    a0=elem, a1=tag_rep, a2=tag_ctr (the host mints unique tags)
+    remove: a0=elem. With captured ``rm_rep``/``rm_ctr``/``rm_elem`` the
+            op inserts its captured tags as tombstoned slots (a tag not
+            yet present lands dead, so a later add of it cannot
+            resurrect it); without, it tombstones the matching tags
+            present at apply time.
+    clear:  the same over every observed tag."""
+    return _apply_ops_impl(state, ops)[0]
+
+
+def apply_ops_delta(state: State, ops: base.OpBatch):
+    """``(state, delta_info)`` with the dirty-row mask and the count of
+    slot records dropped by capacity pressure."""
+    st, dropped = _apply_ops_impl(state, ops)
+    K = state["valid"].shape[-2]
+    return st, base.delta_info(base.op_dirty_rows(ops, K), dropped)
+
+
+def merge(a: State, b: State) -> State:
+    out, _ = merge_with_stats(a, b)
+    return out
+
+
+def merge_with_stats(a: State, b: State):
+    """Join = per-key union of tag slots (the ``slot_union`` kernel);
+    returns ``(state, overflow int32[..., K])``."""
+    cap = a["tag_rep"].shape[-1]
+    out, overflow = kernels.slot_union(a, b, cap)
+    out["_rm_cap"] = a["_rm_cap"]
+    return out, overflow
+
+
+def join_replicas(state: State) -> State:
+    """Set every row of the leading replica axis to the join of all rows,
+    in place: the halving tree of ``runtime.store.join_all`` (the middle
+    row joins both halves when the count is odd), one ``slot_union``
+    launch per level, the last level writing its row into all R rows."""
+    r = state["valid"].shape[0]
+    cap = state["valid"].shape[-1]
+    cur = {f: state[f] for f in FIELDS}
+    n = r
+    while n > 2:
+        half = (n + 1) // 2
+        cur, _ = kernels.slot_union({f: x[:half] for f, x in cur.items()},
+                                    {f: x[n - half:n] for f, x in cur.items()},
+                                    cap)
+        n = half
+    if n == 2:
+        kernels.slot_union({f: x[:1] for f, x in cur.items()},
+                           {f: x[1:2] for f, x in cur.items()}, cap,
+                           out={f: state[f].unsqueeze(1) for f in FIELDS})
+    return state
+
+
+def _rows(state: State, field: str, key) -> torch.Tensor:
+    x = state[field]
+    k = gather_index(torch.as_tensor(key, device=x.device), x.shape[-2])
+    rows = x.index_select(-2, k.reshape(-1))
+    return rows.reshape(x.shape[:-2] + tuple(k.shape) + x.shape[-1:])
+
+
+def contains(state: State, key, elem) -> torch.Tensor:
+    """Presence of ``elem`` at ``key``: some observed add-tag of it is not
+    tombstoned. The key is gathered on the key axis (``[..., K, C]``) by
+    JAX's gather rule."""
+    live = _rows(state, "valid", key) & ~_rows(state, "removed", key)
+    hit = _rows(state, "elem", key) == torch.as_tensor(elem, device=live.device)
+    return (live & hit).any(-1)
+
+
+def lookup_mask(state: State) -> torch.Tensor:
+    """[..., K, C] mask of live (add-surviving) slots."""
+    return state["valid"] & ~state["removed"]
+
+
+def live_count(state: State) -> torch.Tensor:
+    """Live tags per key (an upper bound on the set's cardinality)."""
+    return lookup_mask(state).sum(-1).to(torch.int32)
+
+
+def element_count(state: State) -> torch.Tensor:
+    """[..., K] occupied slots per key, tombstones included."""
+    return state["valid"].sum(-1).to(torch.int32)
+
+
+def compact(state: State, protect: torch.Tensor | None = None) -> State:
+    """Drop tombstoned slots to reclaim capacity (one stable compaction
+    per row), keeping those ``protect`` pins. Only safe at coordination
+    points where every replica has observed the tombstones."""
+    keep = state["valid"] & ~state["removed"]
+    if protect is not None:
+        keep = keep | (state["valid"] & protect)
+    order = torch.sort((~keep).to(torch.int32), dim=-1, stable=True).indices
+    return {"tag_rep": torch.where(keep, state["tag_rep"], SENTINEL).gather(-1, order),
+            "tag_ctr": torch.where(keep, state["tag_ctr"], SENTINEL).gather(-1, order),
+            "elem": torch.where(keep, state["elem"], 0).gather(-1, order),
+            "removed": (state["removed"] & keep).gather(-1, order),
+            "valid": keep.gather(-1, order),
+            "_rm_cap": state["_rm_cap"]}
+
+
+def compact_fence(state: State, live_ops: base.OpBatch) -> State:
+    """GC-fence compaction: reclaim tombstoned tags except those whose
+    minting add may still ride the live window. Protection is a counter
+    watermark: tags are minted with increasing counters, so a tag still
+    ridable has ``ctr >=`` the least ``a2`` of the live adds."""
+    is_add = live_ops["op"] == OP_ADD
+    wm = torch.where(is_add, live_ops["a2"], SENTINEL).min()
+    prot = state["removed"] & (state["tag_ctr"] >= wm)
+    return compact(state, protect=prot)
+
+
+SPEC = base.register_type(
+    base.CRDTTypeSpec(
+        name="ORSet",
+        type_code="orset",
+        init=init,
+        apply_ops=apply_ops,
+        merge=merge,
+        queries={"contains": contains, "live_count": live_count,
+                 "element_count": element_count},
+        op_codes={"a": OP_ADD, "r": OP_REMOVE, "c": OP_CLEAR},
+        op_extras={f: "rm_capacity" for f in CAPTURE_FIELDS},
+        dim_defaults={"rm_capacity": "capacity"},
+        prepare_ops_batch=prepare_ops_batch,
+        apply_ops_delta=apply_ops_delta,
+        compact_fence=compact_fence,
+        join_replicas=join_replicas,
+    )
+)

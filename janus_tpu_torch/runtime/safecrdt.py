@@ -5,7 +5,9 @@ One emulated N-node cluster in one dict of tensors:
 
     prospective  type-state with leading node axis [N, K, ...]
     stable       same shape
-    ops_buffer   [W, N, B] op records: the op batch carried by block (r,s)
+    ops_buffer   [W, N, B] op records: the op batch carried by block (r,s),
+                 plus [W, N, B, width] per-op capture extras of types with
+                 effect capture (``spec.op_extras``)
     prosp_applied / stable_applied  bool[N, W, N]: which blocks each node
                  has folded into which state
 
@@ -15,12 +17,16 @@ causal closure); blocks newly committed apply to its stable state; a
 quorum-based GC frontier recycles finished slots. The device part of a
 round (``_step_device``) reads no tensor value on the host; its outputs
 the host needs are packed into one int32 vector, fetched once per round
-by ``step_absorb``. The PN-Counter's apply runs through the ``pnc_apply``
-hand kernel in ``_submit_device`` and ``_delta_apply``; the DAG round, the
-causal closure and the Tusk commit are one hand-kernel launch each
-(``dag_round``, ``causal_closure``, ``tusk_commit``).
+by ``step_absorb``. The DAG round, the causal closure and the Tusk commit
+are one hand-kernel launch each (``dag_round``, ``causal_closure``,
+``tusk_commit``). The type's apply runs through its own kernels: the
+PN-Counter's submit and delta applies through ``pnc_apply``; the OR-Set's
+submit through ``orset_capture`` and then ``orset_replay``, and its delta
+applies through ``orset_replay``. A type with a ``compact_fence`` (the
+OR-Set) is compacted, in plain PyTorch, whenever a round advanced the GC
+frontier (``maybe_compact``, called from ``step_absorb``).
 
-Not in this port yet: the split ``submit``/``tick`` path, compaction,
+Not in this port yet: the split ``submit``/``tick`` path,
 ``resize_block``, checkpoint/restore, ``MultiKV``, and the flight
 recorder and stage histograms.
 """
@@ -71,7 +77,8 @@ class SafeKV:
         # blocks per tick, so 4N gives catch-up headroom
         self.apply_budget = apply_budget if apply_budget is not None else 4 * n
 
-        if not (spec.replay_safe or spec.prepare_ops is not None):
+        if not (spec.replay_safe or spec.prepare_ops is not None
+                or spec.prepare_ops_batch is not None):
             raise ValueError(
                 f"type {spec.name!r} is not replay-safe: its apply_ops "
                 "reads uncaptured local state, so replicated replay under "
@@ -90,9 +97,21 @@ class SafeKV:
         self.stable = {f: rep(x) for f, x in one.items()}
         self.dag = dagmod.init(cfg, dev)
         self.commit = tusk.init_commit(cfg, dev)
+        # effect-capture extras resolve their width against the type dims
+        # (and the cluster size), or are literal ints
+        dim_env = {**dims, "num_nodes": n}
+        for target, source in spec.dim_defaults.items():
+            if target not in dim_env and source in dim_env:
+                dim_env[target] = dim_env[source]
+        self.extra_widths = {
+            name: int(dim_env[dim]) if isinstance(dim, str) else int(dim)
+            for name, dim in spec.op_extras.items()}
         self.ops_buffer = {f: torch.zeros((w, n, self.B), dtype=torch.int32,
                                           device=dev)
                            for f in base.OP_FIELDS}
+        for name, width in self.extra_widths.items():
+            self.ops_buffer[name] = torch.zeros((w, n, self.B, width),
+                                                dtype=torch.int32, device=dev)
         self.buffer_filled = torch.zeros((w, n), dtype=torch.bool, device=dev)
         self.prosp_applied = torch.zeros((n, w, n), dtype=torch.bool, device=dev)
         self.stable_applied = torch.zeros((n, w, n), dtype=torch.bool, device=dev)
@@ -179,7 +198,8 @@ class SafeKV:
         new_buffer = {}
         for f, buf in ops_buffer.items():
             nb = buf.clone()
-            nb[s, vs] = torch.where(accepted[:, None], acc_ops[f], buf[s, vs])
+            acc = accepted.reshape((n,) + (1,) * (acc_ops[f].dim() - 1))
+            nb[s, vs] = torch.where(acc, acc_ops[f], buf[s, vs])
             new_buffer[f] = nb
         new_filled = dagmod.or_at(buffer_filled, (s, vs), accepted)
         new_applied = dagmod.or_at(prosp_applied, (vs, s, vs), accepted)
@@ -207,13 +227,15 @@ class SafeKV:
         w, n = cfg.num_rounds, cfg.num_nodes
         v = select.shape[0]
         a = min(self.apply_budget, w * n)
-        flat_ops = {f: x.reshape(w * n, self.B) for f, x in ops_buffer.items()}
+        flat_ops = {f: x.reshape((w * n, self.B) + x.shape[3:])
+                    for f, x in ops_buffer.items()}
         k = torch.where(select, order_key, INT32_MAX).reshape(v, w * n)
         idx = torch.argsort(k, dim=1, stable=True)[:, :a]           # [V, A]
         chosen = k.gather(1, idx) < INT32_MAX                        # [V, A]
-        rows = {f: x[idx] for f, x in flat_ops.items()}              # [V, A, B]
+        rows = {f: x[idx] for f, x in flat_ops.items()}              # [V, A, B, ...]
         rows["op"] = torch.where(chosen[:, :, None], rows["op"], base.OP_NOOP)
-        batch = {f: x.reshape(v, a * self.B) for f, x in rows.items()}
+        batch = {f: x.reshape((v, a * self.B) + x.shape[3:])
+                 for f, x in rows.items()}
         if self.spec.apply_ops_delta is not None:
             state, info = self.spec.apply_ops_delta(state, batch)
             dropped = info["slots_dropped"].sum()
@@ -347,7 +369,8 @@ class SafeKV:
         dag_state = dagmod.recycle(cfg, dag_state, new_base)
         cstate = tusk.recycle_commit(cfg, cstate, new_base)
         live = ~dead
-        ops_buffer = {f: torch.where(dead[:, None, None], 0, x)
+        ops_buffer = {f: torch.where(dead.reshape((w,) + (1,) * (x.dim() - 1)),
+                                     0, x)
                       for f, x in ops_buffer.items()}
         buffer_filled = buffer_filled & live[:, None]
         prosp_applied = prosp_applied & live[None, :, None]
@@ -498,7 +521,29 @@ class SafeKV:
             if update_rounds:
                 # recycling adds exactly W to a slot's round
                 self._host_slot_round[rec] += self.cfg.num_rounds
+            # a GC advance is the coordination point where tombstones
+            # whose ops left the window can be reclaimed
+            self.maybe_compact()
         return newly
+
+    def _compact_device(self, prospective, stable, ops_buffer):
+        """The type's GC-fence compaction of every view's prospective and
+        stable state, guarded by the ops still in the live window."""
+        w, n = self.cfg.num_rounds, self.cfg.num_nodes
+        flat = {f: x.reshape((w * n * self.B,) + x.shape[3:])
+                for f, x in ops_buffer.items()}
+        return (self.spec.compact_fence(prospective, flat),
+                self.spec.compact_fence(stable, flat))
+
+    def maybe_compact(self) -> bool:
+        """Compact at a GC fence (called when a round recycled slots; a
+        no-op for types without a ``compact_fence``)."""
+        if self.spec.compact_fence is None:
+            return False
+        self.prospective, self.stable = self._compact_device(
+            self.prospective, self.stable, self.ops_buffer)
+        self.stats["compactions"] += 1
+        return True
 
     def step_dispatch(self, ops: base.OpBatch,
                       safe: Optional[np.ndarray] = None,

@@ -268,3 +268,196 @@ def test_consensus_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         with pytest.raises(ValueError, match="64"):
             fn()
     assert kernels.launches() == before
+
+
+# -- the OR-Set kernels ------------------------------------------------------
+
+ORSET_FIELDS = ("tag_rep", "tag_ctr", "elem", "removed", "valid")
+
+
+def _on(tree, dev):
+    return {f: torch.as_tensor(np.asarray(v), device=dev) for f, v in tree.items()}
+
+
+def _slots(rng, shape, c, dev, **kw):
+    return _on(workloads.orset_slots(rng, shape, c, **kw), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,ca,cb,cap,canonical", [
+    ((3, 5), 6, 6, 6, False), ((7,), 8, 8, 8, True), ((2, 4), 5, 3, 4, False),
+    ((4,), 3, 2, 8, True), ((2, 50), 256, 256, 256, True)])
+def test_slot_union_kernel_matches_plain(cuda_device, lead, ca, cb, cap,
+                                         canonical):
+    """Non-canonical rows with duplicate tags inside one input, full rows
+    (overflow), unequal widths, padding, the path's 256-slot rows; and the
+    in-place form writing one union into several output replicas."""
+    rng = np.random.default_rng(ca + cb + cap)
+    a = _slots(rng, lead, ca, cuda_device, canonical=canonical, dup_rows=0.3)
+    b = _slots(rng, lead, cb, cuda_device, canonical=canonical, dup_rows=0.3)
+    before = kernels.slot_union.launches
+    got, ovf = kernels.slot_union(a, b, cap)
+    ref, rovf = kernels.slot_union_plain(a, b, cap)
+    out = {f: torch.zeros((3,) + lead + (cap,), dtype=got[f].dtype,
+                          device=cuda_device) for f in ORSET_FIELDS}
+    kernels.slot_union(a, b, cap, out=out)
+    torch.cuda.synchronize()
+    assert kernels.slot_union.launches == before + 2
+    _assert_outputs_equal(got, ref)
+    _assert_outputs_equal(ovf, rovf)
+    for f in ORSET_FIELDS:
+        assert torch.equal(out[f], ref[f].expand_as(out[f]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,k,c,b,r_cap,canonical", [
+    (3, 5, 6, 24, 3, True), (2, 4, 8, 32, 8, False), (4, 3, 4, 16, 6, True),
+    (4, 100, 64, 8192, 4, True), (1, 7, 8, 16384, 2, True)])
+def test_orset_capture_kernel_matches_plain(cuda_device, v, k, c, b, r_cap,
+                                            canonical):
+    """Keys in [-K, 2K), SENTINEL adds, a tag carried twice, r_cap > C;
+    the consensus path's shape; and a batch too wide for shared memory."""
+    rng = np.random.default_rng(b + c)
+    st = _slots(rng, (v, k), c, cuda_device, canonical=canonical, full_rows=0.4)
+    ops = workloads.orset_mixed_ops(rng, (v, b), k, c)
+    ops["a1"][:, 3], ops["a2"][:, 3] = ops["a1"][:, 1], ops["a2"][:, 1]
+    ops = _on(ops, cuda_device)
+    before = kernels.orset_capture.launches
+    got = kernels.orset_capture(st, ops, r_cap)
+    ref = kernels.orset_capture_plain(st, ops, r_cap)
+    torch.cuda.synchronize()
+    assert kernels.orset_capture.launches == before + 1
+    _assert_outputs_equal(list(got), list(ref))
+    assert bool((ref[0] != INT32_MAX).any())
+
+
+def _captured_ops(rng, st, v, b, k, c, r_cap, dev, hot=False):
+    ops = workloads.orset_mixed_ops(rng, (v, b), k, c)
+    if hot:
+        ops["key"][:] = 0
+    cap = kernels.orset_capture_plain(st, _on(ops, dev), r_cap)
+    ops.update({f: x.cpu().numpy() for f, x in
+                zip(("rm_rep", "rm_ctr", "rm_elem"), cap)})
+    return _on(workloads.with_capture_hazards(rng, ops), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,k,c,b,r_cap,canonical,hot", [
+    (3, 5, 6, 24, 3, True, False), (2, 4, 8, 32, 8, False, False),
+    (4, 100, 64, 8192, 4, True, False), (2, 3, 64, 8192, 4, True, True)])
+def test_orset_replay_kernel_matches_plain(cuda_device, v, k, c, b, r_cap,
+                                           canonical, hot):
+    """Hazard lanes, negative keys (their drops), a tag folded from four
+    copies, full rows (drops); the path's shape; one hot key whose bucket
+    is sorted in global memory."""
+    rng = np.random.default_rng(100 + b + c)
+    st = _slots(rng, (v, k), c, cuda_device, canonical=canonical, full_rows=0.4)
+    ops = _captured_ops(rng, st, v, b, k, c, r_cap, cuda_device, hot)
+    before = kernels.orset_replay.launches
+    got, drop = kernels.orset_replay(st, ops)
+    ref, rdrop = kernels.orset_replay_plain(st, ops)
+    torch.cuda.synchronize()
+    assert kernels.orset_replay.launches == before + 1
+    _assert_outputs_equal(got, ref)
+    _assert_outputs_equal(drop, rdrop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,c,b,canonical", [
+    (3, 5, 6, 24, False), (2, 4, 8, 32, True), (4, 2, 4, 32, True),
+    (8, 500, 256, 64, True)])
+def test_orset_apply_kernel_matches_plain(cuda_device, r, k, c, b, canonical):
+    """Keys in [-K, 2K), SENTINEL adds, folds, evictions from full rows
+    (counted drops), non-canonical rows; the store path's 256-slot rows."""
+    rng = np.random.default_rng(200 + b + c)
+    st = _slots(rng, (r, k), c, cuda_device, canonical=canonical, full_rows=0.5)
+    ops = _on(workloads.orset_mixed_ops(rng, (r, b), k, c), cuda_device)
+    ref = {f: x.clone() for f, x in st.items()}
+    before = kernels.orset_apply.launches
+    drop = kernels.orset_apply(st, ops)
+    rdrop = kernels.orset_apply_plain(ref, ops)
+    torch.cuda.synchronize()
+    assert kernels.orset_apply.launches == before + 1
+    _assert_outputs_equal(st, ref)
+    _assert_outputs_equal(drop, rdrop)
+
+
+@pytest.mark.cuda
+def test_orset_tick_on_card_matches_tick_on_cpu(cuda_device):
+    """The anti-entropy tick (orset_apply, then slot_union per level of the
+    converge) at 6 replicas, 40 keys, 16 slots, 32 ops, over 4 ticks."""
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    r, k, c, b = 6, 40, 16, 32
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        rng = np.random.default_rng(4)
+        minters = [TagMinter(i) for i in range(r)]
+        st = store.replicated_init(orset.SPEC, r, device=dev, num_keys=k,
+                                   capacity=c, rm_capacity=4)
+        tick = engine.make_tick(orset.SPEC, device=dev)
+        for t in range(4):
+            ops = workloads.orset_hot_window(rng, minters, k, b, t, hot=8)
+            st = tick(st, workloads.ops_to_device(ops, dev))
+        out[dev.type] = {f: x.cpu() for f, x in st.items()}
+    _assert_outputs_equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.cuda
+def test_orset_safekv_on_card_matches_safekv_on_cpu(cuda_device):
+    """SafeKV for the OR-Set (submit through orset_capture and orset_replay,
+    delta applies through orset_replay, compaction at GC advances) at N=4,
+    window 8, 64-op blocks, 12 keys, node 3 crashed for rounds 5-9: every
+    device tensor and the packed output bit-equal, round by round."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime import safecrdt
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    n, w, b, k = 4, 8, 64, 12
+    rng = np.random.default_rng(13)
+    minters = [TagMinter(i) for i in range(n)]
+    kvs = {dev.type: safecrdt.SafeKV(DagConfig(n, w), orset.SPEC,
+                                     ops_per_block=b, device=dev,
+                                     apply_budget=8, num_keys=k, capacity=16,
+                                     rm_capacity=4)
+           for dev in (cuda_device, torch.device("cpu"))}
+    before = kernels.launches()
+    for t in range(20):
+        ops = workloads.orset_add_remove(rng, minters, k, b, num_elems=8)
+        active = np.array([True] * 3 + [not 5 <= t < 10])
+        packed = {}
+        for name, kv in kvs.items():
+            packed[name], meta = kv.step_dispatch(
+                workloads.ops_to_device(ops, kv.device), active=active)
+            kv.step_absorb(packed[name], meta)
+        assert torch.equal(packed["cuda"].cpu(), packed["cpu"])
+        st = {name: convert.tree_to_numpy(
+            {f: getattr(kv, f) for f in safecrdt.DEVICE_FIELDS})
+            for name, kv in kvs.items()}
+        _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
+    grew = {name: x - before[name] for name, x in kernels.launches().items()}
+    assert grew["orset_capture"] == 20
+    assert grew["orset_replay"] == 3 * 20
+    assert kvs["cuda"].stats == kvs["cpu"].stats
+    assert kvs["cuda"].stats["compactions"] > 0
+
+
+@pytest.mark.cuda
+def test_orset_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    rng = np.random.default_rng(0)
+    st = _slots(rng, (2, 3), 4, cuda_device)
+    ops = _on(workloads.orset_mixed_ops(rng, (2, 8), 3, 4), cuda_device)
+    before = kernels.launches()
+    with pytest.raises(ValueError, match="32"):
+        kernels.orset_capture(st, ops, 33)
+    with pytest.raises(ValueError):
+        kernels.orset_apply(dict(st, elem=st["elem"].cpu()), ops)
+    with pytest.raises(ValueError):
+        kernels.slot_union(st, dict(st, removed=st["removed"].to(torch.uint8)))
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.slot_union(*(_slots(rng, (1,), 6000, cuda_device)
+                             for _ in range(2)))
+    assert kernels.launches() == before

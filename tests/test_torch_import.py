@@ -14,9 +14,13 @@ MODULES = (
     "janus_tpu_torch.convert",
     "janus_tpu_torch.ops",
     "janus_tpu_torch.ops.lattice",
+    "janus_tpu_torch.ops.setops",
+    "janus_tpu_torch.utils",
+    "janus_tpu_torch.utils.ids",
     "janus_tpu_torch.models",
     "janus_tpu_torch.models.base",
     "janus_tpu_torch.models.pncounter",
+    "janus_tpu_torch.models.orset",
     "janus_tpu_torch.kernels",
     "janus_tpu_torch.kernels.build",
     "janus_tpu_torch.kernels.pnc_apply",
@@ -27,6 +31,11 @@ MODULES = (
     "janus_tpu_torch.kernels.dag_round",
     "janus_tpu_torch.kernels.dag_phases",
     "janus_tpu_torch.kernels.leader",
+    "janus_tpu_torch.kernels.orset_rows",
+    "janus_tpu_torch.kernels.slot_union",
+    "janus_tpu_torch.kernels.orset_capture",
+    "janus_tpu_torch.kernels.orset_replay",
+    "janus_tpu_torch.kernels.orset_apply",
     "janus_tpu_torch.runtime",
     "janus_tpu_torch.runtime.store",
     "janus_tpu_torch.runtime.engine",
@@ -63,7 +72,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ``device="cpu"`` is the only way onto the CPU."""
     from janus_tpu_torch import resolve_device
     from janus_tpu_torch.consensus import DagConfig
-    from janus_tpu_torch.models import pncounter
+    from janus_tpu_torch.models import orset, pncounter
     from janus_tpu_torch.runtime import engine, store
     from janus_tpu_torch.runtime.safecrdt import SafeKV
 
@@ -79,6 +88,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SafeKV(DagConfig(4, 8), pncounter.SPEC, ops_per_block=4,
                num_keys=4, num_writers=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.make_tick(orset.SPEC)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SafeKV(DagConfig(4, 8), orset.SPEC, ops_per_block=4, num_keys=4,
+               capacity=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
