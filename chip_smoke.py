@@ -8,7 +8,7 @@ checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all nine hand kernels compiled from csrc/ with nvcc, in
+2. build      all eleven hand kernels compiled from csrc/ with nvcc, in
               parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
@@ -21,7 +21,11 @@ non-zero. Phases, one JSON line each:
               (phase orset_kernels) on random rows (full and non-canonical
               ones), hazard ops (duplicate tags, SENTINEL lanes, keys in
               [-K, 2K)), path A's ops all on one key, and the recorded calls
-              of an OR-Set SafeKV run and an OR-Set store run
+              of an OR-Set SafeKV run and an OR-Set store run; dirty_rows,
+              delta_select, replica_join_rows and slot_union_rows (phase
+              delta_kernels) on hazard ops, masks with no, all, exactly D
+              and D+1 dirty rows at odd R and R=1, the row-list joins on
+              those selections, and the recorded calls of a delta store run
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
@@ -44,11 +48,19 @@ non-zero. Phases, one JSON line each:
               advance and a compaction among them), 24 timed rounds, idle
               rounds until every view's stable state is bit-equal, rows
               canonical with no tag twice
-8. profiler_check  the kernels torch.profiler saw over 20 calls of a
+8. store_delta  the delta anti-entropy store (harness preset mixed_delta):
+              R=64 replicas, K=500 keys of a PN-Counter and of a 256-slot
+              OR-Set, B=64 ops per type per replica per tick in a Zipf hot
+              window of 32 keys; three Stores through fused_tick, one full
+              converge per tick, one delta at D=64 and one at D=16 (every
+              tick overflows), 24 ticks; every arm bit-equal to the full
+              one after every tick and after sync_all, with the launches
+              per tick, the dirty fractions and the overflow counts checked
+9. profiler_check  the kernels torch.profiler saw over 20 calls of a
               plain torch kernel, and of causal_closure right after a
               profile of tusk_commit's plain version (the kernels line
               gives each wrapper's count beside its own launch count)
-9. timing, the kernels line, the nvidia-smi line, and the result line.
+10. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -92,6 +104,17 @@ ORSET_CONS = dict(nodes=4, window=8, keys=100, ops_per_block=8192,
                   cpu_rounds=5, min_idle=16, max_idle=64, profile_rounds=3,
                   recorded_rounds=6)
 ORSET_KERNELS = ("slot_union", "orset_capture", "orset_replay", "orset_apply")
+# the delta anti-entropy store, harness preset mixed_delta: R replicas, K
+# keys of a PN-Counter (R writers) and an OR-Set (C slots), B ops per type
+# per replica per tick in a Zipf hot window of budget/2 keys; a full arm,
+# a delta arm at the budget and one at overflow_budget (every tick
+# overflows)
+STORE_DELTA = dict(R=64, K=500, C=256, rm=8, B=64, budget=64,
+                   overflow_budget=16, ticks=24, recorded_ticks=2)
+DELTA_KERNELS = ("dirty_rows", "delta_select", "replica_join_rows",
+                 "slot_union_rows")
+# a row-list mode is its kernel's source with another entry point
+SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union"}
 # the TPU-era functions each hand kernel replaces
 REPLACES = {
     "pnc_apply": "janus_tpu/models/pncounter.py:36",
@@ -103,6 +126,10 @@ REPLACES = {
     "orset_capture": "janus_tpu/models/orset.py:111",
     "orset_replay": "janus_tpu/models/orset.py:217",
     "orset_apply": "janus_tpu/models/orset.py:384",
+    "dirty_rows": "janus_tpu/models/base.py:73",
+    "delta_select": "janus_tpu/runtime/store.py:88",
+    "replica_join_rows": "janus_tpu/runtime/store.py:114",
+    "slot_union_rows": "janus_tpu/runtime/store.py:114",
 }
 
 
@@ -163,6 +190,18 @@ def device_profile(fn, reps=10):
                and "memcpy" not in e.name.lower()
                and "memset" not in e.name.lower()]
     return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def host_probe_ms(n=400):
+    """Wall ms of a fixed host-only loop: ``n`` rounds of small CPU tensor
+    ops through PyTorch's dispatcher, the kind of host work a tick's
+    dispatch does, on no device. Timed beside the ticks, it tells whether
+    their dispatch time follows the host's speed."""
+    x = torch.zeros(16, dtype=torch.int32)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x = torch.empty_like(x).copy_(x).add_(1)
+    return 1e3 * (time.perf_counter() - t0)
 
 
 def device_burst_ms(fn, reps=20):
@@ -354,7 +393,8 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        items = [tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     return tree
 
 
@@ -1009,6 +1049,279 @@ def orset_store(dev, kernels, workloads):
     return launches
 
 
+def delta_kernel_checks(dev, kernels, workloads, cases):
+    """dirty_rows, delta_select, replica_join_rows and slot_union_rows
+    against their plain versions on the card, bit-equal, counts and
+    accumulators included: (a) random ops with keys in [-K, 2K) and
+    no-ops, into fresh and running masks; (b) selections of random masks,
+    of no dirty row, every row, exactly D and D+1 dirty rows, at odd R, R=1
+    and K past one block's threads; (c) the row-list joins on the rows
+    those selections give: the PN-Counter's kernel on random states, the
+    OR-Set's halving tree run once through the kernel and once through its
+    plain version at R = 1, 2 (level 1 writes in place), 3, 5 and 8; (d)
+    every call of a 2-tick run of the delta store at the mixed_delta
+    geometry. Returns, per kernel, the (args, kwargs) of the recorded call
+    the kernels line times."""
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime.store import Store
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    log = CaseLog(DELTA_KERNELS)
+    rng = np.random.default_rng(11)
+    g = STORE_DELTA
+    R, K, C, B, D = (g[x] for x in ("R", "K", "C", "B", "budget"))
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+    def mask(r, k, p=0.0, n_dirty=None):
+        m = rng.random((r, k)) < p
+        if n_dirty is not None:  # exactly n_dirty keys, each in one replica
+            m[rng.integers(0, r, n_dirty),
+              rng.choice(k, n_dirty, replace=False)] = True
+        return torch.as_tensor(m, device=dev)
+
+    def zeros():
+        return torch.zeros((), dtype=torch.int32, device=dev)
+
+    # (a) dirty marks
+    for r, k, b in ((R, K, B), (5, 37, 333), (1, 3000, 4097)):
+        op = i32(rng.integers(0, 3, (r, b)))
+        key = i32(rng.integers(-k, 2 * k, (r, b)))
+        log.add(kernels, "dirty_rows", (op, key, k), f"fresh R{r} K{k} B{b}")
+        log.add(kernels, "dirty_rows", (op, key, k), f"running R{r} K{k} B{b}",
+                {"out": mask(r, k, 0.05)})
+
+    # (b) selections, (c) the PN-Counter's row-list join on each
+    masks = {"random": mask(R, K, 0.002), "zero": mask(R, K),
+             "all": mask(R, K, 1.0), "count_D": mask(R, K, n_dirty=D),
+             "count_D+1": mask(R, K, n_dirty=D + 1), "R5": mask(5, K, 0.01),
+             "R1": mask(1, K, 0.05), "R3_K3000": mask(3, 3000, 0.01)}
+    sel = {}
+    for name, m in masks.items():
+        sel[name] = log.add(kernels, "delta_select", (m, D), name,
+                            {"clear": True, "acc_count": zeros(),
+                             "acc_overflow": zeros()})
+        r, k = m.shape
+        w = 7 if name == "R5" else 64  # the scalar path, and the vector one
+        st = rand_state((r, k, w), dev,
+                        torch.Generator(device=dev).manual_seed(r))
+        log.add(kernels, "replica_join_rows",
+                (st["p"], st["n"], sel[name].order, sel[name].n_join), name)
+    counts = {name: (int(s.count), bool(s.overflowed), int(s.n_join))
+              for name, s in sel.items()}
+    check(counts["zero"] == (0, False, 0) and counts["all"] == (K, True, K)
+          and counts["count_D"] == (D, False, D)
+          and counts["count_D+1"] == (D + 1, True, K),
+          f"delta_select: count, overflowed, n_join {counts}")
+
+    # (c) the OR-Set's tree, kernel against plain, on small states
+    tree_cases = []
+    k, c, d = 64, 32, 16
+    for r in (1, 2, 3, 5, 8):
+        for what, m in (("random", mask(r, k, 0.05)), ("zero", mask(r, k)),
+                        ("all", mask(r, k, 1.0)),
+                        ("count_D", mask(r, k, n_dirty=d)),
+                        ("count_D+1", mask(r, k, n_dirty=d + 1))):
+            s = kernels.delta_select(m, d)
+            st = {f: torch.as_tensor(x, device=dev) for f, x in
+                  workloads.orset_slots(rng, (r, k), c, canonical=False,
+                                        dup_rows=0.3).items()}
+            st["_rm_cap"] = torch.zeros((r, 4, 0), dtype=torch.int32,
+                                        device=dev)
+            mine = tree_map(torch.Tensor.clone, st)
+            ref = tree_map(torch.Tensor.clone, st)
+            orset.join_replica_rows(mine, s.order, s.n_join)
+            real = kernels.slot_union_rows
+            kernels.slot_union_rows = kernels.slot_union_rows_plain
+            try:
+                orset.join_replica_rows(ref, s.order, s.n_join)
+            finally:
+                kernels.slot_union_rows = real
+            torch.cuda.synchronize()
+            err = tree_err(mine, ref)
+            check(err == 0, f"slot_union_rows tree R{r} {what}: "
+                  f"max_abs_err {err}")
+            check(tuple(mine["_rm_cap"].shape) == (r, 4, 0),
+                  "slot_union_rows tree: _rm_cap reshaped")
+            tree_cases.append(f"R{r} {what}")
+
+    # (d) the recorded calls of a 2-tick delta store run
+    types = {"pnc": dict(num_keys=K, num_writers=R),
+             "orset": dict(num_keys=K, capacity=C, rm_capacity=g["rm"])}
+
+    def run():
+        store = Store(R, types, dirty_budget=D, device=dev)
+        minters = [TagMinter(i) for i in range(R)]
+        for t in range(g["recorded_ticks"]):
+            ops = workloads.store_delta_tick(rng, minters, K, B, t, D // 2)
+            store.fused_tick({tc: workloads.ops_to_device(o, dev)
+                              for tc, o in ops.items()})
+
+    calls = record_calls(kernels, DELTA_KERNELS, run)
+    torch.cuda.synchronize()
+    ticks = g["recorded_ticks"]
+    levels = int(np.ceil(np.log2(R)))
+    want = {"dirty_rows": 2 * ticks, "delta_select": 2 * ticks,
+            "replica_join_rows": ticks, "slot_union_rows": levels * ticks}
+    got = {name: len(c) for name, c in calls.items()}
+    check(got == want, f"recorded store_delta: calls {got}, expected {want}")
+    for name, recorded in calls.items():
+        for j, (args, kw) in enumerate(recorded):
+            log.add(kernels, name, args, f"recorded store_delta call {j}", kw)
+    timing = {name: recorded[-1] for name, recorded in calls.items()}
+    # the first level of the OR-Set's tree: it gathers from the state
+    timing["slot_union_rows"] = calls["slot_union_rows"][0]
+    del calls
+    for name, rec in log.by.items():
+        cases.append({"kernel": name, "case": "delta_kernels",
+                      "cases": rec["cases"], "max_abs_err": rec["max_abs_err"]})
+    emit("delta_kernels", by_kernel=log.by, selections=counts,
+         slot_union_rows_tree_cases=tree_cases)
+    return timing
+
+
+def store_delta(dev, kernels, workloads):
+    """The port's run_store_delta at harness preset mixed_delta: three
+    Stores on the card get the same pre-generated two-type op streams
+    through fused_tick (24 timed ticks after one warm-up tick, the arms in
+    turns): one converges every row every tick, one only the dirty rows
+    at the budget D=64, one at D=16, which overflows every tick and falls
+    back to all rows. Replica rows are checked equal after every tick, and
+    every arm equal to the full arm; after sync_all every leaf of every
+    type is bit-equal across the arms (the harness's gate)."""
+    from janus_tpu_torch.runtime.store import Store
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    g = STORE_DELTA
+    R, K, C, B, D, ticks = (g[x] for x in
+                            ("R", "K", "C", "B", "budget", "ticks"))
+    hot = D // 2
+    types = {"pnc": dict(num_keys=K, num_writers=R),
+             "orset": dict(num_keys=K, capacity=C, rm_capacity=g["rm"])}
+    rng = np.random.default_rng(12)
+    minters = [TagMinter(i) for i in range(R)]
+    host = [workloads.store_delta_tick(rng, minters, K, B, t, hot)
+            for t in range(ticks + 1)]
+    batches = [{tc: workloads.ops_to_device(o, dev) for tc, o in h.items()}
+               for h in host]
+    kernels.reset_launches()
+    over = g["overflow_budget"]
+    arms = {"full": (Store(R, types, device=dev), False),
+            f"delta_D{D}": (Store(R, types, dirty_budget=D, device=dev), True),
+            f"delta_D{over}": (Store(R, types, dirty_budget=over, device=dev),
+                               True)}
+    for st, use_delta in arms.values():  # warm-up tick, off the clock
+        st.fused_tick(batches[0], delta=use_delta)
+        st.flush_metrics()
+    torch.cuda.synchronize()
+    tick_ms = {name: [] for name in arms}
+    dispatch_ms = {name: [] for name in arms}  # until fused_tick returns
+    grew = {name: dict.fromkeys(kernels.WRAPPERS, 0) for name in arms}
+    names = list(arms)
+    full = arms["full"][0]
+    probe_ms = []
+    for t in range(1, ticks + 1):
+        probe_ms.append(host_probe_ms())
+        for name in (names if t % 2 else names[::-1]):
+            st, use_delta = arms[name]
+            before = kernels.launches()
+            t0 = time.perf_counter()
+            st.fused_tick(batches[t], delta=use_delta)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            tick_ms[name].append(1e3 * (time.perf_counter() - t0))
+            dispatch_ms[name].append(1e3 * (t1 - t0))
+            for k, v in kernels.launches().items():
+                grew[name][k] += v - before[k]
+        for name, (st, _) in arms.items():
+            for tc, state in st.states.items():
+                for f, x in state.items():
+                    check(torch.equal(x, x[:1].expand_as(x)),
+                          f"store_delta {name}: replica rows of {tc}.{f} "
+                          f"differ after tick {t}")
+                    check(torch.equal(x, full.states[tc][f]),
+                          f"store_delta {name}: {tc}.{f} differs from the "
+                          f"full arm after tick {t}")
+    launches = kernels.launches()
+    overflows = {name: {tc: int(st._fused_acc.get(f"overflow_{tc}", 0))
+                        for tc in types} for name, (st, _) in arms.items()}
+    fracs = {name: st.flush_metrics() for name, (st, _) in arms.items()}
+    for st, _ in arms.values():
+        st.sync_all()
+    for name, (st, _) in arms.items():
+        for tc in types:
+            for f, x in full.states[tc].items():
+                y = st.states[tc][f]
+                check(x.dtype == y.dtype and x.shape == y.shape
+                      and torch.equal(x, y),
+                      f"store_delta {name}: {tc}.{f} differs from the full "
+                      f"arm after sync_all")
+    levels = int(np.ceil(np.log2(R)))
+    per_tick = {name: {k: v / ticks for k, v in counted.items() if v}
+                for name, counted in grew.items()}
+    want_full = {"pnc_apply": 1, "orset_apply": 1, "replica_join": 1,
+                 "slot_union": levels}
+    want_delta = {"pnc_apply": 1, "orset_apply": 1, "dirty_rows": 2,
+                  "delta_select": 2, "replica_join_rows": 1,
+                  "slot_union_rows": levels}
+    for name, (st, _) in arms.items():
+        want = want_full if name == "full" else want_delta
+        check(per_tick[name] == want, f"store_delta {name}: launches per "
+              f"tick {per_tick[name]}, expected {want}")
+        check(st.fused_trace_count == 1,
+              f"store_delta {name}: {st.fused_trace_count} plan builds")
+    check(all(n == 0 for n in overflows[f"delta_D{D}"].values()),
+          f"store_delta: overflows at D={D}: {overflows}")
+    check(all(n == ticks for n in overflows[f"delta_D{over}"].values()),
+          f"store_delta: overflows at D={over}: {overflows}")
+    for tc, frac in fracs[f"delta_D{D}"].items():
+        check(0 < frac <= hot / K, f"store_delta: dirty fraction of {tc} "
+              f"{frac}, expected at most the hot window's {hot / K}")
+    # device time per tick by the profiler, over a few more ticks of each
+    # arm (after the checks; the arms stay in step)
+    profiled = {}
+    for name, (st, use_delta) in arms.items():
+        more = iter(batches[1:4])
+        seen, dev_ms = device_profile(
+            lambda st=st, use_delta=use_delta: st.fused_tick(next(more),
+                                                             delta=use_delta),
+            reps=3)
+        profiled[name] = {"cuda_kernels_per_tick": seen / 3,
+                          "device_ms_per_tick": dev_ms / 3}
+    # no host synchronisation inside fused_tick, in either mode
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for st, use_delta in arms.values():
+            st.fused_tick(batches[4], delta=use_delta)
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message)[:160] for c in caught
+             if "synchroniz" in str(c.message).lower()]
+    check(not syncs, f"store_delta: host syncs inside fused_tick: {syncs[:3]}")
+    arm_out = {}
+    for name, ms in tick_ms.items():
+        sec = sum(ms) / 1e3
+        arm_out[name] = dict(**profiled[name],
+            ms_per_tick=sum(ms) / ticks, ms_per_tick_min=min(ms),
+            ms_per_tick_max=max(ms),
+            dispatch_ms_per_tick=sum(dispatch_ms[name]) / ticks,
+            dispatch_ms_per_tick_median=float(np.median(dispatch_ms[name])),
+            converged_ops_per_s=R * B * len(types) * ticks / sec,
+            dirty_fraction=fracs[name], overflows=overflows[name],
+            fused_trace_count=arms[name][0].fused_trace_count,
+            launches_per_tick=per_tick[name])
+    emit("store_delta", replicas=R, keys=K, capacity=C, writers=R,
+         ops_per_replica_per_type=B, hot_window=hot, ticks=ticks,
+         state_mb={"orset": R * K * C * 14 / 1e6,
+                   "pnc": 2 * R * K * R * 4 / 1e6},
+         arms=arm_out, host_syncs_in_fused_tick=len(syncs),
+         host_probe_ms_median=float(np.median(probe_ms)),
+         host_probe_ms_min=min(probe_ms), host_probe_ms_max=max(probe_ms),
+         launches_incl_warmup=launches)
+    return launches
+
+
 def canonical_rows(st) -> bool:
     """Rows sorted by tag with every valid slot before every invalid one,
     no tag twice, invalid slots SENTINEL keys and zero payloads."""
@@ -1201,8 +1514,82 @@ def apply_rows_touched(state, ops):
                 rows_written=torch.unique((r * K + wi)[ok]).numel())
 
 
+def delta_kernel_rows(kernels, calls):
+    """The kernels line's entries of the four delta kernels, on the last
+    recorded call of the 2-tick store run (``slot_union_rows`` on the first
+    level of the OR-Set's tree), with what the call must move: the op and
+    key fields read and one byte stored for each distinct (replica, key)
+    its live ops mark (``dirty_rows`` never reads the mask); the
+    mask read and zeroed and the order written (``delta_select``); and, for
+    the row-list joins, the rows this run's selection lists (its ``n_join``),
+    each read from every replica and written back (``replica_join_rows``),
+    or read from 2 x 32 replicas and written to 32 (``slot_union_rows``)."""
+    from janus_tpu_torch.models.base import scatter_index
+
+    rows = []
+    args, kw = calls["dirty_rows"]
+    op, key, k = args
+    r, b = op.shape
+    idx, ok = scatter_index(key, k)
+    live = (op != 0) & ok
+    hit = live.to(torch.int32)
+    counts = torch.zeros((r, k), dtype=torch.int32, device=op.device)
+    rep = torch.arange(r, device=op.device).view(r, 1).expand_as(idx)
+    marked = torch.unique((rep * k + idx)[live]).numel()
+    rows.append(dict(
+        name="dirty_rows", args=args, kw=kw,
+        library=lambda: counts.scatter_add_(-1, idx, hit),
+        library_note="scatter_add_ of the live ops' hits (the plain "
+                     "version's scatter, without its mask OR)",
+        shape=f"R{r} B{b} K{k}, a store_delta tick",
+        bytes=8 * r * b + marked, operations=r * b, keys_marked=marked))
+    args, kw = calls["delta_select"]
+    r, k = args[0].shape
+    rows.append(dict(
+        name="delta_select", args=args, kw=kw, library=None,
+        library_note="no single PyTorch call computes it: a union, a count "
+                     "and a stable partition",
+        shape=f"R{r} K{k} D{args[1]}, a store_delta tick",
+        bytes=2 * r * k + 4 * k + 4 + 4 + 1, operations=r * k))
+    args, kw = calls["replica_join_rows"]
+    p, n, order, n_rows = args
+    m = int(n_rows)
+    pick = order[:m].long()
+    r, k, w = p.shape
+    rows.append(dict(
+        name="replica_join_rows", args=args, kw=kw,
+        library=lambda: [x.index_copy_(1, pick, x.index_select(1, pick)
+                                       .amax(0, keepdim=True).expand(r, -1, -1))
+                         for x in (p, n)],
+        library_note="index_select + amax(0) + index_copy_ back, per "
+                     "polarity",
+        shape=f"R{r} K{k} W{w}, {m} rows joined",
+        bytes=2 * 2 * r * m * w * 4 + 4 * m + 4,
+        operations=2 * (r - 1) * m * w, rows_joined=m))
+    args, kw = calls["slot_union_rows"]
+    a, n_rows = args[0], args[4]
+    m = int(n_rows)
+    pairs, k, c = a["valid"].shape
+    row_bytes = sum(a[f][0, 0].numel() * a[f].element_size() for f in a)
+    rows.append(dict(
+        name="slot_union_rows", args=args, kw=kw, library=None,
+        library_note="no single PyTorch call computes it: a tag-keyed union "
+                     "with a tombstone fold and a capacity cut",
+        shape=f"first level of the OR-Set's tree: {pairs} x {m} rows, "
+              f"{c} + {c} slots",
+        bytes=3 * pairs * m * row_bytes + 4 * m + 4,
+        operations=2 * pairs * m * c * len(a), rows_joined=m))
+    for row in rows:
+        fn = kernels.WRAPPERS[row["name"]]
+        a_, k_ = row.pop("args"), row.pop("kw")
+        row["call"] = lambda fn=fn, a_=a_, k_=k_: fn(*a_, **k_)
+        row["plain"] = (lambda name=row["name"], a_=a_, k_=k_:
+                        plain_of(kernels, name)(*a_, **k_))
+    return rows
+
+
 def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
-                 orset_calls):
+                 orset_calls, delta_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -1315,6 +1702,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                          "no single PyTorch call computes it: per-lane "
                          "observed-tag capture"))
 
+    kerns += delta_kernel_rows(kernels, delta_calls)
+
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
     # plain version, ~13,000 kernels), an order in which the profiler has
@@ -1330,8 +1719,9 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     for kern in kerns:
         name = kern["name"]
         row = {k: kern[k] for k in ("bytes", "operations", "shape",
-                                    "cells_touched", "rows_read",
-                                    "rows_written", "library_note")
+                                    "cells_touched", "keys_marked",
+                                    "rows_read", "rows_written", "rows_joined",
+                                    "library_note")
                if k in kern}
         row["ms"] = time_cuda(kern["call"])
         row["plain_ms"] = time_cuda(kern["plain"], reps=plain_reps(kern["plain"]),
@@ -1350,7 +1740,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         t_ops = 1e3 * row["operations"] / INT32_OPS_PER_S
         out.append({
             "name": name, "route": "cuda",
-            "source": f"janus_tpu_torch/csrc/{name}.cu",
+            "source": f"janus_tpu_torch/csrc/{SOURCES.get(name, name)}.cu",
             "replaces": REPLACES[name],
             "launches": sum(p[name] for p in path_launches.values()),
             "launches_by_path": {path: p[name]
@@ -1401,15 +1791,19 @@ def main() -> int:
                          workloads, cases)
     orset_calls = timed("orset_kernels", orset_kernel_checks, dev, kernels,
                         workloads, cases)
+    delta_calls = timed("delta_kernels", delta_kernel_checks, dev, kernels,
+                        workloads, cases)
     paths = {"fast_path": timed("fast_path", fast_path, dev, kernels, workloads),
              "consensus": timed("consensus", consensus_path, dev, kernels,
                                 workloads, cases),
              "orset_store": timed("orset_store", orset_store, dev, kernels,
                                   workloads),
              "orset_consensus": timed("orset_consensus", orset_consensus, dev,
-                                      kernels, workloads)}
+                                      kernels, workloads),
+             "store_delta": timed("store_delta", store_delta, dev, kernels,
+                                  workloads)}
     line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
-                 cases, timing_calls, orset_calls)
+                 cases, timing_calls, orset_calls, delta_calls)
     emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -92,6 +92,34 @@ def orset_hot_window(rng: np.random.Generator, minters, num_keys: int,
                      a1=tags[..., 0], a2=tags[..., 1])
 
 
+def pnc_hot_window(rng: np.random.Generator, num_replicas: int,
+                   num_keys: int, batch: int, tick: int, hot: int,
+                   theta: float = 0.99) -> dict:
+    """One tick of the anti-entropy store's PN-Counter traffic: inc/dec
+    with amounts in [1, 10), writer lane = replica, keys Zipf-skewed inside
+    the same rotating hot window as ``orset_hot_window``. The draws follow
+    the JAX harness's PN-Counter half of its store geometry (op, keys,
+    amounts)."""
+    shape = (num_replicas, batch)
+    base_key = (tick * hot) % num_keys
+    op = rng.integers(pncounter.OP_INC, pncounter.OP_DEC + 1, shape)
+    keys = (base_key + zipf_keys(rng, hot, shape, theta)) % num_keys
+    return _op_batch(shape, op=op, key=keys, a0=rng.integers(1, 10, shape),
+                     writer=np.arange(num_replicas)[:, None])
+
+
+def store_delta_tick(rng: np.random.Generator, minters, num_keys: int,
+                     batch: int, tick: int, hot: int,
+                     theta: float = 0.99) -> dict:
+    """One tick of the two-type store (``{"pnc": ..., "orset": ...}``,
+    one replica per minter), drawn in the JAX harness's order: the
+    PN-Counter's ops, then the OR-Set's."""
+    return {"pnc": pnc_hot_window(rng, len(minters), num_keys, batch, tick,
+                                  hot, theta),
+            "orset": orset_hot_window(rng, minters, num_keys, batch, tick,
+                                      hot, theta)}
+
+
 def orset_slots(rng: np.random.Generator, shape, capacity: int,
                 full_rows: float = 0.25, fill: float = 0.6, reps: int = 4,
                 num_elems: int = 8, removed: float = 0.3,

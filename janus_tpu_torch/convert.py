@@ -30,3 +30,15 @@ def tree_from_numpy(tree, device=None):
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dev) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+
+def load_store(store, states, dirty) -> None:
+    """Continue a run in the port's ``runtime.store.Store``: replace its
+    per-type ``states`` and ``dirty`` masks with ``states`` and ``dirty``
+    (``{type_code: ...}`` of arrays, e.g. a JAX ``Store``'s attributes of
+    the same names), on the store's device."""
+    for tc in store.states:
+        store.states[tc] = tree_from_numpy(tree_to_numpy(states[tc]),
+                                           store.device)
+        store.dirty[tc] = tree_from_numpy(tree_to_numpy(dirty[tc]),
+                                          store.device)

@@ -21,7 +21,7 @@ from pathlib import Path
 
 KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
            "dag_round", "slot_union", "orset_capture", "orset_replay",
-           "orset_apply")
+           "orset_apply", "dirty_rows", "delta_select")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"

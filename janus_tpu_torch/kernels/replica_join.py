@@ -6,8 +6,13 @@ Replaces janus_tpu/runtime/store.py ``converge`` (``join_all`` by
 rows). Bound on the H100 by bytes: P and N are each read once and written
 once; see the source note for the design.
 
-The wrapper launches the CUDA kernel for CUDA tensors (or raises) and
-runs ``replica_join_plain`` only for tensors that lie on the CPU.
+``replica_join_rows`` is the kernel's row-list mode: the same join over
+listed key rows only, the count of rows read from device memory. It
+replaces the slab gather, ``join_all`` and scatter of
+janus_tpu/runtime/store.py ``converge_delta`` for the PN-Counter.
+
+The wrappers launch the CUDA kernel for CUDA tensors (or raise) and
+run their plain versions only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -32,6 +37,10 @@ def _lib():
         lib.replica_join_launch.argtypes = [
             ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr]
         lib.replica_join_launch.restype = ctypes.c_int
+        lib.replica_join_rows_launch.argtypes = [
+            ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ptr,
+            ctypes.c_int, ptr, ptr]
+        lib.replica_join_rows_launch.restype = ctypes.c_int
     return lib
 
 
@@ -59,3 +68,44 @@ def replica_join(p: torch.Tensor, n: torch.Tensor) -> None:
 
 
 replica_join.launches = 0
+
+
+def replica_join_rows_plain(p: torch.Tensor, n: torch.Tensor,
+                            rows: torch.Tensor, n_rows: torch.Tensor) -> None:
+    """Plain PyTorch version: gather the first ``n_rows`` listed key rows,
+    ``amax(0)``, and write them back into every replica, in place."""
+    idx = rows[:int(n_rows)].long()
+    for x in (p, n):
+        x[:, idx] = x[:, idx].amax(0, keepdim=True)
+
+
+def replica_join_rows(p: torch.Tensor, n: torch.Tensor, rows: torch.Tensor,
+                      n_rows: torch.Tensor) -> None:
+    """Set key rows ``rows[:n_rows]`` of every replica of ``p`` and ``n``
+    (int32 ``[R, K, ...]``) to their max over the replica axis, in place.
+    ``rows``: int32[L], distinct keys in [0, K); ``n_rows``: int32[] on
+    the same device, read there (no host sync), at most L counted."""
+    if p.dim() < 2:
+        raise ValueError("replica_join_rows: p has no [R, K] axes")
+    i32 = torch.int32
+    L = rows.shape[0] if rows.dim() == 1 else -1
+    dev = operands.placement("replica_join_rows", [
+        ("p", p, i32, p.shape), ("n", n, i32, p.shape),
+        ("rows", rows, i32, (L,)), ("n_rows", n_rows, i32, ())])
+    if dev is None:
+        return replica_join_rows_plain(p, n, rows, n_rows)
+    R, K = p.shape[:2]
+    row = p[0, 0].numel() if R * K else 0
+    if R * K * row * L == 0:
+        return
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.replica_join_rows_launch(
+            p.data_ptr(), n.data_ptr(), R, K, row, rows.data_ptr(), L,
+            n_rows.data_ptr(), stream)
+    build.check_launch("replica_join_rows", rc)
+    replica_join_rows.launches += 1
+
+
+replica_join_rows.launches = 0

@@ -6,8 +6,14 @@ Replaces janus_tpu/ops/setops.py ``slot_union`` with the OR-Set's fold
 the replica-axis converge. Bound on the H100 by bytes: every input slot is
 read once and every output slot written once; see the source note.
 
-The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
-``slot_union_plain`` only for tensors that lie on the CPU.
+``slot_union_rows`` is the kernel's row-list mode: one level of the
+converge's halving tree over listed key rows only, the count of rows read
+from device memory. ``models.orset.join_replica_rows`` runs the tree with
+it in place of the slab gather, ``join_all`` and scatter of
+janus_tpu/runtime/store.py ``converge_delta``.
+
+The wrappers launch the CUDA kernel for CUDA tensors (or raise) and run
+their plain versions only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -46,6 +52,10 @@ def _lib():
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ptr]
         lib.slot_union_launch.restype = ctypes.c_int
+        lib.slot_union_rows_launch.argtypes = [ptr] * 15 + [
+            ptr, ctypes.c_int, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+        lib.slot_union_rows_launch.restype = ctypes.c_int
     return lib
 
 
@@ -100,3 +110,67 @@ def slot_union(a, b, capacity: int | None = None, out=None):
 
 
 slot_union.launches = 0
+
+
+def slot_union_rows_plain(a, b, out, rows, n_rows, gather: bool = True,
+                          scatter: bool = False):
+    """Plain PyTorch version: gather the listed rows, ``slot_union_plain``,
+    write the result back. Arguments as for ``slot_union_rows``."""
+    m = int(n_rows)
+    keys = rows[:m].long()
+    src = keys if gather else torch.arange(keys.numel(), device=keys.device)
+    res, _ = slot_union_plain({f: a[f][:, src] for f in FIELDS},
+                              {f: b[f][:, src] for f in FIELDS},
+                              a["valid"].shape[-1])
+    for f in FIELDS:
+        if scatter:
+            out[f][:, keys] = res[f]
+        else:
+            out[f][:, :keys.numel()] = res[f]
+    return out
+
+
+def slot_union_rows(a, b, out, rows, n_rows, gather: bool = True,
+                    scatter: bool = False):
+    """One level of the converge's halving tree over listed key rows: for
+    ``j < n_rows`` (int32[] on the device, read there; at most L counted)
+    and each pair ``r``, the union of ``a[r, x]`` and ``b[r, x]`` with
+    ``x = rows[j]`` (``gather``: a and b are views of the state) or ``x =
+    j`` (scratch of an earlier level). Without ``scatter`` it is written at
+    ``out[r, j]``; with it (one pair) at ``out[p, rows[j]]`` for every
+    replica p of the state ``out`` (which may then alias a and b). ``a``,
+    ``b``: ``[P, K, C]`` slot sets, ``out`` ``[P, K, C]`` or ``[R, K, C]``;
+    ``rows``: int32[L] distinct keys in [0, K). Returns ``out``."""
+    if a["valid"].dim() != 3:
+        raise ValueError(f"slot_union_rows: a has shape "
+                         f"{tuple(a['valid'].shape)}, expected [P, K, C]")
+    P, K, C = a["valid"].shape
+    L = rows.shape[0] if rows.dim() == 1 else -1
+    out_lead = tuple(out["valid"].shape[:1]) if scatter else (P,)
+    if scatter and P != 1:
+        raise ValueError(f"slot_union_rows: scatter takes one pair, got {P}")
+    dev = operands.placement("slot_union_rows", [
+        *slot_operands("a.", a, (P, K, C)), *slot_operands("b.", b, (P, K, C)),
+        *slot_operands("out.", out, out_lead + (K, C)),
+        ("rows", rows, torch.int32, (L,)), ("n_rows", n_rows, torch.int32, ())])
+    if dev is None:
+        return slot_union_rows_plain(a, b, out, rows, n_rows, gather, scatter)
+    operands.check_shared("slot_union_rows", shared_bytes(C, C))
+    repeat = out_lead[0]
+    if P * K * C * L * repeat == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.slot_union_rows_launch(
+            *(a[f].data_ptr() for f in FIELDS),
+            *(b[f].data_ptr() for f in FIELDS),
+            *(out[f].data_ptr() for f in FIELDS), rows.data_ptr(), L,
+            n_rows.data_ptr(), P, K, C, int(gather), int(scatter), repeat,
+            stream)
+    build.check_launch("slot_union_rows", rc)
+    slot_union_rows.launches += 1
+    return out
+
+
+slot_union_rows.launches = 0

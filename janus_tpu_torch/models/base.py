@@ -86,26 +86,6 @@ def gather_index(idx: torch.Tensor, size: int) -> torch.Tensor:
     return idx.clamp(0, max(size - 1, 0)).long()
 
 
-def op_dirty_rows(ops: OpBatch, num_keys: int) -> torch.Tensor:
-    """bool[..., K]: key rows touched by non-noop ops of one batch (the
-    per-batch dirty set for delta convergence); batches over leading
-    axes of ``ops``."""
-    key, valid = scatter_index(ops["key"], num_keys)
-    hit = ((ops["op"] != OP_NOOP) & valid).to(torch.int32)
-    count = torch.zeros(ops["key"].shape[:-1] + (num_keys,), dtype=torch.int32,
-                        device=key.device)
-    return count.scatter_add_(-1, key, hit) > 0
-
-
-def delta_info(dirty: torch.Tensor, slots_dropped=0) -> Dict[str, torch.Tensor]:
-    """The uniform second return of ``apply_ops_delta``: the dirty mask
-    plus a count of slot records dropped by capacity pressure."""
-    if not isinstance(slots_dropped, torch.Tensor):  # no host-to-device copy
-        slots_dropped = torch.full((), slots_dropped, dtype=torch.int32,
-                                   device=dirty.device)
-    return {"dirty": dirty, "slots_dropped": slots_dropped.to(torch.int32)}
-
-
 @dataclasses.dataclass(frozen=True)
 class CRDTTypeSpec:
     """One replicated type: its state constructor, op application, join,
@@ -126,8 +106,10 @@ class CRDTTypeSpec:
     # an int or a dim name resolved against the type's init dims) filled
     # at submit time by ``prepare_ops_batch(origin_state, ops) -> ops``.
     op_extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    # ``apply_ops_delta(state, ops) -> (state, delta_info(...))``
-    apply_ops_delta: "Callable[[Any, OpBatch], Any] | None" = None
+    # ``apply_ops_dropped(state, ops) -> (state, dropped int32[...])``: the
+    # apply with its per-batch count of slot records dropped by capacity,
+    # and no dirty mask (the method ``apply_ops_delta`` adds the mask)
+    apply_ops_dropped: "Callable[[Any, OpBatch], Any] | None" = None
     # dim-name defaults for op_extras resolution (e.g. OR-Set
     # rm_capacity -> capacity)
     dim_defaults: Dict[str, str] = dataclasses.field(default_factory=dict)
@@ -146,6 +128,29 @@ class CRDTTypeSpec:
     # the join of all rows (a hand kernel); ``runtime.store.converge``
     # needs it.
     join_replicas: Callable[[Any], Any] | None = None
+    # ``join_replica_rows(state, rows, n_rows)``: the same join over key
+    # rows ``rows[:n_rows]`` only (int32[L] distinct keys, int32[] count on
+    # the device, read there), in place; ``runtime.store.converge_delta``
+    # needs it.
+    join_replica_rows: Callable[[Any, Any, Any], Any] | None = None
+
+    def apply_ops_delta(self, state: Any, ops: OpBatch, dirty=None):
+        """Delta form of the apply: ``apply_ops_dropped`` plus the mask of
+        the key rows the batch's live ops touch (the ``dirty_rows``
+        kernel), ORed into ``dirty``, the running ``[..., K]`` mask, in
+        place when given. Returns ``(state, {"dirty": mask,
+        "slots_dropped": dropped})``."""
+        from janus_tpu_torch.kernels import dirty_rows  # kernels import base
+
+        if self.apply_ops_dropped is None:
+            raise ValueError(f"{self.name} has no apply_ops_dropped")
+        # the key axis is the second-last of every leaf but the zero-size
+        # shape carriers (names starting with "_")
+        num_keys = next(x for f, x in state.items()
+                        if not f.startswith("_")).shape[-2]
+        st, dropped = self.apply_ops_dropped(state, ops)
+        mask = dirty_rows(ops["op"], ops["key"], num_keys, out=dirty)
+        return st, {"dirty": mask, "slots_dropped": dropped}
 
 
 def capture_and_apply(spec: CRDTTypeSpec, state: Any, ops: OpBatch):

@@ -15,7 +15,10 @@ The device work runs through four hand kernels (``janus_tpu_torch.kernels``):
 - ``orset_replay``   captured batches: the consensus path's apply
 - ``orset_apply``    uncaptured batches: the sequential per-op apply, in place
 - ``slot_union``     the join (``merge``) and the replica-axis converge
-                     (``join_replicas``)
+                     (``join_replicas``; its row-list mode
+                     ``slot_union_rows`` for ``join_replica_rows``)
+
+The dirty rows of a delta apply are the ``dirty_rows`` kernel.
 
 Every function batches over leading axes of the state (``[..., K, C]``
 with op fields ``[..., B]``). ``compact`` and ``compact_fence`` are plain
@@ -122,14 +125,6 @@ def apply_ops(state: State, ops: base.OpBatch) -> State:
     return _apply_ops_impl(state, ops)[0]
 
 
-def apply_ops_delta(state: State, ops: base.OpBatch):
-    """``(state, delta_info)`` with the dirty-row mask and the count of
-    slot records dropped by capacity pressure."""
-    st, dropped = _apply_ops_impl(state, ops)
-    K = state["valid"].shape[-2]
-    return st, base.delta_info(base.op_dirty_rows(ops, K), dropped)
-
-
 def merge(a: State, b: State) -> State:
     out, _ = merge_with_stats(a, b)
     return out
@@ -163,6 +158,52 @@ def join_replicas(state: State) -> State:
         kernels.slot_union({f: x[:1] for f, x in cur.items()},
                            {f: x[1:2] for f, x in cur.items()}, cap,
                            out={f: state[f].unsqueeze(1) for f in FIELDS})
+    return state
+
+
+_SCRATCH: Dict[tuple, State] = {}
+
+
+def _tree_scratch(state: State, half: int) -> State:
+    """The ``[half, K, C]`` scratch of one level of ``join_replica_rows``
+    for this state's geometry and device, made at the first call. A level
+    reads its input scratch before it writes its output, and the levels of
+    one tree have distinct sizes, so calls on one stream may share it."""
+    K, C = state["valid"].shape[-2:]
+    dev = state["valid"].device
+    key = (dev, half, K, C)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = {f: torch.empty((half, K, C), dtype=state[f].dtype,
+                                        device=dev) for f in FIELDS}
+    return _SCRATCH[key]
+
+
+def join_replica_rows(state: State, rows: torch.Tensor,
+                      n_rows: torch.Tensor) -> State:
+    """``join_replicas`` over key rows ``rows[:n_rows]`` only, in place:
+    the same halving tree, one ``slot_union_rows`` launch per level. Level
+    1 reads the listed rows from the state, the middle levels work in
+    ``[half, K, C]`` scratch, kept per geometry so that a tick allocates
+    nothing (only the listed rows of it are written and read), and the
+    last writes each joined row into all R replicas at its key.
+    ``_rm_cap`` is carried through untouched (a zero-width leaf; nothing
+    indexes it)."""
+    r, K, C = state["valid"].shape
+    cur = {f: state[f] for f in FIELDS}
+    listed = True
+    n = r
+    while n > 2:
+        half = (n + 1) // 2
+        nxt = _tree_scratch(state, half)
+        kernels.slot_union_rows({f: x[:half] for f, x in cur.items()},
+                                {f: x[n - half:n] for f, x in cur.items()},
+                                nxt, rows, n_rows, gather=listed)
+        cur, listed, n = nxt, False, half
+    if n == 2:
+        kernels.slot_union_rows({f: x[:1] for f, x in cur.items()},
+                                {f: x[1:2] for f, x in cur.items()},
+                                {f: state[f] for f in FIELDS}, rows, n_rows,
+                                gather=listed, scatter=True)
     return state
 
 
@@ -237,8 +278,11 @@ SPEC = base.register_type(
         op_extras={f: "rm_capacity" for f in CAPTURE_FIELDS},
         dim_defaults={"rm_capacity": "capacity"},
         prepare_ops_batch=prepare_ops_batch,
-        apply_ops_delta=apply_ops_delta,
+        apply_ops_dropped=_apply_ops_impl,
         compact_fence=compact_fence,
         join_replicas=join_replicas,
+        join_replica_rows=join_replica_rows,
     )
 )
+
+apply_ops_delta = SPEC.apply_ops_delta

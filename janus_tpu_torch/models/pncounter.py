@@ -4,8 +4,9 @@
 One ``int32[..., K, W]`` tensor per polarity for K keys and W writer
 slots, with any number of leading replica axes. ``apply_ops`` is the
 ``pnc_apply`` hand kernel and the replica-axis join is the
-``replica_join`` hand kernel (``join_replicas``); both update the state
-in place.
+``replica_join`` hand kernel (``join_replicas``, and its row-list mode
+``join_replica_rows`` for delta anti-entropy); all update the state in
+place. The dirty rows of a delta apply are the ``dirty_rows`` kernel.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Dict
 
 import torch
 
+from janus_tpu_torch import kernels
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.kernels import pnc_apply, replica_join
 from janus_tpu_torch.kernels.pnc_apply import OP_DEC, OP_INC  # noqa: F401
@@ -50,11 +52,12 @@ def apply_ops(state: State, ops: base.OpBatch) -> State:
     return state
 
 
-def apply_ops_delta(state: State, ops: base.OpBatch):
-    """Delta form: apply + the dirty mask of rows this batch scattered
-    into. A counter has no slot capacity, so nothing can drop."""
-    K = state["p"].shape[-2]
-    return apply_ops(state, ops), base.delta_info(base.op_dirty_rows(ops, K))
+def apply_ops_dropped(state: State, ops: base.OpBatch):
+    """Apply + the per-batch drop count: a counter has no slot capacity,
+    so nothing can drop."""
+    lead = state["p"].shape[:-2]
+    return apply_ops(state, ops), torch.zeros(lead, dtype=torch.int32,
+                                              device=state["p"].device)
 
 
 def merge(a: State, b: State) -> State:
@@ -66,6 +69,14 @@ def join_replicas(state: State) -> State:
     """Set every row of the leading replica axis to the join of all rows,
     in place (the ``replica_join`` kernel)."""
     replica_join(state["p"], state["n"])
+    return state
+
+
+def join_replica_rows(state: State, rows: torch.Tensor,
+                      n_rows: torch.Tensor) -> State:
+    """``join_replicas`` over key rows ``rows[:n_rows]`` only, in place
+    (the ``replica_join_rows`` kernel)."""
+    kernels.replica_join_rows(state["p"], state["n"], rows, n_rows)
     return state
 
 
@@ -88,7 +99,10 @@ SPEC = base.register_type(
         # scatter-add of shipped amounts: order-insensitive, reads no
         # local state -> replay-safe without capture
         replay_safe=True,
-        apply_ops_delta=apply_ops_delta,
+        apply_ops_dropped=apply_ops_dropped,
         join_replicas=join_replicas,
+        join_replica_rows=join_replica_rows,
     )
 )
+
+apply_ops_delta = SPEC.apply_ops_delta

@@ -236,9 +236,10 @@ class SafeKV:
         rows["op"] = torch.where(chosen[:, :, None], rows["op"], base.OP_NOOP)
         batch = {f: x.reshape((v, a * self.B) + x.shape[3:])
                  for f, x in rows.items()}
-        if self.spec.apply_ops_delta is not None:
-            state, info = self.spec.apply_ops_delta(state, batch)
-            dropped = info["slots_dropped"].sum()
+        if self.spec.apply_ops_dropped is not None:
+            # the drop count only: a dirty mask would go unused here
+            state, dropped = self.spec.apply_ops_dropped(state, batch)
+            dropped = dropped.sum()
         else:
             state = self.spec.apply_ops(state, batch)
             dropped = torch.zeros((), dtype=torch.int32, device=self.device)

@@ -461,3 +461,149 @@ def test_orset_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         kernels.slot_union(*(_slots(rng, (1,), 6000, cuda_device)
                              for _ in range(2)))
     assert kernels.launches() == before
+
+
+def _dirty_mask(rng, r, k, p, dev, hot=None):
+    """bool[r, k]: each bit set with probability p, or exactly the keys
+    ``hot`` set in replica 0."""
+    m = rng.random((r, k)) < p
+    if hot is not None:
+        m[:] = False
+        m[0, hot] = True
+    return torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,b", [(64, 500, 64), (3, 7, 33), (1, 5000, 4097)])
+def test_dirty_rows_kernel_matches_plain(cuda_device, r, k, b):
+    """Keys in [-K, 2K) and no-ops, into a fresh mask and ORed into a
+    running one."""
+    rng = np.random.default_rng(r + k)
+    op = torch.from_numpy(rng.integers(0, 3, (r, b)).astype(np.int32)).to(cuda_device)
+    key = torch.from_numpy(rng.integers(-k, 2 * k, (r, b)).astype(np.int32)).to(cuda_device)
+    running = _dirty_mask(rng, r, k, 0.05, cuda_device)
+    before = kernels.dirty_rows.launches
+    fresh = kernels.dirty_rows(op, key, k)
+    mine = kernels.dirty_rows(op, key, k, out=running.clone())
+    ref_fresh = kernels.dirty_rows_plain(op, key, k)
+    ref = kernels.dirty_rows_plain(op, key, k, out=running.clone())
+    torch.cuda.synchronize()
+    assert kernels.dirty_rows.launches == before + 2
+    assert torch.equal(fresh, ref_fresh) and torch.equal(mine, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,case", [
+    (64, 500, "random"), (64, 500, "zero"), (64, 500, "all"),
+    (5, 3000, "random"), (1, 37, "random"), (3, 500, "budget"),
+    (3, 500, "budget+1")])
+def test_delta_select_kernel_matches_plain(cuda_device, r, k, case):
+    """Random masks (odd R, R=1, K over one block's 1024 threads), none
+    dirty, all dirty, a count exactly at the budget and one over it; with
+    the mask consumed and the running sums added."""
+    rng = np.random.default_rng(k + r)
+    budget = 64
+    if case == "zero":
+        mask = _dirty_mask(rng, r, k, 0.0, cuda_device)
+    elif case == "all":
+        mask = _dirty_mask(rng, r, k, 1.0, cuda_device)
+    elif case.startswith("budget"):
+        n = budget + (case == "budget+1")
+        mask = _dirty_mask(rng, r, k, 0, cuda_device,
+                           hot=rng.choice(k, n, replace=False))
+    else:
+        mask = _dirty_mask(rng, r, k, 0.01, cuda_device)
+    acc = [torch.zeros((), dtype=torch.int32, device=cuda_device) for _ in range(4)]
+    d_mine, d_ref = mask.clone(), mask.clone()
+    before = kernels.delta_select.launches
+    mine = kernels.delta_select(d_mine, budget, clear=True, acc_count=acc[0],
+                                acc_overflow=acc[1])
+    ref = kernels.delta_select_plain(d_ref, budget, clear=True,
+                                     acc_count=acc[2], acc_overflow=acc[3])
+    torch.cuda.synchronize()
+    assert kernels.delta_select.launches == before + 1
+    for x, y in zip(mine, ref):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert torch.equal(acc[0], acc[2]) and torch.equal(acc[1], acc[3])
+    assert not d_mine.any()
+    if case.startswith("budget"):
+        assert bool(mine.overflowed) == (case == "budget+1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,w,n_rows", [
+    (64, 500, 64, 32), (64, 500, 64, 500), (5, 9, 7, 4), (1, 6, 4, 6),
+    (3, 40, 3, 0)])
+def test_replica_join_rows_kernel_matches_plain(cuda_device, r, k, w, n_rows):
+    """Listed rows only (the rest untouched), all K rows, odd R, R=1, the
+    scalar and the vector path, and nothing to join."""
+    rng = np.random.default_rng(r * k)
+    st = {f: torch.from_numpy(_rand(rng, (r, k, w))).to(cuda_device) for f in "pn"}
+    rows = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(cuda_device)
+    n = torch.tensor(n_rows, dtype=torch.int32, device=cuda_device)
+    ref = {f: v.clone() for f, v in st.items()}
+    before = kernels.replica_join_rows.launches
+    kernels.replica_join_rows(st["p"], st["n"], rows, n)
+    kernels.replica_join_rows_plain(ref["p"], ref["n"], rows, n)
+    torch.cuda.synchronize()
+    assert kernels.replica_join_rows.launches == before + 1
+    for f in "pn":
+        assert torch.equal(st[f], ref[f])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,c,n_rows", [
+    (8, 40, 16, 5), (5, 40, 16, 40), (2, 30, 8, 7), (3, 9, 6, 9), (1, 4, 4, 4),
+    (64, 50, 256, 20)])
+def test_join_replica_rows_on_card_matches_plain(cuda_device, r, k, c, n_rows):
+    """The OR-Set's row-list converge (``slot_union_rows`` per level of the
+    halving tree) against the same tree of plain versions, on random
+    non-canonical rows: every R from 1 (no launch) through odd counts to
+    R=2 (level 1 writes in place) and 64."""
+    from janus_tpu_torch.models import orset
+
+    rng = np.random.default_rng(r + k + c)
+    st = _slots(rng, (r, k), c, cuda_device, canonical=False, dup_rows=0.3)
+    st["_rm_cap"] = torch.zeros((r, 4, 0), dtype=torch.int32, device=cuda_device)
+    rows = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(cuda_device)
+    n = torch.tensor(n_rows, dtype=torch.int32, device=cuda_device)
+    ref = {f: x.clone() for f, x in st.items()}
+    before = kernels.slot_union_rows.launches
+    orset.join_replica_rows(st, rows, n)
+    real = kernels.slot_union_rows
+    kernels.slot_union_rows = kernels.slot_union_rows_plain
+    try:
+        orset.join_replica_rows(ref, rows, n)
+    finally:
+        kernels.slot_union_rows = real
+    torch.cuda.synchronize()
+    assert kernels.slot_union_rows.launches == before + int(np.ceil(np.log2(r)))
+    _assert_outputs_equal(st, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [64, 16])
+def test_store_fused_tick_on_card_matches_cpu(cuda_device, budget):
+    """The two-type store at 8 replicas, 200 keys, B=32, hot window 32:
+    delta fused ticks on the card equal the same ticks on the CPU, with
+    equal accumulators; budget 16 overflows."""
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    types = {"pnc": dict(num_keys=200, num_writers=8),
+             "orset": dict(num_keys=200, capacity=32, rm_capacity=4)}
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        rng = np.random.default_rng(8)
+        minters = [TagMinter(i) for i in range(8)]
+        st = store.Store(8, types, dirty_budget=budget, device=dev)
+        for t in range(4):
+            ops = workloads.store_delta_tick(rng, minters, 200, 32, t, 32)
+            st.fused_tick({tc: workloads.ops_to_device(o, dev)
+                           for tc, o in ops.items()})
+        out[dev.type] = ({tc: {f: x.cpu() for f, x in s.items()}
+                          for tc, s in st.states.items()},
+                         {k: int(v) for k, v in st._fused_acc.items()})
+    for tc in types:
+        _assert_outputs_equal(out["cuda"][0][tc], out["cpu"][0][tc])
+    assert out["cuda"][1] == out["cpu"][1]
+    assert (out["cuda"][1]["overflow_orset"] > 0) == (budget == 16)

@@ -36,6 +36,10 @@ MODULES = (
     "janus_tpu_torch.kernels.orset_capture",
     "janus_tpu_torch.kernels.orset_replay",
     "janus_tpu_torch.kernels.orset_apply",
+    "janus_tpu_torch.kernels.dirty_rows",
+    "janus_tpu_torch.kernels.delta_select",
+    "janus_tpu_torch.obs",
+    "janus_tpu_torch.obs.metrics",
     "janus_tpu_torch.runtime",
     "janus_tpu_torch.runtime.store",
     "janus_tpu_torch.runtime.engine",
@@ -94,7 +98,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SafeKV(DagConfig(4, 8), orset.SPEC, ops_per_block=4, num_keys=4,
                capacity=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.make_delta_tick(orset.SPEC, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        store.Store(2, {"pnc": dict(num_keys=4, num_writers=2)},
+                    dirty_budget=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     SafeKV(DagConfig(4, 8), pncounter.SPEC, ops_per_block=4, device="cpu",
            num_keys=4, num_writers=4)
+    store.Store(2, {"orset": dict(num_keys=4, capacity=4)}, device="cpu")
