@@ -8,7 +8,7 @@ checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all eleven hand kernels compiled from csrc/ with nvcc, in
+2. build      all fourteen kernel sources in csrc/ compiled with nvcc, in
               parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
@@ -25,7 +25,15 @@ non-zero. Phases, one JSON line each:
               delta_select, replica_join_rows and slot_union_rows (phase
               delta_kernels) on hazard ops, masks with no, all, exactly D
               and D+1 dirty rows at odd R and R=1, the row-list joins on
-              those selections, and the recorded calls of a delta store run
+              those selections, and the recorded calls of a delta store
+              run; rga_union, rga_union_rows, rga_apply, rga_compact and
+              rga_order (phase rga_kernels) on random canonical and
+              non-canonical rows, deep random trees (chains past
+              max_depth, dangling and cyclic parents, dead interior nodes,
+              invalid slots mid-row), full rows that drop, deletes before
+              their insert, keys in [-K, 2K), and every call of the rga
+              preset's first two ticks, its first compaction, tick 3's
+              apply and compaction, a text and two delta ticks
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
@@ -56,11 +64,20 @@ non-zero. Phases, one JSON line each:
               tick overflows), 24 ticks; every arm bit-equal to the full
               one after every tick and after sync_all, with the launches
               per tick, the dirty fractions and the overflow counts checked
-9. profiler_check  the kernels torch.profiler saw over 20 calls of a
+9. rga_replay  harness preset rga (BASELINE config 5), uncut: R=1,024
+              replicas, K=128 documents of 1,024 slots (2.95 GB), 16 insert
+              and 16 delete lanes per replica per tick, 64 ticks of
+              make_tick with a compaction every 4, the first off the clock,
+              then 8 texts of document 0; a second arm through
+              Store.fused_tick at dirty budget K; replicas and arms
+              bit-equal, 256 live elements per document, nothing dropped,
+              no depth overflow, the text of document 0 equal to an
+              independent numpy model
+10. profiler_check  the kernels torch.profiler saw over 20 calls of a
               plain torch kernel, and of causal_closure right after a
               profile of tusk_commit's plain version (the kernels line
               gives each wrapper's count beside its own launch count)
-10. timing, the kernels line, the nvidia-smi line, and the result line.
+11. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -113,8 +130,48 @@ STORE_DELTA = dict(R=64, K=500, C=256, rm=8, B=64, budget=64,
                    overflow_budget=16, ticks=24, recorded_ticks=2)
 DELTA_KERNELS = ("dirty_rows", "delta_select", "replica_join_rows",
                  "slot_union_rows")
-# a row-list mode is its kernel's source with another entry point
-SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union"}
+# harness preset rga (BASELINE config 5), uncut: R replicas, K documents,
+# L insert and L delete lanes per replica per tick, deletes of the insert
+# `lag` ticks back, a compaction every `compact_every` ticks, 64 ticks (the
+# first off the clock), then `text_calls` texts of document 0; the
+# profiler reads `profile_ticks` more ticks of the trace on a copy
+RGA_REPLAY = dict(R=1024, K=128, lanes=16, lag=2, compact_every=4, ticks=64,
+                  max_depth=8, text_calls=8, profile_ticks=2, seed=0)
+RGA_KERNELS = ("rga_union", "rga_union_rows", "rga_apply", "rga_compact",
+               "rga_order")
+# the earlier wrappers the RGA path also runs, checked at its shapes
+RGA_PATH_KERNELS = ("replica_join", "replica_join_rows", "dirty_rows",
+                    "delta_select")
+# the RGA kernels' random checks: unions (lead, Ca, Cb, canonical); trees
+# (R, K, C, rows listed); applies (R, K, C, B, eff_ctr, canonical); deep
+# trees for compaction and order (lead, C, depth, canonical)
+RGA_CHECKS = dict(
+    unions=(((3, 5), 6, 6, False), ((7,), 8, 8, True), ((2, 4), 5, 3, False),
+            ((64, 128), 1024, 1024, True), ((4, 16), 300, 200, False)),
+    trees=((1, 6, 16, 4), (2, 6, 16, 6), (3, 9, 16, 9), (5, 40, 64, 20),
+           (8, 40, 64, 40)),
+    applies=((3, 5, 8, 40, False, True), (4, 3, 6, 300, True, False),
+             (64, 128, 1024, 32, False, True), (8, 7, 300, 64, True, True),
+             (5, 2, 4, 24, False, False)),
+    trees_deep=(((3, 5), 12, 4, True), ((2, 4), 9, 3, False),
+                ((16, 128), 1024, 8, True), ((3, 7), 300, 8, False),
+                ((2, 3), 8, 1, False), ((2, 2), 64, 32, True)))
+RGA_LIBRARY_NOTES = {
+    "rga_union": "no single PyTorch call computes it: an id-keyed union "
+                 "with a max/OR fold and a capacity cut",
+    "rga_union_rows": "no single PyTorch call computes it: an id-keyed "
+                      "union with a max/OR fold over listed rows",
+    "rga_apply": "no single PyTorch call computes it: a per-row sequential "
+                 "apply with Lamport minting",
+    "rga_compact": "no single PyTorch call computes it: a parent test and "
+                   "a stable partition",
+    "rga_order": "no single PyTorch call computes it: a path-key sort of "
+                 "a tree",
+}
+# a row-list mode or another slot layout is its kernel's source with
+# another entry point
+SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union",
+           "rga_union": "slot_union", "rga_union_rows": "slot_union"}
 # the TPU-era functions each hand kernel replaces
 REPLACES = {
     "pnc_apply": "janus_tpu/models/pncounter.py:36",
@@ -130,6 +187,11 @@ REPLACES = {
     "delta_select": "janus_tpu/runtime/store.py:88",
     "replica_join_rows": "janus_tpu/runtime/store.py:114",
     "slot_union_rows": "janus_tpu/runtime/store.py:114",
+    "rga_union": "janus_tpu/models/rga.py:189",
+    "rga_union_rows": "janus_tpu/runtime/store.py:114",
+    "rga_apply": "janus_tpu/models/rga.py:120",
+    "rga_compact": "janus_tpu/models/rga.py:285",
+    "rga_order": "janus_tpu/models/rga.py:208",
 }
 
 
@@ -1322,6 +1384,446 @@ def store_delta(dev, kernels, workloads):
     return launches
 
 
+def rga_inputs(dev, workloads, rng, lead, c, depth=8, **kw):
+    """A random RGA state ``lead + (C,)`` on the card: ``rga_slots`` rows,
+    a random Lamport floor per row and the ``_depth`` carrier."""
+    st = {f: torch.as_tensor(x, device=dev)
+          for f, x in workloads.rga_slots(rng, lead, c, **kw).items()}
+    st["ctr_floor"] = torch.as_tensor(
+        rng.integers(-2, c + 2, lead).astype(np.int32), device=dev)
+    st["_depth"] = torch.zeros(lead[:-1] + (depth, 0), dtype=torch.int32,
+                               device=dev)
+    return st
+
+
+def check_calls(kernels, log, names, fn, what, keep=None):
+    """Run ``fn`` with every call of the named wrappers (module attributes
+    of ``kernels``, which the model calls) first held against its plain
+    version on clones of its inputs (``log.add``); ``keep`` (a dict) gets
+    the (args, kwargs) of each name's first call, cloned, for timing."""
+    real = {name: getattr(kernels, name) for name in names}
+
+    def checked(name):
+        def call(*args, **kw):
+            log.add(kernels, name, args, what, kw)
+            if keep is not None and name not in keep:
+                keep[name] = tree_map(torch.Tensor.clone, (args, kw))
+            return real[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(kernels, name, checked(name))
+    try:
+        fn()
+    finally:
+        for name in names:
+            setattr(kernels, name, real[name])
+
+
+def rga_kernel_checks(dev, kernels, workloads, cases):
+    """rga_union, rga_union_rows, rga_apply, rga_compact and rga_order
+    against their plain versions on the card, bit-equal, drop and
+    overflow counts included: (a) random canonical and non-canonical rows
+    (full rows, negative and repeated ids, junk in invalid slots) at
+    several shapes, the converge's trees run through the row-list kernel
+    at R = 1, 2, 3, 5, 8; (b) uncaptured and captured applies with keys in
+    [-K, 2K), deletes before inserts, re-inserts, full rows that drop, B
+    past one tile; (c) compactions and linearizations of deep random trees
+    (chains past max_depth, dangling and cyclic parents, dead interior
+    nodes, invalid slots mid-row), with and without protect; (d) every
+    call of the preset's warm-up tick, its warm-up compaction and tick 1,
+    the apply and compaction of tick 3 and the text of document 0, and
+    every call of two delta ticks of the preset through a Store (the
+    row-list mode), at full size; there the other wrappers the path runs
+    (``replica_join`` with one operand on ``ctr_floor``,
+    ``replica_join_rows``, ``dirty_rows``, ``delta_select``) are held
+    against their plain versions too. Returns, per kernel, the (args, kwargs)
+    of the call the kernels line times: level 1 of tick 1's converge, tick
+    3's apply and compaction (in place), the text, level 1 of the second
+    delta tick."""
+    from janus_tpu_torch.models import rga
+    from janus_tpu_torch.runtime.engine import make_tick
+    from janus_tpu_torch.runtime.store import Store, replicated_init
+
+    log = CaseLog(RGA_KERNELS + RGA_PATH_KERNELS)
+    rng = np.random.default_rng(21)
+    g = RGA_CHECKS
+    # (a) unions, fresh and broadcast into an out
+    for lead, ca, cb, canon in g["unions"]:
+        a = rga_inputs(dev, workloads, rng, lead, ca, canonical=canon,
+                       dup_rows=0.4, full_rows=0.5, negative=0.1)
+        b = rga_inputs(dev, workloads, rng, lead, cb, canonical=canon,
+                       dup_rows=0.4, full_rows=0.5, negative=0.1)
+        m = min(ca, cb)
+        take = torch.as_tensor(rng.random(lead + (m,)) < 0.5, device=dev)
+        for f in ("id_ctr", "id_rep", "valid"):
+            b[f][..., :m] = torch.where(take, a[f][..., :m], b[f][..., :m])
+        cap = max(ca, cb)
+        what = f"random {'x'.join(map(str, lead))} C{ca}+{cb}"
+        log.add(kernels, "rga_union", (a, b, cap), what)
+        out = {f: torch.zeros((2,) + lead + (cap,), dtype=a[f].dtype,
+                              device=dev) for f in rga.FIELDS}
+        log.add(kernels, "rga_union", (a, b, cap), what + " out", {"out": out})
+    for r, k, c, n_rows in g["trees"]:
+        st = rga_inputs(dev, workloads, rng, (r, k), c, canonical=False,
+                        dup_rows=0.3)
+        rows = torch.as_tensor(rng.permutation(k).astype(np.int32), device=dev)
+        n = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+        check_calls(kernels, log, ("rga_union_rows",),
+                    lambda: rga.join_replica_rows(st, rows, n),
+                    f"tree R{r} K{k} C{c} {n_rows} rows")
+        check_calls(kernels, log, ("rga_union",),
+                    lambda: rga.join_replicas(st), f"tree R{r} K{k} C{c}")
+    # (b) applies
+    for r, k, c, b, captured, canon in g["applies"]:
+        st = rga_inputs(dev, workloads, rng, (r, k), c, canonical=canon,
+                        dup_rows=0.3, full_rows=0.4, negative=0.1)
+        ops = workloads.ops_to_device(
+            workloads.rga_mixed_ops(rng, (r, b), k, c, captured=captured), dev)
+        log.add(kernels, "rga_apply", ({f: x for f, x in st.items()
+                                        if f != "_depth"}, ops),
+                f"random R{r} K{k} C{c} B{b}{' eff_ctr' if captured else ''}")
+    # (c) compaction and order of deep trees
+    for lead, c, depth, canon in g["trees_deep"]:
+        rows = rga_inputs(dev, workloads, rng, lead, c, depth, canonical=canon,
+                          dup_rows=0.5, dead=0.6, chain=0.6, dangling=0.1,
+                          negative=0.1, full_rows=0.5)
+        slots = {f: rows[f] for f in rga.FIELDS}
+        prot = torch.as_tensor(rng.random(lead + (c,)) < 0.2, device=dev)
+        what = f"deep {'x'.join(map(str, lead))} C{c} depth {depth}"
+        log.add(kernels, "rga_compact", (slots, None), what)
+        log.add(kernels, "rga_compact", (slots, prot), what + " protect")
+        flat = {f: x.reshape(-1, c) for f, x in slots.items()}
+        log.add(kernels, "rga_order", (flat, depth), what)
+    # (d) the preset's first calls at full size
+    p = RGA_REPLAY
+    R, K, L, lag = p["R"], p["K"], p["lanes"], p["lag"]
+    cap = R * L // K * (lag + p["compact_every"] + 2)
+    host = np.random.default_rng(p["seed"])
+    batches = [workloads.ops_to_device(workloads.rga_text_replay(
+        host, R, K, L, lag, t), dev) for t in range(4)]
+    state = replicated_init(rga.SPEC, R, device=dev, num_keys=K, capacity=cap,
+                            max_depth=p["max_depth"])
+    tick = make_tick(rga.SPEC, device=dev)
+    timing = {}
+    check_calls(kernels, log, ("rga_apply", "rga_union", "replica_join",
+                               "rga_compact"),
+                lambda: (tick(state, batches[0]), rga.compact(state)),
+                "preset warm-up tick and compaction")
+    check_calls(kernels, log, ("rga_apply", "rga_union", "replica_join"),
+                lambda: tick(state, batches[1]), "preset tick 1",
+                keep=timing)
+    timing.pop("rga_apply")
+    tick(state, batches[2])
+    check_calls(kernels, log, ("rga_apply",), lambda: tick(state, batches[3]),
+                "preset tick 3 apply", keep=timing)
+    check_calls(kernels, log, ("rga_compact",), lambda: rga.compact(state),
+                "preset tick 3 compaction", keep=timing)
+    (rows, prot), _ = timing["rga_compact"]
+    timing["rga_compact"] = ((rows, prot), {"out": rows})  # in place
+    check_calls(kernels, log, ("rga_order",),
+                lambda: rga.text({f: x[0] for f, x in state.items()}, 0),
+                "preset text of document 0", keep=timing)
+    del state
+    # the row-list mode on the preset's first delta ticks
+    st = Store(R, {"rga": dict(num_keys=K, capacity=cap,
+                               max_depth=p["max_depth"])},
+               dirty_budget=K, device=dev)
+    st.fused_tick({"rga": batches[0]})
+    check_calls(kernels, log, ("rga_union_rows", "replica_join_rows",
+                               "dirty_rows", "delta_select"),
+                lambda: st.fused_tick({"rga": batches[1]}),
+                "preset delta tick 1", keep=timing)
+    del st
+    for name, rec in log.by.items():
+        check(rec["cases"] > 0, f"rga_kernels: no case of {name}")
+        cases.append({"kernel": name, "case": "rga_kernels",
+                      "cases": rec["cases"], "max_abs_err": rec["max_abs_err"]})
+    emit("rga_kernels", by_kernel=log.by)
+    return timing
+
+
+def rga_text_model(host_ops, K, key=0):
+    """Independent numpy model of document ``key`` under the replay: each
+    tick its inserts take the document's Lamport counter + 1 (one counter
+    per tick, as every replica starts the tick from the converged row) and
+    its deletes remove an id; every insert anchors at the root, so the live
+    text is the live ids in descending (ctr, rep) order. Returns
+    ``(ids [n, 2] int64 (ctr, rep), chars [n])`` in document order."""
+    live = {}
+    ctr = 0
+    for ops in host_ops:
+        L = ops["op"].shape[1] // 2
+        ins = (ops["op"][:, :L] == 1) & (ops["key"][:, :L] % K == key)
+        if ins.any():
+            r, j = np.nonzero(ins)
+            for rep, ch in zip(ops["writer"][r, j], ops["a0"][r, j]):
+                live[(ctr + 1, int(rep))] = int(ch)
+            ctr += 1
+        dels = (ops["op"][:, L:] == 2) & (ops["key"][:, L:] % K == key)
+        for r, j in zip(*np.nonzero(dels)):
+            live.pop((int(ops["a2"][r, L + j]), int(ops["a1"][r, L + j])), None)
+    ids = sorted(live, reverse=True)
+    return (np.array(ids, np.int64).reshape(-1, 2),
+            np.array([live[i] for i in ids], np.int32))
+
+
+def rga_replay(dev, kernels, workloads):
+    """Harness preset rga (BASELINE config 5), uncut, driven as
+    janus_tpu/bench/harness.py run_rga_replay drives it: R=1,024 replicas,
+    K=128 documents of C=1,024 slots (2.95 GB), 16 insert and 16 delete
+    lanes per replica per tick (delete lag 2), 64 ticks of
+    ``engine.make_tick`` (apply + full converge), ``rga.compact`` over all
+    replicas after every fourth, the first tick and its compaction off the
+    clock, the other 63 timed by the host clock to one final synchronize;
+    then 8 chained ``text`` calls of document 0. The drop and overflow
+    counts each call of ``rga_apply`` and ``rga_union`` returns are kept
+    and summed after that synchronize, so the timed ticks run nothing
+    the harness does not. A second arm runs the same
+    ticks through ``Store.fused_tick`` with dirty budget K (the row-list
+    converge; every document is dirty every tick). Checked: every leaf,
+    ctr_floor included, equal across the 1,024 replicas and across the
+    arms; 256 live elements in every document of every replica; nothing
+    dropped or overflowed; no depth overflow; the text of document 0
+    equal to ``rga_text_model``."""
+    from janus_tpu_torch.models import rga
+    from janus_tpu_torch.runtime.engine import make_tick
+    from janus_tpu_torch.runtime.store import Store, replicated_init
+
+    p = RGA_REPLAY
+    R, K, L, lag, every, ticks = (p[x] for x in ("R", "K", "lanes", "lag",
+                                                 "compact_every", "ticks"))
+    per_doc = R * L // K
+    cap = per_doc * (lag + every + 2)
+    host_rng = np.random.default_rng(p["seed"])
+    extra = p["profile_ticks"]
+    host = [workloads.rga_text_replay(host_rng, R, K, L, lag, t)
+            for t in range(ticks + extra)]
+    batches = [workloads.ops_to_device(o, dev) for o in host]
+    dims = dict(num_keys=K, capacity=cap, max_depth=p["max_depth"])
+    state = replicated_init(rga.SPEC, R, device=dev, **dims)
+    tick = make_tick(rga.SPEC, device=dev)
+    # drop and overflow accounting: each apply's and merge level's counts,
+    # summed after the run
+    kept = {"dropped": [], "overflow": []}
+    real = {"rga_apply": kernels.rga_apply, "rga_union": kernels.rga_union}
+
+    def counted_apply(*a, **kw):
+        dropped = real["rga_apply"](*a, **kw)
+        kept["dropped"].append(dropped)
+        return dropped
+
+    def counted_union(*a, **kw):
+        out, overflow = real["rga_union"](*a, **kw)
+        kept["overflow"].append(overflow)
+        return out, overflow
+
+    kernels.rga_apply, kernels.rga_union = counted_apply, counted_union
+    try:
+        kernels.reset_launches()
+        tick(state, batches[0])  # warm-up tick and compaction, off the clock
+        rga.compact(state)
+        torch.cuda.synchronize()
+        before = kernels.launches()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(ticks)]
+        compactions = []
+        t0 = time.perf_counter()
+        for t in range(1, ticks):
+            tick(state, batches[t])
+            if t % every == every - 1:
+                ev[t][0].record()
+                rga.compact(state)
+                ev[t][1].record()
+                compactions.append(t)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        kernels.rga_apply, kernels.rga_union = (real["rga_apply"],
+                                                real["rga_union"])
+    grew = {k: v - before[k] for k, v in kernels.launches().items()}
+    counts = {k: int(torch.stack([x.sum() for x in v]).sum())
+              for k, v in kept.items()}
+    del kept
+    # the text of document 0, 8 chained calls to one synchronize
+    doc0 = {f: x[0] for f, x in state.items()}
+    out = rga.text(doc0, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(p["text_calls"]):
+        out = rga.text(doc0, 0)
+    torch.cuda.synchronize()
+    text_ms = 1e3 * (time.perf_counter() - t1) / p["text_calls"]
+    # the delta arm: the same ticks through the Store's row-list path
+    store = Store(R, {"rga": dims}, dirty_budget=K, device=dev)
+    delta_before = kernels.launches()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for t in range(ticks):
+        store.fused_tick({"rga": batches[t]})
+        if t % every == every - 1 or t == 0:
+            rga.compact(store.states["rga"])
+    torch.cuda.synchronize()
+    delta_s = time.perf_counter() - t2
+    delta_grew = {k: v - delta_before[k]
+                  for k, v in kernels.launches().items()}
+    delta_overflows = int(store._fused_acc["overflow_rga"])
+    delta_frac = store.flush_metrics()["rga"]
+    launches = kernels.launches()
+    # checks
+    for f, x in state.items():
+        check(torch.equal(x, x[:1].expand_as(x)),
+              f"rga_replay: replicas differ on {f}")
+        check(torch.equal(x, store.states["rga"][f]),
+              f"rga_replay: the Store's delta arm differs on {f}")
+    live = (state["valid"] & ~state["dead"]).sum(-1)
+    check(bool((live == per_doc * lag).all()),
+          f"rga_replay: live counts {torch.unique(live).tolist()} != "
+          f"{per_doc * lag}")
+    check(counts["dropped"] == 0 and counts["overflow"] == 0,
+          f"rga_replay: dropped {counts['dropped']}, merge overflow "
+          f"{counts['overflow']}")
+    check(not bool(out["overflow"]), "rga_replay: depth overflow")
+    ids, chars = rga_text_model(host[:ticks], K)
+    m = out["live"]
+    got_ids = torch.stack([out["id_ctr"][m], out["id_rep"][m]], -1).cpu()
+    check(np.array_equal(got_ids.numpy().astype(np.int64), ids)
+          and np.array_equal(out["chr"][m].cpu().numpy(), chars),
+          f"rga_replay: text of document 0 ({int(m.sum())} live) differs "
+          f"from the numpy model ({len(chars)})")
+    levels = int(np.ceil(np.log2(R)))
+    timed = ticks - 1
+    per_tick = {k: v / timed for k, v in grew.items() if v}
+    want = {"rga_apply": 1, "rga_union": levels, "replica_join": 1,
+            "rga_compact": len(compactions) / timed}
+    check(per_tick == want, f"rga_replay: launches per tick {per_tick}, "
+          f"expected {want}")
+    check(delta_overflows == 0 and delta_frac == 1.0,
+          f"rga_replay: delta arm overflows {delta_overflows}, dirty "
+          f"fraction {delta_frac}")
+    check(delta_grew["rga_union_rows"] == levels * ticks
+          and delta_grew["replica_join_rows"] == ticks,
+          f"rga_replay: delta arm launches {delta_grew}")
+    # device time and kernels per tick by the profiler, over more ticks of
+    # the trace on a copy of the state (no accounting reductions)
+    copy = {f: x.clone() for f, x in state.items()}
+    more = iter(batches[ticks:])
+    seen, dev_ms = device_profile(lambda: tick(copy, next(more)), reps=extra)
+    del copy
+    inserts = R * L * timed
+    deletes = R * L * sum(1 for t in range(1, ticks) if t >= lag)
+    comp_ms = [ev[t][0].elapsed_time(ev[t][1]) for t in compactions]
+    emit("rga_replay", replicas=R, documents=K, capacity=cap,
+         lanes=L, delete_lag=lag, compact_every=every, ticks=ticks,
+         timed_ticks=timed, seconds=elapsed, ms_per_tick=1e3 * elapsed / timed,
+         sequence_ops=inserts + deletes,
+         sequence_ops_per_s=(inserts + deletes) / elapsed,
+         replica_applications_per_s=(inserts + deletes) * R / elapsed,
+         device_ms_per_tick=dev_ms / extra, cuda_kernels_per_tick=seen / extra,
+         launches_per_tick=per_tick, compactions=len(compactions),
+         ms_per_compaction=sum(comp_ms) / len(comp_ms),
+         ms_per_compaction_min=min(comp_ms), ms_per_compaction_max=max(comp_ms),
+         text_ms=text_ms, text_calls=p["text_calls"],
+         elements_per_doc=rga.element_count(doc0).tolist()[:4],
+         elements_per_doc_max=int(rga.element_count(doc0).max()),
+         live_per_doc=int(rga.length(doc0, 0)), slot_capacity=cap,
+         depth_overflow=bool(out["overflow"]), slots_dropped=counts["dropped"],
+         merge_overflow=counts["overflow"],
+         state_gb=R * K * cap * 22 / 1e9,
+         delta_arm={"ms_per_tick": 1e3 * delta_s / ticks,
+                    "dirty_fraction": delta_frac, "overflows": delta_overflows,
+                    "launches_per_tick": {k: v / ticks
+                                          for k, v in delta_grew.items() if v}},
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches_incl_warmup=launches)
+    del store
+    return launches
+
+
+def rga_rows_touched(state, ops):
+    """The ``(replica, row)`` pairs an ``rga_apply`` call must move: the
+    rows its op lanes gather (JAX's clamp rule) and those it writes back
+    (in-range keys), counted once each."""
+    from janus_tpu_torch.models.base import gather_index, scatter_index
+
+    R, K, _ = state["valid"].shape
+    r = torch.arange(R, device=ops["key"].device).view(R, 1).expand_as(ops["key"])
+    wi, ok = scatter_index(ops["key"], K)
+    return (torch.unique(r * K + gather_index(ops["key"], K)).numel(),
+            torch.unique((r * K + wi)[ok]).numel())
+
+
+def rga_kernel_rows(kernels, calls):
+    """The kernels line's entries of the five RGA wrappers, on the calls
+    ``rga_kernel_checks`` kept from the preset, with what each must move
+    (22 bytes an RGA slot): the union's two input rows read and its row
+    written (level 1 of tick 1's converge: 512 x 128 rows of 1,024 +
+    1,024 slots); the same per listed row for the row-list mode (level 1
+    of a delta tick); the apply's op fields, drop counts and the rows its
+    lanes gather and write back, with their floors; the compaction's row
+    read and written; the linearization's five fields read and its order
+    and depths written. Operations: one per slot field read (a lower
+    bound), and for the linearization the C log2 C comparisons a
+    comparison sort needs."""
+    rows = []
+    (a, b, cap), kw = calls["rga_union"]
+    lead = tuple(a["valid"].shape[:-1])
+    n = int(np.prod(lead))
+    ca, cb = a["valid"].shape[-1], b["valid"].shape[-1]
+    repeat = kw["out"]["valid"].shape[0] if "out" in kw else 1
+    rows.append(dict(
+        name="rga_union", args=(a, b, cap), kw=kw,
+        shape=f"level 1 of the preset's converge: {' x '.join(map(str, lead))}"
+              f" rows, {ca} + {cb} slots",
+        bytes=22 * n * (ca + cb + repeat * cap) + 4 * n,
+        operations=7 * n * (ca + cb)))
+    args, kw = calls["rga_union_rows"]
+    a, n_rows = args[0], args[4]
+    m = int(n_rows)
+    pairs, k, c = a["valid"].shape
+    rows.append(dict(
+        name="rga_union_rows", args=args, kw=kw,
+        shape=f"level 1 of a delta tick's tree: {pairs} x {m} rows, "
+              f"{c} + {c} slots", rows_joined=m,
+        bytes=3 * pairs * m * 22 * c + 4 * m + 4,
+        operations=2 * pairs * m * c * 7))
+    (state, ops), kw = calls["rga_apply"]
+    r, k, c = state["valid"].shape
+    b = ops["op"].shape[1]
+    read, written = rga_rows_touched(state, ops)
+    rows.append(dict(
+        name="rga_apply", args=(state, ops), kw=kw,
+        shape=f"the preset's apply at tick 3: R{r} K{k} C{c} B{b}",
+        rows_read=read, rows_written=written,
+        bytes=4 * 6 * r * b + 4 * r + (22 * c + 4) * (read + written),
+        operations=7 * c * read))
+    (slots, prot), kw = calls["rga_compact"]
+    shape = tuple(slots["valid"].shape)
+    n = int(np.prod(shape[:-1]))
+    c = shape[-1]
+    rows.append(dict(
+        name="rga_compact", args=(slots, prot), kw=kw,
+        shape=f"the preset's compaction at tick 3: {' x '.join(map(str, shape))}"
+              f", in place",
+        bytes=2 * 22 * n * c, operations=7 * n * c))
+    (flat, depth), kw = calls["rga_order"]
+    n, c = flat["valid"].shape
+    rows.append(dict(
+        name="rga_order", args=(flat, depth), kw=kw,
+        shape=f"text of document 0: {n} row of {c} slots, depth {depth}",
+        bytes=n * c * (17 + 8) + n,
+        operations=n * c * int(np.ceil(np.log2(max(c, 2))))))
+    for row in rows:
+        fn = kernels.WRAPPERS[row["name"]]
+        a_, k_ = row.pop("args"), row.pop("kw")
+        row["library"] = None
+        row["library_note"] = RGA_LIBRARY_NOTES[row["name"]]
+        row["call"] = lambda fn=fn, a_=a_, k_=k_: fn(*a_, **k_)
+        row["plain"] = (lambda name=row["name"], a_=a_, k_=k_:
+                        plain_of(kernels, name)(*a_, **k_))
+    return rows
+
+
 def canonical_rows(st) -> bool:
     """Rows sorted by tag with every valid slot before every invalid one,
     no tag twice, invalid slots SENTINEL keys and zero payloads."""
@@ -1589,7 +2091,7 @@ def delta_kernel_rows(kernels, calls):
 
 
 def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
-                 orset_calls, delta_calls):
+                 orset_calls, delta_calls, rga_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -1608,7 +2110,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     on recorded calls of the two OR-Set paths: ``slot_union`` on the first
     level of path B's converge, ``orset_apply`` on path B's apply (repeated
     on the state it leaves), ``orset_capture`` on a path A submit and
-    ``orset_replay`` on a path A delta apply of the whole budget."""
+    ``orset_replay`` on a path A delta apply of the whole budget. The RGA
+    kernels are timed on calls of the rga preset (``rga_kernel_rows``)."""
     from janus_tpu_torch.kernels import operands
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1703,6 +2206,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                          "observed-tag capture"))
 
     kerns += delta_kernel_rows(kernels, delta_calls)
+    kerns += rga_kernel_rows(kernels, rga_calls)
 
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
@@ -1793,6 +2297,8 @@ def main() -> int:
                         workloads, cases)
     delta_calls = timed("delta_kernels", delta_kernel_checks, dev, kernels,
                         workloads, cases)
+    rga_calls = timed("rga_kernels", rga_kernel_checks, dev, kernels,
+                      workloads, cases)
     paths = {"fast_path": timed("fast_path", fast_path, dev, kernels, workloads),
              "consensus": timed("consensus", consensus_path, dev, kernels,
                                 workloads, cases),
@@ -1801,9 +2307,11 @@ def main() -> int:
              "orset_consensus": timed("orset_consensus", orset_consensus, dev,
                                       kernels, workloads),
              "store_delta": timed("store_delta", store_delta, dev, kernels,
-                                  workloads)}
+                                  workloads),
+             "rga_replay": timed("rga_replay", rga_replay, dev, kernels,
+                                 workloads)}
     line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
-                 cases, timing_calls, orset_calls, delta_calls)
+                 cases, timing_calls, orset_calls, delta_calls, rga_calls)
     emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

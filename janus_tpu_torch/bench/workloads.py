@@ -12,7 +12,7 @@ import torch
 from janus_tpu_torch.consensus.dag import DagConfig
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.kernels import leader
-from janus_tpu_torch.models import base, orset, pncounter
+from janus_tpu_torch.models import base, orset, pncounter, rga
 from janus_tpu_torch.ops.lattice import SENTINEL
 
 
@@ -199,6 +199,132 @@ def with_capture_hazards(rng: np.random.Generator, ops: dict) -> dict:
         out[f][..., 5:8, 0] = out[src][..., 1:2]
     out["op"][..., 5:8] = orset.OP_REMOVE
     out["key"][..., 5:8] = out["key"][..., 1:2]
+    return out
+
+
+def rga_text_replay(rng: np.random.Generator, num_replicas: int,
+                    num_keys: int, lanes: int, lag: int, tick: int) -> dict:
+    """One tick of the harness's RGA replay (harness preset ``rga``,
+    BASELINE config 5): int32 numpy ``[R, 2L]`` op fields. Lanes ``j < L``
+    insert ``rng.integers(32, 127)`` at the root of document ``(v + j + t)
+    % K`` (replica v); from tick ``lag`` on, lanes ``L + j`` delete replica
+    v's own insert of tick ``t - lag`` (id ``(t - lag + 1, v)``: every
+    document takes an insert every tick, so its converged counter after
+    tick t' is t' + 1). The same draws, in the same order, as the JAX
+    harness's ``gen(t)`` when called for t = 0, 1, ... on one generator."""
+    R, L, K, t = num_replicas, lanes, num_keys, tick
+    vs = np.arange(R, dtype=np.int32)[:, None]
+    js = np.arange(L, dtype=np.int32)[None, :]
+    shape = (R, 2 * L)
+    out = {f: np.zeros(shape, np.int32) for f in base.OP_FIELDS}
+    out["op"][:, :L] = rga.OP_INSERT
+    out["key"][:, :L] = (vs + js + t) % K
+    out["a0"][:, :L] = rng.integers(32, 127, (R, L))
+    if t >= lag:
+        out["op"][:, L:] = rga.OP_DELETE
+        out["key"][:, L:] = (vs + js + t - lag) % K
+        out["a1"][:, L:] = vs
+        out["a2"][:, L:] = t - lag + 1
+    out["writer"][:] = vs
+    return out
+
+
+def rga_slots(rng: np.random.Generator, shape, capacity: int,
+              full_rows: float = 0.25, fill: float = 0.7, reps: int = 4,
+              dead: float = 0.3, canonical: bool = True,
+              dup_rows: float = 0.0, chain: float = 0.4,
+              dangling: float = 0.05, negative: float = 0.0) -> dict:
+    """Random RGA slot rows ``shape + (capacity,)`` as numpy arrays (the
+    seven fields of ``rga.FIELDS``).
+
+    A ``full_rows`` share of rows is full, the rest hold up to ``fill`` of
+    the capacity. Ids are distinct within a row: ``reps`` writers,
+    counters from 1 (a ``negative`` share of them negated). Each element's
+    parent is the element before it in id order with probability
+    ``chain`` (deep chains), a ``dangling`` id not in the row, the root,
+    or a random element of the row (itself and later ones included, so
+    cycles occur). Canonical rows are sorted by id with SENTINEL keys and
+    zero payloads in invalid slots. Otherwise slots are shuffled, invalid
+    slots hold junk, and a ``dup_rows`` share of rows repeats one valid id
+    in a second slot."""
+    c = capacity
+    rows = int(np.prod(shape, dtype=np.int64))
+    space = max(4 * c, reps)
+    pick = np.argsort(rng.random((rows, space)), axis=1)[:, :c]
+    n = np.where(rng.random(rows) < full_rows, c,
+                 rng.integers(0, int(fill * c) + 1, rows))
+    valid = np.arange(c)[None, :] < n[:, None]
+    code = np.where(valid, pick, space)
+    code.sort(axis=1)
+    ctr = code // reps + 1
+    ctr = np.where(rng.random((rows, c)) < negative, -ctr, ctr)
+    rep = code % reps
+    order = np.lexsort((rep, ctr, ~valid), axis=1)
+    ctr = np.take_along_axis(ctr, order, 1)
+    rep = np.take_along_axis(rep, order, 1)
+    # parents: previous element, dangling id, root, or any element
+    u = rng.random((rows, c))
+    anyone = rng.integers(0, np.maximum(n, 1)[:, None], (rows, c))
+    prev = np.maximum(np.arange(c)[None, :] - 1, 0)
+    src = np.where(u < chain, prev, anyone)
+    p_ctr = np.take_along_axis(ctr, src, 1)
+    p_rep = np.take_along_axis(rep, src, 1)
+    root = (u >= chain) & (u < chain + 0.15)
+    dang = (u >= chain + 0.15) & (u < chain + 0.15 + dangling)
+    first = np.arange(c)[None, :] == 0
+    p_ctr = np.where(root | first, 0, np.where(dang, space + 7, p_ctr))
+    p_rep = np.where(root | first, 0, np.where(dang, reps + 1, p_rep))
+    chars = rng.integers(32, 127, (rows, c))
+    out = {"id_ctr": np.where(valid, ctr, SENTINEL),
+           "id_rep": np.where(valid, rep, SENTINEL),
+           "par_ctr": np.where(valid, p_ctr, 0),
+           "par_rep": np.where(valid, p_rep, 0),
+           "chr": np.where(valid, chars, 0),
+           "dead": valid & (rng.random((rows, c)) < dead), "valid": valid}
+    if not canonical:
+        junk = ~valid
+        for f in ("id_ctr", "id_rep", "par_ctr", "par_rep", "chr"):
+            out[f] = np.where(junk, rng.integers(-5, 5, (rows, c)), out[f])
+        out["dead"] = np.where(junk, rng.random((rows, c)) < 0.5, out["dead"])
+        for r in np.nonzero((rng.random(rows) < dup_rows) & (n >= 2))[0]:
+            s, d = rng.choice(n[r], 2, replace=False)
+            for f in ("id_ctr", "id_rep"):
+                out[f][r, d] = out[f][r, s]
+        perm = np.argsort(rng.random((rows, c)), axis=1)
+        out = {f: np.take_along_axis(x, perm, 1) for f, x in out.items()}
+    return {f: np.ascontiguousarray(out[f].reshape(tuple(shape) + (c,)),
+                                    bool if f in ("dead", "valid") else np.int32)
+            for f in rga.FIELDS}
+
+
+def rga_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
+                  capacity: int, reps: int = 4, hazards: bool = True,
+                  captured: bool = False) -> dict:
+    """RGA op lanes of every code (0 no-op, 1 insert, 2 delete, 3 unknown)
+    whose ids and parents collide with ``rga_slots``' ids and with each
+    other's (deletes of absent ids land placeholders; a later insert of
+    the same id folds into one), as int32 numpy arrays of ``shape``. With
+    ``hazards``, keys fall in [-K, 2K) and a share of targets are negative
+    or SENTINEL. With ``captured``, an ``eff_ctr`` ``shape + (1,)`` field
+    repeats counters of present ids (re-inserts)."""
+    k = num_keys
+    ops = {
+        "op": rng.choice(4, shape, p=[0.1, 0.5, 0.3, 0.1]),
+        "key": (rng.integers(-k, 2 * k, shape) if hazards
+                else rng.integers(0, k, shape)),
+        "a0": rng.integers(32, 127, shape),
+        "a1": rng.integers(0, reps, shape),
+        "a2": rng.integers(0, capacity + 2, shape),
+        "writer": rng.integers(0, reps, shape),
+    }
+    if hazards:
+        odd = rng.random(shape)
+        ops["a2"] = np.where(odd < 0.05, -ops["a2"],
+                             np.where(odd < 0.08, SENTINEL, ops["a2"]))
+    out = {f: v.astype(np.int32) for f, v in ops.items()}
+    if captured:
+        out["eff_ctr"] = rng.integers(1, capacity + 2,
+                                      tuple(shape) + (1,)).astype(np.int32)
     return out
 
 

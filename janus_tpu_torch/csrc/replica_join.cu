@@ -17,7 +17,8 @@
 // addresses on every load; the R loads of a thread are independent and
 // unrolled, which keeps many requests in flight. The max lives in
 // registers and is written back R times. blockIdx.y picks P or N, so both
-// polarities share one launch. Max is exact, so the result is bit-equal to
+// polarities share one launch; with N null the launch joins P alone (the
+// RGA's [R, K] Lamport floor, ctr_floor). Max is exact, so the result is bit-equal to
 // the halving tree. Launches on the caller's stream, allocates nothing,
 // does not synchronise.
 //
@@ -65,7 +66,8 @@ int launch(void* p, void* n, long long replicas, long long row,
   const int threads = 256;
   long long blocks = (row + threads - 1) / threads;
   if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond this
-  replica_join_kernel<V><<<dim3((unsigned)blocks, 2), threads, 0, stream>>>(
+  replica_join_kernel<V><<<dim3((unsigned)blocks, n ? 2 : 1), threads, 0,
+                           stream>>>(
       (V*)p, (V*)n, replicas, row);
   return (int)cudaGetLastError();
 }
@@ -104,8 +106,8 @@ int launch_rows(void* p, void* n, long long replicas, int num_keys,
   long long blocks = ((long long)listed * row + threads - 1) / threads;
   if (blocks > 132LL * 64) blocks = 132LL * 64;
   if (blocks < 1) blocks = 1;
-  replica_join_rows_kernel<V><<<dim3((unsigned)blocks, 2), threads, 0,
-                                stream>>>((V*)p, (V*)n, replicas, num_keys,
+  replica_join_rows_kernel<V><<<dim3((unsigned)blocks, n ? 2 : 1), threads,
+                                0, stream>>>((V*)p, (V*)n, replicas, num_keys,
                                           row, rows, listed, n_rows);
   return (int)cudaGetLastError();
 }
@@ -122,7 +124,7 @@ extern "C" int replica_join_rows_launch(void* p, void* n, long long replicas,
                                         const void* n_rows, void* stream) {
   if (replicas <= 0 || row <= 0 || listed <= 0) return (int)cudaSuccess;
   const bool vec = row % 4 == 0 && (uintptr_t)p % 16 == 0 &&
-                   (uintptr_t)n % 16 == 0;
+                   (uintptr_t)n % 16 == 0;  // n may be null: one operand
   if (vec)
     return launch_rows<int4>(p, n, replicas, num_keys, row / 4,
                              (const int*)rows, listed, (const int*)n_rows,
@@ -137,7 +139,7 @@ extern "C" int replica_join_launch(void* p, void* n, long long replicas,
                                    long long row, void* stream) {
   if (replicas <= 0 || row <= 0) return (int)cudaSuccess;
   const bool vec = row % 4 == 0 && (uintptr_t)p % 16 == 0 &&
-                   (uintptr_t)n % 16 == 0;
+                   (uintptr_t)n % 16 == 0;  // n may be null: one operand
   if (vec)
     return launch<int4>(p, n, replicas, row / 4, (cudaStream_t)stream);
   return launch<int>(p, n, replicas, row, (cudaStream_t)stream);

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version and with a launch counter (``<wrapper>.launches``). A row-list
-mode of a kernel (``replica_join_rows``, ``slot_union_rows``) is a wrapper
-of its own, with its own counter, over the same source.
+mode of a kernel (``replica_join_rows``, ``slot_union_rows``,
+``rga_union_rows``) is a wrapper of its own, with its own counter, over
+the same source; so is the RGA instantiation of ``slot_union.cu``
+(``rga_union``).
 
 Sources live in ``janus_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Nothing here imports or builds anything at import
@@ -22,6 +24,12 @@ from janus_tpu_torch.kernels.orset_capture import (  # noqa: F401
 from janus_tpu_torch.kernels.orset_replay import (  # noqa: F401
     orset_replay, orset_replay_plain)
 from janus_tpu_torch.kernels.pnc_apply import pnc_apply, pnc_apply_plain  # noqa: F401
+from janus_tpu_torch.kernels.rga_apply import rga_apply, rga_apply_plain  # noqa: F401
+from janus_tpu_torch.kernels.rga_compact import (  # noqa: F401
+    rga_compact, rga_compact_plain)
+from janus_tpu_torch.kernels.rga_order import rga_order, rga_order_plain  # noqa: F401
+from janus_tpu_torch.kernels.rga_union import (  # noqa: F401
+    rga_union, rga_union_plain, rga_union_rows, rga_union_rows_plain)
 from janus_tpu_torch.kernels.replica_join import (  # noqa: F401
     replica_join, replica_join_plain, replica_join_rows,
     replica_join_rows_plain)
@@ -37,7 +45,9 @@ WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join,
             "orset_apply": orset_apply, "dirty_rows": dirty_rows,
             "delta_select": delta_select,
             "replica_join_rows": replica_join_rows,
-            "slot_union_rows": slot_union_rows}
+            "slot_union_rows": slot_union_rows, "rga_union": rga_union,
+            "rga_union_rows": rga_union_rows, "rga_apply": rga_apply,
+            "rga_compact": rga_compact, "rga_order": rga_order}
 
 
 def reset_launches() -> None:

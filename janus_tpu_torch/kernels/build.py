@@ -21,7 +21,8 @@ from pathlib import Path
 
 KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
            "dag_round", "slot_union", "orset_capture", "orset_replay",
-           "orset_apply", "dirty_rows", "delta_select")
+           "orset_apply", "dirty_rows", "delta_select", "rga_apply",
+           "rga_compact", "rga_order")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"

@@ -11,6 +11,9 @@ listed key rows only, the count of rows read from device memory. It
 replaces the slab gather, ``join_all`` and scatter of
 janus_tpu/runtime/store.py ``converge_delta`` for the PN-Counter.
 
+Either wrapper takes one operand when ``n`` is None: the RGA's converge
+joins its ``[R, K]`` Lamport floor (``ctr_floor``) this way.
+
 The wrappers launch the CUDA kernel for CUDA tensors (or raise) and
 run their plain versions only for tensors that lie on the CPU.
 """
@@ -23,11 +26,13 @@ import torch
 from janus_tpu_torch.kernels import build, operands
 
 
-def replica_join_plain(p: torch.Tensor, n: torch.Tensor) -> None:
+def replica_join_plain(p: torch.Tensor, n: torch.Tensor | None) -> None:
     """Plain PyTorch version: ``amax(0)`` followed by a copy into every
-    replica row, in place. ``p``, ``n``: int32[R, ...]."""
+    replica row, in place. ``p``, ``n``: int32[R, ...] (``n`` may be
+    None)."""
     for x in (p, n):
-        x.copy_(x.amax(0).expand_as(x))
+        if x is not None:
+            x.copy_(x.amax(0).expand_as(x))
 
 
 def _lib():
@@ -44,9 +49,14 @@ def _lib():
     return lib
 
 
-def replica_join(p: torch.Tensor, n: torch.Tensor) -> None:
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
+def replica_join(p: torch.Tensor, n: torch.Tensor | None) -> None:
     """Set every replica row of ``p`` and ``n`` to the max over the
-    replica (leading) axis, in place. ``p``, ``n``: int32[R, ...]."""
+    replica (leading) axis, in place. ``p``, ``n``: int32[R, ...]; with
+    ``n`` None, ``p`` alone."""
     if p.dim() < 1:
         raise ValueError("replica_join: p has no replica axis")
     i32 = torch.int32
@@ -61,8 +71,7 @@ def replica_join(p: torch.Tensor, n: torch.Tensor) -> None:
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.replica_join_launch(p.data_ptr(), n.data_ptr(), R, row,
-                                     stream)
+        rc = lib.replica_join_launch(p.data_ptr(), _ptr(n), R, row, stream)
     build.check_launch("replica_join", rc)
     replica_join.launches += 1
 
@@ -70,19 +79,21 @@ def replica_join(p: torch.Tensor, n: torch.Tensor) -> None:
 replica_join.launches = 0
 
 
-def replica_join_rows_plain(p: torch.Tensor, n: torch.Tensor,
+def replica_join_rows_plain(p: torch.Tensor, n: torch.Tensor | None,
                             rows: torch.Tensor, n_rows: torch.Tensor) -> None:
     """Plain PyTorch version: gather the first ``n_rows`` listed key rows,
     ``amax(0)``, and write them back into every replica, in place."""
     idx = rows[:int(n_rows)].long()
     for x in (p, n):
-        x[:, idx] = x[:, idx].amax(0, keepdim=True)
+        if x is not None:
+            x[:, idx] = x[:, idx].amax(0, keepdim=True)
 
 
-def replica_join_rows(p: torch.Tensor, n: torch.Tensor, rows: torch.Tensor,
-                      n_rows: torch.Tensor) -> None:
+def replica_join_rows(p: torch.Tensor, n: torch.Tensor | None,
+                      rows: torch.Tensor, n_rows: torch.Tensor) -> None:
     """Set key rows ``rows[:n_rows]`` of every replica of ``p`` and ``n``
-    (int32 ``[R, K, ...]``) to their max over the replica axis, in place.
+    (int32 ``[R, K, ...]``; ``n`` may be None) to their max over the
+    replica axis, in place.
     ``rows``: int32[L], distinct keys in [0, K); ``n_rows``: int32[] on
     the same device, read there (no host sync), at most L counted."""
     if p.dim() < 2:
@@ -102,7 +113,7 @@ def replica_join_rows(p: torch.Tensor, n: torch.Tensor, rows: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.replica_join_rows_launch(
-            p.data_ptr(), n.data_ptr(), R, K, row, rows.data_ptr(), L,
+            p.data_ptr(), _ptr(n), R, K, row, rows.data_ptr(), L,
             n_rows.data_ptr(), stream)
     build.check_launch("replica_join_rows", rc)
     replica_join_rows.launches += 1

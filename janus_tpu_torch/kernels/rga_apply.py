@@ -1,0 +1,152 @@
+"""``rga_apply``: the RGA's sequential apply of insert/delete ops, per
+replica, in place (kernel source: csrc/rga_apply.cu).
+
+Replaces the ``lax.scan`` of janus_tpu/models/rga.py ``_apply_ops_impl``
+(vmapped over the replicas), uncaptured and captured. Ops apply in lane
+order, each to the row of its key (gathered by JAX's gather rule, written
+back with the document's Lamport floor by its scatter rule, so an op whose
+key is out of range after negative normalisation changes nothing but may
+count a drop):
+
+- insert (a0=chr, a1/a2=parent rep/ctr): the counter is the op's
+  ``eff_ctr``, or one more than the larger of the row's greatest valid
+  ``id_ctr`` (at least 0) and ``ctr_floor[k]``; then an upsert of id
+  ``(ctr, writer)``: an existing slot takes the max of its parent and chr
+  with the op's, else a fresh live slot lands in the first free one;
+- delete (a1/a2=target rep/ctr): an upsert of id ``(a2, a1)`` that sets
+  ``dead``, or lands a dead placeholder;
+- an upsert of an absent id into a full row counts one drop;
+- ``ctr_floor[k]`` takes the max with the counter the op carries.
+
+The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
+``rga_apply_plain`` only for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from janus_tpu_torch.kernels import build, operands
+from janus_tpu_torch.kernels.rga_rows import (
+    FIELDS, KEY_FIELDS, OP_DELETE, OP_FIELDS, OP_INSERT, slot_operands)
+from janus_tpu_torch.models.base import OP_NOOP, gather_index, scatter_index
+from janus_tpu_torch.ops.setops import row_upsert
+
+
+def _fold_insert(old, new):
+    """Redelivery and ordering fold of an insert into an existing id: the
+    tombstone is sticky, the insert's edge and payload win over a
+    placeholder's zeros."""
+    return {"par_rep": torch.maximum(old["par_rep"], new["par_rep"]),
+            "par_ctr": torch.maximum(old["par_ctr"], new["par_ctr"]),
+            "chr": torch.maximum(old["chr"], new["chr"]),
+            "dead": old["dead"]}
+
+
+def _fold_delete(old, new):
+    return {"par_rep": old["par_rep"], "par_ctr": old["par_ctr"],
+            "chr": old["chr"], "dead": torch.ones_like(old["dead"])}
+
+
+def rga_apply_plain(state, ops) -> torch.Tensor:
+    """Plain PyTorch version: the JAX scan as a Python loop over the op
+    lanes with the replica axis as a batch dimension. ``state``: the seven
+    slot fields ``[R, K, C]`` and ``ctr_floor`` ``[R, K]``, updated in
+    place; op fields int32 ``[R, B]`` (``eff_ctr`` ``[R, B, 1]`` when
+    captured). Returns the drop count per replica, int32 ``[R]``."""
+    R, K, C = state["valid"].shape
+    B = ops["op"].shape[-1]
+    dev = state["valid"].device
+    rr = torch.arange(R, device=dev)
+    gi = gather_index(ops["key"], K)
+    wi, wok = scatter_index(ops["key"], K)
+    stats = {"slots_dropped": torch.zeros((R,), dtype=torch.int32, device=dev)}
+    zero = torch.zeros((R,), dtype=torch.int32, device=dev)
+    for b in range(B):
+        row = {f: state[f][rr, gi[:, b]] for f in FIELDS}          # [R, C]
+        floor = state["ctr_floor"][rr, gi[:, b]]                     # [R]
+        op, a0, a1, a2, wr = (ops[f][:, b]
+                              for f in ("op", "a0", "a1", "a2", "writer"))
+        en = op != OP_NOOP
+        is_ins = en & (op == OP_INSERT)
+        is_del = en & (op == OP_DELETE)
+        if "eff_ctr" in ops:
+            ctr = ops["eff_ctr"][:, b, 0]
+        else:
+            top = torch.where(row["valid"], row["id_ctr"], 0).amax(-1)
+            ctr = torch.maximum(top, floor) + 1
+        inserted = row_upsert(
+            row, KEY_FIELDS, (ctr, wr),
+            {"par_rep": a1, "par_ctr": a2, "chr": a0, "dead": False},
+            _fold_insert, enabled=is_ins, stats=stats)
+        deleted = row_upsert(
+            inserted, KEY_FIELDS, (a2, a1),
+            {"par_rep": zero, "par_ctr": zero, "chr": zero, "dead": True},
+            _fold_delete, enabled=is_del, stats=stats)
+        seen = torch.maximum(torch.where(is_ins, ctr, 0),
+                             torch.where(is_del, a2, 0))
+        new_floor = torch.maximum(floor, torch.where(en, seen, 0))
+        ok = wok[:, b]
+        for f in FIELDS:
+            state[f][rr[ok], wi[ok, b]] = deleted[f][ok]
+        state["ctr_floor"][rr[ok], wi[ok, b]] = new_floor[ok]
+    return stats["slots_dropped"]
+
+
+def _lib():
+    lib = build.load("rga_apply")
+    if lib.rga_apply_launch.argtypes is None:
+        ptr, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+        lib.rga_apply_launch.argtypes = [arr, ptr, arr, ptr, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ptr]
+        lib.rga_apply_launch.restype = ctypes.c_int
+    return lib
+
+
+def shared_bytes(c: int) -> int:
+    """Shared memory of one block (csrc/rga_apply.cu): the row's 22 bytes
+    a slot, the lane list of a tile of 256 ops, and the prefix count's
+    words."""
+    return 22 * c + 4 * 256 + 256
+
+
+def rga_apply(state, ops) -> torch.Tensor:
+    """Apply op lanes in order to every replica's rows, in place.
+    ``state``: the seven slot fields ``[R, K, C]`` and ``ctr_floor``
+    ``[R, K]``; op fields int32 ``[R, B]``, with ``eff_ctr`` ``[R, B, 1]``
+    for captured ops. Returns the drop count per replica, int32 ``[R]``."""
+    if state["valid"].dim() != 3 or ops["op"].dim() != 2:
+        raise ValueError("rga_apply: state must be [R, K, C] and op fields "
+                         "[R, B]")
+    R, K, C = state["valid"].shape
+    B = ops["op"].shape[1]
+    eff = ops.get("eff_ctr")
+    dev = operands.placement("rga_apply", [
+        *slot_operands("state.", state, (R, K, C)),
+        ("state.ctr_floor", state["ctr_floor"], torch.int32, (R, K)),
+        *[(f"op field {f!r}", ops[f], torch.int32, (R, B)) for f in OP_FIELDS],
+        ("op field 'eff_ctr'", eff, torch.int32, (R, B, 1))])
+    if dev is None:
+        return rga_apply_plain(state, ops)
+    operands.check_shared("rga_apply", shared_bytes(C))
+    if (K == 0 or C == 0) and R * B > 0:
+        raise ValueError("rga_apply: no slot rows to gather from")
+    dropped = torch.zeros((R,), dtype=torch.int32, device=dev)
+    if R * K * B == 0:
+        return dropped
+    lib = _lib()
+    st = (ctypes.c_void_p * 7)(*(state[f].data_ptr() for f in FIELDS))
+    op = (ctypes.c_void_p * 7)(*(ops[f].data_ptr() for f in OP_FIELDS),
+                               None if eff is None else eff.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rga_apply_launch(st, state["ctr_floor"].data_ptr(), op,
+                                  dropped.data_ptr(), R, K, C, B, stream)
+    build.check_launch("rga_apply", rc)
+    rga_apply.launches += 1
+    return dropped
+
+
+rga_apply.launches = 0

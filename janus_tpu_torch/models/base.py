@@ -133,6 +133,10 @@ class CRDTTypeSpec:
     # the device, read there), in place; ``runtime.store.converge_delta``
     # needs it.
     join_replica_rows: Callable[[Any, Any, Any], Any] | None = None
+    # a state leaf shaped ``[..., K, X]``: its second-last axis is the key
+    # axis (every type has one; other leaves, such as the RGA's
+    # ``ctr_floor`` ``[..., K]``, need not be shaped so)
+    key_leaf: str = "valid"
 
     def apply_ops_delta(self, state: Any, ops: OpBatch, dirty=None):
         """Delta form of the apply: ``apply_ops_dropped`` plus the mask of
@@ -144,10 +148,7 @@ class CRDTTypeSpec:
 
         if self.apply_ops_dropped is None:
             raise ValueError(f"{self.name} has no apply_ops_dropped")
-        # the key axis is the second-last of every leaf but the zero-size
-        # shape carriers (names starting with "_")
-        num_keys = next(x for f, x in state.items()
-                        if not f.startswith("_")).shape[-2]
+        num_keys = state[self.key_leaf].shape[-2]
         st, dropped = self.apply_ops_dropped(state, ops)
         mask = dirty_rows(ops["op"], ops["key"], num_keys, out=dirty)
         return st, {"dirty": mask, "slots_dropped": dropped}

@@ -38,6 +38,7 @@ from janus_tpu_torch import kernels
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.kernels.orset_rows import (  # noqa: F401
     CAPTURE_FIELDS, FIELDS, KEY_FIELDS, OP_ADD, OP_CLEAR, OP_REMOVE)
+from janus_tpu_torch.kernels.slot_union import ORSET, join_tree, join_tree_rows
 from janus_tpu_torch.models import base
 from janus_tpu_torch.models.base import gather_index
 from janus_tpu_torch.ops.lattice import SENTINEL
@@ -141,69 +142,20 @@ def merge_with_stats(a: State, b: State):
 
 def join_replicas(state: State) -> State:
     """Set every row of the leading replica axis to the join of all rows,
-    in place: the halving tree of ``runtime.store.join_all`` (the middle
-    row joins both halves when the count is odd), one ``slot_union``
-    launch per level, the last level writing its row into all R rows."""
-    r = state["valid"].shape[0]
-    cap = state["valid"].shape[-1]
-    cur = {f: state[f] for f in FIELDS}
-    n = r
-    while n > 2:
-        half = (n + 1) // 2
-        cur, _ = kernels.slot_union({f: x[:half] for f, x in cur.items()},
-                                    {f: x[n - half:n] for f, x in cur.items()},
-                                    cap)
-        n = half
-    if n == 2:
-        kernels.slot_union({f: x[:1] for f, x in cur.items()},
-                           {f: x[1:2] for f, x in cur.items()}, cap,
-                           out={f: state[f].unsqueeze(1) for f in FIELDS})
+    in place: ``kernels.slot_union.join_tree``, the halving tree of
+    ``runtime.store.join_all`` with one ``slot_union`` launch per level,
+    the last level writing its row into all R rows."""
+    join_tree(ORSET, kernels.slot_union, state)
     return state
-
-
-_SCRATCH: Dict[tuple, State] = {}
-
-
-def _tree_scratch(state: State, half: int) -> State:
-    """The ``[half, K, C]`` scratch of one level of ``join_replica_rows``
-    for this state's geometry and device, made at the first call. A level
-    reads its input scratch before it writes its output, and the levels of
-    one tree have distinct sizes, so calls on one stream may share it."""
-    K, C = state["valid"].shape[-2:]
-    dev = state["valid"].device
-    key = (dev, half, K, C)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = {f: torch.empty((half, K, C), dtype=state[f].dtype,
-                                        device=dev) for f in FIELDS}
-    return _SCRATCH[key]
 
 
 def join_replica_rows(state: State, rows: torch.Tensor,
                       n_rows: torch.Tensor) -> State:
     """``join_replicas`` over key rows ``rows[:n_rows]`` only, in place:
-    the same halving tree, one ``slot_union_rows`` launch per level. Level
-    1 reads the listed rows from the state, the middle levels work in
-    ``[half, K, C]`` scratch, kept per geometry so that a tick allocates
-    nothing (only the listed rows of it are written and read), and the
-    last writes each joined row into all R replicas at its key.
-    ``_rm_cap`` is carried through untouched (a zero-width leaf; nothing
-    indexes it)."""
-    r, K, C = state["valid"].shape
-    cur = {f: state[f] for f in FIELDS}
-    listed = True
-    n = r
-    while n > 2:
-        half = (n + 1) // 2
-        nxt = _tree_scratch(state, half)
-        kernels.slot_union_rows({f: x[:half] for f, x in cur.items()},
-                                {f: x[n - half:n] for f, x in cur.items()},
-                                nxt, rows, n_rows, gather=listed)
-        cur, listed, n = nxt, False, half
-    if n == 2:
-        kernels.slot_union_rows({f: x[:1] for f, x in cur.items()},
-                                {f: x[1:2] for f, x in cur.items()},
-                                {f: state[f] for f in FIELDS}, rows, n_rows,
-                                gather=listed, scatter=True)
+    ``kernels.slot_union.join_tree_rows``, one ``slot_union_rows`` launch
+    per level. ``_rm_cap`` is carried through untouched (a zero-width
+    leaf; nothing indexes it)."""
+    join_tree_rows(ORSET, kernels.slot_union_rows, state, rows, n_rows)
     return state
 
 

@@ -102,6 +102,7 @@ SPEC = base.register_type(
         apply_ops_dropped=apply_ops_dropped,
         join_replicas=join_replicas,
         join_replica_rows=join_replica_rows,
+        key_leaf="p",
     )
 )
 

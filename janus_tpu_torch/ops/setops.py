@@ -154,3 +154,70 @@ def row_find(row: Slots, key_fields: Sequence[str], key_vals):
         hit = hit & (row[f] == torch.as_tensor(v, device=hit.device)[..., None])
     return hit.any(-1), _first_true(hit)
 
+
+
+def row_first_free(row: Slots):
+    """First invalid slot -> (has_free: bool, idx: int32); idx is 0 when
+    the row is full."""
+    free = ~row["valid"]
+    return free.any(-1), _first_true(free)
+
+
+def _put(x: torch.Tensor, idx: torch.Tensor, v, do: torch.Tensor):
+    """``x`` with ``x[..., idx] = v`` where ``do`` holds (a new tensor;
+    ``idx``, ``v`` and ``do`` carry the row's leading axes)."""
+    v = torch.as_tensor(v, dtype=x.dtype, device=x.device).expand(do.shape)
+    put = x.scatter(-1, idx.long()[..., None], v[..., None])
+    return torch.where(do[..., None], put, x)
+
+
+def _add_drops(stats, dropped: torch.Tensor) -> None:
+    """Add an op's drop (bool ``[...]``) into ``stats["slots_dropped"]``."""
+    if stats is not None:
+        stats["slots_dropped"] = (
+            stats.get("slots_dropped", dropped.new_zeros((), dtype=torch.int32))
+            + dropped.to(torch.int32))
+
+
+def row_insert(row: Slots, values: Dict[str, torch.Tensor], enabled=True,
+               stats: Dict[str, torch.Tensor] | None = None):
+    """Insert a slot into the first free position; drops when the row is
+    full. With a ``stats`` dict an enabled insert into a full row adds one
+    to ``stats["slots_dropped"]`` (int32 with the row's leading axes).
+    Returns the new row (a new dict; the input is not modified)."""
+    has_free, idx = row_first_free(row)
+    en = torch.as_tensor(enabled, device=idx.device).expand(has_free.shape)
+    do = en & has_free
+    _add_drops(stats, en & ~has_free)
+    out = dict(row)
+    for f, v in values.items():
+        out[f] = _put(row[f], idx, v, do)
+    out["valid"] = _put(row["valid"], idx, True, do)
+    return out
+
+
+def row_upsert(row: Slots, key_fields: Sequence[str], key_vals,
+               values: Dict[str, torch.Tensor],
+               combine_existing: Callable[[Dict, Dict], Dict], enabled=True,
+               stats: Dict[str, torch.Tensor] | None = None):
+    """Insert a key, or fold ``values`` into its existing slot (the first
+    valid one holding it) by ``combine_existing(old_payload, new_payload)
+    -> payload``. With ``stats``, an enabled upsert of an absent key into a
+    full row adds one to ``stats["slots_dropped"]`` (folding never drops).
+    Key values, values and ``enabled`` carry the row's leading axes.
+    Returns the new row."""
+    found, idx = row_find(row, key_fields, key_vals)
+    en = torch.as_tensor(enabled, device=idx.device).expand(found.shape)
+    if stats is not None:
+        has_free, _ = row_first_free(row)
+        _add_drops(stats, en & ~found & ~has_free)
+    old = {f: row[f].gather(-1, idx.long()[..., None])[..., 0]
+           for f in row if f != "valid" and f not in key_fields}
+    new = combine_existing(old, values)
+    fold = en & found
+    ins_vals = dict(values)
+    ins_vals.update(zip(key_fields, key_vals))
+    out = row_insert(row, ins_vals, enabled=en & ~found)
+    for f, v in new.items():
+        out[f] = _put(out[f], idx, v, fold)
+    return out

@@ -607,3 +607,203 @@ def test_store_fused_tick_on_card_matches_cpu(cuda_device, budget):
         _assert_outputs_equal(out["cuda"][0][tc], out["cpu"][0][tc])
     assert out["cuda"][1] == out["cpu"][1]
     assert (out["cuda"][1]["overflow_orset"] > 0) == (budget == 16)
+
+
+def _rga_rows(rng, shape, c, dev, **kw):
+    return _on(workloads.rga_slots(rng, shape, c, **kw), dev)
+
+
+def _rga_state(rng, r, k, c, dev, depth=8, **kw):
+    st = _rga_rows(rng, (r, k), c, dev, **kw)
+    st["ctr_floor"] = torch.as_tensor(
+        rng.integers(-2, c + 2, (r, k)).astype(np.int32), device=dev)
+    st["_depth"] = torch.zeros((r, depth, 0), dtype=torch.int32, device=dev)
+    return st
+
+
+def _clone(tree):
+    return {f: x.clone() for f, x in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,ca,cb,cap,canonical", [
+    ((3, 5), 6, 6, 6, False), ((7,), 8, 8, 8, True), ((2, 4), 5, 3, 4, False),
+    ((4,), 3, 2, 8, True), ((2, 20), 1024, 1024, 1024, True),
+    ((3, 4), 300, 200, 256, False)])
+def test_rga_union_kernel_matches_plain(cuda_device, lead, ca, cb, cap,
+                                        canonical):
+    """The RGA instantiation of slot_union.cu: random rows (full ones,
+    negative ids, repeated ids in non-canonical rows), half of b's ids
+    copied from a; fresh outputs and the broadcast ``out`` form."""
+    rng = np.random.default_rng(ca + cb + cap)
+    a = workloads.rga_slots(rng, lead, ca, canonical=canonical, dup_rows=0.4,
+                            full_rows=0.5, negative=0.1)
+    b = workloads.rga_slots(rng, lead, cb, canonical=canonical, dup_rows=0.4,
+                            full_rows=0.5, negative=0.1)
+    m = min(ca, cb)
+    take = rng.random(lead + (m,)) < 0.5
+    for f in ("id_ctr", "id_rep", "valid"):
+        b[f][..., :m] = np.where(take, a[f][..., :m], b[f][..., :m])
+    a, b = _on(a, cuda_device), _on(b, cuda_device)
+    before = kernels.rga_union.launches
+    got, ovf = kernels.rga_union(a, b, cap)
+    ref, ref_ovf = kernels.rga_union_plain(a, b, cap)
+    out = {f: torch.zeros((2,) + lead + (cap,), dtype=x.dtype,
+                          device=cuda_device) for f, x in got.items()}
+    kernels.rga_union(a, b, cap, out=out)
+    torch.cuda.synchronize()
+    assert kernels.rga_union.launches == before + 2
+    _assert_outputs_equal(got, ref)
+    _assert_outputs_equal(ovf, ref_ovf)
+    for f in got:
+        assert torch.equal(out[f], ref[f].expand_as(out[f]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,c,b,captured,canonical", [
+    (3, 5, 8, 40, False, True), (4, 3, 6, 300, True, False),
+    (8, 128, 1024, 32, False, True), (2, 7, 300, 64, True, True),
+    (5, 2, 4, 24, False, False)])
+def test_rga_apply_kernel_matches_plain(cuda_device, r, k, c, b, captured,
+                                        canonical):
+    """Uncaptured and eff_ctr applies with keys in [-K, 2K), full rows,
+    deletes before inserts, re-inserts, negative and SENTINEL ids; B past
+    one tile of 256 lanes; C past one slot per thread."""
+    rng = np.random.default_rng(r * k + c + b)
+    st = _rga_state(rng, r, k, c, cuda_device, canonical=canonical,
+                    dup_rows=0.3, full_rows=0.4, negative=0.1)
+    ops = _on(workloads.rga_mixed_ops(rng, (r, b), k, c, captured=captured),
+              cuda_device)
+    ref = _clone(st)
+    before = kernels.rga_apply.launches
+    drop = kernels.rga_apply(st, ops)
+    ref_drop = kernels.rga_apply_plain(ref, ops)
+    torch.cuda.synchronize()
+    assert kernels.rga_apply.launches == before + 1
+    _assert_outputs_equal(st, ref)
+    _assert_outputs_equal(drop, ref_drop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,c,protect,canonical", [
+    ((3, 5), 12, False, True), ((2, 4), 9, True, False),
+    ((4, 64), 1024, False, True), ((3, 7), 300, True, False)])
+def test_rga_compact_kernel_matches_plain(cuda_device, lead, c, protect,
+                                          canonical):
+    """Compaction of random trees (dead interior nodes, dangling and
+    cyclic parents, repeated ids, invalid slots mid-row), with and without
+    a protect mask; fresh outputs and in place."""
+    rng = np.random.default_rng(c + len(lead))
+    rows = _rga_rows(rng, lead, c, cuda_device, canonical=canonical,
+                     dup_rows=0.4, dead=0.6, negative=0.1)
+    prot = (torch.as_tensor(rng.random(lead + (c,)) < 0.2, device=cuda_device)
+            if protect else None)
+    before = kernels.rga_compact.launches
+    got = kernels.rga_compact(rows, prot)
+    ref = kernels.rga_compact_plain(rows, prot)
+    inplace = _clone(rows)
+    kernels.rga_compact(inplace, prot, out=inplace)
+    torch.cuda.synchronize()
+    assert kernels.rga_compact.launches == before + 2
+    _assert_outputs_equal(got, ref)
+    _assert_outputs_equal(inplace, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,depth,canonical", [
+    (6, 16, 4, True), (5, 12, 3, False), (8, 1024, 8, True),
+    (4, 300, 8, False), (3, 8, 1, False), (2, 64, 32, True)])
+def test_rga_order_kernel_matches_plain(cuda_device, n, c, depth, canonical):
+    """The path-key linearization on random deep trees: chains past
+    ``depth`` (overflow), dangling and cyclic parents, repeated ids,
+    negative ids, invalid slots mid-row."""
+    rng = np.random.default_rng(n + c + depth)
+    rows = _rga_rows(rng, (n,), c, cuda_device, canonical=canonical,
+                     dup_rows=0.6, chain=0.6, dangling=0.1, negative=0.1,
+                     full_rows=0.5)
+    before = kernels.rga_order.launches
+    got = kernels.rga_order(rows, depth)
+    ref = kernels.rga_order_plain(rows, depth)
+    torch.cuda.synchronize()
+    assert kernels.rga_order.launches == before + 1
+    for g, w in zip(got, ref, strict=True):
+        _assert_outputs_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n_rows", [(8, 3), (5, 6), (2, 2), (1, 4)])
+def test_rga_join_replica_rows_on_card_matches_plain(cuda_device, r, n_rows):
+    """The RGA's row-list converge (``rga_union_rows`` per level and
+    ``replica_join_rows`` on ``ctr_floor``) against the same tree of plain
+    versions."""
+    from janus_tpu_torch.models import rga
+
+    rng = np.random.default_rng(r + n_rows)
+    st = _rga_state(rng, r, 6, 16, cuda_device, canonical=False, dup_rows=0.3)
+    rows = torch.from_numpy(rng.permutation(6).astype(np.int32)).to(cuda_device)
+    n = torch.tensor(n_rows, dtype=torch.int32, device=cuda_device)
+    ref = _clone(st)
+    before = kernels.rga_union_rows.launches
+    rga.join_replica_rows(st, rows, n)
+    real = (kernels.rga_union_rows, kernels.replica_join_rows)
+    kernels.rga_union_rows = kernels.rga_union_rows_plain
+    kernels.replica_join_rows = kernels.replica_join_rows_plain
+    try:
+        rga.join_replica_rows(ref, rows, n)
+    finally:
+        kernels.rga_union_rows, kernels.replica_join_rows = real
+    torch.cuda.synchronize()
+    assert kernels.rga_union_rows.launches == before + int(np.ceil(np.log2(r)))
+    _assert_outputs_equal(st, ref)
+
+
+@pytest.mark.cuda
+def test_rga_tick_on_card_matches_tick_on_cpu(cuda_device):
+    """Harness preset ``rga`` shrunk to R=16, K=8, L=4 (capacity 64), 8
+    ticks with compaction every 4, on the card and on the CPU: bit-equal
+    after every tick, text of document 0 included."""
+    from janus_tpu_torch.models import rga
+
+    R, K, L, lag, every = 16, 8, 4, 2, 4
+    cap = R * L // K * (lag + every + 2)
+    sts, ticks = {}, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        sts[dev.type] = store.replicated_init(rga.SPEC, R, device=dev,
+                                              num_keys=K, capacity=cap,
+                                              max_depth=8)
+        ticks[dev.type] = engine.make_tick(rga.SPEC, device=dev)
+    rngs = {d: np.random.default_rng(0) for d in sts}
+    for t in range(8):
+        for d in sts:
+            ops = workloads.ops_to_device(
+                workloads.rga_text_replay(rngs[d], R, K, L, lag, t), d)
+            ticks[d](sts[d], ops)
+            if t % every == every - 1:
+                rga.compact(sts[d])
+        _assert_trees_equal({f: x.cpu().numpy() for f, x in sts["cuda"].items()},
+                            {f: x.numpy() for f, x in sts["cpu"].items()},
+                            f"tick {t}")
+    text = {d: rga.text({f: x[0] for f, x in st.items()}, 0)
+            for d, st in sts.items()}
+    for f in text["cpu"]:
+        assert torch.equal(text["cuda"][f].cpu(), text["cpu"][f])
+
+
+@pytest.mark.cuda
+def test_rga_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    rng = np.random.default_rng(0)
+    st = _rga_state(rng, 2, 3, 4, cuda_device)
+    ops = _on(workloads.rga_mixed_ops(rng, (2, 8), 3, 4), cuda_device)
+    before = kernels.launches()
+    with pytest.raises(ValueError):
+        kernels.rga_apply(dict(st, chr=st["chr"].cpu()), ops)
+    with pytest.raises(ValueError):
+        kernels.rga_union(st, dict(st, dead=st["dead"].to(torch.uint8)))
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.rga_union(*(_rga_rows(rng, (1,), 4000, cuda_device)
+                            for _ in range(2)))
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.rga_order(_rga_rows(rng, (1,), 4096, cuda_device), 32)
+    with pytest.raises(ValueError):
+        kernels.rga_order({f: x[0] for f, x in st.items()}, 0)
+    assert kernels.launches() == before

@@ -21,6 +21,7 @@ MODULES = (
     "janus_tpu_torch.models.base",
     "janus_tpu_torch.models.pncounter",
     "janus_tpu_torch.models.orset",
+    "janus_tpu_torch.models.rga",
     "janus_tpu_torch.kernels",
     "janus_tpu_torch.kernels.build",
     "janus_tpu_torch.kernels.pnc_apply",
@@ -38,6 +39,11 @@ MODULES = (
     "janus_tpu_torch.kernels.orset_apply",
     "janus_tpu_torch.kernels.dirty_rows",
     "janus_tpu_torch.kernels.delta_select",
+    "janus_tpu_torch.kernels.rga_rows",
+    "janus_tpu_torch.kernels.rga_union",
+    "janus_tpu_torch.kernels.rga_apply",
+    "janus_tpu_torch.kernels.rga_compact",
+    "janus_tpu_torch.kernels.rga_order",
     "janus_tpu_torch.obs",
     "janus_tpu_torch.obs.metrics",
     "janus_tpu_torch.runtime",
@@ -76,7 +82,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ``device="cpu"`` is the only way onto the CPU."""
     from janus_tpu_torch import resolve_device
     from janus_tpu_torch.consensus import DagConfig
-    from janus_tpu_torch.models import orset, pncounter
+    from janus_tpu_torch.models import orset, pncounter, rga
     from janus_tpu_torch.runtime import engine, store
     from janus_tpu_torch.runtime.safecrdt import SafeKV
 
@@ -103,8 +109,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         store.Store(2, {"pnc": dict(num_keys=4, num_writers=2)},
                     dirty_budget=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.make_tick(rga.SPEC)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rga.init(num_keys=4, capacity=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        store.replicated_init(rga.SPEC, 2, num_keys=4, capacity=8,
+                              max_depth=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     SafeKV(DagConfig(4, 8), pncounter.SPEC, ops_per_block=4, device="cpu",
            num_keys=4, num_writers=4)
     store.Store(2, {"orset": dict(num_keys=4, capacity=4)}, device="cpu")
+    store.Store(2, {"rga": dict(num_keys=4, capacity=4, max_depth=2)},
+                device="cpu")

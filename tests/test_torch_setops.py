@@ -1,7 +1,8 @@
 """Parity of the port's slot sets (janus_tpu_torch, on the CPU) with the JAX
 package's ``ops/setops.py``: ``make_slots``, ``slot_union`` (through the
 ``slot_union`` wrapper, which runs its plain version on the CPU, and the
-generic function) and ``row_find``. Every comparison is bit-equal
+generic function), ``row_find``, ``row_first_free``, ``row_insert`` and
+``row_upsert``. Every comparison is bit-equal
 (tolerance exactly 0) on seeded numpy inputs.
 """
 import jax
@@ -126,3 +127,67 @@ def test_row_find_matches_jax(n, c, seed):
     assert np.asarray(want[0]).any() and not np.asarray(want[0]).all()
     for g, w in zip(got, want):
         _assert_equal(g, w)
+
+
+def _fold_max(old, new):
+    return {"elem": jnp.maximum(old["elem"], new["elem"]),
+            "removed": old["removed"] | new["removed"]}
+
+
+def _fold_max_torch(old, new):
+    return {"elem": torch.maximum(old["elem"], new["elem"]),
+            "removed": old["removed"] | new["removed"]}
+
+
+@pytest.mark.parametrize("n,c,seed,upsert", [
+    (12, 5, 7, True), (9, 8, 8, True), (16, 1, 9, True),
+    (12, 5, 10, False), (8, 3, 11, False)])
+def test_row_insert_and_upsert_match_jax(n, c, seed, upsert):
+    """row_upsert (present keys fold, absent keys insert into the first
+    free slot, full rows drop) and row_insert, over non-canonical rows with
+    junk in invalid slots, enabled and disabled lanes, with the drop count
+    of the ``stats`` dict: batched in the port, vmapped in JAX."""
+    rng = np.random.default_rng(seed)
+    rows = workloads.orset_slots(rng, (n,), c, canonical=False,
+                                 full_rows=0.6)
+    pick = rng.integers(0, c, n)
+    keys = [np.where(rng.random(n) < 0.5, rows[f][np.arange(n), pick],
+                     rng.integers(-2, 20, n)).astype(np.int32)
+            for f in ("tag_rep", "tag_ctr")]
+    vals = {"elem": rng.integers(-3, 9, n).astype(np.int32),
+            "removed": rng.random(n) < 0.5}
+    en = rng.random(n) < 0.8
+
+    def jax_one(row, k1, k2, elem, removed, e):
+        stats = {"slots_dropped": jnp.int32(0)}
+        values = {"elem": elem, "removed": removed}
+        if upsert:
+            out = jax_setops.row_upsert(row, KEY_FIELDS, (k1, k2), values,
+                                        _fold_max, enabled=e, stats=stats)
+        else:
+            out = jax_setops.row_insert(
+                row, {**values, "tag_rep": k1, "tag_ctr": k2}, enabled=e,
+                stats=stats)
+        return out, stats["slots_dropped"]
+
+    want, want_drop = jax.vmap(jax_one)(
+        _jax(rows), *(jnp.asarray(k) for k in keys), jnp.asarray(vals["elem"]),
+        jnp.asarray(vals["removed"]), jnp.asarray(en))
+    stats = {}
+    tv = {f: torch.from_numpy(v) for f, v in vals.items()}
+    tk = [torch.from_numpy(k) for k in keys]
+    if upsert:
+        got = setops.row_upsert(_torch(rows), KEY_FIELDS, tk, tv,
+                                _fold_max_torch, enabled=torch.from_numpy(en),
+                                stats=stats)
+    else:
+        got = setops.row_insert(_torch(rows),
+                                {**tv, "tag_rep": tk[0], "tag_ctr": tk[1]},
+                                enabled=torch.from_numpy(en), stats=stats)
+    _assert_equal(got, want)
+    _assert_equal(stats["slots_dropped"], want_drop, "slots_dropped")
+    assert np.asarray(want_drop).any()
+    has_free, idx = setops.row_first_free(_torch(rows))
+    w_free, w_idx = jax.vmap(jax_setops.row_first_free)(_jax(rows))
+    _assert_equal(has_free, w_free)
+    _assert_equal(idx, w_idx)
