@@ -8,7 +8,7 @@ checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all fourteen kernel sources in csrc/ compiled with nvcc, in
+2. build      all eighteen kernel sources in csrc/ compiled with nvcc, in
               parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
@@ -33,7 +33,17 @@ non-zero. Phases, one JSON line each:
               invalid slots mid-row), full rows that drop, deletes before
               their insert, keys in [-K, 2K), and every call of the rga
               preset's first two ticks, its first compaction, tick 3's
-              apply and compaction, a text and two delta ticks
+              apply and compaction, a text and two delta ticks;
+              safekv_submit (accept and board), block_select,
+              state_transfer and gc_frontier (with the ring clear) (phase
+              safekv_kernels) on random inputs at (N, W) from (4, 8) to
+              (64, 16) reaching rejected submits, selections past the
+              budget, wrapped commit keys, transfers by lag, frontier and
+              force (the donor among them), zero-size leaves, multi-slot GC
+              advances with a lost straggler and packs with and without
+              the logs, and on every call of SafeKV runs at the consensus
+              phase's geometry (4 and 16 nodes, a node crashed), the
+              orset_consensus phase's and harness preset mixed's 64 nodes
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
@@ -44,7 +54,8 @@ non-zero. Phases, one JSON line each:
               and P and N per writer lane against a numpy scatter; the
               pnc_apply calls of its warm-up rounds are recorded and
               replayed through the kernel and its plain version, bit-equal;
-              each consensus kernel must launch once per SafeKV round
+              each consensus kernel must launch once per SafeKV round, and
+              the round's other wrappers as often as a round calls them
 6. orset_store  path B, the OR-Set anti-entropy store: R=64 replicas, K=500
               keys of 256 slots, B=64 ops per replica per tick in a Zipf
               hot window of 32 keys, 24 ticks of apply + full converge;
@@ -73,11 +84,19 @@ non-zero. Phases, one JSON line each:
               bit-equal, 256 live elements per document, nothing dropped,
               no depth overflow, the text of document 0 equal to an
               independent numpy model
-10. profiler_check  the kernels torch.profiler saw over 20 calls of a
+10. harness_tensor  the port's tensor-mode harness (run_tensor) at presets
+              pnc, orset (16 nodes) and mixed (64 nodes, consensus on),
+              uncut: Results.to_dict() (throughput, safeUpdate latency in
+              ms, tick ms, commit lag in rounds) and slots dropped per
+              preset; the stable states of all views agree, prospective
+              equals stable where no slot record was dropped, the
+              PN-Counter equals a numpy sum of the accepted ops, and
+              step_dispatch makes no host synchronisation
+11. profiler_check  the kernels torch.profiler saw over 20 calls of a
               plain torch kernel, and of causal_closure right after a
               profile of tusk_commit's plain version (the kernels line
               gives each wrapper's count beside its own launch count)
-11. timing, the kernels line, the nvidia-smi line, and the result line.
+12. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -110,6 +129,10 @@ RECORDED = (dict(nodes=4, window=8, ops_per_block=4000, keys=100, rounds=16,
             dict(nodes=16, window=8, ops_per_block=500, keys=100, rounds=8,
                  crash=(2, 8)))
 CONSENSUS_KERNELS = ("tusk_commit", "causal_closure", "dag_round")
+# each wrapper's launch count per SafeKV round (the wrappers' counters)
+ROUND_LAUNCHES = {"tusk_commit": 1, "causal_closure": 1, "dag_round": 1,
+                  "safekv_submit": 2, "block_select": 2, "state_transfer": 1,
+                  "gc_frontier": 2}
 # path B, the OR-Set anti-entropy store: R replicas, K keys of C slots, B
 # uncaptured ops per replica per tick, Zipf keys in a rotating hot window
 ORSET_STORE = dict(R=64, K=500, C=256, rm=8, B=64, hot=32, ticks=24,
@@ -168,6 +191,38 @@ RGA_LIBRARY_NOTES = {
     "rga_order": "no single PyTorch call computes it: a path-key sort of "
                  "a tree",
 }
+# the rest of the SafeKV round: submit (accept, board), the delta applies'
+# selection and gather, the state transfer, the GC frontier (and ring clear)
+SAFEKV_KERNELS = ("safekv_submit", "block_select", "state_transfer",
+                  "gc_frontier")
+# a source's second entry point, counted on its wrapper
+SECOND_ENTRIES = {"safekv_board": "safekv_submit",
+                  "gc_clear_ring": "gc_frontier"}
+# random checks per (N, W); recorded runs beside RECORDED's: the OR-Set at
+# ORSET_CONS and both types at harness preset mixed's 64 nodes, node N-1
+# crashed for rounds [crash[0], crash[1])
+SAFEKV_CHECKS = dict(shapes=((4, 8), (7, 6), (16, 8), (64, 8), (64, 16)),
+                     states=6)
+SAFEKV_RECORDED = dict(orset_rounds=6,
+                       mixed=dict(nodes=64, window=8, ops_per_block=64,
+                                  keys=500, capacity=256, rm=8, rounds=10,
+                                  crash=(2, 6)))
+SAFEKV_LIBRARY_NOTES = {
+    "safekv_submit": "no single PyTorch call computes it: a per-view accept "
+                     "rule, a masked copy and a ring write at rows chosen "
+                     "on the device",
+    "block_select": "no single PyTorch call computes it: a per-view stable "
+                    "smallest-A selection feeding a masked gather",
+    "state_transfer": "no single PyTorch call computes it: an order "
+                      "statistic and an argmax deciding a row copy over "
+                      "every leaf",
+    "gc_frontier": "no single PyTorch call computes it: quorum order "
+                   "statistics, a W-step scan and a recycle",
+}
+# the port's run_tensor at these harness presets, uncut unless a preset's
+# ticks are cut here (none is)
+HARNESS = dict(presets=("pnc", "orset", "mixed"), cut_ticks={},
+               sync_rounds=4, profile_rounds=3)
 # a row-list mode or another slot layout is its kernel's source with
 # another entry point
 SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union",
@@ -192,6 +247,10 @@ REPLACES = {
     "rga_apply": "janus_tpu/models/rga.py:120",
     "rga_compact": "janus_tpu/models/rga.py:285",
     "rga_order": "janus_tpu/models/rga.py:208",
+    "safekv_submit": "janus_tpu/runtime/safecrdt.py:297",
+    "block_select": "janus_tpu/runtime/safecrdt.py:374",
+    "state_transfer": "janus_tpu/runtime/safecrdt.py:421",
+    "gc_frontier": "janus_tpu/runtime/safecrdt.py:518",
 }
 
 
@@ -504,10 +563,13 @@ def record_calls(kernels, names, fn):
 
 
 class CaseLog:
-    """Per-kernel counts of the checks of the named kernels."""
+    """Per-kernel counts of the checks of the named kernels; ``entries``
+    maps a source's second entry point (``SECOND_ENTRIES``) to its
+    function, its checks counted on its wrapper."""
 
-    def __init__(self, names):
+    def __init__(self, names, entries=None):
         self.by = {name: {"cases": 0, "max_abs_err": 0} for name in names}
+        self.entries = entries or {}
         if "tusk_commit" in self.by:
             self.by["tusk_commit"]["committed_cases"] = 0
 
@@ -518,12 +580,13 @@ class CaseLog:
         kwargs = kwargs or {}
         mine = tree_map(torch.Tensor.clone, (args, kwargs))
         ref = tree_map(torch.Tensor.clone, (args, kwargs))
-        out = kernels.WRAPPERS[name](*mine[0], **mine[1])
+        fn = self.entries.get(name) or kernels.WRAPPERS[name]
+        out = fn(*mine[0], **mine[1])
         want = plain_of(kernels, name)(*ref[0], **ref[1])
         torch.cuda.synchronize()
         err = tree_err((mine, out), (ref, want))
         check(err == 0, f"{name} {what}: max_abs_err {err}")
-        rec = self.by[name]
+        rec = self.by[SECOND_ENTRIES.get(name, name)]
         rec["cases"] += 1
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if name == "tusk_commit":  # a commit counter grew
@@ -762,8 +825,8 @@ def consensus_path(dev, kernels, workloads, cases):
           "consensus: values differ from the numpy sum of accepted ops")
     check(launches["pnc_apply"] > 0, "consensus: pnc_apply never launched")
     stepped = rounds + idle_rounds
-    for name in CONSENSUS_KERNELS:  # one launch each per SafeKV round
-        check(launches[name] == stepped, f"consensus: {name} launched "
+    for name, per in ROUND_LAUNCHES.items():  # launches per SafeKV round
+        check(launches[name] == per * stepped, f"consensus: {name} launched "
               f"{launches[name]} times in {stepped} SafeKV rounds")
     # per writer lane: P and N of every view, prospective and stable, equal
     # an independent numpy scatter over [key, writer]
@@ -827,12 +890,12 @@ def consensus_path(dev, kernels, workloads, cases):
                  or "memset" in e.name.lower())
     dev_us = sum(e.time_range.elapsed_us() for e in dev_events)
 
-    # the functional phases of a round, each alone on the current state
+    # the functional phases of a round, each alone on a copy of the state
     cfg = kv.cfg
+    carry = tree_map(torch.Tensor.clone, kv._carry())
     by_phase = {
         "state_transfer": cuda_kernels_of(lambda: kv._state_transfer(
-            kv.prospective, kv.stable, kv.dag, kv.commit, kv.prosp_applied,
-            kv.stable_applied, kv.force_transfer)),
+            *carry[:4], *carry[6:9])),
         "round_step": cuda_kernels_of(lambda: dagmod.round_step(cfg, kv.dag)),
         "causal_closure": cuda_kernels_of(
             lambda: kv._causal_closure(kv.dag, kv.prosp_applied)),
@@ -1945,7 +2008,7 @@ def orset_consensus(dev, kernels, workloads):
               f"canonical (or a tag twice in a row)")
     stepped = rounds + idle_rounds
     expect = {"orset_capture": stepped, "orset_replay": 3 * stepped,
-              **{name: stepped for name in CONSENSUS_KERNELS}}
+              **{name: per * stepped for name, per in ROUND_LAUNCHES.items()}}
     for name, want in expect.items():
         check(launches[name] == want, f"orset_consensus: {name} launched "
               f"{launches[name]} times in {stepped} rounds, expected {want}")
@@ -1967,20 +2030,23 @@ def orset_consensus(dev, kernels, workloads):
     cfg = kv.cfg
     everything = torch.ones((n, w, n), dtype=torch.bool, device=dev)
     order = torch.zeros((n, w, n), dtype=torch.int32, device=dev)
+    # each phase alone on its own copy of the state (the phases update it
+    # in place)
+    carry = [tree_map(torch.Tensor.clone, kv._carry()) for _ in range(3)]
+    applied_none = torch.zeros((n, w, n), dtype=torch.bool, device=dev)
     by_phase = {
         "submit": cuda_kernels_of(lambda: kv._submit_device(
-            kv.prospective, kv.dag, kv.ops_buffer, kv.buffer_filled,
-            kv.prosp_applied, extra[0])),
+            carry[0][0], carry[0][2], *carry[0][4:7], extra[0])),
         "state_transfer": cuda_kernels_of(lambda: kv._state_transfer(
-            kv.prospective, kv.stable, kv.dag, kv.commit, kv.prosp_applied,
-            kv.stable_applied, kv.force_transfer)),
+            *carry[1][:4], *carry[1][6:9])),
         "round_step": cuda_kernels_of(lambda: dagmod.round_step(cfg, kv.dag)),
         "causal_closure": cuda_kernels_of(
             lambda: kv._causal_closure(kv.dag, kv.prosp_applied)),
         "commit_view": cuda_kernels_of(lambda: tusk.commit_view(
             cfg, kv.dag, kv.commit, seed=kv.seed, steps=COMMIT_STEPS)),
         "delta_apply_x2": 2 * cuda_kernels_of(lambda: kv._delta_apply(
-            kv.stable, kv.ops_buffer, everything, order)),
+            carry[2][1], carry[2][4], everything, applied_none,
+            kv.commit["slot_round"], kv.dag["base_round"], order)),
         "compaction_at_gc": cuda_kernels_of(lambda: kv._compact_device(
             kv.prospective, kv.stable, kv.ops_buffer)),
     }
@@ -2090,8 +2156,435 @@ def delta_kernel_rows(kernels, calls):
     return rows
 
 
+def safekv_kernel_checks(dev, kernels, workloads, cases):
+    """safekv_submit (accept and board), block_select, state_transfer and
+    gc_frontier (the frontier and the ring clear) against their plain
+    versions on the card, bit-equal, in-place updates included: (a) random
+    inputs at (N, W) from (4, 8) to (64, 16): rejected views (block made,
+    slot buffered, below the frontier, window full, crashed), rounds near
+    the int32 limits, ring rows with capture extras, selections that spill
+    past the budget and commit keys that wrap, transfers needed by lag,
+    by the frontier and by force (the donor among them), zero-size leaves,
+    frontiers that advance by several slots past a lost straggler, and
+    packs with and without the logs; (b) every call of SafeKV runs at the
+    consensus phase's geometry and at 16 nodes (a node crashed for some
+    rounds), at the orset_consensus phase's geometry, and at harness
+    preset mixed's 64 nodes (both types). Returns, per kernel, the
+    recorded calls the kernels line times."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset, pncounter
+    from janus_tpu_torch.models.base import OP_FIELDS
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    entries = {"safekv_board": kernels.safekv_board,
+               "gc_clear_ring": kernels.gc_clear_ring}
+    log = CaseLog(SAFEKV_KERNELS, entries)
+    rng = np.random.default_rng(21)
+    cover = {"accepted": 0, "rejected": 0, "spilled": 0, "wrapped_keys": 0,
+             "need_lag": 0, "need_frontier": 0, "need_force": 0,
+             "donor_needy": 0, "advanced_2_plus": 0, "lost": 0,
+             "collect_logs": [0, 0]}
+
+    def t(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    def i32(shape, lo=-(2**31), hi=2**31 - 1):
+        return t(rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32))
+
+    def bools(shape, p):
+        return t(rng.random(shape) < p)
+
+    def ring(n, w, b, r):
+        fields = {f: i32((w, n, b), -5, 50) for f in OP_FIELDS}
+        if r:
+            fields.update({f: i32((w, n, b, r)) for f in ("rm_rep", "rm_ctr",
+                                                           "rm_elem")})
+        return fields
+
+    for shape_i, (n, w) in enumerate(SAFEKV_CHECKS["shapes"]):
+        cfg = DagConfig(n, w)
+        for i in range(SAFEKV_CHECKS["states"]):
+            wrap = i % 3 == 2
+            dag, _, _ = workloads.consensus_state(rng, n, w, wrap=wrap)
+            dag = {f: t(x) for f, x in dag.items()}
+            b = (1, 37, 64)[i % 3]
+            r = (0, 4, 8)[(i + shape_i) % 3]
+            filled = bools((w, n), 0.3)
+            active = None if i % 2 else bools((n,), 0.8)
+            ops = {f: i32((n, b)) for f in OP_FIELDS}
+            acc_ops, accepted, pre = log.add(
+                kernels, "safekv_submit", (cfg, dag, filled, ops, active),
+                f"N{n} W{w} state {i}")
+            cover["accepted"] += int(accepted.sum())
+            cover["rejected"] += int((~accepted).sum())
+            buf = ring(n, w, b, r)
+            captured = {f: acc_ops[f] if f in acc_ops else i32(x.shape[1:])
+                        for f, x in buf.items()}  # the capture's extras
+            pre_rand = i32((n,), -3 * w, 3 * w)
+            for what, rounds in (("", pre), (" negative rounds", pre_rand)):
+                log.add(kernels, "safekv_board",
+                        (cfg, buf, filled, bools((n, w, n), 0.3), captured,
+                         accepted, rounds), f"N{n} W{w} state {i}{what}")
+            # selections: sparse and dense, budgets below and above W*N
+            sr, base = dag["slot_round"], dag["base_round"]
+            for p_ready, budget in ((0.2, 4 * n), (0.9, max(1, n // 2)),
+                                    (0.9, 3 * w * n), (0.5, 1)):
+                ready, applied = bools((n, w, n), p_ready), bools((n, w, n), 0.2)
+                seq = None if budget % 2 else i32(
+                    (n, w, n), 0, 2**31 // (w * n) + 50)
+                sel = int((ready & ~applied).sum(dim=(1, 2)).max())
+                cover["spilled"] += sel > min(budget, w * n)
+                if seq is not None:
+                    wide = seq.long() * (w * n) + w * n
+                    cover["wrapped_keys"] += int((wide > 2**31 - 1).sum() > 0)
+                log.add(kernels, "block_select",
+                        (cfg, ring(n, w, b, r), ready, applied, budget, sr,
+                         base, seq), f"N{n} W{w} state {i} budget {budget}")
+            # transfers: ties in last_wave, the frontier, force on the donor
+            lw = t(np.where(rng.random(n) < 0.25, rng.integers(-1, 4, n),
+                            rng.integers(8, 11, n)).astype(np.int32))
+            nr = dag["node_round"].clone()
+            force = bools((n,), 0.2)
+            if i % 2:
+                force[int(torch.argmax(lw))] = True
+            leaves = [i32((n, 3, 5)), bools((n, w, n), 0.5), nr, lw,
+                      torch.zeros((n, 3, 0), dtype=torch.int32, device=dev),
+                      bools((n,), 0.5)]
+            need, donor = kernels.state_transfer_plain(
+                cfg, tree_map(torch.Tensor.clone, leaves), nr.clone(), base,
+                lw.clone(), force)
+            lw_q = torch.sort(lw).values[n - cfg.quorum]
+            cover["need_lag"] += int((lw < lw_q - max(2, w // 4)).sum())
+            cover["need_frontier"] += int((nr < base).sum())
+            cover["need_force"] += int(force.sum())
+            cover["donor_needy"] += bool(need[int(donor)])
+            log.add(kernels, "state_transfer", (cfg, leaves, nr, base, lw, force),
+                    f"N{n} W{w} state {i}")
+            # GC at a state with finished slots, with and without the logs
+            gdag, gcom, before, pa, sa, bf = (
+                {k: t(v) for k, v in x.items()} if isinstance(x, dict) else t(x)
+                for x in workloads.gc_state(rng, n, w, wrap=wrap))
+            drops = (i32((n,)), None if i % 2 else i32((n,)))
+            logs = bool(i % 2)
+            lost, dead, _ = log.add(
+                kernels, "gc_frontier",
+                (cfg, gdag, gcom, before, pa, sa, bf, i32((n,), -9, 99),
+                 bools((n,), 0.7), bools((n,), 0.2), i32((), 0, n), drops,
+                 logs), f"N{n} W{w} state {i} logs {logs}")
+            cover["collect_logs"][logs] += 1
+            cover["lost"] += int(lost.any())
+            adv = int(dead.sum())
+            cover["advanced_2_plus"] += adv >= 2
+            log.add(kernels, "gc_clear_ring", (cfg, ring(n, w, b, r), dead),
+                    f"N{n} W{w} state {i} {adv} dead")
+            log.add(kernels, "gc_clear_ring",
+                    (cfg, ring(n, w, b, r), bools((w,), 0.0)),
+                    f"N{n} W{w} state {i} none dead")
+
+    # (b) the calls of real runs
+    names = SAFEKV_KERNELS + tuple(entries)
+    recorded = {}
+
+    def pnc_run(geo):
+        return lambda: run_recorded(dev, workloads, geo)
+
+    def orset_run():
+        g = ORSET_CONS
+        n = g["nodes"]
+        kv = SafeKV(DagConfig(n, g["window"]), orset.SPEC,
+                    ops_per_block=g["ops_per_block"], apply_budget=g["budget"],
+                    collect_logs=False, device=dev, num_keys=g["keys"],
+                    capacity=g["capacity"], rm_capacity=g["rm"])
+        minters = [TagMinter(i) for i in range(n)]
+        for _ in range(SAFEKV_RECORDED["orset_rounds"]):
+            kv.step(workloads.ops_to_device(workloads.orset_add_remove(
+                rng, minters, g["keys"], g["ops_per_block"]), dev))
+
+    def mixed_run():
+        g = SAFEKV_RECORDED["mixed"]
+        n, b, k = g["nodes"], g["ops_per_block"], g["keys"]
+        cfg = DagConfig(n, g["window"])
+        kvs = [SafeKV(cfg, pncounter.SPEC, ops_per_block=b, collect_logs=False,
+                      device=dev, num_keys=k, num_writers=n),
+               SafeKV(cfg, orset.SPEC, ops_per_block=b, collect_logs=False,
+                      device=dev, num_keys=k, apply_budget=n + max(4, n // 4),
+                      capacity=g["capacity"], rm_capacity=g["rm"])]
+        minters = [TagMinter(i) for i in range(n)]
+        lo, hi = g["crash"]
+        for rnd in range(g["rounds"]):
+            active = np.ones(n, bool)
+            active[n - 1] = not lo <= rnd < hi
+            kvs[0].step(workloads.ops_to_device(
+                workloads.pnc_uniform(rng, n, k, b), dev), active=active)
+            kvs[1].step(workloads.ops_to_device(
+                workloads.orset_add_remove(rng, minters, k, b), dev),
+                active=active)
+
+    runs = [(f"pnc N{geo['nodes']}", pnc_run(geo)) for geo in RECORDED]
+    runs += [("orset N4", orset_run), ("mixed N64", mixed_run)]
+    for tag, fn in runs:
+        calls = record_calls(kernels, names, fn)
+        torch.cuda.synchronize()
+        counts = {name: len(c) for name, c in calls.items()}
+        check(counts["safekv_submit"] == counts["safekv_board"] > 0
+              and counts["gc_frontier"] == counts["gc_clear_ring"]
+              == counts["state_transfer"]
+              and counts["block_select"] == 2 * counts["gc_frontier"],
+              f"recorded {tag}: calls {counts}")
+        for name, rec in calls.items():
+            for j, (args, kw) in enumerate(rec):
+                out = log.add(kernels, name, args, f"recorded {tag} call {j}", kw)
+                if name == "state_transfer":
+                    cover["recorded_transfers"] = (
+                        cover.get("recorded_transfers", 0) + int(out[0].sum()))
+                if name == "gc_frontier":
+                    cover["recorded_lost"] = (cover.get("recorded_lost", 0)
+                                              + int(out[0].sum()))
+        recorded[tag] = counts
+        if tag == f"pnc N{CONS['nodes']}":
+            timing = calls
+        del calls
+    check(cover["rejected"] > 0 and cover["accepted"] > 0
+          and cover["spilled"] > 0 and cover["wrapped_keys"] > 0
+          and min(cover[k] for k in ("need_lag", "need_frontier",
+                                     "need_force", "donor_needy")) > 0
+          and cover["advanced_2_plus"] > 0 and cover["lost"] > 0
+          and min(cover["collect_logs"]) > 0,
+          f"safekv_kernels: coverage {cover}")
+    for name, rec in log.by.items():
+        cases.append({"kernel": name, "case": "safekv_kernels", **rec})
+    emit("safekv_kernels", by_kernel=log.by, coverage=cover, recorded=recorded)
+    return timing
+
+
+def _nbytes(tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors if x is not None)
+
+
+def safekv_kernel_rows(kernels, calls):
+    """Rows of the kernels line for the SafeKV round's four wrappers, each
+    timed on recorded calls of the 4-node PN-Counter run (the consensus
+    phase's geometry): safekv_submit as one round's accept and board,
+    block_select on the last stable delta apply, state_transfer on a round
+    in which a view needed a transfer and gc_frontier with the ring clear
+    of a round in which slots died (both repeated on the state they
+    leave). Bytes: what the function must move, each input read once and
+    each output written once: the accepted views' ring rows, the gathered
+    rows, the needy views' rows of every leaf, the dead slots' rows."""
+    def clone(args):
+        return tree_map(torch.Tensor.clone, args)
+
+    rows = []
+    # safekv_submit: accept, then board, of the last recorded round
+    (a_args, _), (b_args, _) = (calls["safekv_submit"][-1],
+                                calls["safekv_board"][-1])
+    cfg, dag, filled, ops, active = a_args
+    n, b = ops["op"].shape
+    _, buf, _, _, acc, accepted, _ = b_args
+    k = int(accepted.sum())
+    row_bytes = sum(x[0].numel() * x.element_size() for x in acc.values())
+    nbytes = (2 * _nbytes(ops.values()) + 2 * n + 9 * n + 4
+              + (n if active is not None else 0)
+              + 2 * k * row_bytes + 5 * n + 2 * k)
+    rows.append(dict(
+        name="safekv_submit",
+        call=lambda: (kernels.safekv_submit(*a_args),
+                      kernels.safekv_board(*b_args)),
+        plain=lambda: (kernels.safekv_submit_plain(*a_args),
+                       kernels.safekv_board_plain(*b_args)),
+        library=None, shape=f"N{n} W{cfg.num_rounds} B{b}: accept + board of "
+        f"one round, {k} views accepted",
+        bytes=nbytes, operations=6 * n * b + k * row_bytes // 4))
+    # block_select: the last (stable) delta apply
+    args, _ = calls["block_select"][-1]
+    cfg, ring, ready, applied, budget, sr, base, seq = args
+    v, w, n = ready.shape
+    a = min(budget, w * n)
+    ring_row = sum(x[0, 0].numel() * x.element_size() for x in ring.values())
+    nbytes = (3 * v * w * n + _nbytes([seq, sr, base]) + 5 * v * a
+              + 2 * v * a * ring_row)
+    rows.append(dict(
+        name="block_select", call=lambda args=args: kernels.block_select(*args),
+        plain=lambda args=args: kernels.block_select_plain(*args),
+        library=None,
+        shape=f"V{v} W{w} N{n} A{a} B{ring['op'].shape[2]}: the last stable "
+        f"delta apply", bytes=nbytes,
+        operations=v * w * n * (2 + (seq is not None)) + v * a * ring_row // 4))
+    # state_transfer: a round with a transfer, if the run had one
+    st_calls = calls["state_transfer"]
+    pick = len(st_calls) - 1
+    for j, (args, _) in enumerate(st_calls):
+        need, donor = kernels.state_transfer_plain(*clone(args))
+        if bool(need.any()) and not (need.sum() == 1 and need[int(donor)]):
+            pick = j
+            break
+    args, _ = st_calls[pick]
+    cfg, leaves, nr, base, lw, force = args
+    need, donor = kernels.state_transfer_plain(*clone(args))
+    k = int(need.sum()) - int(need[int(donor)])
+    leaf_row = sum(x[0].numel() * x.element_size() for x in leaves)
+    n = cfg.num_nodes
+    nbytes = 9 * n + 8 + ((k + 1) * leaf_row if k else 0)
+    rows.append(dict(
+        name="state_transfer",
+        call=lambda args=args: kernels.state_transfer(*args),
+        plain=lambda args=args: kernels.state_transfer_plain(*args),
+        library=None,
+        shape=f"N{n}: {k} views adopt the donor's rows ({len(leaves)} leaves, "
+        f"round {pick})", bytes=nbytes, operations=4 * n + k * leaf_row // 4))
+    # gc_frontier: the frontier and the ring clear of a round with dead slots
+    gc_calls = calls["gc_frontier"]
+    pick = len(gc_calls) - 1
+    for j, (args, _) in enumerate(gc_calls):
+        if bool(calls["gc_clear_ring"][j][0][2].any()):
+            pick = j
+            break
+    g_args, _ = gc_calls[pick]
+    c_args, _ = calls["gc_clear_ring"][pick]
+    cfg, ring, dead = c_args
+    n, w = cfg.num_nodes, cfg.num_rounds
+    d = int(dead.sum())
+    logs = g_args[-1]
+    nwn = n * w * n
+    reads = 4 * nwn + w * n + 17 * n + 8 * w + 8 + (4 * nwn if logs else 0)
+    packed = 4 * (2 * n + n * w + w + 1 + (n + 1 + 2 * nwn + w if logs else 0))
+    recycle = d * (2 * n * n + 3 * n + 9 * n * n + 8)
+    slot_ring = sum(x[0].numel() * x.element_size() for x in ring.values())
+    rows.append(dict(
+        name="gc_frontier",
+        call=lambda: (kernels.gc_frontier(*g_args),
+                      kernels.gc_clear_ring(*c_args)),
+        plain=lambda: (kernels.gc_frontier_plain(*g_args),
+                       kernels.gc_clear_ring_plain(*c_args)),
+        library=None, shape=f"N{n} W{w}: frontier + ring clear of round "
+        f"{pick}, {d} slots dead, logs {logs}",
+        bytes=reads + packed + n + w + recycle + d * slot_ring,
+        operations=reads // 4))
+    for row in rows:
+        row["library_note"] = SAFEKV_LIBRARY_NOTES[row["name"]]
+    return rows
+
+
+def harness_tensor(dev, kernels, workloads, smi):
+    """The port's run_tensor (janus_tpu_torch.bench.harness) at presets
+    pnc (config 1), orset (config 2 at 16 nodes) and mixed (config 3, 64
+    nodes, consensus on), on the card, uncut (HARNESS lists any cut of
+    ticks). Per preset, one JSON line with the run's Results.to_dict(),
+    each SafeKV's stats (slots_dropped among them) and the checks: after
+    the drain every view's stable state is the same; where a type dropped
+    no slot record, every view's prospective state equals its stable state
+    (slots dropped by capacity depend on the batching of the applies, so a
+    type that dropped some may end with the two apart, as in the JAX
+    package); the PN-Counter's values equal a numpy sum of the ops of
+    every accepted batch; a few dispatches of each SafeKV make no host
+    synchronisation. After the checks, the profiler reads the CUDA
+    kernels and device time of a few more loaded rounds of each SafeKV.
+    Returns the launches of the three runs."""
+    import dataclasses
+
+    from janus_tpu_torch.bench import harness
+    from janus_tpu_torch.obs.metrics import get_registry
+
+    launches = {name: 0 for name in kernels.WRAPPERS}
+    for preset in HARNESS["presets"]:
+        cfg = harness.PRESETS[preset]
+        cut = HARNESS["cut_ticks"].get(preset)
+        if cut is not None:
+            cfg = dataclasses.replace(cfg, ticks=cut)
+        get_registry().reset()  # the stage histograms of this run only
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases
+        observe = {}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = harness.run_tensor(cfg, device=dev, observe=observe)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        run_launches = kernels.launches()
+        for name, k in run_launches.items():
+            launches[name] += k
+        kvs = observe["kvs"]
+        stats = {code: dict(kv.stats) for code, kv in kvs.items()}  # the run's
+        same = {}
+        for code, kv in kvs.items():
+            # slots dropped by capacity depend on how blocks were batched
+            # into applies, so a type that dropped any may end with
+            # prospective and stable states apart (the JAX package's too)
+            exact = stats[code]["slots_dropped"] == 0
+            same[code] = all(torch.equal(kv.prospective[f], kv.stable[f])
+                             for f in kv.stable)
+            check(same[code] or not exact, f"harness {preset} {code}: "
+                  f"prospective differs from stable after the drain")
+            for name, st in (("stable", kv.stable),
+                             ("prospective", kv.prospective)):
+                agree = all(torch.equal(x, x[:1].expand_as(x))
+                            for x in st.values())
+                check(agree or (name == "prospective" and not exact),
+                      f"harness {preset} {code}: views' {name} states differ")
+        if "pnc" in kvs:
+            n, k = cfg.num_nodes, cfg.num_objects
+            expect = np.zeros(k, np.int64)
+            host = observe["batches"]["pnc"]
+            for code, idx, acc in observe["rounds"]:
+                if code != "pnc" or idx is None:
+                    continue
+                o = host[idx]
+                sign = np.where(o["op"] == 1, 1, np.where(o["op"] == 2, -1, 0))
+                amount = (sign * o["a0"].astype(np.int64))[acc]
+                np.add.at(expect, o["key"][acc].ravel(), amount.ravel())
+            got = kvs["pnc"].query_stable("get").cpu().numpy()
+            check((got == wrap32(expect)[None]).all(),
+                  f"harness {preset}: PN-Counter values differ from the numpy "
+                  f"sum of the accepted ops")
+        syncs = []
+        for code, kv in kvs.items():
+            idle = workloads.ops_to_device(
+                {f: np.zeros_like(v) for f, v in
+                 observe["batches"][code][0].items()}, dev)
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                pending = [kv.step_dispatch(idle, record=False)
+                           for _ in range(HARNESS["sync_rounds"])]
+            torch.cuda.set_sync_debug_mode("default")
+            syncs += [str(c.message)[:160] for c in caught
+                      if "synchroniz" in str(c.message).lower()]
+            for packed, meta in pending:
+                kv.step_absorb(packed, meta)
+        check(not syncs, f"harness {preset}: host syncs in step_dispatch: "
+              f"{syncs[:3]}")
+        # a loaded round of each SafeKV after the run, by the profiler
+        profiled = {}
+        for code, kv in kvs.items():
+            batch = workloads.ops_to_device(observe["batches"][code][0], dev)
+            kv.step(batch, record=False)
+            seen, dev_ms = device_profile(lambda: kv.step(batch, record=False),
+                                          reps=HARNESS["profile_rounds"])
+            profiled[code] = {
+                "cuda_kernels_per_round": seen / HARNESS["profile_rounds"],
+                "device_ms_per_round": dev_ms / HARNESS["profile_rounds"]}
+        for name in SAFEKV_KERNELS + CONSENSUS_KERNELS:
+            check(run_launches[name] > 0, f"harness {preset}: {name} never "
+                  f"launched")
+        d = res.to_dict()
+        d.pop("reference", None)
+        emit("harness_tensor", preset=preset, nvidia_smi=smi,
+             config=dataclasses.asdict(cfg), ticks_cut=cut is not None,
+             seconds=seconds, results=d,
+             slots_dropped={code: st["slots_dropped"]
+                            for code, st in stats.items()},
+             prospective_equals_stable=same, profiled_rounds=profiled,
+             stats=stats, host_syncs_in_dispatch=len(syncs),
+             launches=run_launches,
+             peak_memory_gb=(torch.cuda.max_memory_allocated() - held) / 2**30)
+        del observe, kvs, res
+        torch.cuda.empty_cache()
+    return launches
+
+
 def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
-                 orset_calls, delta_calls, rga_calls):
+                 orset_calls, delta_calls, rga_calls, safekv_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -2207,6 +2700,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
 
     kerns += delta_kernel_rows(kernels, delta_calls)
     kerns += rga_kernel_rows(kernels, rga_calls)
+    kerns += safekv_kernel_rows(kernels, safekv_calls)
 
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
@@ -2299,6 +2793,8 @@ def main() -> int:
                         workloads, cases)
     rga_calls = timed("rga_kernels", rga_kernel_checks, dev, kernels,
                       workloads, cases)
+    safekv_calls = timed("safekv_kernels", safekv_kernel_checks, dev, kernels,
+                         workloads, cases)
     paths = {"fast_path": timed("fast_path", fast_path, dev, kernels, workloads),
              "consensus": timed("consensus", consensus_path, dev, kernels,
                                 workloads, cases),
@@ -2309,9 +2805,12 @@ def main() -> int:
              "store_delta": timed("store_delta", store_delta, dev, kernels,
                                   workloads),
              "rga_replay": timed("rga_replay", rga_replay, dev, kernels,
-                                 workloads)}
+                                 workloads),
+             "harness_tensor": timed("harness_tensor", harness_tensor, dev,
+                                     kernels, workloads, smi)}
     line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
-                 cases, timing_calls, orset_calls, delta_calls, rga_calls)
+                 cases, timing_calls, orset_calls, delta_calls, rga_calls,
+                 safekv_calls)
     emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -444,3 +444,50 @@ def backchain_state(num_nodes: int, num_rounds: int, seed: int = 0):
         "slot_round": np.arange(w, dtype=np.int32),
     }
     return dag_state, commit_state
+
+
+def gc_state(rng: np.random.Generator, num_nodes: int, num_rounds: int,
+             wrap: bool = False):
+    """A random state at the end of a SafeKV round, shaped so the GC
+    frontier has work: a run of slots from the frontier up is finished in
+    every view (committed as one reference set, stably applied, every
+    certificate prospectively applied, the origins' own uncertified blocks
+    left as residue) and frozen, and one view, the straggler, is not done
+    with one of them. Returns numpy ``(dag_state, commit_state,
+    com_before, prosp_applied, stable_applied, buffer_filled)``; the
+    frontier may advance by more than one slot, and the straggler is lost
+    when its slot dies."""
+    n, w = num_nodes, num_rounds
+    dag, com, _ = consensus_state(rng, n, w, wrap=wrap)
+    base = int(dag["base_round"])
+    finished = int(rng.integers(0, w + 1))  # slots from the frontier up
+    cert = dag["cert_exists"]
+    committed = com["committed"].copy()
+    # mostly every certificate committed (no uncommitted certificate can
+    # gain a commit), sometimes not
+    ref = (rng.random((w, n)) < 0.5) | (cert & (rng.random((w, 1)) < 0.8))
+    prosp = rng.random((n, w, n)) < 0.3
+    stable = rng.random((n, w, n)) < 0.5
+    for i in range(finished):
+        s = (base + i) % w
+        committed[:, s] = ref[s]
+        stable[:, s] = ref[s]
+        prosp[:, s] = cert[s]
+        own = rng.random(n) < 0.3  # the origin's own uncertified block
+        prosp[np.arange(n), s, np.arange(n)] |= own & ~cert[s]
+    if finished and rng.random() < 0.7:  # a straggler on a finished slot
+        v, s = int(rng.integers(0, n)), (base + int(rng.integers(0, finished))) % w
+        committed[v, s] = ~ref[s]
+    com["committed"] = committed
+    com["commit_seq"] = np.where(committed, rng.integers(0, 50, (n, w, n)),
+                                 -1).astype(np.int32)
+    # most views far ahead, so the finished slots are frozen; evaluated
+    # waves above the live even rounds or not
+    dag["node_round"] = (dag["slot_round"].max() + rng.integers(-1, 4, n)
+                         ).astype(np.int32)
+    com["eval_wave"] = (com["eval_wave"] + rng.integers(0, w, n)).astype(np.int32)
+    com["last_wave"] = np.minimum(com["last_wave"] + rng.integers(0, 3, n),
+                                  com["eval_wave"]).astype(np.int32)
+    com_before = committed & (rng.random((n, w, n)) < 0.7)
+    filled = rng.random((w, n)) < 0.5
+    return dag, com, com_before, prosp, stable, filled

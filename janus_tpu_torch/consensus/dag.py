@@ -41,6 +41,7 @@ from janus_tpu_torch.kernels.dag_phases import (  # noqa: F401
     slot_of,
     structural_validity,
 )
+from janus_tpu_torch.kernels.gc_frontier import recycle_dag_plain
 
 State = Dict[str, torch.Tensor]
 
@@ -78,21 +79,13 @@ def init(cfg: DagConfig, device=None) -> State:
 
 def recycle(cfg: DagConfig, state: State, new_base) -> State:
     """Advance the GC frontier to ``new_base`` and clear every slot whose
-    round fell below it, handing the slot to round ``slot_round + W``."""
-    w = cfg.num_rounds
+    round fell below it, handing the slot to round ``slot_round + W``.
+    Returns a new state; SafeKV's round recycles in place instead, inside
+    the ``gc_frontier`` kernel, whose plain version this shares."""
     new_base = torch.as_tensor(new_base, dtype=torch.int32,
                                device=state["slot_round"].device)
-    live = state["slot_round"] >= new_base  # [W]
-    out = dict(state)
-    out["edges"] = state["edges"] & live[:, None, None]
-    out["block_exists"] = state["block_exists"] & live[:, None]
-    out["block_seen"] = state["block_seen"] & live[None, :, None]
-    out["acks"] = state["acks"] & live[:, None, None]
-    out["cert_exists"] = state["cert_exists"] & live[:, None]
-    out["cert_seen"] = state["cert_seen"] & live[None, :, None]
-    out["slot_round"] = torch.where(live, state["slot_round"],
-                                    state["slot_round"] + w)
-    out["base_round"] = new_base
+    out = {f: x.clone() for f, x in state.items()}
+    recycle_dag_plain(cfg, out, state["slot_round"], new_base)
     return out
 
 

@@ -20,8 +20,9 @@ import torch
 
 from janus_tpu_torch import kernels
 from janus_tpu_torch.consensus.dag import DagConfig
-from janus_tpu_torch.kernels.leader import leader_of, leaders  # noqa: F401
 from janus_tpu_torch.device import resolve_device
+from janus_tpu_torch.kernels.gc_frontier import recycle_commit_plain
+from janus_tpu_torch.kernels.leader import leader_of, leaders  # noqa: F401
 
 State = Dict[str, torch.Tensor]
 
@@ -66,13 +67,13 @@ def commit_view(cfg: DagConfig, dag_state: State, cstate: State,
 
 
 def recycle_commit(cfg: DagConfig, cstate: State, new_base) -> State:
-    """Clear commit rows for slots below the new GC frontier."""
+    """Clear commit rows for slots below the new GC frontier. Returns a
+    new state; SafeKV's round recycles in place inside the
+    ``gc_frontier`` kernel, whose plain version this shares."""
     sr = cstate["slot_round"]
-    dead = sr < torch.as_tensor(new_base, dtype=torch.int32, device=sr.device)
-    out = dict(cstate)
-    out["committed"] = cstate["committed"] & ~dead[None, :, None]
-    out["commit_seq"] = torch.where(dead[None, :, None], -1, cstate["commit_seq"])
-    out["slot_round"] = torch.where(dead, sr + cfg.num_rounds, sr)
+    out = {f: x.clone() for f, x in cstate.items()}
+    recycle_commit_plain(cfg, out, sr, torch.as_tensor(
+        new_base, dtype=torch.int32, device=sr.device))
     return out
 
 

@@ -22,7 +22,8 @@ from pathlib import Path
 KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
            "dag_round", "slot_union", "orset_capture", "orset_replay",
            "orset_apply", "dirty_rows", "delta_select", "rga_apply",
-           "rga_compact", "rga_order")
+           "rga_compact", "rga_order", "safekv_submit", "block_select",
+           "state_transfer", "gc_frontier")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"

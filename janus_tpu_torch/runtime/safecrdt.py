@@ -17,18 +17,30 @@ causal closure); blocks newly committed apply to its stable state; a
 quorum-based GC frontier recycles finished slots. The device part of a
 round (``_step_device``) reads no tensor value on the host; its outputs
 the host needs are packed into one int32 vector, fetched once per round
-by ``step_absorb``. The DAG round, the causal closure and the Tusk commit
-are one hand-kernel launch each (``dag_round``, ``causal_closure``,
-``tusk_commit``). The type's apply runs through its own kernels: the
-PN-Counter's submit and delta applies through ``pnc_apply``; the OR-Set's
-submit through ``orset_capture`` and then ``orset_replay``, and its delta
-applies through ``orset_replay``. A type with a ``compact_fence`` (the
-OR-Set) is compacted, in plain PyTorch, whenever a round advanced the GC
-frontier (``maybe_compact``, called from ``step_absorb``).
+by ``step_absorb``. Every phase of a round is a hand kernel:
 
-Not in this port yet: the split ``submit``/``tick`` path,
-``resize_block``, checkpoint/restore, ``MultiKV``, and the flight
-recorder and stage histograms.
+    submit           ``safekv_submit`` (accept, then board after the
+                     type's capture)
+    state transfer   ``state_transfer``
+    DAG round        ``dag_round``
+    closure          ``causal_closure``
+    delta applies    ``block_select`` (selection + gather), twice
+    commit           ``tusk_commit``
+    GC + pack        ``gc_frontier`` (and ``gc_clear_ring``)
+
+and the type's apply runs through its own kernels: the PN-Counter's
+through ``pnc_apply``; the OR-Set's capture through ``orset_capture`` and
+its applies through ``orset_replay``. Unlike JAX's pure functions, the
+board, the state transfer, the delta applies' masks and the GC update the
+carry's tensors in place; ``state_arrays`` copies them out. A type with a
+``compact_fence`` (the OR-Set) is compacted, in plain PyTorch, whenever a
+round advanced the GC frontier (``maybe_compact``, called from
+``step_absorb``).
+
+The stage histograms (``obs.stages``: seal, dag_round, commit, apply) are
+recorded as in the JAX package. Not in this port yet: the split
+``submit``/``tick`` path, ``resize_block``, checkpoint/restore,
+``MultiKV``, and the flight recorder.
 """
 from __future__ import annotations
 
@@ -43,8 +55,9 @@ from janus_tpu_torch.consensus import dag as dagmod
 from janus_tpu_torch.consensus import tusk
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.models import base
+from janus_tpu_torch.obs import stages as obs_stages
+from janus_tpu_torch.obs.metrics import get_registry
 
-INT32_MAX = torch.iinfo(torch.int32).max
 # waves each view's commit evaluates per round
 COMMIT_STEPS = 2
 
@@ -134,6 +147,11 @@ class SafeKV:
             "slots_recycled": 0, "gc_advances": 0, "state_transfers": 0,
             "compactions": 0, "block_resizes": 0, "slots_dropped": 0,
         }
+        # measured per-stage latency histograms (seal / dag_round / commit
+        # / apply), scoped by type so two runtimes stay apart
+        self.stage_scope = getattr(spec, "type_code",
+                                   getattr(spec, "name", "kv"))
+        self._stage = obs_stages.stage_histograms(self.stage_scope)
         # in-order absorb cursor for the dispatch/absorb step path
         self._absorb_tick = 0
 
@@ -175,35 +193,20 @@ class SafeKV:
     def _submit_device(self, prospective, dag_state, ops_buffer, buffer_filled,
                        prosp_applied, ops: base.OpBatch,
                        active: Optional[torch.Tensor] = None):
-        cfg = self.cfg
-        n = cfg.num_nodes
-        vs = torch.arange(n, device=self.device)
-        r = dag_state["node_round"]  # the round the next block will occupy
-        s = dagmod.slot_of(cfg, r)
-        base_r = dag_state["base_round"]
-        # reject ops for sealed slots: block exists, batch already
-        # buffered, straggler below the frontier, or GC window full
-        accepted = (~dag_state["block_exists"][s, vs]
-                    & ~buffer_filled[s, vs]
-                    & (r >= base_r)
-                    & (r < base_r + cfg.num_rounds))  # [N]
-        if active is not None:
-            accepted = accepted & active  # crashed nodes accept no ops
-        acc_ops = {f: torch.where(accepted[:, None], ops[f], 0)
-                   for f in base.OP_FIELDS}
-        # origin fast-path apply (in place): the views' batches are the
-        # leading axis of the state
+        """Accept (``safekv_submit``), the type's capture and origin apply,
+        and the ring write (``safekv_board``, in place). Returns
+        ``(prospective, ops_buffer, buffer_filled, prosp_applied,
+        accepted, pre_round)``; ``pre_round`` is the slot each batch
+        boards, copied before later phases change ``node_round``."""
+        acc_ops, accepted, pre_round = kernels.safekv_submit(
+            self.cfg, dag_state, buffer_filled, ops, active)
+        # origin fast-path apply: the views' batches are the leading axis
+        # of the state
         new_prosp, acc_ops = base.capture_and_apply(self.spec, prospective, acc_ops)
-
-        new_buffer = {}
-        for f, buf in ops_buffer.items():
-            nb = buf.clone()
-            acc = accepted.reshape((n,) + (1,) * (acc_ops[f].dim() - 1))
-            nb[s, vs] = torch.where(acc, acc_ops[f], buf[s, vs])
-            new_buffer[f] = nb
-        new_filled = dagmod.or_at(buffer_filled, (s, vs), accepted)
-        new_applied = dagmod.or_at(prosp_applied, (vs, s, vs), accepted)
-        return new_prosp, new_buffer, new_filled, new_applied, accepted
+        kernels.safekv_board(self.cfg, ops_buffer, buffer_filled, prosp_applied,
+                             acc_ops, accepted, pre_round)
+        return (new_prosp, ops_buffer, buffer_filled, prosp_applied, accepted,
+                pre_round)
 
     def _round_step(self, dag_state, active, withhold, invalid):
         """One DAG protocol round for every node."""
@@ -217,93 +220,49 @@ class SafeKV:
         One ``causal_closure`` kernel launch."""
         return kernels.causal_closure(self.cfg, dag_state, applied)
 
-    def _delta_apply(self, state, ops_buffer, select, order_key):
-        """Apply the op batches of selected blocks, lowest key first,
-        bounded by apply_budget per view; returns (state, applied_mask,
-        dropped). ``select``/``order_key``: [N_view, W, N]. The views'
-        batches are stacked on the state's leading axis and applied in one
-        call."""
-        cfg = self.cfg
-        w, n = cfg.num_rounds, cfg.num_nodes
-        v = select.shape[0]
-        a = min(self.apply_budget, w * n)
-        flat_ops = {f: x.reshape((w * n, self.B) + x.shape[3:])
-                    for f, x in ops_buffer.items()}
-        k = torch.where(select, order_key, INT32_MAX).reshape(v, w * n)
-        idx = torch.argsort(k, dim=1, stable=True)[:, :a]           # [V, A]
-        chosen = k.gather(1, idx) < INT32_MAX                        # [V, A]
-        rows = {f: x[idx] for f, x in flat_ops.items()}              # [V, A, B, ...]
-        rows["op"] = torch.where(chosen[:, :, None], rows["op"], base.OP_NOOP)
-        batch = {f: x.reshape((v, a * self.B) + x.shape[3:])
-                 for f, x in rows.items()}
+    def _delta_apply(self, state, ops_buffer, ready, applied, slot_round,
+                     base_round, commit_seq=None):
+        """Apply the op batches of the blocks ``ready & ~applied``, lowest
+        key first (prospective order, or commit order given
+        ``commit_seq``), bounded by apply_budget per view: one
+        ``block_select`` call, which ORs the choice into ``applied`` in
+        place, then the type's apply on the gathered batch. Returns
+        ``(state, dropped int32[V] or None)``."""
+        batch, _, _ = kernels.block_select(
+            self.cfg, ops_buffer, ready, applied, self.apply_budget,
+            slot_round, base_round, commit_seq)
         if self.spec.apply_ops_dropped is not None:
             # the drop count only: a dirty mask would go unused here
-            state, dropped = self.spec.apply_ops_dropped(state, batch)
-            dropped = dropped.sum()
-        else:
-            state = self.spec.apply_ops(state, batch)
-            dropped = torch.zeros((), dtype=torch.int32, device=self.device)
-        sel_mask = torch.zeros((v, w * n), dtype=torch.bool, device=self.device)
-        sel_mask = sel_mask.scatter(1, idx, chosen).reshape(v, w, n)
-        return state, sel_mask, dropped.to(torch.int32)
+            return self.spec.apply_ops_dropped(state, batch)
+        return self.spec.apply_ops(state, batch), None
 
     def _state_transfer(self, prospective, stable, dag_state, cstate,
                         prosp_applied, stable_applied, force):
         """Crash/lag recovery: a view below the GC frontier, or whose
         commit cursor lags the cluster beyond the repair window, adopts a
-        snapshot from the most-advanced view (the first argmax)."""
-        cfg = self.cfg
-        lw = cstate["last_wave"]
-        lw_q = torch.sort(lw).values[cfg.num_nodes - cfg.quorum]
-        lag_max = max(2, cfg.num_rounds // 4)
-        need = ((dag_state["node_round"] < dag_state["base_round"])
-                | (lw < lw_q - lag_max)
-                | force)  # [N]
-        donor = torch.argmax(lw)
-
-        def adopt(x):
-            take = x.index_select(0, donor.reshape(1))
-            return torch.where(need.reshape((-1,) + (1,) * (x.dim() - 1)), take, x)
-
-        prospective = {f: adopt(x) for f, x in prospective.items()}
-        stable = {f: adopt(x) for f, x in stable.items()}
-        dag_state = dict(dag_state)
-        for f in ("block_seen", "cert_seen", "node_round"):
-            dag_state[f] = adopt(dag_state[f])
-        cstate = dict(cstate)
-        for f in ("committed", "commit_seq", "last_wave", "eval_wave",
-                  "commit_counter"):
-            cstate[f] = adopt(cstate[f])
-        return (prospective, stable, dag_state, cstate, adopt(prosp_applied),
-                adopt(stable_applied), need, donor)
-
-    def _can_gain(self, frozen, direct, any_unc, base_r):
-        """bool[W]: slots whose round can still gain a new commit, scanned
-        from the highest live round down (a slot can gain if it is not
-        frozen, or holds uncommitted certs reachable by a future anchor at
-        it or by descent from a round above that can gain)."""
-        w = self.cfg.num_rounds
-        desc = torch.arange(w - 1, -1, -1, device=self.device, dtype=torch.int32)
-        order = dagmod.slot_of(self.cfg, base_r + desc)  # highest round first
-        f, d, u = frozen[order], direct[order], any_unc[order]
-        can_above = torch.ones((), dtype=torch.bool, device=self.device)
-        gains = []
-        for i in range(w):
-            can_above = ~f[i] | ((d[i] | can_above) & u[i])
-            gains.append(can_above)
-        can = torch.zeros((w,), dtype=torch.bool, device=self.device)
-        return can.index_put((order,), torch.stack(gains))
+        snapshot from the most-advanced view (the first argmax), in place
+        (one ``state_transfer`` call). Returns the states (the same
+        objects) with ``need`` and ``donor``."""
+        leaves = [*prospective.values(), *stable.values(),
+                  *(dag_state[f] for f in ("block_seen", "cert_seen",
+                                           "node_round")),
+                  *(cstate[f] for f in ("committed", "commit_seq", "last_wave",
+                                        "eval_wave", "commit_counter")),
+                  prosp_applied, stable_applied]
+        need, donor = kernels.state_transfer(
+            self.cfg, leaves, dag_state["node_round"], dag_state["base_round"],
+            cstate["last_wave"], force)
+        return (prospective, stable, dag_state, cstate, prosp_applied,
+                stable_applied, need, donor)
 
     def _tick_device(self, prospective, stable, dag_state, cstate, ops_buffer,
                      buffer_filled, prosp_applied, stable_applied, force,
                      active: Optional[torch.Tensor],
                      withhold: Optional[torch.Tensor],
-                     invalid: Optional[torch.Tensor] = None):
-        cfg = self.cfg
-        w, n = cfg.num_rounds, cfg.num_nodes
-        i32 = torch.int32
-
-        # -- recovery first: transferred views join the current frontier
+                     invalid: Optional[torch.Tensor], pre_round, accepted):
+        """One round after the submit: transfer, DAG round, both delta
+        applies, commit, and the GC with the round's pack
+        (``gc_frontier``). Returns the carry, ``lost`` and ``packed``."""
         (prospective, stable, dag_state, cstate, prosp_applied,
          stable_applied, transferred, donor) = self._state_transfer(
             prospective, stable, dag_state, cstate, prosp_applied,
@@ -313,72 +272,28 @@ class SafeKV:
 
         # -- prospective: delta-apply newly certified, causally-ready blocks
         prosp_ready = self._causal_closure(dag_state, prosp_applied)
-        rel_round = dag_state["slot_round"] - dag_state["base_round"]
-        srcs = torch.arange(n, dtype=i32, device=self.device)
-        round_key = rel_round[None, :, None] * n + srcs[None, None, :]
-        prospective, prosp_sel, drop_p = self._delta_apply(
-            prospective, ops_buffer, prosp_ready & ~prosp_applied,
-            round_key.expand(n, w, n))
-        prosp_applied = prosp_applied | prosp_sel
+        prospective, drop_p = self._delta_apply(
+            prospective, ops_buffer, prosp_ready, prosp_applied,
+            dag_state["slot_round"], dag_state["base_round"])
 
         # -- commit + stable: delta-apply newly committed blocks in order
         com_before = cstate["committed"]
-        cstate = tusk.commit_view(cfg, dag_state, cstate, seed=self.seed,
+        cstate = tusk.commit_view(self.cfg, dag_state, cstate, seed=self.seed,
                                   steps=COMMIT_STEPS)
-        fresh_com = cstate["committed"] & ~com_before  # first-commit events
-        seq_snap = cstate["commit_seq"]                # pre-GC, for host log
-        pending = cstate["committed"] & ~stable_applied  # incl. budget spill
-        ckey = tusk.order_key(cfg, cstate, base=dag_state["base_round"])
-        stable, stable_sel, drop_s = self._delta_apply(
-            stable, ops_buffer, pending, ckey)
-        stable_applied = stable_applied | stable_sel
-        slots_dropped = drop_p + drop_s
+        stable, drop_s = self._delta_apply(
+            stable, ops_buffer, cstate["committed"], stable_applied,
+            cstate["slot_round"], dag_state["base_round"], cstate["commit_seq"])
 
         # -- GC: advance the frontier past rounds finished by the GC
-        # quorum (see the JAX package for the full argument)
-        com = cstate["committed"]            # [N, W, N]
-        lw = cstate["last_wave"]             # [N]
-        lw_q = torch.sort(lw).values[n - cfg.quorum]
-        mask_q = lw >= lw_q                  # [N] the GC quorum
-        com_ref = (com & mask_q[:, None, None]).any(0)            # [W, N]
-        com_ok = (com == com_ref[None]).all(-1)                   # [N, W]
-        st_ok = (stable_applied == com_ref[None]).all(-1)         # [N, W]
-        cert = dag_state["cert_exists"][None]
-        diag = torch.eye(n, dtype=torch.bool, device=self.device)[:, None, :]
-        mism = prosp_applied != cert
-        allowed = diag & prosp_applied & ~cert
-        pr_ok = (~mism | allowed).all(-1)                         # [N, W]
-        view_done = com_ok & st_ok & pr_ok                        # [N, W]
-        q_done = (view_done | ~mask_q[:, None]).all(0)            # [W]
-        nr_q = torch.sort(dag_state["node_round"]).values[n - cfg.quorum]
-        sr = dag_state["slot_round"]
-        base_r = dag_state["base_round"]
-        frozen = sr + 2 <= nr_q
-        any_unc = (dag_state["cert_exists"] & ~com_ref).any(-1)   # [W]
-        ew_min_q = torch.where(mask_q, cstate["eval_wave"], INT32_MAX).min()
-        direct = (sr % 2 == 0) & (sr // 2 > ew_min_q)             # [W]
-        can_gain = self._can_gain(frozen, direct, any_unc, base_r)
-        collectible = q_done & ~can_gain
-        in_order = collectible[dagmod.slot_of(
-            cfg, base_r + torch.arange(w, dtype=i32, device=self.device))]
-        adv = torch.cumprod(in_order.to(i32), 0).sum().to(i32)
-        new_base = base_r + adv
-        dead = sr < new_base  # [W]
-        # straggler fence: any view not done with a dying slot must be
-        # state-transferred before it acts again
-        lost = (dead[None, :] & ~view_done).any(1)                # [N]
-        dag_state = dagmod.recycle(cfg, dag_state, new_base)
-        cstate = tusk.recycle_commit(cfg, cstate, new_base)
-        live = ~dead
-        ops_buffer = {f: torch.where(dead.reshape((w,) + (1,) * (x.dim() - 1)),
-                                     0, x)
-                      for f, x in ops_buffer.items()}
-        buffer_filled = buffer_filled & live[:, None]
-        prosp_applied = prosp_applied & live[None, :, None]
-        stable_applied = stable_applied & live[None, :, None]
+        # quorum (see the JAX package for the full argument), recycle in
+        # place, and pack the host outputs
+        lost, dead, packed = kernels.gc_frontier(
+            self.cfg, dag_state, cstate, com_before, prosp_applied,
+            stable_applied, buffer_filled, pre_round, accepted, transferred,
+            donor, (drop_p, drop_s), self.collect_logs)
+        kernels.gc_clear_ring(self.cfg, ops_buffer, dead)
         return (prospective, stable, dag_state, cstate, ops_buffer,
-                buffer_filled, prosp_applied, stable_applied, fresh_com,
-                seq_snap, dead, transferred, donor, lost, slots_dropped)
+                buffer_filled, prosp_applied, stable_applied, lost, packed)
 
     def _step_device(self, prospective, stable, dag_state, cstate, ops_buffer,
                      buffer_filled, prosp_applied, stable_applied, force,
@@ -387,41 +302,16 @@ class SafeKV:
                      withhold: Optional[torch.Tensor],
                      invalid: Optional[torch.Tensor] = None):
         """Fused submit + tick, with every host-needed output packed into
-        one int32 vector (the one device-to-host fetch of a round)."""
-        cfg = self.cfg
-        n = cfg.num_nodes
-        i32 = torch.int32
-        pre_round = dag_state["node_round"]  # slot each batch boards
-        (prospective, ops_buffer, buffer_filled, prosp_applied,
-         accepted) = self._submit_device(
+        one int32 vector (the one device-to-host fetch of a round). The
+        carry's tensors are updated in place where a kernel allows it."""
+        (prospective, ops_buffer, buffer_filled, prosp_applied, accepted,
+         pre_round) = self._submit_device(
             prospective, dag_state, ops_buffer, buffer_filled,
             prosp_applied, ops, active)
-        (prospective, stable, dag_state, cstate, ops_buffer, buffer_filled,
-         prosp_applied, stable_applied, fresh_com, seq_snap, recycled,
-         transferred, donor, lost, slots_dropped) = self._tick_device(
-            prospective, stable, dag_state, cstate, ops_buffer,
-            buffer_filled, prosp_applied, stable_applied, force,
-            active, withhold, invalid)
-        vs = torch.arange(n, device=self.device)
-        own = fresh_com[vs, :, vs]  # [N, W]: own-block commits per view
-        parts = [
-            pre_round.to(i32),                  # [N]
-            accepted.to(i32),                   # [N]
-            own.reshape(-1).to(i32),            # [N*W]
-            recycled.to(i32),                   # [W]
-            slots_dropped.to(i32).reshape(1),   # [1]
-        ]
-        if self.collect_logs:
-            parts += [
-                transferred.to(i32),                   # [N]
-                donor.to(i32).reshape(1),              # [1]
-                fresh_com.reshape(-1).to(i32),         # [N*W*N]
-                seq_snap.reshape(-1).to(i32),          # [N*W*N]
-                dag_state["slot_round"].to(i32),       # [W]
-            ]
-        packed = torch.cat(parts)
-        return (prospective, stable, dag_state, cstate, ops_buffer,
-                buffer_filled, prosp_applied, stable_applied, lost, packed)
+        return self._tick_device(
+            prospective, stable, dag_state, cstate, ops_buffer, buffer_filled,
+            prosp_applied, stable_applied, force, active, withhold, invalid,
+            pre_round, accepted)
 
     # -- host API ----------------------------------------------------------
 
@@ -497,10 +387,12 @@ class SafeKV:
         detection, latency logs, safe acks, recycled-slot resets. ``own``
         is the [W, N] own-block commit mask; ``rec`` the [W] recycled
         mask."""
+        apply_t0 = time.perf_counter_ns()
         self.stats["ticks"] += 1
         self.stats["own_commits"] += int(own.sum())
         if dropped:
             self.stats["slots_dropped"] += dropped
+            get_registry().counter("slots_dropped_total").add(dropped)
         if rec.any():
             self.stats["slots_recycled"] += int(rec.sum())
             self.stats["gc_advances"] += 1
@@ -509,7 +401,11 @@ class SafeKV:
         self.latency_log.extend(
             (tick_idx + 1 - self.submit_tick[newly]).tolist())
         if newly.any():
-            self.wall_latency_log.extend((now - self.submit_wall[newly]).tolist())
+            walls = (now - self.submit_wall[newly]).tolist()
+            self.wall_latency_log.extend(walls)
+            h_commit = self._stage["commit"]
+            for wsec in walls:
+                h_commit.record_seconds(wsec)
         for log in (self.latency_log, self.wall_latency_log):
             if len(log) > self.max_latency_log:
                 del log[: len(log) - self.max_latency_log]
@@ -525,6 +421,7 @@ class SafeKV:
             # a GC advance is the coordination point where tombstones
             # whose ops left the window can be reclaimed
             self.maybe_compact()
+        self._stage["apply"].record(time.perf_counter_ns() - apply_t0)
         return newly
 
     def _compact_device(self, prospective, stable, ops_buffer):
@@ -586,6 +483,12 @@ class SafeKV:
         s = pre_round % w
         vs = np.arange(n)
         st = acc & rec_mask  # only payload-bearing blocks enter the stats
+        # dispatch->absorb wall = one consensus round; when payload boarded
+        # this round, the same interval is the block-seal leg
+        round_ns = int((now - stamp) * 1e9)
+        self._stage["dag_round"].record(round_ns)
+        if st.any():
+            self._stage["seal"].record(round_ns)
         self.stats["blocks_submitted"] += int(st.sum())
         self.submit_tick[s[st], vs[st]] = tick_idx
         self.submit_wall[s[st], vs[st]] = stamp

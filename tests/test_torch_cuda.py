@@ -14,6 +14,7 @@ import torch
 from janus_tpu_torch import kernels
 from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.models import pncounter
+from janus_tpu_torch.models.base import OP_FIELDS
 from janus_tpu_torch.runtime import engine, store
 
 INT32_MAX = np.iinfo(np.int32).max
@@ -807,3 +808,221 @@ def test_rga_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         kernels.rga_order({f: x[0] for f, x in st.items()}, 0)
     assert kernels.launches() == before
+
+
+# -- the rest of the SafeKV round: submit, block selection, state transfer,
+# the GC frontier ------------------------------------------------------------
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+def _same(a, b, where="out"):
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        assert torch.equal(a.cpu(), b.cpu()), where
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _same(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, where
+
+
+def _kernel_vs_plain(fn, plain, args):
+    """The wrapper on the card and its plain version on clones of the same
+    inputs: outputs and in-place updates bit-equal."""
+    mine, ref = _clone(args), _clone(args)
+    out = fn(*mine)
+    want = plain(*ref)
+    torch.cuda.synchronize()
+    _same((mine, out), (ref, want))
+    return out
+
+
+def _ring(rng, n, w, b, r, dev):
+    ring = {f: torch.as_tensor(_rand(rng, (w, n, b), -5, 50), device=dev)
+            for f in OP_FIELDS}
+    if r:
+        ring.update({f: torch.as_tensor(_rand(rng, (w, n, b, r)), device=dev)
+                     for f in ("rm_rep", "rm_ctr", "rm_elem")})
+    return ring
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(4, 8), (16, 8), (64, 8)])
+def test_safekv_submit_and_board_match_plain(cuda_device, n, w):
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(n + w)
+    cfg = DagConfig(n, w)
+    dev = cuda_device
+    seen = np.zeros(2, int)
+    for i in range(6):
+        d, _, _ = workloads.consensus_state(rng, n, w, wrap=i % 3 == 2)
+        dag = {f: torch.as_tensor(v, device=dev) for f, v in d.items()}
+        b, r = (1, 37, 64)[i % 3], (0, 4)[i % 2]
+        filled = torch.as_tensor(rng.random((w, n)) < 0.3, device=dev)
+        active = None if i % 2 else torch.as_tensor(rng.random(n) < 0.8,
+                                                    device=dev)
+        ops = {f: torch.as_tensor(_rand(rng, (n, b)), device=dev)
+               for f in OP_FIELDS}
+        acc_ops, accepted, pre = _kernel_vs_plain(
+            kernels.safekv_submit, kernels.safekv_submit_plain,
+            (cfg, dag, filled, ops, active))
+        seen += [int(accepted.sum()), int((~accepted).sum())]
+        ring = _ring(rng, n, w, b, r, dev)
+        captured = {f: acc_ops[f] if f in acc_ops else
+                    torch.as_tensor(_rand(rng, x.shape[1:]), device=dev)
+                    for f, x in ring.items()}
+        for rounds in (pre, torch.as_tensor(_rand(rng, (n,), -3 * w, 3 * w),
+                                        device=dev)):
+            applied = torch.as_tensor(rng.random((n, w, n)) < 0.3, device=dev)
+            _kernel_vs_plain(kernels.safekv_board, kernels.safekv_board_plain,
+                             (cfg, ring, filled, applied, captured, accepted,
+                              rounds))
+    assert seen.min() > 0  # views accepted and views rejected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(4, 8), (64, 8), (64, 16)])
+def test_block_select_matches_plain(cuda_device, n, w):
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(3 * n + w)
+    cfg = DagConfig(n, w)
+    dev = cuda_device
+    spilled = 0
+    for i in range(4):
+        d, _, _ = workloads.consensus_state(rng, n, w, wrap=i % 2 == 1)
+        sr = torch.as_tensor(d["slot_round"], device=dev)
+        base = torch.as_tensor(d["base_round"], device=dev)
+        for p, budget in ((0.2, 4 * n), (0.9, max(1, n // 2)),
+                          (0.9, 3 * w * n), (0.5, 1)):
+            ready = torch.as_tensor(rng.random((n, w, n)) < p, device=dev)
+            applied = torch.as_tensor(rng.random((n, w, n)) < 0.2, device=dev)
+            seq = None if budget % 2 else torch.as_tensor(
+                _rand(rng, (n, w, n), 0, 2**31 // (w * n) + 50), device=dev)
+            spilled += int((ready & ~applied).sum(dim=(1, 2)).max()) > budget
+            _kernel_vs_plain(kernels.block_select, kernels.block_select_plain,
+                             (cfg, _ring(rng, n, w, 3, i % 2 * 4, dev), ready,
+                              applied, budget, sr, base, seq))
+    assert spilled > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 7, 64])
+def test_state_transfer_matches_plain(cuda_device, n):
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(n)
+    w = 8
+    cfg = DagConfig(n, w)
+    dev = cuda_device
+    moved = 0
+    for i in range(6):
+        lw = np.where(rng.random(n) < 0.25, rng.integers(-1, 4, n),
+                      rng.integers(8, 11, n)).astype(np.int32)
+        lw = torch.as_tensor(lw, device=dev)
+        nr = torch.as_tensor(_rand(rng, (n,), -2, 6), device=dev)
+        base = torch.as_tensor(np.int32(rng.integers(0, 3)), device=dev)
+        force = torch.as_tensor(rng.random(n) < 0.2, device=dev)
+        if i % 2:
+            force[int(torch.argmax(lw))] = True  # the donor itself
+        leaves = [torch.as_tensor(_rand(rng, (n, 3, 5)), device=dev),
+                  torch.as_tensor(rng.random((n, w, n)) < 0.5, device=dev),
+                  nr, lw, torch.zeros((n, 3, 0), dtype=torch.int32, device=dev),
+                  torch.as_tensor(rng.random(n) < 0.5, device=dev)]
+        need, donor = _kernel_vs_plain(
+            kernels.state_transfer, kernels.state_transfer_plain,
+            (cfg, leaves, nr, base, lw, force))
+        moved += int(need.sum()) - int(need[int(donor)])
+    assert moved > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,logs", [(4, 8, True), (4, 8, False),
+                                      (64, 8, True), (64, 16, False)])
+def test_gc_frontier_matches_plain(cuda_device, n, w, logs):
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(n * w + logs)
+    cfg = DagConfig(n, w)
+    dev = cuda_device
+    advanced = 0
+    for i in range(8):
+        dag, com, before, pa, sa, bf = (
+            {k: torch.as_tensor(v, device=dev) for k, v in x.items()}
+            if isinstance(x, dict) else torch.as_tensor(x, device=dev)
+            for x in workloads.gc_state(rng, n, w, wrap=i % 4 == 3))
+        drops = (torch.as_tensor(_rand(rng, (n,)), device=dev),
+                 None if i % 2 else torch.as_tensor(_rand(rng, (n,)),
+                                                    device=dev))
+        lost, dead, _ = _kernel_vs_plain(
+            kernels.gc_frontier, kernels.gc_frontier_plain,
+            (cfg, dag, com, before, pa, sa, bf,
+             torch.as_tensor(_rand(rng, (n,), -9, 99), device=dev),
+             torch.as_tensor(rng.random(n) < 0.7, device=dev),
+             torch.as_tensor(rng.random(n) < 0.2, device=dev),
+             torch.as_tensor(np.int32(rng.integers(0, n)), device=dev),
+             drops, logs))
+        advanced += int(dead.sum()) >= 2
+        _kernel_vs_plain(kernels.gc_clear_ring, kernels.gc_clear_ring_plain,
+                         (cfg, _ring(rng, n, w, 5, 4, dev), dead))
+    assert advanced > 0
+
+
+@pytest.mark.cuda
+def test_mixed_safekv_on_card_matches_cpu_at_64_nodes(cuda_device):
+    """Both types at 64 nodes (harness preset mixed's cluster, few keys),
+    node 63 crashed for rounds 2-5: the packed output and every device
+    tensor bit-equal between the card and the CPU, round by round."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime import safecrdt
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    n, w, b, k = 64, 8, 8, 12
+    rng = np.random.default_rng(64)
+    minters = [TagMinter(i) for i in range(n)]
+
+    def make(dev):
+        return [safecrdt.SafeKV(DagConfig(n, w), pncounter.SPEC,
+                                ops_per_block=b, device=dev, num_keys=k,
+                                num_writers=n),
+                safecrdt.SafeKV(DagConfig(n, w), orset.SPEC, ops_per_block=b,
+                                device=dev, num_keys=k, collect_logs=False,
+                                apply_budget=n + n // 4, capacity=8,
+                                rm_capacity=2)]
+
+    kvs = {"cuda": make(cuda_device), "cpu": make(torch.device("cpu"))}
+    for t in range(10):
+        active = np.ones(n, bool)
+        active[n - 1] = not 2 <= t < 6
+        batches = [workloads.pnc_uniform(rng, n, k, b),
+                   workloads.orset_add_remove(rng, minters, k, b)]
+        for j, ops in enumerate(batches):
+            packed = {}
+            for name, pair in kvs.items():
+                kv = pair[j]
+                packed[name], meta = kv.step_dispatch(
+                    workloads.ops_to_device(ops, kv.device), active=active)
+                kv.step_absorb(packed[name], meta)
+            assert torch.equal(packed["cuda"].cpu(), packed["cpu"]), (t, j)
+            st = {name: convert.tree_to_numpy(
+                {f: getattr(pair[j], f) for f in safecrdt.DEVICE_FIELDS})
+                for name, pair in kvs.items()}
+            _assert_trees_equal(st["cuda"], st["cpu"], f"round {t} type {j}")
+    assert kvs["cuda"][0].stats == kvs["cpu"][0].stats
+    assert kvs["cuda"][0].stats["gc_advances"] > 0

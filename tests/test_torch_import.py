@@ -44,8 +44,14 @@ MODULES = (
     "janus_tpu_torch.kernels.rga_apply",
     "janus_tpu_torch.kernels.rga_compact",
     "janus_tpu_torch.kernels.rga_order",
+    "janus_tpu_torch.kernels.safekv_submit",
+    "janus_tpu_torch.kernels.block_select",
+    "janus_tpu_torch.kernels.state_transfer",
+    "janus_tpu_torch.kernels.gc_frontier",
     "janus_tpu_torch.obs",
     "janus_tpu_torch.obs.metrics",
+    "janus_tpu_torch.obs.stages",
+    "janus_tpu_torch.utils.perf",
     "janus_tpu_torch.runtime",
     "janus_tpu_torch.runtime.store",
     "janus_tpu_torch.runtime.engine",
@@ -55,6 +61,7 @@ MODULES = (
     "janus_tpu_torch.consensus.tusk",
     "janus_tpu_torch.bench",
     "janus_tpu_torch.bench.workloads",
+    "janus_tpu_torch.bench.harness",
 )
 
 
