@@ -8,7 +8,7 @@ checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all eighteen kernel sources in csrc/ compiled with nvcc, in
+2. build      all twenty kernel sources in csrc/ compiled with nvcc, in
               parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
@@ -43,7 +43,16 @@ non-zero. Phases, one JSON line each:
               advances with a lost straggler and packs with and without
               the logs, and on every call of SafeKV runs at the consensus
               phase's geometry (4 and 16 nodes, a node crashed), the
-              orset_consensus phase's and harness preset mixed's 64 nodes
+              orset_consensus phase's and harness preset mixed's 64 nodes;
+              orset_compact (with its orset_watermark entry), rga_capture
+              and mark_members (phase fence_kernels) on random OR-Set rows
+              behind watermarks of rings with and without a live add (at
+              preset orset's state and ring), RGA captures with inserts
+              into full rows, keys in [-K, 2K), one document hammered and
+              floors at INT32_MAX, memberships with duplicates, masked and
+              SENTINEL keys, M = 0, T = 0 and the RGA fence's sizes, and
+              every call of the rga_consensus phase's first rounds
+              (rga_compact's too) and of the orset_consensus phase's runs
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
@@ -66,8 +75,19 @@ non-zero. Phases, one JSON line each:
               first 5 rounds bit-equal to the same run on the CPU (a GC
               advance and a compaction among them), 24 timed rounds, idle
               rounds until every view's stable state is bit-equal, rows
-              canonical with no tag twice
-8. store_delta  the delta anti-entropy store (harness preset mixed_delta):
+              canonical with no tag twice; a GC advance's compaction at
+              most 3 CUDA kernels (orset_watermark, orset_compact x2)
+8. rga_consensus  SafeKV for the RGA at 4 nodes, window 8, 1024-op
+              blocks, 128 documents of 1,024 slots (BASELINE config 5's):
+              512 inserts and 512 deletes per node per round
+              (workloads.rga_churn); pass 1 records the counters the
+              inserts mint, pass 2 runs 64 timed rounds of the full churn
+              and idle rounds until drained; checked for acceptance, the
+              same counters, compactions, no drop, stable views bit-equal,
+              prospective holding the stable elements, three documents'
+              texts against a numpy model, and each wrapper's launches per
+              round and per GC advance
+9. store_delta  the delta anti-entropy store (harness preset mixed_delta):
               R=64 replicas, K=500 keys of a PN-Counter and of a 256-slot
               OR-Set, B=64 ops per type per replica per tick in a Zipf hot
               window of 32 keys; three Stores through fused_tick, one full
@@ -75,7 +95,7 @@ non-zero. Phases, one JSON line each:
               tick overflows), 24 ticks; every arm bit-equal to the full
               one after every tick and after sync_all, with the launches
               per tick, the dirty fractions and the overflow counts checked
-9. rga_replay  harness preset rga (BASELINE config 5), uncut: R=1,024
+10. rga_replay harness preset rga (BASELINE config 5), uncut: R=1,024
               replicas, K=128 documents of 1,024 slots (2.95 GB), 16 insert
               and 16 delete lanes per replica per tick, 64 ticks of
               make_tick with a compaction every 4, the first off the clock,
@@ -84,7 +104,7 @@ non-zero. Phases, one JSON line each:
               bit-equal, 256 live elements per document, nothing dropped,
               no depth overflow, the text of document 0 equal to an
               independent numpy model
-10. harness_tensor  the port's tensor-mode harness (run_tensor) at presets
+11. harness_tensor  the port's tensor-mode harness (run_tensor) at presets
               pnc, orset (16 nodes) and mixed (64 nodes, consensus on),
               uncut: Results.to_dict() (throughput, safeUpdate latency in
               ms, tick ms, commit lag in rounds) and slots dropped per
@@ -92,11 +112,11 @@ non-zero. Phases, one JSON line each:
               equals stable where no slot record was dropped, the
               PN-Counter equals a numpy sum of the accepted ops, and
               step_dispatch makes no host synchronisation
-11. profiler_check  the kernels torch.profiler saw over 20 calls of a
+12. profiler_check  the kernels torch.profiler saw over 20 calls of a
               plain torch kernel, and of causal_closure right after a
               profile of tusk_commit's plain version (the kernels line
               gives each wrapper's count beside its own launch count)
-12. timing, the kernels line, the nvidia-smi line, and the result line.
+13. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -117,6 +137,8 @@ INT32_OPS_PER_S = 67e12
 # ~50 ms at the H100's boost clock: longer than the host takes to queue a
 # timed burst of 20 wrapper calls
 SLEEP_CYCLES = 100_000_000
+# a plain version slower than this per call is not profiled
+PLAIN_PROFILE_MAX_MS = 1000.0
 
 FAST = dict(R=256, K=1024, W=256, B=1024, ticks=80)
 CONS = dict(nodes=4, window=8, ops_per_block=4000, keys=100, rounds=64,
@@ -197,7 +219,8 @@ SAFEKV_KERNELS = ("safekv_submit", "block_select", "state_transfer",
                   "gc_frontier")
 # a source's second entry point, counted on its wrapper
 SECOND_ENTRIES = {"safekv_board": "safekv_submit",
-                  "gc_clear_ring": "gc_frontier"}
+                  "gc_clear_ring": "gc_frontier",
+                  "orset_watermark": "orset_compact"}
 # random checks per (N, W); recorded runs beside RECORDED's: the OR-Set at
 # ORSET_CONS and both types at harness preset mixed's 64 nodes, node N-1
 # crashed for rounds [crash[0], crash[1])
@@ -219,6 +242,45 @@ SAFEKV_LIBRARY_NOTES = {
     "gc_frontier": "no single PyTorch call computes it: quorum order "
                    "statistics, a W-step scan and a recycle",
 }
+# the GC fences and the single-op capture: the OR-Set's compaction (with
+# its watermark entry), the RGA's capture mode of rga_apply.cu, and the
+# membership test of the RGA's fence
+FENCE_KERNELS = ("orset_compact", "rga_capture", "mark_members")
+# random checks: OR-Set compactions (lead, C, ring lanes, live adds: at
+# harness preset orset's state and ring, at the orset_consensus phase's);
+# captures (R, K, C, B, full-row share: at the rga_consensus submit);
+# memberships (M, T, key span: at the rga_consensus fence); recorded: the
+# rga_consensus phase's first rounds
+FENCE_CHECKS = dict(
+    orset=(((2, 4, 6), 8, 160, True), ((16, 1000), 64, 655360, True),
+           ((4, 100), 64, 262144, True), ((3, 5), 300, 40, False),
+           ((2, 7), 5, 1, True)),
+    captures=((3, 5, 8, 40, 0.25), (4, 3, 6, 300, 1.0), (5, 2, 4, 24, 0.5),
+              (4, 128, 1024, 1024, 0.0)),
+    members=((700, 90, 4), (0, 5, 4), (9, 0, 4), (5000, 9000, 30),
+             (524288, 65536, 1 << 20)),
+    # orset_apply's captured mode, JAX's one-lane captured scan: (R, K, C,
+    # r_cap, lanes), path B's rows among them
+    one_lane=((5, 4, 8, 3, 1), (3, 6, 16, 16, 1), (4, 3, 4, 6, 4),
+              (64, 500, 256, 8, 1)),
+    rga_rounds=6)
+FENCE_LIBRARY_NOTES = {
+    "orset_compact": "no single PyTorch call computes it: a masked min "
+                     "and a stable per-row partition",
+    "rga_capture": "no single PyTorch call computes it: a per-row "
+                   "sequential apply minting Lamport counters",
+    "mark_members": "torch.isin on the packed int64 keys (packing and the "
+                    "query mask not timed)",
+}
+# the RGA through SafeKV: BASELINE config 5's documents (K of C slots,
+# harness.py:2013-2015) in a 4-node cluster, 1,024-op blocks (the
+# consensus phase's scale), the churn of workloads.rga_churn (half the
+# lanes insert, half delete), `warmup` rounds off the clock, then the
+# timed rounds, idle rounds until drained; texts of these documents
+RGA_CONS = dict(nodes=4, window=8, ops_per_block=1024, keys=128,
+                capacity=1024, max_depth=8, warmup=2, rounds=64,
+                min_idle=8, max_idle=64, profile_rounds=3,
+                texts=(0, 1, 127), compaction_reps=5)
 # the port's run_tensor at these harness presets, uncut unless a preset's
 # ticks are cut here (none is)
 HARNESS = dict(presets=("pnc", "orset", "mixed"), cut_ticks={},
@@ -226,7 +288,8 @@ HARNESS = dict(presets=("pnc", "orset", "mixed"), cut_ticks={},
 # a row-list mode or another slot layout is its kernel's source with
 # another entry point
 SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union",
-           "rga_union": "slot_union", "rga_union_rows": "slot_union"}
+           "rga_union": "slot_union", "rga_union_rows": "slot_union",
+           "rga_capture": "rga_apply"}
 # the TPU-era functions each hand kernel replaces
 REPLACES = {
     "pnc_apply": "janus_tpu/models/pncounter.py:36",
@@ -251,6 +314,9 @@ REPLACES = {
     "block_select": "janus_tpu/runtime/safecrdt.py:374",
     "state_transfer": "janus_tpu/runtime/safecrdt.py:421",
     "gc_frontier": "janus_tpu/runtime/safecrdt.py:518",
+    "orset_compact": "janus_tpu/models/orset.py:538",
+    "rga_capture": "janus_tpu/models/base.py:160",
+    "mark_members": "janus_tpu/ops/setops.py:237",
 }
 
 
@@ -285,15 +351,17 @@ def time_cuda(fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def plain_reps(fn, budget_ms=300.0) -> int:
-    """Calls of ``fn`` that fit ``budget_ms``, between 3 and 20, from one
-    timed call (a slow plain version is timed over fewer calls)."""
+def plain_reps(fn, budget_ms=300.0):
+    """``(calls, ms)``: the calls of ``fn`` that fit ``budget_ms``, between
+    1 and 20, from one timed call (which also warms ``fn`` up), and that
+    call's milliseconds (a slow plain version is timed over fewer
+    calls)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     one = 1e3 * (time.perf_counter() - t0)
-    return int(max(3, min(20, budget_ms // max(one, 1e-3))))
+    return int(max(1, min(20, budget_ms // max(one, 1e-3)))), one
 
 
 def device_profile(fn, reps=10):
@@ -538,17 +606,32 @@ def plain_of(kernels, name):
     return getattr(kernels, f"{name}_plain")
 
 
-def record_calls(kernels, names, fn):
+def clone_aliased(tree):
+    """Clones of a nest's tensors, one per distinct tensor, so a tensor
+    passed twice (an ``out=`` that is the input: in place) stays one."""
+    memo = {}
+
+    def one(x):
+        if id(x) not in memo:
+            memo[id(x)] = x.clone()
+        return memo[id(x)]
+    return tree_map(one, tree)
+
+
+def record_calls(kernels, names, fn, aliased=False):
     """Run ``fn`` with the inputs of every call of the named wrappers
     (module attributes of ``kernels``, which the consensus and model
-    modules call) cloned just before the call; returns
-    ``{name: [(args, kwargs), ...]}``."""
+    modules call) cloned just before the call (``aliased``: a tensor
+    passed twice stays one clone); returns ``{name: [(args, kwargs),
+    ...]}``."""
     calls = {name: [] for name in names}
     real = {name: getattr(kernels, name) for name in names}
+    clone = clone_aliased if aliased else (
+        lambda x: tree_map(torch.Tensor.clone, x))
 
     def recorder(name):
         def call(*args, **kwargs):
-            calls[name].append(tree_map(torch.Tensor.clone, (args, kwargs)))
+            calls[name].append(clone((args, kwargs)))
             return real[name](*args, **kwargs)
         return call
 
@@ -573,13 +656,17 @@ class CaseLog:
         if "tusk_commit" in self.by:
             self.by["tusk_commit"]["committed_cases"] = 0
 
-    def add(self, kernels, name, args, what, kwargs=None):
+    def add(self, kernels, name, args, what, kwargs=None, aliased=False):
         """The kernel against its plain version on clones of one input,
         bit-equal, outputs and drop/overflow counts included (and the
-        state a kernel updates in place); returns the kernel's output."""
+        state a kernel updates in place; ``aliased`` keeps a tensor passed
+        twice one clone, so an ``out=`` that is the input stays in place);
+        returns the kernel's output."""
         kwargs = kwargs or {}
-        mine = tree_map(torch.Tensor.clone, (args, kwargs))
-        ref = tree_map(torch.Tensor.clone, (args, kwargs))
+        clone = clone_aliased if aliased else (
+            lambda x: tree_map(torch.Tensor.clone, x))
+        mine = clone((args, kwargs))
+        ref = clone((args, kwargs))
         fn = self.entries.get(name) or kernels.WRAPPERS[name]
         out = fn(*mine[0], **mine[1])
         want = plain_of(kernels, name)(*ref[0], **ref[1])
@@ -745,6 +832,15 @@ def fast_path(dev, kernels, workloads):
          launches={k: launches[k] - before[k] for k in launches},
          launches_incl_warmup=launches)
     return launches
+
+
+def device_us_by_kernel(events, rounds) -> dict:
+    """Device microseconds per round of each kernel name (its first 80
+    characters) among profiler ``events``, largest first."""
+    by = {}
+    for e in events:
+        by[e.name[:80]] = by.get(e.name[:80], 0) + e.time_range.elapsed_us()
+    return {k: v / rounds for k, v in sorted(by.items(), key=lambda x: -x[1])}
 
 
 def cuda_kernels_of(fn) -> int:
@@ -2007,7 +2103,9 @@ def orset_consensus(dev, kernels, workloads):
         check(canonical_rows(st), f"orset_consensus: {name} rows not "
               f"canonical (or a tag twice in a row)")
     stepped = rounds + idle_rounds
+    advances = kv.stats["compactions"] - stats0["compactions"]
     expect = {"orset_capture": stepped, "orset_replay": 3 * stepped,
+              "orset_compact": 3 * advances,
               **{name: per * stepped for name, per in ROUND_LAUNCHES.items()}}
     for name, want in expect.items():
         check(launches[name] == want, f"orset_consensus: {name} launched "
@@ -2050,6 +2148,9 @@ def orset_consensus(dev, kernels, workloads):
         "compaction_at_gc": cuda_kernels_of(lambda: kv._compact_device(
             kv.prospective, kv.stable, kv.ops_buffer)),
     }
+    check(by_phase["compaction_at_gc"] <= 3, f"orset_consensus: a GC "
+          f"advance's compaction is {by_phase['compaction_at_gc']} CUDA "
+          f"kernels, more than 3")
     emit("orset_consensus", nodes=n, window=w, ops_per_block=b, keys=k,
          capacity=g["capacity"], rm_capacity=g["rm"],
          apply_budget=g["budget"], warmup_rounds=warm, rounds=rounds,
@@ -2060,7 +2161,11 @@ def orset_consensus(dev, kernels, workloads):
          commit_lag_ticks_p99=float(np.percentile(lag, 99)),
          blocks_committed=int(lag.size), launches=launches,
          profiled_rounds=len(extra), cuda_kernels_per_round=per_round,
-         profiled_device_us_per_round=dev_us, cuda_kernels_by_phase=by_phase,
+         profiled_device_us_per_round=dev_us,
+         device_us_per_round_by_kernel=device_us_by_kernel(dev_events,
+                                                           len(extra)),
+         cuda_kernels_by_phase=by_phase,
+         compaction_launches_per_gc_advance=by_phase["compaction_at_gc"],
          slots_dropped=kv.stats["slots_dropped"] - stats0["slots_dropped"],
          compactions=kv.stats["compactions"] - stats0["compactions"],
          gc_advances=kv.stats["gc_advances"] - stats0["gc_advances"],
@@ -2466,6 +2571,547 @@ def safekv_kernel_rows(kernels, calls):
     return rows
 
 
+def record_rga_churn(dev, kernels, workloads, rounds, names):
+    """The first ``rounds`` rounds of the rga_consensus phase (its geometry
+    and its churn, the counters read back from the ring after each round,
+    as pass 1 would record them) with every call of the named wrappers
+    recorded, in-place aliasing kept. Returns ``(calls, stats)``."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import rga
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+
+    g = RGA_CONS
+    n, b, k = g["nodes"], g["ops_per_block"], g["keys"]
+    kv = SafeKV(DagConfig(n, g["window"]), rga.SPEC, ops_per_block=b,
+                device=dev, num_keys=k, capacity=g["capacity"],
+                max_depth=g["max_depth"])
+
+    def run():
+        minted = {}
+        for t in range(rounds):
+            info = kv.step(workloads.ops_to_device(
+                workloads.rga_churn(n, b, k, t, minted), dev))
+            ring = convert.tree_to_numpy(kv.ops_buffer["eff_ctr"])
+            minted[t] = np.stack([ring[s, v, : b // 2, 0]
+                                  for v, s in enumerate(info["slot"])])
+
+    calls = record_calls(kernels, names, run, aliased=True)
+    torch.cuda.synchronize()
+    return calls, dict(kv.stats)
+
+
+def record_orset_consensus(dev, kernels, workloads, names):
+    """The orset_consensus phase's two runs repeated with their seeds: its
+    CPU-held rounds and its warm-up and timed rounds, every call of the
+    named wrappers recorded, in-place aliasing kept. Returns ``(calls,
+    compactions)``."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    g = ORSET_CONS
+    n, k, b = g["nodes"], g["keys"], g["ops_per_block"]
+    compactions = []
+
+    def run():
+        for seed, rounds in ((6, g["cpu_rounds"]),
+                             (7, g["warmup"] + g["rounds"])):
+            rng = np.random.default_rng(seed)
+            minters = [TagMinter(i) for i in range(n)]
+            kv = SafeKV(DagConfig(n, g["window"]), orset.SPEC,
+                        ops_per_block=b, apply_budget=g["budget"],
+                        collect_logs=False, device=dev, num_keys=k,
+                        capacity=g["capacity"], rm_capacity=g["rm"])
+            for _ in range(rounds):
+                kv.step(workloads.ops_to_device(
+                    workloads.orset_add_remove(rng, minters, k, b), dev))
+            compactions.append(kv.stats["compactions"])
+
+    calls = record_calls(kernels, names, run, aliased=True)
+    torch.cuda.synchronize()
+    return calls, sum(compactions)
+
+
+def fence_kernel_checks(dev, kernels, workloads, cases):
+    """orset_compact (and its orset_watermark entry), rga_capture and
+    mark_members against their plain versions on the card, bit-equal,
+    in-place updates included, and orset_apply's captured mode (JAX's
+    one-lane captured scan; full rows, non-canonical rows, a tag captured
+    twice, keys in [-K, 2K)): (a) random inputs: OR-Set rows (full and
+    non-canonical ones, tombstoned tags at SENTINEL) behind watermarks of
+    rings with and without a live add (one lane; harness preset orset's
+    655,360), with and without a protect mask, fresh and in place, at
+    preset orset's and the orset_consensus phase's state shapes; RGA
+    captures with inserts into full rows (their counters still minted),
+    keys in [-K, 2K), every op code, one document hammered, Lamport floors
+    at INT32_MAX (the mint wraps), and the rga_consensus submit's shape;
+    memberships with duplicates on both sides, masked queries, keys at
+    SENTINEL and SENTINEL - 1, queries past one chunk, M = 0, T = 0 and
+    the rga_consensus fence's sizes; (b) every call of the rga_consensus
+    phase's first rounds (rga_compact's too) and of the orset_consensus
+    phase's runs, repeated here with their seeds. Returns the recorded
+    calls the kernels line times."""
+    entries = {"orset_watermark": kernels.orset_watermark}
+    log = CaseLog(FENCE_KERNELS + ("rga_compact", "orset_apply"), entries)
+    rng = np.random.default_rng(31)
+    sent = torch.iinfo(torch.int32).max
+    cover = {"wm_sentinel": 0, "wm_live": 0, "kept_by_wm": 0,
+             "capture_drops": 0, "capture_wraps": 0, "members": 0,
+             "non_members": 0, "one_lane_drops": 0}
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=dev)
+
+    def i32(shape, lo, hi):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+    # (a) random inputs
+    for lead, c, n_ring, adds in FENCE_CHECKS["orset"]:
+        rows = {f: t(x) for f, x in workloads.orset_slots(
+            rng, lead, c, canonical=False, full_rows=0.4).items()}
+        rows["tag_ctr"][..., 0] = torch.where(rows["valid"][..., 0], sent,
+                                              rows["tag_ctr"][..., 0])
+        op = rng.integers(0, 4, n_ring) if adds else rng.integers(2, 4, n_ring)
+        ring = (t(op.astype(np.int32)), t(i32((n_ring,), 0, 2 * c)))
+        what = f"{'x'.join(map(str, lead))} C{c} ring {n_ring}"
+        wm = log.add(kernels, "orset_watermark", ring, what)
+        cover["wm_sentinel" if int(wm[0]) == sent else "wm_live"] += 1
+        cover["kept_by_wm"] += int((rows["valid"] & rows["removed"]
+                                    & (rows["tag_ctr"] >= wm[0])).sum())
+        prot = t(rng.random(lead + (c,)) < 0.2)
+        for w_, p_ in ((wm, None), (None, prot), (wm, prot), (None, None)):
+            tag = f"{what} wm {w_ is not None} protect {p_ is not None}"
+            log.add(kernels, "orset_compact", (rows, w_, p_), tag)
+            log.add(kernels, "orset_compact", (rows, w_, p_), tag + " in place",
+                    {"out": rows}, aliased=True)
+    for r, k, c, b, full in FENCE_CHECKS["captures"]:
+        st = {f: t(x) for f, x in workloads.rga_slots(
+            rng, (r, k), c, full_rows=full, negative=0.1).items()}
+        floor = i32((r, k), -2, c + 2)
+        floor[:, ::2] = sent
+        st["ctr_floor"] = t(floor)
+        ops = workloads.rga_mixed_ops(rng, (r, b), k, c)
+        ops["key"][:, : b // 4] = 1
+        eff, drop = log.add(kernels, "rga_capture",
+                            (st, workloads.ops_to_device(ops, dev)),
+                            f"R{r} K{k} C{c} B{b}")
+        cover["capture_drops"] += int(drop.sum())
+        cover["capture_wraps"] += int((eff == -(2**31)).sum())
+        if (r, k, c) == (RGA_CONS["nodes"], RGA_CONS["keys"],
+                         RGA_CONS["capacity"]):  # the churn, mid-run
+            minted = {q: i32((r, b // 2), 1, 50) for q in (3, 4)}
+            churn = workloads.rga_churn(r, b, k, 5, minted)
+            st["ctr_floor"] = t(i32((r, k), 0, 50))
+            log.add(kernels, "rga_capture",
+                    (st, workloads.ops_to_device(churn, dev)),
+                    f"churn R{r} K{k} C{c} B{b}")
+    for m, n_b, span in FENCE_CHECKS["members"]:
+        def keys(n):
+            x = i32((2, n), -span, span)
+            hot = rng.random((2, n)) < 0.05
+            return np.where(hot, sent - rng.integers(0, 2, (2, n)),
+                            x).astype(np.int32)
+        a, b = keys(m), keys(n_b)
+        if m and n_b:  # duplicates across the sides
+            a[:, : m // 4] = b[:, rng.integers(0, n_b, m // 4)]
+        valid = t(rng.random(n_b) < 0.7)
+        out = log.add(kernels, "mark_members",
+                      ((t(a[0]), t(a[1])), (t(b[0]), t(b[1])), valid),
+                      f"M{m} T{n_b} span {span}")
+        cover["members"] += int(out.sum())
+        cover["non_members"] += int((~out).sum())
+
+    for r, k, c, r_cap, b in FENCE_CHECKS["one_lane"]:
+        st = {f: t(x) for f, x in workloads.orset_slots(
+            rng, (r, k), c, canonical=False, dup_rows=0.3,
+            full_rows=0.5).items()}
+        ops = workloads.orset_mixed_ops(rng, (r, b), k, c)
+        shape = (r, b, r_cap)
+        rm = rng.integers(0, 4, shape)
+        ops["rm_rep"] = np.where(rng.random(shape) < 0.1, sent, rm)
+        ops["rm_ctr"] = rng.integers(1, c + 2, shape)
+        ops["rm_elem"] = rng.integers(0, 8, shape)
+        if r_cap > 1:  # one tag captured twice
+            for f in ("rm_rep", "rm_ctr", "rm_elem"):
+                ops[f][..., 1] = ops[f][..., 0]
+        drop = log.add(kernels, "orset_apply",
+                       (st, workloads.ops_to_device(ops, dev)),
+                       f"captured R{r} K{k} C{c} r_cap {r_cap} B{b}")
+        cover["one_lane_drops"] += int(drop.sum())
+
+    # (b) recorded runs
+    rga_names = ("rga_capture", "mark_members", "rga_compact")
+    rga_calls, rga_stats = record_rga_churn(
+        dev, kernels, workloads, FENCE_CHECKS["rga_rounds"], rga_names)
+    advances = rga_stats["compactions"]
+    counts = {name: len(c) for name, c in rga_calls.items()}
+    check(advances > 0 and counts == {
+        "rga_capture": FENCE_CHECKS["rga_rounds"],
+        "mark_members": 2 * advances, "rga_compact": 2 * advances},
+        f"fence_kernels: rga_consensus calls {counts}, {advances} "
+        f"compactions")
+    orset_names = ("orset_watermark", "orset_compact")
+    orset_calls, orset_advances = record_orset_consensus(
+        dev, kernels, workloads, orset_names)
+    o_counts = {name: len(c) for name, c in orset_calls.items()}
+    check(orset_advances > 0 and o_counts == {
+        "orset_watermark": orset_advances,
+        "orset_compact": 2 * orset_advances},
+        f"fence_kernels: orset_consensus calls {o_counts}, "
+        f"{orset_advances} compactions")
+    for tag, calls in (("rga_consensus", rga_calls),
+                       ("orset_consensus", orset_calls)):
+        for name, rec in calls.items():
+            for j, (args, kw) in enumerate(rec):
+                out = log.add(kernels, name, args,
+                              f"recorded {tag} call {j}", kw, aliased=True)
+                if name == "mark_members":
+                    cover["members"] += int(out.sum())
+    check(all(v > 0 for v in cover.values()),
+          f"fence_kernels: coverage {cover}")
+    for name, rec in log.by.items():
+        cases.append({"kernel": name, "case": "fence_kernels", **rec})
+    emit("fence_kernels", by_kernel=log.by, coverage=cover,
+         recorded={"rga_consensus": {"rounds": FENCE_CHECKS["rga_rounds"],
+                                     "compactions": advances, **counts},
+                   "orset_consensus": {"compactions": orset_advances,
+                                       **o_counts}})
+    return {**{name: rga_calls[name] for name in rga_names},
+            **orset_calls}
+
+
+def rga_churn_model(stream, minted, key):
+    """Independent numpy model of document ``key`` under the churn
+    ``stream`` (pass 2's op batches) with the counters ``minted`` (pass
+    1's): every insert is an element ``(rep, ctr)`` under its anchor (the
+    root is (0, 0)), every delete kills its target; the text is the
+    depth-first walk with siblings in descending (ctr, rep) order,
+    restricted to live elements. Returns ``(ids [n, 2] (rep, ctr), chars
+    [n])`` in document order."""
+    children, chars, dead = {}, {}, set()
+    for t, ops in enumerate(stream):
+        L = ops["op"].shape[1] // 2
+        for v, j in zip(*np.nonzero((ops["op"][:, :L] == 1)
+                                    & (ops["key"][:, :L] == key))):
+            me = (int(ops["writer"][v, j]), int(minted[t][v, j]))
+            parent = (int(ops["a1"][v, j]), int(ops["a2"][v, j]))
+            children.setdefault(parent, []).append(me)
+            chars[me] = int(ops["a0"][v, j])
+        for v, j in zip(*np.nonzero((ops["op"][:, L:] == 2)
+                                    & (ops["key"][:, L:] == key))):
+            dead.add((int(ops["a1"][v, L + j]), int(ops["a2"][v, L + j])))
+    order, stack = [], [(0, 0)]
+    while stack:
+        node = stack.pop()
+        if node != (0, 0):
+            order.append(node)
+        # descending (ctr, rep) first: push in ascending order
+        stack.extend(sorted(children.get(node, ()), key=lambda e: (e[1], e[0])))
+    live = [e for e in order if e not in dead]
+    return (np.array(live, np.int64).reshape(-1, 2),
+            np.array([chars[e] for e in live], np.int32))
+
+
+def delete_hit_share(stream, minted) -> float:
+    """The share of the stream's deletes whose target (document, rep, ctr)
+    had been inserted and was not yet deleted when the delete was
+    issued."""
+    live, hits, total = set(), 0, 0
+    for t, ops in enumerate(stream):
+        L = ops["op"].shape[1] // 2
+        for v, j in zip(*np.nonzero(ops["op"][:, L:] == 2)):
+            target = (int(ops["key"][v, L + j]), int(ops["a1"][v, L + j]),
+                      int(ops["a2"][v, L + j]))
+            total += 1
+            hits += target in live
+            live.discard(target)
+        for v, j in zip(*np.nonzero(ops["op"][:, :L] == 1)):
+            live.add((int(ops["key"][v, j]), int(ops["writer"][v, j]),
+                      int(minted[t][v, j])))
+    return hits / max(total, 1)
+
+
+def by_id(st):
+    """Each row's valid slots first in (id_ctr, id_rep) order, invalid ones
+    after: two states holding the same elements in other slots become
+    bit-equal."""
+    from janus_tpu_torch.kernels.rga_rows import FIELDS
+    from janus_tpu_torch.ops.setops import lex_order
+
+    sent = torch.iinfo(torch.int32).max
+    v = st["valid"]
+    order = lex_order([~v, torch.where(v, st["id_ctr"], sent),
+                       torch.where(v, st["id_rep"], sent)])
+    return {f: st[f].gather(-1, order) for f in FIELDS}
+
+
+def rga_consensus(dev, kernels, workloads):
+    """The RGA through SafeKV on the card: 4 nodes, window 8, 1,024-op
+    blocks, 128 documents of 1,024 slots (BASELINE config 5's), the churn
+    of ``workloads.rga_churn``. Pass 1, off the clock, runs the insert
+    lanes alone and records the counters they mint; pass 2 runs the full
+    churn (its anchors and deletes name those ids): warm-up rounds, the
+    timed rounds, idle rounds until drained. Checks: every batch accepted,
+    pass 2 minted pass 1's counters, compactions ran, nothing dropped and
+    no document full, the stable views bit-equal and every view's
+    prospective state holding the stable one's elements (slot order
+    follows the apply order), the texts of three documents equal across
+    views and to a numpy model, ``dead`` bool, and each wrapper launched
+    as often as a round or a GC advance calls it."""
+    from janus_tpu_torch.consensus import DagConfig, tusk
+    from janus_tpu_torch.consensus import dag as dagmod
+    from janus_tpu_torch.models import rga
+    from janus_tpu_torch.runtime.safecrdt import COMMIT_STEPS, SafeKV
+
+    g = RGA_CONS
+    n, w, b, k, c = (g[x] for x in ("nodes", "window", "ops_per_block",
+                                    "keys", "capacity"))
+    L = b // 2
+    total = g["warmup"] + g["rounds"] + g["profile_rounds"]
+
+    def make_kv():
+        return SafeKV(DagConfig(n, w), rga.SPEC, ops_per_block=b, device=dev,
+                      num_keys=k, capacity=c, max_depth=g["max_depth"])
+
+    # pass 1: the insert lanes alone, off the clock
+    t0 = time.perf_counter()
+    kv, minted = make_kv(), {}
+    for t in range(total):
+        ops = workloads.rga_churn(n, b, k, t)
+        info = kv.step(workloads.ops_to_device(ops, dev))
+        check(info["accepted"].all(), f"rga_consensus: pass 1 round {t} "
+              f"rejected")
+        ring = kv.ops_buffer["eff_ctr"][:, :, :L, 0].cpu().numpy()
+        minted[t] = np.stack([ring[s, v] for v, s in enumerate(info["slot"])])
+    pass1_s = time.perf_counter() - t0
+    del kv
+
+    # pass 2: the full churn
+    stream = [workloads.rga_churn(n, b, k, t, minted) for t in range(total)]
+    batches = [workloads.ops_to_device(o, dev) for o in stream]
+    idle = workloads.ops_to_device(
+        {f: np.zeros((n, b), np.int32) for f in stream[0]}, dev)
+    kv = make_kv()
+    effs = []
+    real_capture = kernels.rga_capture
+
+    def capture(*a, **kw):  # keeps each round's counters, without a sync
+        out = real_capture(*a, **kw)
+        effs.append(out[0])
+        return out
+
+    kernels.rga_capture = capture
+    try:
+        for t in range(g["warmup"]):
+            kv.step(batches[t])
+        torch.cuda.synchronize()
+        stats0 = dict(kv.stats)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for t in range(g["warmup"], g["warmup"] + g["rounds"]):
+            info = kv.step(batches[t])
+            check(info["accepted"].all(), f"rga_consensus: round {t} rejected")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        kernels.rga_capture = real_capture
+    check(len(effs) == g["warmup"] + g["rounds"], "rga_consensus: captures "
+          f"{len(effs)}")
+    for t, eff in enumerate(effs):
+        check(np.array_equal(eff[:, :L, 0].cpu().numpy(), minted[t]),
+              f"rga_consensus: round {t} minted other counters than pass 1")
+    committed = kv.stats["own_commits"] - stats0["own_commits"]
+    lag = kv.commit_latencies()
+
+    def drained():
+        return all(torch.equal(x, x[:1].expand_as(x))
+                   for f, x in kv.stable.items())
+
+    idle_rounds = 0
+    while idle_rounds < g["max_idle"]:
+        if idle_rounds >= g["min_idle"] and drained():
+            break
+        kv.step(idle, record=False)
+        idle_rounds += 1
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    stepped = g["rounds"] + idle_rounds
+    advances = kv.stats["compactions"] - stats0["compactions"]
+    check(drained(), f"rga_consensus: stable views differ after "
+          f"{idle_rounds} idle rounds")
+    stable = by_id(kv.stable)
+    prosp = by_id(kv.prospective)
+    check(all(torch.equal(prosp[f], stable[f]) for f in stable),
+          "rga_consensus: a view's prospective state holds other elements "
+          "than the stable one")
+    occupancy = int(max(rga.element_count(kv.prospective).max(),
+                        rga.element_count(kv.stable).max()))
+    check(advances > 0 and kv.stats["slots_dropped"] == 0 and occupancy < c,
+          f"rga_consensus: {advances} compactions, "
+          f"{kv.stats['slots_dropped']} slots dropped, occupancy {occupancy}")
+    check(kv.stable["dead"].dtype == torch.bool
+          and kv.prospective["dead"].dtype == torch.bool,
+          "rga_consensus: dead is not bool")
+    texts = {}
+    for doc in g["texts"]:
+        ids, chars = rga_churn_model(stream[: g["warmup"] + g["rounds"]],
+                                     minted, doc)
+        for name, st in (("stable", kv.stable), ("prospective",
+                                                  kv.prospective)):
+            out = rga.text(st, doc)
+            for v in range(n):
+                live = out["live"][v]
+                got = (torch.stack([out["id_rep"][v][live],
+                                    out["id_ctr"][v][live]], 1).cpu().numpy(),
+                       out["chr"][v][live].cpu().numpy())
+                check(np.array_equal(got[0], ids)
+                      and np.array_equal(got[1], chars)
+                      and not bool(out["overflow"][v]),
+                      f"rga_consensus: {name} text of document {doc} at "
+                      f"view {v} differs from the numpy model")
+        texts[doc] = len(chars)
+    expect = {"rga_capture": stepped, "rga_apply": 2 * stepped,
+              "mark_members": 2 * advances, "rga_compact": 2 * advances,
+              **{name: per * stepped for name, per in ROUND_LAUNCHES.items()}}
+    for name, want in expect.items():
+        check(launches[name] == want, f"rga_consensus: {name} launched "
+              f"{launches[name]} times in {stepped} rounds and {advances} "
+              f"GC advances, expected {want}")
+
+    # device work per round and per phase, by the profiler
+    from torch.profiler import ProfilerActivity, profile
+    extra = batches[g["warmup"] + g["rounds"]:]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ops in extra:
+            kv.step(ops)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    cfg = kv.cfg
+    everything = torch.ones((n, w, n), dtype=torch.bool, device=dev)
+    order = torch.zeros((n, w, n), dtype=torch.int32, device=dev)
+    applied_none = torch.zeros((n, w, n), dtype=torch.bool, device=dev)
+    carry = [tree_map(torch.Tensor.clone, kv._carry()) for _ in range(4)]
+    by_phase = {
+        "submit": cuda_kernels_of(lambda: kv._submit_device(
+            carry[0][0], carry[0][2], *carry[0][4:7], extra[0])),
+        "state_transfer": cuda_kernels_of(lambda: kv._state_transfer(
+            *carry[1][:4], *carry[1][6:9])),
+        "round_step": cuda_kernels_of(lambda: dagmod.round_step(cfg, kv.dag)),
+        "causal_closure": cuda_kernels_of(
+            lambda: kv._causal_closure(kv.dag, kv.prosp_applied)),
+        "commit_view": cuda_kernels_of(lambda: tusk.commit_view(
+            cfg, kv.dag, kv.commit, seed=kv.seed, steps=COMMIT_STEPS)),
+        "delta_apply_x2": 2 * cuda_kernels_of(lambda: kv._delta_apply(
+            carry[2][1], carry[2][4], everything, applied_none,
+            kv.commit["slot_round"], kv.dag["base_round"], order)),
+        "compaction_at_gc": cuda_kernels_of(lambda: kv._compact_device(
+            carry[3][0], carry[3][1], carry[3][4])),
+    }
+    # ms per GC advance (the fence and the compaction of both states), on
+    # copies of the drained state, by CUDA events
+    copies = [tree_map(torch.Tensor.clone, (kv.prospective, kv.stable))
+              for _ in range(g["compaction_reps"])]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for p_, s_ in copies:
+        kv._compact_device(p_, s_, kv.ops_buffer)
+    end.record()
+    torch.cuda.synchronize()
+    gc_ms = start.elapsed_time(end) / len(copies)
+    emit("rga_consensus", nodes=n, window=w, ops_per_block=b, keys=k,
+         capacity=c, warmup_rounds=g["warmup"], rounds=g["rounds"],
+         idle_rounds_to_drain=idle_rounds, seconds=dt,
+         ms_per_round=1e3 * dt / g["rounds"],
+         ops_per_s=g["rounds"] * n * b / dt,
+         committed_ops_per_s=committed * b / dt,
+         commit_lag_ticks_p50=float(np.percentile(lag, 50)),
+         commit_lag_ticks_p99=float(np.percentile(lag, 99)),
+         profiled_rounds=len(extra),
+         cuda_kernels_per_round=len(dev_events) / len(extra),
+         profiled_device_us_per_round=sum(
+             e.time_range.elapsed_us() for e in dev_events) / len(extra),
+         device_us_per_round_by_kernel=device_us_by_kernel(dev_events,
+                                                           len(extra)),
+         cuda_kernels_by_phase=by_phase, ms_per_gc_advance=gc_ms,
+         slots_dropped=kv.stats["slots_dropped"] - stats0["slots_dropped"],
+         compactions=advances,
+         gc_advances=kv.stats["gc_advances"] - stats0["gc_advances"],
+         delete_hit_share=delete_hit_share(stream, minted),
+         max_element_count=occupancy, live_text_lengths=texts,
+         launches=launches, pass1_seconds=pass1_s, stats=kv.stats)
+    return launches
+
+
+def fence_kernel_rows(kernels, calls):
+    """Rows of the kernels line for the three fence and capture wrappers,
+    on recorded calls of the main paths: orset_compact as one GC advance
+    of the orset_consensus phase (the watermark and both states'
+    compactions, in place), rga_capture on an rga_consensus submit (the
+    last recorded, on the state it leaves), mark_members on an
+    rga_consensus fence. Bytes: what the function must move, each input
+    read once and each output written once: the ring's op and a2 and each
+    slot both ways (14 bytes); the op fields, the counters written and the
+    rows the lanes gather and write back (22 bytes a slot, 4 of floor);
+    the A keys, the queries and the marks."""
+    rows = []
+    wm_args, _ = calls["orset_watermark"][-1]
+    compact = calls["orset_compact"][-2:]
+    live_op, _ = wm_args
+    n_ring = live_op.numel()
+    slots = sum(a[0]["valid"].numel() for a, _ in compact)
+    shape = tuple(compact[0][0][0]["valid"].shape)
+
+    def advance(watermark, fn):
+        def go():
+            watermark(*wm_args)
+            for a, kw in compact:
+                fn(*a, **kw)
+        return go
+
+    rows.append(dict(
+        name="orset_compact",
+        call=advance(kernels.orset_watermark, kernels.orset_compact),
+        plain=advance(kernels.orset_watermark_plain,
+                      kernels.orset_compact_plain),
+        library=None, shape=f"one GC advance of orset_consensus: ring "
+        f"{n_ring} lanes, 2 states {' x '.join(map(str, shape))}, in place",
+        bytes=8 * n_ring + 4 + 2 * 14 * slots,
+        operations=2 * n_ring + 2 * slots))
+    (state, ops), kw = calls["rga_capture"][-1]
+    r, k, c = state["valid"].shape
+    b = ops["op"].shape[1]
+    read, written = rga_rows_touched(state, ops)
+    rows.append(dict(
+        name="rga_capture", call=lambda: kernels.rga_capture(state, ops),
+        plain=lambda: kernels.rga_capture_plain(state, ops), library=None,
+        shape=f"an rga_consensus submit: V{r} K{k} C{c} B{b}",
+        rows_read=read, rows_written=written,
+        bytes=(4 * 6 * r * b + 4 * r * b + 4 * r
+               + (22 * c + 4) * (read + written)),
+        operations=7 * c * read))
+    (a_keys, b_keys, b_valid), kw = calls["mark_members"][-1]
+    m, t = a_keys[0].numel(), b_keys[0].numel()
+    pa = ((a_keys[0].long() << 32) | (a_keys[1].long() & 0xFFFFFFFF)).view(-1)
+    pb = ((b_keys[0].long() << 32) | (b_keys[1].long() & 0xFFFFFFFF))[b_valid]
+    rows.append(dict(
+        name="mark_members",
+        call=lambda: kernels.mark_members(a_keys, b_keys, b_valid),
+        plain=lambda: kernels.mark_members_plain(a_keys, b_keys, b_valid),
+        library=lambda: torch.isin(pa, pb),
+        shape=f"an rga_consensus fence: M{m} ids, T{t} queries "
+        f"({int(b_valid.sum())} valid)",
+        bytes=9 * m + 9 * t, operations=m * int(np.ceil(np.log2(max(t, 2))))))
+    for row in rows:
+        row["library_note"] = FENCE_LIBRARY_NOTES[row["name"]]
+    return rows
+
+
 def harness_tensor(dev, kernels, workloads, smi):
     """The port's run_tensor (janus_tpu_torch.bench.harness) at presets
     pnc (config 1), orset (config 2 at 16 nodes) and mixed (config 3, 64
@@ -2584,7 +3230,8 @@ def harness_tensor(dev, kernels, workloads, smi):
 
 
 def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
-                 orset_calls, delta_calls, rga_calls, safekv_calls):
+                 orset_calls, delta_calls, rga_calls, safekv_calls,
+                 fence_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -2701,6 +3348,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     kerns += delta_kernel_rows(kernels, delta_calls)
     kerns += rga_kernel_rows(kernels, rga_calls)
     kerns += safekv_kernel_rows(kernels, safekv_calls)
+    kerns += fence_kernel_rows(kernels, fence_calls)
 
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
@@ -2716,24 +3364,30 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     out = []
     for kern in kerns:
         name = kern["name"]
+        measure_t0 = time.perf_counter()
         row = {k: kern[k] for k in ("bytes", "operations", "shape",
                                     "cells_touched", "keys_marked",
                                     "rows_read", "rows_written", "rows_joined",
                                     "library_note")
                if k in kern}
         row["ms"] = time_cuda(kern["call"])
-        row["plain_ms"] = time_cuda(kern["plain"], reps=plain_reps(kern["plain"]),
-                                    warmup=1)
+        reps, one_ms = plain_reps(kern["plain"])
+        row["plain_ms"] = time_cuda(kern["plain"], reps=reps, warmup=0)
         row["library_ms"] = (None if kern["library"] is None
                              else time_cuda(kern["library"]))
         row["device_ms"] = device_burst_ms(kern["call"])
         before = kernels.WRAPPERS[name].launches
         row["profiler_kernels_seen"], _ = device_profile(kern["call"], reps=20)
         row["profiled_launches"] = kernels.WRAPPERS[name].launches - before
-        if "shape" in kern:
+        if "shape" in kern and one_ms > PLAIN_PROFILE_MAX_MS:
+            # the profiler's processing of a plain call of ~10^5 small
+            # kernels takes minutes: not measured
+            row.update(plain_device_ms=None, plain_kernels_per_call=None)
+        elif "shape" in kern:
             seen, plain_dev_ms = device_profile(kern["plain"], reps=3)
             row.update(plain_device_ms=plain_dev_ms / 3,
                        plain_kernels_per_call=seen / 3)
+        row["measure_seconds"] = time.perf_counter() - measure_t0
         t_bytes = 1e3 * row["bytes"] / HBM_BYTES_PER_S
         t_ops = 1e3 * row["operations"] / INT32_OPS_PER_S
         out.append({
@@ -2795,6 +3449,8 @@ def main() -> int:
                       workloads, cases)
     safekv_calls = timed("safekv_kernels", safekv_kernel_checks, dev, kernels,
                          workloads, cases)
+    fence_calls = timed("fence_kernels", fence_kernel_checks, dev, kernels,
+                        workloads, cases)
     paths = {"fast_path": timed("fast_path", fast_path, dev, kernels, workloads),
              "consensus": timed("consensus", consensus_path, dev, kernels,
                                 workloads, cases),
@@ -2802,6 +3458,8 @@ def main() -> int:
                                   workloads),
              "orset_consensus": timed("orset_consensus", orset_consensus, dev,
                                       kernels, workloads),
+             "rga_consensus": timed("rga_consensus", rga_consensus, dev,
+                                    kernels, workloads),
              "store_delta": timed("store_delta", store_delta, dev, kernels,
                                   workloads),
              "rga_replay": timed("rga_replay", rga_replay, dev, kernels,
@@ -2810,7 +3468,7 @@ def main() -> int:
                                      kernels, workloads, smi)}
     line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
                  cases, timing_calls, orset_calls, delta_calls, rga_calls,
-                 safekv_calls)
+                 safekv_calls, fence_calls)
     emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

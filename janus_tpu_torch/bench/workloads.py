@@ -229,6 +229,45 @@ def rga_text_replay(rng: np.random.Generator, num_replicas: int,
     return out
 
 
+def rga_churn(num_nodes: int, ops_per_block: int, num_keys: int, tick: int,
+              minted=None) -> dict:
+    """Round ``tick`` of the RGA's consensus churn (BASELINE config 5's
+    shape, janus_tpu/bench/harness.py:1800-1824, through SafeKV): int32
+    numpy ``[N, B]`` op fields, node v's block in row v. Lanes ``j < L =
+    B // 2`` insert chr ``32 + (7v + 3j + t) % 95`` into document ``(v +
+    j + t) % K``: even lanes at the root, odd lanes after the node's own
+    insert of round ``t - 1`` at lane ``j + 1`` (the same document). Lanes
+    ``L + j`` delete the node's own insert of round ``t - 2`` at lane j.
+    An insert's id is ``(v, counter)``, its counter minted at submit, so
+    ``minted`` maps a round to its insert lanes' counters (int32 ``[N,
+    L]``, the ``eff_ctr`` its blocks carried); an anchor or a delete whose
+    round is missing there falls back to the root or a no-op. Those
+    counters depend on the insert lanes alone (the document's Lamport
+    floor survives compaction), so a first run of the inserts without
+    ``minted`` records them."""
+    minted = minted or {}
+    N, L, K, t = num_nodes, ops_per_block // 2, num_keys, tick
+    vs = np.arange(N)[:, None]
+    js = np.arange(L)[None, :]
+    out = {f: np.zeros((N, ops_per_block), np.int32) for f in base.OP_FIELDS}
+    out["writer"][:] = vs
+    out["op"][:, :L] = rga.OP_INSERT
+    out["key"][:, :L] = (vs + js + t) % K
+    out["a0"][:, :L] = 32 + (7 * vs + 3 * js + t) % 95
+    prev = minted.get(t - 1)
+    if prev is not None and L > 1:
+        odd = np.arange(1, L - 1, 2)  # lanes whose lane j + 1 exists
+        out["a1"][:, odd] = vs
+        out["a2"][:, odd] = prev[:, odd + 1]
+    old = minted.get(t - 2)
+    if old is not None:
+        out["op"][:, L:] = rga.OP_DELETE
+        out["key"][:, L:] = (vs + js + t - 2) % K
+        out["a1"][:, L:] = vs
+        out["a2"][:, L:] = old
+    return out
+
+
 def rga_slots(rng: np.random.Generator, shape, capacity: int,
               full_rows: float = 0.25, fill: float = 0.7, reps: int = 4,
               dead: float = 0.3, canonical: bool = True,

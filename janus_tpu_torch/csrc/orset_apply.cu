@@ -1,8 +1,15 @@
 // orset_apply: the OR-Set's sequential apply of uncaptured ops, per
 // replica, in place; one block per (replica, key row).
 //
-// Replaces: the uncaptured lax.scan of janus_tpu/models/orset.py
-// _apply_ops_impl (has_capture=False), vmapped over replicas. Ops apply in
+// Replaces: the lax.scan of janus_tpu/models/orset.py _apply_ops_impl,
+// vmapped over replicas: uncaptured (has_capture=False), and captured, the
+// scan JAX runs for a one-lane captured batch (384-465), where a remove or
+// clear does not tombstone in the row but unions the row with its r_cap
+// captured tags as dead records (setops.slot_union with the OR-Set's fold:
+// the row's slots and the records sorted by tag, stable; a record whose
+// predecessor holds the same valid tag is dropped and ORs its tombstone
+// into that predecessor; the first C kept, the rest counted as drops, even
+// for a key out of range). Ops apply in
 // lane order. An op reads the row its key gathers (negative keys count from
 // the end, then the index is clamped) and writes it back only if the
 // normalised key is in range. add: if a valid slot holds the tag (first
@@ -58,6 +65,12 @@ struct Ops {
   const int* a0;
   const int* a1;
   const int* a2;
+  // captured mode: [R, B, RC] tags and elements of each remove/clear,
+  // SENTINEL rep in unused lanes; null when uncaptured
+  const int* rm_rep;
+  const int* rm_ctr;
+  const int* rm_elem;
+  int RC;
 };
 
 // one row buffer in shared memory
@@ -79,15 +92,20 @@ __device__ Row row_at(char* base, int c) {
   return r;
 }
 
+// CAPTURED: the captured mode (a separate instantiation, so the uncaptured
+// apply is unchanged)
+template <bool CAPTURED>
 __global__ void __launch_bounds__(THREADS)
 orset_apply_kernel(State st, Ops ops, int* __restrict__ dropped, int R, int K,
                    int C, int B) {
   extern __shared__ int4 smem[];
-  int4* rec = smem;                               // [C] sort records
+  const int RC = CAPTURED ? ops.RC : 0;
+  int4* rec = smem;                               // [C + RC] sort records
   const size_t row_bytes = (size_t)C * 14;
-  char* rows = (char*)(rec + C);
+  char* rows = (char*)(rec + C + RC);
   Row buf[2] = {row_at(rows, C), row_at(rows + ((row_bytes + 15) / 16) * 16, C)};
   int* lanes = (int*)(rows + 2 * ((row_bytes + 15) / 16) * 16);  // [THREADS]
+  unsigned char* flag = (unsigned char*)(lanes + THREADS);       // [C + RC]
   __shared__ int s_first, s_pos;
 
   const int tid = threadIdx.x;
@@ -178,6 +196,69 @@ orset_apply_kernel(State st, Ops ops, int* __restrict__ dropped, int R, int K,
               cur ^= 1;
             }
           }
+        } else if (CAPTURED && (op == OP_REMOVE || op == OP_CLEAR)) {
+          // the union of the canonical row with the op's captured tags
+          const long long co = o * RC;
+          const int n = C + RC;
+          for (int j = tid; j < n; j += THREADS) {
+            if (j < C) {
+              rec[j] = make_int4(row.rep[j], row.ctr[j], j, 0);
+            } else {
+              const int rr = ops.rm_rep[co + j - C];
+              const bool v = rr != SENT;
+              rec[j] = make_int4(v ? rr : SENT,
+                                 v ? ops.rm_ctr[co + j - C] : SENT, j, 0);
+            }
+          }
+          __syncthreads();
+          block_sort(rec, n, LessXYZ());
+          // flag bit 0: valid; bit 1: tombstone
+          for (int j = tid; j < n; j += THREADS) {
+            const int i = rec[j].z;
+            flag[j] = i < C ? (row.valid[i] | (row.rm[i] << 1))
+                            : ((ops.rm_rep[co + i - C] != SENT) | 2);
+          }
+          __syncthreads();
+          const Row nxt = buf[cur ^ 1];
+          int kept = 0;
+          for (int j0 = 0; j0 < n; j0 += THREADS) {
+            const int j = j0 + tid;
+            bool keep = false, dead = false;
+            int elem = 0;
+            if (j < n) {
+              const int4 x = rec[j];
+              const bool v = flag[j] & 1;
+              const bool dup = j > 0 && v && (flag[j - 1] & 1) &&
+                               rec[j - 1].x == x.x && rec[j - 1].y == x.y;
+              const bool next_dup = j + 1 < n && v && (flag[j + 1] & 1) &&
+                                    rec[j + 1].x == x.x && rec[j + 1].y == x.y;
+              keep = v && !dup;
+              dead = (flag[j] & 2) || (next_dup && (flag[j + 1] & 2));
+              elem = x.z < C ? row.elem[x.z] : ops.rm_elem[co + x.z - C];
+            }
+            int nk;
+            const int at = kept + block_count_before(keep, &nk);
+            if (keep && at < C && in_range) {
+              nxt.rep[at] = rec[j].x;
+              nxt.ctr[at] = rec[j].y;
+              nxt.elem[at] = elem;
+              nxt.rm[at] = dead;
+              nxt.valid[at] = 1;
+            }
+            kept += nk;
+          }
+          drop += kept > C ? kept - C : 0;
+          if (in_range) {
+            for (int j = kept + tid; j < C; j += THREADS) {
+              nxt.rep[j] = SENT;
+              nxt.ctr[j] = SENT;
+              nxt.elem[j] = 0;
+              nxt.rm[j] = 0;
+              nxt.valid[j] = 0;
+            }
+            touched = true;
+            cur ^= 1;
+          }
         } else if ((op == OP_REMOVE || op == OP_CLEAR) && in_range) {
           touched = true;
           for (int j = tid; j < C; j += THREADS)
@@ -208,27 +289,40 @@ orset_apply_kernel(State st, Ops ops, int* __restrict__ dropped, int R, int K,
 }  // namespace
 
 // state fields [R, K, C] (int32 tags and elem, bool removed and valid),
-// updated in place; op fields int32 [R, B]; dropped int32 [R], added to.
-// Contiguous on one device. Returns the launch's CUDA error.
+// updated in place; op fields int32 [R, B]; rm_rep, rm_ctr, rm_elem int32
+// [R, B, RC] for captured ops, null (and RC 0) for uncaptured ones; dropped
+// int32 [R], added to. Contiguous on one device. Returns the launch's CUDA
+// error.
 extern "C" int orset_apply_launch(void* rep, void* ctr, void* elem,
                                   void* removed, void* valid, const void* op,
                                   const void* key, const void* a0,
                                   const void* a1, const void* a2,
+                                  const void* rm_rep, const void* rm_ctr,
+                                  const void* rm_elem, int RC,
                                   void* dropped, int R, int K, int C, int B,
                                   void* stream) {
   if (R <= 0 || K <= 0 || B <= 0) return (int)cudaSuccess;
+  if (!rm_rep) RC = 0;
   const size_t row_bytes = (((size_t)C * 14 + 15) / 16) * 16;
-  const size_t bytes = sizeof(int4) * (size_t)C + 2 * row_bytes +
-                       sizeof(int) * THREADS;
-  cudaError_t err = allow_shared(orset_apply_kernel, bytes);
+  const size_t bytes = sizeof(int4) * (size_t)(C + RC) + 2 * row_bytes +
+                       sizeof(int) * THREADS + (rm_rep ? (size_t)(C + RC) : 0);
+  cudaError_t err = rm_rep ? allow_shared(orset_apply_kernel<true>, bytes)
+                           : allow_shared(orset_apply_kernel<false>, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)R * K;
   const long long grid = blocks < 132LL * 256 ? blocks : 132LL * 256;
   State st{(int*)rep, (int*)ctr, (int*)elem, (unsigned char*)removed,
            (unsigned char*)valid};
   Ops ops{(const int*)op, (const int*)key, (const int*)a0, (const int*)a1,
-          (const int*)a2};
-  orset_apply_kernel<<<(unsigned)grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      st, ops, (int*)dropped, R, K, C, B);
+          (const int*)a2, (const int*)rm_rep, (const int*)rm_ctr,
+          (const int*)rm_elem, RC};
+  if (rm_rep)
+    orset_apply_kernel<true>
+        <<<(unsigned)grid, THREADS, bytes, (cudaStream_t)stream>>>(
+            st, ops, (int*)dropped, R, K, C, B);
+  else
+    orset_apply_kernel<false>
+        <<<(unsigned)grid, THREADS, bytes, (cudaStream_t)stream>>>(
+            st, ops, (int*)dropped, R, K, C, B);
   return (int)cudaGetLastError();
 }

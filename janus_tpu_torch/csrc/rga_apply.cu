@@ -3,7 +3,15 @@
 //
 // Replaces: the lax.scan of janus_tpu/models/rga.py _apply_ops_impl,
 // vmapped over replicas, uncaptured (the Lamport counter minted at apply)
-// and captured (the counter read from the op's eff_ctr). Ops apply in lane
+// and captured (the counter read from the op's eff_ctr); and, as the
+// capture mode (entry point rga_capture_launch), the scan of
+// janus_tpu/models/base.py capture_and_apply (160-186) with
+// janus_tpu/models/rga.py prepare_ops (90-102), vmapped over the views:
+// the uncaptured walk that also writes each lane's minted counter to
+// eff_out (0 for a delete or another code). Each op's prepare observes the
+// state the earlier lanes left, which is the state the uncaptured mint
+// reads, so the two agree lane by lane, a dropped insert's counter (which
+// still advances the floor) included. Ops apply in lane
 // order. An op reads the row its key gathers (negative keys count from the
 // end, then the index is clamped) and writes the row and the document's
 // Lamport floor back only if the normalised key is in range. insert: the
@@ -69,9 +77,12 @@ struct Ops {
   const int* eff;  // [R, B] or null (uncaptured)
 };
 
+// CAPTURE: the capture mode, writing each lane's minted counter to
+// eff_out [R, B] (a separate instantiation, so the apply is unchanged)
+template <bool CAPTURE>
 __global__ void __launch_bounds__(THREADS)
-rga_apply_kernel(State st, Ops ops, int* __restrict__ dropped, int R, int K,
-                 int C, int B) {
+rga_apply_kernel(State st, Ops ops, int* __restrict__ eff_out,
+                 int* __restrict__ dropped, int R, int K, int C, int B) {
   extern __shared__ int smem[];
   int* id_ctr = smem;
   int* id_rep = id_ctr + C;
@@ -134,6 +145,7 @@ rga_apply_kernel(State st, Ops ops, int* __restrict__ dropped, int R, int K,
             ctr = (int)((unsigned)max(s_max, s_floor) + 1u);
           }
         }
+        if (CAPTURE && tid == 0) eff_out[o] = ctr;
         if (is_ins || is_del) {
           const int kc = is_ins ? ctr : a2, kr = is_ins ? wr : a1;
           if (tid == 0) {
@@ -202,18 +214,16 @@ rga_apply_kernel(State st, Ops ops, int* __restrict__ dropped, int R, int K,
 
 }  // namespace
 
-// state: seven field pointers (id_ctr, id_rep, par_ctr, par_rep, chr
-// int32; dead, valid bool) of [R, K, C] and ctr_floor int32 [R, K], updated
-// in place; ops: seven pointers (op, key, a0, a1, a2, writer, eff_ctr)
-// int32 [R, B], eff_ctr null when uncaptured; dropped int32 [R], added to.
-// Contiguous on one device. Returns the launch's CUDA error.
-extern "C" int rga_apply_launch(void* const* state, void* floor,
-                                const void* const* ops, void* dropped, int R,
-                                int K, int C, int B, void* stream) {
+namespace {
+
+template <bool CAPTURE>
+int launch(void* const* state, void* floor, const void* const* ops,
+           void* eff_out, void* dropped, int R, int K, int C, int B,
+           void* stream) {
   if (R <= 0 || K <= 0 || B <= 0 || C <= 0) return (int)cudaSuccess;
   const size_t bytes = (size_t)C * (5 * sizeof(int) + 2) +
                        sizeof(int) * THREADS;
-  cudaError_t err = allow_shared(rga_apply_kernel, bytes);
+  cudaError_t err = allow_shared(rga_apply_kernel<CAPTURE>, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)R * K;
   const long long grid = blocks < 132LL * 256 ? blocks : 132LL * 256;
@@ -223,7 +233,33 @@ extern "C" int rga_apply_launch(void* const* state, void* floor,
   Ops o{(const int*)ops[0], (const int*)ops[1], (const int*)ops[2],
         (const int*)ops[3], (const int*)ops[4], (const int*)ops[5],
         (const int*)ops[6]};
-  rga_apply_kernel<<<(unsigned)grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      st, o, (int*)dropped, R, K, C, B);
+  rga_apply_kernel<CAPTURE>
+      <<<(unsigned)grid, THREADS, bytes, (cudaStream_t)stream>>>(
+          st, o, (int*)eff_out, (int*)dropped, R, K, C, B);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// state: seven field pointers (id_ctr, id_rep, par_ctr, par_rep, chr
+// int32; dead, valid bool) of [R, K, C] and ctr_floor int32 [R, K], updated
+// in place; ops: seven pointers (op, key, a0, a1, a2, writer, eff_ctr)
+// int32 [R, B], eff_ctr null when uncaptured; dropped int32 [R], added to.
+// Contiguous on one device. Returns the launch's CUDA error.
+extern "C" int rga_apply_launch(void* const* state, void* floor,
+                                const void* const* ops, void* dropped, int R,
+                                int K, int C, int B, void* stream) {
+  return launch<false>(state, floor, ops, nullptr, dropped, R, K, C, B,
+                       stream);
+}
+
+// The capture mode: as rga_apply_launch with eff_ctr null (uncaptured),
+// and eff_out int32 [R, B] receiving every lane's minted counter (0 for a
+// lane that is not an insert).
+extern "C" int rga_capture_launch(void* const* state, void* floor,
+                                  const void* const* ops, void* eff_out,
+                                  void* dropped, int R, int K, int C, int B,
+                                  void* stream) {
+  return launch<true>(state, floor, ops, eff_out, dropped, R, K, C, B,
+                      stream);
 }

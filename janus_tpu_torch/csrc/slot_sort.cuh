@@ -1,12 +1,13 @@
-// Helpers shared by the OR-Set kernels (slot_union, orset_capture,
-// orset_replay, orset_apply): a block-wide sort of records in shared or
-// global memory, block-wide prefix sums, and JAX's index rules.
+// Helpers shared by the slot kernels (slot_union, orset_capture,
+// orset_replay, orset_apply, orset_compact, the RGA's, mark_members): a
+// block-wide sort of records in shared or global memory, block-wide prefix
+// sums, and JAX's index rules.
 //
 // A record is an int4 compared lexicographically on the fields a
-// comparator names. Every sort key ends in a field that is unique within
-// the sorted array (an original position or lane), or the records that
-// tie are identical, so the unstable network gives the one result a
-// stable sort would.
+// comparator names, or a packed integer key. Every sort key ends in a
+// field that is unique within the sorted array (an original position or
+// lane), or the records that tie are identical, so the unstable network
+// gives the one result a stable sort would.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,15 +36,16 @@ struct LessWXYZ {
   }
 };
 
-// Sort a[0, n) ascending by `less`, in place, with the whole block. The
+// Sort a[0, n) (records of type T: an int4, or a packed key) ascending by
+// `less`, in place, with the whole block. The
 // network is the bitonic sorter over the next power of two p >= n in its
 // form whose comparators all point the same way (the first step of each
 // merge compares mirror positions), so positions >= n act as +infinity:
 // a comparator that reaches one never swaps, and nothing is read or
 // written there. `a` may lie in shared or global memory; every step ends
 // in __syncthreads(), which also orders the block's global accesses.
-template <typename Less>
-__device__ void block_sort(int4* a, int n, Less less) {
+template <typename T, typename Less>
+__device__ void block_sort(T* a, int n, Less less) {
   int p = 1;
   while (p < n) p <<= 1;
   for (int k = 2; k <= p; k <<= 1) {
@@ -52,7 +54,7 @@ __device__ void block_sort(int4* a, int n, Less less) {
         const int lo = (t / j) * 2 * j + (t % j);
         const int hi = (j == (k >> 1)) ? (lo ^ (k - 1)) : (lo + j);
         if (hi < n) {
-          const int4 x = a[lo], y = a[hi];
+          const T x = a[lo], y = a[hi];
           if (less(y, x)) {
             a[lo] = y;
             a[hi] = x;

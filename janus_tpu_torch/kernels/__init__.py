@@ -5,7 +5,8 @@ mode of a kernel (``replica_join_rows``, ``slot_union_rows``,
 the same source; so is the RGA instantiation of ``slot_union.cu``
 (``rga_union``). A source with two entry points counts both on one
 wrapper: ``safekv_board`` on ``safekv_submit``, ``gc_clear_ring`` on
-``gc_frontier``.
+``gc_frontier``, ``orset_watermark`` on ``orset_compact``. The capture
+mode of ``rga_apply.cu`` is a wrapper of its own, ``rga_capture``.
 
 Sources live in ``janus_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Nothing here imports or builds anything at import
@@ -23,14 +24,20 @@ from janus_tpu_torch.kernels.dirty_rows import (  # noqa: F401
     dirty_rows, dirty_rows_plain)
 from janus_tpu_torch.kernels.gc_frontier import (  # noqa: F401
     gc_clear_ring, gc_clear_ring_plain, gc_frontier, gc_frontier_plain)
+from janus_tpu_torch.kernels.mark_members import (  # noqa: F401
+    mark_members, mark_members_plain)
 from janus_tpu_torch.kernels.orset_apply import (  # noqa: F401
     orset_apply, orset_apply_plain)
+from janus_tpu_torch.kernels.orset_compact import (  # noqa: F401
+    orset_compact, orset_compact_plain, orset_watermark,
+    orset_watermark_plain)
 from janus_tpu_torch.kernels.orset_capture import (  # noqa: F401
     orset_capture, orset_capture_plain)
 from janus_tpu_torch.kernels.orset_replay import (  # noqa: F401
     orset_replay, orset_replay_plain)
 from janus_tpu_torch.kernels.pnc_apply import pnc_apply, pnc_apply_plain  # noqa: F401
-from janus_tpu_torch.kernels.rga_apply import rga_apply, rga_apply_plain  # noqa: F401
+from janus_tpu_torch.kernels.rga_apply import (  # noqa: F401
+    rga_apply, rga_apply_plain, rga_capture, rga_capture_plain)
 from janus_tpu_torch.kernels.rga_compact import (  # noqa: F401
     rga_compact, rga_compact_plain)
 from janus_tpu_torch.kernels.rga_order import rga_order, rga_order_plain  # noqa: F401
@@ -59,7 +66,9 @@ WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join,
             "rga_union_rows": rga_union_rows, "rga_apply": rga_apply,
             "rga_compact": rga_compact, "rga_order": rga_order,
             "safekv_submit": safekv_submit, "block_select": block_select,
-            "state_transfer": state_transfer, "gc_frontier": gc_frontier}
+            "state_transfer": state_transfer, "gc_frontier": gc_frontier,
+            "orset_compact": orset_compact, "rga_capture": rga_capture,
+            "mark_members": mark_members}
 
 
 def reset_launches() -> None:

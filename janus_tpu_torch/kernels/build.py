@@ -23,7 +23,8 @@ KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
            "dag_round", "slot_union", "orset_capture", "orset_replay",
            "orset_apply", "dirty_rows", "delta_select", "rga_apply",
            "rga_compact", "rga_order", "safekv_submit", "block_select",
-           "state_transfer", "gc_frontier")
+           "state_transfer", "gc_frontier", "orset_compact",
+           "mark_members")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"

@@ -1,8 +1,9 @@
-"""``orset_apply``: the OR-Set's sequential apply of uncaptured ops, per
-replica, in place (kernel source: csrc/orset_apply.cu).
+"""``orset_apply``: the OR-Set's sequential apply of ops, per replica, in
+place (kernel source: csrc/orset_apply.cu).
 
-Replaces the uncaptured ``lax.scan`` of janus_tpu/models/orset.py
-``_apply_ops_impl`` (vmapped over the replicas). Ops apply in lane order,
+Replaces the ``lax.scan`` of janus_tpu/models/orset.py ``_apply_ops_impl``
+(vmapped over the replicas): uncaptured, and captured (the scan JAX runs
+for a one-lane captured batch). Ops apply in lane order,
 each to the row of its key (gathered by JAX's gather rule, written back by
 its scatter rule, so an op whose key is out of range after negative
 normalisation changes nothing but may count a drop):
@@ -12,6 +13,10 @@ normalisation changes nothing but may count a drop):
   full row evicting the largest (possibly the newcomer) and counting one
   drop;
 - remove: tombstone the valid slots of elem a0; clear: every valid slot;
+  with captured ``rm_rep``/``rm_ctr``/``rm_elem`` (``[R, B, r_cap]``) a
+  remove or clear instead unions its row with the captured tags as dead
+  records (``setops.slot_union`` with the OR-Set's fold, capacity C; the
+  records beyond C count as drops, even for a key out of range);
 - every op with an in-range key leaves its row canonical.
 
 The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
@@ -25,17 +30,19 @@ import torch
 
 from janus_tpu_torch.kernels import build, operands
 from janus_tpu_torch.kernels.orset_rows import (
-    FIELDS, KEY_FIELDS, OP_ADD, OP_CLEAR, OP_REMOVE, canonical_row,
-    op_operands, slot_operands)
+    CAPTURE_FIELDS, FIELDS, KEY_FIELDS, OP_ADD, OP_CLEAR, OP_REMOVE,
+    canonical_row, fold_duplicate, op_operands, slot_operands)
 from janus_tpu_torch.models.base import OP_NOOP, gather_index, scatter_index
-from janus_tpu_torch.ops.setops import row_find
+from janus_tpu_torch.ops.lattice import SENTINEL
+from janus_tpu_torch.ops.setops import row_find, slot_union
 
 
 def orset_apply_plain(state, ops) -> torch.Tensor:
     """Plain PyTorch version: the JAX scan as a Python loop over the op
     lanes with the replica axis as a batch dimension. ``state``: the
     five slot fields ``[R, K, C]``, updated in place; op fields
-    ``[R, B]``. Returns the drop count per replica, int32 ``[R]``."""
+    ``[R, B]``, with the captured fields ``[R, B, r_cap]`` for captured
+    ops. Returns the drop count per replica, int32 ``[R]``."""
     R, K, C = state["valid"].shape
     B = ops["op"].shape[-1]
     dev = state["valid"].device
@@ -66,11 +73,24 @@ def orset_apply_plain(state, ops) -> torch.Tensor:
         added = {f: torch.where(add, torch.where(fnd, folded[f],
                                                  appended[f][:, :C]), row[f])
                  for f in FIELDS}
-        rm_mask = row["valid"] & (row["elem"] == a0[:, None])
-        tomb = torch.where((en & (op == OP_REMOVE))[:, None], rm_mask,
-                           (en & (op == OP_CLEAR))[:, None] & row["valid"])
-        added["removed"] = added["removed"] | tomb
-        new_row = canonical_row(added)
+        if "rm_rep" in ops:
+            is_tomb = en & ((op == OP_REMOVE) | (op == OP_CLEAR))
+            rm_rep = ops["rm_rep"][:, b]
+            cap = {"valid": (rm_rep != SENTINEL) & is_tomb[:, None],
+                   "tag_rep": rm_rep, "tag_ctr": ops["rm_ctr"][:, b],
+                   "elem": ops["rm_elem"][:, b],
+                   "removed": torch.ones_like(rm_rep, dtype=torch.bool)}
+            merged, ovf = slot_union(added, cap, KEY_FIELDS, fold_duplicate,
+                                     capacity=C)
+            dropped += torch.where(is_tomb, ovf, 0).to(torch.int32)
+            new_row = canonical_row({f: torch.where(is_tomb[:, None], merged[f],
+                                                    added[f]) for f in FIELDS})
+        else:
+            rm_mask = row["valid"] & (row["elem"] == a0[:, None])
+            tomb = torch.where((en & (op == OP_REMOVE))[:, None], rm_mask,
+                               (en & (op == OP_CLEAR))[:, None] & row["valid"])
+            added["removed"] = added["removed"] | tomb
+            new_row = canonical_row(added)
         ok = wok[:, b]
         for f in FIELDS:
             state[f][rr[ok], wi[ok, b]] = new_row[f][ok]
@@ -81,33 +101,38 @@ def _lib():
     lib = build.load("orset_apply")
     if lib.orset_apply_launch.argtypes is None:
         ptr = ctypes.c_void_p
-        lib.orset_apply_launch.argtypes = [ptr] * 11 + [
+        lib.orset_apply_launch.argtypes = [ptr] * 13 + [ctypes.c_int, ptr] + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
         lib.orset_apply_launch.restype = ctypes.c_int
     return lib
 
 
-def shared_bytes(c: int) -> int:
+def shared_bytes(c: int, r_cap: int = 0) -> int:
     """Shared memory of one block (csrc/orset_apply.cu): a 16-byte sort
-    record and two 14-byte row copies per slot, the lane list of a tile
-    of 128 ops, and a few words."""
-    return 16 * c + 2 * (-(-14 * c // 16) * 16) + 4 * 128 + 256
+    record per slot and captured tag, two 14-byte row copies per slot, the
+    lane list of a tile of 128 ops, a flag byte per record and a few
+    words."""
+    return 17 * (c + r_cap) + 2 * (-(-14 * c // 16) * 16) + 4 * 128 + 256
 
 
 def orset_apply(state, ops) -> torch.Tensor:
-    """Apply uncaptured op lanes in order to every replica's rows, in
-    place. ``state``: the five slot fields ``[R, K, C]``; op fields int32
-    ``[R, B]``. Returns the drop count per replica, int32 ``[R]``."""
+    """Apply op lanes in order to every replica's rows, in place.
+    ``state``: the five slot fields ``[R, K, C]``; op fields int32 ``[R,
+    B]``, with ``rm_rep``/``rm_ctr``/``rm_elem`` int32 ``[R, B, r_cap]``
+    for captured ops. Returns the drop count per replica, int32 ``[R]``."""
     if state["valid"].dim() != 3 or ops["op"].dim() != 2:
         raise ValueError("orset_apply: state must be [R, K, C] and op "
                          "fields [R, B]")
     R, K, C = state["valid"].shape
     B = ops["op"].shape[1]
+    captured = "rm_rep" in ops
+    r_cap = ops["rm_rep"].shape[-1] if captured else 0
     dev = operands.placement("orset_apply", [
-        *slot_operands("state.", state, (R, K, C)), *op_operands(ops, (R, B))])
+        *slot_operands("state.", state, (R, K, C)), *op_operands(ops, (R, B)),
+        *(op_operands(ops, (R, B, r_cap), CAPTURE_FIELDS) if captured else ())])
     if dev is None:
         return orset_apply_plain(state, ops)
-    operands.check_shared("orset_apply", shared_bytes(C))
+    operands.check_shared("orset_apply", shared_bytes(C, r_cap))
     if K == 0 and R * B > 0:
         raise ValueError("orset_apply: no key rows to gather from")
     dropped = torch.zeros((R,), dtype=torch.int32, device=dev)
@@ -119,6 +144,8 @@ def orset_apply(state, ops) -> torch.Tensor:
         rc = lib.orset_apply_launch(
             *(state[f].data_ptr() for f in FIELDS),
             *(ops[f].data_ptr() for f in ("op", "key", "a0", "a1", "a2")),
+            *((ops[f].data_ptr() for f in CAPTURE_FIELDS) if captured
+              else (None,) * 3), r_cap,
             dropped.data_ptr(), R, K, C, B, stream)
     build.check_launch("orset_apply", rc)
     orset_apply.launches += 1

@@ -18,8 +18,16 @@ count a drop):
 - an upsert of an absent id into a full row counts one drop;
 - ``ctr_floor[k]`` takes the max with the counter the op carries.
 
-The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
-``rga_apply_plain`` only for tensors that lie on the CPU.
+``rga_capture`` is the kernel's capture mode, a wrapper with its own
+counter: the uncaptured walk, which also returns each lane's minted
+counter as ``eff_ctr`` (0 for a lane that is not an insert). It replaces
+the sequential capture of janus_tpu/models/base.py ``capture_and_apply``
+with janus_tpu/models/rga.py ``prepare_ops``: each lane's prepare observes
+the state the earlier lanes left, which is what the uncaptured mint
+reads.
+
+The wrappers launch the CUDA kernel for CUDA tensors (or raise) and run
+the plain versions only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -49,12 +57,14 @@ def _fold_delete(old, new):
             "chr": old["chr"], "dead": torch.ones_like(old["dead"])}
 
 
-def rga_apply_plain(state, ops) -> torch.Tensor:
+def rga_apply_plain(state, ops, minted=None) -> torch.Tensor:
     """Plain PyTorch version: the JAX scan as a Python loop over the op
     lanes with the replica axis as a batch dimension. ``state``: the seven
     slot fields ``[R, K, C]`` and ``ctr_floor`` ``[R, K]``, updated in
     place; op fields int32 ``[R, B]`` (``eff_ctr`` ``[R, B, 1]`` when
-    captured). Returns the drop count per replica, int32 ``[R]``."""
+    captured). ``minted`` (int32 ``[R, B, 1]``, uncaptured ops only), when
+    given, receives each lane's counter, 0 where the lane is not an
+    insert. Returns the drop count per replica, int32 ``[R]``."""
     R, K, C = state["valid"].shape
     B = ops["op"].shape[-1]
     dev = state["valid"].device
@@ -64,18 +74,25 @@ def rga_apply_plain(state, ops) -> torch.Tensor:
     stats = {"slots_dropped": torch.zeros((R,), dtype=torch.int32, device=dev)}
     zero = torch.zeros((R,), dtype=torch.int32, device=dev)
     for b in range(B):
-        row = {f: state[f][rr, gi[:, b]] for f in FIELDS}          # [R, C]
         floor = state["ctr_floor"][rr, gi[:, b]]                     # [R]
         op, a0, a1, a2, wr = (ops[f][:, b]
                               for f in ("op", "a0", "a1", "a2", "writer"))
         en = op != OP_NOOP
         is_ins = en & (op == OP_INSERT)
         is_del = en & (op == OP_DELETE)
+        ok = wok[:, b]
+        if not bool((is_ins | is_del).any()):
+            # no upsert in any replica: only the floor's max with 0
+            state["ctr_floor"][rr[ok], wi[ok, b]] = floor[ok].clamp(min=0)
+            continue
+        row = {f: state[f][rr, gi[:, b]] for f in FIELDS}          # [R, C]
         if "eff_ctr" in ops:
             ctr = ops["eff_ctr"][:, b, 0]
         else:
             top = torch.where(row["valid"], row["id_ctr"], 0).amax(-1)
             ctr = torch.maximum(top, floor) + 1
+        if minted is not None:
+            minted[:, b, 0] = torch.where(is_ins, ctr, 0)
         inserted = row_upsert(
             row, KEY_FIELDS, (ctr, wr),
             {"par_rep": a1, "par_ctr": a2, "chr": a0, "dead": False},
@@ -87,7 +104,6 @@ def rga_apply_plain(state, ops) -> torch.Tensor:
         seen = torch.maximum(torch.where(is_ins, ctr, 0),
                              torch.where(is_del, a2, 0))
         new_floor = torch.maximum(floor, torch.where(en, seen, 0))
-        ok = wok[:, b]
         for f in FIELDS:
             state[f][rr[ok], wi[ok, b]] = deleted[f][ok]
         state["ctr_floor"][rr[ok], wi[ok, b]] = new_floor[ok]
@@ -102,6 +118,10 @@ def _lib():
                                          ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ptr]
         lib.rga_apply_launch.restype = ctypes.c_int
+        lib.rga_capture_launch.argtypes = [arr, ptr, arr, ptr, ptr,
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int, ptr]
+        lib.rga_capture_launch.restype = ctypes.c_int
     return lib
 
 
@@ -150,3 +170,56 @@ def rga_apply(state, ops) -> torch.Tensor:
 
 
 rga_apply.launches = 0
+
+
+def rga_capture_plain(state, ops):
+    """Plain PyTorch version of the capture mode: ``rga_apply_plain`` on
+    uncaptured ops, recording the counters. Returns ``(eff_ctr int32 [R,
+    B, 1], dropped int32 [R])``."""
+    R, B = ops["op"].shape
+    eff = torch.zeros((R, B, 1), dtype=torch.int32, device=ops["op"].device)
+    dropped = rga_apply_plain(state, ops, minted=eff)
+    return eff, dropped
+
+
+def rga_capture(state, ops):
+    """Capture and apply uncaptured op lanes in order, in place: the
+    ``rga_apply`` walk, minting each insert's Lamport counter against the
+    state the earlier lanes left. ``state`` as for ``rga_apply``; op
+    fields int32 ``[R, B]`` (no ``eff_ctr``). Returns ``(eff_ctr int32 [R,
+    B, 1], dropped int32 [R])``: the minted counter of each insert (a
+    dropped one included), 0 for other lanes."""
+    if state["valid"].dim() != 3 or ops["op"].dim() != 2:
+        raise ValueError("rga_capture: state must be [R, K, C] and op "
+                         "fields [R, B]")
+    if "eff_ctr" in ops:
+        raise ValueError("rga_capture: the ops are already captured")
+    R, K, C = state["valid"].shape
+    B = ops["op"].shape[1]
+    dev = operands.placement("rga_capture", [
+        *slot_operands("state.", state, (R, K, C)),
+        ("state.ctr_floor", state["ctr_floor"], torch.int32, (R, K)),
+        *[(f"op field {f!r}", ops[f], torch.int32, (R, B)) for f in OP_FIELDS]])
+    if dev is None:
+        return rga_capture_plain(state, ops)
+    operands.check_shared("rga_capture", shared_bytes(C))
+    if (K == 0 or C == 0) and R * B > 0:
+        raise ValueError("rga_capture: no slot rows to gather from")
+    dropped = torch.zeros((R,), dtype=torch.int32, device=dev)
+    eff = torch.empty((R, B, 1), dtype=torch.int32, device=dev)
+    if R * B == 0:
+        return eff, dropped
+    lib = _lib()
+    st = (ctypes.c_void_p * 7)(*(state[f].data_ptr() for f in FIELDS))
+    op = (ctypes.c_void_p * 7)(*(ops[f].data_ptr() for f in OP_FIELDS), None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rga_capture_launch(st, state["ctr_floor"].data_ptr(), op,
+                                    eff.data_ptr(), dropped.data_ptr(), R, K,
+                                    C, B, stream)
+    build.check_launch("rga_capture", rc)
+    rga_capture.launches += 1
+    return eff, dropped
+
+
+rga_capture.launches = 0

@@ -23,23 +23,18 @@ from janus_tpu_torch.kernels import build, operands
 from janus_tpu_torch.kernels.rga_rows import (
     DTYPES, FIELDS, KEY_FIELDS, slot_operands)
 from janus_tpu_torch.ops.lattice import SENTINEL
-from janus_tpu_torch.ops.setops import lex_order
-
-
-def _pack(ctr: torch.Tensor, rep: torch.Tensor) -> torch.Tensor:
-    """An element id (ctr, rep) as one int64, equal iff the ids are."""
-    return (ctr.to(torch.int64) << 32) | (rep.to(torch.int64) & 0xFFFFFFFF)
+from janus_tpu_torch.ops.setops import lex_order, pack_pair
 
 
 def is_parent(rows) -> torch.Tensor:
     """bool ``[..., C]``: some valid slot of the row references the slot's
     id as its parent (JAX's ``[C, C]`` compare, as a sort of the parent
     references and a search: within equal references valid ones first)."""
-    ref = _pack(rows["par_ctr"], rows["par_rep"])
+    ref = pack_pair(rows["par_ctr"], rows["par_rep"])
     order = lex_order([ref, ~rows["valid"]])
     sref = ref.gather(-1, order).contiguous()
     svalid = rows["valid"].gather(-1, order)
-    ids = _pack(rows["id_ctr"], rows["id_rep"]).contiguous()
+    ids = pack_pair(rows["id_ctr"], rows["id_rep"]).contiguous()
     pos = torch.searchsorted(sref, ids)
     at = pos.clamp(max=max(ref.shape[-1] - 1, 0))
     return ((pos < ref.shape[-1]) & (sref.gather(-1, at) == ids)

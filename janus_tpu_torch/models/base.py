@@ -113,17 +113,23 @@ class CRDTTypeSpec:
     # dim-name defaults for op_extras resolution (e.g. OR-Set
     # rm_capacity -> capacity)
     dim_defaults: Dict[str, str] = dataclasses.field(default_factory=dict)
-    # single-op capture (not ported: its sequential scan serves one-op
-    # batches only)
+    # single-op capture: ``prepare_ops(state, ops) -> ops`` on a one-op
+    # batch; ``capture_scan`` runs it lane by lane (plain PyTorch)
     prepare_ops: Callable[[Any, OpBatch], OpBatch] | None = None
+    # the same sequential capture fused into a hand kernel,
+    # ``capture_apply(state, ops) -> (state, prepared)``: what
+    # ``capture_and_apply`` runs for a type with ``prepare_ops``
+    capture_apply: "Callable[[Any, OpBatch], Any] | None" = None
     # batched exact capture: each op observes the pre-batch state plus the
     # earlier lanes of its own batch; the prepared batch applies at once
     prepare_ops_batch: Callable[[Any, OpBatch], OpBatch] | None = None
     replay_safe: bool = False
-    # ``compact_fence(state, live_ops) -> state``: reclaims dead slots at
-    # a GC fence, protecting those an op of the live consensus window may
-    # still reference (``live_ops``: the flattened op-buffer fields)
-    compact_fence: Callable[[Any, OpBatch], Any] | None = None
+    # ``compact_fences(states, live_ops) -> states``: reclaims dead slots
+    # at a GC fence, protecting those an op of the live consensus window
+    # may still reference (``live_ops``: the flattened op-buffer fields),
+    # in every state of the tuple ``states`` (SafeKV's prospective and
+    # stable) behind the one fence; JAX's ``compact_fence`` per state
+    compact_fences: "Callable[[Any, OpBatch], Any] | None" = None
     # In-place join of the leading replica axis: every replica row set to
     # the join of all rows (a hand kernel); ``runtime.store.converge``
     # needs it.
@@ -159,15 +165,41 @@ def capture_and_apply(spec: CRDTTypeSpec, state: Any, ops: OpBatch):
     prepared ops are what ships in the consensus payload and what every
     replica replays. A type with batched capture captures the whole batch
     (each op observing the pre-batch state and the earlier lanes of its
-    batch) and applies the prepared batch at once; a type without capture
+    batch) and applies the prepared batch at once; a type with single-op
+    capture captures and applies lane by lane through its capture kernel
+    (``capture_apply``), and raises without one; a type without capture
     applies the batch as one (its apply reads no local state)."""
     if spec.prepare_ops_batch is not None:
         prepared = spec.prepare_ops_batch(state, ops)
         return spec.apply_ops(state, prepared), prepared
     if spec.prepare_ops is not None:
-        raise NotImplementedError(
-            f"single-op effect capture for type {spec.name!r} is not ported")
+        if spec.capture_apply is None:
+            raise NotImplementedError(
+                f"type {spec.name!r} has single-op effect capture but no "
+                "capture kernel (capture_apply)")
+        return spec.capture_apply(state, ops)
     return spec.apply_ops(state, ops), ops
+
+
+def capture_scan(spec: CRDTTypeSpec, state: Any, ops: OpBatch):
+    """Plain PyTorch version of the single-op capture (the ``lax.scan`` of
+    janus_tpu/models/base.py ``capture_and_apply``): per lane in order,
+    ``spec.prepare_ops`` on the one-op batch against the state the earlier
+    lanes left, then ``spec.apply_ops`` on the prepared op. Batches over
+    the leading view axes of the state (op fields ``[..., B]``). Returns
+    ``(state, prepared)``, the prepared fields stacked on the lane axis.
+    A type's ``capture_apply`` kernel computes the same."""
+    axis = ops["op"].dim() - 1
+    lanes = []
+    for b in range(ops["op"].shape[-1]):
+        one = {f: v.narrow(axis, b, 1) for f, v in ops.items()}
+        prepared = spec.prepare_ops(state, one)
+        state = spec.apply_ops(state, prepared)
+        lanes.append(prepared)
+    if not lanes:
+        return state, spec.prepare_ops(state, ops)
+    return state, {f: torch.cat([p[f] for p in lanes], axis)
+                   for f in lanes[0]}
 
 
 _REGISTRY: Dict[str, CRDTTypeSpec] = {}

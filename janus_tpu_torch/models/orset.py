@@ -9,23 +9,29 @@ present iff some valid slot of it is not tombstoned. Rows stay canonical
 so set-equal states are bit-equal tensors. ``_rm_cap``, a zero-width
 ``[r_cap, 0]`` int32 leaf, carries the capture width of remove/clear ops.
 
-The device work runs through four hand kernels (``janus_tpu_torch.kernels``):
+The device work runs through five hand kernels (``janus_tpu_torch.kernels``):
 
 - ``orset_capture``  batched effect capture at submit (``prepare_ops_batch``)
-- ``orset_replay``   captured batches: the consensus path's apply
-- ``orset_apply``    uncaptured batches: the sequential per-op apply, in place
+- ``orset_replay``   captured batches of two lanes or more: the consensus
+                     path's apply
+- ``orset_apply``    the sequential per-op apply, in place: uncaptured
+                     batches, and captured batches of one lane (JAX's scan)
 - ``slot_union``     the join (``merge``) and the replica-axis converge
                      (``join_replicas``; its row-list mode
                      ``slot_union_rows`` for ``join_replica_rows``)
+- ``orset_compact``  the compaction (``compact``) and, behind the counter
+                     watermark of its ``orset_watermark`` entry point, the
+                     GC-fence compaction (``compact_fence``), in place
 
 The dirty rows of a delta apply are the ``dirty_rows`` kernel.
 
 Every function batches over leading axes of the state (``[..., K, C]``
-with op fields ``[..., B]``). ``compact`` and ``compact_fence`` are plain
-PyTorch. The duplicate-tag fold (JAX's ``_combine``) and the canonical row
-order (``_canonical_row``) are ``kernels.orset_rows.fold_duplicate`` and
-``canonical_row``, which the kernels' plain versions share. The single-op
-capture (``prepare_ops``) is not ported.
+with op fields ``[..., B]``). The duplicate-tag fold (JAX's ``_combine``)
+and the canonical row order (``_canonical_row``) are
+``kernels.orset_rows.fold_duplicate`` and ``canonical_row``, which the
+kernels' plain versions share. The single-op capture ``prepare_ops`` is
+plain PyTorch (``base.capture_scan`` runs it); ``capture_and_apply`` takes
+the batched capture.
 """
 from __future__ import annotations
 
@@ -93,16 +99,42 @@ def prepare_ops_batch(state: State, ops: base.OpBatch) -> base.OpBatch:
                       for f, x in zip(CAPTURE_FIELDS, cap)}}
 
 
+def prepare_ops(state: State, ops: base.OpBatch) -> base.OpBatch:
+    """Single-op effect capture against the state as given (counterpart:
+    janus_tpu/models/orset.py ``prepare_ops``): a remove or clear records
+    the valid tags it covers (elem-matched for remove, all for clear), in
+    tag order, the first ``r_cap`` of them, SENTINEL tags and zero elems
+    in unused lanes; other ops record none. Batches over leading axes
+    (state ``[..., K, C]``, op fields ``[..., B]``; adds ``[..., B,
+    min(r_cap, C)]``). Plain PyTorch."""
+    K, C = state["valid"].shape[-2:]
+    k = gather_index(ops["key"], K)
+    rows = k[..., None].expand(k.shape + (C,))
+
+    def row(f):
+        return state[f].gather(-2, rows)                       # [..., B, C]
+
+    is_rm = ops["op"] == OP_REMOVE
+    is_tomb = is_rm | (ops["op"] == OP_CLEAR)
+    sel = row("valid") & ((row("elem") == ops["a0"][..., None])
+                          | ~is_rm[..., None]) & is_tomb[..., None]
+    order = torch.sort((~sel).to(torch.int32), dim=-1, stable=True).indices
+    r_cap = state["_rm_cap"].shape[-2]
+
+    def pick(f, fill):  # at most r_cap wide: C when r_cap > C, as in JAX
+        return torch.where(sel, row(f), fill).gather(-1, order)[..., :r_cap]
+
+    return {**ops, "rm_rep": pick("tag_rep", SENTINEL),
+            "rm_ctr": pick("tag_ctr", SENTINEL), "rm_elem": pick("elem", 0)}
+
+
 def _apply_ops_impl(state: State, ops: base.OpBatch):
     """``(state, dropped[...])``: captured batches of more than one op
     replay as one set union per key (``orset_replay``, new tensors);
-    uncaptured batches apply op by op (``orset_apply``, in place)."""
+    uncaptured batches and captured ones of one op apply op by op
+    (``orset_apply``, in place)."""
     flat, fops, lead = _views(state, ops)
-    if "rm_rep" in ops:
-        if ops["op"].shape[-1] <= 1:
-            raise NotImplementedError(
-                "the one-op captured scan is not ported; captured batches "
-                "need at least two lanes")
+    if "rm_rep" in ops and ops["op"].shape[-1] > 1:
         new, dropped = kernels.orset_replay(flat, fops)
         K, C = state["valid"].shape[-2:]
         out = {f: new[f].view(lead + (K, C)) for f in FIELDS}
@@ -190,31 +222,39 @@ def element_count(state: State) -> torch.Tensor:
     return state["valid"].sum(-1).to(torch.int32)
 
 
+def _slots(state: State) -> State:
+    return {f: state[f] for f in FIELDS}
+
+
 def compact(state: State, protect: torch.Tensor | None = None) -> State:
     """Drop tombstoned slots to reclaim capacity (one stable compaction
-    per row), keeping those ``protect`` pins. Only safe at coordination
-    points where every replica has observed the tombstones."""
-    keep = state["valid"] & ~state["removed"]
-    if protect is not None:
-        keep = keep | (state["valid"] & protect)
-    order = torch.sort((~keep).to(torch.int32), dim=-1, stable=True).indices
-    return {"tag_rep": torch.where(keep, state["tag_rep"], SENTINEL).gather(-1, order),
-            "tag_ctr": torch.where(keep, state["tag_ctr"], SENTINEL).gather(-1, order),
-            "elem": torch.where(keep, state["elem"], 0).gather(-1, order),
-            "removed": (state["removed"] & keep).gather(-1, order),
-            "valid": keep.gather(-1, order),
-            "_rm_cap": state["_rm_cap"]}
+    per row, the ``orset_compact`` kernel), keeping those ``protect``
+    pins; in place, returns the state. Only safe at coordination points
+    where every replica has observed the tombstones."""
+    rows = _slots(state)
+    kernels.orset_compact(rows, protect=protect, out=rows)
+    return state
+
+
+def compact_fences(states, live_ops: base.OpBatch):
+    """GC-fence compaction of every state of the tuple ``states``, in
+    place: reclaim tombstoned tags except those whose minting add may
+    still ride the live window. Protection is a counter watermark: tags
+    are minted with increasing counters, so a tag still ridable has ``ctr
+    >=`` the least ``a2`` of the live adds (SENTINEL when none is live).
+    One ``orset_watermark`` launch computes it on the device for all the
+    states, then one ``orset_compact`` per state. Returns the states."""
+    wm = kernels.orset_watermark(live_ops["op"], live_ops["a2"])
+    for st in states:
+        rows = _slots(st)
+        kernels.orset_compact(rows, wm=wm, out=rows)
+    return states
 
 
 def compact_fence(state: State, live_ops: base.OpBatch) -> State:
-    """GC-fence compaction: reclaim tombstoned tags except those whose
-    minting add may still ride the live window. Protection is a counter
-    watermark: tags are minted with increasing counters, so a tag still
-    ridable has ``ctr >=`` the least ``a2`` of the live adds."""
-    is_add = live_ops["op"] == OP_ADD
-    wm = torch.where(is_add, live_ops["a2"], SENTINEL).min()
-    prot = state["removed"] & (state["tag_ctr"] >= wm)
-    return compact(state, protect=prot)
+    """``compact_fences`` of one state (batched over its leading axes), in
+    place; returns it."""
+    return compact_fences((state,), live_ops)[0]
 
 
 SPEC = base.register_type(
@@ -229,9 +269,10 @@ SPEC = base.register_type(
         op_codes={"a": OP_ADD, "r": OP_REMOVE, "c": OP_CLEAR},
         op_extras={f: "rm_capacity" for f in CAPTURE_FIELDS},
         dim_defaults={"rm_capacity": "capacity"},
+        prepare_ops=prepare_ops,
         prepare_ops_batch=prepare_ops_batch,
         apply_ops_dropped=_apply_ops_impl,
-        compact_fence=compact_fence,
+        compact_fences=compact_fences,
         join_replicas=join_replicas,
         join_replica_rows=join_replica_rows,
     )

@@ -15,17 +15,23 @@ compacted element's).
 The device work runs through hand kernels (``janus_tpu_torch.kernels``):
 
 - ``rga_apply``   the sequential apply of inserts and deletes, in place
+- ``rga_capture`` its capture mode: the origin's sequential capture and
+                  apply at submit (``capture_apply``), minting each
+                  insert's counter against the earlier lanes' state
 - ``rga_union``   the join (``merge``) and the replica-axis converge
                   (``join_replicas``; its row-list mode ``rga_union_rows``
                   for ``join_replica_rows``), with ``replica_join`` /
                   ``replica_join_rows`` on ``ctr_floor``
 - ``rga_compact`` the compaction of tombstoned leaves
+- ``mark_members`` with ``rga_compact``: the GC-fence compaction
+                  (``compact_fence``), which pins the ids and parents of
+                  the live window's inserts
 - ``rga_order``   the linearization behind ``text``
 
 Every function batches over leading axes of the state (``[..., K, C]``,
 ``ctr_floor`` ``[..., K]``, with op fields ``[..., B]``). ``prepare_ops``
-is plain PyTorch; the sequential capture that runs it op by op and
-``compact_fence`` are not ported.
+is plain PyTorch: ``models.base.capture_scan`` runs it op by op, the
+plain version of ``capture_apply``.
 """
 from __future__ import annotations
 
@@ -149,6 +155,32 @@ def compact(state: State, protect: torch.Tensor | None = None) -> State:
     return state
 
 
+def compact_fences(states, live_ops: base.OpBatch):
+    """GC-fence compaction of every state of the tuple ``states``, in
+    place (counterpart: janus_tpu/models/rga.py ``compact_fence`` per
+    state): dead leaves are reclaimed except the elements the live window
+    still references, each live insert's own id ``(writer, eff_ctr)`` and
+    its parent ``(a1, a2)``. The protection is one ``mark_members`` per
+    state, over all its views at once (membership is per record), and the
+    compaction one ``rga_compact``. ``live_ops``: the flattened op-buffer
+    fields ``[T]`` (``eff_ctr`` ``[T, 1]``). Returns the states."""
+    is_ins = live_ops["op"] == OP_INSERT
+    q_rep = torch.cat([live_ops["writer"], live_ops["a1"]])
+    q_ctr = torch.cat([live_ops["eff_ctr"][..., 0], live_ops["a2"]])
+    q_valid = torch.cat([is_ins, is_ins])
+    for st in states:
+        prot = kernels.mark_members((st["id_rep"], st["id_ctr"]),
+                                    (q_rep, q_ctr), q_valid)
+        compact(st, protect=prot)
+    return states
+
+
+def compact_fence(state: State, live_ops: base.OpBatch) -> State:
+    """``compact_fences`` of one state (batched over its leading axes), in
+    place; returns it."""
+    return compact_fences((state,), live_ops)[0]
+
+
 def _row(state: State, field: str, key) -> torch.Tensor:
     """``[..., C]``: document ``key`` of every leading index, gathered by
     JAX's gather rule."""
@@ -198,17 +230,38 @@ def element_count(state: State) -> torch.Tensor:
 
 
 def prepare_ops(state: State, ops: base.OpBatch) -> base.OpBatch:
-    """Effect capture of one op batch ``[B]`` against a ``[K, C]`` state:
-    each insert records the counter it would mint (one more than the
-    greatest valid counter of its document and its floor) as ``eff_ctr``
-    ``[B, 1]``; other ops record 0. Plain PyTorch: the sequential capture
-    that calls it op by op (``base.capture_and_apply``) is not ported and
-    raises."""
-    k = gather_index(ops["key"], state["valid"].shape[-2])
-    top = torch.where(state["valid"][k], state["id_ctr"][k], 0).amax(-1)
-    top = torch.maximum(top, state["ctr_floor"][k])
+    """Effect capture of op batches ``[..., B]`` against states ``[..., K,
+    C]``, each against the state as given: each insert records the counter
+    it would mint (one more than the greatest valid counter of its
+    document and its floor) as ``eff_ctr`` ``[..., B, 1]``; other ops
+    record 0. Plain PyTorch; ``base.capture_scan`` calls it op by op."""
+    K, C = state["valid"].shape[-2:]
+    k = gather_index(ops["key"], K)                            # [..., B]
+    rows = k[..., None].expand(k.shape + (C,))
+
+    def row(f):
+        return state[f].gather(-2, rows)                       # [..., B, C]
+
+    top = torch.where(row("valid"), row("id_ctr"), 0).amax(-1)
+    top = torch.maximum(top, state["ctr_floor"].gather(-1, k))
     eff = torch.where(ops["op"] == OP_INSERT, top + 1, 0)
-    return {**ops, "eff_ctr": eff[:, None].to(torch.int32)}
+    return {**ops, "eff_ctr": eff[..., None].to(torch.int32)}
+
+
+def capture_apply(state: State, ops: base.OpBatch):
+    """The sequential capture and apply of uncaptured op batches (the
+    ``rga_capture`` kernel), in place: lane by lane, each insert's counter
+    is minted against the state the earlier lanes left, and the op
+    applies. Returns ``(state, prepared)``, the ops with ``eff_ctr``
+    ``[..., B, 1]`` (0 for a lane that is not an insert)."""
+    flat, lead = _flat(state)
+    if tuple(ops["op"].shape[:-1]) != lead:
+        raise ValueError(f"op batch shape {tuple(ops['op'].shape)} does not "
+                         f"match state leading axes {lead}")
+    v, B = flat["valid"].shape[0], ops["op"].shape[-1]
+    fops = {f: ops[f].reshape(v, B) for f in base.OP_FIELDS}
+    eff, _ = kernels.rga_capture(flat, fops)
+    return state, {**ops, "eff_ctr": eff.view(lead + (B, 1))}
 
 
 SPEC = base.register_type(
@@ -224,6 +277,8 @@ SPEC = base.register_type(
         op_codes={"a": OP_INSERT, "r": OP_DELETE},
         op_extras={"eff_ctr": 1},
         prepare_ops=prepare_ops,
+        capture_apply=capture_apply,
+        compact_fences=compact_fences,
         apply_ops_dropped=apply_ops_dropped,
         join_replicas=join_replicas,
         join_replica_rows=join_replica_rows,

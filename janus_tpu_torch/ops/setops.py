@@ -221,3 +221,27 @@ def row_upsert(row: Slots, key_fields: Sequence[str], key_vals,
     for f, v in new.items():
         out[f] = _put(out[f], idx, v, fold)
     return out
+
+
+def pack_pair(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
+    """A two-part int32 key as one int64, equal iff both parts are."""
+    return (k1.to(torch.int64) << 32) | (k2.to(torch.int64) & 0xFFFFFFFF)
+
+
+def mark_members(a_keys: Sequence[torch.Tensor], b_keys: Sequence[torch.Tensor],
+                 b_valid: torch.Tensor) -> torch.Tensor:
+    """bool, A's shape: does A record i's two-part int32 key equal some B
+    key whose ``b_valid`` is set (counterpart: janus_tpu/ops/setops.py
+    ``mark_members``, a sort-merge over M + T records; here the valid B
+    keys are sorted once and every A key is searched among them). The
+    membership is exact: a masked B key matches nothing, duplicates and
+    keys at SENTINEL are ordinary keys. Plain PyTorch; the
+    ``mark_members`` hand kernel (``janus_tpu_torch.kernels``) runs it for
+    CPU tensors."""
+    a = pack_pair(*a_keys)
+    b = pack_pair(*b_keys)[b_valid]
+    if a.numel() == 0 or b.numel() == 0:
+        return torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+    sb = torch.sort(b).values
+    pos = torch.searchsorted(sb, a.reshape(-1)).clamp(max=sb.numel() - 1)
+    return (sb[pos] == a.reshape(-1)).reshape(a.shape)

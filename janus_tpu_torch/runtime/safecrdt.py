@@ -30,12 +30,17 @@ by ``step_absorb``. Every phase of a round is a hand kernel:
 
 and the type's apply runs through its own kernels: the PN-Counter's
 through ``pnc_apply``; the OR-Set's capture through ``orset_capture`` and
-its applies through ``orset_replay``. Unlike JAX's pure functions, the
-board, the state transfer, the delta applies' masks and the GC update the
-carry's tensors in place; ``state_arrays`` copies them out. A type with a
-``compact_fence`` (the OR-Set) is compacted, in plain PyTorch, whenever a
-round advanced the GC frontier (``maybe_compact``, called from
-``step_absorb``).
+its applies through ``orset_replay``; the RGA's sequential capture and
+origin apply through ``rga_capture`` and its applies through
+``rga_apply`` (in place). Unlike JAX's pure functions, the board, the
+state transfer, the delta applies' masks and the GC update the carry's
+tensors in place; ``state_arrays`` copies them out. A type with
+``compact_fences`` is compacted whenever a round advanced the GC frontier
+(``maybe_compact``, called from ``step_absorb``), every view's
+prospective and stable state behind one fence, in place: the OR-Set by
+``orset_watermark`` and ``orset_compact`` (three launches), the RGA by
+``mark_members`` and ``rga_compact`` per state. Nothing may hold a
+pre-compaction reference to those states.
 
 The stage histograms (``obs.stages``: seal, dag_round, commit, apply) are
 recorded as in the JAX package. Not in this port yet: the split
@@ -426,17 +431,17 @@ class SafeKV:
 
     def _compact_device(self, prospective, stable, ops_buffer):
         """The type's GC-fence compaction of every view's prospective and
-        stable state, guarded by the ops still in the live window."""
+        stable state, guarded by the ops still in the live window, in
+        place. Returns the two states."""
         w, n = self.cfg.num_rounds, self.cfg.num_nodes
         flat = {f: x.reshape((w * n * self.B,) + x.shape[3:])
                 for f, x in ops_buffer.items()}
-        return (self.spec.compact_fence(prospective, flat),
-                self.spec.compact_fence(stable, flat))
+        return self.spec.compact_fences((prospective, stable), flat)
 
     def maybe_compact(self) -> bool:
         """Compact at a GC fence (called when a round recycled slots; a
-        no-op for types without a ``compact_fence``)."""
-        if self.spec.compact_fence is None:
+        no-op for types without ``compact_fences``)."""
+        if self.spec.compact_fences is None:
             return False
         self.prospective, self.stable = self._compact_device(
             self.prospective, self.stable, self.ops_buffer)

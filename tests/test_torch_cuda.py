@@ -1026,3 +1026,194 @@ def test_mixed_safekv_on_card_matches_cpu_at_64_nodes(cuda_device):
             _assert_trees_equal(st["cuda"], st["cpu"], f"round {t} type {j}")
     assert kvs["cuda"][0].stats == kvs["cpu"][0].stats
     assert kvs["cuda"][0].stats["gc_advances"] > 0
+
+
+# -- the GC fences and the RGA's single-op capture ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,c,n_ring,adds", [
+    ((2, 4, 6), 8, 160, True), ((2, 16, 1000), 64, 655360, True),
+    ((3, 5), 300, 40, False), ((2, 7), 5, 1, True)])
+def test_orset_compact_matches_plain(cuda_device, lead, c, n_ring, adds):
+    """The watermark over rings with and without a live add (one lane, and
+    preset orset's 655,360), and the compaction behind it, with and
+    without a protect mask, fresh and in place, on random rows (full and
+    non-canonical ones, tombstoned tags at SENTINEL)."""
+    rng = np.random.default_rng(c + n_ring)
+    rows = _slots(rng, lead, c, cuda_device, canonical=False, full_rows=0.4)
+    rows["tag_ctr"][..., 0] = torch.where(
+        rows["valid"][..., 0], INT32_MAX, rows["tag_ctr"][..., 0])
+    op = rng.integers(0, 4, n_ring) if adds else rng.integers(2, 4, n_ring)
+    ring = {"op": torch.as_tensor(op.astype(np.int32), device=cuda_device),
+            "a2": torch.as_tensor(_rand(rng, (n_ring,), 0, 2 * c),
+                                  device=cuda_device)}
+    before = kernels.orset_compact.launches
+    wm = kernels.orset_watermark(ring["op"], ring["a2"])
+    ref_wm = kernels.orset_watermark_plain(ring["op"], ring["a2"])
+    prot = torch.as_tensor(rng.random(lead + (c,)) < 0.2, device=cuda_device)
+    for w, p in ((wm, None), (None, prot), (wm, prot), (None, None)):
+        got = kernels.orset_compact(rows, w, p)
+        ref = kernels.orset_compact_plain(rows, w, p)
+        inplace = _clone(rows)
+        kernels.orset_compact(inplace, w, p, out=inplace)
+        torch.cuda.synchronize()
+        _assert_outputs_equal(got, ref)
+        _assert_outputs_equal(inplace, ref)
+    assert torch.equal(wm, ref_wm)
+    assert (int(wm[0]) == INT32_MAX) == (not bool((ring["op"] == 1).any()))
+    assert kernels.orset_compact.launches == before + 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,c,b,full", [
+    (3, 5, 8, 40, 0.25), (4, 3, 6, 300, 1.0), (4, 128, 1024, 1024, 0.0),
+    (5, 2, 4, 24, 0.5)])
+def test_rga_capture_matches_plain(cuda_device, r, k, c, b, full):
+    """The capture mode of rga_apply.cu against its plain version: each
+    lane's minted counter (inserts into full rows included), the state,
+    the drops; keys in [-K, 2K), every op code, one document hammered,
+    Lamport floors at INT32_MAX (the mint wraps); and at the rga_consensus
+    geometry's submit (4 views, 128 documents of 1,024 slots, 1,024
+    lanes)."""
+    rng = np.random.default_rng(r * b + c)
+    st = _rga_state(rng, r, k, c, cuda_device, full_rows=full)
+    st["ctr_floor"][:, ::2] = INT32_MAX
+    ops = _on(workloads.rga_mixed_ops(rng, (r, b), k, c), cuda_device)
+    ops["key"][:, : b // 4] = 1
+    ref = _clone(st)
+    before = kernels.rga_capture.launches
+    eff, drop = kernels.rga_capture(st, ops)
+    ref_eff, ref_drop = kernels.rga_capture_plain(ref, ops)
+    torch.cuda.synchronize()
+    assert kernels.rga_capture.launches == before + 1
+    _assert_outputs_equal(eff, ref_eff)
+    _assert_outputs_equal(drop, ref_drop)
+    _assert_outputs_equal(st, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,t,span", [(700, 90, 4), (0, 5, 4), (9, 0, 4),
+                                       (524288, 65536, 1 << 20),
+                                       (5000, 9000, 30)])
+def test_mark_members_matches_plain(cuda_device, m, t, span):
+    """Membership against the plain version: duplicates on both sides,
+    masked queries, keys at SENTINEL and SENTINEL - 1, queries past one
+    chunk, M = 0 and T = 0; and the rga_consensus fence's sizes."""
+    rng = np.random.default_rng(m + t)
+
+    def keys(n):
+        k = _rand(rng, (2, n), -span, span)
+        hot = rng.random((2, n)) < 0.05
+        return np.where(hot, INT32_MAX - rng.integers(0, 2, (2, n)),
+                        k).astype(np.int32)
+
+    a, b = keys(m), keys(t)
+    valid = rng.random(t) < 0.7
+    dev = [torch.as_tensor(x, device=cuda_device) for x in (*a, *b, valid)]
+    before = kernels.mark_members.launches
+    got = kernels.mark_members(dev[:2], dev[2:4], dev[4])
+    ref = kernels.mark_members_plain(dev[:2], dev[2:4], dev[4])
+    torch.cuda.synchronize()
+    _assert_outputs_equal(got, ref)
+    assert kernels.mark_members.launches == before + (m > 0 and t > 0)
+
+
+@pytest.mark.cuda
+def test_rga_safekv_on_card_matches_cpu(cuda_device):
+    """The RGA through SafeKV (the rga_consensus phase's churn at N=4,
+    W=8, 4 documents of 64 slots, B=8): the packed output and every device
+    tensor bit-equal between the card and the CPU, round by round, through
+    GC advances and compactions."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import rga
+    from janus_tpu_torch.runtime import safecrdt
+
+    n, w, k, c, b = 4, 8, 4, 64, 8
+    kvs = {d: safecrdt.SafeKV(DagConfig(n, w), rga.SPEC, ops_per_block=b,
+                              device=d, num_keys=k, capacity=c, max_depth=8)
+           for d in (cuda_device, torch.device("cpu"))}
+    minted = {}
+    for t in range(16):
+        ops = workloads.rga_churn(n, b, k, t, minted)
+        packed = {}
+        for d, kv in kvs.items():
+            packed[d.type], meta = kv.step_dispatch(
+                workloads.ops_to_device(ops, d))
+            info = kv.step_absorb(packed[d.type], meta)
+        assert torch.equal(packed["cuda"].cpu(), packed["cpu"]), t
+        st = {d.type: convert.tree_to_numpy(
+            {f: getattr(kv, f) for f in safecrdt.DEVICE_FIELDS})
+            for d, kv in kvs.items()}
+        _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
+        ring = st["cpu"]["ops_buffer"]["eff_ctr"]
+        minted[t] = np.stack([ring[s, v, : b // 2, 0]
+                              for v, s in enumerate(info["slot"])])
+    stats = kvs[cuda_device].stats
+    assert stats == kvs[torch.device("cpu")].stats
+    assert stats["compactions"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,c,r_cap,b", [
+    (5, 4, 8, 3, 1), (3, 6, 16, 16, 1), (4, 3, 4, 6, 4), (64, 50, 256, 8, 1)])
+def test_orset_apply_captured_mode_matches_plain(cuda_device, r, k, c, r_cap,
+                                                 b):
+    """orset_apply's captured mode (JAX's one-lane captured scan) against
+    its plain version: captured tags into full and non-canonical rows, a
+    tag captured twice, SENTINEL lanes, keys in [-K, 2K)."""
+    rng = np.random.default_rng(r + c + b)
+    st = _slots(rng, (r, k), c, cuda_device, canonical=False, dup_rows=0.3,
+                full_rows=0.5)
+    ops = workloads.orset_mixed_ops(rng, (r, b), k, c)
+    shape = (r, b, r_cap)
+    ops["rm_rep"] = np.where(rng.random(shape) < 0.1, INT32_MAX,
+                             rng.integers(0, 4, shape)).astype(np.int32)
+    ops["rm_ctr"] = rng.integers(1, c + 2, shape).astype(np.int32)
+    ops["rm_elem"] = rng.integers(0, 8, shape).astype(np.int32)
+    if r_cap > 1:
+        for f in ("rm_rep", "rm_ctr", "rm_elem"):
+            ops[f][..., 1] = ops[f][..., 0]
+    dops = _on(ops, cuda_device)
+    ref = _clone(st)
+    before = kernels.orset_apply.launches
+    drop = kernels.orset_apply(st, dops)
+    ref_drop = kernels.orset_apply_plain(ref, dops)
+    torch.cuda.synchronize()
+    assert kernels.orset_apply.launches == before + 1
+    _assert_outputs_equal(st, ref)
+    _assert_outputs_equal(drop, ref_drop)
+
+
+@pytest.mark.cuda
+def test_orset_safekv_one_op_blocks_on_card_matches_cpu(cuda_device):
+    """The OR-Set through SafeKV with one-op blocks: each submit applies a
+    one-lane captured batch at its origin (orset_apply's captured mode);
+    the packed output and every device tensor bit-equal between the card
+    and the CPU, round by round."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime import safecrdt
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    n, w, k = 4, 8, 3
+    rng = np.random.default_rng(11)
+    minters = [TagMinter(i) for i in range(n)]
+    kvs = {d: safecrdt.SafeKV(DagConfig(n, w), orset.SPEC, ops_per_block=1,
+                              device=d, num_keys=k, capacity=8,
+                              rm_capacity=3)
+           for d in (cuda_device, torch.device("cpu"))}
+    for t in range(16):
+        ops = workloads.orset_add_remove(rng, minters, k, 1)
+        packed = {}
+        for d, kv in kvs.items():
+            packed[d.type], meta = kv.step_dispatch(
+                workloads.ops_to_device(ops, d))
+            kv.step_absorb(packed[d.type], meta)
+        assert torch.equal(packed["cuda"].cpu(), packed["cpu"]), t
+        st = {d.type: convert.tree_to_numpy(
+            {f: getattr(kv, f) for f in safecrdt.DEVICE_FIELDS})
+            for d, kv in kvs.items()}
+        _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
+    assert kvs[cuda_device].stats["compactions"] > 0

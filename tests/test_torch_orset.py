@@ -12,6 +12,8 @@ several times by a batch (and so folded from three or more copies), full
 rows, and non-canonical rows with junk in invalid slots. Every comparison
 is bit-equal (tolerance exactly 0).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -213,6 +215,73 @@ def test_merge_queries_and_compaction_match_jax():
                   jax_orset.compact_fence(_jax(a), _jax(live)), "compact_fence")
 
 
+@pytest.mark.parametrize("live_adds", [True, False])
+def test_compact_fence_batched_views_match_jax(live_adds):
+    """``compact_fence`` on a state of 2 x 4 views at once (the
+    ``orset_watermark`` and ``orset_compact`` wrappers) against JAX's
+    ``vmap`` over the views, with the ring as SafeKV flattens it; without
+    a live add the watermark is SENTINEL and only live slots stay (tags at
+    SENTINEL aside). ``compact_fences`` of two states shares the one
+    watermark."""
+    rng = np.random.default_rng(17 + live_adds)
+    sts = [_state(rng, (2, 4), 6, 8, 3, full_rows=0.5) for _ in range(2)]
+    for st in sts:  # some tombstoned tags at SENTINEL, kept by the fence
+        st["tag_ctr"][..., 0] = np.where(st["valid"][..., 0] & (
+            rng.random(st["valid"].shape[:-1]) < 0.3), SENTINEL,
+            st["tag_ctr"][..., 0])
+    live = _ops(rng, (8, 4), 5, 6, 8, hazards=False)
+    live["a2"] = rng.integers(1, 12, live["a2"].shape).astype(np.int32)
+    if not live_adds:
+        live["op"] = np.where(live["op"] == orset.OP_ADD, 0, live["op"])
+    flat = {f: x.reshape(-1) for f, x in live.items()}
+    fence = jax.jit(jax.vmap(jax.vmap(jax_orset.compact_fence,
+                                      in_axes=(0, None)), in_axes=(0, None)))
+    want = [fence(_jax(st), _jax(flat)) for st in sts]
+    _assert_equal(orset.compact_fence(_torch(sts[0]), _torch(flat)), want[0],
+                  "compact_fence")
+    got = orset.compact_fences(tuple(_torch(st) for st in sts), _torch(flat))
+    for g, w in zip(got, want):
+        _assert_equal(g, w, "compact_fences")
+    wm = kernels.orset_watermark(*(torch.from_numpy(flat[f])
+                                   for f in ("op", "a2")))
+    adds = flat["op"] == orset.OP_ADD
+    assert int(wm[0]) == (int(flat["a2"][adds].min()) if live_adds
+                          else SENTINEL)
+
+
+def test_watermark_protects_live_buffered_add():
+    """tests/test_compact.py::test_watermark_protects_live_buffered_add:
+    a tag tombstoned by a captured clear while its add may still ride the
+    live window (ctr 20 >= watermark 10) survives the fence, an older one
+    (ctr 5) is reclaimed; the port equals JAX at each step. The clear is
+    captured in a batch of two lanes (the one-lane captured apply is not
+    ported)."""
+    from janus_tpu.models import base as jax_base
+    from janus_tpu_torch.models import base
+
+    st = orset.init(num_keys=2, capacity=8, rm_capacity=4, device="cpu")
+    ops = dict(op=[orset.OP_ADD] * 2, key=[0, 0], a0=[7, 7], a1=[0, 1],
+               a2=[5, 20])
+    st = orset.apply_ops(st, base.make_op_batch(**ops, device="cpu"))
+    jst = jax_orset.apply_ops(jax_orset.init(2, 8, 4),
+                              jax_base.make_op_batch(**ops))
+    clear = dict(op=[orset.OP_CLEAR, 0], key=[0, 0])
+    st = orset.apply_ops(st, orset.prepare_ops_batch(
+        st, base.make_op_batch(**clear, device="cpu")))
+    jst = jax_orset.apply_ops(jst, jax_orset.prepare_ops_batch(
+        jst, jax_base.make_op_batch(**clear)))
+    _assert_equal(st, jst, "after the clear")
+    assert not bool(orset.contains(st, 0, 7))
+    live = dict(op=[orset.OP_ADD], a1=[1], a2=[10], batch=4)
+    out = orset.compact_fence(st, base.make_op_batch(**live, device="cpu"))
+    _assert_equal(out, jax_orset.compact_fence(jst, jax_base.make_op_batch(
+        **live)), "compact_fence")
+    kept = {(int(r), int(c)) for r, c, v in zip(
+        out["tag_rep"][0], out["tag_ctr"][0], out["valid"][0]) if v}
+    assert (1, 20) in kept and (0, 5) not in kept
+    assert bool(out["removed"][0][out["valid"][0]].all())
+
+
 def test_init_and_state_cross_over():
     """``init`` equals JAX's; a JAX state (bool leaves, the zero-width
     ``_rm_cap``) crosses over through numpy and back unchanged."""
@@ -263,3 +332,44 @@ def test_anti_entropy_tick_matches_jax():
         _assert_equal(tst, {f: np.asarray(x) for f, x in jst.items()},
                       f"tick {t}")
     assert int(np.asarray(jst["valid"]).sum()) > 0
+
+
+@pytest.mark.parametrize("v,k,c,b,r_cap,canonical", CASES)
+def test_single_op_capture_and_one_lane_apply_match_jax(v, k, c, b, r_cap,
+                                                        canonical):
+    """The single-op capture (``prepare_ops``) of one lane against JAX's,
+    then the one-lane captured apply (the ``orset_apply`` wrapper's
+    captured mode) against JAX's scan, lane after lane over the batch:
+    captured tags into full rows (drops), tags already present (folded,
+    the tombstone sticky), keys in [-K, 2K); and ``base.capture_scan``
+    over the whole batch against JAX's ``capture_and_apply`` scan."""
+    from janus_tpu.models import base as jax_base
+    from janus_tpu_torch.models import base
+
+    rng = np.random.default_rng(3 * b + c)
+    st = _state(rng, (v,), k, c, r_cap, canonical=canonical, full_rows=0.5)
+    ops = _ops(rng, (v,), b, k, c)
+    jax_prepare = jax.jit(jax.vmap(jax_orset.prepare_ops))
+    jax_apply = jax.jit(jax.vmap(jax_orset._apply_ops_impl))
+    tst, jst = _torch(st), _jax(st)
+    drops = 0
+    for lane in range(b):
+        one = {f: x[:, lane:lane + 1] for f, x in ops.items()}
+        want_ops = jax_prepare(jst, _jax(one))
+        got_ops = orset.prepare_ops(tst, _torch(one))
+        _assert_equal(got_ops, {f: np.asarray(x) for f, x in want_ops.items()},
+                      f"prepare_ops lane {lane}")
+        jst, want_drop = jax_apply(jst, want_ops)
+        tst, got_drop = orset.SPEC.apply_ops_dropped(tst, got_ops)
+        _assert_equal(tst, jst, f"apply lane {lane}")
+        _assert_equal(got_drop, want_drop, f"drops lane {lane}")
+        drops += int(np.asarray(want_drop).sum())
+    assert drops > 0
+    scan_spec = dataclasses.replace(jax_orset.SPEC, prepare_ops_batch=None)
+    want_st, want_prep = jax.vmap(
+        lambda s, o: jax_base.capture_and_apply(scan_spec, s, o))(
+        _jax(st), _jax(ops))
+    got_st, got_prep = base.capture_scan(orset.SPEC, _torch(st), _torch(ops))
+    _assert_equal(got_prep, {f: np.asarray(x) for f, x in want_prep.items()},
+                  "capture_scan ops")
+    _assert_equal(got_st, want_st, "capture_scan state")

@@ -142,3 +142,28 @@ def test_orset_safekv_state_carried_across_mid_run(jax_run):
     _assert_tree_equal(_device_state(kv), ref["state"][HANDOVER - 1],
                        "after load_state")
     _drive_and_compare(kv, rounds, ref, HANDOVER)
+
+
+def test_orset_safekv_one_op_blocks_match_jax():
+    """One-op blocks (B=1): every origin apply and every delta apply of a
+    single block is a one-lane captured batch (JAX's scan; the port's
+    ``orset_apply`` captured mode). 16 rounds at N=4, W=8, 3 keys of 8
+    slots, capture width 3, an apply budget of one block: every device
+    leaf bit-equal after every round, through GC advances and
+    compactions."""
+    n, w, k = 4, 8, 3
+    rng = np.random.default_rng(11)
+    minters = [TagMinter(v) for v in range(n)]
+    mine = safecrdt.SafeKV(DagConfig(n, w), orset.SPEC, ops_per_block=1,
+                           apply_budget=1, device="cpu", num_keys=k,
+                           capacity=8, rm_capacity=3)
+    ref = JaxSafeKV(JaxDagConfig(n, w), jax_orset.SPEC, ops_per_block=1,
+                    apply_budget=1, num_keys=k, capacity=8, rm_capacity=3)
+    for t in range(16):
+        ops = workloads.orset_add_remove(rng, minters, k, 1)
+        mine.step(ops)
+        ref.step(ops)
+        _assert_tree_equal(_device_state(mine), _device_state(ref),
+                           f"round {t}")
+    assert mine.stats == ref.stats
+    assert mine.stats["compactions"] > 0

@@ -417,13 +417,17 @@ def test_store_fused_tick_matches_jax(budget, delta):
 
 def test_prepare_ops_matches_jax():
     """The single-op capture's counter (``prepare_ops``, plain PyTorch on
-    the spec) on one document state, keys in [-K, 2K); the sequential
-    capture that calls it raises in the port."""
+    the spec) on one document state, keys in [-K, 2K); and the sequential
+    capture that calls it lane by lane (``capture_and_apply``, through the
+    spec's ``capture_apply``) against JAX's scan: state and prepared ops."""
     rng = np.random.default_rng(60)
     st = {f: x[0] for f, x in _state(rng, (1,), 4, 8, negative=0.1).items()}
     ops = {f: x[0] for f, x in workloads.rga_mixed_ops(rng, (1, 12), 4, 8).items()}
     want = jax_rga.prepare_ops(_jax(st), _jax(ops))
     got = rga.prepare_ops(_torch(st), _torch(ops))
     _assert_equal(got, want)
-    with pytest.raises(NotImplementedError):
-        base.capture_and_apply(rga.SPEC, _torch(st), _torch(ops))
+    want_st, want_ops = jax_base.capture_and_apply(jax_rga.SPEC, _jax(st),
+                                                   _jax(ops))
+    got_st, got_ops = base.capture_and_apply(rga.SPEC, _torch(st), _torch(ops))
+    _assert_equal(got_ops, want_ops)
+    _assert_equal(got_st, want_st)
