@@ -8,8 +8,8 @@ checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all twenty kernel sources in csrc/ compiled with nvcc, in
-              parallel
+2. build      all twenty-three kernel sources in csrc/ compiled with
+              nvcc, in parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
               shapes, at the consensus path's submit and delta-apply shapes
@@ -52,7 +52,19 @@ non-zero. Phases, one JSON line each:
               floors at INT32_MAX, memberships with duplicates, masked and
               SENTINEL keys, M = 0, T = 0 and the RGA fence's sizes, and
               every call of the rga_consensus phase's first rounds
-              (rga_compact's too) and of the orset_consensus phase's runs
+              (rga_compact's too) and of the orset_consensus phase's runs;
+              lww_union, lww_union_rows, lww_apply, lww_capture,
+              mvr_merge, mvr_merge_rows, mvr_apply and mvr_capture (phase
+              typed_kernels, run after phase 15 so that nothing it keeps
+              is there while the paths are timed) on random canonical and non-canonical rows,
+              full rows that drop, hazard ops (keys in [-2K, 2K), every op
+              code, writers in [-2W, 2W), stamps with negative low words
+              and equal stamps, wclocks at the int32 extremes), more
+              concurrent writers than V, rows hammered past a walk's lane
+              window, the row-list levels (gather, scratch, scatter), the
+              main paths' shapes, and every call of the first rounds of
+              lww_consensus and mvr_consensus and the first ticks of
+              typed_store
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
@@ -116,7 +128,30 @@ non-zero. Phases, one JSON line each:
               plain torch kernel, and of causal_closure right after a
               profile of tusk_commit's plain version (the kernels line
               gives each wrapper's count beside its own launch count)
-13. timing, the kernels line, the nvidia-smi line, and the result line.
+13. lww_consensus  SafeKV for the LWW-Set at BASELINE config 2's geometry
+              (harness preset orset: 16 nodes, window 8, 1,000 keys of 64
+              slots, 5,120-op blocks), 50/50 add/remove over 64 elements,
+              stamps minted per node from one epoch (equal stamps across
+              nodes): 24 timed rounds, idle rounds until drained, then a
+              record pass of the same rounds (bit-equal at its end);
+              stable views bit-equal, prospective holding the stable
+              elements by (key, elem), each remove's ok decided in numpy
+              from the rows its capture read, every (key, elem)'s stamps
+              equal to a numpy max-fold over the committed ops with
+              those ok
+14. mvr_consensus  SafeKV for the MVRegister at config 3's geometry
+              (preset mixed: 64 nodes, window 8, 500 keys under Zipf-0.99,
+              64-op blocks), a clock lane per node, V=8: 24 timed rounds,
+              idle rounds until drained, a record pass; stable views
+              bit-equal and equal to a numpy frontier fold of the writes
+              the stable applies received, in their order; every
+              surviving pair of a key's values concurrent, at most V values
+15. typed_store  both types through Store.fused_tick at preset
+              mixed_delta's geometry (R=64, K=500, B=64 per type, LWW rows
+              of 256 slots, MVRegister V=8, W=64): a full arm and a delta
+              arm at D=64, 24 ticks; replicas bit-equal and canonical after
+              every converge, the delta arm bit-equal to the full arm
+16. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -281,6 +316,78 @@ RGA_CONS = dict(nodes=4, window=8, ops_per_block=1024, keys=128,
                 capacity=1024, max_depth=8, warmup=2, rounds=64,
                 min_idle=8, max_idle=64, profile_rounds=3,
                 texts=(0, 1, 127), compaction_reps=5)
+# the LWW-Set and the MVRegister: the applies and captures, the LWW
+# instantiation of slot_union.cu and the MVRegister's frontier merge
+TYPED_KERNELS = ("lww_union", "lww_union_rows", "lww_apply", "lww_capture",
+                 "mvr_merge", "mvr_merge_rows", "mvr_apply", "mvr_capture")
+# the LWW-Set through SafeKV at BASELINE config 2's geometry as harness
+# preset orset gives it (harness.py:1914-1917: 16 nodes, window 8, 1,000
+# keys of 64 slots, 5,120-op blocks), the 50/50 add/remove stream of
+# workloads.lww_add_remove over 64 elements; `warmup` rounds off the
+# clock, the timed rounds, idle rounds until drained, `profile_rounds`
+# under the profiler
+LWW_CONS = dict(nodes=16, window=8, keys=1000, capacity=64,
+                ops_per_block=5120, elems=64, warmup=2, rounds=24,
+                min_idle=8, max_idle=64, profile_rounds=2, seed=21)
+# the MVRegister through SafeKV at BASELINE config 3's geometry as preset
+# mixed gives it (harness.py:1973-1977: 64 nodes, window 8, 500 keys under
+# Zipf-0.99, 64-op blocks), a clock lane per node, V = 8 values a key
+MVR_CONS = dict(nodes=64, window=8, keys=500, capacity=8, ops_per_block=64,
+                warmup=2, rounds=24, min_idle=8, max_idle=64,
+                profile_rounds=2, seed=22)
+# both types through Store.fused_tick at preset mixed_delta's geometry
+# (harness.py:1983-1988): R replicas, K keys, B ops per type per replica
+# per tick, keys Zipf-skewed in a hot window of budget/2 keys; LWW rows of
+# 256 slots, MVRegister rows of V = 8 values with R clock lanes; a full arm
+# and a delta arm at the budget
+TYPED_STORE = dict(R=64, K=500, lww_capacity=256, mvr_capacity=8, B=64,
+                   budget=64, ticks=24, seed=23)
+# the typed wrappers' random checks: unions (lead, Ca, Cb, canonical);
+# merges (lead, Va, Vb, W, clock span, canonical); row-list levels (kind,
+# pairs, K, C or V, W); applies (V, K, C, B, mode, hot row) and (V, K, Vc,
+# W, B, mode, hot row); recorded: the consensus phases' first rounds and
+# typed_store's first ticks
+TYPED_CHECKS = dict(
+    lww_unions=(((3, 5), 6, 6, False), ((7,), 8, 8, True),
+                ((2, 4), 5, 3, False), ((16, 1000), 64, 64, False),
+                ((32, 500), 256, 256, True)),
+    mvr_merges=(((3, 5), 3, 3, 5, 3, True), ((2, 4), 4, 2, 7, 3, False),
+                ((4, 9), 1, 1, 33, 3, False), ((7,), 8, 8, 64, 6, True),
+                ((32, 500), 8, 8, 64, 3, True)),
+    row_levels=(("lww", 2, 40, 16, 0), ("lww", 5, 40, 64, 0),
+                ("mvr", 2, 40, 3, 6), ("mvr", 5, 40, 8, 64)),
+    lww_applies=((3, 5, 8, 40, "apply", False),
+                 (4, 3, 6, 300, "captured", False),
+                 (5, 2, 4, 24, "capture", False),
+                 (2, 4, 64, 2300, "apply", True),
+                 (2, 4, 64, 2300, "capture", True),
+                 (16, 1000, 64, 5120, "capture", False),
+                 (16, 1000, 64, 20480, "captured", False)),
+    mvr_applies=((3, 5, 3, 5, 40, "apply", False),
+                 (4, 3, 2, 6, 300, "captured", False),
+                 (5, 2, 3, 4, 24, "capture", False),
+                 (2, 4, 8, 64, 2300, "captured", True),
+                 (64, 500, 8, 64, 64, "capture", False)),
+    rounds=3, ticks=2)
+TYPED_LIBRARY_NOTES = {
+    "lww_union": "no single PyTorch call computes it: an elem-keyed union "
+                 "with a timestamp-max fold and a capacity cut",
+    "lww_union_rows": "no single PyTorch call computes it: an elem-keyed "
+                      "union with a timestamp-max fold over listed rows",
+    "lww_apply": "no single PyTorch call computes it: a per-row sequential "
+                 "upsert gated on containment",
+    "lww_capture": "no single PyTorch call computes it: a per-row "
+                   "sequential upsert recording each remove's containment",
+    "mvr_merge": "no single PyTorch call computes it: a pairwise "
+                 "vector-clock dominance filter, a dedupe and a lexicographic "
+                 "cut",
+    "mvr_merge_rows": "no single PyTorch call computes it: the clock "
+                      "frontier over listed rows",
+    "mvr_apply": "no single PyTorch call computes it: a per-row sequential "
+                 "frontier join",
+    "mvr_capture": "no single PyTorch call computes it: a per-row "
+                   "sequential observed-clock capture and frontier join",
+}
 # the port's run_tensor at these harness presets, uncut unless a preset's
 # ticks are cut here (none is)
 HARNESS = dict(presets=("pnc", "orset", "mixed"), cut_ticks={},
@@ -289,7 +396,9 @@ HARNESS = dict(presets=("pnc", "orset", "mixed"), cut_ticks={},
 # another entry point
 SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union",
            "rga_union": "slot_union", "rga_union_rows": "slot_union",
-           "rga_capture": "rga_apply"}
+           "rga_capture": "rga_apply", "lww_union": "slot_union",
+           "lww_union_rows": "slot_union", "lww_capture": "lww_apply",
+           "mvr_merge_rows": "mvr_merge", "mvr_capture": "mvr_apply"}
 # the TPU-era functions each hand kernel replaces
 REPLACES = {
     "pnc_apply": "janus_tpu/models/pncounter.py:36",
@@ -317,6 +426,14 @@ REPLACES = {
     "orset_compact": "janus_tpu/models/orset.py:538",
     "rga_capture": "janus_tpu/models/base.py:160",
     "mark_members": "janus_tpu/ops/setops.py:237",
+    "lww_union": "janus_tpu/models/lwwset.py:140",
+    "lww_union_rows": "janus_tpu/runtime/store.py:114",
+    "lww_apply": "janus_tpu/models/lwwset.py:93",
+    "lww_capture": "janus_tpu/models/lwwset.py:57",
+    "mvr_merge": "janus_tpu/models/mvregister.py:143",
+    "mvr_merge_rows": "janus_tpu/runtime/store.py:114",
+    "mvr_apply": "janus_tpu/models/mvregister.py:100",
+    "mvr_capture": "janus_tpu/models/mvregister.py:49",
 }
 
 
@@ -618,12 +735,13 @@ def clone_aliased(tree):
     return tree_map(one, tree)
 
 
-def record_calls(kernels, names, fn, aliased=False):
+def record_calls(kernels, names, fn, aliased=False, take=None):
     """Run ``fn`` with the inputs of every call of the named wrappers
     (module attributes of ``kernels``, which the consensus and model
     modules call) cloned just before the call (``aliased``: a tensor
-    passed twice stays one clone); returns ``{name: [(args, kwargs),
-    ...]}``."""
+    passed twice stays one clone), or with what ``take(name, args,
+    kwargs)`` returns just before it; returns ``{name: [(args, kwargs) or
+    what take returned, ...]}``."""
     calls = {name: [] for name in names}
     real = {name: getattr(kernels, name) for name in names}
     clone = clone_aliased if aliased else (
@@ -631,7 +749,8 @@ def record_calls(kernels, names, fn, aliased=False):
 
     def recorder(name):
         def call(*args, **kwargs):
-            calls[name].append(clone((args, kwargs)))
+            calls[name].append(clone((args, kwargs)) if take is None
+                               else take(name, args, kwargs))
             return real[name](*args, **kwargs)
         return call
 
@@ -1555,18 +1674,32 @@ def rga_inputs(dev, workloads, rng, lead, c, depth=8, **kw):
     return st
 
 
-def check_calls(kernels, log, names, fn, what, keep=None):
+def check_calls(kernels, log, names, fn, what, keep=None, score=None,
+                aliased=False):
     """Run ``fn`` with every call of the named wrappers (module attributes
     of ``kernels``, which the model calls) first held against its plain
-    version on clones of its inputs (``log.add``); ``keep`` (a dict) gets
-    the (args, kwargs) of each name's first call, cloned, for timing."""
+    version on clones of its inputs (``log.add``; ``aliased`` as there;
+    ``what`` a string, or a function of the name and the call's index
+    returning one); ``keep`` (a dict) gets the (args, kwargs) of each
+    name's first call, cloned, for timing, or with ``score`` (a function
+    of the name and the args) of its first call of the highest score.
+    Returns the count of calls per name."""
     real = {name: getattr(kernels, name) for name in names}
+    counts = dict.fromkeys(names, 0)
+    best = {}
+    clone = clone_aliased if aliased else (
+        lambda x: tree_map(torch.Tensor.clone, x))
 
     def checked(name):
         def call(*args, **kw):
-            log.add(kernels, name, args, what, kw)
-            if keep is not None and name not in keep:
-                keep[name] = tree_map(torch.Tensor.clone, (args, kw))
+            log.add(kernels, name, args,
+                    what(name, counts[name]) if callable(what) else what, kw,
+                    aliased=aliased)
+            counts[name] += 1
+            if keep is not None:
+                value = 0 if score is None else score(name, args)
+                if name not in keep or value > best[name]:
+                    best[name], keep[name] = value, clone((args, kw))
             return real[name](*args, **kw)
         return call
 
@@ -1577,6 +1710,7 @@ def check_calls(kernels, log, names, fn, what, keep=None):
     finally:
         for name in names:
             setattr(kernels, name, real[name])
+    return counts
 
 
 def rga_kernel_checks(dev, kernels, workloads, cases):
@@ -3112,6 +3246,787 @@ def fence_kernel_rows(kernels, calls):
     return rows
 
 
+# -- the LWW-Set and the MVRegister ------------------------------------------
+
+def typed_kv(dev, kind, g):
+    """A SafeKV for the LWW-Set (``kind`` "lww") or the MVRegister ("mvr")
+    at the geometry ``g`` (LWW_CONS or MVR_CONS)."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import lwwset, mvregister
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+
+    n, w, b, k, c = (g[x] for x in ("nodes", "window", "ops_per_block",
+                                    "keys", "capacity"))
+    if kind == "lww":
+        return SafeKV(DagConfig(n, w), lwwset.SPEC, ops_per_block=b,
+                      device=dev, num_keys=k, capacity=c)
+    return SafeKV(DagConfig(n, w), mvregister.SPEC, ops_per_block=b,
+                  device=dev, num_keys=k, num_writers=n, capacity=c)
+
+
+def typed_stream(workloads, kind, g, rounds):
+    """The phase's op batches (int32 numpy ``[N, B]``) of ``rounds``
+    rounds, drawn from its seed."""
+    rng = np.random.default_rng(g["seed"])
+    n, b, k = g["nodes"], g["ops_per_block"], g["keys"]
+    if kind == "lww":
+        return [workloads.lww_add_remove(rng, n, k, b, t, num_elems=g["elems"])
+                for t in range(rounds)]
+    return [workloads.mvr_writes(rng, n, k, b) for _ in range(rounds)]
+
+
+def typed_store_stream(workloads, ticks):
+    """TYPED_STORE's op batches: per tick ``{"lww": ..., "mvr": ...}``
+    int32 numpy ``[R, B]``, keys Zipf-skewed in a hot window of D/2 keys
+    rotating every tick (harness preset mixed_delta's traffic shape)."""
+    g = TYPED_STORE
+    R, K, B, hot = g["R"], g["K"], g["B"], g["budget"] // 2
+    rng = np.random.default_rng(g["seed"])
+    return [{"lww": workloads.lww_add_remove(rng, R, K, B, t, hot=hot),
+             "mvr": workloads.mvr_writes(rng, R, K, B, hot=hot, tick=t)}
+            for t in range(ticks)]
+
+
+def typed_store_arms(dev):
+    """The phase's two Stores: a full arm and a delta arm at D."""
+    from janus_tpu_torch.runtime.store import Store
+
+    g = TYPED_STORE
+    types = {"lww": dict(num_keys=g["K"], capacity=g["lww_capacity"]),
+             "mvr": dict(num_keys=g["K"], num_writers=g["R"],
+                         capacity=g["mvr_capacity"])}
+    return {"full": (Store(g["R"], types, device=dev), False),
+            f"delta_D{g['budget']}": (Store(g["R"], types,
+                                            dirty_budget=g["budget"],
+                                            device=dev), True)}
+
+
+def live_lanes(ops, codes) -> int:
+    return int(sum(int((ops["op"] == c).sum()) for c in codes))
+
+
+def typed_kernel_checks(dev, kernels, workloads, cases):
+    """The eight LWW-Set and MVRegister wrappers against their plain
+    versions on the card, bit-equal, in-place updates and drop counts
+    included: (a) random inputs: canonical and non-canonical rows (an elem
+    twice in a row), full rows that drop, hazard ops (keys in [-2K, 2K),
+    every op code, writers in [-2W, 2W), stamps with negative low words,
+    equal stamps, wclocks at the int32 extremes), more concurrent writers
+    than V, rows hammered by more lanes than a walk's window, the trees'
+    row-list levels (gather, scratch, scatter) and the main paths' shapes;
+    (b) every call of the first rounds of lww_consensus and mvr_consensus
+    and of the first ticks of both typed_store arms, repeated here with
+    their seeds. Returns, per wrapper, one recorded main-path call to time
+    (the one with the most live lanes, for an apply)."""
+    t_start = time.perf_counter()
+    log = CaseLog(TYPED_KERNELS)
+    rng = np.random.default_rng(41)
+    cover = {"lww_drops": 0, "lww_overflow": 0, "ok_zero": 0,
+             "mvr_drops": 0, "mvr_overflow": 0, "hot_lanes": 0}
+
+    def on(tree):
+        return {f: torch.as_tensor(np.asarray(x), device=dev)
+                for f, x in tree.items()}
+
+    # (a) random inputs
+    for lead, ca, cb, canonical in TYPED_CHECKS["lww_unions"]:
+        a = on(workloads.lww_slots(rng, lead, ca, canonical=canonical,
+                                   dup_rows=0.3, full_rows=0.5,
+                                   num_elems=ca + cb))
+        b = on(workloads.lww_slots(rng, lead, cb, canonical=canonical,
+                                   dup_rows=0.3, full_rows=0.5,
+                                   num_elems=ca + cb))
+        what = f"{'x'.join(map(str, lead))} C{ca}+{cb}"
+        _, ovf = log.add(kernels, "lww_union", (a, b, ca), what)
+        cover["lww_overflow"] += int(ovf.sum())
+        out = {f: torch.empty((2,) + lead + (ca,), dtype=x.dtype, device=dev)
+               for f, x in a.items()}
+        log.add(kernels, "lww_union", (a, b, ca), what + " into 2 replicas",
+                {"out": out})
+    for lead, va, vb, w, span, canonical in TYPED_CHECKS["mvr_merges"]:
+        a = on(workloads.mvr_slots(rng, lead, va, w, canonical=canonical,
+                                   span=span))
+        b = on(workloads.mvr_slots(rng, lead, vb, w, canonical=canonical,
+                                   span=span))
+        what = f"{'x'.join(map(str, lead))} V{va}+{vb} W{w}"
+        _, ovf = log.add(kernels, "mvr_merge", (a, b, va), what)
+        cover["mvr_overflow"] += int(ovf.sum())
+        out = {f: torch.empty((2,) + tuple(x.shape), dtype=x.dtype,
+                              device=dev) for f, x in a.items()}
+        log.add(kernels, "mvr_merge", (a, b, va), what + " into 2 replicas",
+                {"out": out})
+    # one row-list level of each kind on random rows: level 1 (gather from
+    # the state), a middle level (scratch) and the last (scatter into R)
+    for kind, p, k, c, w in TYPED_CHECKS["row_levels"]:
+        if kind == "lww":
+            make = lambda lead: on(workloads.lww_slots(  # noqa: E731
+                rng, lead, c, canonical=False, dup_rows=0.2, full_rows=0.3))
+            name = "lww_union_rows"
+        else:
+            make = lambda lead: on(workloads.mvr_slots(  # noqa: E731
+                rng, lead, c, w, span=5))
+            name = "mvr_merge_rows"
+        rows = torch.as_tensor(rng.permutation(k).astype(np.int32), device=dev)
+        for n_rows in (k, k // 3, 0):
+            n_t = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+            a, b, o = make((p, k)), make((p, k)), make((p, k))
+            log.add(kernels, name, (a, b, o, rows, n_t),
+                    f"P{p} K{k} C{c} n {n_rows} gather")
+            log.add(kernels, name, (a, b, o, rows, n_t),
+                    f"P{p} K{k} C{c} n {n_rows} scratch", {"gather": False})
+            log.add(kernels, name, ({f: x[:1] for f, x in a.items()},
+                                    {f: x[:1] for f, x in b.items()},
+                                    make((3, k)), rows, n_t),
+                    f"R3 K{k} C{c} n {n_rows} scatter", {"scatter": True})
+    for v, k, c, b, mode, hot in TYPED_CHECKS["lww_applies"]:
+        st = on(workloads.lww_slots(rng, (v, k), c, canonical=False,
+                                    dup_rows=0.3, full_rows=0.4,
+                                    num_elems=2 * c))
+        ops = workloads.lww_mixed_ops(rng, (v, b), k, 2 * c,
+                                      captured=mode == "captured")
+        if hot:
+            ops["key"][:, : 9 * b // 10] = 1
+            cover["hot_lanes"] += 9 * b // 10
+        what = f"{mode} V{v} K{k} C{c} B{b}{' hot' if hot else ''}"
+        if mode == "capture":
+            ok, drop = log.add(kernels, "lww_capture",
+                               (st, workloads.ops_to_device(ops, dev)), what)
+            cover["ok_zero"] += int((ok == 0).sum())
+        else:
+            drop = log.add(kernels, "lww_apply",
+                           (st, workloads.ops_to_device(ops, dev)), what)
+        cover["lww_drops"] += int(drop.sum())
+    for v, k, vc, w, b, mode, hot in TYPED_CHECKS["mvr_applies"]:
+        st = on(workloads.mvr_slots(rng, (v, k), vc, w, canonical=False))
+        st["clock"][..., 0] = torch.where(st["valid"], 2**31 - 1,
+                                          st["clock"][..., 0])
+        ops = workloads.mvr_mixed_ops(rng, (v, b), k, w,
+                                      captured=mode == "captured",
+                                      num_values=40)
+        if hot:
+            ops["key"][:, : 9 * b // 10] = 1
+            cover["hot_lanes"] += 9 * b // 10
+        what = f"{mode} V{v} K{k} Vc{vc} W{w} B{b}{' hot' if hot else ''}"
+        name = "mvr_capture" if mode == "capture" else "mvr_apply"
+        out = log.add(kernels, name, (st, workloads.ops_to_device(ops, dev)),
+                      what)
+        cover["mvr_drops"] += int((out[1] if mode == "capture" else out).sum())
+
+    random_s = time.perf_counter() - t_start
+    # (b) recorded main-path calls, each checked as it is made
+    keep = {}
+    apply_codes = {"lww_apply": (1, 2), "lww_capture": (1, 2),
+                   "mvr_apply": (1,), "mvr_capture": (1,)}
+    tag = {"run": ""}
+
+    def recorded():
+        for kind, g in (("lww", LWW_CONS), ("mvr", MVR_CONS)):
+            tag["run"] = f"{kind}_consensus"
+            kv = typed_kv(dev, kind, g)
+            for ops in typed_stream(workloads, kind, g,
+                                    TYPED_CHECKS["rounds"]):
+                kv.step(workloads.ops_to_device(ops, dev))
+            del kv
+        tag["run"] = "typed_store"
+        arms = typed_store_arms(dev)
+        for tick in typed_store_stream(workloads, TYPED_CHECKS["ticks"]):
+            batch = {tc: workloads.ops_to_device(o, dev)
+                     for tc, o in tick.items()}
+            for st, use_delta in arms.values():
+                st.fused_tick(batch, delta=use_delta)
+
+    counts = check_calls(
+        kernels, log, TYPED_KERNELS, recorded,
+        lambda name, i: f"recorded {tag['run']} call {i}", keep=keep,
+        score=lambda name, args: (live_lanes(args[1], apply_codes[name])
+                                  if name in apply_codes else 0),
+        aliased=True)
+    torch.cuda.synchronize()
+    check(all(counts[n] > 0 for n in TYPED_KERNELS),
+          f"typed_kernels: recorded calls {counts}")
+    check(all(v > 0 for v in cover.values()),
+          f"typed_kernels: coverage {cover}")
+    for name, rec in log.by.items():
+        cases.append({"kernel": name, "case": "typed_kernels", **rec})
+    emit("typed_kernels", by_kernel=log.by, coverage=cover,
+         random_seconds=random_s,
+         recorded_seconds=time.perf_counter() - t_start - random_s,
+         recorded={"rounds": TYPED_CHECKS["rounds"],
+                   "ticks": TYPED_CHECKS["ticks"], "calls": counts})
+    return keep
+
+
+def lww_gate_model(state, ops, E):
+    """Independent numpy model of the LWW-Set capture's gate on one call:
+    ``state`` the views' rows as the capture read them (numpy fields
+    ``[V, K, C]``), ``ops`` their batches (numpy ``[V, B]``). Per (view,
+    key, elem), lane by lane in lane order, a remove's ``ok`` is its
+    element's containment (an add stamp that is not (0, 0) and not below
+    the remove stamp, the low word unsigned: add wins ties) as the
+    batch's earlier lanes left it; an add raises the add stamp, a remove
+    with ``ok`` the remove stamp. Every other lane's ``ok`` is 1. Returns
+    int32 ``[V, B]``."""
+    V, K, C = state["valid"].shape
+    check(C >= E, f"lww gate model: rows of {C} slots can fill with {E} "
+          f"elems")
+
+    def ts(hi, lo):
+        return (hi.astype(np.int64) << 32) | (lo.astype(np.int64) & 0xFFFFFFFF)
+
+    sel = state["valid"]
+    v, k, _ = np.nonzero(sel)
+    el = state["elem"][sel]
+    check(((el >= 0) & (el < E)).all(), "lww gate model: an elem outside "
+          "[0, E)")
+    at = (v * K + k) * E + el
+    check(np.unique(at).size == at.size, "lww gate model: an elem twice in "
+          "a row")
+    add = np.zeros(V * K * E, np.int64)
+    rm = np.zeros(V * K * E, np.int64)
+    add[at] = ts(state["add_hi"][sel], state["add_lo"][sel])
+    rm[at] = ts(state["rm_hi"][sel], state["rm_lo"][sel])
+    ok = np.ones(ops["op"].shape, np.int32)
+    lv, lb = np.nonzero((ops["op"] == 1) | (ops["op"] == 2))
+    key, el = ops["key"][lv, lb], ops["a0"][lv, lb]
+    check(((key >= 0) & (key < K) & (el >= 0) & (el < E)).all(),
+          "lww gate model: a key or elem out of range")
+    grp = (lv * K + key) * E + el
+    order = np.argsort(grp, kind="stable")   # lane order within a group
+    lv, lb, grp = lv[order], lb[order], grp[order]
+    pos = np.arange(grp.size)
+    first = np.r_[True, grp[1:] != grp[:-1]] if grp.size else pos > 0
+    rank = pos - np.maximum.accumulate(np.where(first, pos, 0))
+    stamp = ts(ops["a1"][lv, lb], ops["a2"][lv, lb])
+    is_add = ops["op"][lv, lb] == 1
+    for t in range(int(rank.max()) + 1 if rank.size else 0):
+        w = rank == t   # one lane of each group: distinct groups
+        g, st, a = grp[w], stamp[w], is_add[w]
+        add[g[a]] = np.maximum(add[g[a]], st[a])
+        g, st = g[~a], st[~a]
+        hit = (add[g] != 0) & (add[g] >= rm[g])
+        rm[g] = np.where(hit, np.maximum(rm[g], st), rm[g])
+        ok[lv[w][~a], lb[w][~a]] = hit
+    return ok
+
+
+def lww_fold_model(stream, oks, K, E):
+    """Independent numpy model of the LWW-Set after every op of ``stream``
+    (the accepted batches) applied: per (key, elem) the max add stamp over
+    the adds and the max remove stamp over the removes whose ``ok``
+    (``oks``, per batch ``[N, B]``, from ``lww_gate_model``) is 1, as int64
+    microseconds (0: never stamped). Returns ``(add [K, E], rm [K, E])``."""
+    add = np.zeros((K, E), np.int64)
+    rm = np.zeros((K, E), np.int64)
+    for ops, ok in zip(stream, oks):
+        ts = (ops["a1"].astype(np.int64) << 31) | ops["a2"].astype(np.int64)
+        at = ops["key"].astype(np.int64) * E + ops["a0"]
+        is_add = ops["op"] == 1
+        is_rm = (ops["op"] == 2) & (ok == 1)
+        np.maximum.at(add.reshape(-1), at[is_add], ts[is_add])
+        np.maximum.at(rm.reshape(-1), at[is_rm], ts[is_rm])
+    return add, rm
+def lww_rows_of_model(workloads, add, rm, C):
+    """The canonical rows ``[K, C]`` (elem, add_hi, add_lo, rm_hi, rm_lo,
+    valid) the model's stamps give: the stamped elems in ascending order,
+    SENTINEL and zeros after."""
+    K, E = add.shape
+    sent = np.iinfo(np.int32).max
+    out = {f: np.zeros((K, C), np.int32) for f in
+           ("elem", "add_hi", "add_lo", "rm_hi", "rm_lo")}
+    out["elem"][:] = sent
+    out["valid"] = np.zeros((K, C), bool)
+    for k in range(K):
+        es = np.nonzero((add[k] > 0) | (rm[k] > 0))[0]
+        check(es.size <= C, f"lww model: key {k} holds {es.size} elems")
+        n = es.size
+        out["elem"][k, :n] = es
+        out["valid"][k, :n] = True
+        for pol, x in (("add", add), ("rm", rm)):
+            hi, lo = workloads.lww_stamps(x[k, es])
+            out[f"{pol}_hi"][k, :n], out[f"{pol}_lo"][k, :n] = hi, lo
+    return out
+
+
+def mvr_fold_model(writes, K, V, W):
+    """Independent numpy model of one view's stable MVRegister state: the
+    writes its stable applies received, in order (``writes``: per apply
+    call numpy ``(key [n], val [n], wclock [n, W])`` of its write lanes),
+    each joined into its key's row as the causal frontier of the row's
+    values and the write (a value whose clock another value's strictly
+    dominates, or an exact (val, clock) twin of an earlier value, is
+    dropped), ordered by (val, clock lanes) and cut to V. Returns ``(val
+    [K, V], valid [K, V], clock [K, V, W], drops)``, the invalid tail
+    (SENTINEL, zeros) as the state holds it."""
+    vals = [np.zeros(0, np.int64) for _ in range(K)]
+    clocks = [np.zeros((0, W), np.int64) for _ in range(K)]
+    drops = 0
+    for key, val, wclock in writes:
+        check(((key >= 0) & (key < K)).all(), "mvr model: a key out of range")
+        for kk, x, c in zip(key.tolist(), val.astype(np.int64),
+                            wclock.astype(np.int64)):
+            v = np.append(vals[kk], x)
+            cl = np.vstack([clocks[kk], c[None]])
+            n = v.size
+            le = (cl[:, None, :] <= cl[None, :, :]).all(-1)
+            strictly = le & (cl[:, None, :] < cl[None, :, :]).any(-1)
+            twin = le & le.T & (v[:, None] == v[None, :])
+            keep = ~strictly.any(1) & ~(twin & np.tri(n, k=-1, dtype=bool)
+                                        ).any(1)
+            v, cl = v[keep], cl[keep]
+            order = np.lexsort([cl[:, i] for i in range(W - 1, -1, -1)]
+                               + [v])
+            drops += max(order.size - V, 0)
+            vals[kk], clocks[kk] = v[order[:V]], cl[order[:V]]
+    out_val = np.full((K, V), np.iinfo(np.int32).max, np.int64)
+    out_valid = np.zeros((K, V), bool)
+    out_clock = np.zeros((K, V, W), np.int64)
+    for kk in range(K):
+        n = vals[kk].size
+        out_val[kk, :n], out_valid[kk, :n] = vals[kk], True
+        out_clock[kk, :n] = clocks[kk]
+    return out_val, out_valid, out_clock, drops
+
+
+def typed_consensus(dev, kernels, workloads, kind):
+    """The LWW-Set (``kind`` "lww", LWW_CONS) or the MVRegister ("mvr",
+    MVR_CONS) through SafeKV on the card: warm-up rounds, the timed
+    rounds, idle rounds until every view's stable state is bit-equal, a
+    record pass (the same rounds on a fresh SafeKV, untimed, bit-equal to
+    the timed run at its end), then a few profiled rounds. Checks: every
+    batch accepted; the stable views bit-equal; each wrapper launched as
+    often as a round calls it. The LWW-Set: every view's prospective state
+    holds the stable elements by (key, elem); each remove's ``ok`` is
+    decided in numpy from the rows its capture read (``lww_gate_model``),
+    and each (key, elem)'s add and remove stamps equal a numpy max-fold
+    over the committed ops with those ``ok``. The MVRegister: the stable
+    state equals a numpy frontier fold (``mvr_fold_model``) of the writes
+    its applies received, in their order; every surviving pair of values
+    of a key is concurrent (a numpy pairwise clock check) and no key
+    holds more than V values; the (view, key) rows where prospective and
+    stable differ are counted (a frontier cut to V depends on the join
+    order)."""
+    from janus_tpu_torch.kernels.lww_rows import canonical_row
+
+    g = LWW_CONS if kind == "lww" else MVR_CONS
+    n, w, b, k, c = (g[x] for x in ("nodes", "window", "ops_per_block",
+                                    "keys", "capacity"))
+    total = g["warmup"] + g["rounds"]
+    stream = typed_stream(workloads, kind, g, total + g["profile_rounds"])
+    batches = [workloads.ops_to_device(o, dev) for o in stream]
+    idle = workloads.ops_to_device(
+        {f: np.zeros((n, b), np.int32) for f in stream[0]}, dev)
+    kv = typed_kv(dev, kind, g)
+    for t in range(g["warmup"]):
+        info = kv.step(batches[t])
+        check(info["accepted"].all(), f"{kind}_consensus: warm-up round "
+              f"{t} rejected")
+    torch.cuda.synchronize()
+    stats0 = dict(kv.stats)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(g["warmup"], total):
+        info = kv.step(batches[t])
+        check(info["accepted"].all(), f"{kind}_consensus: round {t} "
+              f"rejected")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    committed = kv.stats["own_commits"] - stats0["own_commits"]
+    lag = kv.commit_latencies()
+
+    def drained():
+        return all(torch.equal(x, x[:1].expand_as(x))
+                   for x in kv.stable.values())
+
+    idle_rounds = 0
+    while idle_rounds < g["max_idle"]:
+        if idle_rounds >= g["min_idle"] and drained():
+            break
+        kv.step(idle, record=False)
+        idle_rounds += 1
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    stepped = g["rounds"] + idle_rounds
+    check(drained(), f"{kind}_consensus: stable views differ after "
+          f"{idle_rounds} idle rounds")
+    expect = {f"{kind}_capture": stepped, f"{kind}_apply": 2 * stepped,
+              **{name: per * stepped for name, per in ROUND_LAUNCHES.items()}}
+    for name, want_n in expect.items():
+        check(launches[name] == want_n, f"{kind}_consensus: {name} launched "
+              f"{launches[name]} times in {stepped} rounds, expected {want_n}")
+
+    # the record pass: what the numpy models need, taken just before each
+    # call: the LWW-Set's capture inputs (the gate decided at once), the
+    # MVRegister's stable applies' write lanes of view 0
+    t_rec = time.perf_counter()
+    again = typed_kv(dev, kind, g)
+
+    def take(_, args, kw):
+        state, ops = args
+        if kind == "lww":
+            host = {f: x.cpu().numpy() for f, x in ops.items()}
+            return host, lww_gate_model(
+                {f: x.cpu().numpy() for f, x in state.items()}, host,
+                g["elems"])
+        if state["val"].data_ptr() != again.stable["val"].data_ptr():
+            return None   # a prospective apply
+        live = ops["op"][0] == 1
+        return tuple(ops[f][0][live].cpu().numpy()
+                     for f in ("key", "a0", "wclock"))
+
+    def rerun():
+        for t in range(total):
+            again.step(batches[t])
+        for _ in range(idle_rounds):
+            again.step(idle, record=False)
+
+    name = "lww_capture" if kind == "lww" else "mvr_apply"
+    rec = [x for x in record_calls(kernels, (name,), rerun, take=take)[name]
+           if x is not None]
+    for f in kv.stable:
+        check(torch.equal(again.stable[f], kv.stable[f])
+              and torch.equal(again.prospective[f], kv.prospective[f]),
+              f"{kind}_consensus: the record pass's {f} differs from the "
+              f"timed run's")
+    check(again.stats["state_transfers"] == 0, f"{kind}_consensus: a state "
+          f"transfer in the record pass (the models follow each view's own "
+          f"applies)")
+    del again
+    out = {}
+    if kind == "lww":
+        from janus_tpu_torch.models import lwwset
+        check(len(rec) == total + idle_rounds, f"lww_consensus: {len(rec)} "
+              f"captures recorded")
+        for t, (ops, _) in enumerate(rec[:total]):
+            check(all(np.array_equal(ops[f], stream[t][f]) for f in ops),
+                  f"lww_consensus: round {t}'s captured ops differ from "
+                  f"its batch")
+        prosp = canonical_row({f: kv.prospective[f] for f in lwwset.FIELDS})
+        stab = canonical_row({f: kv.stable[f] for f in lwwset.FIELDS})
+        check(all(torch.equal(prosp[f], stab[f]) for f in stab),
+              "lww_consensus: a view's prospective state holds other "
+              "elements or stamps than the stable one")
+        oks = [ok for _, ok in rec[:total]]
+        add, rm = lww_fold_model(stream[:total], oks, k, g["elems"])
+        want = lww_rows_of_model(workloads, add, rm, c)
+        got = {f: x[0].cpu().numpy() for f, x in stab.items()}
+        for f, x in want.items():
+            check(np.array_equal(got[f], x), f"lww_consensus: stable {f} "
+                  f"differs from the numpy max-fold of the committed ops")
+        rm_lanes = sum(int((o["op"] == 2).sum()) for o in stream[:total])
+        out.update(removes=rm_lanes,
+                   removes_ok=int(sum(int(((o["op"] == 2) & (x == 1)).sum())
+                                      for o, x in zip(stream[:total], oks))),
+                   live_elements=int(lwwset.live_count(kv.stable)[0].sum()),
+                   stamped_elements=int(stab["valid"][0].sum()),
+                   add_wins_ties=int(((add == rm) & (add > 0)).sum()))
+    else:
+        from janus_tpu_torch.models import mvregister
+        check(len(rec) == stepped + g["warmup"], f"mvr_consensus: "
+              f"{len(rec)} stable applies recorded")
+        m_val, m_valid, m_clock, m_drops = mvr_fold_model(
+            rec, k, c, kv.stable["clock"].shape[-1])
+        for f, x in (("val", m_val), ("valid", m_valid), ("clock", m_clock)):
+            check(np.array_equal(kv.stable[f][0].cpu().numpy(), x),
+                  f"mvr_consensus: stable {f} differs from the numpy "
+                  f"frontier fold of the writes its applies received")
+        # a frontier cut to V depends on the join order once it overflows,
+        # so prospective (certify order) may differ from stable (commit
+        # order) where values were dropped: counted, not required
+        differ = torch.zeros_like(kv.stable["valid"][..., 0])
+        for f in kv.stable:
+            x, y = kv.prospective[f], kv.stable[f]
+            differ |= (x != y).reshape(x.shape[:2] + (-1,)).any(-1)
+        out["prospective_keys_differing"] = int(differ.sum())
+        clock = kv.stable["clock"][0].cpu().numpy().astype(np.int64)
+        valid = kv.stable["valid"][0].cpu().numpy()
+        nv = valid.sum(-1)
+        check(int(nv.max()) <= c, f"mvr_consensus: a key holds {nv.max()} "
+              f"values, more than V={c}")
+        pairs = 0
+        for key in np.nonzero(nv > 1)[0]:
+            cl = clock[key][valid[key]]
+            le = (cl[:, None, :] <= cl[None, :, :]).all(-1)
+            np.fill_diagonal(le, False)
+            check(not le.any(), f"mvr_consensus: key {key} holds two "
+                  f"values one of whose clocks dominates the other's")
+            pairs += len(cl) * (len(cl) - 1) // 2
+        out.update(keys_with_concurrent_values=int((nv > 1).sum()),
+                   concurrent_pairs=pairs, max_values_per_key=int(nv.max()),
+                   values=int(nv.sum()), stable_writes_view0=int(
+                       sum(x[0].size for x in rec)),
+                   model_drops_view0=m_drops,
+                   key_clock_max=int(mvregister.key_clock(
+                       kv.stable)[0].max()))
+    out["record_pass_seconds"] = time.perf_counter() - t_rec
+
+    # device work per round, by the profiler
+    from torch.profiler import ProfilerActivity, profile
+    extra = batches[total:]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ops in extra:
+            kv.step(ops)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    state_mb = sum(x.numel() * x.element_size()
+                   for st in (kv.prospective, kv.stable)
+                   for x in st.values()) / 1e6
+    emit(f"{kind}_consensus", nodes=n, window=w, ops_per_block=b, keys=k,
+         capacity=c, apply_budget=kv.apply_budget,
+         warmup_rounds=g["warmup"], rounds=g["rounds"],
+         idle_rounds_to_drain=idle_rounds, seconds=dt,
+         ms_per_round=1e3 * dt / g["rounds"],
+         ops_per_s=g["rounds"] * n * b / dt,
+         committed_ops_per_s=committed * b / dt,
+         commit_lag_ticks_p50=float(np.percentile(lag, 50)),
+         commit_lag_ticks_p99=float(np.percentile(lag, 99)),
+         profiled_rounds=len(extra),
+         cuda_kernels_per_round=len(dev_events) / len(extra),
+         profiled_device_us_per_round=sum(
+             e.time_range.elapsed_us() for e in dev_events) / len(extra),
+         device_us_per_round_by_kernel=dict(list(device_us_by_kernel(
+             dev_events, len(extra)).items())[:12]),
+         slots_dropped=kv.stats["slots_dropped"] - stats0["slots_dropped"],
+         state_mb=state_mb, launches=launches, stats=kv.stats, **out)
+    return launches
+
+
+def lww_consensus(dev, kernels, workloads):
+    return typed_consensus(dev, kernels, workloads, "lww")
+
+
+def mvr_consensus(dev, kernels, workloads):
+    return typed_consensus(dev, kernels, workloads, "mvr")
+
+
+def typed_store(dev, kernels, workloads):
+    """Both types through ``Store.fused_tick`` at harness preset
+    mixed_delta's geometry (TYPED_STORE): a full arm (``join_replicas``
+    every tick) and a delta arm at D (``converge_delta`` through the
+    row-list trees), the same pre-generated streams, 24 timed ticks after
+    one warm-up tick, the arms in turns. After every tick: every leaf's
+    replica rows bit-equal, the rows canonical (an LWW row sorted by elem,
+    an MVRegister row its own causal frontier), and the delta arm bit-equal
+    to the full arm (the invariant ``converge_delta`` claims)."""
+    from janus_tpu_torch.kernels.lww_rows import canonical_row
+    from janus_tpu_torch.kernels.mvr_rows import frontier
+    from janus_tpu_torch.models import lwwset
+
+    g = TYPED_STORE
+    R, K, B, D, ticks = (g[x] for x in ("R", "K", "B", "budget", "ticks"))
+    host = typed_store_stream(workloads, ticks + 1)
+    batches = [{tc: workloads.ops_to_device(o, dev) for tc, o in h.items()}
+               for h in host]
+    arms = typed_store_arms(dev)
+    for st, use_delta in arms.values():  # warm-up tick, off the clock
+        st.fused_tick(batches[0], delta=use_delta)
+        st.flush_metrics()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    names = list(arms)
+    tick_ms = {name: [] for name in arms}
+    grew = {name: dict.fromkeys(kernels.WRAPPERS, 0) for name in arms}
+    full = arms["full"][0]
+    for t in range(1, ticks + 1):
+        for name in (names if t % 2 else names[::-1]):
+            st, use_delta = arms[name]
+            before = kernels.launches()
+            t0 = time.perf_counter()
+            st.fused_tick(batches[t], delta=use_delta)
+            torch.cuda.synchronize()
+            tick_ms[name].append(1e3 * (time.perf_counter() - t0))
+            for kk, v in kernels.launches().items():
+                grew[name][kk] += v - before[kk]
+        for name, (st, _) in arms.items():
+            for tc, state in st.states.items():
+                for f, x in state.items():
+                    check(torch.equal(x, x[:1].expand_as(x)),
+                          f"typed_store {name}: replica rows of {tc}.{f} "
+                          f"differ after tick {t}")
+                    check(torch.equal(x, full.states[tc][f]),
+                          f"typed_store {name}: {tc}.{f} differs from the "
+                          f"full arm after tick {t}")
+        lww0 = {f: full.states["lww"][f][0] for f in lwwset.FIELDS}
+        canon = canonical_row(lww0)
+        check(all(torch.equal(canon[f], lww0[f]) for f in canon),
+              f"typed_store: an LWW row is not canonical after tick {t}")
+        mvr0 = {f: full.states["mvr"][f][0] for f in ("val", "valid",
+                                                       "clock")}
+        again, _ = frontier(mvr0["val"], mvr0["valid"], mvr0["clock"],
+                            g["mvr_capacity"])
+        check(all(torch.equal(again[f], mvr0[f]) for f in mvr0),
+              f"typed_store: an MVRegister row is not its frontier after "
+              f"tick {t}")
+    launches = kernels.launches()
+    overflows = {name: {tc: int(st._fused_acc.get(f"overflow_{tc}", 0))
+                        for tc in ("lww", "mvr")}
+                 for name, (st, _) in arms.items()}
+    fracs = {name: st.flush_metrics() for name, (st, _) in arms.items()}
+    levels = int(np.ceil(np.log2(R)))
+    per_tick = {name: {kk: v / ticks for kk, v in counted.items() if v}
+                for name, counted in grew.items()}
+    want = {"full": {"lww_apply": 1, "mvr_apply": 1, "lww_union": levels,
+                     "mvr_merge": levels},
+            f"delta_D{D}": {"lww_apply": 1, "mvr_apply": 1, "dirty_rows": 2,
+                            "delta_select": 2, "lww_union_rows": levels,
+                            "mvr_merge_rows": levels}}
+    for name in arms:
+        check(per_tick[name] == want[name], f"typed_store {name}: launches "
+              f"per tick {per_tick[name]}, expected {want[name]}")
+    check(all(x == 0 for x in overflows[f"delta_D{D}"].values()),
+          f"typed_store: overflows at D={D}: {overflows}")
+    profiled = {}
+    for name, (st, use_delta) in arms.items():
+        more = iter(batches[1:4])
+        seen, dev_ms = device_profile(
+            lambda st=st, use_delta=use_delta: st.fused_tick(next(more),
+                                                             delta=use_delta),
+            reps=3)
+        profiled[name] = {"cuda_kernels_per_tick": seen / 3,
+                          "device_ms_per_tick": dev_ms / 3}
+    state_mb = {tc: sum(x.numel() * x.element_size()
+                        for x in full.states[tc].values()) / 1e6
+                for tc in ("lww", "mvr")}
+    mvr_full = int((full.states["mvr"]["valid"][0].sum(-1)
+                    == g["mvr_capacity"]).sum())
+    arm_out = {name: dict(**profiled[name], ms_per_tick=sum(ms) / ticks,
+                          ms_per_tick_min=min(ms), ms_per_tick_max=max(ms),
+                          converged_ops_per_s=R * B * 2 * ticks / (sum(ms) / 1e3),
+                          dirty_fraction=fracs[name],
+                          overflows=overflows[name],
+                          launches_per_tick=per_tick[name])
+               for name, ms in tick_ms.items()}
+    emit("typed_store", replicas=R, keys=K, lww_capacity=g["lww_capacity"],
+         mvr_capacity=g["mvr_capacity"], writers=R,
+         ops_per_replica_per_type=B, hot_window=D // 2, ticks=ticks,
+         state_mb=state_mb, mvr_keys_at_capacity=mvr_full,
+         lww_live_elements=int(lwwset.live_count(full.states["lww"])[0].sum()),
+         arms=arm_out, launches=launches)
+    return launches
+
+
+def rows_touched(state_valid, ops, codes):
+    """``(rows gathered, rows written)``: the distinct (view, row) pairs the
+    live lanes (op code in ``codes``) of an apply gather (JAX's clamp rule)
+    and write back (in-range keys)."""
+    from janus_tpu_torch.models.base import gather_index, scatter_index
+
+    V, K = state_valid.shape[:2]
+    live = torch.zeros_like(ops["op"], dtype=torch.bool)
+    for c in codes:
+        live |= ops["op"] == c
+    v = torch.arange(V, device=live.device).view(V, 1).expand_as(live)
+    wi, ok = scatter_index(ops["key"], K)
+    read = torch.unique((v * K + gather_index(ops["key"], K))[live]).numel()
+    written = torch.unique((v * K + wi)[live & ok]).numel()
+    return read, written
+
+
+def typed_kernel_rows(kernels, calls):
+    """Rows of the kernels line for the eight LWW-Set and MVRegister
+    wrappers, each on a recorded main-path call (typed_kernel_checks): the
+    applies and captures on the consensus phases' calls with the most
+    live lanes, the unions and merges on typed_store's. Bytes: each input
+    read once and each output written once; an apply reads a live lane's
+    fields, only the op of a lane that is not live (grouping the live
+    lanes exists so that no other field of it is read), writes a
+    capture's ok or wclock for every lane, and moves the rows its live
+    lanes gather and write back, not the whole state. Operations: a union
+    one per record; an LWW-Set apply one per slot of its row per live
+    lane; an MVRegister apply the frontier of V + 1 entries, 2 (V + 1)^2
+    W compares, at a row's first write and 2 V W at each later one (the
+    row is a frontier then), V W for an observed max; a merge 2 (Va +
+    Vb)^2 W per row. The applies' plain versions (thousands of small
+    launches a call) are timed, not profiled."""
+    rows = []
+    for name in ("lww_union", "mvr_merge"):
+        (a, b, cap), kw = calls[name]
+        out = kw.get("out")
+        rep = 1 if out is None else out["valid"].shape[0]
+        nrows = a["valid"][..., 0].numel()
+        va, vb = a["valid"].shape[-1], b["valid"].shape[-1]
+        if name == "lww_union":
+            per, ops = 21, (va + vb) * nrows
+        else:
+            wl = a["clock"].shape[-1]
+            per, ops = 5 + 4 * wl, 2 * (va + vb) ** 2 * wl * nrows
+        rows.append(dict(
+            name=name, call=lambda n=name, a=a, b=b, c=cap, kw=kw:
+                kernels.WRAPPERS[n](a, b, c, **kw),
+            plain=lambda n=name, a=a, b=b, c=cap, kw=kw:
+                plain_of(kernels, n)(a, b, c, **kw),
+            library=None, shape=f"a typed_store converge level: {nrows} rows "
+            f"of {va} + {vb} slots into {rep} replica(s)",
+            bytes=per * nrows * (va + vb + rep * cap), operations=ops))
+    for name in ("lww_union_rows", "mvr_merge_rows"):
+        (a, b, out, rws, n_rows), kw = calls[name]
+        m = int(n_rows)
+        p, _, c = a["valid"].shape
+        scatter = kw.get("scatter", False)
+        rep = out["valid"].shape[0] if scatter else 1
+        if name == "lww_union_rows":
+            per, ops = 21, 2 * c * m * p
+        else:
+            wl = a["clock"].shape[-1]
+            per, ops = 5 + 4 * wl, 2 * (2 * c) ** 2 * wl * m * p
+        rows.append(dict(
+            name=name, call=lambda n=name, args=(a, b, out, rws, n_rows), kw=kw:
+                kernels.WRAPPERS[n](*args, **kw),
+            plain=lambda n=name, args=(a, b, out, rws, n_rows), kw=kw:
+                plain_of(kernels, n)(*args, **kw),
+            library=None, shape=f"a typed_store delta level: {m} listed rows "
+            f"x {p} pair(s) of {c} slots, into {rep} replica(s)",
+            rows_joined=m * p,
+            bytes=per * m * p * c * 2 + per * m * c * (p if not scatter
+                                                       else rep) + 4 * m + 4,
+            operations=ops))
+    for name, codes in (("lww_apply", (1, 2)), ("lww_capture", (1, 2)),
+                        ("mvr_apply", (1,)), ("mvr_capture", (1,))):
+        (state, ops), kw = calls[name]
+        V, K, c = state["valid"].shape
+        Bn = ops["op"].shape[1]
+        read, written = rows_touched(state["valid"], ops, codes)
+        live = live_lanes(ops, codes)
+        capture = name.endswith("capture")
+        if name.startswith("lww"):
+            # a live lane: op, key, a0, a1, a2 (and ok, captured); the
+            # capture writes every lane's ok
+            row_b = 21 * c
+            lane_b = 20 + 4 * ("ok" in ops)
+            out_b = 4 * V * Bn if capture else 0
+            n_ops = live * c
+        else:
+            # a live lane: op, key, a0, writer (and wclock, captured); the
+            # capture writes every lane's wclock. A row's first write
+            # takes the frontier of its V + 1 entries, 2 (V + 1)^2 W
+            # compares; a later one joins the singleton to a frontier,
+            # 2 V W; the observed max (uncaptured, capture) is V W a write
+            wl = state["clock"].shape[-1]
+            row_b = c * (5 + 4 * wl)
+            lane_b = 16 + 4 * wl * ("wclock" in ops)
+            out_b = 4 * wl * V * Bn if capture else 0
+            joins = (read * 2 * (c + 1) ** 2 * wl
+                     + (live - read) * 2 * c * wl)
+            captured = "wclock" in ops
+            n_ops = ((0 if captured else live * c * wl)
+                     + (joins if captured or capture else 0))
+        rows.append(dict(
+            name=name, call=lambda n=name, s=state, o=ops:
+                kernels.WRAPPERS[n](s, o),
+            plain=lambda n=name, s=state, o=ops: plain_of(kernels, n)(s, o),
+            library=None, shape=f"{'lww' if name[0] == 'l' else 'mvr'}"
+            f"_consensus {'submit' if capture else 'delta apply'}: "
+            f"V{V} K{K} C{c} B{Bn}, {live} live lanes",
+            rows_read=read, rows_written=written,
+            bytes=(lane_b * live + 4 * (V * Bn - live) + out_b + 4 * V
+                   + row_b * (read + written)),
+            operations=n_ops, profile_plain=False))
+    for row in rows:
+        row["library_note"] = TYPED_LIBRARY_NOTES[row["name"]]
+    return rows
+
+
 def harness_tensor(dev, kernels, workloads, smi):
     """The port's run_tensor (janus_tpu_torch.bench.harness) at presets
     pnc (config 1), orset (config 2 at 16 nodes) and mixed (config 3, 64
@@ -3231,7 +4146,7 @@ def harness_tensor(dev, kernels, workloads, smi):
 
 def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                  orset_calls, delta_calls, rga_calls, safekv_calls,
-                 fence_calls):
+                 fence_calls, typed_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -3349,6 +4264,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     kerns += rga_kernel_rows(kernels, rga_calls)
     kerns += safekv_kernel_rows(kernels, safekv_calls)
     kerns += fence_kernel_rows(kernels, fence_calls)
+    kerns += typed_kernel_rows(kernels, typed_calls)
 
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
@@ -3379,7 +4295,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         before = kernels.WRAPPERS[name].launches
         row["profiler_kernels_seen"], _ = device_profile(kern["call"], reps=20)
         row["profiled_launches"] = kernels.WRAPPERS[name].launches - before
-        if "shape" in kern and one_ms > PLAIN_PROFILE_MAX_MS:
+        if "shape" in kern and (one_ms > PLAIN_PROFILE_MAX_MS
+                                or not kern.get("profile_plain", True)):
             # the profiler's processing of a plain call of ~10^5 small
             # kernels takes minutes: not measured
             row.update(plain_device_ms=None, plain_kernels_per_call=None)
@@ -3465,10 +4382,21 @@ def main() -> int:
              "rga_replay": timed("rga_replay", rga_replay, dev, kernels,
                                  workloads),
              "harness_tensor": timed("harness_tensor", harness_tensor, dev,
-                                     kernels, workloads, smi)}
+                                     kernels, workloads, smi),
+             "lww_consensus": timed("lww_consensus", lww_consensus, dev,
+                                    kernels, workloads),
+             "mvr_consensus": timed("mvr_consensus", mvr_consensus, dev,
+                                    kernels, workloads),
+             "typed_store": timed("typed_store", typed_store, dev, kernels,
+                                  workloads)}
+    # after the timed paths, so that nothing it keeps (clones of the
+    # recorded calls, tree scratch, the allocator's growth) is there while
+    # the earlier phases are timed
+    typed_calls = timed("typed_kernels", typed_kernel_checks, dev, kernels,
+                        workloads, cases)
     line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
                  cases, timing_calls, orset_calls, delta_calls, rga_calls,
-                 safekv_calls, fence_calls)
+                 safekv_calls, fence_calls, typed_calls)
     emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -12,7 +12,8 @@ import torch
 from janus_tpu_torch.consensus.dag import DagConfig
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.kernels import leader
-from janus_tpu_torch.models import base, orset, pncounter, rga
+from janus_tpu_torch.kernels.mvr_rows import frontier
+from janus_tpu_torch.models import base, lwwset, mvregister, orset, pncounter, rga
 from janus_tpu_torch.ops.lattice import SENTINEL
 
 
@@ -364,6 +365,196 @@ def rga_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
     if captured:
         out["eff_ctr"] = rng.integers(1, capacity + 2,
                                       tuple(shape) + (1,)).astype(np.int32)
+    return out
+
+
+# the LWW-Set's stamps: microseconds since the Unix epoch at a fixed
+# instant (2025-10-09T00:00:00Z), split as the JAX service mints them
+LWW_EPOCH_US = 1_759_968_000_000_000
+
+
+def lww_stamps(ts: np.ndarray):
+    """``(hi, lo)`` int32 lanes of int64 microsecond stamps, as
+    janus_tpu/net/service.py mints them: ``hi = ts >> 31``, ``lo = ts &
+    0x7FFFFFFF``."""
+    ts = np.asarray(ts, np.int64)
+    return (ts >> 31).astype(np.int32), (ts & 0x7FFFFFFF).astype(np.int32)
+
+
+def _hot_keys(rng: np.random.Generator, num_keys: int, shape, tick: int,
+              hot: int, theta: float) -> np.ndarray:
+    """Keys Zipf-skewed inside a window of ``hot`` keys that rotates by
+    ``hot`` every tick (``orset_hot_window``'s keys)."""
+    base_key = (tick * hot) % num_keys
+    return (base_key + zipf_keys(rng, hot, shape, theta)) % num_keys
+
+
+def lww_add_remove(rng: np.random.Generator, num_nodes: int, num_keys: int,
+                   batch: int, tick: int, num_elems: int = 64,
+                   add_ratio: float = 0.5, hot: int | None = None,
+                   theta: float = 0.99) -> dict:
+    """Round ``tick`` of the LWW-Set's add/remove traffic: int32 numpy ``[N,
+    B]`` op fields, node (or replica) v's batch in row v, a 50/50
+    add/remove mix over ``num_elems`` elements (``orset_add_remove``'s
+    range) and uniform keys, or with ``hot`` keys Zipf(``theta``)-skewed in
+    a rotating hot window (``orset_hot_window``'s). Node v stamps its j-th
+    op of the round ``LWW_EPOCH_US + tick * B + j + 1`` microseconds:
+    strictly increasing per node, and every node's clock starts at the one
+    epoch, so equal stamps across nodes happen (the add-wins tie rule
+    decides them)."""
+    shape = (num_nodes, batch)
+    is_add = rng.random(shape) < add_ratio
+    op = np.where(is_add, lwwset.OP_ADD, lwwset.OP_REMOVE)
+    ts = LWW_EPOCH_US + tick * batch + np.arange(1, batch + 1)[None, :]
+    hi, lo = lww_stamps(np.broadcast_to(ts, shape))
+    keys = (rng.integers(0, num_keys, shape) if hot is None
+            else _hot_keys(rng, num_keys, shape, tick, hot, theta))
+    return _op_batch(shape, op=op, key=keys,
+                     a0=rng.integers(0, num_elems, shape), a1=hi, a2=lo,
+                     writer=np.arange(num_nodes)[:, None])
+
+
+def mvr_writes(rng: np.random.Generator, num_nodes: int, num_keys: int,
+               batch: int, theta: float = 0.99,
+               num_values: int = 1 << 20, hot: int | None = None,
+               tick: int = 0) -> dict:
+    """One round of MVRegister writes: int32 numpy ``[N, B]`` op fields,
+    node (or replica) v's batch in row v, Zipf(``theta``) keys
+    (``zipf_keys``; with ``hot``, inside the rotating hot window of round
+    ``tick``), writer lane = the node, values drawn from ``[0,
+    num_values)``."""
+    shape = (num_nodes, batch)
+    keys = (zipf_keys(rng, num_keys, shape, theta) if hot is None
+            else _hot_keys(rng, num_keys, shape, tick, hot, theta))
+    return _op_batch(shape, op=mvregister.OP_WRITE, key=keys,
+                     a0=rng.integers(0, num_values, shape),
+                     writer=np.arange(num_nodes)[:, None])
+
+
+def lww_slots(rng: np.random.Generator, shape, capacity: int,
+              full_rows: float = 0.25, fill: float = 0.6,
+              num_elems: int | None = None, canonical: bool = True,
+              dup_rows: float = 0.0, stamps: int = 4) -> dict:
+    """Random LWW-Set slot rows ``shape + (capacity,)`` as numpy arrays (the
+    six fields of ``lwwset.FIELDS``).
+
+    A ``full_rows`` share of rows is full, the rest hold up to ``fill`` of
+    the capacity; elems are distinct within a row, drawn from
+    ``num_elems`` (default 2C). Stamps are (hi, lo) with hi in [0, 2) and
+    lo one of ``stamps`` values around 0 and the int32 extremes (negative
+    lo: the unsigned low word), a quarter of each polarity unstamped, so
+    equal stamps and add/remove ties are common. Canonical rows are sorted
+    by elem with SENTINEL keys and zero payloads in invalid slots.
+    Otherwise slots are shuffled, invalid slots hold junk, and a
+    ``dup_rows`` share of rows repeats one valid elem in a second slot."""
+    c = capacity
+    rows = int(np.prod(shape, dtype=np.int64))
+    space = max(num_elems or 2 * c, c)
+    pick = np.argsort(rng.random((rows, space)), axis=1)[:, :c]
+    n = np.where(rng.random(rows) < full_rows, c,
+                 rng.integers(0, int(fill * c) + 1, rows))
+    valid = np.arange(c)[None, :] < n[:, None]
+    elem = np.where(valid, pick, space)
+    elem.sort(axis=1)
+    valid = elem < space
+    lows = np.array([0, 1, 2, -1, -(2**31), 2**31 - 1, 7, -5][:max(stamps, 1)])
+    out = {"elem": np.where(valid, elem, SENTINEL)}
+    for pol in ("add", "rm"):
+        hi = rng.integers(0, 2, (rows, c))
+        lo = rng.choice(lows, (rows, c))
+        none = rng.random((rows, c)) < 0.25
+        out[f"{pol}_hi"] = np.where(valid & ~none, hi, 0)
+        out[f"{pol}_lo"] = np.where(valid & ~none, lo, 0)
+    out["valid"] = valid
+    if not canonical:
+        junk = ~valid
+        for f in ("elem", "add_hi", "add_lo", "rm_hi", "rm_lo"):
+            out[f] = np.where(junk, rng.integers(-5, 5, (rows, c)), out[f])
+        for r in np.nonzero((rng.random(rows) < dup_rows) & (n >= 2))[0]:
+            src, dst = rng.choice(n[r], 2, replace=False)
+            out["elem"][r, dst] = out["elem"][r, src]
+        perm = np.argsort(rng.random((rows, c)), axis=1)
+        out = {f: np.take_along_axis(x, perm, 1) for f, x in out.items()}
+    return {f: np.ascontiguousarray(out[f].reshape(tuple(shape) + (c,)),
+                                    bool if f == "valid" else np.int32)
+            for f in lwwset.FIELDS}
+
+
+def lww_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
+                  num_elems: int, hazards: bool = True,
+                  captured: bool = False) -> dict:
+    """LWW-Set op lanes of every code (0 no-op, 1 add, 2 remove, 3
+    unknown) whose elems collide with ``lww_slots``' and with each
+    other's, stamps as there (equal stamps and negative low words), as
+    int32 numpy arrays of ``shape``. With ``hazards``, keys fall in [-2K,
+    2K). With ``captured``, an ``ok`` ``shape + (1,)`` field is 0 or 1."""
+    k = num_keys
+    lows = np.array([0, 1, 2, -1, -(2**31), 2**31 - 1, 7, -5])
+    ops = {
+        "op": rng.choice(4, shape, p=[0.1, 0.45, 0.35, 0.1]),
+        "key": (rng.integers(-2 * k, 2 * k, shape) if hazards
+                else rng.integers(0, k, shape)),
+        "a0": rng.integers(0, num_elems, shape),
+        "a1": rng.integers(0, 2, shape),
+        "a2": rng.choice(lows, shape),
+        "writer": np.zeros(shape),
+    }
+    out = {f: v.astype(np.int32) for f, v in ops.items()}
+    if captured:
+        out["ok"] = rng.integers(0, 2, tuple(shape) + (1,)).astype(np.int32)
+    return out
+
+
+def mvr_slots(rng: np.random.Generator, shape, capacity: int,
+              num_writers: int, fill: float = 0.7, canonical: bool = True,
+              span: int = 3, num_values: int = 4) -> dict:
+    """Random MVRegister rows ``shape + (capacity,)`` as numpy arrays
+    (``val``, ``valid``, ``clock`` with a trailing axis of ``num_writers``
+    lanes): up to ``fill`` of the slots valid, values from
+    ``num_values``, clock lanes from [-1, span) (dominated, equal and
+    concurrent pairs all common). Canonical rows are the causal frontier
+    of those entries (``kernels.mvr_rows.frontier``); otherwise the
+    entries stay as drawn, invalid slots holding junk."""
+    c, w = capacity, num_writers
+    full = tuple(shape) + (c,)
+    valid = rng.random(full) < fill
+    val = rng.integers(0, num_values, full)
+    clock = rng.integers(-1, span, full + (w,))
+    if canonical:
+        out, _ = frontier(torch.from_numpy(val.astype(np.int32)),
+                          torch.from_numpy(valid),
+                          torch.from_numpy(clock.astype(np.int32)), c)
+        return {f: out[f].numpy().copy() for f in ("val", "valid", "clock")}
+    return {"val": np.where(valid, val, rng.integers(-5, 5, full)).astype(np.int32),
+            "valid": valid, "clock": clock.astype(np.int32)}
+
+
+def mvr_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
+                  num_writers: int, hazards: bool = True,
+                  captured: bool = False, num_values: int = 4,
+                  span: int = 3) -> dict:
+    """MVRegister op lanes (0 no-op, 1 write, 2 unknown) whose values
+    collide with ``mvr_slots``' and with each other's, as int32 numpy
+    arrays of ``shape``. With ``hazards``, keys fall in [-2K, 2K) and
+    writers in [-2W, 2W). With ``captured``, a ``wclock`` ``shape + (W,)``
+    field holds clocks in [-1, span) with 5% of the lanes at the int32
+    extremes."""
+    k, w = num_keys, num_writers
+    ops = {
+        "op": rng.choice(3, shape, p=[0.15, 0.75, 0.1]),
+        "key": (rng.integers(-2 * k, 2 * k, shape) if hazards
+                else rng.integers(0, k, shape)),
+        "a0": rng.integers(0, num_values, shape),
+        "a1": np.zeros(shape), "a2": np.zeros(shape),
+        "writer": (rng.integers(-2 * w, 2 * w, shape) if hazards
+                   else rng.integers(0, w, shape)),
+    }
+    out = {f: v.astype(np.int32) for f, v in ops.items()}
+    if captured:
+        clk = rng.integers(-1, span, tuple(shape) + (w,))
+        ext = rng.random(clk.shape) < 0.05
+        clk = np.where(ext, rng.choice([-(2**31), 2**31 - 1], clk.shape), clk)
+        out["wclock"] = clk.astype(np.int32)
     return out
 
 

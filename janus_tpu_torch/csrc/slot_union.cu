@@ -1,48 +1,58 @@
 // slot_union: the sorted union of two slot sets, one row per block, for
-// the OR-Set (slot_union_launch) and for the RGA (rga_union_launch).
+// the OR-Set (slot_union_launch), the RGA (rga_union_launch) and the
+// LWW-Set (lww_union_launch).
 //
 // Replaces: janus_tpu/ops/setops.py slot_union with the OR-Set fold
 // (janus_tpu/models/orset.py _combine) and with the RGA fold
-// (janus_tpu/models/rga.py _combine): the join of merge and of the
-// replica-axis converge (store.join_all's halving tree). Per row: the
-// Ca + Cb records sorted stably by their two int32 key fields (OR-Set:
-// tag_rep, tag_ctr; RGA: id_ctr, id_rep), invalid slots keyed SENTINEL; a
-// record that repeats the valid key of the record before it is a duplicate
-// and is dropped, and a kept record ORs its flag (OR-Set: removed; RGA:
-// dead) with the record right after it when that one is a duplicate, and
-// folds its int32 payloads with that record's by the layout's fold (OR-Set:
-// elem stays the kept copy's; RGA: par_ctr, par_rep and chr take the max);
-// the kept records fill the output in order, cut to `cap`, the rest
-// canonical (SENTINEL keys, zero payloads); overflow = kept - cap.
+// (janus_tpu/models/rga.py _combine) and with the LWW-Set fold
+// (janus_tpu/models/lwwset.py _combine, with lattice.ts_max): the join of
+// merge and of the replica-axis converge (store.join_all's halving tree).
+// Per row: the Ca + Cb records sorted stably by their int32 key fields
+// (OR-Set: tag_rep, tag_ctr; RGA: id_ctr, id_rep; LWW-Set: elem), invalid
+// slots keyed SENTINEL; a record that repeats the valid key of the record
+// before it is a duplicate and is dropped, and a kept record ORs its flag
+// (OR-Set: removed; RGA: dead; the LWW-Set has none) with the record right
+// after it when that one is a duplicate, and folds its int32 payloads with
+// that record's by the layout's fold (OR-Set: elem stays the kept copy's;
+// RGA: par_ctr, par_rep and chr take the max; LWW-Set: (add_hi, add_lo)
+// and (rm_hi, rm_lo) each take the lexicographic max, the low word
+// unsigned, the kept copy's on a tie); the kept records fill the output in
+// order, cut to `cap`, the rest canonical (SENTINEL keys, zero payloads);
+// overflow = kept - cap.
 //
-// The layout is a template parameter (NP int32 payload fields and their
-// fold, the "fold selector"), so both types share one sort, one duplicate
-// rule and one compaction.
+// The layout is a set of template parameters (NK int32 key fields, NP
+// int32 payload fields, whether a bool flag exists, and the payloads'
+// fold, the "fold selector"), so the three types share one sort, one
+// duplicate rule and one compaction; each instantiation compiles only its
+// own layout (a one-key record sorts on (key, 0, position)).
 //
 // What bounds it on the H100: bytes. A row reads (Ca + Cb) slots and
 // writes cap slots per output replica (14 bytes an OR-Set slot, 22 an RGA
-// one). At the OR-Set converge of 64 replicas x 500 keys x 256 slots
-// (114.7 MB of state) the halving tree reads about 2 x 114.7 MB and writes
-// 114.7 MB into its levels, then 114.7 MB into the replicas, ~0.13 ms of
-// traffic at 3.35 TB/s. At the RGA converge (rga preset: R=1,024, K=128,
-// C=1,024, 2.95 GB of state) it reads ~2 x 2.95 GB and writes ~2.95 GB
-// into its levels, then 2.95 GB into the replicas, ~3.5 ms; level 1 sorts
-// 65,536 rows of 2,048 records. The sort is (Ca + Cb) log^2 (Ca + Cb) / 4
+// one, 21 an LWW-Set one). At the OR-Set converge of 64 replicas x 500
+// keys x 256 slots (114.7 MB of state) the halving tree reads about
+// 2 x 114.7 MB and writes 114.7 MB into its levels, then 114.7 MB into the
+// replicas, ~0.13 ms of traffic at 3.35 TB/s. At the RGA converge (rga
+// preset: R=1,024, K=128, C=1,024, 2.95 GB of state) it reads
+// ~2 x 2.95 GB and writes ~2.95 GB into its levels, then 2.95 GB into the
+// replicas, ~3.5 ms; level 1 sorts 65,536 rows of 2,048 records. The
+// LWW-Set's Store converge at the same 64 x 500 x 256 holds 172 MB and
+// moves ~4 x 172 MB, ~0.2 ms. The sort is (Ca + Cb) log^2 (Ca + Cb) / 4
 // compare-swaps per row in shared memory.
 //
 // Design: one block per row (grid-stride over rows). The records (keys,
 // position, valid and flag bits) and the payloads are staged in shared
 // memory (per record 16 bytes of sort record, 4 per payload field and 4 of
-// prefix sum: OR-Set 24, RGA 32), so every read of the inputs happens
-// before any write: the output may alias an input row (the converge writes
-// the last level into the replicas it read). The sort is
+// prefix sum: OR-Set 24, RGA 32, LWW-Set 36), so every read of the inputs
+// happens before any write: the output may alias an input row (the
+// converge writes the last level into the replicas it read). The sort is
 // slot_sort::block_sort on (key0, key1, position), the stable order;
 // the kept flags are prefix-summed in shared memory to place each kept
 // record. With `repeat` > 1 the row is written into each of `repeat` output
 // replicas (the converge's broadcast). Launches on the caller's stream,
 // allocates nothing, does not synchronise.
 //
-// Row-list mode (slot_union_rows_launch, rga_union_rows_launch): replaces
+// Row-list mode (slot_union_rows_launch, rga_union_rows_launch,
+// lww_union_rows_launch): replaces
 // converge_delta's slab path (store.py:114-121: gather the listed key rows
 // into an [R, D, C] slab, join_all's halving tree, scatter back into every
 // replica). The tree runs as in the full converge, but each level joins
@@ -64,11 +74,12 @@ namespace {
 
 using namespace slot_sort;
 
-// the fold of a kept record's int32 payloads with its duplicate's
-enum Fold { FOLD_KEEP = 0, FOLD_MAX = 1 };
+// the fold of a kept record's int32 payloads with its duplicate's:
+// FOLD_TS_MAX takes payloads (0, 1) and (2, 3) as (hi, lo) timestamps
+enum Fold { FOLD_KEEP = 0, FOLD_MAX = 1, FOLD_TS_MAX = 2 };
 
-// a slot set: two int32 key fields, NP int32 payload fields, a bool flag
-// folded by OR, and the bool valid mask
+// a slot set: NK (1 or 2) int32 key fields, NP int32 payload fields, a
+// bool flag folded by OR (unused without one), and the bool valid mask
 template <int NP>
 struct Slots {
   const int* key[2];
@@ -85,13 +96,20 @@ struct OutSlots {
   unsigned char* valid;
 };
 
+// timestamp (hi_a, lo_a) >= (hi_b, lo_b), the low word unsigned
+// (janus_tpu/ops/lattice.py ts_after)
+__device__ __forceinline__ bool ts_after(int hi_a, int lo_a, int hi_b,
+                                         int lo_b) {
+  return hi_a > hi_b || (hi_a == hi_b && (unsigned)lo_a >= (unsigned)lo_b);
+}
+
 // record: x, y = the keys (SENTINEL when invalid), z = position in the
 // concatenation, w = valid | flag << 1
 //
 // The union of row `a_at` of a (ca slots) and row `b_at` of b (cb slots),
 // written at out + out_at + p * out_plane for p < repeat. Every thread of
 // the block calls it. Returns the kept count (before the cut to cap).
-template <int NP, int FOLD>
+template <int NK, int NP, bool FLAG, int FOLD>
 __device__ int union_row(const Slots<NP>& a, long long a_at,
                          const Slots<NP>& b, long long b_at,
                          const OutSlots<NP>& out, long long out_at,
@@ -109,9 +127,9 @@ __device__ int union_row(const Slots<NP>& a, long long a_at,
     const bool in_a = i < ca;
     const long long at = in_a ? a_at + i : b_at + (i - ca);
     const bool v = (in_a ? a.valid : b.valid)[at];
-    const bool fl = (in_a ? a.flag : b.flag)[at];
-    rec[i] = make_int4(v ? (in_a ? a.key[0] : b.key[0])[at] : SENT,
-                       v ? (in_a ? a.key[1] : b.key[1])[at] : SENT, i,
+    const bool fl = FLAG && (in_a ? a.flag : b.flag)[at];
+    const int k1 = NK == 2 ? (v ? (in_a ? a.key[1] : b.key[1])[at] : SENT) : 0;
+    rec[i] = make_int4(v ? (in_a ? a.key[0] : b.key[0])[at] : SENT, k1, i,
                        (int)v | ((int)fl << 1));
 #pragma unroll
     for (int p = 0; p < NP; ++p)
@@ -158,13 +176,23 @@ __device__ int union_row(const Slots<NP>& a, long long a_at,
       v[p] = pay[p * n + r.z];
       if (FOLD == FOLD_MAX && next >= 0) v[p] = max(v[p], pay[p * n + next]);
     }
+    if (FOLD == FOLD_TS_MAX && next >= 0) {
+#pragma unroll
+      for (int p = 0; p + 1 < NP; p += 2) {
+        const int hi = pay[p * n + next], lo = pay[(p + 1) * n + next];
+        if (!ts_after(v[p], v[p + 1], hi, lo)) {
+          v[p] = hi;
+          v[p + 1] = lo;
+        }
+      }
+    }
     for (int p = 0; p < repeat; ++p) {
       const long long at = p * out_plane + out_at + slot;
       out.key[0][at] = r.x;
-      out.key[1][at] = r.y;
+      if (NK == 2) out.key[1][at] = r.y;
 #pragma unroll
       for (int q = 0; q < NP; ++q) out.pay[q][at] = v[q];
-      out.flag[at] = fl;
+      if (FLAG) out.flag[at] = fl;
       out.valid[at] = 1;
     }
   }
@@ -173,10 +201,10 @@ __device__ int union_row(const Slots<NP>& a, long long a_at,
     for (int p = 0; p < repeat; ++p) {
       const long long at = p * out_plane + out_at + slot;
       out.key[0][at] = SENT;
-      out.key[1][at] = SENT;
+      if (NK == 2) out.key[1][at] = SENT;
 #pragma unroll
       for (int q = 0; q < NP; ++q) out.pay[q][at] = 0;
-      out.flag[at] = 0;
+      if (FLAG) out.flag[at] = 0;
       out.valid[at] = 0;
     }
   }
@@ -184,14 +212,14 @@ __device__ int union_row(const Slots<NP>& a, long long a_at,
   return kept;
 }
 
-template <int NP, int FOLD>
+template <int NK, int NP, bool FLAG, int FOLD>
 __global__ void slot_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
                                   int* __restrict__ overflow, long long rows,
                                   int ca, int cb, int cap, int repeat) {
   for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-    const int kept = union_row<NP, FOLD>(a, row * ca, b, row * cb, out,
-                                         row * cap, rows * (long long)cap,
-                                         repeat, ca, cb, cap);
+    const int kept = union_row<NK, NP, FLAG, FOLD>(
+        a, row * ca, b, row * cb, out, row * cap, rows * (long long)cap,
+        repeat, ca, cb, cap);
     if (threadIdx.x == 0) overflow[row] = kept > cap ? kept - cap : 0;
   }
 }
@@ -202,7 +230,7 @@ __global__ void slot_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
 // `scatter` the result goes to out[r, j] ([pairs, num_keys, c] scratch);
 // with it (pairs == 1) to out[p, rows[j]] for every p < repeat, the
 // replicas of the state.
-template <int NP, int FOLD>
+template <int NK, int NP, bool FLAG, int FOLD>
 __global__ void slot_union_rows_kernel(Slots<NP> a, Slots<NP> b,
                                        OutSlots<NP> out,
                                        const int* __restrict__ rows,
@@ -222,32 +250,32 @@ __global__ void slot_union_rows_kernel(Slots<NP> a, Slots<NP> b,
     const long long in_at = (r * num_keys + (gather ? k : j)) * c;
     const long long out_at = scatter ? (long long)k * c
                                      : (r * num_keys + j) * c;
-    union_row<NP, FOLD>(a, in_at, b, in_at, out, out_at, plane,
+    union_row<NK, NP, FLAG, FOLD>(a, in_at, b, in_at, out, out_at, plane,
                         scatter ? repeat : 1, c, c, c);
   }
 }
 
-// fields in the entry points' order: key0, key1, the NP payloads, flag,
-// valid
-template <int NP>
+// fields in the entry points' order: the NK keys, the NP payloads, the
+// flag (if the layout has one), valid
+template <int NK, int NP, bool FLAG>
 Slots<NP> in_slots(const void* const* f) {
   Slots<NP> s;
   s.key[0] = (const int*)f[0];
-  s.key[1] = (const int*)f[1];
-  for (int p = 0; p < NP; ++p) s.pay[p] = (const int*)f[2 + p];
-  s.flag = (const unsigned char*)f[2 + NP];
-  s.valid = (const unsigned char*)f[3 + NP];
+  s.key[1] = NK == 2 ? (const int*)f[1] : nullptr;
+  for (int p = 0; p < NP; ++p) s.pay[p] = (const int*)f[NK + p];
+  s.flag = FLAG ? (const unsigned char*)f[NK + NP] : nullptr;
+  s.valid = (const unsigned char*)f[NK + NP + FLAG];
   return s;
 }
 
-template <int NP>
+template <int NK, int NP, bool FLAG>
 OutSlots<NP> out_slots(void* const* f) {
   OutSlots<NP> s;
   s.key[0] = (int*)f[0];
-  s.key[1] = (int*)f[1];
-  for (int p = 0; p < NP; ++p) s.pay[p] = (int*)f[2 + p];
-  s.flag = (unsigned char*)f[2 + NP];
-  s.valid = (unsigned char*)f[3 + NP];
+  s.key[1] = NK == 2 ? (int*)f[1] : nullptr;
+  for (int p = 0; p < NP; ++p) s.pay[p] = (int*)f[NK + p];
+  s.flag = FLAG ? (unsigned char*)f[NK + NP] : nullptr;
+  s.valid = (unsigned char*)f[NK + NP + FLAG];
   return s;
 }
 
@@ -256,22 +284,25 @@ constexpr size_t record_bytes() {
   return sizeof(int4) + (NP + 1) * sizeof(int);
 }
 
-template <int NP, int FOLD>
+template <int NK, int NP, bool FLAG, int FOLD>
 int launch(const void* const* a, const void* const* b, void* const* o,
            void* overflow, long long rows, int ca, int cb, int cap,
            int repeat, cudaStream_t stream) {
   if (rows <= 0 || repeat <= 0) return (int)cudaSuccess;
   const size_t bytes = (size_t)(ca + cb) * record_bytes<NP>() + 16;
-  cudaError_t err = allow_shared(slot_union_kernel<NP, FOLD>, bytes);
+  cudaError_t err =
+      allow_shared(slot_union_kernel<NK, NP, FLAG, FOLD>, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long grid = rows < 132LL * 64 ? rows : 132LL * 64;
-  slot_union_kernel<NP, FOLD><<<(unsigned)grid, 256, bytes, stream>>>(
-      in_slots<NP>(a), in_slots<NP>(b), out_slots<NP>(o), (int*)overflow,
+  slot_union_kernel<NK, NP, FLAG, FOLD>
+      <<<(unsigned)grid, 256, bytes, stream>>>(
+      in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
+      out_slots<NK, NP, FLAG>(o), (int*)overflow,
       rows, ca, cb, cap, repeat);
   return (int)cudaGetLastError();
 }
 
-template <int NP, int FOLD>
+template <int NK, int NP, bool FLAG, int FOLD>
 int launch_rows(const void* const* a, const void* const* b, void* const* o,
                 const void* rows, int listed, const void* n_rows, int pairs,
                 int num_keys, int c, int gather, int scatter, int repeat,
@@ -279,13 +310,16 @@ int launch_rows(const void* const* a, const void* const* b, void* const* o,
   if (listed <= 0 || pairs <= 0 || repeat <= 0 || c <= 0)
     return (int)cudaSuccess;
   const size_t bytes = (size_t)(2 * c) * record_bytes<NP>() + 16;
-  cudaError_t err = allow_shared(slot_union_rows_kernel<NP, FOLD>, bytes);
+  cudaError_t err =
+      allow_shared(slot_union_rows_kernel<NK, NP, FLAG, FOLD>, bytes);
   if (err != cudaSuccess) return (int)err;
   // one wave of 8 blocks per SM; blocks past the rows to join exit at once
   const long long most = (long long)listed * pairs;
   const long long grid = most < 132LL * 8 ? most : 132LL * 8;
-  slot_union_rows_kernel<NP, FOLD><<<(unsigned)grid, 256, bytes, stream>>>(
-      in_slots<NP>(a), in_slots<NP>(b), out_slots<NP>(o), (const int*)rows,
+  slot_union_rows_kernel<NK, NP, FLAG, FOLD>
+      <<<(unsigned)grid, 256, bytes, stream>>>(
+      in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
+      out_slots<NK, NP, FLAG>(o), (const int*)rows,
       listed, (const int*)n_rows, pairs, num_keys, c, gather, scatter,
       repeat);
   return (int)cudaGetLastError();
@@ -295,7 +329,8 @@ int launch_rows(const void* const* a, const void* const* b, void* const* o,
 
 // Each slot set is an array of field pointers in the layout's order: OR-Set
 // tag_rep, tag_ctr, elem (int32), removed, valid (bool); RGA id_ctr,
-// id_rep, par_ctr, par_rep, chr (int32), dead, valid (bool).
+// id_rep, par_ctr, par_rep, chr (int32), dead, valid (bool); LWW-Set elem,
+// add_hi, add_lo, rm_hi, rm_lo (int32), valid (bool).
 //
 // a: [rows, ca], b: [rows, cb], o: [repeat, rows, cap], overflow
 // int32[rows]; contiguous on one device. The outputs may alias the inputs
@@ -304,16 +339,24 @@ extern "C" int slot_union_launch(const void* const* a, const void* const* b,
                                  void* const* o, void* overflow,
                                  long long rows, int ca, int cb, int cap,
                                  int repeat, void* stream) {
-  return launch<1, FOLD_KEEP>(a, b, o, overflow, rows, ca, cb, cap, repeat,
-                              (cudaStream_t)stream);
+  return launch<2, 1, true, FOLD_KEEP>(a, b, o, overflow, rows, ca, cb, cap,
+                                       repeat, (cudaStream_t)stream);
 }
 
 extern "C" int rga_union_launch(const void* const* a, const void* const* b,
                                 void* const* o, void* overflow,
                                 long long rows, int ca, int cb, int cap,
                                 int repeat, void* stream) {
-  return launch<3, FOLD_MAX>(a, b, o, overflow, rows, ca, cb, cap, repeat,
-                             (cudaStream_t)stream);
+  return launch<2, 3, true, FOLD_MAX>(a, b, o, overflow, rows, ca, cb, cap,
+                                      repeat, (cudaStream_t)stream);
+}
+
+extern "C" int lww_union_launch(const void* const* a, const void* const* b,
+                                void* const* o, void* overflow,
+                                long long rows, int ca, int cb, int cap,
+                                int repeat, void* stream) {
+  return launch<1, 4, false, FOLD_TS_MAX>(a, b, o, overflow, rows, ca, cb,
+                                          cap, repeat, (cudaStream_t)stream);
 }
 
 // Row-list mode. a, b: [pairs, num_keys, c]; o: [pairs, num_keys, c], or
@@ -327,9 +370,10 @@ extern "C" int slot_union_rows_launch(const void* const* a,
                                       const void* n_rows, int pairs,
                                       int num_keys, int c, int gather,
                                       int scatter, int repeat, void* stream) {
-  return launch_rows<1, FOLD_KEEP>(a, b, o, rows, listed, n_rows, pairs,
-                                   num_keys, c, gather, scatter, repeat,
-                                   (cudaStream_t)stream);
+  return launch_rows<2, 1, true, FOLD_KEEP>(a, b, o, rows, listed, n_rows,
+                                            pairs, num_keys, c, gather,
+                                            scatter, repeat,
+                                            (cudaStream_t)stream);
 }
 
 extern "C" int rga_union_rows_launch(const void* const* a,
@@ -338,7 +382,20 @@ extern "C" int rga_union_rows_launch(const void* const* a,
                                      const void* n_rows, int pairs,
                                      int num_keys, int c, int gather,
                                      int scatter, int repeat, void* stream) {
-  return launch_rows<3, FOLD_MAX>(a, b, o, rows, listed, n_rows, pairs,
-                                  num_keys, c, gather, scatter, repeat,
-                                  (cudaStream_t)stream);
+  return launch_rows<2, 3, true, FOLD_MAX>(a, b, o, rows, listed, n_rows,
+                                           pairs, num_keys, c, gather,
+                                           scatter, repeat,
+                                           (cudaStream_t)stream);
+}
+
+extern "C" int lww_union_rows_launch(const void* const* a,
+                                     const void* const* b, void* const* o,
+                                     const void* rows, int listed,
+                                     const void* n_rows, int pairs,
+                                     int num_keys, int c, int gather,
+                                     int scatter, int repeat, void* stream) {
+  return launch_rows<1, 4, false, FOLD_TS_MAX>(a, b, o, rows, listed,
+                                               n_rows, pairs, num_keys, c,
+                                               gather, scatter, repeat,
+                                               (cudaStream_t)stream);
 }

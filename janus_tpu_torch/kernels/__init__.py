@@ -1,12 +1,15 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version and with a launch counter (``<wrapper>.launches``). A row-list
 mode of a kernel (``replica_join_rows``, ``slot_union_rows``,
-``rga_union_rows``) is a wrapper of its own, with its own counter, over
-the same source; so is the RGA instantiation of ``slot_union.cu``
-(``rga_union``). A source with two entry points counts both on one
+``rga_union_rows``, ``lww_union_rows``, ``mvr_merge_rows``) is a wrapper
+of its own, with its own counter, over the same source; so are the RGA's
+and the LWW-Set's instantiations of ``slot_union.cu`` (``rga_union``,
+``lww_union``). A source with two entry points counts both on one
 wrapper: ``safekv_board`` on ``safekv_submit``, ``gc_clear_ring`` on
 ``gc_frontier``, ``orset_watermark`` on ``orset_compact``. The capture
-mode of ``rga_apply.cu`` is a wrapper of its own, ``rga_capture``.
+mode of ``rga_apply.cu`` is a wrapper of its own, ``rga_capture``; so
+are those of ``lww_apply.cu`` and ``mvr_apply.cu`` (``lww_capture``,
+``mvr_capture``).
 
 Sources live in ``janus_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Nothing here imports or builds anything at import
@@ -24,8 +27,14 @@ from janus_tpu_torch.kernels.dirty_rows import (  # noqa: F401
     dirty_rows, dirty_rows_plain)
 from janus_tpu_torch.kernels.gc_frontier import (  # noqa: F401
     gc_clear_ring, gc_clear_ring_plain, gc_frontier, gc_frontier_plain)
+from janus_tpu_torch.kernels.lww_apply import (  # noqa: F401
+    lww_apply, lww_apply_plain, lww_capture, lww_capture_plain)
 from janus_tpu_torch.kernels.mark_members import (  # noqa: F401
     mark_members, mark_members_plain)
+from janus_tpu_torch.kernels.mvr_apply import (  # noqa: F401
+    mvr_apply, mvr_apply_plain, mvr_capture, mvr_capture_plain)
+from janus_tpu_torch.kernels.mvr_merge import (  # noqa: F401
+    mvr_merge, mvr_merge_plain, mvr_merge_rows, mvr_merge_rows_plain)
 from janus_tpu_torch.kernels.orset_apply import (  # noqa: F401
     orset_apply, orset_apply_plain)
 from janus_tpu_torch.kernels.orset_compact import (  # noqa: F401
@@ -49,6 +58,7 @@ from janus_tpu_torch.kernels.replica_join import (  # noqa: F401
 from janus_tpu_torch.kernels.safekv_submit import (  # noqa: F401
     safekv_board, safekv_board_plain, safekv_submit, safekv_submit_plain)
 from janus_tpu_torch.kernels.slot_union import (  # noqa: F401
+    lww_union, lww_union_plain, lww_union_rows, lww_union_rows_plain,
     slot_union, slot_union_plain, slot_union_rows, slot_union_rows_plain)
 from janus_tpu_torch.kernels.state_transfer import (  # noqa: F401
     state_transfer, state_transfer_plain)
@@ -68,7 +78,11 @@ WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join,
             "safekv_submit": safekv_submit, "block_select": block_select,
             "state_transfer": state_transfer, "gc_frontier": gc_frontier,
             "orset_compact": orset_compact, "rga_capture": rga_capture,
-            "mark_members": mark_members}
+            "mark_members": mark_members, "lww_union": lww_union,
+            "lww_union_rows": lww_union_rows, "lww_apply": lww_apply,
+            "lww_capture": lww_capture, "mvr_merge": mvr_merge,
+            "mvr_merge_rows": mvr_merge_rows, "mvr_apply": mvr_apply,
+            "mvr_capture": mvr_capture}
 
 
 def reset_launches() -> None:

@@ -12,11 +12,11 @@ from device memory. ``models.orset.join_replica_rows`` runs the tree with
 it in place of the slab gather, ``join_all`` and scatter of
 janus_tpu/runtime/store.py ``converge_delta``.
 
-The source takes the slot layout and its duplicate fold as a template
-parameter; ``Layout`` is its Python side, and ``union`` / ``union_rows``
-the launch of either layout (``kernels.rga_union`` is the RGA's).
-``join_tree`` / ``join_tree_rows`` run the converge's halving tree of
-either layout through the wrapper a model passes.
+The source takes the slot layout and its duplicate fold as template
+parameters; ``Layout`` is its Python side, and ``union`` / ``union_rows``
+the launch of any layout (``kernels.rga_union`` is the RGA's,
+``kernels.lww_union`` the LWW-Set's); ``kernels.replica_tree`` runs the
+converge's halving tree through them.
 
 The wrappers launch the CUDA kernel for CUDA tensors (or raise) and run
 their plain versions only for tensors that lie on the CPU.
@@ -25,29 +25,31 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
-from janus_tpu_torch.kernels import build, operands, orset_rows
+from janus_tpu_torch.kernels import build, lww_rows, operands, orset_rows
 from janus_tpu_torch.ops.setops import slot_union as _generic_union
 
 
 class Layout(NamedTuple):
     """A slot layout of ``csrc/slot_union.cu``: its fields in the C entry
-    points' order (two int32 keys, int32 payloads, a bool flag, valid),
-    their dtypes, the duplicate fold of the plain version, the count of
-    int32 payload fields and the two C entry points."""
+    points' order (``keys`` int32 keys, int32 payloads, a bool flag if the
+    layout has one, valid), their dtypes, the duplicate fold of the plain
+    version, the count of int32 payload fields, the two C entry points and
+    the count of key fields."""
     fields: tuple
     dtypes: dict
     fold: Callable
     payloads: int
     launch: str
     rows_launch: str
+    keys: int = 2
 
     @property
     def key_fields(self):
-        return self.fields[:2]
+        return self.fields[:self.keys]
 
     def operands(self, prefix, slots, shape):
         """``operands.placement`` entries for the fields of a slot set."""
@@ -58,6 +60,8 @@ class Layout(NamedTuple):
 ORSET = Layout(orset_rows.FIELDS, orset_rows.DTYPES,
                orset_rows.fold_duplicate, 1, "slot_union_launch",
                "slot_union_rows_launch")
+LWW = Layout(lww_rows.FIELDS, lww_rows.DTYPES, lww_rows.fold_duplicate, 4,
+             "lww_union_launch", "lww_union_rows_launch", keys=1)
 
 
 def union_plain(layout: Layout, a, b, capacity: int | None = None, out=None):
@@ -82,13 +86,15 @@ def _lib():
     lib = build.load("slot_union")
     if lib.slot_union_launch.argtypes is None:
         ptr, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
-        for name in ("slot_union_launch", "rga_union_launch"):
+        for name in ("slot_union_launch", "rga_union_launch",
+                     "lww_union_launch"):
             fn = getattr(lib, name)
             fn.argtypes = [arr, arr, arr, ptr, ctypes.c_longlong,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ptr]
             fn.restype = ctypes.c_int
-        for name in ("slot_union_rows_launch", "rga_union_rows_launch"):
+        for name in ("slot_union_rows_launch", "rga_union_rows_launch",
+                     "lww_union_rows_launch"):
             fn = getattr(lib, name)
             fn.argtypes = [arr, arr, arr, ptr, ctypes.c_int, ptr,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -105,7 +111,8 @@ def _ptrs(layout: Layout, slots):
 def shared_bytes(ca: int, cb: int, layout: Layout = ORSET) -> int:
     """Shared memory of one block (csrc/slot_union.cu): per input record
     a 16-byte sort record, 4 bytes per int32 payload field and 4 of prefix
-    sum (24 for the OR-Set, 32 for the RGA), and the prefix sum's 4 KB."""
+    sum (24 for the OR-Set, 32 for the RGA, 36 for the LWW-Set), and the
+    prefix sum's 4 KB."""
     per = 16 + 4 * (layout.payloads + 1)
     return per * (ca + cb) + 16 + operands.SCAN_SHARED_BYTES
 
@@ -208,72 +215,6 @@ def union_rows(layout: Layout, wrapper, a, b, out, rows, n_rows,
     return out
 
 
-_SCRATCH: Dict[tuple, dict] = {}
-
-
-def tree_scratch(layout: Layout, state, half: int) -> dict:
-    """The ``[half, K, C]`` scratch of one level of the converge's halving
-    tree for this layout, geometry and device, made at the first call. A
-    level reads its input scratch before it writes its output, and the
-    levels of one tree have distinct sizes, so calls on one stream may
-    share it (the full and the row-list tree included)."""
-    K, C = state["valid"].shape[-2:]
-    dev = state["valid"].device
-    key = (dev, half, K, C, layout.fields)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = {f: torch.empty((half, K, C), dtype=layout.dtypes[f],
-                                        device=dev) for f in layout.fields}
-    return _SCRATCH[key]
-
-
-def join_tree(layout: Layout, union_fn, state) -> None:
-    """Set every row of the leading replica axis of ``state``'s slot
-    fields to the join of all rows, in place: the halving tree of
-    janus_tpu/runtime/store.py ``join_all`` (the middle row joins both
-    halves when the count is odd), one ``union_fn`` launch per level into
-    ``tree_scratch``, the last level writing its row into all R rows.
-    ``union_fn`` is the layout's wrapper (``slot_union``, ``rga_union``)."""
-    cap = state["valid"].shape[-1]
-    cur = {f: state[f] for f in layout.fields}
-    n = state["valid"].shape[0]
-    while n > 2:
-        half = (n + 1) // 2
-        nxt = tree_scratch(layout, state, half)
-        union_fn({f: x[:half] for f, x in cur.items()},
-                 {f: x[n - half:n] for f, x in cur.items()}, cap,
-                 out={f: x.unsqueeze(0) for f, x in nxt.items()})
-        cur, n = nxt, half
-    if n == 2:
-        union_fn({f: x[:1] for f, x in cur.items()},
-                 {f: x[1:2] for f, x in cur.items()}, cap,
-                 out={f: state[f].unsqueeze(1) for f in layout.fields})
-
-
-def join_tree_rows(layout: Layout, union_rows_fn, state, rows,
-                   n_rows) -> None:
-    """``join_tree`` over key rows ``rows[:n_rows]`` only, in place, one
-    ``union_rows_fn`` launch per level (the layout's row-list wrapper):
-    level 1 reads the listed rows from the state, the middle levels work
-    in ``tree_scratch`` (only the listed rows of it are written and read),
-    and the last writes each joined row into all R replicas at its key.
-    Leaves outside the layout are never indexed."""
-    cur = {f: state[f] for f in layout.fields}
-    listed = True
-    n = state["valid"].shape[0]
-    while n > 2:
-        half = (n + 1) // 2
-        nxt = tree_scratch(layout, state, half)
-        union_rows_fn({f: x[:half] for f, x in cur.items()},
-                      {f: x[n - half:n] for f, x in cur.items()},
-                      nxt, rows, n_rows, gather=listed)
-        cur, listed, n = nxt, False, half
-    if n == 2:
-        union_rows_fn({f: x[:1] for f, x in cur.items()},
-                      {f: x[1:2] for f, x in cur.items()},
-                      {f: state[f] for f in layout.fields}, rows, n_rows,
-                      gather=listed, scatter=True)
-
-
 def slot_union_plain(a, b, capacity: int | None = None, out=None):
     """Plain PyTorch version of ``slot_union``: ``ops.setops.slot_union``
     on the OR-Set's fields (``orset_rows.FIELDS``) with its fold."""
@@ -316,3 +257,47 @@ def slot_union_rows(a, b, out, rows, n_rows, gather: bool = True,
 
 
 slot_union_rows.launches = 0
+
+
+def lww_union_plain(a, b, capacity: int | None = None, out=None):
+    """Plain PyTorch version of ``lww_union``: ``ops.setops.slot_union``
+    on the LWW-Set's fields (``lww_rows.FIELDS``) with its fold."""
+    return union_plain(LWW, a, b, capacity, out)
+
+
+def lww_union(a, b, capacity: int | None = None, out=None):
+    """Union of LWW-Set slot sets ``a`` ``[..., Ca]`` and ``b`` ``[...,
+    Cb]`` by elem, per row (the LWW instantiation of csrc/slot_union.cu;
+    replaces janus_tpu/ops/setops.py ``slot_union`` with
+    janus_tpu/models/lwwset.py ``_combine``): a duplicate elem keeps the
+    lexicographic max of each stamp pair, the low word unsigned (the kept
+    copy's on a tie), the kept elems are cut to the ``capacity``
+    smallest, and invalid slots are filled canonically. Returns ``(out,
+    overflow int32[...])`` with ``out`` fresh tensors ``[..., capacity]``,
+    or written into ``out`` (``[P, ..., capacity]``, every one of its P
+    rows; it may alias ``a`` or ``b``). Bound on the H100 by bytes: 21 a
+    slot, each read and written once."""
+    return union(LWW, lww_union, a, b, capacity, out)
+
+
+lww_union.launches = 0
+
+
+def lww_union_rows_plain(a, b, out, rows, n_rows, gather: bool = True,
+                         scatter: bool = False):
+    """Plain PyTorch version of ``lww_union_rows``."""
+    return union_rows_plain(LWW, a, b, out, rows, n_rows, gather, scatter)
+
+
+def lww_union_rows(a, b, out, rows, n_rows, gather: bool = True,
+                   scatter: bool = False):
+    """One level of the converge's halving tree over listed key rows
+    ``rows[:n_rows]`` (``n_rows`` int32[] on the device, read there), as
+    ``slot_union_rows`` does for the OR-Set: ``a``, ``b`` ``[P, K, C]``
+    LWW-Set slot sets, ``out`` ``[P, K, C]`` scratch or, with ``scatter``
+    (one pair), the ``[R, K, C]`` state. Returns ``out``."""
+    return union_rows(LWW, lww_union_rows, a, b, out, rows, n_rows, gather,
+                      scatter)
+
+
+lww_union_rows.launches = 0

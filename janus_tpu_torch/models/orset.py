@@ -44,7 +44,8 @@ from janus_tpu_torch import kernels
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.kernels.orset_rows import (  # noqa: F401
     CAPTURE_FIELDS, FIELDS, KEY_FIELDS, OP_ADD, OP_CLEAR, OP_REMOVE)
-from janus_tpu_torch.kernels.slot_union import ORSET, join_tree, join_tree_rows
+from janus_tpu_torch.kernels.replica_tree import join_tree, join_tree_rows
+from janus_tpu_torch.kernels.slot_union import ORSET
 from janus_tpu_torch.models import base
 from janus_tpu_torch.models.base import gather_index
 from janus_tpu_torch.ops.lattice import SENTINEL
@@ -174,20 +175,20 @@ def merge_with_stats(a: State, b: State):
 
 def join_replicas(state: State) -> State:
     """Set every row of the leading replica axis to the join of all rows,
-    in place: ``kernels.slot_union.join_tree``, the halving tree of
+    in place: ``kernels.replica_tree.join_tree``, the halving tree of
     ``runtime.store.join_all`` with one ``slot_union`` launch per level,
     the last level writing its row into all R rows."""
-    join_tree(ORSET, kernels.slot_union, state)
+    join_tree(ORSET.fields, kernels.slot_union, state)
     return state
 
 
 def join_replica_rows(state: State, rows: torch.Tensor,
                       n_rows: torch.Tensor) -> State:
     """``join_replicas`` over key rows ``rows[:n_rows]`` only, in place:
-    ``kernels.slot_union.join_tree_rows``, one ``slot_union_rows`` launch
+    ``kernels.replica_tree.join_tree_rows``, one ``slot_union_rows`` launch
     per level. ``_rm_cap`` is carried through untouched (a zero-width
     leaf; nothing indexes it)."""
-    join_tree_rows(ORSET, kernels.slot_union_rows, state, rows, n_rows)
+    join_tree_rows(ORSET.fields, kernels.slot_union_rows, state, rows, n_rows)
     return state
 
 

@@ -45,7 +45,7 @@ from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.kernels.rga_rows import (  # noqa: F401
     FIELDS, KEY_FIELDS, OP_DELETE, OP_INSERT)
 from janus_tpu_torch.kernels.rga_union import RGA
-from janus_tpu_torch.kernels.slot_union import join_tree, join_tree_rows
+from janus_tpu_torch.kernels.replica_tree import join_tree, join_tree_rows
 from janus_tpu_torch.models import base
 from janus_tpu_torch.models.base import gather_index
 from janus_tpu_torch.ops.setops import make_slots
@@ -124,11 +124,11 @@ def merge_with_stats(a: State, b: State):
 
 def join_replicas(state: State) -> State:
     """Set every row of the leading replica axis to the join of all rows,
-    in place: ``kernels.slot_union.join_tree``, the halving tree of
+    in place: ``kernels.replica_tree.join_tree``, the halving tree of
     ``runtime.store.join_all`` with one ``rga_union`` launch per level,
     the last level writing its row into all R rows; ``ctr_floor`` by one
     ``replica_join`` launch. ``_depth`` is carried through untouched."""
-    join_tree(RGA, kernels.rga_union, state)
+    join_tree(RGA.fields, kernels.rga_union, state)
     kernels.replica_join(state["ctr_floor"], None)
     return state
 
@@ -136,10 +136,10 @@ def join_replicas(state: State) -> State:
 def join_replica_rows(state: State, rows: torch.Tensor,
                       n_rows: torch.Tensor) -> State:
     """``join_replicas`` over document rows ``rows[:n_rows]`` only, in
-    place: ``kernels.slot_union.join_tree_rows``, one ``rga_union_rows``
+    place: ``kernels.replica_tree.join_tree_rows``, one ``rga_union_rows``
     launch per level, and ``ctr_floor``'s listed rows by one
     ``replica_join_rows`` launch. ``_depth`` is never indexed."""
-    join_tree_rows(RGA, kernels.rga_union_rows, state, rows, n_rows)
+    join_tree_rows(RGA.fields, kernels.rga_union_rows, state, rows, n_rows)
     kernels.replica_join_rows(state["ctr_floor"], None, rows, n_rows)
     return state
 

@@ -32,7 +32,10 @@ and the type's apply runs through its own kernels: the PN-Counter's
 through ``pnc_apply``; the OR-Set's capture through ``orset_capture`` and
 its applies through ``orset_replay``; the RGA's sequential capture and
 origin apply through ``rga_capture`` and its applies through
-``rga_apply`` (in place). Unlike JAX's pure functions, the board, the
+``rga_apply``; the LWW-Set's through ``lww_capture`` and ``lww_apply``,
+the MVRegister's through ``mvr_capture`` and ``mvr_apply`` (in place; the
+MVRegister's ``wclock`` rides the ring as a ``[W, N, B, num_writers]``
+extra). Unlike JAX's pure functions, the board, the
 state transfer, the delta applies' masks and the GC update the carry's
 tensors in place; ``state_arrays`` copies them out. A type with
 ``compact_fences`` is compacted whenever a round advanced the GC frontier

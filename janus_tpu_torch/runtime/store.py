@@ -22,7 +22,8 @@ import torch
 from janus_tpu_torch import kernels
 from janus_tpu_torch.device import check_device, resolve_device
 from janus_tpu_torch.models import base
-from janus_tpu_torch.models import orset, pncounter, rga  # noqa: F401 (registers)
+from janus_tpu_torch.models import (  # noqa: F401 (registers)
+    lwwset, mvregister, orset, pncounter, rga)
 from janus_tpu_torch.obs.metrics import get_registry
 
 

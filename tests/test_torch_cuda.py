@@ -1217,3 +1217,264 @@ def test_orset_safekv_one_op_blocks_on_card_matches_cpu(cuda_device):
             for d, kv in kvs.items()}
         _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
     assert kvs[cuda_device].stats["compactions"] > 0
+
+
+# -- the LWW-Set and the MVRegister -----------------------------------------
+
+def _lww_rows(rng, shape, c, dev, **kw):
+    return _on(workloads.lww_slots(rng, shape, c, **kw), dev)
+
+
+def _mvr_rows(rng, shape, v, w, dev, **kw):
+    return _on(workloads.mvr_slots(rng, shape, v, w, **kw), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,lead,ca,cb,canonical", [
+    ("orset", (3, 5), 6, 6, False), ("orset", (2, 50), 256, 256, True),
+    ("rga", (3, 5), 6, 6, False), ("rga", (2, 8), 1024, 1024, True)])
+def test_slot_union_layouts_unchanged_by_the_lww_template(cuda_device, layout,
+                                                          lead, ca, cb,
+                                                          canonical):
+    """The OR-Set's and the RGA's instantiations of slot_union.cu, after
+    the key count and the flag became template parameters: the fresh and
+    the in-place (broadcast) forms still bit-equal to their plain
+    versions, overflow included."""
+    rng = np.random.default_rng(ca + len(lead))
+    if layout == "orset":
+        make, fn, plain = _slots, kernels.slot_union, kernels.slot_union_plain
+    else:
+        make, fn, plain = _rga_rows, kernels.rga_union, kernels.rga_union_plain
+    a = make(rng, lead, ca, cuda_device, canonical=canonical, full_rows=0.5)
+    b = make(rng, lead, cb, cuda_device, canonical=canonical, full_rows=0.5)
+    _kernel_vs_plain(fn, plain, (a, b, ca))
+    out = {f: torch.empty((3,) + lead + (ca,), dtype=x.dtype,
+                          device=cuda_device) for f, x in a.items()}
+    mine, ref = _clone(out), _clone(out)
+    _, o1 = fn(a, b, ca, out=mine)
+    _, o2 = plain(a, b, ca, out=ref)
+    torch.cuda.synchronize()
+    _same((mine, o1), (ref, o2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,ca,cb,cap,canonical", [
+    ((3, 5), 6, 6, 6, False), ((7,), 8, 8, 8, True), ((2, 4), 5, 3, 4, False),
+    ((4,), 3, 2, 8, True), ((2, 50), 256, 256, 256, True),
+    ((16, 100), 64, 64, 64, False)])
+def test_lww_union_matches_plain(cuda_device, lead, ca, cb, cap, canonical):
+    """The LWW instantiation of slot_union.cu: one key, four payloads, no
+    flag; duplicate elems within a non-canonical input, equal stamps,
+    negative low words (unsigned order), full rows (overflow), unequal
+    widths, and the in-place form writing into several replicas."""
+    rng = np.random.default_rng(ca * 7 + cb)
+    a = _lww_rows(rng, lead, ca, cuda_device, canonical=canonical,
+                  dup_rows=0.3, full_rows=0.5, num_elems=ca + cb)
+    b = _lww_rows(rng, lead, cb, cuda_device, canonical=canonical,
+                  dup_rows=0.3, full_rows=0.5, num_elems=ca + cb)
+    before = kernels.lww_union.launches
+    out, ovf = _kernel_vs_plain(kernels.lww_union, kernels.lww_union_plain,
+                                (a, b, cap))
+    assert kernels.lww_union.launches == before + 1
+    assert out["valid"].any() and (cap > max(ca, cb) or ovf.any())
+    dst = {f: torch.empty((2,) + lead + (cap,), dtype=x.dtype,
+                          device=cuda_device) for f, x in a.items()}
+    mine, ref = _clone(dst), _clone(dst)
+    _, o1 = kernels.lww_union(a, b, cap, out=mine)
+    _, o2 = kernels.lww_union_plain(a, b, cap, out=ref)
+    torch.cuda.synchronize()
+    _same((mine, o1), (ref, o2))
+
+
+def _rows_cases(rng, k, dev):
+    """Listed rows for a row-list join: all, some (fewer than listed) and
+    none, in random order."""
+    perm = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(dev)
+    return [(perm, torch.tensor(k, dtype=torch.int32, device=dev)),
+            (perm, torch.tensor(k // 3, dtype=torch.int32, device=dev)),
+            (perm, torch.tensor(0, dtype=torch.int32, device=dev))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,r", [("lww", 5), ("lww", 2), ("mvr", 7),
+                                    ("mvr", 2), ("mvr", 64)])
+def test_row_list_trees_match_plain(cuda_device, kind, r):
+    """``join_replica_rows`` of the LWW-Set (lww_union_rows) and the
+    MVRegister (mvr_merge_rows) on the card against the same tree run on
+    the CPU (the plain versions), over all, some and no listed rows, at
+    odd R, R = 2 (one level, in place) and R = 64."""
+    from janus_tpu_torch.models import lwwset, mvregister
+
+    rng = np.random.default_rng(r + len(kind))
+    k = 9
+    if kind == "lww":
+        host = workloads.lww_slots(rng, (r, k), 8, canonical=False,
+                                   dup_rows=0.2, num_elems=12)
+        model = lwwset
+    else:
+        host = workloads.mvr_slots(rng, (r, k), 3, 5)
+        model = mvregister
+    for rows, n in _rows_cases(rng, k, cuda_device):
+        mine = _on(host, cuda_device)
+        ref = _on(host, "cpu")
+        model.join_replica_rows(mine, rows, n)
+        model.join_replica_rows(ref, rows.cpu(), n.cpu())
+        torch.cuda.synchronize()
+        _same(mine, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,r", [("lww", 5), ("lww", 64), ("mvr", 5),
+                                    ("mvr", 64)])
+def test_full_trees_match_plain(cuda_device, kind, r):
+    """``join_replicas`` (the halving tree, the last level broadcast into
+    every replica) on the card against the CPU; the MVRegister's rows hold
+    more concurrent values than V, so the capacity cut decides."""
+    from janus_tpu_torch.models import lwwset, mvregister
+
+    rng = np.random.default_rng(r * 3)
+    if kind == "lww":
+        host = workloads.lww_slots(rng, (r, 11), 16, canonical=False,
+                                   full_rows=0.4, num_elems=40)
+        model = lwwset
+    else:
+        host = workloads.mvr_slots(rng, (r, 11), 4, 6, span=5)
+        model = mvregister
+    mine, ref = _on(host, cuda_device), _on(host, "cpu")
+    model.join_replicas(mine)
+    model.join_replicas(ref)
+    torch.cuda.synchronize()
+    _same(mine, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,k,c,b,mode,hot", [
+    (3, 5, 8, 40, "apply", False), (4, 3, 6, 300, "captured", False),
+    (5, 2, 4, 24, "capture", False), (2, 4, 64, 5000, "apply", True),
+    (2, 4, 64, 5000, "capture", True), (16, 100, 64, 2048, "captured", False)])
+def test_lww_apply_and_capture_match_plain(cuda_device, v, k, c, b, mode,
+                                           hot):
+    """lww_apply (uncaptured, captured) and lww_capture against their plain
+    versions: non-canonical rows with duplicate elems, full rows that
+    drop, keys in [-2K, 2K), every op code, equal stamps and negative low
+    words; ``hot``: most lanes on one row, more than a window of them (the
+    walk's windowed lane order)."""
+    rng = np.random.default_rng(v * b + c)
+    st = _lww_rows(rng, (v, k), c, cuda_device, canonical=False,
+                   dup_rows=0.3, full_rows=0.4, num_elems=2 * c)
+    ops = workloads.lww_mixed_ops(rng, (v, b), k, 2 * c,
+                                  captured=mode == "captured")
+    if hot:
+        ops["key"][:, : 9 * b // 10] = 1
+    dops = _on(ops, cuda_device)
+    if mode == "capture":
+        before = kernels.lww_capture.launches
+        ok, drop = _kernel_vs_plain(kernels.lww_capture,
+                                    kernels.lww_capture_plain, (st, dops))
+        assert kernels.lww_capture.launches == before + 1
+        assert bool((ok == 0).any()) and bool((ok == 1).any())
+    else:
+        before = kernels.lww_apply.launches
+        drop = _kernel_vs_plain(kernels.lww_apply, kernels.lww_apply_plain,
+                                (st, dops))
+        assert kernels.lww_apply.launches == before + 1
+    assert int(drop.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,va,vb,w,canonical", [
+    ((3, 5), 3, 3, 5, True), ((2, 4), 4, 2, 7, False), ((7,), 8, 8, 64, True),
+    ((32, 500), 8, 8, 64, True), ((4, 9), 1, 1, 33, False)])
+def test_mvr_merge_matches_plain(cuda_device, lead, va, vb, w, canonical):
+    """mvr_merge against its plain version: dominated, equal and
+    concurrent clocks, exact twins across and within the inputs, more
+    concurrent values than V (overflow), clocks of W > 32 lanes, and the
+    in-place form writing into several replicas."""
+    rng = np.random.default_rng(va * w + len(lead))
+    a = _mvr_rows(rng, lead, va, w, cuda_device, canonical=canonical)
+    b = _mvr_rows(rng, lead, vb, w, cuda_device, canonical=canonical)
+    before = kernels.mvr_merge.launches
+    out, ovf = _kernel_vs_plain(kernels.mvr_merge, kernels.mvr_merge_plain,
+                                (a, b, va))
+    assert kernels.mvr_merge.launches == before + 1
+    assert out["valid"].any()
+    dst = {f: torch.empty((2,) + tuple(x.shape), dtype=x.dtype,
+                          device=cuda_device) for f, x in a.items()}
+    mine, ref = _clone(dst), _clone(dst)
+    _, o1 = kernels.mvr_merge(a, b, va, out=mine)
+    _, o2 = kernels.mvr_merge_plain(a, b, va, out=ref)
+    torch.cuda.synchronize()
+    _same((mine, o1), (ref, o2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,k,vc,w,b,mode,hot", [
+    (3, 5, 3, 5, 40, "apply", False), (4, 3, 2, 6, 300, "captured", False),
+    (5, 2, 3, 4, 24, "capture", False), (2, 4, 8, 64, 5000, "captured", True),
+    (2, 4, 8, 64, 5000, "capture", True), (64, 50, 8, 64, 256, "capture",
+                                           False)])
+def test_mvr_apply_and_capture_match_plain(cuda_device, v, k, vc, w, b, mode,
+                                           hot):
+    """mvr_apply (captured, uncaptured) and mvr_capture against their
+    plain versions: non-canonical rows, keys in [-2K, 2K), writers in
+    [-2W, 2W) (the two writer rules), wclocks at the int32 extremes (the
+    bump wraps), more concurrent writers than V (drops); ``hot``: most
+    lanes on one row, more than a window of them."""
+    rng = np.random.default_rng(v * b + vc)
+    st = _mvr_rows(rng, (v, k), vc, w, cuda_device, canonical=False)
+    st["clock"][..., 0] = torch.where(st["valid"], INT32_MAX,
+                                      st["clock"][..., 0])
+    ops = workloads.mvr_mixed_ops(rng, (v, b), k, w,
+                                  captured=mode == "captured")
+    if hot:
+        ops["key"][:, : 9 * b // 10] = 1
+    dops = _on(ops, cuda_device)
+    if mode == "capture":
+        before = kernels.mvr_capture.launches
+        _kernel_vs_plain(kernels.mvr_capture, kernels.mvr_capture_plain,
+                         (st, dops))
+        assert kernels.mvr_capture.launches == before + 1
+    else:
+        before = kernels.mvr_apply.launches
+        _kernel_vs_plain(kernels.mvr_apply, kernels.mvr_apply_plain,
+                         (st, dops))
+        assert kernels.mvr_apply.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lww", "mvr"])
+def test_typed_safekv_on_card_matches_cpu(cuda_device, kind):
+    """The LWW-Set and the MVRegister through SafeKV at N=4, W=8: the
+    packed output and every device tensor bit-equal between the card and
+    the CPU, round by round."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import lwwset, mvregister
+    from janus_tpu_torch.runtime import safecrdt
+
+    n, w, k, b = 4, 8, 6, 16
+    if kind == "lww":
+        spec, dims = lwwset.SPEC, dict(num_keys=k, capacity=8)
+    else:
+        spec, dims = mvregister.SPEC, dict(num_keys=k, num_writers=n,
+                                           capacity=2)
+    kvs = {d: safecrdt.SafeKV(DagConfig(n, w), spec, ops_per_block=b,
+                              device=d, **dims)
+           for d in (cuda_device, torch.device("cpu"))}
+    rng = np.random.default_rng(3)
+    for t in range(14):
+        if kind == "lww":
+            ops = workloads.lww_add_remove(rng, n, k, b, t, num_elems=10)
+        else:
+            ops = workloads.mvr_writes(rng, n, k, b, num_values=6)
+        packed = {}
+        for d, kv in kvs.items():
+            packed[d.type], meta = kv.step_dispatch(
+                workloads.ops_to_device(ops, d))
+            kv.step_absorb(packed[d.type], meta)
+        assert torch.equal(packed["cuda"].cpu(), packed["cpu"]), t
+        st = {d.type: convert.tree_to_numpy(
+            {f: getattr(kv, f) for f in safecrdt.DEVICE_FIELDS})
+            for d, kv in kvs.items()}
+        _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
+    assert kvs[cuda_device].stats == kvs[torch.device("cpu")].stats

@@ -22,6 +22,8 @@ MODULES = (
     "janus_tpu_torch.models.pncounter",
     "janus_tpu_torch.models.orset",
     "janus_tpu_torch.models.rga",
+    "janus_tpu_torch.models.lwwset",
+    "janus_tpu_torch.models.mvregister",
     "janus_tpu_torch.kernels",
     "janus_tpu_torch.kernels.build",
     "janus_tpu_torch.kernels.pnc_apply",
@@ -34,6 +36,7 @@ MODULES = (
     "janus_tpu_torch.kernels.leader",
     "janus_tpu_torch.kernels.orset_rows",
     "janus_tpu_torch.kernels.slot_union",
+    "janus_tpu_torch.kernels.replica_tree",
     "janus_tpu_torch.kernels.orset_capture",
     "janus_tpu_torch.kernels.orset_replay",
     "janus_tpu_torch.kernels.orset_apply",
@@ -48,6 +51,12 @@ MODULES = (
     "janus_tpu_torch.kernels.block_select",
     "janus_tpu_torch.kernels.state_transfer",
     "janus_tpu_torch.kernels.gc_frontier",
+    "janus_tpu_torch.kernels.lww_rows",
+    "janus_tpu_torch.kernels.lane_buckets",
+    "janus_tpu_torch.kernels.lww_apply",
+    "janus_tpu_torch.kernels.mvr_rows",
+    "janus_tpu_torch.kernels.mvr_merge",
+    "janus_tpu_torch.kernels.mvr_apply",
     "janus_tpu_torch.obs",
     "janus_tpu_torch.obs.metrics",
     "janus_tpu_torch.obs.stages",
@@ -89,7 +98,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ``device="cpu"`` is the only way onto the CPU."""
     from janus_tpu_torch import resolve_device
     from janus_tpu_torch.consensus import DagConfig
-    from janus_tpu_torch.models import orset, pncounter, rga
+    from janus_tpu_torch.models import lwwset, mvregister, orset, pncounter, rga
     from janus_tpu_torch.runtime import engine, store
     from janus_tpu_torch.runtime.safecrdt import SafeKV
 
@@ -122,6 +131,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         store.replicated_init(rga.SPEC, 2, num_keys=4, capacity=8,
                               max_depth=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lwwset.init(num_keys=4, capacity=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mvregister.init(num_keys=4, num_writers=2, capacity=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        store.Store(2, {"lww": dict(num_keys=4, capacity=4),
+                        "mvr": dict(num_keys=4, num_writers=2, capacity=2)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
