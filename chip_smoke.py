@@ -8,7 +8,7 @@ checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all twenty-three kernel sources in csrc/ compiled with
+2. build      all twenty-five kernel sources in csrc/ compiled with
               nvcc, in parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
@@ -64,7 +64,16 @@ non-zero. Phases, one JSON line each:
               window, the row-list levels (gather, scratch, scatter), the
               main paths' shapes, and every call of the first rounds of
               lww_consensus and mvr_consensus and the first ticks of
-              typed_store
+              typed_store; tp_union, tp_union_rows, edge_union,
+              edge_union_rows, tpset_apply, tpset_capture, graph_apply,
+              graph_capture and edge_mask (phase tp_kernels, run after
+              typed_kernels) on random canonical and non-canonical rows,
+              full rows that drop, hazard ops (keys in [-2K, 2K), op codes
+              from -1 to 5, self-loops, endpoints at INT32_MAX), masks with
+              the sentinel quirk and CV = 0, rows hammered past a walk's
+              lane window, the row-list levels, and every call of the first
+              rounds of tpset_consensus and graph_consensus and the first
+              ticks of tp_store
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
@@ -151,7 +160,26 @@ non-zero. Phases, one JSON line each:
               of 256 slots, MVRegister V=8, W=64): a full arm and a delta
               arm at D=64, 24 ticks; replicas bit-equal and canonical after
               every converge, the delta arm bit-equal to the full arm
-16. timing, the kernels line, the nvidia-smi line, and the result line.
+16. tpset_consensus  SafeKV for the 2P-Set at BASELINE config 2's cluster
+              shape (16 nodes, window 8, 5,120-op blocks) and its 10,000
+              keys of 64 slots, 50/50 add/remove over 64 elements: 24 timed
+              rounds, idle rounds until drained, a record pass; stable views
+              bit-equal, prospective holding the stable records by (key,
+              elem), each remove's ok decided in numpy from the rows its
+              capture read, every (key, elem)'s presence and tombstone equal
+              to a numpy fold of the committed ops with those ok, the live
+              elements after rounds 1, 12 and 24
+17. graph_consensus  SafeKV for the Graph at the same shape (32 vertex and
+              256 edge slots a key, av 30%, ae 40%, re 15%, rv 15%),
+              edge_count of the prospective views after every timed round:
+              the same checks, each gate decided again in numpy, the stable
+              edge_count equal to a numpy dangling-edge filter of the model
+18. tp_store  both types through Store.fused_tick at preset mixed_delta's
+              geometry (R=64, K=500, B=64 per type, 2P-Set rows of 256
+              slots, Graph rows of 32 + 256): a full arm and a delta arm at
+              D=64, 24 ticks; replicas bit-equal and canonical after every
+              converge, the delta arm bit-equal to the full arm
+19. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -388,6 +416,91 @@ TYPED_LIBRARY_NOTES = {
     "mvr_capture": "no single PyTorch call computes it: a per-row "
                    "sequential observed-clock capture and frontier join",
 }
+# the 2P-Set and the 2P2P Graph: the two tombstone layouts of
+# slot_union.cu, the applies and captures, and the dangling-edge filter
+TP_KERNELS = ("tp_union", "tp_union_rows", "edge_union", "edge_union_rows",
+              "tpset_apply", "tpset_capture", "graph_apply", "graph_capture",
+              "edge_mask")
+# the 2P-Set through SafeKV at BASELINE config 2's cluster shape (16
+# nodes, window 8, 5,120-op blocks, a 50/50 add/remove mix) at the
+# config's own 10,000 keys of 64 slots over 64 elements
+# (workloads.tpset_add_remove); `warmup` rounds off the clock, the timed
+# rounds, idle rounds until drained, `profile_rounds` under the profiler;
+# the live elements after the rounds of `live_after`
+TPSET_CONS = dict(nodes=16, window=8, keys=10000, capacity=64,
+                  ops_per_block=5120, elems=64, warmup=2, rounds=24,
+                  min_idle=8, max_idle=64, profile_rounds=2, seed=24,
+                  live_after=(1, 12, 24))
+# the Graph at the same cluster shape: 32 vertex slots over 32 ids, 256
+# edge slots over the 256 edges workloads.graph_ops draws (src -> src + 1 +
+# j mod 32, j < 8); edge_count of the prospective views after every timed
+# round
+GRAPH_CONS = dict(nodes=16, window=8, keys=10000, v_capacity=32,
+                  e_capacity=256, ops_per_block=5120, vertices=32,
+                  out_degree=8, warmup=2, rounds=24, min_idle=8, max_idle=64,
+                  profile_rounds=2, seed=25, live_after=(1, 12, 24))
+# both types through Store.fused_tick at preset mixed_delta's geometry
+# (harness.py:1983-1988): R replicas, K keys, B ops per type per replica
+# per tick, Zipf keys in a hot window of budget/2 keys; 2P-Set rows of 256
+# slots, Graph rows of 32 vertex and 256 edge slots; a full arm and a delta
+# arm at the budget
+TP_STORE = dict(R=64, K=500, tp_capacity=256, v_capacity=32, e_capacity=256,
+                B=64, budget=64, ticks=24, seed=26, elems=64, vertices=32,
+                out_degree=8)
+# the 2P wrappers' random checks: unions (edges, lead, Ca, Cb, canonical);
+# row-list levels (layout, pairs, K, C); 2P-Set applies (V, K, C, B, mode,
+# keys) and Graph applies (V, K, CV, CE, ids, B, mode, keys), keys
+# "hazard" in [-2K, 2K), "hot" so and then 90% of the lanes on row 1 (past
+# a walk's window; the plain walk takes one wave a lane there), or "flat"
+# in range (the full-width cases, which the hazards' clamped rows would
+# turn into thousands of plain waves); masks
+# (lead, CV, CE, ids, share of endpoints at INT32_MAX); recorded: the
+# consensus phases' first rounds and tp_store's first ticks
+TP_CHECKS = dict(
+    unions=((False, (3, 5), 6, 6, False), (False, (7,), 8, 8, True),
+            (False, (2, 4), 5, 3, False), (False, (16, 1000), 64, 64, False),
+            (False, (32, 500), 256, 256, True), (True, (3, 5), 6, 6, False),
+            (True, (4,), 3, 2, True), (True, (16, 200), 32, 32, False),
+            (True, (32, 500), 256, 256, True)),
+    row_levels=(("tp", 2, 40, 16), ("tp", 5, 40, 64), ("edge", 2, 40, 16),
+                ("edge", 5, 40, 256)),
+    tp_applies=((3, 5, 8, 40, "apply", "hazard"),
+                (4, 3, 6, 300, "captured", "hazard"),
+                (5, 2, 4, 24, "capture", "hazard"),
+                (2, 4, 64, 2300, "capture", "hot"),
+                (16, 1000, 64, 5120, "capture", "flat"),
+                (16, 1000, 64, 20480, "captured", "flat")),
+    graph_applies=((3, 5, 6, 10, 5, 48, "apply", "hazard"),
+                   (4, 3, 6, 10, 8, 300, "captured", "hazard"),
+                   (5, 2, 4, 6, 5, 24, "capture", "hazard"),
+                   (2, 4, 32, 256, 32, 2300, "capture", "hot"),
+                   (16, 500, 32, 256, 32, 5120, "capture", "flat"),
+                   (16, 500, 32, 256, 32, 20480, "captured", "flat")),
+    masks=(((3, 5), 6, 10, 5, 0.0), ((8, 16), 6, 10, 5, 0.2),
+           ((7,), 1, 3, 2, 0.3), ((4, 3), 0, 5, 2, 0.0),
+           ((16, 500), 32, 256, 32, 0.01)),
+    rounds=3, ticks=2)
+TP_LIBRARY_NOTES = {
+    "tp_union": "no single PyTorch call computes it: an elem-keyed union "
+                "with a tombstone OR and a capacity cut",
+    "tp_union_rows": "no single PyTorch call computes it: an elem-keyed "
+                     "union with a tombstone OR over listed rows",
+    "edge_union": "no single PyTorch call computes it: a (src, dst)-keyed "
+                  "union with a tombstone OR and a capacity cut",
+    "edge_union_rows": "no single PyTorch call computes it: a (src, "
+                       "dst)-keyed union over listed rows",
+    "tpset_apply": "no single PyTorch call computes it: a per-row "
+                   "sequential upsert gated on presence",
+    "tpset_capture": "no single PyTorch call computes it: a per-row "
+                     "sequential upsert recording each remove's presence",
+    "graph_apply": "no single PyTorch call computes it: a per-row "
+                   "sequential two-block upsert behind three gates",
+    "graph_capture": "no single PyTorch call computes it: a per-row "
+                     "sequential gated upsert recording each gate",
+    "edge_mask": "torch.isin of both endpoints' packed int64 (row, vertex) "
+                 "keys in the live vertices' (packing and the AND with the "
+                 "live-edge mask not timed)",
+}
 # the port's run_tensor at these harness presets, uncut unless a preset's
 # ticks are cut here (none is)
 HARNESS = dict(presets=("pnc", "orset", "mixed"), cut_ticks={},
@@ -398,7 +511,11 @@ SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union",
            "rga_union": "slot_union", "rga_union_rows": "slot_union",
            "rga_capture": "rga_apply", "lww_union": "slot_union",
            "lww_union_rows": "slot_union", "lww_capture": "lww_apply",
-           "mvr_merge_rows": "mvr_merge", "mvr_capture": "mvr_apply"}
+           "mvr_merge_rows": "mvr_merge", "mvr_capture": "mvr_apply",
+           "tp_union": "slot_union", "tp_union_rows": "slot_union",
+           "edge_union": "slot_union", "edge_union_rows": "slot_union",
+           "tpset_apply": "graph_apply", "tpset_capture": "graph_apply",
+           "graph_capture": "graph_apply"}
 # the TPU-era functions each hand kernel replaces
 REPLACES = {
     "pnc_apply": "janus_tpu/models/pncounter.py:36",
@@ -434,6 +551,15 @@ REPLACES = {
     "mvr_merge_rows": "janus_tpu/runtime/store.py:114",
     "mvr_apply": "janus_tpu/models/mvregister.py:100",
     "mvr_capture": "janus_tpu/models/mvregister.py:49",
+    "tp_union": "janus_tpu/models/tpset.py:112",
+    "tp_union_rows": "janus_tpu/runtime/store.py:114",
+    "edge_union": "janus_tpu/models/graph.py:184",
+    "edge_union_rows": "janus_tpu/runtime/store.py:114",
+    "tpset_apply": "janus_tpu/models/tpset.py:75",
+    "tpset_capture": "janus_tpu/models/tpset.py:43",
+    "graph_apply": "janus_tpu/models/graph.py:109",
+    "graph_capture": "janus_tpu/models/graph.py:76",
+    "edge_mask": "janus_tpu/models/graph.py:209",
 }
 
 
@@ -3587,6 +3713,100 @@ def mvr_fold_model(writes, K, V, W):
     return out_val, out_valid, out_clock, drops
 
 
+def consensus_rounds(kernels, kv, batches, idle, g, kind, expect,
+                     per_round=None):
+    """The timed part of a consensus phase on ``kv``: ``g["warmup"]``
+    rounds off the clock, the timed rounds (``per_round(r)`` after timed
+    round r, from 1, when given; it must not read the device back), idle
+    rounds until every view's stable state is bit-equal (between
+    ``min_idle`` and ``max_idle``). Checks every batch accepted, the
+    drain, and each wrapper's launches against ``expect(stepped)``
+    (``{name: count}`` for the ``stepped`` rounds counted, idle ones
+    included) beside ``ROUND_LAUNCHES``. Returns a dict of the timed
+    seconds, committed blocks, the commit lags, the idle rounds, the
+    launches and the stats before the clock started."""
+    total = g["warmup"] + g["rounds"]
+    for t in range(g["warmup"]):
+        info = kv.step(batches[t])
+        check(info["accepted"].all(), f"{kind}_consensus: warm-up round "
+              f"{t} rejected")
+    torch.cuda.synchronize()
+    stats0 = dict(kv.stats)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(g["warmup"], total):
+        info = kv.step(batches[t])
+        check(info["accepted"].all(), f"{kind}_consensus: round {t} "
+              f"rejected")
+        if per_round is not None:
+            per_round(t - g["warmup"] + 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    committed = kv.stats["own_commits"] - stats0["own_commits"]
+    lag = kv.commit_latencies()
+
+    def drained():
+        return all(torch.equal(x, x[:1].expand_as(x))
+                   for x in kv.stable.values())
+
+    idle_rounds = 0
+    while idle_rounds < g["max_idle"]:
+        if idle_rounds >= g["min_idle"] and drained():
+            break
+        kv.step(idle, record=False)
+        idle_rounds += 1
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    stepped = g["rounds"] + idle_rounds
+    check(drained(), f"{kind}_consensus: stable views differ after "
+          f"{idle_rounds} idle rounds")
+    want = {**{name: per * stepped for name, per in ROUND_LAUNCHES.items()},
+            **expect(stepped)}
+    for name, want_n in want.items():
+        check(launches[name] == want_n, f"{kind}_consensus: {name} launched "
+              f"{launches[name]} times in {stepped} rounds, expected {want_n}")
+    return dict(dt=dt, committed=committed, lag=lag, idle_rounds=idle_rounds,
+                launches=launches, stats0=stats0)
+
+
+def consensus_emit(kind, kv, g, extra, run, step=None, **out):
+    """Profile ``extra`` rounds of ``kv`` (``step(kv, ops)``, by default
+    ``kv.step``) and emit the phase's line from ``run``
+    (``consensus_rounds``' result) and ``out``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = step or (lambda kv, ops: kv.step(ops))
+    n, w, b, k = (g[x] for x in ("nodes", "window", "ops_per_block", "keys"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ops in extra:
+            step(kv, ops)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    state_mb = sum(x.numel() * x.element_size()
+                   for st in (kv.prospective, kv.stable)
+                   for x in st.values()) / 1e6
+    dt, lag = run["dt"], run["lag"]
+    emit(f"{kind}_consensus", nodes=n, window=w, ops_per_block=b, keys=k,
+         apply_budget=kv.apply_budget, warmup_rounds=g["warmup"],
+         rounds=g["rounds"], idle_rounds_to_drain=run["idle_rounds"],
+         seconds=dt, ms_per_round=1e3 * dt / g["rounds"],
+         ops_per_s=g["rounds"] * n * b / dt,
+         committed_ops_per_s=run["committed"] * b / dt,
+         commit_lag_ticks_p50=float(np.percentile(lag, 50)),
+         commit_lag_ticks_p99=float(np.percentile(lag, 99)),
+         profiled_rounds=len(extra),
+         cuda_kernels_per_round=len(dev_events) / len(extra),
+         profiled_device_us_per_round=sum(
+             e.time_range.elapsed_us() for e in dev_events) / len(extra),
+         device_us_per_round_by_kernel=dict(list(device_us_by_kernel(
+             dev_events, len(extra)).items())[:12]),
+         slots_dropped=kv.stats["slots_dropped"]
+         - run["stats0"]["slots_dropped"],
+         state_mb=state_mb, launches=run["launches"], stats=kv.stats, **out)
+
+
 def typed_consensus(dev, kernels, workloads, kind):
     """The LWW-Set (``kind`` "lww", LWW_CONS) or the MVRegister ("mvr",
     MVR_CONS) through SafeKV on the card: warm-up rounds, the timed
@@ -3608,51 +3828,19 @@ def typed_consensus(dev, kernels, workloads, kind):
     from janus_tpu_torch.kernels.lww_rows import canonical_row
 
     g = LWW_CONS if kind == "lww" else MVR_CONS
-    n, w, b, k, c = (g[x] for x in ("nodes", "window", "ops_per_block",
-                                    "keys", "capacity"))
+    n, b, k, c = (g[x] for x in ("nodes", "ops_per_block", "keys",
+                                 "capacity"))
     total = g["warmup"] + g["rounds"]
     stream = typed_stream(workloads, kind, g, total + g["profile_rounds"])
     batches = [workloads.ops_to_device(o, dev) for o in stream]
     idle = workloads.ops_to_device(
         {f: np.zeros((n, b), np.int32) for f in stream[0]}, dev)
     kv = typed_kv(dev, kind, g)
-    for t in range(g["warmup"]):
-        info = kv.step(batches[t])
-        check(info["accepted"].all(), f"{kind}_consensus: warm-up round "
-              f"{t} rejected")
-    torch.cuda.synchronize()
-    stats0 = dict(kv.stats)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    for t in range(g["warmup"], total):
-        info = kv.step(batches[t])
-        check(info["accepted"].all(), f"{kind}_consensus: round {t} "
-              f"rejected")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    committed = kv.stats["own_commits"] - stats0["own_commits"]
-    lag = kv.commit_latencies()
-
-    def drained():
-        return all(torch.equal(x, x[:1].expand_as(x))
-                   for x in kv.stable.values())
-
-    idle_rounds = 0
-    while idle_rounds < g["max_idle"]:
-        if idle_rounds >= g["min_idle"] and drained():
-            break
-        kv.step(idle, record=False)
-        idle_rounds += 1
-    torch.cuda.synchronize()
-    launches = kernels.launches()
-    stepped = g["rounds"] + idle_rounds
-    check(drained(), f"{kind}_consensus: stable views differ after "
-          f"{idle_rounds} idle rounds")
-    expect = {f"{kind}_capture": stepped, f"{kind}_apply": 2 * stepped,
-              **{name: per * stepped for name, per in ROUND_LAUNCHES.items()}}
-    for name, want_n in expect.items():
-        check(launches[name] == want_n, f"{kind}_consensus: {name} launched "
-              f"{launches[name]} times in {stepped} rounds, expected {want_n}")
+    run = consensus_rounds(
+        kernels, kv, batches, idle, g, kind,
+        lambda stepped: {f"{kind}_capture": stepped,
+                         f"{kind}_apply": 2 * stepped})
+    idle_rounds, stepped = run["idle_rounds"], g["rounds"] + run["idle_rounds"]
 
     # the record pass: what the numpy models need, taken just before each
     # call: the LWW-Set's capture inputs (the gate decided at once), the
@@ -3758,38 +3946,8 @@ def typed_consensus(dev, kernels, workloads, kind):
                    key_clock_max=int(mvregister.key_clock(
                        kv.stable)[0].max()))
     out["record_pass_seconds"] = time.perf_counter() - t_rec
-
-    # device work per round, by the profiler
-    from torch.profiler import ProfilerActivity, profile
-    extra = batches[total:]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for ops in extra:
-            kv.step(ops)
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    state_mb = sum(x.numel() * x.element_size()
-                   for st in (kv.prospective, kv.stable)
-                   for x in st.values()) / 1e6
-    emit(f"{kind}_consensus", nodes=n, window=w, ops_per_block=b, keys=k,
-         capacity=c, apply_budget=kv.apply_budget,
-         warmup_rounds=g["warmup"], rounds=g["rounds"],
-         idle_rounds_to_drain=idle_rounds, seconds=dt,
-         ms_per_round=1e3 * dt / g["rounds"],
-         ops_per_s=g["rounds"] * n * b / dt,
-         committed_ops_per_s=committed * b / dt,
-         commit_lag_ticks_p50=float(np.percentile(lag, 50)),
-         commit_lag_ticks_p99=float(np.percentile(lag, 99)),
-         profiled_rounds=len(extra),
-         cuda_kernels_per_round=len(dev_events) / len(extra),
-         profiled_device_us_per_round=sum(
-             e.time_range.elapsed_us() for e in dev_events) / len(extra),
-         device_us_per_round_by_kernel=dict(list(device_us_by_kernel(
-             dev_events, len(extra)).items())[:12]),
-         slots_dropped=kv.stats["slots_dropped"] - stats0["slots_dropped"],
-         state_mb=state_mb, launches=launches, stats=kv.stats, **out)
-    return launches
+    consensus_emit(kind, kv, g, batches[total:], run, capacity=c, **out)
+    return run["launches"]
 
 
 def lww_consensus(dev, kernels, workloads):
@@ -3800,26 +3958,17 @@ def mvr_consensus(dev, kernels, workloads):
     return typed_consensus(dev, kernels, workloads, "mvr")
 
 
-def typed_store(dev, kernels, workloads):
-    """Both types through ``Store.fused_tick`` at harness preset
-    mixed_delta's geometry (TYPED_STORE): a full arm (``join_replicas``
-    every tick) and a delta arm at D (``converge_delta`` through the
-    row-list trees), the same pre-generated streams, 24 timed ticks after
-    one warm-up tick, the arms in turns. After every tick: every leaf's
-    replica rows bit-equal, the rows canonical (an LWW row sorted by elem,
-    an MVRegister row its own causal frontier), and the delta arm bit-equal
-    to the full arm (the invariant ``converge_delta`` claims)."""
-    from janus_tpu_torch.kernels.lww_rows import canonical_row
-    from janus_tpu_torch.kernels.mvr_rows import frontier
-    from janus_tpu_torch.models import lwwset
-
-    g = TYPED_STORE
-    R, K, B, D, ticks = (g[x] for x in ("R", "K", "B", "budget", "ticks"))
-    host = typed_store_stream(workloads, ticks + 1)
-    batches = [{tc: workloads.ops_to_device(o, dev) for tc, o in h.items()}
-               for h in host]
-    arms = typed_store_arms(dev)
-    for st, use_delta in arms.values():  # warm-up tick, off the clock
+def store_arms(kernels, phase, arms, batches, ticks, rows_ok, want, R, B):
+    """The timed part of a two-type store phase: one warm-up tick
+    (``batches[0]``) off the clock, then ``ticks`` ticks with the arms
+    (``{name: (Store, delta)}``, a "full" arm among them) in turns. After
+    every tick: every leaf's replica rows bit-equal and equal to the full
+    arm's, and ``rows_ok(full_store, tick)`` (the type's canonical-row
+    checks). Then each arm's launches per tick are checked against
+    ``want[name]``, no delta arm may have overflowed, and three more ticks
+    of each arm are profiled. Returns ``(launches, the full arm's Store,
+    {arm: its numbers})``."""
+    for st, use_delta in arms.values():
         st.fused_tick(batches[0], delta=use_delta)
         st.flush_metrics()
     torch.cuda.synchronize()
@@ -3842,11 +3991,66 @@ def typed_store(dev, kernels, workloads):
             for tc, state in st.states.items():
                 for f, x in state.items():
                     check(torch.equal(x, x[:1].expand_as(x)),
-                          f"typed_store {name}: replica rows of {tc}.{f} "
+                          f"{phase} {name}: replica rows of {tc}.{f} "
                           f"differ after tick {t}")
                     check(torch.equal(x, full.states[tc][f]),
-                          f"typed_store {name}: {tc}.{f} differs from the "
+                          f"{phase} {name}: {tc}.{f} differs from the "
                           f"full arm after tick {t}")
+        rows_ok(full, t)
+    launches = kernels.launches()
+    overflows = {name: {tc: int(st._fused_acc.get(f"overflow_{tc}", 0))
+                        for tc in st.states}
+                 for name, (st, _) in arms.items()}
+    fracs = {name: st.flush_metrics() for name, (st, _) in arms.items()}
+    per_tick = {name: {kk: v / ticks for kk, v in counted.items() if v}
+                for name, counted in grew.items()}
+    for name in arms:
+        check(per_tick[name] == want[name], f"{phase} {name}: launches "
+              f"per tick {per_tick[name]}, expected {want[name]}")
+    check(all(x == 0 for name, (_, delta) in arms.items() if delta
+              for x in overflows[name].values()),
+          f"{phase}: delta overflows {overflows}")
+    out = {}
+    for name, (st, use_delta) in arms.items():
+        more = iter(batches[1:4])
+        seen, dev_ms = device_profile(
+            lambda st=st, use_delta=use_delta: st.fused_tick(next(more),
+                                                             delta=use_delta),
+            reps=3)
+        ms = tick_ms[name]
+        out[name] = dict(cuda_kernels_per_tick=seen / 3,
+                         device_ms_per_tick=dev_ms / 3,
+                         ms_per_tick=sum(ms) / ticks, ms_per_tick_min=min(ms),
+                         ms_per_tick_max=max(ms),
+                         converged_ops_per_s=R * B * 2 * ticks
+                         / (sum(ms) / 1e3),
+                         dirty_fraction=fracs[name],
+                         overflows=overflows[name],
+                         launches_per_tick=per_tick[name])
+    return launches, full, out
+
+
+def typed_store(dev, kernels, workloads):
+    """Both types through ``Store.fused_tick`` at harness preset
+    mixed_delta's geometry (TYPED_STORE): a full arm (``join_replicas``
+    every tick) and a delta arm at D (``converge_delta`` through the
+    row-list trees), the same pre-generated streams, 24 timed ticks after
+    one warm-up tick, the arms in turns (``store_arms``). After every tick:
+    every leaf's replica rows bit-equal, the rows canonical (an LWW row
+    sorted by elem, an MVRegister row its own causal frontier), and the
+    delta arm bit-equal to the full arm (the invariant ``converge_delta``
+    claims)."""
+    from janus_tpu_torch.kernels.lww_rows import canonical_row
+    from janus_tpu_torch.kernels.mvr_rows import frontier
+    from janus_tpu_torch.models import lwwset
+
+    g = TYPED_STORE
+    R, K, B, D, ticks = (g[x] for x in ("R", "K", "B", "budget", "ticks"))
+    host = typed_store_stream(workloads, ticks + 1)
+    batches = [{tc: workloads.ops_to_device(o, dev) for tc, o in h.items()}
+               for h in host]
+
+    def rows_ok(full, t):
         lww0 = {f: full.states["lww"][f][0] for f in lwwset.FIELDS}
         canon = canonical_row(lww0)
         check(all(torch.equal(canon[f], lww0[f]) for f in canon),
@@ -3858,45 +4062,21 @@ def typed_store(dev, kernels, workloads):
         check(all(torch.equal(again[f], mvr0[f]) for f in mvr0),
               f"typed_store: an MVRegister row is not its frontier after "
               f"tick {t}")
-    launches = kernels.launches()
-    overflows = {name: {tc: int(st._fused_acc.get(f"overflow_{tc}", 0))
-                        for tc in ("lww", "mvr")}
-                 for name, (st, _) in arms.items()}
-    fracs = {name: st.flush_metrics() for name, (st, _) in arms.items()}
+
     levels = int(np.ceil(np.log2(R)))
-    per_tick = {name: {kk: v / ticks for kk, v in counted.items() if v}
-                for name, counted in grew.items()}
     want = {"full": {"lww_apply": 1, "mvr_apply": 1, "lww_union": levels,
                      "mvr_merge": levels},
             f"delta_D{D}": {"lww_apply": 1, "mvr_apply": 1, "dirty_rows": 2,
                             "delta_select": 2, "lww_union_rows": levels,
                             "mvr_merge_rows": levels}}
-    for name in arms:
-        check(per_tick[name] == want[name], f"typed_store {name}: launches "
-              f"per tick {per_tick[name]}, expected {want[name]}")
-    check(all(x == 0 for x in overflows[f"delta_D{D}"].values()),
-          f"typed_store: overflows at D={D}: {overflows}")
-    profiled = {}
-    for name, (st, use_delta) in arms.items():
-        more = iter(batches[1:4])
-        seen, dev_ms = device_profile(
-            lambda st=st, use_delta=use_delta: st.fused_tick(next(more),
-                                                             delta=use_delta),
-            reps=3)
-        profiled[name] = {"cuda_kernels_per_tick": seen / 3,
-                          "device_ms_per_tick": dev_ms / 3}
+    launches, full, arm_out = store_arms(
+        kernels, "typed_store", typed_store_arms(dev), batches, ticks,
+        rows_ok, want, R, B)
     state_mb = {tc: sum(x.numel() * x.element_size()
                         for x in full.states[tc].values()) / 1e6
                 for tc in ("lww", "mvr")}
     mvr_full = int((full.states["mvr"]["valid"][0].sum(-1)
                     == g["mvr_capacity"]).sum())
-    arm_out = {name: dict(**profiled[name], ms_per_tick=sum(ms) / ticks,
-                          ms_per_tick_min=min(ms), ms_per_tick_max=max(ms),
-                          converged_ops_per_s=R * B * 2 * ticks / (sum(ms) / 1e3),
-                          dirty_fraction=fracs[name],
-                          overflows=overflows[name],
-                          launches_per_tick=per_tick[name])
-               for name, ms in tick_ms.items()}
     emit("typed_store", replicas=R, keys=K, lww_capacity=g["lww_capacity"],
          mvr_capacity=g["mvr_capacity"], writers=R,
          ops_per_replica_per_type=B, hot_window=D // 2, ticks=ticks,
@@ -3923,6 +4103,42 @@ def rows_touched(state_valid, ops, codes):
     return read, written
 
 
+def union_level_row(kernels, name, call, per, ops, phase):
+    """A kernels-line row of a union (or merge) wrapper on one recorded
+    level of a store phase's converge tree: ``call`` is its (args, kwargs),
+    the full mode's ``(a, b, cap)`` or the row-list mode's ``(a, b, out,
+    rows, n_rows)``. Bytes: each input slot read once and each output slot
+    written once, ``per`` bytes a slot (and the listed rows); operations:
+    ``ops(slots in, rows joined)``."""
+    args, kw = call
+    if len(args) == 3:
+        a, b, cap = args
+        out = kw.get("out")
+        rep = 1 if out is None else out["valid"].shape[0]
+        nrows = a["valid"][..., 0].numel()
+        ca, cb = a["valid"].shape[-1], b["valid"].shape[-1]
+        return dict(
+            name=name, call=lambda: kernels.WRAPPERS[name](*args, **kw),
+            plain=lambda: plain_of(kernels, name)(*args, **kw), library=None,
+            shape=f"a {phase} converge level: {nrows} rows of {ca} + {cb} "
+            f"slots into {rep} replica(s)",
+            bytes=per * nrows * (ca + cb + rep * cap),
+            operations=ops(ca + cb, nrows))
+    a, b, out, _, n_rows = args
+    m = int(n_rows)
+    p, _, c = a["valid"].shape
+    scatter = kw.get("scatter", False)
+    rep = out["valid"].shape[0] if scatter else 1
+    return dict(
+        name=name, call=lambda: kernels.WRAPPERS[name](*args, **kw),
+        plain=lambda: plain_of(kernels, name)(*args, **kw), library=None,
+        shape=f"a {phase} delta level: {m} listed rows x {p} pair(s) of "
+        f"{c} slots, into {rep} replica(s)",
+        rows_joined=m * p,
+        bytes=per * m * p * c * 2 + per * m * c * (p if not scatter else rep)
+        + 4 * m + 4, operations=ops(2 * c, m * p))
+
+
 def typed_kernel_rows(kernels, calls):
     """Rows of the kernels line for the eight LWW-Set and MVRegister
     wrappers, each on a recorded main-path call (typed_kernel_checks): the
@@ -3940,47 +4156,15 @@ def typed_kernel_rows(kernels, calls):
     Vb)^2 W per row. The applies' plain versions (thousands of small
     launches a call) are timed, not profiled."""
     rows = []
-    for name in ("lww_union", "mvr_merge"):
-        (a, b, cap), kw = calls[name]
-        out = kw.get("out")
-        rep = 1 if out is None else out["valid"].shape[0]
-        nrows = a["valid"][..., 0].numel()
-        va, vb = a["valid"].shape[-1], b["valid"].shape[-1]
-        if name == "lww_union":
-            per, ops = 21, (va + vb) * nrows
+    for name in ("lww_union", "mvr_merge", "lww_union_rows",
+                 "mvr_merge_rows"):
+        if name.startswith("lww"):
+            per, ops = 21, (lambda n, r: n * r)
         else:
-            wl = a["clock"].shape[-1]
-            per, ops = 5 + 4 * wl, 2 * (va + vb) ** 2 * wl * nrows
-        rows.append(dict(
-            name=name, call=lambda n=name, a=a, b=b, c=cap, kw=kw:
-                kernels.WRAPPERS[n](a, b, c, **kw),
-            plain=lambda n=name, a=a, b=b, c=cap, kw=kw:
-                plain_of(kernels, n)(a, b, c, **kw),
-            library=None, shape=f"a typed_store converge level: {nrows} rows "
-            f"of {va} + {vb} slots into {rep} replica(s)",
-            bytes=per * nrows * (va + vb + rep * cap), operations=ops))
-    for name in ("lww_union_rows", "mvr_merge_rows"):
-        (a, b, out, rws, n_rows), kw = calls[name]
-        m = int(n_rows)
-        p, _, c = a["valid"].shape
-        scatter = kw.get("scatter", False)
-        rep = out["valid"].shape[0] if scatter else 1
-        if name == "lww_union_rows":
-            per, ops = 21, 2 * c * m * p
-        else:
-            wl = a["clock"].shape[-1]
-            per, ops = 5 + 4 * wl, 2 * (2 * c) ** 2 * wl * m * p
-        rows.append(dict(
-            name=name, call=lambda n=name, args=(a, b, out, rws, n_rows), kw=kw:
-                kernels.WRAPPERS[n](*args, **kw),
-            plain=lambda n=name, args=(a, b, out, rws, n_rows), kw=kw:
-                plain_of(kernels, n)(*args, **kw),
-            library=None, shape=f"a typed_store delta level: {m} listed rows "
-            f"x {p} pair(s) of {c} slots, into {rep} replica(s)",
-            rows_joined=m * p,
-            bytes=per * m * p * c * 2 + per * m * c * (p if not scatter
-                                                       else rep) + 4 * m + 4,
-            operations=ops))
+            wl = calls[name][0][0]["clock"].shape[-1]
+            per, ops = 5 + 4 * wl, (lambda n, r, wl=wl: 2 * n * n * wl * r)
+        rows.append(union_level_row(kernels, name, calls[name], per, ops,
+                                    "typed_store"))
     for name, codes in (("lww_apply", (1, 2)), ("lww_capture", (1, 2)),
                         ("mvr_apply", (1,)), ("mvr_capture", (1,))):
         (state, ops), kw = calls[name]
@@ -4024,6 +4208,735 @@ def typed_kernel_rows(kernels, calls):
             operations=n_ops, profile_plain=False))
     for row in rows:
         row["library_note"] = TYPED_LIBRARY_NOTES[row["name"]]
+    return rows
+
+
+# -- the 2P-Set and the 2P2P Graph -------------------------------------------
+
+def tp_kv(dev, kind, g):
+    """A SafeKV for the 2P-Set (``kind`` "tpset", TPSET_CONS) or the Graph
+    ("graph", GRAPH_CONS)."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import graph, tpset
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+
+    n, w, b, k = (g[x] for x in ("nodes", "window", "ops_per_block", "keys"))
+    if kind == "tpset":
+        return SafeKV(DagConfig(n, w), tpset.SPEC, ops_per_block=b,
+                      device=dev, num_keys=k, capacity=g["capacity"])
+    return SafeKV(DagConfig(n, w), graph.SPEC, ops_per_block=b, device=dev,
+                  num_keys=k, v_capacity=g["v_capacity"],
+                  e_capacity=g["e_capacity"])
+
+
+def tp_stream(workloads, kind, g, rounds):
+    """The phase's op batches (int32 numpy ``[N, B]``) of ``rounds``
+    rounds, drawn from its seed."""
+    rng = np.random.default_rng(g["seed"])
+    n, b, k = g["nodes"], g["ops_per_block"], g["keys"]
+    if kind == "tpset":
+        return [workloads.tpset_add_remove(rng, n, k, b, num_elems=g["elems"])
+                for _ in range(rounds)]
+    return [workloads.graph_ops(rng, n, k, b, num_vertices=g["vertices"],
+                                out_degree=g["out_degree"])
+            for _ in range(rounds)]
+
+
+def tp_store_stream(workloads, ticks):
+    """TP_STORE's op batches: per tick ``{"tpset": ..., "graph": ...}``
+    int32 numpy ``[R, B]``, keys Zipf-skewed in a hot window of D/2 keys
+    rotating every tick (harness preset mixed_delta's traffic shape)."""
+    g = TP_STORE
+    R, K, B, hot = g["R"], g["K"], g["B"], g["budget"] // 2
+    rng = np.random.default_rng(g["seed"])
+    return [{"tpset": workloads.tpset_add_remove(
+                 rng, R, K, B, num_elems=g["elems"], hot=hot, tick=t),
+             "graph": workloads.graph_ops(
+                 rng, R, K, B, num_vertices=g["vertices"],
+                 out_degree=g["out_degree"], hot=hot, tick=t)}
+            for t in range(ticks)]
+
+
+def tp_store_arms(dev):
+    """The phase's two Stores: a full arm and a delta arm at D."""
+    from janus_tpu_torch.runtime.store import Store
+
+    g = TP_STORE
+    types = {"tpset": dict(num_keys=g["K"], capacity=g["tp_capacity"]),
+             "graph": dict(num_keys=g["K"], v_capacity=g["v_capacity"],
+                           e_capacity=g["e_capacity"])}
+    return {"full": (Store(g["R"], types, device=dev), False),
+            f"delta_D{g['budget']}": (Store(g["R"], types,
+                                            dirty_budget=g["budget"],
+                                            device=dev), True)}
+
+
+def tp_kernel_checks(dev, kernels, workloads, cases):
+    """The nine 2P-Set and Graph wrappers against their plain versions on
+    the card, bit-equal, in-place updates, drop and overflow counts
+    included: (a) random inputs: canonical and non-canonical rows (a key
+    twice in a row, one copy tombstoned), full rows that drop, hazard ops
+    (keys in [-2K, 2K), op codes from -1 to 5, self-loops, endpoints at
+    INT32_MAX), rows hammered by more lanes than a walk's window, the
+    trees' row-list levels (gather, scratch, scatter), masks with the
+    sentinel quirk, CV = 0, and the main paths' widths; (b) every call of
+    the first rounds of tpset_consensus and graph_consensus (edge_count of
+    the prospective views after each) and of the first ticks of both
+    tp_store arms, repeated here with their seeds. Returns, per wrapper,
+    one recorded main-path call to time: an apply's with the most live
+    lanes, edge_mask's with the most live edges, a union's on the most
+    slots (the 2P-Set's tree, where the Graph's vertex tree has the same
+    wrapper)."""
+    t_start = time.perf_counter()
+    log = CaseLog(TP_KERNELS)
+    rng = np.random.default_rng(43)
+    cover = {"overflow": 0, "tp_drops": 0, "graph_drops": 0, "ok_zero": 0,
+             "hot_lanes": 0, "quirk_edges": 0}
+    section_s = {}
+
+    def lap(name):
+        torch.cuda.synchronize()
+        section_s[name] = time.perf_counter() - t_start - sum(
+            section_s.values())
+
+    def on(tree):
+        return {f: torch.as_tensor(np.asarray(x), device=dev)
+                for f, x in tree.items()}
+
+    # (a) random inputs
+    for edges, lead, ca, cb, canonical in TP_CHECKS["unions"]:
+        kw = dict(canonical=canonical, dup_rows=0.3, full_rows=0.5,
+                  edges=edges)
+        a = on(workloads.tp_slots(rng, lead, ca, **kw))
+        b = on(workloads.tp_slots(rng, lead, cb, **kw))
+        name = "edge_union" if edges else "tp_union"
+        what = f"{'x'.join(map(str, lead))} C{ca}+{cb}"
+        _, ovf = log.add(kernels, name, (a, b, ca), what)
+        cover["overflow"] += int(ovf.sum())
+        out = {f: torch.empty((2,) + lead + (ca,), dtype=x.dtype, device=dev)
+               for f, x in a.items()}
+        log.add(kernels, name, (a, b, ca), what + " into 2 replicas",
+                {"out": out})
+    lap("unions")
+    for layout, p, k, c in TP_CHECKS["row_levels"]:
+        edges = layout == "edge"
+        name = "edge_union_rows" if edges else "tp_union_rows"
+
+        def make(lead):
+            return on(workloads.tp_slots(rng, lead, c, canonical=False,
+                                         dup_rows=0.2, full_rows=0.3,
+                                         edges=edges))
+        rows = torch.as_tensor(rng.permutation(k).astype(np.int32), device=dev)
+        for n_rows in (k, k // 3, 0):
+            n_t = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+            a, b, o = make((p, k)), make((p, k)), make((p, k))
+            log.add(kernels, name, (a, b, o, rows, n_t),
+                    f"P{p} K{k} C{c} n {n_rows} gather")
+            log.add(kernels, name, (a, b, o, rows, n_t),
+                    f"P{p} K{k} C{c} n {n_rows} scratch", {"gather": False})
+            log.add(kernels, name, ({f: x[:1] for f, x in a.items()},
+                                    {f: x[:1] for f, x in b.items()},
+                                    make((3, k)), rows, n_t),
+                    f"R3 K{k} C{c} n {n_rows} scatter", {"scatter": True})
+    lap("row_levels")
+    for v, k, c, b, mode, keys in TP_CHECKS["tp_applies"]:
+        st = on(workloads.tp_slots(rng, (v, k), c, canonical=False,
+                                   dup_rows=0.3, full_rows=0.4,
+                                   num_elems=2 * c))
+        ops = workloads.tp_mixed_ops(rng, (v, b), k, 2 * c,
+                                     hazards=keys != "flat",
+                                     captured=mode == "captured")
+        if keys == "hot":
+            ops["key"][:, : 9 * b // 10] = 1
+            cover["hot_lanes"] += 9 * b // 10
+        what = f"{mode} V{v} K{k} C{c} B{b} {keys}"
+        dops = workloads.ops_to_device(ops, dev)
+        if mode == "capture":
+            ok, drop = log.add(kernels, "tpset_capture", (st, dops), what)
+            cover["ok_zero"] += int((ok == 0).sum())
+        else:
+            drop = log.add(kernels, "tpset_apply", (st, dops), what)
+        cover["tp_drops"] += int(drop.sum())
+    lap("tp_applies")
+    for v, k, cv, ce, nv, b, mode, keys in TP_CHECKS["graph_applies"]:
+        st = on(workloads.graph_slots(rng, (v, k), cv, ce, nv,
+                                      canonical=False, dup_rows=0.3,
+                                      full_rows=0.4, at_max=0.05))
+        ops = workloads.graph_mixed_ops(rng, (v, b), k, nv,
+                                        hazards=keys != "flat",
+                                        captured=mode == "captured")
+        if keys == "hot":
+            ops["key"][:, : 9 * b // 10] = 1
+            cover["hot_lanes"] += 9 * b // 10
+        what = f"{mode} V{v} K{k} CV{cv} CE{ce} B{b} {keys}"
+        dops = workloads.ops_to_device(ops, dev)
+        if mode == "capture":
+            ok, drop = log.add(kernels, "graph_capture", (st, dops), what)
+            cover["ok_zero"] += int((ok == 0).sum())
+        else:
+            drop = log.add(kernels, "graph_apply", (st, dops), what)
+        cover["graph_drops"] += int(drop.sum())
+    lap("graph_applies")
+    for lead, cv, ce, nv, at_max in TP_CHECKS["masks"]:
+        st = on(workloads.graph_slots(rng, lead, cv, ce, nv, canonical=False,
+                                      dup_rows=0.3, at_max=at_max))
+        out = log.add(kernels, "edge_mask", (st,),
+                      f"{'x'.join(map(str, lead))} CV{cv} CE{ce}")
+        at_sent = (st["src"] == 2**31 - 1) | (st["dst"] == 2**31 - 1)
+        cover["quirk_edges"] += int((out & at_sent).sum())
+    lap("masks")
+
+    random_s = time.perf_counter() - t_start
+    # (b) recorded main-path calls, each checked as it is made
+    keep = {}
+    apply_codes = {"tpset_apply": (1, 2), "tpset_capture": (1, 2),
+                   "graph_apply": (1, 2, 3, 4), "graph_capture": (1, 2, 3, 4)}
+    tag = {"run": ""}
+
+    def recorded():
+        for kind, g in (("tpset", TPSET_CONS), ("graph", GRAPH_CONS)):
+            tag["run"] = f"{kind}_consensus"
+            kv = tp_kv(dev, kind, g)
+            for ops in tp_stream(workloads, kind, g, TP_CHECKS["rounds"]):
+                kv.step(workloads.ops_to_device(ops, dev))
+                if kind == "graph":
+                    kv.query_prospective("edge_count")
+            del kv
+        tag["run"] = "tp_store"
+        arms = tp_store_arms(dev)
+        for tick in tp_store_stream(workloads, TP_CHECKS["ticks"]):
+            batch = {tc: workloads.ops_to_device(o, dev)
+                     for tc, o in tick.items()}
+            for st, use_delta in arms.values():
+                st.fused_tick(batch, delta=use_delta)
+
+    counts = check_calls(
+        kernels, log, TP_KERNELS, recorded,
+        lambda name, i: f"recorded {tag['run']} call {i}", keep=keep,
+        score=lambda name, args: (
+            live_lanes(args[1], apply_codes[name]) if name in apply_codes
+            else int((args[0]["e_valid"] & ~args[0]["e_removed"]).sum())
+            if name == "edge_mask" else args[0]["valid"].numel()),
+        aliased=True)
+    torch.cuda.synchronize()
+    check(all(counts[n] > 0 for n in TP_KERNELS),
+          f"tp_kernels: recorded calls {counts}")
+    check(all(v > 0 for v in cover.values()), f"tp_kernels: coverage {cover}")
+    for name, rec in log.by.items():
+        cases.append({"kernel": name, "case": "tp_kernels", **rec})
+    emit("tp_kernels", by_kernel=log.by, coverage=cover,
+         random_seconds=random_s, random_seconds_by_section=section_s,
+         recorded_seconds=time.perf_counter() - t_start - random_s,
+         recorded={"rounds": TP_CHECKS["rounds"], "ticks": TP_CHECKS["ticks"],
+                   "calls": counts})
+    return keep
+
+
+def lane_waves(groups):
+    """``(order, rank)`` of lanes grouped by ``groups`` (int64, one per
+    live lane, in lane order): ``order`` sorts the lanes by group, stably,
+    and ``rank[i]`` is lane ``order[i]``'s place in its group, so the lanes
+    of rank t touch distinct groups."""
+    order = np.argsort(groups, kind="stable")
+    grp = groups[order]
+    pos = np.arange(grp.size)
+    first = np.r_[True, grp[1:] != grp[:-1]] if grp.size else pos > 0
+    return order, pos - np.maximum.accumulate(np.where(first, pos, 0))
+
+
+def tp_touched_rows(state, ops, codes):
+    """The keys the live lanes (op code in ``codes``) of one call name,
+    int64 numpy ``[Ku]`` ascending, and the state's rows at them, numpy
+    ``[V, Ku, C]`` per leaf (gathered on the card, so only those rows are
+    copied)."""
+    live = torch.zeros_like(ops["op"], dtype=torch.bool)
+    for c in codes:
+        live |= ops["op"] == c
+    keys = torch.unique(ops["key"][live].long())
+    rows = {f: x.index_select(1, keys).cpu().numpy() for f, x in state.items()}
+    return keys.cpu().numpy(), rows
+
+
+def tp_gate_model(keys, rows, ops, E, changed):
+    """Independent numpy model of the 2P-Set capture's gate on one call:
+    ``rows`` the views' rows at ``keys`` as the capture read them (numpy
+    ``[V, Ku, C]``), ``ops`` their batches (numpy ``[V, B]``). Per (view,
+    key, elem) a status, absent, live or removed; lane by lane in lane
+    order, a remove's ``ok`` is its elem's being live as the batch's earlier
+    lanes left it, and then removes it; an add makes an absent elem live.
+    Every other lane's ``ok`` is 1. Adds to ``changed`` the lanes of each
+    op ("a", "r") that changed the status. Returns int32 ``[V, B]``."""
+    V, Ku, C = rows["valid"].shape
+    idx = np.flatnonzero(rows["valid"])
+    el = rows["elem"].reshape(-1)[idx]
+    check(((el >= 0) & (el < E)).all(), "tp gate model: an elem outside "
+          "[0, E)")
+    at = idx // C * E + el
+    status = np.zeros(V * Ku * E, np.int8)    # 0 absent, 1 live, 2 removed
+    status[at] = np.where(rows["removed"].reshape(-1)[idx], 2, 1)
+    check(np.count_nonzero(status) == at.size, "tp gate model: an elem "
+          "twice in a row")
+    ok = np.ones(ops["op"].shape, np.int32)
+    lv, lb = np.nonzero((ops["op"] == 1) | (ops["op"] == 2))
+    ki = np.searchsorted(keys, ops["key"][lv, lb])
+    el = ops["a0"][lv, lb]
+    check(((el >= 0) & (el < E)).all(), "tp gate model: an elem out of "
+          "range")
+    order, rank = lane_waves((lv * Ku + ki) * E + el)
+    lv, lb = lv[order], lb[order]
+    grp = ((lv * Ku + ki[order]) * E + el[order])
+    is_add = ops["op"][lv, lb] == 1
+    for t in range(int(rank.max()) + 1 if rank.size else 0):
+        w = rank == t   # one lane of each group: distinct groups
+        g, a = grp[w], is_add[w]
+        new = status[g[a]] == 0
+        status[g[a]] = np.where(new, 1, status[g[a]])
+        hit = status[g[~a]] == 1
+        changed["a"] += int(new.sum())
+        changed["r"] += int(hit.sum())
+        status[g[~a]] = np.where(hit, 2, status[g[~a]])
+        ok[lv[w][~a], lb[w][~a]] = hit
+    return ok
+
+
+def tp_fold_model(stream, oks, K, E):
+    """Independent numpy model of the 2P-Set after every op of ``stream``
+    (the accepted batches) replayed with the captured ``oks``: an elem is
+    held if any add or any remove with ``ok`` named it, tombstoned if such
+    a remove did (replay is order-free). Returns ``(held, removed)`` bool
+    ``[K, E]``."""
+    held = np.zeros(K * E, bool)
+    removed = np.zeros(K * E, bool)
+    for ops, ok in zip(stream, oks):
+        at = ops["key"].astype(np.int64) * E + ops["a0"]
+        rm = (ops["op"] == 2) & (ok == 1)
+        held[at[(ops["op"] == 1) | rm]] = True
+        removed[at[rm]] = True
+    return held.reshape(K, E), removed.reshape(K, E)
+
+
+def tp_rows_of_model(present, removed, C, names=("elem",)):
+    """The canonical rows ``[K, C]`` a model's status gives: the held keys
+    in ascending order with their tombstones, SENTINEL after. ``present``
+    is bool ``[K, E]`` over one key, or ``[K, E, E]`` over (src, dst)
+    pairs (``names`` the key fields)."""
+    K = present.shape[0]
+    sent = np.iinfo(np.int32).max
+    out = {f: np.full((K, C), sent, np.int32) for f in names}
+    out["removed"] = np.zeros((K, C), bool)
+    out["valid"] = np.zeros((K, C), bool)
+    flat = present.reshape(K, -1)
+    n = flat.sum(-1)
+    check(int(n.max(initial=0)) <= C, f"tp model: a key holds {n.max()} "
+          f"records, more than C={C}")
+    k, idx = np.nonzero(flat)   # row-major: ascending per key
+    slot = np.arange(k.size) - np.repeat(np.cumsum(n) - n, n)
+    if len(names) == 1:
+        out[names[0]][k, slot] = idx
+    else:
+        side = present.shape[-1]
+        out[names[0]][k, slot], out[names[1]][k, slot] = idx // side, idx % side
+    out["removed"][k, slot] = removed.reshape(K, -1)[k, idx]
+    out["valid"][k, slot] = True
+    return out
+
+
+def graph_gate_model(keys, rows, ops, NV, changed):
+    """Independent numpy model of the Graph capture's gates on one call:
+    ``rows`` the views' rows at ``keys`` as the capture read them,
+    ``ops`` their batches. Per (view, key) a vertex status over the NV ids
+    and an edge status over (src, dst) pairs (absent, live or removed);
+    lane by lane in lane order: rv passes if its vertex is live with no
+    live edge from or to it, ae if both endpoints are live, re if the edge
+    is live, every other code passes; a passing op then applies (av makes
+    an absent vertex live, rv removes it, ae makes an absent edge live, re
+    removes it). Adds to ``changed`` the lanes of each op ("av", "rv",
+    "ae", "re") that changed a status. Returns the ``ok`` int32 ``[V,
+    B]``."""
+    V, Ku, CV = rows["v_valid"].shape
+    CE = rows["e_valid"].shape[-1]
+    vs = np.zeros((V * Ku, NV), np.int8)
+    es = np.zeros((V * Ku, NV, NV), np.int8)
+    idx = np.flatnonzero(rows["v_valid"])
+    x = rows["v"].reshape(-1)[idx]
+    check(((x >= 0) & (x < NV)).all(), "graph model: a vertex out of range")
+    vs[idx // CV, x] = np.where(rows["v_removed"].reshape(-1)[idx], 2, 1)
+    check(np.count_nonzero(vs) == idx.size, "graph model: a vertex twice "
+          "in a row")
+    idx = np.flatnonzero(rows["e_valid"])
+    s, d = rows["src"].reshape(-1)[idx], rows["dst"].reshape(-1)[idx]
+    check(((s >= 0) & (s < NV) & (d >= 0) & (d < NV)).all(),
+          "graph model: an endpoint out of range")
+    es[idx // CE, s, d] = np.where(rows["e_removed"].reshape(-1)[idx], 2, 1)
+    check(np.count_nonzero(es) == idx.size, "graph model: an edge twice in "
+          "a row")
+    ok = np.ones(ops["op"].shape, np.int32)
+    lv, lb = np.nonzero((ops["op"] >= 1) & (ops["op"] <= 4))
+    g = lv * Ku + np.searchsorted(keys, ops["key"][lv, lb])
+    order, rank = lane_waves(g)
+    lv, lb, g = lv[order], lb[order], g[order]
+    code, x, y = (ops[f][lv, lb] for f in ("op", "a0", "a1"))
+    for t in range(int(rank.max()) + 1 if rank.size else 0):
+        w = rank == t
+        gw, cw, xw, yw = g[w], code[w], x[w], y[w]
+        vx, vy, ex = vs[gw, xw], vs[gw, yw], es[gw, xw, yw]
+        incident = ((es[gw, xw, :] == 1).any(-1)
+                    | (es[gw, :, xw] == 1).any(-1))
+        gate = np.where(cw == 2, (vx == 1) & ~incident,
+                        np.where(cw == 3, (vx == 1) & (vy == 1),
+                                 np.where(cw == 4, ex == 1, True)))
+        ok[lv[w], lb[w]] = gate
+        av, rv = cw == 1, (cw == 2) & gate
+        ae, re = (cw == 3) & gate, (cw == 4) & gate
+        changed["av"] += int((vx[av] == 0).sum())
+        changed["rv"] += int(rv.sum())
+        changed["ae"] += int((ex[ae] == 0).sum())
+        changed["re"] += int(re.sum())
+        vs[gw[av], xw[av]] = np.where(vx[av] == 0, 1, vx[av])
+        vs[gw[rv], xw[rv]] = 2
+        es[gw[ae], xw[ae], yw[ae]] = np.where(ex[ae] == 0, 1, ex[ae])
+        es[gw[re], xw[re], yw[re]] = 2
+    return ok
+
+
+def graph_fold_model(stream, oks, K, NV):
+    """Independent numpy model of the Graph after every op of ``stream``
+    replayed with the captured ``oks``: a vertex is held if an av or a
+    passing rv named it, removed if a passing rv did; an edge is held if a
+    passing ae or re named it, removed if a passing re did. Returns
+    ``(v_held, v_removed [K, NV], e_held, e_removed [K, NV, NV])``."""
+    vh, vr = np.zeros(K * NV, bool), np.zeros(K * NV, bool)
+    eh, er = np.zeros(K * NV * NV, bool), np.zeros(K * NV * NV, bool)
+    for ops, ok in zip(stream, oks):
+        key = ops["key"].astype(np.int64)
+        code, gate = ops["op"], ok == 1
+        vat = key * NV + ops["a0"]
+        eat = (key * NV + ops["a0"]) * NV + ops["a1"]
+        rv, ae, re = (code == 2) & gate, (code == 3) & gate, (code == 4) & gate
+        vh[vat[(code == 1) | rv]] = True
+        vr[vat[rv]] = True
+        eh[eat[ae | re]] = True
+        er[eat[re]] = True
+    return (vh.reshape(K, NV), vr.reshape(K, NV), eh.reshape(K, NV, NV),
+            er.reshape(K, NV, NV))
+
+
+def tp_consensus(dev, kernels, workloads, kind):
+    """The 2P-Set (``kind`` "tpset", TPSET_CONS) or the Graph ("graph",
+    GRAPH_CONS) through SafeKV on the card: warm-up rounds, the timed
+    rounds (the Graph's edge_count of the prospective views after each, as
+    LookupEdges reads it; the live counts after the rounds of
+    ``live_after``, kept on the card until the clock stops), idle rounds
+    until every view's stable state is bit-equal, a record pass (the same
+    rounds on a fresh SafeKV, untimed, bit-equal to the timed run at its
+    end), then a few profiled rounds. Checks: every batch accepted; no
+    slot dropped; the stable views bit-equal; every view's prospective
+    state holds the stable records by key; each wrapper launched as often
+    as a round calls it; each capture's ``ok`` decided in numpy from the
+    rows it read (``tp_gate_model`` / ``graph_gate_model``), and the stable
+    state equal to a numpy fold of the committed ops with those ``ok``
+    (``tp_fold_model`` / ``graph_fold_model``); the Graph's stable
+    edge_count equal to a numpy dangling-edge filter of the model."""
+    from janus_tpu_torch.kernels.tp_rows import (canonical_row, edge_view,
+                                                 vertex_view)
+    from janus_tpu_torch.models import graph, tpset
+
+    g = TPSET_CONS if kind == "tpset" else GRAPH_CONS
+    n, b, k = (g[x] for x in ("nodes", "ops_per_block", "keys"))
+    total = g["warmup"] + g["rounds"]
+    stream = tp_stream(workloads, kind, g, total + g["profile_rounds"])
+    batches = [workloads.ops_to_device(o, dev) for o in stream]
+    idle = workloads.ops_to_device(
+        {f: np.zeros((n, b), np.int32) for f in stream[0]}, dev)
+    kv = tp_kv(dev, kind, g)
+    counted = {}   # round -> device counts, read after the clock stops
+
+    def per_round(r):
+        if kind == "graph":
+            edges = kv.query_prospective("edge_count")
+        if r in g["live_after"]:
+            counted[r] = ([tpset.live_count(kv.prospective)[0].sum()]
+                          if kind == "tpset" else
+                          [graph.vertex_count(kv.prospective)[0].sum(),
+                           edges[0].sum()])
+
+    run = consensus_rounds(
+        kernels, kv, batches, idle, g, kind,
+        lambda stepped: {f"{kind}_capture": stepped,
+                         f"{kind}_apply": 2 * stepped,
+                         **({"edge_mask": g["rounds"]} if kind == "graph"
+                            else {})},
+        per_round)
+    idle_rounds = run["idle_rounds"]
+    check(kv.stats["slots_dropped"] == 0, f"{kind}_consensus: "
+          f"{kv.stats['slots_dropped']} slot records dropped")
+    if kind == "tpset":
+        views = [(canonical_row(kv.prospective), canonical_row(kv.stable))]
+    else:
+        views = [(canonical_row(vertex_view(kv.prospective)),
+                  canonical_row(vertex_view(kv.stable))),
+                 (canonical_row(edge_view(kv.prospective), ("src", "dst")),
+                  canonical_row(edge_view(kv.stable), ("src", "dst")))]
+    for prosp, stab in views:
+        check(all(torch.equal(prosp[f], stab[f]) for f in stab),
+              f"{kind}_consensus: a view's prospective state holds other "
+              f"records than the stable one")
+
+    # the record pass: each capture's touched rows and ops, its gate
+    # decided in numpy at once
+    t_rec = time.perf_counter()
+    again = tp_kv(dev, kind, g)
+    codes = (1, 2) if kind == "tpset" else (1, 2, 3, 4)
+    spent = {"copy": 0.0, "model": 0.0}
+    labels = ("a", "r") if kind == "tpset" else ("av", "rv", "ae", "re")
+    changed = dict.fromkeys(labels, 0)
+
+    def take(_, args, kw):
+        state, ops = args
+        t_take = time.perf_counter()
+        host = {f: x.cpu().numpy() for f, x in ops.items()}
+        keys, rows = tp_touched_rows(state, ops, codes)
+        t_model = time.perf_counter()
+        ok = (tp_gate_model(keys, rows, host, g["elems"], changed)
+              if kind == "tpset" else
+              graph_gate_model(keys, rows, host, g["vertices"], changed))
+        spent["copy"] += t_model - t_take
+        spent["model"] += time.perf_counter() - t_model
+        return host, ok
+
+    def rerun():
+        for t in range(total):
+            again.step(batches[t])
+
+    name = f"{kind}_capture"
+    rec = record_calls(kernels, (name,), rerun, take=take)[name]
+    for _ in range(idle_rounds):
+        again.step(idle, record=False)
+    for f in kv.stable:
+        check(torch.equal(again.stable[f], kv.stable[f])
+              and torch.equal(again.prospective[f], kv.prospective[f]),
+              f"{kind}_consensus: the record pass's {f} differs from the "
+              f"timed run's")
+    check(again.stats["state_transfers"] == 0, f"{kind}_consensus: a state "
+          f"transfer in the record pass (the models follow each view's own "
+          f"applies)")
+    del again
+    check(len(rec) == total, f"{kind}_consensus: {len(rec)} captures "
+          f"recorded")
+    for t, (ops, _) in enumerate(rec):
+        check(all(np.array_equal(ops[f], stream[t][f]) for f in ops),
+              f"{kind}_consensus: round {t}'s captured ops differ from its "
+              f"batch")
+    oks = [ok for _, ok in rec]
+    out = {}
+    if kind == "tpset":
+        held, removed = tp_fold_model(stream[:total], oks, k, g["elems"])
+        want = tp_rows_of_model(held, removed, g["capacity"])
+        got = {f: x[0].cpu().numpy() for f, x in views[0][1].items()}
+        for f, x in want.items():
+            check(np.array_equal(got[f], x), f"tpset_consensus: stable {f} "
+                  f"differs from the numpy fold of the committed ops")
+        rm = [o["op"] == 2 for o in stream[:total]]
+        out.update(
+            removes=int(sum(int(r.sum()) for r in rm)),
+            removes_ok=int(sum(int((r & (x == 1)).sum())
+                               for r, x in zip(rm, oks))),
+            live_after_round={r: int(c[0]) for r, c in counted.items()},
+            live_elements=int(tpset.live_count(kv.stable)[0].sum()),
+            tombstones=int((kv.stable["removed"][0]
+                            & kv.stable["valid"][0]).sum()))
+        out["removes_ok_share"] = out["removes_ok"] / max(out["removes"], 1)
+    else:
+        nv = g["vertices"]
+        vh, vr, eh, er = graph_fold_model(stream[:total], oks, k, nv)
+        want = {**tp_rows_of_model(vh, vr, g["v_capacity"]),
+                **{f"e_{f}": x for f, x in tp_rows_of_model(
+                    eh, er, g["e_capacity"], ("src", "dst")).items()}}
+        (_, vst), (_, est) = views
+        got = {**{f: x[0].cpu().numpy() for f, x in vst.items()},
+               **{f"e_{f}": x[0].cpu().numpy() for f, x in est.items()}}
+        for f, x in want.items():
+            check(np.array_equal(got[f], x), f"graph_consensus: stable {f} "
+                  f"differs from the numpy fold of the committed ops")
+        v_live = vh & ~vr
+        e_live = eh & ~er & v_live[:, :, None] & v_live[:, None, :]
+        counts = kv.query_stable("edge_count")
+        check(np.array_equal(counts[0].cpu().numpy(),
+                             e_live.sum((1, 2)).astype(np.int32)),
+              "graph_consensus: stable edge_count differs from a numpy "
+              "dangling-edge filter of the model")
+        pass_share = {}
+        for code, label in ((2, "rv"), (3, "ae"), (4, "re")):
+            lanes = sum(int((o["op"] == code).sum()) for o in stream[:total])
+            passed = sum(int(((o["op"] == code) & (x == 1)).sum())
+                         for o, x in zip(stream[:total], oks))
+            pass_share[label] = passed / max(lanes, 1)
+        out.update(
+            gate_pass_share=pass_share,
+            after_round={r: {"vertices": int(c[0]), "edges": int(c[1])}
+                         for r, c in counted.items()},
+            live_vertices=int(graph.vertex_count(kv.stable)[0].sum()),
+            live_edges=int(counts[0].sum()),
+            dangling_edges=int((eh & ~er).sum() - e_live.sum()))
+    # the share of each op's lanes that changed the state at its origin's
+    # capture (an add of a held elem or a remove whose gate failed changes
+    # nothing)
+    lanes = {label: sum(int((o["op"] == code).sum()) for o in stream[:total])
+             for code, label in enumerate(labels, 1)}
+    out["changing_share"] = {label: changed[label] / max(lanes[label], 1)
+                             for label in labels}
+    out["changing_share_all"] = (sum(changed.values())
+                                 / max(sum(lanes.values()), 1))
+    out["record_pass_seconds"] = time.perf_counter() - t_rec
+    out["record_pass_copy_seconds"] = spent["copy"]
+    out["record_pass_model_seconds"] = spent["model"]
+
+    def step(kv, ops):
+        kv.step(ops)
+        if kind == "graph":
+            kv.query_prospective("edge_count")
+
+    consensus_emit(kind, kv, g, batches[total:], run, step, **out)
+    return run["launches"]
+
+
+def tpset_consensus(dev, kernels, workloads):
+    return tp_consensus(dev, kernels, workloads, "tpset")
+
+
+def graph_consensus(dev, kernels, workloads):
+    return tp_consensus(dev, kernels, workloads, "graph")
+
+
+def tp_store(dev, kernels, workloads):
+    """Both types through ``Store.fused_tick`` at harness preset
+    mixed_delta's geometry (TP_STORE): a full arm (``join_replicas``, two
+    trees for the Graph) and a delta arm at D (``converge_delta`` through
+    the row-list trees), the same pre-generated streams, 24 timed ticks
+    after one warm-up tick, the arms in turns (``store_arms``). After every
+    tick: every leaf's replica rows bit-equal, the rows canonical (each
+    block sorted by its keys), and the delta arm bit-equal to the full arm
+    (the invariant ``converge_delta`` claims)."""
+    from janus_tpu_torch.kernels.tp_rows import (canonical_row, edge_view,
+                                                 vertex_view)
+    from janus_tpu_torch.models import graph, tpset
+
+    g = TP_STORE
+    R, K, B, D, ticks = (g[x] for x in ("R", "K", "B", "budget", "ticks"))
+    host = tp_store_stream(workloads, ticks + 1)
+    batches = [{tc: workloads.ops_to_device(o, dev) for tc, o in h.items()}
+               for h in host]
+
+    def rows_ok(full, t):
+        row0 = {tc: {f: x[0] for f, x in full.states[tc].items()}
+                for tc in ("tpset", "graph")}
+        for blk, keys in ((row0["tpset"], ("elem",)),
+                          (vertex_view(row0["graph"]), ("elem",)),
+                          (edge_view(row0["graph"]), ("src", "dst"))):
+            canon = canonical_row(blk, keys)
+            check(all(torch.equal(canon[f], blk[f]) for f in canon),
+                  f"tp_store: a row is not canonical after tick {t}")
+
+    levels = int(np.ceil(np.log2(R)))
+    want = {"full": {"tpset_apply": 1, "graph_apply": 1,
+                     "tp_union": 2 * levels, "edge_union": levels},
+            f"delta_D{D}": {"tpset_apply": 1, "graph_apply": 1,
+                            "dirty_rows": 2, "delta_select": 2,
+                            "tp_union_rows": 2 * levels,
+                            "edge_union_rows": levels}}
+    launches, full, arm_out = store_arms(
+        kernels, "tp_store", tp_store_arms(dev), batches, ticks, rows_ok,
+        want, R, B)
+    state_mb = {tc: sum(x.numel() * x.element_size()
+                        for x in full.states[tc].values()) / 1e6
+                for tc in ("tpset", "graph")}
+    gs = full.states["graph"]
+    emit("tp_store", replicas=R, keys=K, tp_capacity=g["tp_capacity"],
+         v_capacity=g["v_capacity"], e_capacity=g["e_capacity"],
+         ops_per_replica_per_type=B, hot_window=D // 2, ticks=ticks,
+         state_mb=state_mb,
+         tpset_live_elements=int(tpset.live_count(full.states["tpset"])[0].sum()),
+         graph_live_vertices=int(graph.vertex_count(gs)[0].sum()),
+         graph_live_edges=int(graph.edge_count(gs)[0].sum()),
+         arms=arm_out, launches=launches)
+    return launches
+
+
+def tp_kernel_rows(kernels, calls):
+    """Rows of the kernels line for the nine 2P-Set and Graph wrappers,
+    each on a recorded main-path call (tp_kernel_checks): the applies and
+    captures on the consensus phases' calls with the most live lanes, the
+    unions on tp_store's, edge_mask on a graph_consensus query. Bytes:
+    each input read once and each output written once; an apply reads a
+    live lane's fields, only the op of a lane that is not live, writes a
+    capture's ok for every lane, and moves the rows its live lanes gather
+    and write back, not the whole state. Operations: a union one per
+    record; an apply one per slot of its row per live lane; edge_mask two
+    compares per vertex slot for each live edge (a dead edge is not
+    tested), and of its bytes only what this input needs: the flags of
+    every slot and the output, the tombstones of valid slots, the ids of
+    live vertices and the endpoints of live edges."""
+    rows = [union_level_row(kernels, name, calls[name], per,
+                            lambda n, r: n * r, "tp_store")
+            for name, per in (("tp_union", 6), ("edge_union", 10),
+                              ("tp_union_rows", 6), ("edge_union_rows", 10))]
+    for name, codes in (("tpset_apply", (1, 2)), ("tpset_capture", (1, 2)),
+                        ("graph_apply", (1, 2, 3, 4)),
+                        ("graph_capture", (1, 2, 3, 4))):
+        (state, ops), kw = calls[name]
+        valid = state["valid"] if name.startswith("tpset") else state["v"]
+        V, K = valid.shape[:2]
+        Bn = ops["op"].shape[1]
+        read, written = rows_touched(valid, ops, codes)
+        live = live_lanes(ops, codes)
+        capture = name.endswith("capture")
+        if name.startswith("tpset"):
+            c = state["valid"].shape[-1]
+            row_b, lane_b, width = 6 * c, 12 + 4 * ("ok" in ops), c
+            shape = f"C{c}"
+        else:
+            cv, ce = state["v"].shape[-1], state["src"].shape[-1]
+            row_b, lane_b, width = 6 * cv + 10 * ce, 16 + 4 * ("ok" in ops), \
+                cv + ce
+            shape = f"CV{cv} CE{ce}"
+        rows.append(dict(
+            name=name, call=lambda n=name, s=state, o=ops:
+                kernels.WRAPPERS[n](s, o),
+            plain=lambda n=name, s=state, o=ops: plain_of(kernels, n)(s, o),
+            library=None, shape=f"{name.split('_')[0]}_consensus "
+            f"{'submit' if capture else 'delta apply'}: V{V} K{K} {shape} "
+            f"B{Bn}, {live} live lanes",
+            rows_read=read, rows_written=written,
+            bytes=(lane_b * live + 4 * (V * Bn - live)
+                   + (4 * V * Bn if capture else 0) + 4 * V
+                   + row_b * (read + written)),
+            operations=live * width, profile_plain=False))
+    (state,), kw = calls["edge_mask"]
+    lead = tuple(state["v"].shape[:-1])
+    nrows, cv, ce = int(np.prod(lead)), state["v"].shape[-1], \
+        state["src"].shape[-1]
+    live_edges = int((state["e_valid"] & ~state["e_removed"]).sum())
+    # what the filter needs of this input: every slot's valid flag and
+    # every edge's output byte; the tombstone of a valid slot; the id of a
+    # live vertex and both endpoints of a live edge
+    valid_v, valid_e = int(state["v_valid"].sum()), int(state["e_valid"].sum())
+    live_v = int((state["v_valid"] & ~state["v_removed"]).sum())
+    mask_bytes = (nrows * (cv + 2 * ce) + valid_v + valid_e + 4 * live_v
+                  + 8 * live_edges)
+    r = torch.arange(nrows, device=state["v"].device).view(lead + (1,)).long()
+    v_live = state["v_valid"] & ~state["v_removed"]
+    pv = ((r << 32) | state["v"].long())[v_live]
+    pe = torch.cat([((r << 32) | state[f].long()).view(-1)
+                    for f in ("src", "dst")])
+    rows.append(dict(
+        name="edge_mask", call=lambda: kernels.edge_mask(state),
+        plain=lambda: kernels.edge_mask_plain(state),
+        library=lambda: torch.isin(pe, pv),
+        shape=f"a graph_consensus edge_count: {nrows} rows of CV{cv} CE{ce}, "
+        f"{live_v} live vertices, {live_edges} live edges",
+        bytes=mask_bytes, operations=2 * cv * live_edges))
+    for row in rows:
+        row["library_note"] = TP_LIBRARY_NOTES[row["name"]]
     return rows
 
 
@@ -4146,7 +5059,7 @@ def harness_tensor(dev, kernels, workloads, smi):
 
 def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                  orset_calls, delta_calls, rga_calls, safekv_calls,
-                 fence_calls, typed_calls):
+                 fence_calls, typed_calls, tp_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -4265,6 +5178,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     kerns += safekv_kernel_rows(kernels, safekv_calls)
     kerns += fence_kernel_rows(kernels, fence_calls)
     kerns += typed_kernel_rows(kernels, typed_calls)
+    kerns += tp_kernel_rows(kernels, tp_calls)
 
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
@@ -4388,15 +5302,23 @@ def main() -> int:
              "mvr_consensus": timed("mvr_consensus", mvr_consensus, dev,
                                     kernels, workloads),
              "typed_store": timed("typed_store", typed_store, dev, kernels,
-                                  workloads)}
+                                  workloads),
+             "tpset_consensus": timed("tpset_consensus", tpset_consensus, dev,
+                                      kernels, workloads),
+             "graph_consensus": timed("graph_consensus", graph_consensus, dev,
+                                      kernels, workloads),
+             "tp_store": timed("tp_store", tp_store, dev, kernels,
+                               workloads)}
     # after the timed paths, so that nothing it keeps (clones of the
     # recorded calls, tree scratch, the allocator's growth) is there while
     # the earlier phases are timed
     typed_calls = timed("typed_kernels", typed_kernel_checks, dev, kernels,
                         workloads, cases)
+    tp_calls = timed("tp_kernels", tp_kernel_checks, dev, kernels, workloads,
+                     cases)
     line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
                  cases, timing_calls, orset_calls, delta_calls, rga_calls,
-                 safekv_calls, fence_calls, typed_calls)
+                 safekv_calls, fence_calls, typed_calls, tp_calls)
     emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

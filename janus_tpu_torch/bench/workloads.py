@@ -13,7 +13,8 @@ from janus_tpu_torch.consensus.dag import DagConfig
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.kernels import leader
 from janus_tpu_torch.kernels.mvr_rows import frontier
-from janus_tpu_torch.models import base, lwwset, mvregister, orset, pncounter, rga
+from janus_tpu_torch.models import (base, graph, lwwset, mvregister, orset,
+                                    pncounter, rga, tpset)
 from janus_tpu_torch.ops.lattice import SENTINEL
 
 
@@ -556,6 +557,177 @@ def mvr_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
         clk = np.where(ext, rng.choice([-(2**31), 2**31 - 1], clk.shape), clk)
         out["wclock"] = clk.astype(np.int32)
     return out
+
+
+def tpset_add_remove(rng: np.random.Generator, num_nodes: int,
+                     num_keys: int, batch: int, num_elems: int = 64,
+                     add_ratio: float = 0.5, hot: int | None = None,
+                     tick: int = 0, theta: float = 0.99) -> dict:
+    """The 2P-Set's add/remove traffic: int32 numpy ``[N, B]`` op fields,
+    node (or replica) v's batch in row v, a 50/50 add/remove mix over
+    ``num_elems`` elements a key (``orset_add_remove``'s range, BASELINE
+    config 2's mix) and uniform keys, or with ``hot`` keys
+    Zipf(``theta``)-skewed in a hot window rotating with ``tick``."""
+    shape = (num_nodes, batch)
+    is_add = rng.random(shape) < add_ratio
+    op = np.where(is_add, tpset.OP_ADD, tpset.OP_REMOVE)
+    keys = (rng.integers(0, num_keys, shape) if hot is None
+            else _hot_keys(rng, num_keys, shape, tick, hot, theta))
+    return _op_batch(shape, op=op, key=keys,
+                     a0=rng.integers(0, num_elems, shape),
+                     writer=np.arange(num_nodes)[:, None])
+
+
+# the Graph's op mix: (op code, share)
+GRAPH_MIX = ((graph.OP_ADD_VERTEX, 0.30), (graph.OP_ADD_EDGE, 0.40),
+             (graph.OP_REMOVE_EDGE, 0.15), (graph.OP_REMOVE_VERTEX, 0.15))
+
+
+def graph_ops(rng: np.random.Generator, num_nodes: int, num_keys: int,
+              batch: int, num_vertices: int = 32, out_degree: int = 8,
+              hot: int | None = None, tick: int = 0,
+              theta: float = 0.99) -> dict:
+    """The Graph's traffic: int32 numpy ``[N, B]`` op fields, uniform keys
+    (or Zipf-skewed in a rotating hot window with ``hot``), ``num_vertices``
+    vertex ids a key, and the mix of ``GRAPH_MIX`` (av 30%, ae 40%, re 15%,
+    rv 15%). A vertex op names a0 = v; an edge op a0 = src and a1 = dst =
+    (src + 1 + j) mod ``num_vertices`` with j < ``out_degree``, so a key
+    holds at most ``num_vertices * out_degree`` distinct edges."""
+    shape = (num_nodes, batch)
+    codes, shares = zip(*GRAPH_MIX)
+    op = rng.choice(np.array(codes), shape, p=np.array(shares))
+    keys = (rng.integers(0, num_keys, shape) if hot is None
+            else _hot_keys(rng, num_keys, shape, tick, hot, theta))
+    src = rng.integers(0, num_vertices, shape)
+    dst = (src + 1 + rng.integers(0, out_degree, shape)) % num_vertices
+    on_edge = (op == graph.OP_ADD_EDGE) | (op == graph.OP_REMOVE_EDGE)
+    return _op_batch(shape, op=op, key=keys, a0=src,
+                     a1=np.where(on_edge, dst, 0),
+                     writer=np.arange(num_nodes)[:, None])
+
+
+def tp_slots(rng: np.random.Generator, shape, capacity: int,
+             full_rows: float = 0.25, fill: float = 0.6,
+             num_elems: int | None = None, canonical: bool = True,
+             dup_rows: float = 0.0, removed: float = 0.3,
+             edges: bool = False) -> dict:
+    """Random 2P slot rows ``shape + (capacity,)`` as numpy arrays: the TP
+    layout (``elem``, ``removed``, ``valid``), or with ``edges`` the EDGE
+    layout (``src``, ``dst``, ``removed``, ``valid``).
+
+    A ``full_rows`` share of rows is full, the rest hold up to ``fill`` of
+    the capacity; keys are distinct within a row, elems drawn from
+    ``num_elems`` (default 2C), edges from ``[0, num_elems)^2`` (default
+    num_elems the least whose square is 2C or more); a ``removed`` share of
+    the valid slots holds a tombstone. Canonical rows are sorted by their
+    keys with SENTINEL keys and no tombstone in invalid slots. Otherwise
+    slots are shuffled, invalid slots hold junk, and a ``dup_rows`` share
+    of rows repeats one valid key in a second slot."""
+    c = capacity
+    rows = int(np.prod(shape, dtype=np.int64))
+    if edges:
+        side = num_elems or int(np.ceil(np.sqrt(2 * c)))
+        space = max(side * side, c)
+    else:
+        space = max(num_elems or 2 * c, c)
+    pick = np.argsort(rng.random((rows, space)), axis=1)[:, :c]
+    n = np.where(rng.random(rows) < full_rows, c,
+                 rng.integers(0, int(fill * c) + 1, rows))
+    valid = np.arange(c)[None, :] < n[:, None]
+    ids = np.where(valid, pick, space)
+    ids.sort(axis=1)
+    valid = ids < space
+    keys = ({"src": ids // side, "dst": ids % side} if edges
+            else {"elem": ids})
+    out = {f: np.where(valid, k, SENTINEL) for f, k in keys.items()}
+    out["removed"] = valid & (rng.random((rows, c)) < removed)
+    out["valid"] = valid
+    if not canonical:
+        junk = ~valid
+        for f in keys:
+            out[f] = np.where(junk, rng.integers(-5, 5, (rows, c)), out[f])
+        out["removed"] |= junk & (rng.random((rows, c)) < 0.5)
+        for r in np.nonzero((rng.random(rows) < dup_rows) & (n >= 2))[0]:
+            src, dst = rng.choice(n[r], 2, replace=False)
+            for f in keys:
+                out[f][r, dst] = out[f][r, src]
+        perm = np.argsort(rng.random((rows, c)), axis=1)
+        out = {f: np.take_along_axis(x, perm, 1) for f, x in out.items()}
+    fields = ("src", "dst", "removed", "valid") if edges else tpset.FIELDS
+    return {f: np.ascontiguousarray(out[f].reshape(tuple(shape) + (c,)),
+                                    bool if f in ("removed", "valid")
+                                    else np.int32)
+            for f in fields}
+
+
+def graph_slots(rng: np.random.Generator, shape, v_capacity: int,
+                e_capacity: int, num_vertices: int, at_max: float = 0.0,
+                **kw) -> dict:
+    """Random Graph rows as numpy arrays (the seven leaves of
+    ``graph.FIELDS``): a vertex block of ``tp_slots`` over
+    ``num_vertices`` ids and an edge block over the same ids, so endpoints
+    are live, dead and absent alike; ``kw`` as for ``tp_slots`` (both
+    blocks). An ``at_max`` share of the valid edge slots has one endpoint
+    at INT32_MAX (the dangling-edge filter's sentinel quirk)."""
+    vs = tp_slots(rng, shape, v_capacity, num_elems=num_vertices, **kw)
+    es = tp_slots(rng, shape, e_capacity, num_elems=num_vertices,
+                  edges=True, **kw)
+    hit = es["valid"] & (rng.random(es["valid"].shape) < at_max)
+    on_src = rng.random(hit.shape) < 0.5
+    es["src"] = np.where(hit & on_src, SENTINEL, es["src"]).astype(np.int32)
+    es["dst"] = np.where(hit & ~on_src, SENTINEL, es["dst"]).astype(np.int32)
+    return {"v": vs["elem"], "v_removed": vs["removed"],
+            "v_valid": vs["valid"], "src": es["src"], "dst": es["dst"],
+            "e_removed": es["removed"], "e_valid": es["valid"]}
+
+
+def tp_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
+                 num_elems: int, hazards: bool = True,
+                 captured: bool = False) -> dict:
+    """2P-Set op lanes of every code from -1 to 4 (0 no-op, 1 add, 2
+    remove; -1, 3 and 4 unknown to the 2P-Set, 3 and 4 the Graph's edge
+    codes in the walk the two types share) whose elems collide with
+    ``tp_slots``' and with each other's, as int32 numpy arrays of
+    ``shape``. With ``hazards``, keys fall in [-2K, 2K). With
+    ``captured``, an ``ok`` ``shape + (1,)`` field is 0 or 1."""
+    k = num_keys
+    ops = _op_batch(
+        tuple(shape), op=rng.choice([-1, 0, 1, 2, 3, 4], shape,
+                                    p=[0.03, 0.07, 0.45, 0.35, 0.05, 0.05]),
+        key=(rng.integers(-2 * k, 2 * k, shape) if hazards
+             else rng.integers(0, k, shape)),
+        a0=rng.integers(0, num_elems, shape))
+    if captured:
+        ops["ok"] = rng.integers(0, 2, tuple(shape) + (1,)).astype(np.int32)
+    return ops
+
+
+def graph_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
+                    num_vertices: int, hazards: bool = True,
+                    captured: bool = False) -> dict:
+    """Graph op lanes whose vertices collide with ``graph_slots``', as
+    int32 numpy arrays of ``shape``: every code from -1 to 5 (the four ops
+    and codes outside 1-4), a0 and a1 over ``num_vertices`` ids with a
+    tenth of the lanes self-loops (a1 = a0). With ``hazards``, keys fall
+    in [-2K, 2K) and 3% of the endpoints are INT32_MAX. With ``captured``,
+    an ``ok`` ``shape + (1,)`` field is 0 or 1."""
+    k = num_keys
+    a0 = rng.integers(0, num_vertices, shape)
+    a1 = np.where(rng.random(shape) < 0.1, a0,
+                  rng.integers(0, num_vertices, shape))
+    if hazards:
+        a0 = np.where(rng.random(shape) < 0.03, SENTINEL, a0)
+        a1 = np.where(rng.random(shape) < 0.03, SENTINEL, a1)
+    ops = _op_batch(
+        tuple(shape),
+        op=rng.choice(np.arange(-1, 6), shape,
+                      p=[0.04, 0.08, 0.25, 0.15, 0.25, 0.15, 0.08]),
+        key=(rng.integers(-2 * k, 2 * k, shape) if hazards
+             else rng.integers(0, k, shape)),
+        a0=a0, a1=a1)
+    if captured:
+        ops["ok"] = rng.integers(0, 2, tuple(shape) + (1,)).astype(np.int32)
+    return ops
 
 
 def ops_to_device(ops: dict, device=None) -> dict:

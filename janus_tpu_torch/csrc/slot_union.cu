@@ -1,17 +1,21 @@
 // slot_union: the sorted union of two slot sets, one row per block, for
-// the OR-Set (slot_union_launch), the RGA (rga_union_launch) and the
-// LWW-Set (lww_union_launch).
+// the OR-Set (slot_union_launch), the RGA (rga_union_launch), the LWW-Set
+// (lww_union_launch), the 2P-Set and the 2P2P Graph's vertices
+// (tp_union_launch) and the Graph's edges (edge_union_launch).
 //
 // Replaces: janus_tpu/ops/setops.py slot_union with the OR-Set fold
 // (janus_tpu/models/orset.py _combine) and with the RGA fold
 // (janus_tpu/models/rga.py _combine) and with the LWW-Set fold
-// (janus_tpu/models/lwwset.py _combine, with lattice.ts_max): the join of
-// merge and of the replica-axis converge (store.join_all's halving tree).
+// (janus_tpu/models/lwwset.py _combine, with lattice.ts_max) and with the
+// tombstone OR of janus_tpu/models/tpset.py _combine (38-40) and
+// janus_tpu/models/graph.py merge (184-193): the join of merge and of the
+// replica-axis converge (store.join_all's halving tree).
 // Per row: the Ca + Cb records sorted stably by their int32 key fields
-// (OR-Set: tag_rep, tag_ctr; RGA: id_ctr, id_rep; LWW-Set: elem), invalid
-// slots keyed SENTINEL; a record that repeats the valid key of the record
-// before it is a duplicate and is dropped, and a kept record ORs its flag
-// (OR-Set: removed; RGA: dead; the LWW-Set has none) with the record right
+// (OR-Set: tag_rep, tag_ctr; RGA: id_ctr, id_rep; LWW-Set and 2P: elem;
+// edges: src, dst), invalid slots keyed SENTINEL; a record that repeats
+// the valid key of the record before it is a duplicate and is dropped, and
+// a kept record ORs its flag (OR-Set and 2P: removed; RGA: dead; the
+// LWW-Set has none) with the record right
 // after it when that one is a duplicate, and folds its int32 payloads with
 // that record's by the layout's fold (OR-Set: elem stays the kept copy's;
 // RGA: par_ctr, par_rep and chr take the max; LWW-Set: (add_hi, add_lo)
@@ -22,13 +26,16 @@
 //
 // The layout is a set of template parameters (NK int32 key fields, NP
 // int32 payload fields, whether a bool flag exists, and the payloads'
-// fold, the "fold selector"), so the three types share one sort, one
+// fold, the "fold selector"), so the five layouts share one sort, one
 // duplicate rule and one compaction; each instantiation compiles only its
-// own layout (a one-key record sorts on (key, 0, position)).
+// own layout (a one-key record sorts on (key, 0, position)). The 2P
+// layouts have no payload (NP = 0): the payload arrays are declared with
+// one unused entry there (PAY_SLOTS), a compile-time size, so every
+// payload loop is empty and the layouts with payloads compile as before.
 //
 // What bounds it on the H100: bytes. A row reads (Ca + Cb) slots and
 // writes cap slots per output replica (14 bytes an OR-Set slot, 22 an RGA
-// one, 21 an LWW-Set one). At the OR-Set converge of 64 replicas x 500
+// one, 21 an LWW-Set one, 6 a 2P one, 10 an edge). At the OR-Set converge of 64 replicas x 500
 // keys x 256 slots (114.7 MB of state) the halving tree reads about
 // 2 x 114.7 MB and writes 114.7 MB into its levels, then 114.7 MB into the
 // replicas, ~0.13 ms of traffic at 3.35 TB/s. At the RGA converge (rga
@@ -42,7 +49,8 @@
 // Design: one block per row (grid-stride over rows). The records (keys,
 // position, valid and flag bits) and the payloads are staged in shared
 // memory (per record 16 bytes of sort record, 4 per payload field and 4 of
-// prefix sum: OR-Set 24, RGA 32, LWW-Set 36), so every read of the inputs
+// prefix sum: OR-Set 24, RGA 32, LWW-Set 36, 2P and edges 20), so every
+// read of the inputs
 // happens before any write: the output may alias an input row (the
 // converge writes the last level into the replicas it read). The sort is
 // slot_sort::block_sort on (key0, key1, position), the stable order;
@@ -52,7 +60,8 @@
 // allocates nothing, does not synchronise.
 //
 // Row-list mode (slot_union_rows_launch, rga_union_rows_launch,
-// lww_union_rows_launch): replaces
+// lww_union_rows_launch, tp_union_rows_launch, edge_union_rows_launch):
+// replaces
 // converge_delta's slab path (store.py:114-121: gather the listed key rows
 // into an [R, D, C] slab, join_all's halving tree, scatter back into every
 // replica). The tree runs as in the full converge, but each level joins
@@ -78,12 +87,17 @@ using namespace slot_sort;
 // FOLD_TS_MAX takes payloads (0, 1) and (2, 3) as (hi, lo) timestamps
 enum Fold { FOLD_KEEP = 0, FOLD_MAX = 1, FOLD_TS_MAX = 2 };
 
+// entries of a payload array: NP, or one unused entry when the layout has
+// no payload (a zero-length array is ill-formed)
+template <int NP>
+constexpr int PAY_SLOTS = NP > 0 ? NP : 1;
+
 // a slot set: NK (1 or 2) int32 key fields, NP int32 payload fields, a
 // bool flag folded by OR (unused without one), and the bool valid mask
 template <int NP>
 struct Slots {
   const int* key[2];
-  const int* pay[NP];
+  const int* pay[PAY_SLOTS<NP>];
   const unsigned char* flag;
   const unsigned char* valid;
 };
@@ -91,7 +105,7 @@ struct Slots {
 template <int NP>
 struct OutSlots {
   int* key[2];
-  int* pay[NP];
+  int* pay[PAY_SLOTS<NP>];
   unsigned char* flag;
   unsigned char* valid;
 };
@@ -170,7 +184,7 @@ __device__ int union_row(const Slots<NP>& a, long long a_at,
         next = nx.z;
       }
     }
-    int v[NP];
+    int v[PAY_SLOTS<NP>];
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       v[p] = pay[p * n + r.z];
@@ -330,7 +344,8 @@ int launch_rows(const void* const* a, const void* const* b, void* const* o,
 // Each slot set is an array of field pointers in the layout's order: OR-Set
 // tag_rep, tag_ctr, elem (int32), removed, valid (bool); RGA id_ctr,
 // id_rep, par_ctr, par_rep, chr (int32), dead, valid (bool); LWW-Set elem,
-// add_hi, add_lo, rm_hi, rm_lo (int32), valid (bool).
+// add_hi, add_lo, rm_hi, rm_lo (int32), valid (bool); 2P elem (int32),
+// removed, valid (bool); edges src, dst (int32), removed, valid (bool).
 //
 // a: [rows, ca], b: [rows, cb], o: [repeat, rows, cap], overflow
 // int32[rows]; contiguous on one device. The outputs may alias the inputs
@@ -357,6 +372,22 @@ extern "C" int lww_union_launch(const void* const* a, const void* const* b,
                                 int repeat, void* stream) {
   return launch<1, 4, false, FOLD_TS_MAX>(a, b, o, overflow, rows, ca, cb,
                                           cap, repeat, (cudaStream_t)stream);
+}
+
+extern "C" int tp_union_launch(const void* const* a, const void* const* b,
+                               void* const* o, void* overflow,
+                               long long rows, int ca, int cb, int cap,
+                               int repeat, void* stream) {
+  return launch<1, 0, true, FOLD_KEEP>(a, b, o, overflow, rows, ca, cb, cap,
+                                       repeat, (cudaStream_t)stream);
+}
+
+extern "C" int edge_union_launch(const void* const* a, const void* const* b,
+                                 void* const* o, void* overflow,
+                                 long long rows, int ca, int cb, int cap,
+                                 int repeat, void* stream) {
+  return launch<2, 0, true, FOLD_KEEP>(a, b, o, overflow, rows, ca, cb, cap,
+                                       repeat, (cudaStream_t)stream);
 }
 
 // Row-list mode. a, b: [pairs, num_keys, c]; o: [pairs, num_keys, c], or
@@ -398,4 +429,28 @@ extern "C" int lww_union_rows_launch(const void* const* a,
                                                n_rows, pairs, num_keys, c,
                                                gather, scatter, repeat,
                                                (cudaStream_t)stream);
+}
+
+extern "C" int tp_union_rows_launch(const void* const* a,
+                                    const void* const* b, void* const* o,
+                                    const void* rows, int listed,
+                                    const void* n_rows, int pairs,
+                                    int num_keys, int c, int gather,
+                                    int scatter, int repeat, void* stream) {
+  return launch_rows<1, 0, true, FOLD_KEEP>(a, b, o, rows, listed, n_rows,
+                                            pairs, num_keys, c, gather,
+                                            scatter, repeat,
+                                            (cudaStream_t)stream);
+}
+
+extern "C" int edge_union_rows_launch(const void* const* a,
+                                      const void* const* b, void* const* o,
+                                      const void* rows, int listed,
+                                      const void* n_rows, int pairs,
+                                      int num_keys, int c, int gather,
+                                      int scatter, int repeat, void* stream) {
+  return launch_rows<2, 0, true, FOLD_KEEP>(a, b, o, rows, listed, n_rows,
+                                            pairs, num_keys, c, gather,
+                                            scatter, repeat,
+                                            (cudaStream_t)stream);
 }

@@ -1,15 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version and with a launch counter (``<wrapper>.launches``). A row-list
 mode of a kernel (``replica_join_rows``, ``slot_union_rows``,
-``rga_union_rows``, ``lww_union_rows``, ``mvr_merge_rows``) is a wrapper
-of its own, with its own counter, over the same source; so are the RGA's
-and the LWW-Set's instantiations of ``slot_union.cu`` (``rga_union``,
-``lww_union``). A source with two entry points counts both on one
+``rga_union_rows``, ``lww_union_rows``, ``tp_union_rows``,
+``edge_union_rows``, ``mvr_merge_rows``) is a wrapper of its own, with its
+own counter, over the same source; so are the RGA's, the LWW-Set's and the
+two tombstone layouts' instantiations of ``slot_union.cu`` (``rga_union``,
+``lww_union``, ``tp_union`` for the 2P-Set and the Graph's vertices,
+``edge_union`` for the Graph's edges). A source with two entry points counts both on one
 wrapper: ``safekv_board`` on ``safekv_submit``, ``gc_clear_ring`` on
 ``gc_frontier``, ``orset_watermark`` on ``orset_compact``. The capture
 mode of ``rga_apply.cu`` is a wrapper of its own, ``rga_capture``; so
-are those of ``lww_apply.cu`` and ``mvr_apply.cu`` (``lww_capture``,
-``mvr_capture``).
+are those of ``lww_apply.cu``, ``mvr_apply.cu`` and ``graph_apply.cu``
+(``lww_capture``, ``mvr_capture``, ``graph_capture``). The 2P-Set's apply
+and capture are ``graph_apply.cu``'s walk with no edge block, wrappers of
+their own (``tpset_apply``, ``tpset_capture``).
 
 Sources live in ``janus_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Nothing here imports or builds anything at import
@@ -25,8 +29,13 @@ from janus_tpu_torch.kernels.delta_select import (  # noqa: F401
     delta_select, delta_select_plain)
 from janus_tpu_torch.kernels.dirty_rows import (  # noqa: F401
     dirty_rows, dirty_rows_plain)
+from janus_tpu_torch.kernels.edge_mask import (  # noqa: F401
+    edge_mask, edge_mask_plain)
 from janus_tpu_torch.kernels.gc_frontier import (  # noqa: F401
     gc_clear_ring, gc_clear_ring_plain, gc_frontier, gc_frontier_plain)
+from janus_tpu_torch.kernels.graph_apply import (  # noqa: F401
+    graph_apply, graph_apply_plain, graph_capture, graph_capture_plain,
+    tpset_apply, tpset_apply_plain, tpset_capture, tpset_capture_plain)
 from janus_tpu_torch.kernels.lww_apply import (  # noqa: F401
     lww_apply, lww_apply_plain, lww_capture, lww_capture_plain)
 from janus_tpu_torch.kernels.mark_members import (  # noqa: F401
@@ -58,8 +67,10 @@ from janus_tpu_torch.kernels.replica_join import (  # noqa: F401
 from janus_tpu_torch.kernels.safekv_submit import (  # noqa: F401
     safekv_board, safekv_board_plain, safekv_submit, safekv_submit_plain)
 from janus_tpu_torch.kernels.slot_union import (  # noqa: F401
+    edge_union, edge_union_plain, edge_union_rows, edge_union_rows_plain,
     lww_union, lww_union_plain, lww_union_rows, lww_union_rows_plain,
-    slot_union, slot_union_plain, slot_union_rows, slot_union_rows_plain)
+    slot_union, slot_union_plain, slot_union_rows, slot_union_rows_plain,
+    tp_union, tp_union_plain, tp_union_rows, tp_union_rows_plain)
 from janus_tpu_torch.kernels.state_transfer import (  # noqa: F401
     state_transfer, state_transfer_plain)
 from janus_tpu_torch.kernels.tusk_commit import (  # noqa: F401
@@ -82,7 +93,11 @@ WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join,
             "lww_union_rows": lww_union_rows, "lww_apply": lww_apply,
             "lww_capture": lww_capture, "mvr_merge": mvr_merge,
             "mvr_merge_rows": mvr_merge_rows, "mvr_apply": mvr_apply,
-            "mvr_capture": mvr_capture}
+            "mvr_capture": mvr_capture, "tp_union": tp_union,
+            "tp_union_rows": tp_union_rows, "edge_union": edge_union,
+            "edge_union_rows": edge_union_rows, "tpset_apply": tpset_apply,
+            "tpset_capture": tpset_capture, "graph_apply": graph_apply,
+            "graph_capture": graph_capture, "edge_mask": edge_mask}
 
 
 def reset_launches() -> None:

@@ -24,7 +24,8 @@ KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
            "orset_apply", "dirty_rows", "delta_select", "rga_apply",
            "rga_compact", "rga_order", "safekv_submit", "block_select",
            "state_transfer", "gc_frontier", "orset_compact",
-           "mark_members", "lww_apply", "mvr_merge", "mvr_apply")
+           "mark_members", "lww_apply", "mvr_merge", "mvr_apply",
+           "graph_apply", "edge_mask")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"

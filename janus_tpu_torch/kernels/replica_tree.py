@@ -1,9 +1,11 @@
 """The converge's halving tree over the leading replica axis of a state,
 driven through a type's join wrapper: janus_tpu/runtime/store.py
 ``join_all`` (overlapping halves) for the full converge and its
-row-list form for ``converge_delta``. The OR-Set's, RGA's and LWW-Set's
-instantiations of csrc/slot_union.cu and the MVRegister's
-csrc/mvr_merge.cu run it; each type names the fields its join reads.
+row-list form for ``converge_delta``. The OR-Set's, RGA's, LWW-Set's and
+the two tombstone layouts' instantiations of csrc/slot_union.cu and the
+MVRegister's csrc/mvr_merge.cu run it; each type names the fields its join
+reads. The 2P2P Graph runs it twice a join, once per block, over views of
+its leaves under the layouts' field names.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ def join_tree(fields: tuple, union_fn, state) -> None:
     halves when the count is odd), one ``union_fn`` launch per level into
     ``tree_scratch``, the last level writing its row into all R rows.
     ``union_fn`` is the type's join wrapper (``slot_union``,
-    ``rga_union``, ``lww_union``, ``mvr_merge``)."""
+    ``rga_union``, ``lww_union``, ``tp_union``, ``edge_union``,
+    ``mvr_merge``)."""
     cap = state["valid"].shape[-1]
     cur = {f: state[f] for f in fields}
     n = state["valid"].shape[0]

@@ -15,8 +15,9 @@ janus_tpu/runtime/store.py ``converge_delta``.
 The source takes the slot layout and its duplicate fold as template
 parameters; ``Layout`` is its Python side, and ``union`` / ``union_rows``
 the launch of any layout (``kernels.rga_union`` is the RGA's,
-``kernels.lww_union`` the LWW-Set's); ``kernels.replica_tree`` runs the
-converge's halving tree through them.
+``kernels.lww_union`` the LWW-Set's, ``tp_union`` the 2P-Set's and the
+Graph vertices', ``edge_union`` the Graph edges'); ``kernels.replica_tree``
+runs the converge's halving tree through them.
 
 The wrappers launch the CUDA kernel for CUDA tensors (or raise) and run
 their plain versions only for tensors that lie on the CPU.
@@ -29,7 +30,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from janus_tpu_torch.kernels import build, lww_rows, operands, orset_rows
+from janus_tpu_torch.kernels import (build, lww_rows, operands, orset_rows,
+                                     tp_rows)
 from janus_tpu_torch.ops.setops import slot_union as _generic_union
 
 
@@ -62,6 +64,10 @@ ORSET = Layout(orset_rows.FIELDS, orset_rows.DTYPES,
                "slot_union_rows_launch")
 LWW = Layout(lww_rows.FIELDS, lww_rows.DTYPES, lww_rows.fold_duplicate, 4,
              "lww_union_launch", "lww_union_rows_launch", keys=1)
+TP = Layout(tp_rows.TP_FIELDS, tp_rows.DTYPES, tp_rows.fold_duplicate, 0,
+            "tp_union_launch", "tp_union_rows_launch", keys=1)
+EDGE = Layout(tp_rows.EDGE_FIELDS, tp_rows.DTYPES, tp_rows.fold_duplicate, 0,
+              "edge_union_launch", "edge_union_rows_launch")
 
 
 def union_plain(layout: Layout, a, b, capacity: int | None = None, out=None):
@@ -87,14 +93,16 @@ def _lib():
     if lib.slot_union_launch.argtypes is None:
         ptr, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
         for name in ("slot_union_launch", "rga_union_launch",
-                     "lww_union_launch"):
+                     "lww_union_launch", "tp_union_launch",
+                     "edge_union_launch"):
             fn = getattr(lib, name)
             fn.argtypes = [arr, arr, arr, ptr, ctypes.c_longlong,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ptr]
             fn.restype = ctypes.c_int
         for name in ("slot_union_rows_launch", "rga_union_rows_launch",
-                     "lww_union_rows_launch"):
+                     "lww_union_rows_launch", "tp_union_rows_launch",
+                     "edge_union_rows_launch"):
             fn = getattr(lib, name)
             fn.argtypes = [arr, arr, arr, ptr, ctypes.c_int, ptr,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -111,8 +119,10 @@ def _ptrs(layout: Layout, slots):
 def shared_bytes(ca: int, cb: int, layout: Layout = ORSET) -> int:
     """Shared memory of one block (csrc/slot_union.cu): per input record
     a 16-byte sort record, 4 bytes per int32 payload field and 4 of prefix
-    sum (24 for the OR-Set, 32 for the RGA, 36 for the LWW-Set), and the
-    prefix sum's 4 KB."""
+    sum (24 for the OR-Set, 32 for the RGA, 36 for the LWW-Set, 20 for the
+    2P layouts), and the prefix sum's 4 KB. The most rows a block holds
+    follow: Ca + Cb <= 11,410 records for the 2P layouts (a full join of
+    rows up to 5,705 slots), 9,508 for the OR-Set."""
     per = 16 + 4 * (layout.payloads + 1)
     return per * (ca + cb) + 16 + operands.SCAN_SHARED_BYTES
 
@@ -301,3 +311,85 @@ def lww_union_rows(a, b, out, rows, n_rows, gather: bool = True,
 
 
 lww_union_rows.launches = 0
+
+
+def tp_union_plain(a, b, capacity: int | None = None, out=None):
+    """Plain PyTorch version of ``tp_union``: ``ops.setops.slot_union`` on
+    the TP layout's fields (``tp_rows.TP_FIELDS``) with the tombstone OR."""
+    return union_plain(TP, a, b, capacity, out)
+
+
+def tp_union(a, b, capacity: int | None = None, out=None):
+    """Union of 2P slot sets ``a`` ``[..., Ca]`` and ``b`` ``[..., Cb]`` by
+    elem, per row (the TP instantiation of csrc/slot_union.cu; replaces
+    janus_tpu/ops/setops.py ``slot_union`` with janus_tpu/models/tpset.py
+    ``_combine``, and the vertex union of janus_tpu/models/graph.py
+    ``merge``): a duplicate elem ORs its tombstones, the kept elems are cut
+    to the ``capacity`` smallest, and invalid slots are filled canonically.
+    Returns ``(out, overflow int32[...])`` with ``out`` fresh tensors
+    ``[..., capacity]``, or written into ``out`` (``[P, ..., capacity]``,
+    every one of its P rows; it may alias ``a`` or ``b``). Bound on the H100
+    by bytes: 6 a slot, each read and written once."""
+    return union(TP, tp_union, a, b, capacity, out)
+
+
+tp_union.launches = 0
+
+
+def tp_union_rows_plain(a, b, out, rows, n_rows, gather: bool = True,
+                        scatter: bool = False):
+    """Plain PyTorch version of ``tp_union_rows``."""
+    return union_rows_plain(TP, a, b, out, rows, n_rows, gather, scatter)
+
+
+def tp_union_rows(a, b, out, rows, n_rows, gather: bool = True,
+                  scatter: bool = False):
+    """One level of the converge's halving tree over listed key rows
+    ``rows[:n_rows]`` (``n_rows`` int32[] on the device, read there), as
+    ``slot_union_rows`` does for the OR-Set: ``a``, ``b`` ``[P, K, C]`` 2P
+    slot sets, ``out`` ``[P, K, C]`` scratch or, with ``scatter`` (one
+    pair), the ``[R, K, C]`` state. Returns ``out``."""
+    return union_rows(TP, tp_union_rows, a, b, out, rows, n_rows, gather,
+                      scatter)
+
+
+tp_union_rows.launches = 0
+
+
+def edge_union_plain(a, b, capacity: int | None = None, out=None):
+    """Plain PyTorch version of ``edge_union``: ``ops.setops.slot_union``
+    on the EDGE layout's fields (``tp_rows.EDGE_FIELDS``) with the
+    tombstone OR."""
+    return union_plain(EDGE, a, b, capacity, out)
+
+
+def edge_union(a, b, capacity: int | None = None, out=None):
+    """Union of edge slot sets ``a`` ``[..., Ca]`` and ``b`` ``[..., Cb]``
+    by (src, dst), per row (the EDGE instantiation of csrc/slot_union.cu;
+    replaces the edge union of janus_tpu/models/graph.py ``merge``): a
+    duplicate edge ORs its tombstones, the kept edges are cut to the
+    ``capacity`` smallest, invalid slots are filled canonically. Arguments
+    and result as for ``tp_union``. Bound on the H100 by bytes: 10 a slot,
+    each read and written once."""
+    return union(EDGE, edge_union, a, b, capacity, out)
+
+
+edge_union.launches = 0
+
+
+def edge_union_rows_plain(a, b, out, rows, n_rows, gather: bool = True,
+                          scatter: bool = False):
+    """Plain PyTorch version of ``edge_union_rows``."""
+    return union_rows_plain(EDGE, a, b, out, rows, n_rows, gather, scatter)
+
+
+def edge_union_rows(a, b, out, rows, n_rows, gather: bool = True,
+                    scatter: bool = False):
+    """One level of the converge's halving tree over listed key rows of
+    edge slot sets, as ``tp_union_rows`` does for the TP layout. Returns
+    ``out``."""
+    return union_rows(EDGE, edge_union_rows, a, b, out, rows, n_rows, gather,
+                      scatter)
+
+
+edge_union_rows.launches = 0

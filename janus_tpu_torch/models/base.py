@@ -15,6 +15,7 @@ field an int32 tensor of the same shape.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict
 
 import torch
@@ -84,6 +85,32 @@ def gather_index(idx: torch.Tensor, size: int) -> torch.Tensor:
     clamped into ``[0, size)``. Returns the int64 index."""
     idx = torch.where(idx < 0, idx + size, idx)
     return idx.clamp(0, max(size - 1, 0)).long()
+
+
+def flat_views(state, ops: OpBatch, fields):
+    """The state's ``fields`` as views with their leading (replica or
+    view) axes flattened into one axis of V (1 for none), the op fields as
+    ``[V, B, ...]``, and the leading axes: the layout the apply kernels
+    take. The leading axes are those of ``fields[0]`` before its key and
+    slot axes; raises when the op batch's differ."""
+    lead = tuple(state[fields[0]].shape[:-2])
+    if tuple(ops["op"].shape[:-1]) != lead:
+        raise ValueError(f"op batch shape {tuple(ops['op'].shape)} does not "
+                         f"match state leading axes {lead}")
+    v, B = math.prod(lead), ops["op"].shape[-1]
+    flat = {f: state[f].view((v,) + tuple(state[f].shape[len(lead):]))
+            for f in fields}
+    fops = {f: x.reshape((v, B) + tuple(x.shape[len(lead) + 1:]))
+            for f, x in ops.items()}
+    return flat, fops, lead
+
+
+def key_rows(x: torch.Tensor, key) -> torch.Tensor:
+    """The rows of a leaf ``x`` ``[..., K, C]`` at ``key`` (gathered on the
+    key axis by JAX's gather rule): ``[..., *key.shape, C]``."""
+    k = gather_index(torch.as_tensor(key, device=x.device), x.shape[-2])
+    rows = x.index_select(-2, k.reshape(-1))
+    return rows.reshape(x.shape[:-2] + tuple(k.shape) + x.shape[-1:])
 
 
 @dataclasses.dataclass(frozen=True)

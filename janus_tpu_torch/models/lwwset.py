@@ -31,7 +31,6 @@ by op, the plain version of ``capture_apply``.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
@@ -44,7 +43,7 @@ from janus_tpu_torch.kernels.lww_rows import (  # noqa: F401
 from janus_tpu_torch.kernels.replica_tree import join_tree, join_tree_rows
 from janus_tpu_torch.kernels.slot_union import LWW
 from janus_tpu_torch.models import base
-from janus_tpu_torch.models.base import gather_index
+from janus_tpu_torch.models.base import flat_views, gather_index, key_rows
 from janus_tpu_torch.ops.setops import make_slots
 
 State = Dict[str, torch.Tensor]  # fields [..., K, C]
@@ -60,27 +59,11 @@ def init(num_keys: int, capacity: int, device=None) -> State:
                       device=resolve_device(device))
 
 
-def _flat(state: State, ops: base.OpBatch):
-    """The slot fields as ``[V, K, C]`` views, the op fields as ``[V, B]``
-    (``ok`` ``[V, B, 1]``), V the product of the leading axes (1 for
-    none), and the leading axes."""
-    lead = tuple(state["valid"].shape[:-2])
-    if tuple(ops["op"].shape[:-1]) != lead:
-        raise ValueError(f"op batch shape {tuple(ops['op'].shape)} does not "
-                         f"match state leading axes {lead}")
-    K, C = state["valid"].shape[-2:]
-    v, B = math.prod(lead), ops["op"].shape[-1]
-    flat = {f: state[f].view(v, K, C) for f in FIELDS}
-    fops = {f: x.reshape((v, B) + tuple(x.shape[len(lead) + 1:]))
-            for f, x in ops.items()}
-    return flat, fops, lead
-
-
 def apply_ops_dropped(state: State, ops: base.OpBatch):
     """Apply add/remove ops in lane order (the ``lww_apply`` kernel), in
     place. Returns ``(state, dropped int32[...])``: the slot records each
     replica dropped into full rows."""
-    flat, fops, lead = _flat(state, ops)
+    flat, fops, lead = flat_views(state, ops, FIELDS)
     keep = OP_FIELDS + (("ok",) if "ok" in fops else ())
     dropped = kernels.lww_apply(flat, {f: fops[f] for f in keep})
     return state, dropped.reshape(lead)
@@ -119,7 +102,7 @@ def capture_apply(state: State, ops: base.OpBatch):
     is its element's containment in the state the earlier lanes left,
     and the op applies. Returns ``(state, prepared)``, the ops with
     ``ok`` ``[..., B, 1]``."""
-    flat, fops, lead = _flat(state, ops)
+    flat, fops, lead = flat_views(state, ops, FIELDS)
     ok, _ = kernels.lww_capture(flat, {f: fops[f] for f in OP_FIELDS})
     return state, {**ops, "ok": ok.view(lead + (ops["op"].shape[-1], 1))}
 
@@ -154,20 +137,13 @@ def join_replica_rows(state: State, rows: torch.Tensor,
     return state
 
 
-def _rows(state: State, field: str, key) -> torch.Tensor:
-    x = state[field]
-    k = gather_index(torch.as_tensor(key, device=x.device), x.shape[-2])
-    rows = x.index_select(-2, k.reshape(-1))
-    return rows.reshape(x.shape[:-2] + tuple(k.shape) + x.shape[-1:])
-
-
 def contains(state: State, key, elem) -> torch.Tensor:
     """Presence of ``elem`` at ``key`` (gathered on the key axis by JAX's
     gather rule)."""
-    hit = _rows(state, "valid", key) & (
-        _rows(state, "elem", key) == torch.as_tensor(elem,
-                                                     device=state["elem"].device))
-    return slot_live(hit, *(_rows(state, f, key) for f in
+    hit = key_rows(state["valid"], key) & (
+        key_rows(state["elem"], key)
+        == torch.as_tensor(elem, device=state["elem"].device))
+    return slot_live(hit, *(key_rows(state[f], key) for f in
                             ("add_hi", "add_lo", "rm_hi", "rm_lo"))).any(-1)
 
 

@@ -35,7 +35,6 @@ fields ``[..., B]``). ``prepare_ops`` is plain PyTorch:
 """
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
@@ -46,7 +45,7 @@ from janus_tpu_torch.kernels.mvr_rows import (  # noqa: F401
     FIELDS, OP_FIELDS, OP_WRITE, wrap_add_one)
 from janus_tpu_torch.kernels.replica_tree import join_tree, join_tree_rows
 from janus_tpu_torch.models import base
-from janus_tpu_torch.models.base import gather_index
+from janus_tpu_torch.models.base import flat_views, gather_index
 from janus_tpu_torch.ops.lattice import SENTINEL
 
 State = Dict[str, torch.Tensor]
@@ -67,30 +66,11 @@ def init(num_keys: int, num_writers: int, capacity: int,
     }
 
 
-def _flat(state: State, ops: base.OpBatch):
-    """The fields as ``[V, K, Vc]`` (``clock`` ``[V, K, Vc, W]``) views,
-    the op fields as ``[V, B]`` (``wclock`` ``[V, B, W]``), V the product
-    of the leading axes (1 for none), and the leading axes."""
-    lead = tuple(state["val"].shape[:-2])
-    if tuple(ops["op"].shape[:-1]) != lead:
-        raise ValueError(f"op batch shape {tuple(ops['op'].shape)} does not "
-                         f"match state leading axes {lead}")
-    K, vc = state["val"].shape[-2:]
-    w = state["clock"].shape[-1]
-    v, B = math.prod(lead), ops["op"].shape[-1]
-    flat = {"val": state["val"].view(v, K, vc),
-            "valid": state["valid"].view(v, K, vc),
-            "clock": state["clock"].view(v, K, vc, w)}
-    fops = {f: x.reshape((v, B) + tuple(x.shape[len(lead) + 1:]))
-            for f, x in ops.items()}
-    return flat, fops, lead
-
-
 def apply_ops_dropped(state: State, ops: base.OpBatch):
     """Apply writes in lane order (the ``mvr_apply`` kernel), in place.
     Returns ``(state, dropped int32[...])``: the concurrent values each
     replica dropped when a row's frontier overflowed V."""
-    flat, fops, lead = _flat(state, ops)
+    flat, fops, lead = flat_views(state, ops, FIELDS)
     keep = OP_FIELDS + (("wclock",) if "wclock" in fops else ())
     dropped = kernels.mvr_apply(flat, {f: fops[f] for f in keep})
     return state, dropped.reshape(lead)
@@ -129,7 +109,7 @@ def capture_apply(state: State, ops: base.OpBatch):
     ``wclock`` is observed against the state the earlier lanes left, and
     the write joins its row. Returns ``(state, prepared)``, the ops with
     ``wclock`` ``[..., B, W]`` (0 for a lane that is not a write)."""
-    flat, fops, lead = _flat(state, ops)
+    flat, fops, lead = flat_views(state, ops, FIELDS)
     wclock, _ = kernels.mvr_capture(flat, {f: fops[f] for f in OP_FIELDS})
     w = state["clock"].shape[-1]
     return state, {**ops, "wclock": wclock.view(

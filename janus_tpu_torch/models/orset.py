@@ -47,7 +47,7 @@ from janus_tpu_torch.kernels.orset_rows import (  # noqa: F401
 from janus_tpu_torch.kernels.replica_tree import join_tree, join_tree_rows
 from janus_tpu_torch.kernels.slot_union import ORSET
 from janus_tpu_torch.models import base
-from janus_tpu_torch.models.base import gather_index
+from janus_tpu_torch.models.base import gather_index, key_rows
 from janus_tpu_torch.ops.lattice import SENTINEL
 from janus_tpu_torch.ops.setops import make_slots
 
@@ -192,19 +192,13 @@ def join_replica_rows(state: State, rows: torch.Tensor,
     return state
 
 
-def _rows(state: State, field: str, key) -> torch.Tensor:
-    x = state[field]
-    k = gather_index(torch.as_tensor(key, device=x.device), x.shape[-2])
-    rows = x.index_select(-2, k.reshape(-1))
-    return rows.reshape(x.shape[:-2] + tuple(k.shape) + x.shape[-1:])
-
-
 def contains(state: State, key, elem) -> torch.Tensor:
     """Presence of ``elem`` at ``key``: some observed add-tag of it is not
     tombstoned. The key is gathered on the key axis (``[..., K, C]``) by
     JAX's gather rule."""
-    live = _rows(state, "valid", key) & ~_rows(state, "removed", key)
-    hit = _rows(state, "elem", key) == torch.as_tensor(elem, device=live.device)
+    live = key_rows(state["valid"], key) & ~key_rows(state["removed"], key)
+    hit = key_rows(state["elem"], key) == torch.as_tensor(elem,
+                                                          device=live.device)
     return (live & hit).any(-1)
 
 

@@ -23,7 +23,7 @@ from janus_tpu_torch import kernels
 from janus_tpu_torch.device import check_device, resolve_device
 from janus_tpu_torch.models import base
 from janus_tpu_torch.models import (  # noqa: F401 (registers)
-    lwwset, mvregister, orset, pncounter, rga)
+    graph, lwwset, mvregister, orset, pncounter, rga, tpset)
 from janus_tpu_torch.obs.metrics import get_registry
 
 

@@ -1478,3 +1478,238 @@ def test_typed_safekv_on_card_matches_cpu(cuda_device, kind):
             for d, kv in kvs.items()}
         _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
     assert kvs[cuda_device].stats == kvs[torch.device("cpu")].stats
+
+
+# -- the 2P-Set and the 2P2P Graph ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,lead,ca,cb,canonical", [
+    ("orset", (3, 5), 6, 6, False), ("orset", (2, 50), 256, 256, True),
+    ("rga", (3, 5), 6, 6, False), ("rga", (2, 8), 1024, 1024, True),
+    ("lww", (3, 5), 6, 6, False), ("lww", (2, 50), 256, 256, True)])
+def test_slot_union_layouts_unchanged_by_the_np0_template(cuda_device, layout,
+                                                          lead, ca, cb,
+                                                          canonical):
+    """The OR-Set's, RGA's and LWW-Set's instantiations of slot_union.cu,
+    after the payload arrays took one unused entry for layouts without a
+    payload: fresh and in-place (broadcast) forms bit-equal to their plain
+    versions, overflow included."""
+    rng = np.random.default_rng(ca + len(lead) + len(layout))
+    make, fn, plain = {
+        "orset": (_slots, kernels.slot_union, kernels.slot_union_plain),
+        "rga": (_rga_rows, kernels.rga_union, kernels.rga_union_plain),
+        "lww": (_lww_rows, kernels.lww_union, kernels.lww_union_plain)}[layout]
+    a = make(rng, lead, ca, cuda_device, canonical=canonical, full_rows=0.5)
+    b = make(rng, lead, cb, cuda_device, canonical=canonical, full_rows=0.5)
+    _kernel_vs_plain(fn, plain, (a, b, ca))
+    out = {f: torch.empty((3,) + lead + (ca,), dtype=x.dtype,
+                          device=cuda_device) for f, x in a.items()}
+    mine, ref = _clone(out), _clone(out)
+    _, o1 = fn(a, b, ca, out=mine)
+    _, o2 = plain(a, b, ca, out=ref)
+    torch.cuda.synchronize()
+    _same((mine, o1), (ref, o2))
+
+
+def _tp_rows(rng, shape, c, dev, **kw):
+    return _on(workloads.tp_slots(rng, shape, c, **kw), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edges,lead,ca,cb,cap,canonical", [
+    (False, (3, 5), 6, 6, 6, False), (False, (7,), 8, 8, 8, True),
+    (False, (2, 4), 5, 3, 4, False), (False, (16, 100), 64, 64, 64, False),
+    (False, (2, 50), 256, 256, 256, True), (True, (3, 5), 6, 6, 6, False),
+    (True, (4,), 3, 2, 8, True), (True, (2, 50), 256, 256, 256, True),
+    (True, (16, 10), 256, 256, 256, False)])
+def test_tp_and_edge_union_match_plain(cuda_device, edges, lead, ca, cb, cap,
+                                       canonical):
+    """The TP and EDGE instantiations of slot_union.cu (no payload, the
+    tombstone ORed): duplicates within a non-canonical input, one copy
+    tombstoned, full rows (overflow), unequal widths, and the in-place form
+    writing into several replicas."""
+    rng = np.random.default_rng(ca * 7 + cb + edges)
+    fn, plain = ((kernels.edge_union, kernels.edge_union_plain) if edges
+                 else (kernels.tp_union, kernels.tp_union_plain))
+    kw = dict(canonical=canonical, dup_rows=0.3, full_rows=0.5, edges=edges)
+    a = _tp_rows(rng, lead, ca, cuda_device, **kw)
+    b = _tp_rows(rng, lead, cb, cuda_device, **kw)
+    before = fn.launches
+    out, ovf = _kernel_vs_plain(fn, plain, (a, b, cap))
+    assert fn.launches == before + 1
+    assert out["valid"].any() and (cap > max(ca, cb) or ovf.any())
+    dst = {f: torch.empty((2,) + lead + (cap,), dtype=x.dtype,
+                          device=cuda_device) for f, x in a.items()}
+    mine, ref = _clone(dst), _clone(dst)
+    _, o1 = fn(a, b, cap, out=mine)
+    _, o2 = plain(a, b, cap, out=ref)
+    torch.cuda.synchronize()
+    _same((mine, o1), (ref, o2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,r", [("tpset", 5), ("tpset", 2), ("graph", 7),
+                                    ("graph", 2), ("graph", 64)])
+def test_tp_trees_match_plain(cuda_device, kind, r):
+    """``join_replica_rows`` (tp_union_rows, and for the Graph also
+    edge_union_rows) and ``join_replicas`` of the 2P-Set and the Graph on
+    the card against the same trees on the CPU, over all, some and no
+    listed rows, at odd R, R = 2 and R = 64."""
+    from janus_tpu_torch.models import graph, tpset
+
+    rng = np.random.default_rng(r + len(kind))
+    k = 9
+    if kind == "tpset":
+        host = workloads.tp_slots(rng, (r, k), 8, canonical=False,
+                                  dup_rows=0.2, full_rows=0.4, num_elems=12)
+        model = tpset
+    else:
+        host = workloads.graph_slots(rng, (r, k), 6, 12, 7, canonical=False,
+                                     dup_rows=0.2, full_rows=0.4)
+        model = graph
+    for rows, n in _rows_cases(rng, k, cuda_device):
+        mine, ref = _on(host, cuda_device), _on(host, "cpu")
+        model.join_replica_rows(mine, rows, n)
+        model.join_replica_rows(ref, rows.cpu(), n.cpu())
+        torch.cuda.synchronize()
+        _same(mine, ref)
+    mine, ref = _on(host, cuda_device), _on(host, "cpu")
+    model.join_replicas(mine)
+    model.join_replicas(ref)
+    torch.cuda.synchronize()
+    _same(mine, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,k,c,b,mode,hot", [
+    (3, 5, 8, 40, "apply", False), (4, 3, 6, 300, "captured", False),
+    (5, 2, 4, 24, "capture", False), (2, 4, 64, 5000, "apply", True),
+    (2, 4, 64, 5000, "capture", True), (16, 100, 64, 2048, "captured", False)])
+def test_tpset_apply_and_capture_match_plain(cuda_device, v, k, c, b, mode,
+                                             hot):
+    """tpset_apply (uncaptured, captured) and tpset_capture against their
+    plain versions: non-canonical rows with duplicate elems, full rows that
+    drop, keys in [-2K, 2K), every op code; ``hot``: most lanes on one row,
+    more than a window of them."""
+    rng = np.random.default_rng(v * b + c + 1)
+    st = _tp_rows(rng, (v, k), c, cuda_device, canonical=False,
+                  dup_rows=0.3, full_rows=0.4, num_elems=2 * c)
+    ops = workloads.tp_mixed_ops(rng, (v, b), k, 2 * c,
+                                 captured=mode == "captured")
+    if hot:
+        ops["key"][:, : 9 * b // 10] = 1
+    dops = _on(ops, cuda_device)
+    if mode == "capture":
+        before = kernels.tpset_capture.launches
+        ok, drop = _kernel_vs_plain(kernels.tpset_capture,
+                                    kernels.tpset_capture_plain, (st, dops))
+        assert kernels.tpset_capture.launches == before + 1
+        assert bool((ok == 0).any()) and bool((ok == 1).any())
+    else:
+        before = kernels.tpset_apply.launches
+        drop = _kernel_vs_plain(kernels.tpset_apply,
+                                kernels.tpset_apply_plain, (st, dops))
+        assert kernels.tpset_apply.launches == before + 1
+    assert int(drop.sum()) > 0
+
+
+def _graph_rows(rng, shape, cv, ce, nv, dev, **kw):
+    return _on(workloads.graph_slots(rng, shape, cv, ce, nv, **kw), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,k,cv,ce,nv,b,mode,hot", [
+    (3, 5, 6, 10, 5, 48, "apply", False),
+    (4, 3, 6, 10, 8, 300, "captured", False),
+    (5, 2, 4, 6, 5, 24, "capture", False),
+    (2, 4, 32, 256, 32, 5000, "apply", True),
+    (2, 4, 32, 256, 32, 5000, "capture", True),
+    (16, 100, 32, 256, 40, 2048, "captured", False)])
+def test_graph_apply_and_capture_match_plain(cuda_device, v, k, cv, ce, nv, b,
+                                             mode, hot):
+    """graph_apply (uncaptured, captured) and graph_capture against their
+    plain versions: non-canonical blocks with duplicates, full blocks that
+    drop, keys in [-2K, 2K), codes -1 to 5, self-loops, endpoints at
+    INT32_MAX; ``hot`` as for tpset_apply."""
+    rng = np.random.default_rng(v * b + cv + 2)
+    st = _graph_rows(rng, (v, k), cv, ce, nv, cuda_device, canonical=False,
+                     dup_rows=0.3, full_rows=0.4, at_max=0.05)
+    ops = workloads.graph_mixed_ops(rng, (v, b), k, nv,
+                                    captured=mode == "captured")
+    if hot:
+        ops["key"][:, : 9 * b // 10] = 1
+    dops = _on(ops, cuda_device)
+    if mode == "capture":
+        before = kernels.graph_capture.launches
+        ok, drop = _kernel_vs_plain(kernels.graph_capture,
+                                    kernels.graph_capture_plain, (st, dops))
+        assert kernels.graph_capture.launches == before + 1
+        assert bool((ok == 0).any()) and bool((ok == 1).any())
+    else:
+        before = kernels.graph_apply.launches
+        drop = _kernel_vs_plain(kernels.graph_apply,
+                                kernels.graph_apply_plain, (st, dops))
+        assert kernels.graph_apply.launches == before + 1
+    assert int(drop.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,cv,ce,nv,at_max", [
+    ((3, 5), 6, 10, 5, 0.0), ((8, 16), 6, 10, 5, 0.2),
+    ((16, 1000), 32, 256, 32, 0.01), ((7,), 1, 3, 2, 0.3),
+    ((4, 3), 0, 5, 2, 0.0), ((2, 3), 40, 300, 50, 0.05)])
+def test_edge_mask_matches_plain(cuda_device, lead, cv, ce, nv, at_max):
+    """edge_mask against its plain version: live, dead and absent
+    endpoints, duplicate slots, endpoints at INT32_MAX (the sentinel
+    quirk), CV = 0, CV past one thread's slots and CE past a block."""
+    rng = np.random.default_rng(cv * 3 + ce + len(lead))
+    st = _graph_rows(rng, lead, cv, ce, nv, cuda_device, canonical=False,
+                     dup_rows=0.3, at_max=at_max)
+    before = kernels.edge_mask.launches
+    out = _kernel_vs_plain(kernels.edge_mask, kernels.edge_mask_plain, (st,))
+    assert kernels.edge_mask.launches == before + 1
+    if cv and ce > 10:
+        assert bool(out.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tpset", "graph"])
+def test_tp_safekv_on_card_matches_cpu(cuda_device, kind):
+    """The 2P-Set and the Graph through SafeKV at N=4, W=8: the packed
+    output and every device tensor bit-equal between the card and the CPU,
+    round by round, and the Graph's edge_count of the prospective views."""
+    from janus_tpu_torch import convert
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import graph, tpset
+    from janus_tpu_torch.runtime import safecrdt
+
+    n, w, k, b = 4, 8, 6, 16
+    if kind == "tpset":
+        spec, dims = tpset.SPEC, dict(num_keys=k, capacity=8)
+    else:
+        spec, dims = graph.SPEC, dict(num_keys=k, v_capacity=8, e_capacity=24)
+    kvs = {d: safecrdt.SafeKV(DagConfig(n, w), spec, ops_per_block=b,
+                              device=d, **dims)
+           for d in (cuda_device, torch.device("cpu"))}
+    rng = np.random.default_rng(4)
+    for t in range(14):
+        if kind == "tpset":
+            ops = workloads.tpset_add_remove(rng, n, k, b, num_elems=8)
+        else:
+            ops = workloads.graph_ops(rng, n, k, b, num_vertices=8,
+                                      out_degree=3)
+        packed = {}
+        for d, kv in kvs.items():
+            packed[d.type], meta = kv.step_dispatch(
+                workloads.ops_to_device(ops, d))
+            kv.step_absorb(packed[d.type], meta)
+        assert torch.equal(packed["cuda"].cpu(), packed["cpu"]), t
+        st = {d.type: convert.tree_to_numpy(
+            {f: getattr(kv, f) for f in safecrdt.DEVICE_FIELDS})
+            for d, kv in kvs.items()}
+        _assert_trees_equal(st["cuda"], st["cpu"], f"round {t}")
+        if kind == "graph":
+            counts = [kv.query_prospective("edge_count").cpu()
+                      for kv in kvs.values()]
+            assert torch.equal(*counts), t
+    assert kvs[cuda_device].stats == kvs[torch.device("cpu")].stats

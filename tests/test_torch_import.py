@@ -24,6 +24,8 @@ MODULES = (
     "janus_tpu_torch.models.rga",
     "janus_tpu_torch.models.lwwset",
     "janus_tpu_torch.models.mvregister",
+    "janus_tpu_torch.models.tpset",
+    "janus_tpu_torch.models.graph",
     "janus_tpu_torch.kernels",
     "janus_tpu_torch.kernels.build",
     "janus_tpu_torch.kernels.pnc_apply",
@@ -57,6 +59,9 @@ MODULES = (
     "janus_tpu_torch.kernels.mvr_rows",
     "janus_tpu_torch.kernels.mvr_merge",
     "janus_tpu_torch.kernels.mvr_apply",
+    "janus_tpu_torch.kernels.tp_rows",
+    "janus_tpu_torch.kernels.graph_apply",
+    "janus_tpu_torch.kernels.edge_mask",
     "janus_tpu_torch.obs",
     "janus_tpu_torch.obs.metrics",
     "janus_tpu_torch.obs.stages",
