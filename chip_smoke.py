@@ -8,7 +8,7 @@ checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all twenty-five kernel sources in csrc/ compiled with
+2. build      all twenty-six kernel sources in csrc/ compiled with
               nvcc, in parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
@@ -73,7 +73,13 @@ non-zero. Phases, one JSON line each:
               the sentinel quirk and CV = 0, rows hammered past a walk's
               lane window, the row-list levels, and every call of the first
               rounds of tpset_consensus and graph_consensus and the first
-              ticks of tp_store
+              ticks of tp_store; dag_ingest and dag_round's split mode
+              (phase ingest_kernels) on random wire batches at five (N, W)
+              (stale and ahead-of-window rounds, duplicate (r, src) copies
+              and re-sends with other edges, node ids out of range, empty
+              seen_by, payload rows of pnc's ring and of the OR-Set's
+              capture lanes) and random states with and without active,
+              withhold and invalid
 4. fast_path  R=256 replicas, K=1024 keys, W=256 writers, B=1024 ops per
               replica: 80 engine ticks (apply + converge), checked against
               an independent numpy expectation
@@ -179,12 +185,33 @@ non-zero. Phases, one JSON line each:
               slots, Graph rows of 32 + 256): a full arm and a delta arm at
               D=64, 24 ticks; replicas bit-equal and canonical after every
               converge, the delta arm bit-equal to the full arm
-19. timing, the kernels line, the nvidia-smi line, and the result line.
+19. split_consensus  the split cluster, the reference's deployment: four
+              SplitNode processes of one node each (N = 4, W = 8) in this
+              process over in-memory pipes, signed (ECDSA, or the keyed
+              hash without libcrypto) payload-carrying blocks; the
+              PN-Counter at the paper's peak point (100 objects, blocks of
+              1,000, half the updates safe) and the OR-Set at preset
+              orset4's geometry (100 objects of 64 slots, 8,192-op blocks,
+              50/50 add/remove). Per type a recorded pass, whose every
+              dag_ingest and split dag_round call is replayed against its
+              plain version (the PN-Counter's first 8 iterations also held
+              bit-equal to the same cluster on the CPU after every process
+              step), and a timed pass of 4 + 32 iterations and idle ones to
+              drain; checked for no bad frame, committed orders that agree,
+              every boarded batch committed, owned stable views bit-equal
+              across the processes, the PN-Counter's equal to a numpy fold
+              of the committed blocks' payloads; then a cluster whose
+              fourth process's frames are corrupted in transit, dropped by
+              the honest three, who keep committing
+20. split_tcp  two processes (two nodes each) of the PN-Counter cluster
+              over loopback TCP (TcpPeer): the same checks, ms per step
+21. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
 """
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -501,6 +528,32 @@ TP_LIBRARY_NOTES = {
                  "keys in the live vertices' (packing and the AND with the "
                  "live-edge mask not timed)",
 }
+# the split cluster: one SplitNode a replica process (N = 4 nodes, one
+# each), all in this process on the one card over deterministic in-memory
+# pipes. PN-Counter at the paper's peak point (BASELINE.md:11-12, 18: 100
+# objects, blocks of 1,000, W = 8, half the updates safe); the OR-Set at
+# preset orset4's geometry (harness.py:1918-1924). An iteration steps every
+# process once; the first cpu_steps iterations of the PN-Counter's
+# recorded pass are held against the same cluster on the CPU
+SPLIT_PNC = dict(nodes=4, window=8, ops_per_block=1000, keys=100, safe=0.5,
+                 warmup=4, steps=32, min_idle=4, max_idle=48, cpu_steps=8,
+                 profile_steps=2)
+SPLIT_ORSET = dict(nodes=4, window=8, ops_per_block=8192, keys=100,
+                   capacity=64, rm=4, budget=8, warmup=4, steps=32,
+                   min_idle=4, max_idle=48, profile_steps=2)
+# a process whose frames are corrupted in transit (its peers drop it)
+SPLIT_TAMPER = dict(nodes=4, window=8, ops_per_block=1000, keys=100,
+                    steps=60)
+# two processes (two nodes each) over loopback TCP
+SPLIT_TCP = dict(nodes=4, window=8, ops_per_block=1000, keys=100, steps=24,
+                 min_idle=4, max_idle=48)
+SPLIT_KERNELS = ("dag_ingest", "dag_round")
+# dag_ingest on random wire batches per (N, W), with payload rows of pnc's
+# ring (B = 1,000) and the OR-Set's (B = 8,192, three capture lanes of 4);
+# dag_round's split mode on random states
+INGEST_CHECKS = dict(shapes=((4, 8), (7, 6), (16, 8), (33, 5), (64, 8)),
+                     batches=6, pnc_block=1000, orset_block=8192, rm=4,
+                     split_states=4)
 # the port's run_tensor at these harness presets, uncut unless a preset's
 # ticks are cut here (none is)
 HARNESS = dict(presets=("pnc", "orset", "mixed"), cut_ticks={},
@@ -560,6 +613,7 @@ REPLACES = {
     "graph_apply": "janus_tpu/models/graph.py:109",
     "graph_capture": "janus_tpu/models/graph.py:76",
     "edge_mask": "janus_tpu/models/graph.py:209",
+    "dag_ingest": "janus_tpu/consensus/dag.py:228",
 }
 
 
@@ -5057,9 +5111,689 @@ def harness_tensor(dev, kernels, workloads, smi):
     return launches
 
 
+def ingest_ring(dev, rng, n, w, b, lanes, rm):
+    """A ring of pnc's six op fields ``[W, N, b]`` and, with ``lanes``,
+    that many capture lanes ``[W, N, b, rm]``, with its buffer_filled."""
+    fields = [torch.as_tensor(rng.integers(-9, 9, (w, n, b), dtype=np.int32),
+                              device=dev) for _ in range(6)]
+    fields += [torch.as_tensor(rng.integers(-9, 9, (w, n, b, rm),
+                                            dtype=np.int32), device=dev)
+               for _ in range(lanes)]
+    filled = torch.as_tensor(rng.random((w, n)) < 0.3, device=dev)
+    return tuple(fields), filled
+
+
+def ingest_args(dev, workloads, rng, n, w, ring=None, messages=0):
+    """A random DAG state (blocks and certificates sparse, so many
+    ingested blocks are fresh) and a wire batch packed as
+    ``dag.ingest_batch`` packs it (its dedupe included); payload rows
+    when ``ring`` is given. Returns the wrapper's (args, kwargs)."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.kernels.dag_ingest import pack
+
+    d, _, _ = workloads.consensus_state(rng, n, w)
+    for f in ("block_exists", "cert_exists", "edges", "acks"):
+        d[f] = d[f] & (rng.random(d[f].shape) < 0.35)
+    row = 0 if ring is None else sum(x[0, 0].numel() for x in ring[0])
+    blocks, sigs, certs, seen = workloads.wire_batch(
+        rng, n, d["slot_round"], payload=row, messages=messages)
+    uniq, pays, keys = [], [], set()
+    for blk in blocks:
+        if (blk[0], blk[1]) not in keys:
+            keys.add((blk[0], blk[1]))
+            if len(blk) > 3:
+                pays.append((len(uniq), blk[3]))
+            uniq.append(blk)
+    flat, counts = pack(n, uniq, sigs, certs, seen, pays)
+    state = {f: torch.as_tensor(v, device=dev) for f, v in d.items()}
+    return ((DagConfig(n, w), state, torch.as_tensor(flat, device=dev),
+             counts), {"ring": ring})
+
+
+def ingest_kernel_checks(dev, kernels, workloads, cases):
+    """dag_ingest against its plain version on the card, bit-equal (the
+    DAG fields and the ring, both updated in place), on random wire
+    batches: stale and ahead-of-window rounds, duplicate (r, src) copies
+    and re-sends with other edges, node ids out of range, empty seen_by,
+    payload rows for pnc's ring and the OR-Set's capture lanes; and
+    dag_round's split mode against its plain version with and without
+    active, withhold and invalid."""
+    from janus_tpu_torch.consensus import DagConfig
+
+    g = INGEST_CHECKS
+    log = CaseLog(SPLIT_KERNELS)
+    rng = np.random.default_rng(12)
+    for n, w in g["shapes"]:
+        for i in range(g["batches"]):
+            ring = None
+            if i % 3 == 1:
+                ring = ingest_ring(dev, rng, n, w, g["pnc_block"], 0, g["rm"])
+            elif i % 3 == 2:
+                ring = ingest_ring(dev, rng, n, w, g["orset_block"], 3, g["rm"])
+            args, kw = ingest_args(dev, workloads, rng, n, w, ring,
+                                   messages=4 * n if i == 0 else 0)
+            log.add(kernels, "dag_ingest", args, f"N{n} W{w} batch {i} "
+                    f"counts {args[3]}", kw)
+        cfg = DagConfig(n, w)
+        for i in range(g["split_states"]):
+            d, _, _ = workloads.consensus_state(rng, n, w, wrap=i % 3 == 2)
+            d = {f: torch.as_tensor(v, device=dev) for f, v in d.items()}
+            owned = torch.as_tensor(rng.random(n) < 0.5, device=dev)
+            masks = [torch.as_tensor(m, device=dev)
+                     for m in workloads.round_masks(rng, n, w)]
+            for keep in ((0, 0, 0), (1, 1, 1), (1, 0, 0), (0, 1, 1)):
+                sel = [m if k else None for m, k in zip(masks, keep)]
+                log.add(kernels, "dag_round", (cfg, d, *sel),
+                        f"split N{n} W{w} state {i} masks {keep}",
+                        {"owned": owned})
+    for name, rec in log.by.items():
+        cases.append({"kernel": name, "case": "ingest_kernels", **rec})
+    emit("ingest_kernels", by_kernel=log.by)
+
+
+class SplitCluster:
+    """The processes of a split deployment, in this process: one
+    ``SplitNode`` each from ``make(i, send)``, over in-memory broadcast
+    pipes; ``corrupt`` maps a sender to a hook applied to its frames in
+    transit."""
+
+    def __init__(self, make, count, corrupt=None):
+        self.boxes = [[] for _ in range(count)]
+        self.corrupt = corrupt or {}
+        self.nodes = [make(i, self._sender(i)) for i in range(count)]
+
+    def _sender(self, i):
+        def send(data):
+            fn = self.corrupt.get(i)
+            data = fn(data) if fn else data
+            for j, box in enumerate(self.boxes):
+                if j != i:
+                    box.append(data)
+        return send
+
+    def deliver(self, i):
+        for data in self.boxes[i]:
+            self.nodes[i].receive(data)
+        self.boxes[i].clear()
+
+
+class SplitFeed:
+    """Each process's client batches: its owned nodes' rows of an op
+    batch (``draw(i)`` returns the host rows), resubmitted until accepted;
+    the accepted ones are kept by (round, source) for the numpy fold."""
+
+    def __init__(self, dev, owned, draw, safe_share=0.0, rng=None):
+        self.dev, self.owned, self.draw = dev, owned, draw
+        self.safe_share, self.rng = safe_share, rng
+        self.pending = [None] * len(owned)
+        self.boarded = {}
+        self.safe_sent = 0
+
+    def batch(self, i):
+        if self.pending[i] is None:
+            host = self.draw(i)
+            safe = None
+            if self.safe_share:
+                safe = (self.rng.random(host["op"].shape) < self.safe_share)
+                safe &= self.owned[i][:, None]
+            ops = {f: torch.as_tensor(x, device=self.dev)
+                   for f, x in host.items()}
+            self.pending[i] = (host, ops, safe)
+        return self.pending[i]
+
+    def absorb(self, i, info):
+        if info is None:
+            return
+        host, _, safe = self.pending[i]
+        own = np.nonzero(self.owned[i])[0]
+        if info["accepted"][own].all():
+            for v in own:
+                self.boarded[(int(info["round"][v]), int(v))] = {
+                    f: x[v] for f, x in host.items()}
+            self.safe_sent += 0 if safe is None else int(safe.sum())
+            self.pending[i] = None
+
+
+class TcpCluster:
+    """Processes whose bytes arrive by their TcpPeers' receive threads."""
+
+    def __init__(self, nodes):
+        self.nodes = nodes
+
+    def deliver(self, i):
+        pass
+
+
+def split_step(cluster, feed, i, idle=False):
+    """Deliver process i's inbox and step it once (its pending batch, or
+    an idle block); returns the step info."""
+    cluster.deliver(i)
+    node = cluster.nodes[i]
+    if idle:
+        return node.step(None, record=False)
+    host, ops, safe = feed.batch(i)
+    info = node.step(ops, safe=safe)
+    feed.absorb(i, info)
+    return info
+
+
+def owned_stable(node, v):
+    return {f: x[v] for f, x in node.kv.stable.items() if f != "_rm_cap"}
+
+
+def split_views_agree(nodes, owned):
+    """The owned views' stable states bit-equal across the processes."""
+    views = [owned_stable(node, int(np.nonzero(o)[0][0]))
+             for node, o in zip(nodes, owned)]
+    return all(torch.equal(views[0][f], x[f]) for x in views[1:]
+               for f in views[0])
+
+
+def split_commits(nodes, owned):
+    """Each process's owned view's committed order, (round, source)."""
+    return [node.kv.ordered_commits(int(np.nonzero(o)[0][0]))
+            for node, o in zip(nodes, owned)]
+
+
+def split_drain(cluster, feed, owned, g, what):
+    """Idle iterations until every boarded batch committed in every owned
+    view and those views' stable states agree; returns the count."""
+    nodes = cluster.nodes
+    idle = 0
+    while idle < g["max_idle"]:
+        if idle >= g["min_idle"]:
+            commits = split_commits(nodes, owned)
+            if all(set(feed.boarded) <= set(c) for c in commits) \
+                    and split_views_agree(nodes, owned):
+                break
+        for i in range(len(nodes)):
+            split_step(cluster, feed, i, idle=True)
+        idle += 1
+    torch.cuda.synchronize()
+    commits = split_commits(nodes, owned)
+    check(all(set(feed.boarded) <= set(c) for c in commits),
+          f"{what}: a boarded batch did not commit in {idle} idle iterations")
+    check(split_views_agree(nodes, owned), f"{what}: owned stable views "
+          f"differ across the processes after {idle} idle iterations")
+    return idle
+
+
+def split_check(nodes, owned, what):
+    """No frame failed verification; the committed orders agree on their
+    common prefix. Returns the shortest committed order's length."""
+    for i, node in enumerate(nodes):
+        check(node.stats["verified_bad"] == 0, f"{what}: process {i} "
+              f"dropped {node.stats['verified_bad']} frames")
+    commits = split_commits(nodes, owned)
+    common = min(len(c) for c in commits)
+    check(common > 0 and all(c[:common] == commits[0][:common]
+                             for c in commits),
+          f"{what}: committed orders disagree on their common prefix")
+    return common
+
+
+def pnc_fold(commits, boarded, k, n):
+    """P and N ``[K, N]`` of the blocks in ``commits`` that carried a
+    batch, folded in numpy (writer lane = the op's writer field)."""
+    p = np.zeros((k, n), np.int64)
+    m = np.zeros((k, n), np.int64)
+    for key in commits:
+        ops = boarded.get(tuple(key))
+        if ops is None:
+            continue
+        for code, acc in ((1, p), (2, m)):
+            live = ops["op"] == code
+            np.add.at(acc, (ops["key"][live], ops["writer"][live]),
+                      ops["a0"][live])
+    return wrap32(p), wrap32(m)
+
+
+def split_pnc_fold_check(nodes, owned, feed, k, n, what):
+    for node, o in zip(nodes, owned):
+        v = int(np.nonzero(o)[0][0])
+        p, m = pnc_fold(node.kv.ordered_commits(v), feed.boarded, k, n)
+        st = owned_stable(node, v)
+        check(np.array_equal(st["p"].cpu().numpy(), p)
+              and np.array_equal(st["n"].cpu().numpy(), m),
+              f"{what}: process {v}'s stable P/N differ from the numpy fold "
+              f"of its committed blocks")
+
+
+def split_make(dev, kind, g, owned):
+    """``make(i, send)`` for a cluster of ``kind`` (pnc or orset)."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset, pncounter
+    from janus_tpu_torch.net.splitnode import SplitNode
+
+    n, w, b, k = (g[x] for x in ("nodes", "window", "ops_per_block", "keys"))
+    if kind == "pnc":
+        spec, dims = pncounter.SPEC, dict(num_keys=k, num_writers=n)
+    else:
+        spec = orset.SPEC
+        dims = dict(num_keys=k, capacity=g["capacity"], rm_capacity=g["rm"],
+                    apply_budget=g["budget"])
+
+    def make(i, send):
+        return SplitNode(DagConfig(n, w), spec, b, owned[i], send=send,
+                         device=dev, **dims)
+    return make
+
+
+def split_draw(workloads, kind, g, owned, seed):
+    """The host batch a process draws: its owned rows of a PN-Counter
+    uniform batch or an OR-Set 50/50 add/remove batch (tags minted by the
+    owning node), the other rows no-ops."""
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    n, b, k = g["nodes"], g["ops_per_block"], g["keys"]
+    rng = np.random.default_rng(seed)
+    minters = [TagMinter(v) for v in range(n)]
+
+    def draw(i):
+        out = {f: np.zeros((n, b), np.int32) for f in
+               ("op", "key", "a0", "a1", "a2", "writer")}
+        for v in np.nonzero(owned[i])[0]:
+            if kind == "pnc":
+                row = workloads.pnc_uniform(rng, 1, k, b)
+                row["writer"][:] = v
+            else:
+                row = workloads.orset_add_remove(rng, [minters[v]], k, b)
+            for f in out:
+                out[f][v] = row[f][0]
+        return out
+    return draw
+
+
+def split_run(dev, kernels, workloads, kind, g, seed, twin=None):
+    """One split cluster of ``kind``: key exchange, ``warmup`` iterations,
+    ``steps`` (timed) iterations, then idle ones to drain; ``twin``
+    (a second cluster's ``make``) is stepped beside it for the first
+    ``g['cpu_steps']`` iterations and held bit-equal to it after every
+    process step. Returns the cluster, the feed, the owned masks and the
+    timed run's numbers."""
+    from janus_tpu_torch.obs import stages
+    from janus_tpu_torch.obs.metrics import get_registry
+
+    n = g["nodes"]
+    owned = [np.arange(n) == i for i in range(n)]
+    cluster = SplitCluster(split_make(dev, kind, g, owned), n)
+    feed = SplitFeed(dev, owned, split_draw(workloads, kind, g, owned, seed),
+                     g.get("safe", 0.0), np.random.default_rng(seed + 1))
+    shadow = None
+    if twin is not None:
+        shadow = (SplitCluster(twin, n),
+                  SplitFeed(torch.device("cpu"), owned,
+                            split_draw(workloads, kind, g, owned, seed),
+                            g.get("safe", 0.0),
+                            np.random.default_rng(seed + 1)))
+    for c in (cluster,) + (() if shadow is None else (shadow[0],)):
+        for node in c.nodes:
+            node.start()
+    tx = get_registry().counter("split_tx_bytes_total")
+    hist = stages.stage_histograms("split")["ingest"]
+    total = g["warmup"] + g["steps"]
+    for t in range(total):
+        if t == g["warmup"]:
+            torch.cuda.synchronize()
+            for node in cluster.nodes:
+                node.kv.latency_log.clear()
+            kernels.reset_launches()
+            tx0 = tx.value
+            own0 = sum(node.kv.stats["own_commits"] for node in cluster.nodes)
+            hist.reset()
+            t0 = time.perf_counter()
+        for i in range(n):
+            info = split_step(cluster, feed, i)
+            if shadow is not None and t < g["cpu_steps"]:
+                ref = split_step(*shadow, i)
+                check((info is None) == (ref is None) and (
+                    info is None or np.array_equal(info["accepted"],
+                                                   ref["accepted"])),
+                      f"split {kind}: iteration {t} process {i} accepted "
+                      f"differently on the CPU")
+                a, b_ = cluster.nodes[i].kv, shadow[0].nodes[i].kv
+                for name in ("dag", "stable"):
+                    for f, x in getattr(a, name).items():
+                        check(torch.equal(x.cpu(), getattr(b_, name)[f]),
+                              f"split {kind}: iteration {t} process {i} "
+                              f"{name}.{f} differs from the CPU run")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launches()
+    tx_bytes = tx.value - tx0
+    ingest = {"count": hist.count, "mean_ms": hist.sum / max(hist.count, 1) / 1e6,
+              **{f"p{q}_ms": hist.percentile(q / 100) / 1e6
+                 for q in (50, 90, 99)}}
+    committed = sum(node.kv.stats["own_commits"]
+                    for node in cluster.nodes) - own0
+    lag = np.concatenate([node.kv.commit_latencies() for node in cluster.nodes])
+    idle = split_drain(cluster, feed, owned, g, f"split {kind}")
+    run = dict(seconds=dt, iterations=g["steps"], process_steps=g["steps"] * n,
+               launches=launches, tx_bytes=tx_bytes, ingest=ingest,
+               lag=lag, idle=idle, committed_blocks=committed)
+    return cluster, feed, owned, run
+
+
+def split_profile(cluster, feed, steps):
+    """CUDA kernels and device µs per process step over ``steps``
+    iterations, by the profiler, and dag_ingest's and dag_round's device
+    µs per process step."""
+    from torch.profiler import ProfilerActivity, profile
+    n = len(cluster.nodes)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            for i in range(n):
+                split_step(cluster, feed, i)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    per = steps * n
+    by = device_us_by_kernel(events, per)
+    return dict(cuda_kernels_per_process_step=len(events) / per,
+                device_us_per_process_step=sum(
+                    e.time_range.elapsed_us() for e in events) / per,
+                dag_ingest_device_us_per_process_step=sum(
+                    v for k, v in by.items() if "dag_ingest" in k),
+                dag_round_device_us_per_process_step=sum(
+                    v for k, v in by.items() if "dag_round" in k),
+                device_us_per_process_step_by_kernel=dict(
+                    list(by.items())[:12]))
+
+
+def split_emit(kind, g, cluster, run, prof, extra):
+    n = g["nodes"]
+    steps = run["process_steps"]
+    lag = run["lag"]
+    launches = run["launches"]
+    check(launches["dag_round"] == steps, f"split {kind}: dag_round launched "
+          f"{launches['dag_round']} times in {steps} process steps")
+    check(0 < launches["dag_ingest"] <= steps, f"split {kind}: dag_ingest "
+          f"launched {launches['dag_ingest']} times in {steps} process steps")
+    emit(f"split_consensus_{kind}", nodes=n, processes=n,
+         window=g["window"], ops_per_block=g["ops_per_block"],
+         keys=g["keys"], warmup_iterations=g["warmup"],
+         iterations=run["iterations"], seconds=run["seconds"],
+         ms_per_iteration=1e3 * run["seconds"] / run["iterations"],
+         ms_per_step_per_node=1e3 * run["seconds"] / steps,
+         committed_ops_per_s=run["committed_blocks"] * g["ops_per_block"]
+         / run["seconds"],
+         commit_lag_rounds_p50=float(np.percentile(lag, 50)),
+         commit_lag_rounds_p99=float(np.percentile(lag, 99)),
+         blocks_committed_own=int(lag.size),
+         wire_bytes_per_step=run["tx_bytes"] / steps,
+         wire_bytes_per_iteration=run["tx_bytes"] / run["iterations"],
+         split_ingest_histogram=run["ingest"],
+         dag_ingest_launches_per_step=launches["dag_ingest"] / steps,
+         launches=launches, idle_iterations_to_drain=run["idle"],
+         signatures="ecdsa" if cluster.nodes[0].use_ecdsa else "keyed-hash",
+         stats=[node.stats for node in cluster.nodes], **prof, **extra)
+
+
+def split_consensus(dev, kernels, workloads, cases, split_calls):
+    """The split deployment on the card (see SPLIT_PNC, SPLIT_ORSET): per
+    type a recorded pass (every dag_ingest and dag_round call replayed
+    against its plain version; the PN-Counter's first iterations also
+    against the same cluster on the CPU) and a timed pass; then a cluster
+    with a tampered process. Checks: no frame fails verification, the
+    committed orders agree, every boarded batch commits and the owned
+    stable views agree after the drain, the PN-Counter's equal a numpy
+    fold of the committed blocks' payloads; the tampered process is
+    dropped and the honest ones keep advancing."""
+    from janus_tpu_torch.consensus import DagConfig
+
+    log = CaseLog(SPLIT_KERNELS)
+    total = {}
+    for kind, g, seed in (("pnc", SPLIT_PNC, 21), ("orset", SPLIT_ORSET, 22)):
+        n = g["nodes"]
+        owned = [np.arange(n) == i for i in range(n)]
+        twin = (split_make(torch.device("cpu"), kind, g, owned)
+                if kind == "pnc" else None)
+        t0 = time.perf_counter()
+        calls = record_calls(kernels, SPLIT_KERNELS, lambda: split_run(
+            dev, kernels, workloads, kind, g, seed, twin=twin))
+        torch.cuda.synchronize()
+        record_s = time.perf_counter() - t0
+        check(all(kw.get("owned") is not None for _, kw in calls["dag_round"]),
+              f"split {kind}: a dag_round call without the split mode")
+        for name in SPLIT_KERNELS:
+            for j, (args, kw) in enumerate(calls[name]):
+                log.add(kernels, name, args, f"split {kind} recorded call {j}",
+                        kw)
+        recorded = {name: len(c) for name, c in calls.items()}
+        if kind == "pnc":
+            with_blocks = [c for c in calls["dag_ingest"] if c[0][3][0] > 0]
+            split_calls["dag_ingest"] = with_blocks[-1]
+            split_calls["dag_round"] = calls["dag_round"][-1]
+        del calls
+
+        cluster, feed, owned, run = split_run(dev, kernels, workloads, kind, g,
+                                              seed)
+        common = split_check(cluster.nodes, owned, f"split {kind}")
+        if kind == "pnc":
+            split_pnc_fold_check(cluster.nodes, owned, feed, g["keys"], n,
+                                 "split pnc")
+        else:
+            for i, node in enumerate(cluster.nodes):
+                check(canonical_rows({f: node.kv.stable[f][i:i + 1] for f in
+                                      ("valid", "tag_rep", "tag_ctr", "elem",
+                                       "removed")}),
+                      f"split orset: process {i}'s stable rows not canonical")
+        prof = split_profile(cluster, feed, g["profile_steps"])
+        split_emit(kind, g, cluster, run, prof, dict(
+            recorded_pass_seconds=record_s, recorded_calls=recorded,
+            committed_common_prefix=common, safe_ops_sent=feed.safe_sent,
+            safe_acks=sum(int(node.kv.safe_acks().sum())
+                          for node in cluster.nodes),
+            cpu_checked_iterations=g.get("cpu_steps", 0) if kind == "pnc"
+            else 0))
+        for name, x in run["launches"].items():
+            total[name] = total.get(name, 0) + x
+        del cluster, feed
+
+    # a process whose frames are corrupted in transit: its blocks fail
+    # verification everywhere honest, and the honest 2f+1 keep committing
+    def flip(data):
+        mut = bytearray(data)
+        if len(mut) > 24:
+            mut[20] ^= 0xFF
+        return bytes(mut)
+
+    g = SPLIT_TAMPER
+    n = g["nodes"]
+    # each dropped frame logs a warning; the phase line counts them
+    logging.getLogger("janus.splitnode").setLevel(logging.ERROR)
+    owned = [np.arange(n) == i for i in range(n)]
+    cluster = SplitCluster(split_make(dev, "pnc", g, owned), n,
+                           corrupt={n - 1: flip})
+    feed = SplitFeed(dev, owned, split_draw(workloads, "pnc", g, owned, 23))
+    for node in cluster.nodes:
+        node.start()
+    done = [False] * n
+    for _ in range(g["steps"]):
+        for i in range(n):
+            info = split_step(cluster, feed, i, idle=done[i])
+            done[i] = done[i] or (info is not None and bool(info["accepted"][i]))
+    torch.cuda.synchronize()
+    honest = cluster.nodes[:n - 1]
+    rounds = [int(node.kv.dag["node_round"][i]) for i, node in enumerate(honest)]
+    check(all(done[:n - 1]), "split tamper: an honest batch never boarded")
+    check(any(node.stats["verified_bad"] > 0 for node in honest),
+          "split tamper: no honest process detected the tampered frames")
+    check(min(rounds) > 10, f"split tamper: honest node rounds {rounds}")
+    feed.boarded = {key: v for key, v in feed.boarded.items()
+                    if key[1] != n - 1}
+    for i, node in enumerate(honest):
+        commits = node.kv.ordered_commits(i)
+        check(all(src != n - 1 for _, src in commits),
+              f"split tamper: process {i} committed a tampered block")
+        check(set(feed.boarded) <= set(commits), f"split tamper: an honest "
+              f"batch did not commit in process {i}'s view")
+    split_pnc_fold_check(honest, owned[:n - 1], feed, g["keys"], n,
+                         "split tamper")
+    emit("split_tamper", processes=n, tampered=n - 1, iterations=g["steps"],
+         honest_node_rounds=rounds,
+         verified_bad=[node.stats["verified_bad"] for node in cluster.nodes])
+    del cluster
+    for name, rec in log.by.items():
+        cases.append({"kernel": name, "case": "split_recorded", **rec})
+    emit("split_kernels", by_kernel=log.by)
+    return total
+
+
+def split_tcp(dev, kernels, workloads):
+    """Two processes of the PN-Counter cluster (two nodes each) over
+    loopback TCP (``TcpPeer``): each step waits until the peer holds every
+    byte sent; checks as split_consensus's (no bad frame, committed orders
+    agree, every boarded batch commits, stable views agree and equal the
+    numpy fold) and ms per step."""
+    import socket
+    import threading
+
+    from janus_tpu_torch.net.dagplane import TcpPeer
+
+    g = SPLIT_TCP
+    n = g["nodes"]
+    owned = [np.arange(n) < n // 2, np.arange(n) >= n // 2]
+    sent, got = [0, 0], [0, 0]
+    lock = threading.Condition()
+    peers = [None, None]
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    port = srv.getsockname()[1]
+
+    def sender(i):
+        def send(data):
+            with lock:
+                sent[i] += len(data)
+            peers[i].send(data)
+        return send
+
+    cluster = TcpCluster([split_make(dev, "pnc", g, owned)(i, sender(i))
+                          for i in range(2)])
+
+    def receiver(i):
+        def receive(data):
+            cluster.nodes[i].receive(data)
+            with lock:
+                got[i] += len(data)
+                lock.notify_all()
+        return receive
+
+    accepted = {}
+    th = threading.Thread(target=lambda: accepted.update(
+        sock=srv.accept()[0]))
+    th.start()
+    peers[1] = TcpPeer.connect("127.0.0.1", port, receiver(1))
+    th.join()
+    peers[0] = TcpPeer(accepted["sock"], receiver(0))
+
+    def settle(i):
+        with lock:
+            check(lock.wait_for(lambda: got[1 - i] == sent[i], timeout=30),
+                  f"split_tcp: {sent[i] - got[1 - i]} bytes still in flight")
+
+    feed = SplitFeed(dev, owned, split_draw(workloads, "pnc", g, owned, 24))
+    try:
+        for i, node in enumerate(cluster.nodes):
+            node.start()
+            settle(i)
+        for _ in range(4):
+            for i in range(2):
+                split_step(cluster, feed, i)
+                settle(i)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(g["steps"]):
+            for i in range(2):
+                split_step(cluster, feed, i)
+                settle(i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kernels.launches()
+        idle = 0
+        while idle < g["max_idle"]:
+            commits = split_commits(cluster.nodes, owned)
+            if idle >= g["min_idle"] and all(
+                    set(feed.boarded) <= set(c) for c in commits) \
+                    and split_views_agree(cluster.nodes, owned):
+                break
+            for i in range(2):
+                split_step(cluster, feed, i, idle=True)
+                settle(i)
+            idle += 1
+        torch.cuda.synchronize()
+        commits = split_commits(cluster.nodes, owned)
+        check(all(set(feed.boarded) <= set(c) for c in commits),
+              "split_tcp: a boarded batch did not commit")
+        check(split_views_agree(cluster.nodes, owned),
+              "split_tcp: stable views differ across the processes")
+        common = split_check(cluster.nodes, owned, "split_tcp")
+        split_pnc_fold_check(cluster.nodes, owned, feed, g["keys"], n,
+                             "split_tcp")
+    finally:
+        for peer in peers:
+            if peer is not None:
+                peer.close()
+        srv.close()
+    emit("split_tcp", processes=2, nodes=n, ops_per_block=g["ops_per_block"],
+         keys=g["keys"], iterations=g["steps"], seconds=dt,
+         ms_per_step=1e3 * dt / (2 * g["steps"]),
+         ms_per_iteration=1e3 * dt / g["steps"],
+         wire_bytes=sum(sent), idle_iterations_to_drain=idle,
+         committed_common_prefix=common, boarded_batches=len(feed.boarded),
+         signatures="ecdsa" if cluster.nodes[0].use_ecdsa else "keyed-hash")
+    return launches
+
+
+def split_kernel_rows(kernels, split_calls):
+    """The kernels line's dag_ingest row, timed on the last recorded call
+    of the PN-Counter split cluster that carried blocks. Its bytes: the
+    packed batch, slot_round, block_exists and node_round read, every DAG
+    cell the batch sets, node_round, and the payload rows and their
+    buffer_filled bytes written; its operations: one per int32 of the
+    batch."""
+    args, kw = split_calls["dag_ingest"]
+    cfg, state, msgs, counts = args
+    probe = tree_map(torch.Tensor.clone, (state, kw))
+    kernels.dag_ingest_plain(cfg, probe[0], msgs, counts, **probe[1])
+    cells = sum(int((probe[0][f] != state[f]).sum()) for f in state
+                if f != "node_round")
+    rows = counts[4] * sum(x[0, 0].numel() for x in kw["ring"][0])
+    nbytes = (4 * msgs.numel() + 4 * state["slot_round"].numel()
+              + state["block_exists"].numel() + 2 * 4 * cfg.num_nodes
+              + cells + 4 * rows + counts[4])
+    return [dict(
+        name="dag_ingest",
+        call=lambda: kernels.dag_ingest(*args, **kw),
+        plain=lambda: kernels.dag_ingest_plain(*args, **kw),
+        library=None, bytes=nbytes, operations=msgs.numel(),
+        shape=f"N{cfg.num_nodes} W{cfg.num_rounds}, {counts[0]} blocks, "
+              f"{counts[1]} sigs, {counts[2]} certs, {counts[4]} payload "
+              f"rows: last recorded split pnc call with blocks",
+        library_note="no single PyTorch call computes it: slot-guarded "
+                     "scatters of three message kinds, a first-write-wins "
+                     "edge merge read from the state before the batch, a "
+                     "scatter-max and the ring rows")]
+
+
+def split_round_fields(kernels, split_calls):
+    """dag_round's split instantiation on the last recorded split call:
+    ms, device ms and plain ms, for the dag_round row."""
+    args, kw = split_calls["dag_round"]
+    call = lambda: kernels.dag_round(*args, **kw)  # noqa: E731
+    plain = lambda: kernels.dag_round_plain(*args, **kw)  # noqa: E731
+    return {"split_ms": time_cuda(call),
+            "split_device_ms": device_burst_ms(call),
+            "split_plain_ms": time_cuda(plain),
+            "split_shape": f"N{args[0].num_nodes} W{args[0].num_rounds}, "
+                           f"owned, last recorded split pnc call"}
+
+
 def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                  orset_calls, delta_calls, rga_calls, safekv_calls,
-                 fence_calls, typed_calls, tp_calls):
+                 fence_calls, typed_calls, tp_calls, split_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -5179,6 +5913,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     kerns += fence_kernel_rows(kernels, fence_calls)
     kerns += typed_kernel_rows(kernels, typed_calls)
     kerns += tp_kernel_rows(kernels, tp_calls)
+    kerns += split_kernel_rows(kernels, split_calls)
 
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
@@ -5235,6 +5970,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
             "library_ms": row.pop("library_ms"), **row,
         })
         check(out[-1]["launches"] > 0, f"{name} never launched on the main path")
+        if name == "dag_round":
+            out[-1].update(split_round_fields(kernels, split_calls))
     emit("profiler_check", calls=20, add_kernels_seen=control_seen,
          causal_closure_seen_after_tusk_commit_plain=after_large_seen)
     return out
@@ -5282,6 +6019,9 @@ def main() -> int:
                          workloads, cases)
     fence_calls = timed("fence_kernels", fence_kernel_checks, dev, kernels,
                         workloads, cases)
+    timed("ingest_kernels", ingest_kernel_checks, dev, kernels, workloads,
+          cases)
+    split_calls = {}
     paths = {"fast_path": timed("fast_path", fast_path, dev, kernels, workloads),
              "consensus": timed("consensus", consensus_path, dev, kernels,
                                 workloads, cases),
@@ -5308,7 +6048,11 @@ def main() -> int:
              "graph_consensus": timed("graph_consensus", graph_consensus, dev,
                                       kernels, workloads),
              "tp_store": timed("tp_store", tp_store, dev, kernels,
-                               workloads)}
+                               workloads),
+             "split_consensus": timed("split_consensus", split_consensus, dev,
+                                      kernels, workloads, cases, split_calls),
+             "split_tcp": timed("split_tcp", split_tcp, dev, kernels,
+                                workloads)}
     # after the timed paths, so that nothing it keeps (clones of the
     # recorded calls, tree scratch, the allocator's growth) is there while
     # the earlier phases are timed
@@ -5318,7 +6062,7 @@ def main() -> int:
                      cases)
     line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
                  cases, timing_calls, orset_calls, delta_calls, rga_calls,
-                 safekv_calls, fence_calls, typed_calls, tp_calls)
+                 safekv_calls, fence_calls, typed_calls, tp_calls, split_calls)
     emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

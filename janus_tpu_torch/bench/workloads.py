@@ -805,6 +805,57 @@ def round_masks(rng: np.random.Generator, num_nodes: int, num_rounds: int):
             rng.random((w, n)) < 0.15)
 
 
+def wire_batch(rng: np.random.Generator, num_nodes: int, slot_round,
+               payload: int = 0, messages: int = 0):
+    """A random batch of DAG messages as received over the wire, for
+    ``dag.ingest_batch``: blocks at live, stale and ahead-of-window rounds,
+    re-sends of a (round, source) with other edges, signatures and
+    certificates, node ids mostly in range but some in [-N, 0) (JAX counts
+    them from the end), below -N or at N and above (dropped), and a
+    ``seen_by`` that is empty, in range, or mixed. With ``payload`` (int32
+    elements of a block's ring row), about half the blocks carry a payload
+    row, each at its own in-range ring cell. ``messages`` sets the number
+    of each kind (random below 3N when 0). Returns ``(blocks, sigs, certs,
+    seen_by)``."""
+    n = num_nodes
+    live = np.asarray(slot_round, np.int64)
+    w = live.size
+    m, s, c = ((messages,) * 3 if messages else
+               (int(x) for x in rng.integers(1, 3 * n, 3)))
+
+    def ids(size):
+        return np.where(rng.random(size) < 0.8, rng.integers(0, n, size),
+                        rng.integers(-n - 3, n + 4, size))
+
+    def rounds(size):
+        pick = rng.random(size)
+        return np.where(pick < 0.6, rng.choice(live, size),
+                        np.where(pick < 0.8,
+                                 live.min() - rng.integers(1, w + 3, size),
+                                 live.max() + rng.integers(1, w + 3, size)))
+
+    blocks = [[int(r), int(v), rng.random(n) < 0.5]
+              for r, v in zip(rounds(m), ids(m))]
+    for i in range(min(3, m)):  # a re-send with other edges
+        blocks.append([blocks[i][0], blocks[i][1], rng.random(n) < 0.5])
+    blocks = [blocks[i] for i in rng.permutation(len(blocks))]
+    cells = set()
+    for b in blocks:
+        cell = (b[0] % w, b[1])
+        if payload and 0 <= b[1] < n and cell not in cells \
+                and rng.random() < 0.5:
+            cells.add(cell)
+            b.append(rng.integers(-2**31, 2**31 - 1, payload).astype(np.int32))
+    sigs = [(int(r), int(v), int(t))
+            for r, v, t in zip(rounds(s), ids(s), ids(s))]
+    certs = [(int(r), int(v)) for r, v in zip(rounds(c), ids(c))]
+    kind = int(rng.integers(0, 3))
+    seen_by = (np.zeros(0, np.int32) if kind == 0 else
+               np.nonzero(rng.random(n) < 0.5)[0] if kind == 1 else ids(3))
+    return ([tuple(b) for b in blocks], sigs, certs,
+            np.asarray(seen_by, np.int32))
+
+
 def backchain_state(num_nodes: int, num_rounds: int, seed: int = 0):
     """A DAG on which one commit call (steps >= 2) commits two anchors:
     wave 0's leader holds a certificate that only one round-1 block

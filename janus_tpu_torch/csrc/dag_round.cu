@@ -22,6 +22,13 @@
 // ~active on every slot. Creation ORs its block bit into block_exists
 // with a shared atomic (two nodes may share a slot). Quorum tests are
 // popcounts. Every output is written in full from shared memory.
+//
+// Split mode (SPLIT = true, a template instantiation: no runtime branch
+// on the old path) replaces janus_tpu/net/splitnode.py
+// SplitSafeKV._round_step, a round for the nodes this process owns: act =
+// owned & active; create, sign and certify are masked by act, withhold
+// gains ~act, both deliveries reach every node, crashed or not, and a node
+// not owned keeps its node_round (a mirror advances only by ingest).
 // base_round is read through its device pointer; absent masks are null
 // pointers. Launches on the caller's stream, allocates nothing, does not
 // synchronise.
@@ -38,6 +45,7 @@ struct DagIn {
       *cert_exists, *cert_seen;
   const int *node_round, *slot_round, *base_round;
   const unsigned char *active, *withhold, *invalid;  // null when absent
+  const unsigned char* owned;  // split mode only
 };
 
 struct DagOut {
@@ -46,6 +54,7 @@ struct DagOut {
   int* node_round;
 };
 
+template <bool SPLIT>
 __global__ void dag_round_kernel(DagIn in, DagOut out, int n, int w,
                                  int quorum) {
   extern __shared__ u64 smem[];
@@ -59,6 +68,7 @@ __global__ void dag_round_kernel(DagIn in, DagOut out, int n, int w,
   u64* withhold = cexist + w;
   u64* invalid = withhold + w;
   u64* active = invalid + w;  // [1] over nodes
+  u64* owned = active + 1;     // [1] over nodes, split mode only
   const int tid = threadIdx.x, nt = blockDim.x;
 
   load_masks(in.edges, wn, n, edges);
@@ -73,10 +83,13 @@ __global__ void dag_round_kernel(DagIn in, DagOut out, int n, int w,
   else for (int s = tid; s < w; s += nt) invalid[s] = 0;
   if (in.active) load_masks(in.active, 1, n, active);
   else if (tid == 0) active[0] = low_mask(n);
+  if (SPLIT) load_masks(in.owned, 1, n, owned);
   const int base = *in.base_round;
   __syncthreads();
-  const u64 act = active[0];
-  if (in.active)  // a crashed creator cannot aggregate its certificate
+  const u64 act = SPLIT ? active[0] & owned[0] : active[0];
+  // a crashed creator cannot aggregate its certificate; in split mode
+  // neither can one this process does not own
+  if (SPLIT || in.active)
     for (int s = tid; s < w; s += nt) withhold[s] |= ~act & low_mask(n);
 
   // create: node v at round r makes block (r, v) once, inside the window,
@@ -95,9 +108,9 @@ __global__ void dag_round_kernel(DagIn in, DagOut out, int n, int w,
     }
   }
   __syncthreads();
-  // deliver blocks to every live node
+  // deliver blocks to every live node (split mode: to every node)
   for (int i = tid; i < wn; i += nt)
-    if (bit(act, i / w)) bseen[i] |= bexist[i % w];
+    if (SPLIT || bit(act, i / w)) bseen[i] |= bexist[i % w];
   __syncthreads();
   // sign: every live node acks each structurally valid block it has seen
   for (int i = tid; i < wn; i += nt) {
@@ -119,10 +132,12 @@ __global__ void dag_round_kernel(DagIn in, DagOut out, int n, int w,
     cexist[s] |= formed & ~withhold[s];
   }
   __syncthreads();
-  // the creator holds its own certificate; live nodes receive them all
+  // the creator holds its own certificate; live nodes (split mode: every
+  // node) receive them all
   for (int i = tid; i < wn; i += nt) {
     const int v = i / w, s = i % w;
-    cseen[i] |= (cexist[s] & (1ull << v)) | (bit(act, v) ? cexist[s] : 0ull);
+    cseen[i] |= (cexist[s] & (1ull << v)) |
+                (SPLIT || bit(act, v) ? cexist[s] : 0ull);
   }
   __syncthreads();
   // advance past round r with quorum certificates of round r, inside the
@@ -132,7 +147,8 @@ __global__ void dag_round_kernel(DagIn in, DagOut out, int n, int w,
     const int have = __popcll(cseen[v * w + floor_mod(r, w)]);
     const bool ready = have >= quorum && wrap_add(r, 1) < wrap_add(base, w);
     const int next = wrap_add(r, ready ? 1 : 0);
-    out.node_round[v] = next > base ? next : base;
+    out.node_round[v] = SPLIT && !bit(owned[0], v) ? r
+                        : (next > base ? next : base);
   }
   store_masks(edges, wn, n, out.edges);
   store_masks(acks, wn, n, out.acks);
@@ -148,16 +164,17 @@ __global__ void dag_round_kernel(DagIn in, DagOut out, int n, int w,
 // bool[W,N,N]; block_seen, cert_seen bool[N,W,N]; block_exists,
 // cert_exists bool[W,N]; node_round int32[N]; slot_round int32[W];
 // base_round int32[] (read on the device). active bool[N], withhold and
-// invalid bool[W,N] may be null. The *_out tensors are written in full.
-// All contiguous on one device, N <= 64. Returns the launch's CUDA error.
+// invalid bool[W,N] may be null; owned bool[N] non-null selects the split
+// mode. The *_out tensors are written in full. All contiguous on one
+// device, N <= 64. Returns the launch's CUDA error.
 extern "C" int dag_round_launch(
     const void* edges, const void* block_exists, const void* block_seen,
     const void* acks, const void* cert_exists, const void* cert_seen,
     const void* node_round, const void* slot_round, const void* base_round,
     const void* active, const void* withhold, const void* invalid,
-    void* edges_out, void* block_exists_out, void* block_seen_out,
-    void* acks_out, void* cert_exists_out, void* cert_seen_out,
-    void* node_round_out, int n, int w, int quorum, void* stream) {
+    const void* owned, void* edges_out, void* block_exists_out,
+    void* block_seen_out, void* acks_out, void* cert_exists_out,
+    void* cert_seen_out, void* node_round_out, int n, int w, int quorum, void* stream) {
   if (n <= 0 || w <= 0) return (int)cudaSuccess;
   const DagIn in = {
       (const unsigned char*)edges,       (const unsigned char*)block_exists,
@@ -165,17 +182,19 @@ extern "C" int dag_round_launch(
       (const unsigned char*)cert_exists, (const unsigned char*)cert_seen,
       (const int*)node_round,            (const int*)slot_round,
       (const int*)base_round,            (const unsigned char*)active,
-      (const unsigned char*)withhold,    (const unsigned char*)invalid};
+      (const unsigned char*)withhold,    (const unsigned char*)invalid,
+      (const unsigned char*)owned};
   const DagOut out = {
       (unsigned char*)edges_out,       (unsigned char*)block_exists_out,
       (unsigned char*)block_seen_out,  (unsigned char*)acks_out,
       (unsigned char*)cert_exists_out, (unsigned char*)cert_seen_out,
       (int*)node_round_out};
+  const bool split = owned != nullptr;
   const size_t bytes =
-      sizeof(u64) * (4 * (size_t)w * n + 4 * (size_t)w + 1);
-  cudaError_t err = allow_shared(dag_round_kernel, bytes);
+      sizeof(u64) * (4 * (size_t)w * n + 4 * (size_t)w + (split ? 2 : 1));
+  auto kernel = split ? dag_round_kernel<true> : dag_round_kernel<false>;
+  cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  dag_round_kernel<<<1, 512, bytes, (cudaStream_t)stream>>>(in, out, n, w,
-                                                            quorum);
+  kernel<<<1, 512, bytes, (cudaStream_t)stream>>>(in, out, n, w, quorum);
   return (int)cudaGetLastError();
 }

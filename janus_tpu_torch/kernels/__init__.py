@@ -13,7 +13,9 @@ mode of ``rga_apply.cu`` is a wrapper of its own, ``rga_capture``; so
 are those of ``lww_apply.cu``, ``mvr_apply.cu`` and ``graph_apply.cu``
 (``lww_capture``, ``mvr_capture``, ``graph_capture``). The 2P-Set's apply
 and capture are ``graph_apply.cu``'s walk with no edge block, wrappers of
-their own (``tpset_apply``, ``tpset_capture``).
+their own (``tpset_apply``, ``tpset_capture``). The split mode of
+``dag_round`` (``owned`` given) is an instantiation of ``dag_round.cu``
+counted on ``dag_round``.
 
 Sources live in ``janus_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Nothing here imports or builds anything at import
@@ -24,6 +26,8 @@ from janus_tpu_torch.kernels.block_select import (  # noqa: F401
     block_select, block_select_plain)
 from janus_tpu_torch.kernels.causal_closure import (  # noqa: F401
     causal_closure, causal_closure_plain)
+from janus_tpu_torch.kernels.dag_ingest import (  # noqa: F401
+    dag_ingest, dag_ingest_plain)
 from janus_tpu_torch.kernels.dag_round import dag_round, dag_round_plain  # noqa: F401
 from janus_tpu_torch.kernels.delta_select import (  # noqa: F401
     delta_select, delta_select_plain)
@@ -97,7 +101,8 @@ WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join,
             "tp_union_rows": tp_union_rows, "edge_union": edge_union,
             "edge_union_rows": edge_union_rows, "tpset_apply": tpset_apply,
             "tpset_capture": tpset_capture, "graph_apply": graph_apply,
-            "graph_capture": graph_capture, "edge_mask": edge_mask}
+            "graph_capture": graph_capture, "edge_mask": edge_mask,
+            "dag_ingest": dag_ingest}
 
 
 def reset_launches() -> None:

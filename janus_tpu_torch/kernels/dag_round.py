@@ -6,6 +6,13 @@ blocks, sign, form certificates, deliver certificates, advance, under the
 optional crash, withhold and invalid masks. The plain version runs the
 phase functions of ``dag_phases`` in that order.
 
+Given ``owned`` (bool[N]), the split mode replaces
+janus_tpu/net/splitnode.py ``SplitSafeKV._round_step``: a round for the
+nodes one process owns. ``act = owned & active``; create, sign and certify
+are masked by ``act``, withhold gains ``~act``, both deliveries reach every
+node, and a node not owned keeps its ``node_round``. On the card it is a
+template instantiation of the same source, counted on ``dag_round``.
+
 The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
 ``dag_round_plain`` only for tensors that lie on the CPU. Both return a
 new state dict; ``slot_round`` and ``base_round`` are carried over as the
@@ -25,12 +32,39 @@ _BOOL_FIELDS = ("edges", "block_exists", "block_seen", "acks", "cert_exists",
 _OUT_FIELDS = _BOOL_FIELDS + ("node_round",)
 
 
+def split_round_plain(cfg, state, owned: torch.Tensor,
+                      active: Optional[torch.Tensor] = None,
+                      withhold: Optional[torch.Tensor] = None,
+                      invalid: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the split mode (``SplitSafeKV._round_step``
+    translated): the owned nodes act, mirrors only receive."""
+    n, w = cfg.num_nodes, cfg.num_rounds
+    act = owned if active is None else owned & active
+    st = dag_phases.create_blocks(cfg, state, act)
+    st = dag_phases.deliver_blocks(cfg, st)
+    st = dag_phases.sign_blocks(cfg, st, act[:, None, None].expand(n, w, n),
+                                invalid)
+    wh = (~act)[None, :].expand(w, n)
+    if withhold is not None:
+        wh = wh | withhold
+    st = dag_phases.form_certificates(cfg, st, wh)
+    st = dag_phases.deliver_certificates(cfg, st)
+    st = dag_phases.advance_rounds(cfg, st)
+    st = dict(st)
+    st["node_round"] = torch.where(owned, st["node_round"],
+                                   state["node_round"])
+    return st
+
+
 def dag_round_plain(cfg, state, active: Optional[torch.Tensor] = None,
                     withhold: Optional[torch.Tensor] = None,
-                    invalid: Optional[torch.Tensor] = None):
+                    invalid: Optional[torch.Tensor] = None,
+                    owned: Optional[torch.Tensor] = None):
     """Plain PyTorch version: the six phases in order. Crashed nodes
     neither create, sign, nor receive, and a crashed creator cannot
-    aggregate a certificate."""
+    aggregate a certificate. With ``owned``, the split mode."""
+    if owned is not None:
+        return split_round_plain(cfg, state, owned, active, withhold, invalid)
     act_mask = None
     wh = withhold
     if active is not None:
@@ -51,20 +85,22 @@ def _lib():
     lib = build.load("dag_round")
     if lib.dag_round_launch.argtypes is None:
         ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.dag_round_launch.argtypes = [ptr] * 19 + [c_int, c_int, c_int, ptr]
+        lib.dag_round_launch.argtypes = [ptr] * 20 + [c_int, c_int, c_int, ptr]
         lib.dag_round_launch.restype = c_int
     return lib
 
 
-def shared_bytes(n: int, w: int) -> int:
+def shared_bytes(n: int, w: int, split: bool = False) -> int:
     """Dynamic shared memory of the one block (csrc/dag_round.cu)."""
-    return 8 * (4 * w * n + 4 * w + 1)
+    return 8 * (4 * w * n + 4 * w + (2 if split else 1))
 
 
 def dag_round(cfg, state, active: Optional[torch.Tensor] = None,
               withhold: Optional[torch.Tensor] = None,
-              invalid: Optional[torch.Tensor] = None):
-    """One protocol round for every node (``dag.round_step``). ``state``
+              invalid: Optional[torch.Tensor] = None,
+              owned: Optional[torch.Tensor] = None):
+    """One protocol round for every node (``dag.round_step``), or with
+    ``owned`` bool[N] for the owned nodes only (the split mode). ``state``
     as in ``janus_tpu_torch.consensus.dag``; ``active`` bool[N],
     ``withhold`` and ``invalid`` bool[W,N], each optional."""
     n, w = cfg.num_nodes, cfg.num_rounds
@@ -78,10 +114,11 @@ def dag_round(cfg, state, active: Optional[torch.Tensor] = None,
         ("slot_round", state["slot_round"], i32, (w,)),
         ("base_round", state["base_round"], i32, ()),
         ("active", active, b, (n,)), ("withhold", withhold, b, (w, n)),
-        ("invalid", invalid, b, (w, n))])
+        ("invalid", invalid, b, (w, n)), ("owned", owned, b, (n,))])
     if dev is None:
-        return dag_round_plain(cfg, state, active, withhold, invalid)
-    operands.check_fits("dag_round", n, shared_bytes(n, w))
+        return dag_round_plain(cfg, state, active, withhold, invalid, owned)
+    operands.check_fits("dag_round", n,
+                        shared_bytes(n, w, owned is not None))
     out = dict(state)
     for f in _OUT_FIELDS:
         out[f] = torch.empty_like(state[f])
@@ -92,7 +129,7 @@ def dag_round(cfg, state, active: Optional[torch.Tensor] = None,
             *(state[f].data_ptr() for f in _OUT_FIELDS),
             state["slot_round"].data_ptr(), state["base_round"].data_ptr(),
             *(None if m is None else m.data_ptr()  # null: mask absent
-              for m in (active, withhold, invalid)),
+              for m in (active, withhold, invalid, owned)),
             *(out[f].data_ptr() for f in _OUT_FIELDS), n, w, cfg.quorum,
             stream)
     build.check_launch("dag_round", rc)

@@ -46,8 +46,9 @@ prospective and stable state behind one fence, in place: the OR-Set by
 pre-compaction reference to those states.
 
 The stage histograms (``obs.stages``: seal, dag_round, commit, apply) are
-recorded as in the JAX package. Not in this port yet: the split
-``submit``/``tick`` path, ``resize_block``, checkpoint/restore,
+recorded as in the JAX package. ``_submit_mask`` and ``_round_step`` are
+the split cluster's seams (``net/splitnode.SplitSafeKV``). Not in this
+port yet: the split ``submit``/``tick`` path, ``resize_block``, checkpoint/restore,
 ``MultiKV``, and the flight recorder.
 """
 from __future__ import annotations
@@ -198,6 +199,12 @@ class SafeKV:
 
     # -- device programs ---------------------------------------------------
 
+    # Split-cluster seam: a subclass owning a subset of the emulated nodes
+    # narrows submission to them (bool[N] on the device). A mirror's
+    # content arrives over the wire; accepting its batch locally would mark
+    # its origin fast path applied without the real remote ops.
+    _submit_mask: Optional[torch.Tensor] = None
+
     def _submit_device(self, prospective, dag_state, ops_buffer, buffer_filled,
                        prosp_applied, ops: base.OpBatch,
                        active: Optional[torch.Tensor] = None):
@@ -206,6 +213,9 @@ class SafeKV:
         ``(prospective, ops_buffer, buffer_filled, prosp_applied,
         accepted, pre_round)``; ``pre_round`` is the slot each batch
         boards, copied before later phases change ``node_round``."""
+        mask = self._submit_mask
+        if mask is not None:
+            active = mask if active is None else active & mask
         acc_ops, accepted, pre_round = kernels.safekv_submit(
             self.cfg, dag_state, buffer_filled, ops, active)
         # origin fast-path apply: the views' batches are the leading axis
@@ -217,7 +227,8 @@ class SafeKV:
                 pre_round)
 
     def _round_step(self, dag_state, active, withhold, invalid):
-        """One DAG protocol round for every node."""
+        """One DAG protocol round for every node (the split cluster's
+        override runs it for the owned nodes only)."""
         return dagmod.round_step(self.cfg, dag_state, active, withhold, invalid)
 
     def _causal_closure(self, dag_state, applied):

@@ -237,6 +237,151 @@ def test_dag_round_kernel_matches_plain(cuda_device, n, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(4, 8), (16, 8), (7, 6)])
+def test_dag_round_split_mode_matches_plain(cuda_device, n, w):
+    """The split instantiation (``owned`` given) under every combination
+    of the three optional masks."""
+    rng = np.random.default_rng(n + w)
+    for cfg, d, _, _, masks in _consensus_inputs(cuda_device, n, w, seed=n):
+        owned = torch.as_tensor(rng.random(n) < 0.5, device=cuda_device)
+        for keep in range(8):
+            sel = [m if keep >> j & 1 else None for j, m in enumerate(masks)]
+            before = kernels.dag_round.launches
+            got = kernels.dag_round(cfg, d, *sel, owned=owned)
+            ref = kernels.dag_round_plain(cfg, d, *sel, owned=owned)
+            torch.cuda.synchronize()
+            assert kernels.dag_round.launches == before + 1
+            _assert_outputs_equal(got, ref)
+
+
+def _ingest_case(dev, rng, n, w, payload):
+    """A random DAG state and wire batch on ``dev``, packed as
+    ``dag.ingest_batch`` packs it, with a ring of pnc's six fields and,
+    for ``payload == "orset"``, three capture lanes of width 4."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.kernels.dag_ingest import pack
+
+    b = 5
+    d, _, _ = workloads.consensus_state(rng, n, w)
+    for f in ("block_exists", "cert_exists", "edges", "acks"):
+        d[f] = d[f] & (rng.random(d[f].shape) < 0.35)
+    widths = [1] * 6 + ([4] * 3 if payload == "orset" else [])
+    ring = tuple(torch.as_tensor(_rand(rng, (w, n, b, k) if k > 1 else (w, n, b)),
+                                 device=dev) for k in widths)
+    filled = torch.as_tensor(rng.random((w, n)) < 0.3, device=dev)
+    blocks, sigs, certs, seen = workloads.wire_batch(
+        rng, n, d["slot_round"], payload=b * sum(widths) if payload else 0)
+    uniq, pays, keys = [], [], set()
+    for blk in blocks:  # ingest_batch's first-copy-wins dedupe
+        if (blk[0], blk[1]) not in keys:
+            keys.add((blk[0], blk[1]))
+            if len(blk) > 3:
+                pays.append((len(uniq), blk[3]))
+            uniq.append(blk)
+    flat, counts = pack(n, uniq, sigs, certs, seen, pays)
+    state = {f: torch.as_tensor(v, device=dev) for f, v in d.items()}
+    return (DagConfig(n, w), state, torch.as_tensor(flat, device=dev), counts,
+            (ring, filled))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,payload", [(4, 8, "pnc"), (7, 6, None),
+                                         (16, 8, "orset"), (64, 8, "pnc"),
+                                         (33, 5, None)])
+def test_dag_ingest_kernel_matches_plain(cuda_device, n, w, payload):
+    """Stale and ahead-of-window rounds, re-sends with other edges, node
+    ids out of range, empty and mixed seen_by, payload rows."""
+    rng = np.random.default_rng(n * 10 + w)
+    for _ in range(6):
+        cfg, state, msgs, counts, ring = _ingest_case(cuda_device, rng, n, w,
+                                                      payload)
+        mine = ({f: v.clone() for f, v in state.items()},
+                (tuple(x.clone() for x in ring[0]), ring[1].clone()))
+        ref = ({f: v.clone() for f, v in state.items()},
+               (tuple(x.clone() for x in ring[0]), ring[1].clone()))
+        before = kernels.dag_ingest.launches
+        kernels.dag_ingest(cfg, mine[0], msgs, counts, mine[1])
+        kernels.dag_ingest_plain(cfg, ref[0], msgs, counts, ref[1])
+        torch.cuda.synchronize()
+        assert kernels.dag_ingest.launches == before + 1
+        _assert_outputs_equal(mine[0], ref[0])
+        _assert_outputs_equal(list(mine[1][0]) + [mine[1][1]],
+                              list(ref[1][0]) + [ref[1][1]])
+
+
+@pytest.mark.cuda
+def test_split_node_runs_on_the_card(cuda_device):
+    """Two SplitNodes on the card over in-memory pipes: a PN-Counter op at
+    one process reads back from the other's stable state, and the step's
+    ingest and round are card launches."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.net.splitnode import SplitNode
+
+    n, w, b = 4, 8, 2
+    boxes = [[], []]
+    nodes = [SplitNode(DagConfig(n, w), pncounter.SPEC, b, own,
+                       send=boxes[1 - i].append, num_keys=4, num_writers=n)
+             for i, own in enumerate(([1, 1, 0, 0], [0, 0, 1, 1]))]
+    ops = {f: np.zeros((n, b), np.int32) for f in OP_FIELDS}
+    ops["op"][:2] = pncounter.OP_INC
+    ops["a0"][:] = 5
+    ops["writer"][:] = np.arange(n)[:, None]
+    before = kernels.launches()
+    for node in nodes:
+        node.start()
+    boarded = False
+    for _ in range(30):
+        for i, node in enumerate(nodes):
+            for data in boxes[i]:
+                node.receive(data)
+            boxes[i].clear()
+            info = node.step(ops if i == 0 and not boarded else None)
+            if i == 0 and info is not None:
+                boarded = boarded or bool(info["accepted"][:2].all())
+    assert boarded
+    got = nodes[1].query_stable("get")[2:, 0].cpu().tolist()
+    assert got == [2 * b * 5] * 2
+    after = kernels.launches()
+    assert after["dag_ingest"] > before["dag_ingest"]
+    assert after["dag_round"] > before["dag_round"]
+    assert all(node.stats["verified_bad"] == 0 for node in nodes)
+
+
+@pytest.mark.cuda
+def test_split_endpoints_run_on_the_card(cuda_device):
+    """Two DAG-plane endpoints on the card: each step is one dag_ingest
+    (when the inbox holds messages) and one dag_round launch, and both
+    sides commit the same order."""
+    from janus_tpu_torch.consensus import (DagConfig, commit_view,
+                                           init_commit, ordered_blocks)
+    from janus_tpu_torch.net.dagplane import SplitClusterEndpoint
+
+    cfg = DagConfig(4, 8)
+    boxes = [[], []]
+    ends = [SplitClusterEndpoint(cfg, np.arange(4) // 2 == i,
+                                 send=boxes[1 - i].append)
+            for i in range(2)]
+    before = kernels.launches()
+    fed = 0  # steps whose inbox held messages
+    for _ in range(20):
+        for i, end in enumerate(ends):
+            fed += bool(boxes[i])
+            for data in boxes[i]:
+                end.receive(data)
+            boxes[i].clear()
+            end.step()
+    after = kernels.launches()
+    assert after["dag_round"] - before["dag_round"] == 40
+    assert after["dag_ingest"] - before["dag_ingest"] == fed > 20
+    assert min(end.node_rounds().min() for end in ends) == 7
+    orders = [ordered_blocks(cfg, commit_view(cfg, end.state,
+                                              init_commit(cfg)), 2 * i)
+              for i, end in enumerate(ends)]
+    common = min(len(o) for o in orders)
+    assert common > 0 and orders[0][:common] == orders[1][:common]
+
+
+@pytest.mark.cuda
 def test_consensus_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     """Mixed devices, a strided tensor, a wrong dtype and N > 64 raise
     ValueError before anything launches."""

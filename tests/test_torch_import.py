@@ -62,6 +62,7 @@ MODULES = (
     "janus_tpu_torch.kernels.tp_rows",
     "janus_tpu_torch.kernels.graph_apply",
     "janus_tpu_torch.kernels.edge_mask",
+    "janus_tpu_torch.kernels.dag_ingest",
     "janus_tpu_torch.obs",
     "janus_tpu_torch.obs.metrics",
     "janus_tpu_torch.obs.stages",
@@ -76,6 +77,12 @@ MODULES = (
     "janus_tpu_torch.bench",
     "janus_tpu_torch.bench.workloads",
     "janus_tpu_torch.bench.harness",
+    "janus_tpu_torch.utils.log",
+    "janus_tpu_torch.net",
+    "janus_tpu_torch.net.wire",
+    "janus_tpu_torch.net.binding",
+    "janus_tpu_torch.net.dagplane",
+    "janus_tpu_torch.net.splitnode",
 )
 
 
@@ -143,6 +150,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         store.Store(2, {"lww": dict(num_keys=4, capacity=4),
                         "mvr": dict(num_keys=4, num_writers=2, capacity=2)})
+    from janus_tpu_torch.net.dagplane import SplitClusterEndpoint
+    from janus_tpu_torch.net.splitnode import SplitNode
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SplitClusterEndpoint(DagConfig(4, 8), [True, True, False, False])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SplitNode(DagConfig(4, 8), pncounter.SPEC, 4, [1, 0, 0, 0],
+                  num_keys=4, num_writers=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
