@@ -28,12 +28,18 @@ non-zero. Phases, one JSON line each:
               those selections, and the recorded calls of a delta store
               run; rga_union, rga_union_rows, rga_apply, rga_compact and
               rga_order (phase rga_kernels) on random canonical and
-              non-canonical rows, deep random trees (chains past
+              non-canonical rows, the union's edge cases at the preset's
+              rows (workloads.rga_union_case: sorted rows sharing ids,
+              sorted and unsorted tails, reversed and shuffled rows, holes,
+              SENTINEL ids, all-invalid and full rows; fresh, broadcast,
+              aliased and row-list forms), deep random trees (chains past
               max_depth, dangling and cyclic parents, dead interior nodes,
               invalid slots mid-row), full rows that drop, deletes before
               their insert, keys in [-K, 2K), and every call of the rga
               preset's first two ticks, its first compaction, tick 3's
-              apply and compaction, a text and two delta ticks;
+              apply and compaction, a text and two delta ticks, with
+              the share of level-1 union input rows already sorted by id
+              (counted from those calls' inputs, not in the kernel);
               safekv_submit (accept and board), block_select,
               state_transfer and gc_frontier (with the ring clear) (phase
               safekv_kernels) on random inputs at (N, W) from (4, 8) to
@@ -1893,6 +1899,64 @@ def check_calls(kernels, log, names, fn, what, keep=None, score=None,
     return counts
 
 
+def rows_sorted(slots, rows=None):
+    """(rows already sorted, rows) of an RGA slot set ``[..., C]`` (or of
+    its key rows ``rows`` of ``[P, K, C]``): a row is sorted when its ids,
+    SENTINEL for an invalid slot, never descend in (id_ctr, id_rep) as
+    signed int32, the test csrc/slot_union.cu's merge makes before it
+    sorts a row. Counted by torch on the card, apart from the kernel."""
+    sent = torch.iinfo(torch.int32).max
+    x = torch.where(slots["valid"], slots["id_ctr"], sent)
+    y = torch.where(slots["valid"], slots["id_rep"], sent)
+    if rows is not None:
+        x, y = x[:, rows], y[:, rows]
+    down = (x[..., 1:] < x[..., :-1]) | ((x[..., 1:] == x[..., :-1])
+                                         & (y[..., 1:] < y[..., :-1]))
+    return int((~down.any(-1)).sum()), x[..., 0].numel()
+
+
+def rga_edge_cases(dev, kernels, workloads, log, rng, k, c):
+    """The union's edge cases (``workloads.rga_union_case``) at ``k``
+    document rows of ``c`` slots, kernel against plain: fresh, into two
+    planes, aliased (``out`` the first input, as the converge's last level
+    writes into the replicas it read), and the row-list tree over states
+    of 2 and 3 replicas with 0, 1 and k rows listed."""
+    from janus_tpu_torch.models import rga
+
+    for case in workloads.RGA_UNION_CASES:
+        a, b = ({f: torch.as_tensor(x, device=dev) for f, x in t.items()}
+                for t in workloads.rga_union_case(rng, case, (2, k), c))
+        what = f"edge {case} 2x{k} C{c}"
+        log.add(kernels, "rga_union", (a, b, c), what)
+        out = {f: torch.zeros((2, 2, k, c), dtype=x.dtype, device=dev)
+               for f, x in a.items()}
+        log.add(kernels, "rga_union", (a, b, c), what + " out", {"out": out})
+        mine = tree_map(torch.Tensor.clone, a)
+        kernels.rga_union(mine, b, c, out={f: x.unsqueeze(0)
+                                           for f, x in mine.items()})
+        ref, _ = kernels.rga_union_plain(a, b, c)
+        torch.cuda.synchronize()
+        err = tree_err(mine, ref)
+        check(err == 0, f"rga_union {what} aliased: max_abs_err {err}")
+        log.by["rga_union"]["cases"] += 1
+        for r in (2, 3):
+            reps = [{f: x[0] for f, x in a.items()},
+                    {f: x[0] for f, x in b.items()},
+                    {f: x[1] for f, x in a.items()}][:r]
+            st = {f: torch.stack([x[f] for x in reps]) for f in rga.FIELDS}
+            st["ctr_floor"] = torch.zeros((r, k), dtype=torch.int32,
+                                          device=dev)
+            st["_depth"] = torch.zeros((r, 8, 0), dtype=torch.int32,
+                                       device=dev)
+            rows = torch.as_tensor(rng.permutation(k).astype(np.int32),
+                                   device=dev)
+            for n_rows in (0, 1, k):
+                n = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+                check_calls(kernels, log, ("rga_union_rows",),
+                            lambda: rga.join_replica_rows(st, rows, n),
+                            f"{what} rows R{r} n{n_rows}")
+
+
 def rga_kernel_checks(dev, kernels, workloads, cases):
     """rga_union, rga_union_rows, rga_apply, rga_compact and rga_order
     against their plain versions on the card, bit-equal, drop and
@@ -1910,7 +1974,10 @@ def rga_kernel_checks(dev, kernels, workloads, cases):
     row-list mode), at full size; there the other wrappers the path runs
     (``replica_join`` with one operand on ``ctr_floor``,
     ``replica_join_rows``, ``dirty_rows``, ``delta_select``) are held
-    against their plain versions too. Returns, per kernel, the (args, kwargs)
+    against their plain versions too, and the share of level-1 union input
+    rows already sorted is counted (``rows_sorted``); (e) the union's edge
+    cases at the preset's rows (``rga_edge_cases``). Returns, per kernel,
+    the (args, kwargs)
     of the call the kernels line times: level 1 of tick 1's converge, tick
     3's apply and compaction (in place), the text, level 1 of the second
     delta tick."""
@@ -1979,6 +2046,29 @@ def rga_kernel_checks(dev, kernels, workloads, cases):
                             max_depth=p["max_depth"])
     tick = make_tick(rga.SPEC, device=dev)
     timing = {}
+    # level 1 of each converge below (a full one reads R / 2 replica
+    # pairs; a row-list one gathers from the state): rows already sorted
+    level1 = {"full": [0, 0, 0], "delta": [0, 0, 0]}  # sorted, rows, calls
+    real = (kernels.rga_union, kernels.rga_union_rows)
+
+    def count(kind, *slots, rows=None):
+        for x in slots:
+            got, n = rows_sorted(x, rows)
+            level1[kind][0] += got
+            level1[kind][1] += n
+        level1[kind][2] += 1
+
+    def union_spy(a, b, *args, **kw):
+        if a["valid"].dim() == 3 and a["valid"].shape[0] == R // 2:
+            count("full", a, b)
+        return real[0](a, b, *args, **kw)
+
+    def rows_spy(a, b, out, rows, n_rows, gather=True, scatter=False):
+        if gather:
+            count("delta", a, b, rows=rows[:int(n_rows)].long())
+        return real[1](a, b, out, rows, n_rows, gather, scatter)
+
+    kernels.rga_union, kernels.rga_union_rows = union_spy, rows_spy
     check_calls(kernels, log, ("rga_apply", "rga_union", "replica_join",
                                "rga_compact"),
                 lambda: (tick(state, batches[0]), rga.compact(state)),
@@ -2007,12 +2097,19 @@ def rga_kernel_checks(dev, kernels, workloads, cases):
                                "dirty_rows", "delta_select"),
                 lambda: st.fused_tick({"rga": batches[1]}),
                 "preset delta tick 1", keep=timing)
+    kernels.rga_union, kernels.rga_union_rows = real
     del st
+    check(all(v[2] > 0 for v in level1.values()),
+          f"rga_kernels: level-1 calls {level1}")
+    # (e) the union's edge cases at the preset's rows
+    rga_edge_cases(dev, kernels, workloads, log, rng, K, cap)
     for name, rec in log.by.items():
         check(rec["cases"] > 0, f"rga_kernels: no case of {name}")
         cases.append({"kernel": name, "case": "rga_kernels",
                       "cases": rec["cases"], "max_abs_err": rec["max_abs_err"]})
-    emit("rga_kernels", by_kernel=log.by)
+    emit("rga_kernels", by_kernel=log.by, level1_rows_sorted={
+        kind: {"sorted": v[0], "rows": v[1], "calls": v[2],
+               "share": v[0] / v[1]} for kind, v in level1.items()})
     return timing
 
 

@@ -338,6 +338,123 @@ def rga_slots(rng: np.random.Generator, shape, capacity: int,
             for f in rga.FIELDS}
 
 
+# the union's edge cases of ``rga_union_case``
+RGA_UNION_CASES = ("sorted", "tail_sorted", "tail_random", "reversed",
+                   "random", "hole", "sentinel", "all_invalid", "full")
+
+
+def _rga_subset(rng: np.random.Generator, rows: dict, share: float,
+                fresh_payloads: bool) -> dict:
+    """The valid slots of canonical RGA ``rows`` each kept with
+    probability ``share``, packed to the front in their order and made
+    canonical; with ``fresh_payloads`` the kept ones get new parents,
+    chars and tombstones."""
+    keep = rows["valid"] & (rng.random(rows["valid"].shape) < share)
+    order = np.argsort(~keep, axis=-1, kind="stable")
+    out = {f: np.take_along_axis(x, order, -1) for f, x in rows.items()}
+    valid = np.take_along_axis(keep, order, -1)
+    if fresh_payloads:
+        for f, hi in (("par_ctr", 50), ("par_rep", 6), ("chr", 127)):
+            out[f] = rng.integers(0, hi, valid.shape).astype(np.int32)
+        out["dead"] = rng.random(valid.shape) < 0.5
+    for f in ("id_ctr", "id_rep"):
+        out[f] = np.where(valid, out[f], SENTINEL).astype(np.int32)
+    for f in ("par_ctr", "par_rep", "chr"):
+        out[f] = np.where(valid, out[f], 0).astype(np.int32)
+    out["dead"] = valid & out["dead"]
+    out["valid"] = valid
+    return out
+
+
+def rga_union_case(rng: np.random.Generator, case: str, shape,
+                   capacity: int) -> tuple:
+    """Rows ``a``, ``b`` ``shape + (capacity,)`` (numpy, the seven fields
+    of ``rga.FIELDS``) for one of ``RGA_UNION_CASES``, the edge cases of a
+    union that merges sorted rows:
+
+    - ``sorted``: two sorted rows drawn from one pool of ids, so they
+      share ids whose parents, chars and tombstones differ;
+    - ``tail_sorted`` / ``tail_random``: those rows with fresh ids in
+      their free slots, above every id of the row (an apply's mint, still
+      sorted) or random (a sorted prefix and an unsorted tail);
+    - ``reversed``: those rows with their slots reversed;
+    - ``random``: shuffled rows with junk in invalid slots and an id
+      repeated within a row, half of b's ids copied from a;
+    - ``hole``: sorted rows with an invalid slot (junk keys) in the middle
+      of the valid prefix;
+    - ``sentinel``: sorted rows whose last valid id is (INT32_MAX,
+      INT32_MAX) or (INT32_MAX, 2), tying with the invalid slots' key;
+    - ``all_invalid``: every slot of a invalid (junk fields), half of b's
+      rows too;
+    - ``full``: full sorted rows with distinct ids, Ca + Cb kept."""
+    c = capacity
+    if case == "random":
+        a = rga_slots(rng, shape, c, canonical=False, dup_rows=0.4,
+                      full_rows=0.5, negative=0.1)
+        b = rga_slots(rng, shape, c, canonical=False, dup_rows=0.4,
+                      full_rows=0.5, negative=0.1)
+        take = rng.random(tuple(shape) + (c,)) < 0.5
+        for f in ("id_ctr", "id_rep", "valid"):
+            b[f] = np.where(take, a[f], b[f])
+        return a, b
+    if case == "full":
+        a = rga_slots(rng, shape, c, full_rows=1.0, negative=0.1)
+        b = rga_slots(rng, shape, c, full_rows=1.0, negative=0.1)
+        b["id_rep"] = b["id_rep"] + 4  # distinct from a's, order kept
+        return a, b
+    pool = rga_slots(rng, shape, c, full_rows=0.3, fill=0.9, negative=0.1)
+    a = _rga_subset(rng, pool, 0.6, False)
+    b = _rga_subset(rng, pool, 0.6, True)
+    if case in ("tail_sorted", "tail_random"):
+        for row in (a, b):
+            n = row["valid"].sum(-1)
+            m = rng.integers(0, c - n + 1)  # free slots after the prefix
+            at = np.arange(c)
+            free = (at >= n[..., None]) & (at < (n + m)[..., None])
+            if case == "tail_sorted":
+                top = np.where(row["valid"], row["id_ctr"], 0).max(-1)
+                ctr = top[..., None] + 1 + np.cumsum(free, -1)
+            else:
+                ctr = rng.integers(-5, 3 * c, free.shape)
+            row["id_ctr"] = np.where(free, ctr, row["id_ctr"]).astype(np.int32)
+            row["id_rep"] = np.where(free, rng.integers(0, 4, free.shape),
+                                     row["id_rep"]).astype(np.int32)
+            row["par_ctr"] = np.where(free, 0, row["par_ctr"]).astype(np.int32)
+            row["chr"] = np.where(free, rng.integers(32, 127, free.shape),
+                                  row["chr"]).astype(np.int32)
+            row["valid"] = row["valid"] | free
+    elif case == "reversed":
+        a = {f: np.ascontiguousarray(x[..., ::-1]) for f, x in a.items()}
+        b = {f: np.ascontiguousarray(x[..., ::-1]) for f, x in b.items()}
+    elif case == "hole":
+        for row in (a, b):
+            n = row["valid"].sum(-1)
+            at = rng.integers(1, np.maximum(n - 1, 2))
+            hole = (np.arange(c) == at[..., None]) & (n >= 3)[..., None]
+            row["valid"] = row["valid"] & ~hole
+            row["id_ctr"] = np.where(hole, rng.integers(-5, 5, hole.shape),
+                                     row["id_ctr"]).astype(np.int32)
+    elif case == "sentinel":
+        for row, rep in ((a, SENTINEL), (b, 2)):
+            n = row["valid"].sum(-1)
+            last = (np.arange(c) == (n - 1)[..., None]) & (n >= 1)[..., None]
+            pick = last & (rng.random(n.shape) < 0.7)[..., None]
+            row["id_ctr"] = np.where(pick, SENTINEL, row["id_ctr"]).astype(
+                np.int32)
+            row["id_rep"] = np.where(pick, rep, row["id_rep"]).astype(np.int32)
+        b["id_rep"] = np.where(b["valid"] & (b["id_ctr"] == SENTINEL)
+                               & (rng.random(b["valid"].shape) < 0.5),
+                               SENTINEL, b["id_rep"]).astype(np.int32)
+    elif case == "all_invalid":
+        junk = rga_slots(rng, shape, c, canonical=False, fill=1.0)
+        a = {**junk, "valid": np.zeros_like(junk["valid"])}
+        empty = (rng.random(tuple(shape)) < 0.5)[..., None]
+        b["valid"] = b["valid"] & ~empty
+    elif case != "sorted":
+        raise ValueError(f"unknown union case {case!r}")
+    return a, b
+
+
 def rga_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
                   capacity: int, reps: int = 4, hazards: bool = True,
                   captured: bool = False) -> dict:

@@ -125,6 +125,36 @@ __device__ int block_count_before(bool flag, int* sum) {
   return before;
 }
 
+// Exclusive prefix sum of one count per thread across the block; *sum
+// gets the block's total. blockDim.x a multiple of 32, <= 1024.
+__device__ int block_exclusive_sum(int v, int* sum) {
+  __shared__ int warp_part[32];
+  __shared__ int total;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += u;
+  }
+  if (lane == 31) warp_part[warp] = inc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      const int x = warp_part[w];
+      warp_part[w] = run;
+      run += x;
+    }
+    total = run;
+  }
+  __syncthreads();
+  const int before = warp_part[warp] + inc - v;
+  *sum = total;
+  __syncthreads();
+  return before;
+}
+
 // JAX's gather rule for a row index: negative counts from the end, then
 // clamp into [0, size).
 __device__ __forceinline__ int gather_row(int key, int size) {

@@ -41,10 +41,11 @@
 // replicas, ~0.13 ms of traffic at 3.35 TB/s. At the RGA converge (rga
 // preset: R=1,024, K=128, C=1,024, 2.95 GB of state) it reads
 // ~2 x 2.95 GB and writes ~2.95 GB into its levels, then 2.95 GB into the
-// replicas, ~3.5 ms; level 1 sorts 65,536 rows of 2,048 records. The
+// replicas, ~3.5 ms; level 1 joins 65,536 rows of 2,048 records. The
 // LWW-Set's Store converge at the same 64 x 500 x 256 holds 172 MB and
 // moves ~4 x 172 MB, ~0.2 ms. The sort is (Ca + Cb) log^2 (Ca + Cb) / 4
-// compare-swaps per row in shared memory.
+// compare-swaps per row in shared memory; the RGA's merge is O(Ca + Cb)
+// per row once its two rows are sorted, which every union output is.
 //
 // Design: one block per row (grid-stride over rows). The records (keys,
 // position, valid and flag bits) and the payloads are staged in shared
@@ -55,9 +56,16 @@
 // converge writes the last level into the replicas it read). The sort is
 // slot_sort::block_sort on (key0, key1, position), the stable order;
 // the kept flags are prefix-summed in shared memory to place each kept
-// record. With `repeat` > 1 the row is written into each of `repeat` output
-// replicas (the converge's broadcast). Launches on the caller's stream,
-// allocates nothing, does not synchronise.
+// record. The RGA's instantiation (MERGE, a template parameter, so the
+// other layouts compile as before) merges instead of sorting
+// (merge_row): its rows come sorted by id (a union writes them so, the
+// compaction is a stable partition, an apply mints ids above every id of
+// its row into the first free slot), so each input row is checked for a
+// descent, sorted alone only if it has one, and the two are merged along
+// the merge path, 25 bytes of shared memory a record. With `repeat` > 1
+// the row is written into each of `repeat` output replicas (the
+// converge's broadcast). Launches on the caller's stream, allocates
+// nothing, does not synchronise.
 //
 // Row-list mode (slot_union_rows_launch, rga_union_rows_launch,
 // lww_union_rows_launch, tp_union_rows_launch, edge_union_rows_launch):
@@ -226,12 +234,222 @@ __device__ int union_row(const Slots<NP>& a, long long a_at,
   return kept;
 }
 
+// the key pair (x, y) of one record before another's, as signed int32
+__device__ __forceinline__ bool key_less(int ax, int ay, int bx, int by) {
+  return ax < bx || (ax == bx && ay < by);
+}
+
+// (x, y, position) of two staged positions: an unsorted row's block sort
+struct LessAt {
+  const int* kx;
+  const int* ky;
+  __device__ bool operator()(int i, int j) const {
+    if (kx[i] != kx[j]) return kx[i] < kx[j];
+    if (ky[i] != ky[j]) return ky[i] < ky[j];
+    return i < j;
+  }
+};
+
+// Stage row `at` of s (c slots) at positions [base, base + c): the keys
+// (SENTINEL when invalid), valid | flag << 1, the payloads, and the
+// identity as the row's order.
+template <int NK, int NP, bool FLAG>
+__device__ __forceinline__ void stage_row(const Slots<NP>& s, long long at,
+                                          int c, int base, int n, int* kx,
+                                          int* ky, int* pay,
+                                          unsigned short* perm,
+                                          unsigned char* fl) {
+  for (int i = threadIdx.x; i < c; i += blockDim.x) {
+    const long long g = at + i;
+    const bool v = s.valid[g];
+    const bool f = FLAG && s.flag[g];
+    const int k0 = s.key[0][g];
+    const int k1 = NK == 2 ? s.key[1][g] : 0;
+    const int k = base + i;
+    kx[k] = v ? k0 : SENT;
+    ky[k] = NK == 2 ? (v ? k1 : SENT) : 0;
+    fl[k] = (unsigned char)((int)v | ((int)f << 1));
+    perm[k] = (unsigned short)k;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) pay[p * n + k] = s.pay[p][g];
+  }
+}
+
+// The same union as union_row, by a merge of two sorted rows instead of a
+// sort of their concatenation. The order on (x, y, position) is a's
+// records in their order on (x, y, position) merged with b's, ties to a;
+// each row is already in that order when its keys do not descend, and a
+// row whose keys do descend is block-sorted alone first. Each thread then
+// takes a run of `per` merged positions, finds where it starts in a and b
+// by a binary search on its diagonal (the merge path) and merges the run
+// sequentially. A merged record is kept when it is valid and does not
+// repeat the valid key before it; the kept records' slots come from a
+// prefix sum of the runs' counts, and the writes go out by slot. Shared
+// memory per record: keys 8 bytes, 4 per payload, the row's order and the
+// merged order 2 each, flags 1 (25 for the RGA).
 template <int NK, int NP, bool FLAG, int FOLD>
-__global__ void slot_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
-                                  int* __restrict__ overflow, long long rows,
-                                  int ca, int cb, int cap, int repeat) {
+__device__ int merge_row(const Slots<NP>& a, long long a_at,
+                         const Slots<NP>& b, long long b_at,
+                         const OutSlots<NP>& out, long long out_at,
+                         long long out_plane, int repeat, int ca, int cb,
+                         int cap) {
+  extern __shared__ int4 smem[];
+  const int n = ca + cb;
+  int* kx = (int*)smem;                                // [n] by position
+  int* ky = kx + n;                                    // [n]
+  int* pay = ky + n;                                   // [NP][n]
+  unsigned short* perm = (unsigned short*)(pay + NP * n);  // [n] see below
+  unsigned short* ord = perm + n;                      // [n] merged order
+  unsigned char* fl = (unsigned char*)(ord + n);       // [n] valid|flag|kept
+
+  stage_row<NK, NP, FLAG>(a, a_at, ca, 0, n, kx, ky, pay, perm, fl);
+  stage_row<NK, NP, FLAG>(b, b_at, cb, ca, n, kx, ky, pay, perm, fl);
+  __syncthreads();
+
+  // perm: each row's positions in its own order (the identity unless the
+  // row's keys descend somewhere)
+  bool down_a = false, down_b = false;
+  for (int i = threadIdx.x + 1; i < n; i += blockDim.x) {
+    if (i == ca) continue;  // the seam between the rows
+    if (key_less(kx[i], ky[i], kx[i - 1], ky[i - 1])) {
+      if (i < ca) down_a = true;
+      else down_b = true;
+    }
+  }
+  const LessAt less{kx, ky};
+  const bool sort_a = __syncthreads_or(down_a);
+  const bool sort_b = __syncthreads_or(down_b);
+  if (sort_a) block_sort(perm, ca, less);
+  if (sort_b) block_sort(perm + ca, cb, less);
+  // the position of a's i-th and b's j-th record in their rows' order
+  // (a sorted row reads its positions directly)
+  const auto at_a = [&](int i) { return sort_a ? (int)perm[i] : i; };
+  const auto at_b = [&](int j) {
+    return sort_b ? (int)perm[ca + j] : ca + j;
+  };
+
+  // the merge path: positions [d0, d1) of the merged order
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int d0 = min(n, (int)threadIdx.x * per), d1 = min(n, d0 + per);
+  if (d0 < d1) {
+    int lo = max(0, d0 - cb), hi = min(d0, ca);
+    while (lo < hi) {  // a's count among the first d0 merged
+      const int mid = (lo + hi) >> 1;
+      const int pa = at_a(mid), pb = at_b(d0 - 1 - mid);
+      if (key_less(kx[pb], ky[pb], kx[pa], ky[pa])) hi = mid;
+      else lo = mid + 1;
+    }
+    int i = lo, j = d0 - lo;
+    for (int d = d0; d < d1; ++d) {
+      bool take_a = j >= cb;
+      if (i < ca && j < cb) {
+        const int pa = at_a(i), pb = at_b(j);
+        take_a = !key_less(kx[pb], ky[pb], kx[pa], ky[pa]);
+      }
+      ord[d] = (unsigned short)(take_a ? at_a(i++) : at_b(j++));
+    }
+  }
+  __syncthreads();
+
+  // kept: valid and not a repeat of the valid key before it (marked in fl)
+  int count = 0;
+  for (int d = d0; d < d1; ++d) {
+    const int o = ord[d];
+    bool keep = fl[o] & 1;
+    if (keep && d > 0) {
+      const int q = ord[d - 1];
+      keep = !((fl[q] & 1) && kx[q] == kx[o] && ky[q] == ky[o]);
+    }
+    if (keep) {
+      fl[o] |= 4;
+      ++count;
+    }
+  }
+  int kept;
+  int slot = block_exclusive_sum(count, &kept);
+  // perm now maps each output slot to its merged position
+  for (int d = d0; d < d1 && slot < cap; ++d)
+    if (fl[ord[d]] & 4) perm[slot++] = (unsigned short)d;
+  __syncthreads();
+
+  const int fill = min(kept, cap);
+  for (int s = threadIdx.x; s < fill; s += blockDim.x) {
+    const int d = perm[s];
+    const int o = ord[d];
+    bool f = (fl[o] >> 1) & 1;
+    int next = -1;  // the duplicate right after, if any: valid, not kept
+    if (d + 1 < n) {
+      const int nx = ord[d + 1];
+      if ((fl[nx] & 5) == 1) {
+        f |= (fl[nx] >> 1) & 1;
+        next = nx;
+      }
+    }
+    int v[PAY_SLOTS<NP>];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      v[p] = pay[p * n + o];
+      if (FOLD == FOLD_MAX && next >= 0) v[p] = max(v[p], pay[p * n + next]);
+    }
+    if (FOLD == FOLD_TS_MAX && next >= 0) {
+#pragma unroll
+      for (int p = 0; p + 1 < NP; p += 2) {
+        const int hi = pay[p * n + next], lo = pay[(p + 1) * n + next];
+        if (!ts_after(v[p], v[p + 1], hi, lo)) {
+          v[p] = hi;
+          v[p + 1] = lo;
+        }
+      }
+    }
+    for (int p = 0; p < repeat; ++p) {
+      const long long at = p * out_plane + out_at + s;
+      out.key[0][at] = kx[o];
+      if (NK == 2) out.key[1][at] = ky[o];
+#pragma unroll
+      for (int q = 0; q < NP; ++q) out.pay[q][at] = v[q];
+      if (FLAG) out.flag[at] = f;
+      out.valid[at] = 1;
+    }
+  }
+  for (int s = fill + threadIdx.x; s < cap; s += blockDim.x) {
+    for (int p = 0; p < repeat; ++p) {
+      const long long at = p * out_plane + out_at + s;
+      out.key[0][at] = SENT;
+      if (NK == 2) out.key[1][at] = SENT;
+#pragma unroll
+      for (int q = 0; q < NP; ++q) out.pay[q][at] = 0;
+      if (FLAG) out.flag[at] = 0;
+      out.valid[at] = 0;
+    }
+  }
+  __syncthreads();
+  return kept;
+}
+
+// the layout's join: the merge for MERGE layouts, else the sort
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE>
+__device__ __forceinline__ int join_row(const Slots<NP>& a, long long a_at,
+                                        const Slots<NP>& b, long long b_at,
+                                        const OutSlots<NP>& out,
+                                        long long out_at, long long out_plane,
+                                        int repeat, int ca, int cb, int cap) {
+  if constexpr (MERGE)
+    return merge_row<NK, NP, FLAG, FOLD>(a, a_at, b, b_at, out, out_at,
+                                         out_plane, repeat, ca, cb, cap);
+  else
+    return union_row<NK, NP, FLAG, FOLD>(a, a_at, b, b_at, out, out_at,
+                                         out_plane, repeat, ca, cb, cap);
+}
+
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE>
+__device__ __forceinline__ void union_all(const Slots<NP>& a,
+                                          const Slots<NP>& b,
+                                          const OutSlots<NP>& out,
+                                          int* __restrict__ overflow,
+                                          long long rows, int ca, int cb,
+                                          int cap, int repeat) {
   for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-    const int kept = union_row<NK, NP, FLAG, FOLD>(
+    const int kept = join_row<NK, NP, FLAG, FOLD, MERGE>(
         a, row * ca, b, row * cb, out, row * cap, rows * (long long)cap,
         repeat, ca, cb, cap);
     if (threadIdx.x == 0) overflow[row] = kept > cap ? kept - cap : 0;
@@ -244,14 +462,11 @@ __global__ void slot_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
 // `scatter` the result goes to out[r, j] ([pairs, num_keys, c] scratch);
 // with it (pairs == 1) to out[p, rows[j]] for every p < repeat, the
 // replicas of the state.
-template <int NK, int NP, bool FLAG, int FOLD>
-__global__ void slot_union_rows_kernel(Slots<NP> a, Slots<NP> b,
-                                       OutSlots<NP> out,
-                                       const int* __restrict__ rows,
-                                       int listed,
-                                       const int* __restrict__ n_rows,
-                                       int pairs, int num_keys, int c,
-                                       int gather, int scatter, int repeat) {
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE>
+__device__ __forceinline__ void union_listed(
+    const Slots<NP>& a, const Slots<NP>& b, const OutSlots<NP>& out,
+    const int* __restrict__ rows, int listed, const int* __restrict__ n_rows,
+    int pairs, int num_keys, int c, int gather, int scatter, int repeat) {
   int m = *n_rows;
   m = m < 0 ? 0 : (m > listed ? listed : m);
   const long long total = (long long)m * pairs;
@@ -264,9 +479,59 @@ __global__ void slot_union_rows_kernel(Slots<NP> a, Slots<NP> b,
     const long long in_at = (r * num_keys + (gather ? k : j)) * c;
     const long long out_at = scatter ? (long long)k * c
                                      : (r * num_keys + j) * c;
-    union_row<NK, NP, FLAG, FOLD>(a, in_at, b, in_at, out, out_at, plane,
-                        scatter ? repeat : 1, c, c, c);
+    join_row<NK, NP, FLAG, FOLD, MERGE>(a, in_at, b, in_at, out, out_at,
+                                        plane, scatter ? repeat : 1, c, c, c);
   }
+}
+
+template <int NK, int NP, bool FLAG, int FOLD>
+__global__ void slot_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
+                                  int* __restrict__ overflow, long long rows,
+                                  int ca, int cb, int cap, int repeat) {
+  union_all<NK, NP, FLAG, FOLD, false>(a, b, out, overflow, rows, ca, cb, cap,
+                                       repeat);
+}
+
+template <int NK, int NP, bool FLAG, int FOLD>
+__global__ void slot_union_rows_kernel(Slots<NP> a, Slots<NP> b,
+                                       OutSlots<NP> out,
+                                       const int* __restrict__ rows,
+                                       int listed,
+                                       const int* __restrict__ n_rows,
+                                       int pairs, int num_keys, int c,
+                                       int gather, int scatter, int repeat) {
+  union_listed<NK, NP, FLAG, FOLD, false>(a, b, out, rows, listed, n_rows,
+                                          pairs, num_keys, c, gather, scatter,
+                                          repeat);
+}
+
+// The merge's kernels, the same but for the join, are kept to 64
+// registers a thread (at most 1,024 threads a block), so that four blocks
+// of 256 threads fit an SM, as shared memory allows at 1,024-slot rows; a
+// broadcast (repeat > 1) runs MERGE_BROADCAST_THREADS a block, its one
+// block a row spreading the writes of every output replica over more
+// warps.
+constexpr int MERGE_BROADCAST_THREADS = 1024;
+
+template <int NK, int NP, bool FLAG, int FOLD>
+__global__ void __launch_bounds__(1024)
+    merge_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
+                       int* __restrict__ overflow, long long rows, int ca,
+                       int cb, int cap, int repeat) {
+  union_all<NK, NP, FLAG, FOLD, true>(a, b, out, overflow, rows, ca, cb, cap,
+                                      repeat);
+}
+
+template <int NK, int NP, bool FLAG, int FOLD>
+__global__ void __launch_bounds__(1024)
+    merge_union_rows_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
+                            const int* __restrict__ rows, int listed,
+                            const int* __restrict__ n_rows, int pairs,
+                            int num_keys, int c, int gather, int scatter,
+                            int repeat) {
+  union_listed<NK, NP, FLAG, FOLD, true>(a, b, out, rows, listed, n_rows,
+                                         pairs, num_keys, c, gather, scatter,
+                                         repeat);
 }
 
 // fields in the entry points' order: the NK keys, the NP payloads, the
@@ -293,45 +558,55 @@ OutSlots<NP> out_slots(void* const* f) {
   return s;
 }
 
-template <int NP>
+// shared memory per staged record: the sort's int4, the payloads and the
+// prefix sum; the merge's keys, payloads, two orders and flags
+template <int NP, bool MERGE>
 constexpr size_t record_bytes() {
-  return sizeof(int4) + (NP + 1) * sizeof(int);
+  return MERGE ? 2 * sizeof(int) + NP * sizeof(int) + 2 * sizeof(short) + 1
+               : sizeof(int4) + (NP + 1) * sizeof(int);
 }
 
-template <int NK, int NP, bool FLAG, int FOLD>
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE = false>
 int launch(const void* const* a, const void* const* b, void* const* o,
            void* overflow, long long rows, int ca, int cb, int cap,
            int repeat, cudaStream_t stream) {
   if (rows <= 0 || repeat <= 0) return (int)cudaSuccess;
-  const size_t bytes = (size_t)(ca + cb) * record_bytes<NP>() + 16;
-  cudaError_t err =
-      allow_shared(slot_union_kernel<NK, NP, FLAG, FOLD>, bytes);
+  const size_t bytes = (size_t)(ca + cb) * record_bytes<NP, MERGE>() + 16;
+  void (*kernel)(Slots<NP>, Slots<NP>, OutSlots<NP>, int*, long long, int,
+                 int, int, int);
+  if constexpr (MERGE) kernel = merge_union_kernel<NK, NP, FLAG, FOLD>;
+  else kernel = slot_union_kernel<NK, NP, FLAG, FOLD>;
+  cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long grid = rows < 132LL * 64 ? rows : 132LL * 64;
-  slot_union_kernel<NK, NP, FLAG, FOLD>
-      <<<(unsigned)grid, 256, bytes, stream>>>(
+  const int threads = MERGE && repeat > 1 ? MERGE_BROADCAST_THREADS : 256;
+  kernel<<<(unsigned)grid, threads, bytes, stream>>>(
       in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
       out_slots<NK, NP, FLAG>(o), (int*)overflow,
       rows, ca, cb, cap, repeat);
   return (int)cudaGetLastError();
 }
 
-template <int NK, int NP, bool FLAG, int FOLD>
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE = false>
 int launch_rows(const void* const* a, const void* const* b, void* const* o,
                 const void* rows, int listed, const void* n_rows, int pairs,
                 int num_keys, int c, int gather, int scatter, int repeat,
                 cudaStream_t stream) {
   if (listed <= 0 || pairs <= 0 || repeat <= 0 || c <= 0)
     return (int)cudaSuccess;
-  const size_t bytes = (size_t)(2 * c) * record_bytes<NP>() + 16;
-  cudaError_t err =
-      allow_shared(slot_union_rows_kernel<NK, NP, FLAG, FOLD>, bytes);
+  const size_t bytes = (size_t)(2 * c) * record_bytes<NP, MERGE>() + 16;
+  void (*kernel)(Slots<NP>, Slots<NP>, OutSlots<NP>, const int*, int,
+                 const int*, int, int, int, int, int, int);
+  if constexpr (MERGE) kernel = merge_union_rows_kernel<NK, NP, FLAG, FOLD>;
+  else kernel = slot_union_rows_kernel<NK, NP, FLAG, FOLD>;
+  cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   // one wave of 8 blocks per SM; blocks past the rows to join exit at once
   const long long most = (long long)listed * pairs;
   const long long grid = most < 132LL * 8 ? most : 132LL * 8;
-  slot_union_rows_kernel<NK, NP, FLAG, FOLD>
-      <<<(unsigned)grid, 256, bytes, stream>>>(
+  const int threads =
+      MERGE && scatter && repeat > 1 ? MERGE_BROADCAST_THREADS : 256;
+  kernel<<<(unsigned)grid, threads, bytes, stream>>>(
       in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
       out_slots<NK, NP, FLAG>(o), (const int*)rows,
       listed, (const int*)n_rows, pairs, num_keys, c, gather, scatter,
@@ -362,8 +637,8 @@ extern "C" int rga_union_launch(const void* const* a, const void* const* b,
                                 void* const* o, void* overflow,
                                 long long rows, int ca, int cb, int cap,
                                 int repeat, void* stream) {
-  return launch<2, 3, true, FOLD_MAX>(a, b, o, overflow, rows, ca, cb, cap,
-                                      repeat, (cudaStream_t)stream);
+  return launch<2, 3, true, FOLD_MAX, true>(a, b, o, overflow, rows, ca, cb,
+                                            cap, repeat, (cudaStream_t)stream);
 }
 
 extern "C" int lww_union_launch(const void* const* a, const void* const* b,
@@ -413,10 +688,10 @@ extern "C" int rga_union_rows_launch(const void* const* a,
                                      const void* n_rows, int pairs,
                                      int num_keys, int c, int gather,
                                      int scatter, int repeat, void* stream) {
-  return launch_rows<2, 3, true, FOLD_MAX>(a, b, o, rows, listed, n_rows,
-                                           pairs, num_keys, c, gather,
-                                           scatter, repeat,
-                                           (cudaStream_t)stream);
+  return launch_rows<2, 3, true, FOLD_MAX, true>(a, b, o, rows, listed,
+                                                 n_rows, pairs, num_keys, c,
+                                                 gather, scatter, repeat,
+                                                 (cudaStream_t)stream);
 }
 
 extern "C" int lww_union_rows_launch(const void* const* a,

@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
            "dag_round", "slot_union", "orset_capture", "orset_replay",
            "orset_apply", "dirty_rows", "delta_select", "rga_apply",
@@ -112,3 +114,39 @@ def check_launch(name: str, rc: int) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+class LeanLaunch:
+    """The lean launch path of one C entry point (its last argument the
+    stream): the library is loaded and the argument types set at the
+    first call only; each call, given the tensors' device (a tensor's
+    ``.device``, which carries its index), passes that device's raw
+    current stream, entering ``torch.cuda.device`` only when it is not
+    the current device, and raises on a CUDA error as ``check_launch``
+    does."""
+
+    def __init__(self, name: str, entry: str, argtypes):
+        self.name, self.entry, self.argtypes = name, entry, list(argtypes)
+        self._fn = None
+
+    def _bind(self):
+        fn = getattr(load(self.name), self.entry)
+        fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        # PyTorch's own current-device and raw-stream calls (those of its
+        # compiled kernels' launchers); a CPU-only build has neither
+        self._device = torch._C._cuda_getDevice
+        self._stream = torch._C._cuda_getCurrentRawStream
+        self._fn = fn
+        return fn
+
+    def __call__(self, dev: torch.device, *args) -> None:
+        fn = self._fn or self._bind()
+        index = dev.index
+        if index == self._device():
+            rc = fn(*args, self._stream(index))
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(*args, self._stream(index))
+        if rc:
+            check_launch(self.name, rc)

@@ -13,7 +13,6 @@ The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -37,14 +36,10 @@ def dirty_rows_plain(op: torch.Tensor, key: torch.Tensor, num_keys: int,
     return out
 
 
-def _lib():
-    lib = build.load("dirty_rows")
-    if lib.dirty_rows_launch.argtypes is None:
-        ptr = ctypes.c_void_p
-        lib.dirty_rows_launch.argtypes = [
-            ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr]
-        lib.dirty_rows_launch.restype = ctypes.c_int
-    return lib
+_LAUNCH = build.LeanLaunch(
+    "dirty_rows", "dirty_rows_launch",
+    (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_int))
 
 
 def dirty_rows(op: torch.Tensor, key: torch.Tensor, num_keys: int,
@@ -53,26 +48,23 @@ def dirty_rows(op: torch.Tensor, key: torch.Tensor, num_keys: int,
     batch touch, by JAX's scatter rule (a negative key counts from the
     end, one still out of range marks nothing). ``op``, ``key``: int32
     ``[..., B]``. With ``out`` (the running mask) the rows are ORed into
-    it in place; otherwise a fresh mask is returned."""
-    lead = tuple(op.shape[:-1])
-    B = op.shape[-1] if op.dim() else -1
-    dev = operands.placement("dirty_rows", [
-        ("op", op, torch.int32, lead + (B,)),
-        ("key", key, torch.int32, lead + (B,)),
-        ("out", out, torch.bool, lead + (num_keys,))])
+    it in place; otherwise a fresh mask is returned. Runs on the lean
+    launch path (``operands.lean_placement``, ``build.LeanLaunch``)."""
+    shape = op.shape
+    batch = shape if shape else (-1,)  # a 0-d op is refused
+    mask = shape[:-1] + (num_keys,)
+    dev = operands.lean_placement("dirty_rows", (
+        ("op", op, torch.int32, batch), ("key", key, torch.int32, batch),
+        ("out", out, torch.bool, mask)))
     if dev is None:
         return dirty_rows_plain(op, key, num_keys, out)
     if out is None:
-        out = torch.zeros(lead + (num_keys,), dtype=torch.bool, device=dev)
-    rows = math.prod(lead)
-    if rows * B * num_keys == 0:
+        out = torch.zeros(mask, dtype=torch.bool, device=dev)
+    ops = op.numel()
+    if ops * num_keys == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dirty_rows_launch(op.data_ptr(), key.data_ptr(),
-                                   out.data_ptr(), rows, B, num_keys, stream)
-    build.check_launch("dirty_rows", rc)
+    _LAUNCH(dev, op.data_ptr(), key.data_ptr(), out.data_ptr(),
+            ops // shape[-1], shape[-1], num_keys)
     dirty_rows.launches += 1
     return out
 

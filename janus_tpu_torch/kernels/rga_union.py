@@ -9,7 +9,10 @@ right after it when that one repeats its id: ``par_ctr``, ``par_rep`` and
 ``chr`` take the fieldwise max, ``dead`` the OR. The kept ids are cut to
 the ``capacity`` smallest and invalid slots filled canonically. Bound on
 the H100 by bytes (22 per slot, each read and written once); see the
-source note.
+source note. The kernel merges the two rows (each already sorted by id
+when it comes from a union, a compaction or an apply; a row that is not
+is sorted alone first) instead of sorting their concatenation: the
+source's ``merge_row``.
 
 ``rga_union_rows`` is the kernel's row-list mode, one level of the
 converge's halving tree over listed document rows
@@ -26,7 +29,7 @@ from janus_tpu_torch.kernels.slot_union import (
     Layout, union, union_plain, union_rows, union_rows_plain)
 
 RGA = Layout(rga_rows.FIELDS, rga_rows.DTYPES, rga_rows.fold_duplicate, 3,
-             "rga_union_launch", "rga_union_rows_launch")
+             "rga_union_launch", "rga_union_rows_launch", merge=True)
 
 
 def rga_union_plain(a, b, capacity: int | None = None, out=None):

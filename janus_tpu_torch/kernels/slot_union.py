@@ -39,8 +39,9 @@ class Layout(NamedTuple):
     """A slot layout of ``csrc/slot_union.cu``: its fields in the C entry
     points' order (``keys`` int32 keys, int32 payloads, a bool flag if the
     layout has one, valid), their dtypes, the duplicate fold of the plain
-    version, the count of int32 payload fields, the two C entry points and
-    the count of key fields."""
+    version, the count of int32 payload fields, the two C entry points,
+    the count of key fields and whether the source's instantiation joins
+    by a merge of sorted rows (``merge_row``) instead of a sort."""
     fields: tuple
     dtypes: dict
     fold: Callable
@@ -48,6 +49,7 @@ class Layout(NamedTuple):
     launch: str
     rows_launch: str
     keys: int = 2
+    merge: bool = False
 
     @property
     def key_fields(self):
@@ -119,11 +121,16 @@ def _ptrs(layout: Layout, slots):
 def shared_bytes(ca: int, cb: int, layout: Layout = ORSET) -> int:
     """Shared memory of one block (csrc/slot_union.cu): per input record
     a 16-byte sort record, 4 bytes per int32 payload field and 4 of prefix
-    sum (24 for the OR-Set, 32 for the RGA, 36 for the LWW-Set, 20 for the
-    2P layouts), and the prefix sum's 4 KB. The most rows a block holds
-    follow: Ca + Cb <= 11,410 records for the 2P layouts (a full join of
-    rows up to 5,705 slots), 9,508 for the OR-Set."""
-    per = 16 + 4 * (layout.payloads + 1)
+    sum (24 for the OR-Set, 36 for the LWW-Set, 20 for the 2P layouts), or
+    for a merge layout 8 bytes of keys, 4 per payload field, 2 + 2 of
+    orders and 1 of flags (25 for the RGA), and the prefix sum's 4 KB.
+    The most rows a block holds follow: Ca + Cb <= 11,410 records for the
+    2P layouts (a full join of rows up to 5,705 slots), 9,508 for the
+    OR-Set, 9,128 for the RGA."""
+    if layout.merge:
+        per = 13 + 4 * layout.payloads
+    else:
+        per = 16 + 4 * (layout.payloads + 1)
     return per * (ca + cb) + 16 + operands.SCAN_SHARED_BYTES
 
 

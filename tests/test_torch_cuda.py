@@ -945,14 +945,122 @@ def test_rga_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         kernels.rga_apply(dict(st, chr=st["chr"].cpu()), ops)
     with pytest.raises(ValueError):
         kernels.rga_union(st, dict(st, dead=st["dead"].to(torch.uint8)))
-    with pytest.raises(ValueError, match="shared memory"):
-        kernels.rga_union(*(_rga_rows(rng, (1,), 4000, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):  # > 9,128 records
+        kernels.rga_union(*(_rga_rows(rng, (1,), 4600, cuda_device)
                             for _ in range(2)))
     with pytest.raises(ValueError, match="shared memory"):
         kernels.rga_order(_rga_rows(rng, (1,), 4096, cuda_device), 32)
     with pytest.raises(ValueError):
         kernels.rga_order({f: x[0] for f, x in st.items()}, 0)
     assert kernels.launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", workloads.RGA_UNION_CASES)
+def test_rga_union_merge_matches_plain(cuda_device, case):
+    """The merge of sorted rows (the RGA instantiation of slot_union.cu)
+    on every edge case of ``workloads.rga_union_case`` at C = 1,024:
+    fresh outputs at a capacity below, at and above one row's, ``out`` of
+    two planes, ``out`` aliasing ``a``, and rows of unequal widths."""
+    rng = np.random.default_rng(len(case))
+    c = 1024
+    a, b = (_on(x, cuda_device) for x in
+            workloads.rga_union_case(rng, case, (48,), c))
+    before = kernels.rga_union.launches
+    for cap in (600, c, 2500):
+        got, ovf = kernels.rga_union(a, b, cap)
+        ref, ref_ovf = kernels.rga_union_plain(a, b, cap)
+        _assert_outputs_equal(got, ref)
+        _assert_outputs_equal(ovf, ref_ovf)
+    ref, ref_ovf = kernels.rga_union_plain(a, b, c)
+    out = {f: torch.full((2, 48, c), 7, dtype=x.dtype, device=cuda_device)
+           for f, x in a.items()}
+    _, ovf = kernels.rga_union(a, b, c, out=out)
+    for f in ref:
+        assert torch.equal(out[f], ref[f].expand_as(out[f])), f
+    _assert_outputs_equal(ovf, ref_ovf)
+    alias = _clone(a)
+    kernels.rga_union(alias, b, c, out={f: x.unsqueeze(0)
+                                        for f, x in alias.items()})
+    _assert_outputs_equal(alias, ref)
+    narrow = {f: x[:, :300].contiguous() for f, x in b.items()}
+    got, ovf = kernels.rga_union(a, narrow, 700)
+    ref, ref_ovf = kernels.rga_union_plain(a, narrow, 700)
+    torch.cuda.synchronize()
+    assert kernels.rga_union.launches == before + 6
+    _assert_outputs_equal(got, ref)
+    _assert_outputs_equal(ovf, ref_ovf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3])
+@pytest.mark.parametrize("case", workloads.RGA_UNION_CASES)
+def test_rga_union_rows_merge_matches_plain(cuda_device, case, r):
+    """The row-list mode of the merge on the edge cases at C = 1,024, K =
+    16 document rows of r replicas, with 0, 1 and K rows listed: the
+    converge's row-list tree through the kernel against the same tree of
+    plain versions."""
+    from janus_tpu_torch.models import rga
+
+    rng = np.random.default_rng(len(case) + r)
+    k, c = 16, 1024
+    a, b = workloads.rga_union_case(rng, case, (k,), c)
+    a2, _ = workloads.rga_union_case(rng, case, (k,), c)
+    st = _on({f: np.stack([x[f] for x in (a, b, a2)[:r]]) for f in rga.FIELDS},
+             cuda_device)
+    st["ctr_floor"] = torch.zeros((r, k), dtype=torch.int32, device=cuda_device)
+    st["_depth"] = torch.zeros((r, 8, 0), dtype=torch.int32, device=cuda_device)
+    rows = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(cuda_device)
+    for n_rows in (0, 1, k):
+        n = torch.tensor(n_rows, dtype=torch.int32, device=cuda_device)
+        mine, ref = _clone(st), _clone(st)
+        before = kernels.rga_union_rows.launches
+        rga.join_replica_rows(mine, rows, n)
+        real = (kernels.rga_union_rows, kernels.replica_join_rows)
+        kernels.rga_union_rows = kernels.rga_union_rows_plain
+        kernels.replica_join_rows = kernels.replica_join_rows_plain
+        try:
+            rga.join_replica_rows(ref, rows, n)
+        finally:
+            kernels.rga_union_rows, kernels.replica_join_rows = real
+        torch.cuda.synchronize()
+        assert kernels.rga_union_rows.launches == before + (r - 1)
+        _assert_outputs_equal(mine, ref)
+
+
+@pytest.mark.cuda
+def test_dirty_rows_lean_path_refuses_what_it_did(cuda_device):
+    """The lean launch path raises on every malformed operand: a wrong
+    dtype, a strided tensor, a shape mismatch, tensors on two devices;
+    and launches nothing for them."""
+    rng = np.random.default_rng(5)
+    r, k, b = 4, 50, 33
+    op = torch.from_numpy(rng.integers(0, 3, (r, b)).astype(np.int32)).to(cuda_device)
+    key = torch.from_numpy(rng.integers(-k, 2 * k, (r, b)).astype(np.int32)).to(cuda_device)
+    out = torch.zeros((r, k), dtype=torch.bool, device=cuda_device)
+    before = kernels.dirty_rows.launches
+    bad = [((op.long(), key, k), {}, "int32"),
+           ((op, key.to(torch.int16), k), {}, "int32"),
+           ((op, key, k), {"out": out.to(torch.uint8)}, "bool"),
+           ((op, torch.cat([key, key], 1)[:, ::2], k), {}, "strided"),
+           ((op, key, k), {"out": torch.zeros((k, r), dtype=torch.bool,
+                                              device=cuda_device).t()},
+            "strided"),
+           ((op, key[:, :-1].contiguous(), k), {}, "shape"),
+           ((op, key, k + 1), {"out": out}, "shape"),
+           ((op[:2], key, k), {}, "shape"),
+           ((op, key.cpu(), k), {}, "one CUDA device"),
+           ((op.cpu(), key.cpu(), k), {"out": out}, "one CUDA device")]
+    for args, kw, what in bad:
+        with pytest.raises(ValueError, match="dirty_rows"):
+            kernels.dirty_rows(*args, **kw)
+    assert kernels.dirty_rows.launches == before
+    # well-formed operands, the hazard keys in [-K, 2K): equal to plain
+    mine = kernels.dirty_rows(op, key, k, out=out.clone())
+    ref = kernels.dirty_rows_plain(op, key, k, out=out.clone())
+    torch.cuda.synchronize()
+    assert kernels.dirty_rows.launches == before + 1
+    assert torch.equal(mine, ref)
 
 
 # -- the rest of the SafeKV round: submit, block selection, state transfer,
