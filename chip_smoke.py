@@ -406,8 +406,12 @@ TYPED_STORE = dict(R=64, K=500, lww_capacity=256, mvr_capacity=8, B=64,
 # the typed wrappers' random checks: unions (lead, Ca, Cb, canonical);
 # merges (lead, Va, Vb, W, clock span, canonical); row-list levels (kind,
 # pairs, K, C or V, W); applies (V, K, C, B, mode, hot row) and (V, K, Vc,
-# W, B, mode, hot row); recorded: the consensus phases' first rounds and
-# typed_store's first ticks
+# W, B, mode, hot row); the walk's edge cases (workloads.mvr_walk_case)
+# at (V, K): (case, Vc, W, B, modes), their plain versions on the host
+# (a few small steps a write), the long walk once (over 2,048 writes, past
+# one window), the others in every mode at Vc = 8, W = 64 and in one mode
+# at Vc = 1 and 32; recorded: the consensus phases' first rounds and typed_store's
+# first ticks
 TYPED_CHECKS = dict(
     lww_unions=(((3, 5), 6, 6, False), ((7,), 8, 8, True),
                 ((2, 4), 5, 3, False), ((16, 1000), 64, 64, False),
@@ -429,6 +433,15 @@ TYPED_CHECKS = dict(
                  (5, 2, 3, 4, 24, "capture", False),
                  (2, 4, 8, 64, 2300, "captured", True),
                  (64, 500, 8, 64, 64, "capture", False)),
+    mvr_walk_geometry=(2, 5),
+    mvr_walks=(("long", 8, 64, 2200, ("captured",)),) + tuple(
+        (case, 8, 64, 256, ("apply", "captured", "capture"))
+        for case in ("cut", "twins", "hazards")) + (
+        ("cut", 1, 64, 256, ("capture",)), ("twins", 1, 64, 256, ("apply",)),
+        ("hazards", 1, 64, 256, ("captured",)),
+        ("cut", 32, 4, 256, ("captured",)), ("twins", 32, 4, 256,
+                                             ("captured",)),
+        ("hazards", 32, 4, 256, ("apply",))),
     rounds=3, ticks=2)
 TYPED_LIBRARY_NOTES = {
     "lww_union": "no single PyTorch call computes it: an elem-keyed union "
@@ -961,20 +974,28 @@ class CaseLog:
         if "tusk_commit" in self.by:
             self.by["tusk_commit"]["committed_cases"] = 0
 
-    def add(self, kernels, name, args, what, kwargs=None, aliased=False):
+    def add(self, kernels, name, args, what, kwargs=None, aliased=False,
+            host_plain=False):
         """The kernel against its plain version on clones of one input,
         bit-equal, outputs and drop/overflow counts included (and the
         state a kernel updates in place; ``aliased`` keeps a tensor passed
         twice one clone, so an ``out=`` that is the input stays in place);
-        returns the kernel's output."""
+        ``host_plain`` runs the plain version on host copies (a walk of
+        thousands of small steps is quicker there); returns the kernel's
+        output."""
         kwargs = kwargs or {}
         clone = clone_aliased if aliased else (
             lambda x: tree_map(torch.Tensor.clone, x))
         mine = clone((args, kwargs))
         ref = clone((args, kwargs))
+        if host_plain:
+            dev = tensors_of(args)[0].device
+            ref = tree_map(lambda x: x.cpu(), ref)
         fn = self.entries.get(name) or kernels.WRAPPERS[name]
         out = fn(*mine[0], **mine[1])
         want = plain_of(kernels, name)(*ref[0], **ref[1])
+        if host_plain:
+            ref, want = tree_map(lambda x: x.to(dev), (ref, want))
         torch.cuda.synchronize()
         err = tree_err((mine, out), (ref, want))
         check(err == 0, f"{name} {what}: max_abs_err {err}")
@@ -1975,9 +1996,12 @@ def rga_kernel_checks(dev, kernels, workloads, cases):
     (``replica_join`` with one operand on ``ctr_floor``,
     ``replica_join_rows``, ``dirty_rows``, ``delta_select``) are held
     against their plain versions too, and the share of level-1 union input
-    rows already sorted is counted (``rows_sorted``); (e) the union's edge
-    cases at the preset's rows (``rga_edge_cases``). Returns, per kernel,
-    the (args, kwargs)
+    rows already sorted is counted (``rows_sorted``), and so is the share
+    of the compactions' input rows; (e) the union's edge cases at the
+    preset's rows (``rga_edge_cases``); (f) the compaction's edge cases
+    (``workloads.rga_compact_case``) at 2 x 128 rows of the preset's
+    1,024 slots and at 16 rows of 300, with and without protect, fresh
+    and in place. Returns, per kernel, the (args, kwargs)
     of the call the kernels line times: level 1 of tick 1's converge, tick
     3's apply and compaction (in place), the text, level 1 of the second
     delta tick."""
@@ -2068,7 +2092,17 @@ def rga_kernel_checks(dev, kernels, workloads, cases):
             count("delta", a, b, rows=rows[:int(n_rows)].long())
         return real[1](a, b, out, rows, n_rows, gather, scatter)
 
+    compact_sorted = [0, 0]  # compaction input rows already sorted, rows
+
+    def compact_spy(rows, *args, **kw):
+        got, n = rows_sorted(rows)
+        compact_sorted[0] += got
+        compact_sorted[1] += n
+        return real[2](rows, *args, **kw)
+
+    real = real + (kernels.rga_compact,)
     kernels.rga_union, kernels.rga_union_rows = union_spy, rows_spy
+    kernels.rga_compact = compact_spy
     check_calls(kernels, log, ("rga_apply", "rga_union", "replica_join",
                                "rga_compact"),
                 lambda: (tick(state, batches[0]), rga.compact(state)),
@@ -2097,19 +2131,35 @@ def rga_kernel_checks(dev, kernels, workloads, cases):
                                "dirty_rows", "delta_select"),
                 lambda: st.fused_tick({"rga": batches[1]}),
                 "preset delta tick 1", keep=timing)
-    kernels.rga_union, kernels.rga_union_rows = real
+    kernels.rga_union, kernels.rga_union_rows, kernels.rga_compact = real
     del st
-    check(all(v[2] > 0 for v in level1.values()),
-          f"rga_kernels: level-1 calls {level1}")
+    check(all(v[2] > 0 for v in level1.values()) and compact_sorted[1] > 0,
+          f"rga_kernels: level-1 calls {level1}, compaction rows "
+          f"{compact_sorted}")
     # (e) the union's edge cases at the preset's rows
     rga_edge_cases(dev, kernels, workloads, log, rng, K, cap)
+    # (f) the compaction's edge cases at the preset's rows and at C = 300
+    for case in workloads.RGA_COMPACT_CASES:
+        for lead, c in (((2, K), cap), ((16,), 300)):
+            rows, prot = workloads.rga_compact_case(rng, case, lead, c)
+            rows = {f: torch.as_tensor(x, device=dev) for f, x in rows.items()}
+            prot = torch.as_tensor(prot, device=dev)
+            for p_ in (None, prot):
+                what = (f"edge {case} {'x'.join(map(str, lead))} C{c} "
+                        f"protect {p_ is not None}")
+                log.add(kernels, "rga_compact", (rows, p_), what)
+                log.add(kernels, "rga_compact", (rows, p_), what + " in place",
+                        {"out": rows}, aliased=True)
     for name, rec in log.by.items():
         check(rec["cases"] > 0, f"rga_kernels: no case of {name}")
         cases.append({"kernel": name, "case": "rga_kernels",
                       "cases": rec["cases"], "max_abs_err": rec["max_abs_err"]})
     emit("rga_kernels", by_kernel=log.by, level1_rows_sorted={
         kind: {"sorted": v[0], "rows": v[1], "calls": v[2],
-               "share": v[0] / v[1]} for kind, v in level1.items()})
+               "share": v[0] / v[1]} for kind, v in level1.items()},
+        compact_rows_sorted={"sorted": compact_sorted[0],
+                             "rows": compact_sorted[1],
+                             "share": compact_sorted[0] / compact_sorted[1]})
     return timing
 
 
@@ -2371,10 +2421,12 @@ def rga_kernel_rows(kernels, calls):
     shape = tuple(slots["valid"].shape)
     n = int(np.prod(shape[:-1]))
     c = shape[-1]
+    got, _ = rows_sorted(slots)
     rows.append(dict(
         name="rga_compact", args=(slots, prot), kw=kw,
         shape=f"the preset's compaction at tick 3: {' x '.join(map(str, shape))}"
               f", in place",
+        rows_sorted={"sorted": got, "rows": n},
         bytes=2 * 22 * n * c, operations=7 * n * c))
     (flat, depth), kw = calls["rga_order"]
     n, c = flat["valid"].shape
@@ -3172,6 +3224,11 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
         "orset_compact": 2 * orset_advances},
         f"fence_kernels: orset_consensus calls {o_counts}, "
         f"{orset_advances} compactions")
+    fence_sorted = [0, 0]  # rows already sorted, rows
+    for (rows, _), _ in rga_calls["rga_compact"]:
+        got, n = rows_sorted(rows)
+        fence_sorted[0] += got
+        fence_sorted[1] += n
     for tag, calls in (("rga_consensus", rga_calls),
                        ("orset_consensus", orset_calls)):
         for name, rec in calls.items():
@@ -3185,6 +3242,9 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
     for name, rec in log.by.items():
         cases.append({"kernel": name, "case": "fence_kernels", **rec})
     emit("fence_kernels", by_kernel=log.by, coverage=cover,
+         compact_rows_sorted={"sorted": fence_sorted[0],
+                              "rows": fence_sorted[1],
+                              "share": fence_sorted[0] / fence_sorted[1]},
          recorded={"rga_consensus": {"rounds": FENCE_CHECKS["rga_rounds"],
                                      "compactions": advances, **counts},
                    "orset_consensus": {"compactions": orset_advances,
@@ -3590,7 +3650,8 @@ def typed_kernel_checks(dev, kernels, workloads, cases):
     every op code, writers in [-2W, 2W), stamps with negative low words,
     equal stamps, wclocks at the int32 extremes), more concurrent writers
     than V, rows hammered by more lanes than a walk's window, the trees'
-    row-list levels (gather, scratch, scatter) and the main paths' shapes;
+    row-list levels (gather, scratch, scatter) and the main paths' shapes,
+    and the MVRegister walk's edge cases (``workloads.mvr_walk_case``);
     (b) every call of the first rounds of lww_consensus and mvr_consensus
     and of the first ticks of both typed_store arms, repeated here with
     their seeds. Returns, per wrapper, one recorded main-path call to time
@@ -3688,6 +3749,18 @@ def typed_kernel_checks(dev, kernels, workloads, cases):
         out = log.add(kernels, name, (st, workloads.ops_to_device(ops, dev)),
                       what)
         cover["mvr_drops"] += int((out[1] if mode == "capture" else out).sum())
+    # the walk's edge cases (workloads.mvr_walk_case) in the three modes
+    from janus_tpu_torch.kernels.mvr_rows import OP_FIELDS
+    v, k = TYPED_CHECKS["mvr_walk_geometry"]
+    for case, vc, w, b, modes in TYPED_CHECKS["mvr_walks"]:
+        st, ops = workloads.mvr_walk_case(rng, case, v, k, vc, w, b)
+        st = on(st)
+        for mode in modes:
+            o = ops if mode == "captured" else {f: ops[f] for f in OP_FIELDS}
+            name = "mvr_capture" if mode == "capture" else "mvr_apply"
+            log.add(kernels, name, (st, workloads.ops_to_device(o, dev)),
+                    f"walk {case} {mode} V{v} K{k} Vc{vc} W{w} B{b}",
+                    host_plain=True)
 
     random_s = time.perf_counter() - t_start
     # (b) recorded main-path calls, each checked as it is made
@@ -4290,6 +4363,18 @@ def union_level_row(kernels, name, call, per, ops, phase):
         + 4 * m + 4, operations=ops(2 * c, m * p))
 
 
+def longest_walk(ops, K, codes) -> int:
+    """The most live lanes (op code in ``codes``) of one view that gather
+    one row: the longest of an apply's sequential row walks, counted on
+    the host from the op lanes."""
+    op = ops["op"].cpu().numpy()
+    key = ops["key"].cpu().numpy().astype(np.int64)
+    row = np.clip(np.where(key < 0, key + K, key), 0, K - 1)
+    live = np.isin(op, codes)
+    view = np.broadcast_to(np.arange(op.shape[0])[:, None], op.shape)
+    return int(np.bincount((view * K + row)[live]).max(initial=0))
+
+
 def typed_kernel_rows(kernels, calls):
     """Rows of the kernels line for the eight LWW-Set and MVRegister
     wrappers, each on a recorded main-path call (typed_kernel_checks): the
@@ -4346,8 +4431,10 @@ def typed_kernel_rows(kernels, calls):
             captured = "wclock" in ops
             n_ops = ((0 if captured else live * c * wl)
                      + (joins if captured or capture else 0))
+        extra = ({"longest_walk": longest_walk(ops, K, codes)}
+                 if name.startswith("mvr") else {})
         rows.append(dict(
-            name=name, call=lambda n=name, s=state, o=ops:
+            name=name, **extra, call=lambda n=name, s=state, o=ops:
                 kernels.WRAPPERS[n](s, o),
             plain=lambda n=name, s=state, o=ops: plain_of(kernels, n)(s, o),
             library=None, shape=f"{'lww' if name[0] == 'l' else 'mvr'}"
@@ -6030,6 +6117,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         row = {k: kern[k] for k in ("bytes", "operations", "shape",
                                     "cells_touched", "keys_marked",
                                     "rows_read", "rows_written", "rows_joined",
+                                    "rows_sorted", "longest_walk",
                                     "library_note")
                if k in kern}
         row["ms"] = time_cuda(kern["call"])
@@ -6038,6 +6126,9 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         row["library_ms"] = (None if kern["library"] is None
                              else time_cuda(kern["library"]))
         row["device_ms"] = device_burst_ms(kern["call"])
+        if "longest_walk" in kern:  # device time per write of that walk
+            row["device_us_per_write"] = (1e3 * row["device_ms"]
+                                          / kern["longest_walk"])
         before = kernels.WRAPPERS[name].launches
         row["profiler_kernels_seen"], _ = device_profile(kern["call"], reps=20)
         row["profiled_launches"] = kernels.WRAPPERS[name].launches - before

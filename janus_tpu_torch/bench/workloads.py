@@ -455,6 +455,111 @@ def rga_union_case(rng: np.random.Generator, case: str, shape,
     return a, b
 
 
+# the compaction's edge cases of ``rga_compact_case``
+RGA_COMPACT_CASES = ("sorted", "descent", "hole", "duplicates", "sentinel",
+                     "self_parent", "absent", "dead_chains")
+
+
+def rga_compact_case(rng: np.random.Generator, case: str, shape,
+                     capacity: int) -> tuple:
+    """``(rows, protect)`` for one of ``RGA_COMPACT_CASES``, the edge cases
+    of a compaction whose parent test searches a sorted row's ids: RGA rows
+    ``shape + (capacity,)`` (numpy, the seven fields of ``rga.FIELDS``),
+    their valid prefix sorted by id unless the case says otherwise, and a
+    random protect mask (bool, a fifth of the slots).
+
+    - ``sorted``: canonical rows, parents mostly the element before;
+    - ``descent``: two adjacent valid slots swapped: one descent;
+    - ``hole``: an invalid slot (junk id) inside the valid prefix;
+    - ``duplicates``: a valid id repeated in the next slot (the row still
+      sorted), both copies dead and referenced as a parent;
+    - ``sentinel``: the last valid id (INT32_MAX, INT32_MAX), tying with
+      the invalid slots' key, or (INT32_MAX, 2), dead and referenced;
+    - ``self_parent``: elements that are their own parent, dead;
+    - ``absent``: parents that name no valid slot: an invalid slot's junk
+      id, or an id no slot holds;
+    - ``dead_chains``: long chains, most of them dead, so dead interior
+      elements anchor dead leaves."""
+    c = capacity
+    lead = tuple(shape)
+    if case == "dead_chains":
+        rows = rga_slots(rng, lead, c, full_rows=0.5, fill=0.9, chain=0.9,
+                         dangling=0.0, dead=0.8, negative=0.1)
+    else:
+        rows = rga_slots(rng, lead, c, full_rows=0.3, fill=0.9, dead=0.6,
+                         negative=0.1)
+    protect = rng.random(lead + (c,)) < 0.2
+    n = rows["valid"].sum(-1)
+    at = np.arange(c)
+    # one random valid slot i per row with room after it (i + 1 < n)
+    i = (rng.random(lead) * np.maximum(n - 1, 1)).astype(np.int64)
+    has = n >= 2
+    here = (at == i[..., None]) & has[..., None]
+    after = (at == (i + 1)[..., None]) & has[..., None]
+    ids = ("id_ctr", "id_rep")
+    pars = ("par_ctr", "par_rep")
+
+    def refer(target, share):
+        """A ``share`` of each row's valid slots take ``target`` ((ctr,
+        rep) arrays of ``lead``) as their parent."""
+        pick = rows["valid"] & (rng.random(lead + (c,)) < share)
+        for f, t in zip(pars, target):
+            rows[f] = np.where(pick, t[..., None], rows[f]).astype(np.int32)
+
+    if case == "descent":
+        for f in rga.FIELDS:
+            x = rows[f]
+            lo = np.take_along_axis(x, i[..., None], -1)
+            hi = np.take_along_axis(x, np.minimum(i + 1, c - 1)[..., None], -1)
+            rows[f] = np.where(here, hi, np.where(after, lo, x)).astype(x.dtype)
+    elif case == "hole":
+        hole = here & (n >= 3)[..., None]
+        rows["valid"] = rows["valid"] & ~hole
+        rows["dead"] = rows["dead"] & ~hole
+        for f in ids:
+            rows[f] = np.where(hole, rng.integers(-5, 5, hole.shape),
+                               rows[f]).astype(np.int32)
+    elif case == "duplicates":
+        for f in ids:
+            src = np.take_along_axis(rows[f], i[..., None], -1)
+            rows[f] = np.where(after, src, rows[f]).astype(np.int32)
+        rows["dead"] = rows["dead"] | here | after
+        refer([np.take_along_axis(rows[f], i[..., None], -1)[..., 0]
+               for f in ids], 0.05)
+    elif case == "sentinel":
+        last = (at == (n - 1)[..., None]) & (n >= 1)[..., None]
+        rep = np.where(rng.random(lead) < 0.5, SENTINEL, 2)
+        rows["id_ctr"] = np.where(last, SENTINEL, rows["id_ctr"]).astype(
+            np.int32)
+        rows["id_rep"] = np.where(last, rep[..., None],
+                                  rows["id_rep"]).astype(np.int32)
+        rows["dead"] = rows["dead"] | last
+        refer([np.full(lead, SENTINEL), np.where(rng.random(lead) < 0.5,
+                                                 SENTINEL, rep)], 0.05)
+    elif case == "self_parent":
+        own = rows["valid"] & (rng.random(lead + (c,)) < 0.3)
+        for f, g in zip(pars, ids):
+            rows[f] = np.where(own, rows[g], rows[f]).astype(np.int32)
+        rows["dead"] = rows["dead"] | own
+    elif case == "absent":
+        junk = ~rows["valid"]
+        for f in ids:
+            rows[f] = np.where(junk, rng.integers(1, 4 * c, junk.shape),
+                               rows[f]).astype(np.int32)
+        j = rng.integers(0, c, lead + (c,))
+        pick = rows["valid"] & (rng.random(lead + (c,)) < 0.3)
+        nowhere = rng.random(lead + (c,)) < 0.5
+        for f, g, far in zip(pars, ids, (8 * c + 11, 97)):
+            target = np.where(nowhere, far, np.take_along_axis(rows[g], j, -1))
+            rows[f] = np.where(pick, target, rows[f]).astype(np.int32)
+        rows["dead"] = rows["dead"] | (rows["valid"]
+                                       & (rng.random(lead + (c,)) < 0.3))
+    elif case not in ("sorted", "dead_chains"):
+        raise ValueError(f"unknown compaction case {case!r}")
+    rows = {f: np.ascontiguousarray(x) for f, x in rows.items()}
+    return rows, np.ascontiguousarray(protect)
+
+
 def rga_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
                   capacity: int, reps: int = 4, hazards: bool = True,
                   captured: bool = False) -> dict:
@@ -674,6 +779,69 @@ def mvr_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
         clk = np.where(ext, rng.choice([-(2**31), 2**31 - 1], clk.shape), clk)
         out["wclock"] = clk.astype(np.int32)
     return out
+
+
+# the MVRegister walk's edge cases of ``mvr_walk_case``
+MVR_WALK_CASES = ("long", "cut", "twins", "hazards")
+
+
+def mvr_walk_case(rng: np.random.Generator, case: str, num_views: int,
+                  num_keys: int, capacity: int, num_writers: int,
+                  batch: int) -> tuple:
+    """``(state, ops)`` for one of ``MVR_WALK_CASES``, the edge cases of
+    the MVRegister's sequential apply: rows ``[V, K, capacity]`` with
+    ``num_writers`` clock lanes (``mvr_slots``) and op lanes ``[V, batch]``
+    with a captured ``wclock`` ``[V, batch, W]`` (numpy int32; drop it for
+    the uncaptured apply and the capture).
+
+    - ``long``: 95% of the lanes write key 1, a walk longer than one
+      window of lane indices when ``batch`` > 2,156; clocks that grow
+      every 8 lanes with concurrent noise, values from 8 (twins);
+    - ``cut``: a quarter of the lanes write key 2, clocks in blocks of
+      ``capacity + 3`` pairwise concurrent ones (a fixed lane sum), each
+      block above the last, so that row's frontier passes V and falls
+      back to one value many times;
+    - ``twins``: lanes drawn from three (value, clock) pairs, which the
+      first two rows also hold: exact twins of each other and of the
+      rows' entries;
+    - ``hazards``: non-canonical rows, every op code, keys in [-2K, 2K),
+      writers in [-2W, 2W), wclocks at the int32 extremes."""
+    V, K, vc, w, B = num_views, num_keys, capacity, num_writers, batch
+    shape = (V, B)
+    if case == "hazards":
+        st = mvr_slots(rng, (V, K), vc, w, canonical=False)
+        return st, mvr_mixed_ops(rng, shape, K, w, captured=True,
+                                 num_values=8)
+    st = mvr_slots(rng, (V, K), vc, w)
+    b = np.arange(B)[None, :, None]
+    if case == "long":
+        key = np.where(rng.random(shape) < 0.95, 1, rng.integers(0, K, shape))
+        a0 = rng.integers(0, 8, shape)
+        clock = b // 8 + rng.integers(0, 2, shape + (w,))
+    elif case == "cut":
+        key = np.where(rng.random(shape) < 0.25, 2, rng.integers(0, K, shape))
+        a0 = rng.integers(0, 40, shape)
+        # blocks of vc + 3 of key 2's writes, in lane order
+        block = (np.cumsum(key == 2, -1) - 1) // (vc + 3)
+        parts = rng.multinomial(12, [1.0 / w] * w, size=shape)
+        clock = 100 * block[..., None] + parts
+    elif case == "twins":
+        key = rng.integers(0, K, shape)
+        pool_val = rng.integers(0, 4, 3)
+        pool_clock = rng.integers(-1, 3, (3, w))
+        pick = rng.integers(0, 3, shape)
+        a0 = pool_val[pick]
+        clock = pool_clock[pick]
+        m = min(3, vc)
+        st["val"][:, :2, :m] = pool_val[:m]
+        st["clock"][:, :2, :m] = pool_clock[:m]
+        st["valid"][:, :2, :m] = True
+    else:
+        raise ValueError(f"unknown walk case {case!r}")
+    ops = _op_batch(shape, op=mvregister.OP_WRITE, key=key, a0=a0,
+                    writer=rng.integers(0, w, shape))
+    ops["wclock"] = np.ascontiguousarray(clock, np.int32)
+    return st, ops
 
 
 def tpset_add_remove(rng: np.random.Generator, num_nodes: int,

@@ -171,4 +171,26 @@ inline cudaError_t allow_shared(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// x rounded up to a multiple of 16 (a 16-byte aligned carve of shared
+// memory).
+__host__ __device__ inline size_t round16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// Blocks of `threads` threads of `kernel` resident on the whole card at
+// `bytes` of dynamic shared memory, at least one a multiprocessor.
+template <typename K>
+inline cudaError_t resident_blocks(K kernel, int threads, size_t bytes,
+                                   long long* out) {
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads,
+                                                        bytes);
+  *out = (long long)sms * (per > 0 ? per : 1);
+  return err;
+}
+
 }  // namespace slot_sort

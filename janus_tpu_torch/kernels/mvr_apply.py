@@ -24,7 +24,9 @@ nothing but may count a drop); other op codes change nothing:
   ``wclock``; the write then applies captured.
 
 Clock bumps wrap as int32. The kernel groups the write lanes by (view,
-row) first (csrc/lane_buckets.cuh); one call is four CUDA launches and
+row) first (csrc/lane_buckets.cuh), ranks each view's rows by their write
+count, and walks the rows longest walk first, each from shared memory
+with the next lanes' fields in flight; one call is four CUDA launches and
 adds one to its wrapper's count. The wrappers launch the kernel for CUDA
 tensors (or raise) and run the plain versions only for tensors that lie
 on the CPU.
@@ -44,6 +46,9 @@ from janus_tpu_torch.ops.lattice import SENTINEL
 
 # lane indices one window of a row's lanes holds (csrc/mvr_apply.cu WCAP)
 WINDOW = 2048
+# lanes whose fields are in flight ahead of the walk (csrc/mvr_apply.cu
+# RING)
+RING = 8
 # values a key the kernel takes (its kept-entry mask is 32 bits)
 MAX_VALUES = 32
 
@@ -124,15 +129,19 @@ def _lib():
 
 
 def shared_bytes(vc: int, w: int) -> int:
-    """Shared memory of one block (csrc/mvr_apply.cu): two rows of V + 1
-    entries (``w | 1`` clock ints, val, valid), the frontier's map and
-    flags, the next write's clock and a window of lane indices."""
+    """Shared memory of one block (csrc/mvr_apply.cu): V + 1 entry slots
+    (a clock row of ``w + 4`` ints when ``w % 4 == 0``, else ``w | 1``;
+    val, valid), the row's order (32 slot indices),
+    the frontier's map and flags, the ring of lanes in flight (each its
+    clock, ``w`` rounded up to 4 ints, and 4 op ints) and a window of lane
+    indices."""
     n = vc + 1
 
     def r16(x):
         return (x + 15) & ~15
-    return (2 * r16(4 * (n * (w | 1) + n) + n) + r16(5 * n) + r16(4 * w)
-            + 4 * WINDOW)
+    ld = w + 4 if w % 4 == 0 else w | 1
+    return (r16(4 * (n * ld + n) + n) + r16(4 * 32 + 5 * n)
+            + RING * (4 * ((w + 3) & ~3) + 16) + 4 * WINDOW)
 
 
 def _launch(name, wrapper, state, ops, wclock_out):
@@ -162,13 +171,17 @@ def _launch(name, wrapper, state, ops, wclock_out):
     dropped = torch.zeros((V,), dtype=torch.int32, device=dev)
     if V * B == 0:
         return dropped
-    scratch = (torch.zeros((V, K), dtype=torch.int32, device=dev),
+    # the lanes' counts per (view, row), then the walk's work counter and
+    # the most rows with writes of a view (all zeroed); the rows' starts;
+    # the lanes grouped; each view's rows ranked by write count
+    scratch = (torch.zeros((V * K + 2,), dtype=torch.int32, device=dev),
                torch.empty((V, K + 1), dtype=torch.int32, device=dev),
-               torch.empty((V, B), dtype=torch.int32, device=dev))
+               torch.empty((V, B), dtype=torch.int32, device=dev),
+               torch.empty((V, K), dtype=torch.int32, device=dev))
     st = (ctypes.c_void_p * 3)(*(state[f].data_ptr() for f in FIELDS))
     op = (ctypes.c_void_p * 5)(*(ops[f].data_ptr() for f in OP_FIELDS),
                                None if wclock is None else wclock.data_ptr())
-    sc = (ctypes.c_void_p * 3)(*(t.data_ptr() for t in scratch))
+    sc = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in scratch))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -6,8 +6,9 @@ slot is kept when it is valid and live, or valid and the parent of some
 valid slot, or valid and pinned by ``protect``; kept slots move to the
 front in their order, the rest are filled canonically. Bound on the H100 by
 bytes (each slot read and written once); JAX's ``[C, C]`` parent compare
-becomes a sort of the row's parent references and a binary search per
-slot. See the source note.
+becomes, on a row whose ids are sorted, one search of each valid slot's
+parent reference among the ids, and on any other row a sort of the
+parent references and one search per slot. See the source note.
 
 The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
 ``rga_compact_plain`` only for tensors that lie on the CPU.
@@ -73,10 +74,13 @@ def _lib():
 
 
 def shared_bytes(c: int) -> int:
-    """Shared memory of one block (csrc/rga_compact.cu): per slot a
-    16-byte parent reference, the row's 22 bytes, a prefix-sum word and
-    two flag bytes; and the prefix sums' words."""
-    return 43 * c + operands.SCAN_SHARED_BYTES + 16
+    """Shared memory of one block (csrc/rga_compact.cu): the staged row
+    (22 bytes a slot and a protect byte), a keep byte a slot, and the
+    kept counts of each warp's share of every 256 slots, with their
+    total; and the 34 words of an unsorted row's ballot prefix sums."""
+    def r16(x):
+        return (x + 15) & ~15
+    return r16(23 * c) + r16(c) + 4 * (8 * -(-c // 256) + 1) + 4 * 34
 
 
 def rga_compact(rows, protect=None, out=None):

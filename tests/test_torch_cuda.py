@@ -856,6 +856,32 @@ def test_rga_compact_kernel_matches_plain(cuda_device, lead, c, protect,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 300, 1024])
+@pytest.mark.parametrize("case", workloads.RGA_COMPACT_CASES)
+def test_rga_compact_edge_cases_match_plain(cuda_device, case, c):
+    """The compaction's edge cases of ``workloads.rga_compact_case``
+    (sorted rows searched, rows with a descent or a hole sorted; duplicate,
+    SENTINEL, self and absent parents; dead chains) at 64 rows, with and
+    without protect, fresh and in place."""
+    rng = np.random.default_rng(c + len(case))
+    rows, prot = workloads.rga_compact_case(rng, case, (64,), c)
+    rows = _on(rows, cuda_device)
+    prot = torch.as_tensor(prot, device=cuda_device)
+    before = kernels.rga_compact.launches
+    for p in (None, prot):
+        got = kernels.rga_compact(rows, p)
+        ref = kernels.rga_compact_plain(rows, p)
+        inplace = _clone(rows)
+        kernels.rga_compact(inplace, p, out=inplace)
+        torch.cuda.synchronize()
+        _assert_outputs_equal(got, ref)
+        _assert_outputs_equal(inplace, ref)
+    assert kernels.rga_compact.launches == before + 4
+    empty = {f: x[:0] for f, x in rows.items()}
+    _assert_outputs_equal(kernels.rga_compact(empty, prot[:0]), empty)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,c,depth,canonical", [
     (6, 16, 4, True), (5, 12, 3, False), (8, 1024, 8, True),
     (4, 300, 8, False), (3, 8, 1, False), (2, 64, 32, True)])
@@ -1692,6 +1718,55 @@ def test_mvr_apply_and_capture_match_plain(cuda_device, v, k, vc, w, b, mode,
         _kernel_vs_plain(kernels.mvr_apply, kernels.mvr_apply_plain,
                          (st, dops))
         assert kernels.mvr_apply.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vc,w", [(1, 64), (8, 64), (32, 4)])
+@pytest.mark.parametrize("mode", ["apply", "captured", "capture"])
+@pytest.mark.parametrize("case", workloads.MVR_WALK_CASES)
+def test_mvr_walk_cases_match_plain(cuda_device, case, mode, vc, w):
+    """The walk's edge cases of ``workloads.mvr_walk_case`` (a row of
+    more than 3,000 writes, a frontier passing V many times, exact twins,
+    hazard keys and writers) at V = 2 views of B = 3,200 lanes, in the
+    three modes: state, drops and captured clocks bit-equal to plain."""
+    from janus_tpu_torch.kernels.mvr_rows import OP_FIELDS
+
+    rng = np.random.default_rng(vc * w + len(case))
+    st, ops = workloads.mvr_walk_case(rng, case, 2, 5, vc, w, 3200)
+    if mode != "captured":
+        ops = {f: ops[f] for f in OP_FIELDS}
+    st, ops = _on(st, cuda_device), _on(ops, cuda_device)
+    name = "mvr_capture" if mode == "capture" else "mvr_apply"
+    fn = getattr(kernels, name)
+    before = fn.launches
+    _kernel_vs_plain(fn, getattr(kernels, name + "_plain"), (st, ops))
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6144, 7000])
+@pytest.mark.parametrize("mode", ["apply", "captured", "capture"])
+def test_mvr_walk_many_rows_match_plain(cuda_device, k, mode):
+    """Views of K = 6,144 rows, the most whose rank sort runs in shared
+    memory, and of 7,000, sorted in global memory: 4,096 mixed lanes a
+    view, an eighth of them on one hot row, bit-equal to plain in the
+    three modes."""
+    from janus_tpu_torch.kernels.mvr_rows import OP_FIELDS
+
+    v, vc, w, b = 2, 8, 64, 4096
+    rng = np.random.default_rng(k + len(mode))
+    st = _mvr_rows(rng, (v, k), vc, w, cuda_device)
+    ops = workloads.mvr_mixed_ops(rng, (v, b), k, w,
+                                  captured=mode == "captured")
+    ops["key"][:, : b // 8] = 3
+    if mode != "captured":
+        ops = {f: ops[f] for f in OP_FIELDS}
+    ops = _on(ops, cuda_device)
+    name = "mvr_capture" if mode == "capture" else "mvr_apply"
+    fn = getattr(kernels, name)
+    before = fn.launches
+    _kernel_vs_plain(fn, getattr(kernels, name + "_plain"), (st, ops))
+    assert fn.launches == before + 1
 
 
 @pytest.mark.cuda
