@@ -20,8 +20,16 @@ non-zero. Phases, one JSON line each:
               node; slot_union, orset_capture, orset_replay and orset_apply
               (phase orset_kernels) on random rows (full and non-canonical
               ones), hazard ops (duplicate tags, SENTINEL lanes, keys in
-              [-K, 2K)), path A's ops all on one key, and the recorded calls
-              of an OR-Set SafeKV run and an OR-Set store run; dirty_rows,
+              [-K, 2K)), path A's ops all on one key, the recorded calls
+              of an OR-Set SafeKV run and an OR-Set store run, the
+              capture's edge cases (workloads.orset_capture_case: long
+              walks of a hot key, buckets out of tag order, aliased keys,
+              tags repeated between row and batch, non-canonical rows; at
+              B = 16,384 and r_cap 1 and 32) and the union's
+              (workloads.orset_union_case: fresh, broadcast, aliased,
+              unequal widths, and the row-list tree with slot_union_rows),
+              with the shares of the capture's buckets and of level-1
+              union rows already in tag order; dirty_rows,
               delta_select, replica_join_rows and slot_union_rows (phase
               delta_kernels) on hazard ops, masks with no, all, exactly D
               and D+1 dirty rows at odd R and R=1, the row-list joins on
@@ -262,6 +270,14 @@ ORSET_CONS = dict(nodes=4, window=8, keys=100, ops_per_block=8192,
                   cpu_rounds=5, min_idle=16, max_idle=64, profile_rounds=3,
                   recorded_rounds=6)
 ORSET_KERNELS = ("slot_union", "orset_capture", "orset_replay", "orset_apply")
+# the capture's edge cases (workloads.orset_capture_case) run at path A's
+# shape, at B = 16,384 in one view, and at r_cap 32 and 1 with B not a
+# multiple of the kernel's 256-lane tile: (V, K, C, B, r_cap)
+CAPTURE_CASE_GEOS = ((4, 100, 64, 8192, 4), (1, 7, 8, 16384, 2),
+                     (3, 4, 24, 257, 32), (2, 6, 16, 300, 1))
+# the union's edge cases (workloads.orset_union_case): rows of path B's
+# width, and the row-list tree over states of these many replicas
+ORSET_UNION_EDGE = dict(rows=64, capacity=256, replicas=(2, 3, 5))
 # the delta anti-entropy store, harness preset mixed_delta: R replicas, K
 # keys of a PN-Counter (R writers) and an OR-Set (C slots), B ops per type
 # per replica per tick in a Zipf hot window of budget/2 keys; a full arm,
@@ -1353,17 +1369,32 @@ def orset_kernel_checks(dev, kernels, workloads, cases):
     at several (K, C, B, r_cap), full rows among them, and non-canonical
     rows; (b) duplicate tags, SENTINEL lanes and keys in [-K, 2K); (c) all
     of path A's ops on one key at B=8192; (d) the recorded calls of a path
-    A run and a path B run. Returns, per kernel, the (args, kwargs) of the
-    recorded call the kernels line times."""
+    A run and a path B run; (e) the capture's edge cases
+    (``workloads.orset_capture_case``) at ``CAPTURE_CASE_GEOS``; (f) the
+    union's edge cases (``orset_edge_cases``), slot_union_rows among them.
+    Counts the share of the capture's buckets already in tag order
+    (``buckets_sorted``: path A's recorded calls, the hot key, the edge
+    cases at path A's shape) and of level-1 union input rows already in
+    tag order (``rows_sorted``: path B's recorded ticks). Returns, per
+    kernel, the (args, kwargs) of the recorded call the kernels line
+    times."""
     from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.kernels.orset_capture import MAX_BUCKETS
     from janus_tpu_torch.models import orset
     from janus_tpu_torch.runtime.engine import make_tick
     from janus_tpu_torch.runtime.safecrdt import SafeKV
     from janus_tpu_torch.runtime.store import replicated_init
     from janus_tpu_torch.utils.ids import TagMinter
 
-    log = CaseLog(ORSET_KERNELS)
+    log = CaseLog(ORSET_KERNELS + ("slot_union_rows",))
     rng = np.random.default_rng(9)
+    buckets = {}  # what -> [in order, buckets]
+
+    def count_buckets(what, st, ops):
+        got, n = buckets_sorted(ops, st["valid"].shape[1], MAX_BUCKETS)
+        acc = buckets.setdefault(what, [0, 0])
+        acc[0] += got
+        acc[1] += n
 
     def on_dev(tree):
         return {f: torch.as_tensor(np.asarray(v), device=dev)
@@ -1414,6 +1445,7 @@ def orset_kernel_checks(dev, kernels, workloads, cases):
     st = slots((n, k), c, full_rows=0.5)
     ops = on_dev(hot)
     log.add(kernels, "orset_capture", (st, ops, r_cap), "hot key B8192")
+    count_buckets("hot_key", st, ops)
     cap_ops = dict(ops, **dict(zip(("rm_rep", "rm_ctr", "rm_elem"),
                                    kernels.orset_capture_plain(st, ops, r_cap))))
     out, _ = log.add(kernels, "orset_replay", (st, cap_ops), "hot key B8192")
@@ -1445,6 +1477,7 @@ def orset_kernel_checks(dev, kernels, workloads, cases):
                 rng, mint, K, B, t, ORSET_STORE["hot"]), dev))
 
     timing = {}
+    level1 = [0, 0, 0]  # path B's level-1 input rows in order, rows, calls
     for path, fn, names in (("A", path_a, ("orset_capture", "orset_replay")),
                             ("B", path_b, ("orset_apply", "slot_union"))):
         calls = record_calls(kernels, names, fn)
@@ -1453,6 +1486,14 @@ def orset_kernel_checks(dev, kernels, workloads, cases):
             check(calls[name], f"recorded path {path}: no {name} call")
             for j, (args, kw) in enumerate(calls[name]):
                 log.add(kernels, name, args, f"recorded path {path}", kw)
+                if name == "orset_capture":
+                    count_buckets("recorded_path_a", args[0], args[1])
+                if name == "slot_union" and args[0]["valid"].shape[0] == R // 2:
+                    for x in args[:2]:
+                        got, rows_ = rows_sorted(x, keys=ORSET_KEYS)
+                        level1[0] += got
+                        level1[1] += rows_
+                    level1[2] += 1
         if path == "A":
             timing["orset_capture"] = calls["orset_capture"][-1]
             # the widest replay: a delta apply of the whole budget
@@ -1466,10 +1507,30 @@ def orset_kernel_checks(dev, kernels, workloads, cases):
                   f"recorded path B: {len(calls['slot_union'])} slot_union "
                   f"calls in {ORSET_STORE['recorded_ticks']} ticks")
         del calls
+    check(level1[2] > 0, "recorded path B: no level-1 slot_union call")
+
+    # (e) the capture's edge cases
+    for case in workloads.ORSET_CAPTURE_CASES:
+        for v, k_, c_, b_, r_ in CAPTURE_CASE_GEOS:
+            st, ops = (on_dev(x) for x in workloads.orset_capture_case(
+                rng, case, (v, b_), k_, c_))
+            log.add(kernels, "orset_capture", (st, ops, r_),
+                    f"edge {case} V{v} K{k_} C{c_} B{b_} r{r_}")
+            if (v, k_, c_, b_, r_) == CAPTURE_CASE_GEOS[0]:
+                count_buckets(f"edge_{case}", st, ops)
+    # (f) the union's edge cases
+    orset_edge_cases(dev, kernels, workloads, log, rng)
+
     for name, rec in log.by.items():
         cases.append({"kernel": name, "case": "orset_kernels",
                       "cases": rec["cases"], "max_abs_err": rec["max_abs_err"]})
-    emit("orset_kernels", by_kernel=log.by)
+    emit("orset_kernels", by_kernel=log.by,
+         capture_buckets_sorted={
+             what: {"sorted": v[0], "buckets": v[1], "share": v[0] / v[1]}
+             for what, v in buckets.items()},
+         level1_rows_sorted={"sorted": level1[0], "rows": level1[1],
+                             "calls": level1[2],
+                             "share": level1[0] / level1[1]})
     return timing
 
 
@@ -1716,6 +1777,18 @@ def delta_kernel_checks(dev, kernels, workloads, cases):
     for name, recorded in calls.items():
         for j, (args, kw) in enumerate(recorded):
             log.add(kernels, name, args, f"recorded store_delta call {j}", kw)
+    # level 1 of the OR-Set's tree gathers the listed rows from the state:
+    # those rows already in tag order
+    level1 = [0, 0, 0]
+    for args, kw in calls["slot_union_rows"]:
+        if kw.get("gather", True):
+            listed = args[3][:int(args[4])].long()
+            for x in args[:2]:
+                got, n_ = rows_sorted(x, listed, keys=ORSET_KEYS)
+                level1[0] += got
+                level1[1] += n_
+            level1[2] += 1
+    check(level1[1] > 0, "recorded store_delta: no listed level-1 row")
     timing = {name: recorded[-1] for name, recorded in calls.items()}
     # the first level of the OR-Set's tree: it gathers from the state
     timing["slot_union_rows"] = calls["slot_union_rows"][0]
@@ -1724,7 +1797,10 @@ def delta_kernel_checks(dev, kernels, workloads, cases):
         cases.append({"kernel": name, "case": "delta_kernels",
                       "cases": rec["cases"], "max_abs_err": rec["max_abs_err"]})
     emit("delta_kernels", by_kernel=log.by, selections=counts,
-         slot_union_rows_tree_cases=tree_cases)
+         slot_union_rows_tree_cases=tree_cases,
+         level1_rows_sorted={"sorted": level1[0], "rows": level1[1],
+                             "calls": level1[2],
+                             "share": level1[0] / level1[1]})
     return timing
 
 
@@ -1920,20 +1996,99 @@ def check_calls(kernels, log, names, fn, what, keep=None, score=None,
     return counts
 
 
-def rows_sorted(slots, rows=None):
-    """(rows already sorted, rows) of an RGA slot set ``[..., C]`` (or of
-    its key rows ``rows`` of ``[P, K, C]``): a row is sorted when its ids,
-    SENTINEL for an invalid slot, never descend in (id_ctr, id_rep) as
-    signed int32, the test csrc/slot_union.cu's merge makes before it
-    sorts a row. Counted by torch on the card, apart from the kernel."""
+def rows_sorted(slots, rows=None, keys=("id_ctr", "id_rep")):
+    """(rows already sorted, rows) of a slot set ``[..., C]`` (or of its
+    key rows ``rows`` of ``[P, K, C]``): a row is sorted when its two key
+    fields ``keys`` (the RGA's ids; the OR-Set's tags, ``ORSET_KEYS``),
+    SENTINEL for an invalid slot, never descend as signed int32, the test
+    csrc/slot_union.cu's merge makes before it sorts a row. Counted by
+    torch on the card, apart from the kernel."""
     sent = torch.iinfo(torch.int32).max
-    x = torch.where(slots["valid"], slots["id_ctr"], sent)
-    y = torch.where(slots["valid"], slots["id_rep"], sent)
+    x = torch.where(slots["valid"], slots[keys[0]], sent)
+    y = torch.where(slots["valid"], slots[keys[1]], sent)
     if rows is not None:
         x, y = x[:, rows], y[:, rows]
     down = (x[..., 1:] < x[..., :-1]) | ((x[..., 1:] == x[..., :-1])
                                          & (y[..., 1:] < y[..., :-1]))
     return int((~down.any(-1)).sum()), x[..., 0].numel()
+
+
+ORSET_KEYS = ("tag_rep", "tag_ctr")
+
+
+def buckets_sorted(ops, num_keys, max_buckets):
+    """(buckets in tag order, buckets with an add) of one orset_capture
+    call's op lanes ``[V, B]``: each view's valid adds (op 1, a1 not
+    SENTINEL) bucketed by the row their key gathers modulo ``min(K,
+    max_buckets)``, in lane order, as csrc/orset_capture.cu buckets them; a
+    bucket is in order when its (a1, a2) never descend, the test the
+    kernel makes before it sorts a bucket. Counted by torch on the card,
+    apart from the kernel."""
+    from janus_tpu_torch.models.base import gather_index
+
+    V, B = ops["op"].shape
+    nb = min(num_keys, max_buckets)
+    add = (ops["op"] == 1) & (ops["a1"] != torch.iinfo(torch.int32).max)
+    lane = torch.arange(B, device=add.device).expand(V, B)
+    view = torch.arange(V, device=add.device).view(V, 1).expand(V, B)
+    bucket = view * nb + gather_index(ops["key"], num_keys) % nb
+    order = torch.argsort((bucket * B + lane)[add])
+    bk = bucket[add][order]
+    a1, a2 = ops["a1"][add][order], ops["a2"][add][order]
+    down = (bk[1:] == bk[:-1]) & ((a1[1:] < a1[:-1])
+                                  | ((a1[1:] == a1[:-1]) & (a2[1:] < a2[:-1])))
+    total = int(torch.unique(bk).numel())
+    return total - int(torch.unique(bk[1:][down]).numel()), total
+
+
+def orset_edge_cases(dev, kernels, workloads, log, rng):
+    """The OR-Set union's edge cases (``workloads.orset_union_case``) at
+    ``ORSET_UNION_EDGE``'s rows, kernel against plain: fresh at a capacity
+    below, at and above one row's, into two planes (the broadcast),
+    aliased (``out`` the first input, as the converge's last level writes
+    into the replicas it read), with rows of unequal widths, and the
+    row-list tree over states of 2, 3 and 5 replicas with 0, 1 and all
+    rows listed (at 2 its one level writes the rows it read)."""
+    from janus_tpu_torch.models import orset
+
+    k, c = ORSET_UNION_EDGE["rows"], ORSET_UNION_EDGE["capacity"]
+    for case in workloads.ORSET_UNION_CASES:
+        a, b = ({f: torch.as_tensor(x, device=dev) for f, x in t.items()}
+                for t in workloads.orset_union_case(rng, case, (2, k), c))
+        what = f"edge {case} 2x{k} C{c}"
+        for cap in (c // 2, c, 3 * c):
+            log.add(kernels, "slot_union", (a, b, cap), f"{what} cap {cap}")
+        out = {f: torch.zeros((2, 2, k, c), dtype=x.dtype, device=dev)
+               for f, x in a.items()}
+        log.add(kernels, "slot_union", (a, b, c), what + " out", {"out": out})
+        narrow = {f: x[..., : c // 3].contiguous() for f, x in b.items()}
+        log.add(kernels, "slot_union", (a, narrow, c), what + " narrow b")
+        mine = tree_map(torch.Tensor.clone, a)
+        kernels.slot_union(mine, b, c, out={f: x.unsqueeze(0)
+                                            for f, x in mine.items()})
+        ref, _ = kernels.slot_union_plain(a, b, c)
+        torch.cuda.synchronize()
+        err = tree_err(mine, ref)
+        check(err == 0, f"slot_union {what} aliased: max_abs_err {err}")
+        log.by["slot_union"]["cases"] += 1
+        for r in ORSET_UNION_EDGE["replicas"]:
+            more = workloads.orset_union_case(rng, case, (2, k), c)
+            reps = [{f: x[i] for f, x in t.items()}
+                    for t in ((a, b) + tuple(
+                        {f: torch.as_tensor(x, device=dev)
+                         for f, x in m.items()} for m in more))
+                    for i in range(2)]
+            st = {f: torch.stack([x[f] for x in reps[:r]])
+                  for f in orset.ORSET.fields}
+            st["_rm_cap"] = torch.zeros((r, 4, 0), dtype=torch.int32,
+                                        device=dev)
+            rows = torch.as_tensor(rng.permutation(k).astype(np.int32),
+                                   device=dev)
+            for n_rows in (0, 1, k):
+                n = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+                check_calls(kernels, log, ("slot_union_rows",),
+                            lambda: orset.join_replica_rows(st, rows, n),
+                            f"{what} rows R{r} n{n_rows}")
 
 
 def rga_edge_cases(dev, kernels, workloads, log, rng, k, c):
@@ -2707,6 +2862,8 @@ def delta_kernel_rows(kernels, calls):
     m = int(n_rows)
     pairs, k, c = a["valid"].shape
     row_bytes = sum(a[f][0, 0].numel() * a[f].element_size() for f in a)
+    listed = args[3][:m].long()
+    got = [rows_sorted(x, listed, keys=ORSET_KEYS) for x in args[:2]]
     rows.append(dict(
         name="slot_union_rows", args=args, kw=kw, library=None,
         library_note="no single PyTorch call computes it: a tag-keyed union "
@@ -2714,7 +2871,9 @@ def delta_kernel_rows(kernels, calls):
         shape=f"first level of the OR-Set's tree: {pairs} x {m} rows, "
               f"{c} + {c} slots",
         bytes=3 * pairs * m * row_bytes + 4 * m + 4,
-        operations=2 * pairs * m * c * len(a), rows_joined=m))
+        operations=2 * pairs * m * c * len(a), rows_joined=m,
+        rows_sorted={"sorted": sum(x[0] for x in got),
+                     "rows": sum(x[1] for x in got)}))
     for row in rows:
         fn = kernels.WRAPPERS[row["name"]]
         a_, k_ = row.pop("args"), row.pop("kw")
@@ -5999,6 +6158,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     ``orset_replay`` on a path A delta apply of the whole budget. The RGA
     kernels are timed on calls of the rga preset (``rga_kernel_rows``)."""
     from janus_tpu_torch.kernels import operands
+    from janus_tpu_torch.kernels.orset_capture import MAX_BUCKETS
 
     gen = torch.Generator(device=dev).manual_seed(1)
     R, K, W, B = (FAST[k] for k in "RKWB")
@@ -6077,6 +6237,14 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         if extra:
             nbytes += row_bytes * (extra["rows_read"] + extra["rows_written"])
             nops += row_elems * extra["rows_read"]
+        if name == "orset_capture":  # the call's buckets in tag order
+            got, n_ = buckets_sorted(args[1], args[0]["valid"].shape[1],
+                                     MAX_BUCKETS)
+            extra = {"buckets_sorted": {"sorted": got, "buckets": n_}}
+        if name == "slot_union":  # its input rows in tag order
+            got = [rows_sorted(x, keys=ORSET_KEYS) for x in args[:2]]
+            extra = {"rows_sorted": {"sorted": sum(x[0] for x in got),
+                                     "rows": sum(x[1] for x in got)}}
         kerns.append(dict(
             name=name, call=lambda fn=fn, args=args, kw=kw: fn(*args, **kw),
             plain=lambda name=name, args=args, kw=kw: plain_of(kernels, name)(
@@ -6117,8 +6285,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         row = {k: kern[k] for k in ("bytes", "operations", "shape",
                                     "cells_touched", "keys_marked",
                                     "rows_read", "rows_written", "rows_joined",
-                                    "rows_sorted", "longest_walk",
-                                    "library_note")
+                                    "rows_sorted", "buckets_sorted",
+                                    "longest_walk", "library_note")
                if k in kern}
         row["ms"] = time_cuda(kern["call"])
         reps, one_ms = plain_reps(kern["plain"])

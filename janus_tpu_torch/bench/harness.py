@@ -11,9 +11,9 @@ config or preset means the same run in both packages, and a seed gives
 the same op batches (the same numpy draws in the same order).
 
 Not in this port yet: the wire modes and the overload sweep (ROADMAP
-queue 1 item 4), the adaptive mode (queue 1 item 1), the Byzantine runs
-through the integrity plane (queue 1 item 3), and the store_delta and RGA
-replay runners (their paths run in ``chip_smoke.py``).
+queue 1 items 3-4), the adaptive mode (queue 1 item 2), the Byzantine runs
+through the integrity plane (queue 1 item 1), and the store_delta and RGA
+replay runners (queue 1 item 2; their paths run in ``chip_smoke.py``).
 
     python -m janus_tpu_torch.bench.harness --preset pnc [--json]
 """
@@ -203,13 +203,14 @@ def _keys(rng: np.random.Generator, cfg: BenchConfig, shape) -> np.ndarray:
 
 # the ROADMAP item that ports each mode run_tensor does not run
 UNPORTED_MODES = {
-    "wire": "ROADMAP queue 1 item 4 (the wire slice)",
-    "wire_native": "ROADMAP queue 1 item 4 (the wire slice)",
-    "wire_sharded": "ROADMAP queue 1 item 4 (the wire slice)",
-    "wire_sharded_native": "ROADMAP queue 1 item 4 (the wire slice)",
-    "overload": "ROADMAP queue 1 item 4 (the wire slice)",
-    "adaptive": "ROADMAP queue 1 item 1 (run_tensor_adaptive)",
-    "store_delta": "ROADMAP queue 1 item 1 (run_store_delta)",
+    "wire": "ROADMAP queue 1 items 3-4 (the wire plane and service)",
+    "wire_native": "ROADMAP queue 1 items 3-4 (the wire plane and service)",
+    "wire_sharded": "ROADMAP queue 1 items 3-4 (the wire plane and service)",
+    "wire_sharded_native":
+        "ROADMAP queue 1 items 3-4 (the wire plane and service)",
+    "overload": "ROADMAP queue 1 items 3-4 (the wire plane and service)",
+    "adaptive": "ROADMAP queue 1 item 2 (run_tensor_adaptive)",
+    "store_delta": "ROADMAP queue 1 item 2 (run_store_delta)",
 }
 
 
@@ -273,7 +274,7 @@ def run_tensor(cfg: BenchConfig, device=None,
     if cfg.byzantine:
         raise NotImplementedError(
             "byzantine runs need the integrity plane (SecureCluster), not "
-            "ported yet: ROADMAP queue 1 item 3")
+            "ported yet: ROADMAP queue 1 item 1")
     if cfg.type_code not in ("pnc", "orset", "mixed"):
         raise NotImplementedError(
             f"type {cfg.type_code!r} has no tensor-mode run in the port")

@@ -338,6 +338,170 @@ def rga_slots(rng: np.random.Generator, shape, capacity: int,
             for f in rga.FIELDS}
 
 
+# the capture's edge cases of ``orset_capture_case``
+ORSET_CAPTURE_CASES = ("minted", "long_walk", "descending", "key_alias",
+                       "repeat_tag", "noncanonical")
+
+
+def orset_capture_case(rng: np.random.Generator, case: str, shape,
+                       num_keys: int, capacity: int) -> tuple:
+    """``(state, ops)`` for one of ``ORSET_CAPTURE_CASES``: OR-Set slot rows
+    ``shape[:-1] + (num_keys, capacity)`` and op lanes ``shape`` (numpy),
+    the edge cases of a capture that buckets the adds by row and walks a
+    remove's bucket:
+
+    - ``minted``: canonical rows; adds with tags minted in lane order per
+      view (so every bucket is in tag order), removes and a few clears on
+      uniform keys;
+    - ``long_walk``: every lane on key 0; adds of elems 1..63 but about
+      eight of elem 0, and removes of elem 0, so a remove walks nearly all
+      earlier adds to find its few matches;
+    - ``descending``: adds whose tags descend with lane (every bucket needs
+      its sort), on a few keys;
+    - ``key_alias``: keys -1, K - 1, K, 2K - 1, -K and 0, which gather two
+      rows, while a lane matches only adds of its own raw key;
+    - ``repeat_tag``: adds that carry tags of their key's row (the state's
+      copy must come first) and tags repeated within the batch;
+    - ``noncanonical``: shuffled rows with junk in invalid slots and a tag
+      twice in a row (the state prefix out of tag order), hazard ops."""
+    *lead, b = shape
+    k, c = num_keys, capacity
+    canonical = case != "noncanonical"
+    st = orset_slots(rng, tuple(lead) + (k,), c, full_rows=0.3, fill=0.8,
+                     num_elems=8, canonical=canonical, dup_rows=0.4)
+    if case == "noncanonical":
+        return st, orset_mixed_ops(rng, shape, k, c)
+    op = rng.choice([orset.OP_ADD, orset.OP_REMOVE, orset.OP_CLEAR], shape,
+                    p=[0.5, 0.45, 0.05])
+    key = rng.integers(0, k, shape)
+    elem = rng.integers(0, 8, shape)
+    lane = np.broadcast_to(np.arange(b), shape)
+    a1 = np.broadcast_to(np.arange(int(np.prod(lead, dtype=np.int64)))
+                         .reshape(tuple(lead) + (1,)) % 4 + 4, shape)
+    a2 = lane + 1
+    if case == "long_walk":
+        key = np.zeros(shape, np.int64)
+        op = np.where(rng.random(shape) < 0.5, orset.OP_ADD, orset.OP_REMOVE)
+        op = np.where(rng.random(shape) < 0.01, orset.OP_CLEAR, op)
+        elem = np.where(op == orset.OP_ADD, 1 + lane % 63, 0)
+        rare = lane % max(7, b // 8) == 0  # about eight adds of elem 0
+        elem = np.where((op == orset.OP_ADD) & rare, 0, elem)
+    elif case == "descending":
+        key = rng.integers(0, min(k, 3), shape)
+        a2 = b + 5 - lane
+    elif case == "key_alias":
+        key = rng.choice(np.array([-1, k - 1, k, 2 * k - 1, -k, 0]), shape)
+    elif case == "repeat_tag":
+        row = np.where(key < 0, key + k, key)
+        slot = rng.integers(0, c, shape)
+        lead_ix = np.indices(shape)[:-1]
+        have = st["valid"][(*lead_ix, row, slot)]
+        own = have & (rng.random(shape) < 0.6)
+        a1 = np.where(own, st["tag_rep"][(*lead_ix, row, slot)], a1)
+        a2 = np.where(own, st["tag_ctr"][(*lead_ix, row, slot)], a2)
+        elem = np.where(own, st["elem"][(*lead_ix, row, slot)], elem)
+        twin = rng.random(shape) < 0.2  # a tag of an earlier lane again
+        src = (lane * rng.random(shape)).astype(np.int64)
+        a1 = np.where(twin, np.take_along_axis(a1, src, -1), a1)
+        a2 = np.where(twin, np.take_along_axis(a2, src, -1), a2)
+    elif case != "minted":
+        raise ValueError(f"unknown capture case {case!r}")
+    is_add = op == orset.OP_ADD
+    return st, _op_batch(shape, op=op, key=key, a0=elem,
+                         a1=np.where(is_add, a1, 0),
+                         a2=np.where(is_add, a2, 0))
+
+
+# the union's edge cases of ``orset_union_case``
+ORSET_UNION_CASES = ("shared_tags", "one_unsorted", "reversed", "shuffled",
+                     "hole", "repeat_in_row", "full")
+
+
+def _orset_subset(rng: np.random.Generator, rows: dict, share: float,
+                  fresh_payloads: bool) -> dict:
+    """The valid slots of canonical OR-Set ``rows`` each kept with
+    probability ``share``, packed to the front in their order and made
+    canonical; with ``fresh_payloads`` the kept ones get new elems and
+    tombstones."""
+    keep = rows["valid"] & (rng.random(rows["valid"].shape) < share)
+    order = np.argsort(~keep, axis=-1, kind="stable")
+    out = {f: np.take_along_axis(x, order, -1) for f, x in rows.items()}
+    valid = np.take_along_axis(keep, order, -1)
+    if fresh_payloads:
+        out["elem"] = rng.integers(0, 8, valid.shape).astype(np.int32)
+        out["removed"] = rng.random(valid.shape) < 0.5
+    for f in ("tag_rep", "tag_ctr"):
+        out[f] = np.where(valid, out[f], SENTINEL).astype(np.int32)
+    out["elem"] = np.where(valid, out["elem"], 0).astype(np.int32)
+    out["removed"] = valid & out["removed"]
+    out["valid"] = valid
+    return out
+
+
+def orset_union_case(rng: np.random.Generator, case: str, shape,
+                     capacity: int) -> tuple:
+    """Rows ``a``, ``b`` ``shape + (capacity,)`` (numpy, the five OR-Set
+    slot fields) for one of ``ORSET_UNION_CASES``, the edge cases of a
+    union that merges rows sorted by tag:
+
+    - ``shared_tags``: two canonical rows drawn from one pool, so they
+      share tags whose elems and tombstones differ;
+    - ``one_unsorted``: those rows with b's slots shuffled (a sorted, b
+      not);
+    - ``reversed``: both rows reversed;
+    - ``shuffled``: both shuffled, junk in invalid slots;
+    - ``hole``: canonical rows with an invalid slot (junk keys) in the
+      middle of the valid prefix;
+    - ``repeat_in_row``: canonical rows with one tag in two neighbouring
+      slots of one row;
+    - ``full``: full canonical rows with distinct tags, Ca + Cb kept."""
+    c = capacity
+    if case == "full":
+        a = orset_slots(rng, shape, c, full_rows=1.0)
+        b = orset_slots(rng, shape, c, full_rows=1.0)
+        b["tag_rep"] = b["tag_rep"] + 4  # distinct from a's, order kept
+        return a, b
+    pool = orset_slots(rng, shape, c, full_rows=0.3, fill=0.9)
+    a = _orset_subset(rng, pool, 0.6, False)
+    b = _orset_subset(rng, pool, 0.6, True)
+    perm = lambda x: np.argsort(rng.random(x.shape), axis=-1)  # noqa: E731
+    if case == "one_unsorted":
+        order = perm(b["valid"])
+        b = {f: np.take_along_axis(x, order, -1) for f, x in b.items()}
+    elif case == "reversed":
+        a = {f: np.ascontiguousarray(x[..., ::-1]) for f, x in a.items()}
+        b = {f: np.ascontiguousarray(x[..., ::-1]) for f, x in b.items()}
+    elif case == "shuffled":
+        for row in (a, b):
+            junk = ~row["valid"]
+            for f in ("tag_rep", "tag_ctr", "elem"):
+                row[f] = np.where(junk, rng.integers(-5, 5, junk.shape),
+                                  row[f]).astype(np.int32)
+            row["removed"] = np.where(junk, rng.random(junk.shape) < 0.5,
+                                      row["removed"])
+            order = perm(row["valid"])
+            for f in row:
+                row[f] = np.take_along_axis(row[f], order, -1)
+    elif case == "hole":
+        for row in (a, b):
+            n = row["valid"].sum(-1)
+            at = rng.integers(1, np.maximum(n - 1, 2))
+            hole = (np.arange(c) == at[..., None]) & (n >= 3)[..., None]
+            row["valid"] = row["valid"] & ~hole
+            row["tag_rep"] = np.where(hole, rng.integers(-5, 5, hole.shape),
+                                      row["tag_rep"]).astype(np.int32)
+    elif case == "repeat_in_row":
+        for row in (a, b):
+            n = row["valid"].sum(-1)
+            at = rng.integers(1, np.maximum(n, 2))
+            dup = (np.arange(c) == at[..., None]) & (n >= 2)[..., None]
+            for f in ("tag_rep", "tag_ctr"):
+                prev = np.concatenate([row[f][..., :1], row[f][..., :-1]], -1)
+                row[f] = np.where(dup, prev, row[f]).astype(np.int32)
+    elif case != "shared_tags":
+        raise ValueError(f"unknown union case {case!r}")
+    return a, b
+
 # the union's edge cases of ``rga_union_case``
 RGA_UNION_CASES = ("sorted", "tail_sorted", "tail_random", "reversed",
                    "random", "hole", "sentinel", "all_invalid", "full")

@@ -44,28 +44,34 @@
 // replicas, ~3.5 ms; level 1 joins 65,536 rows of 2,048 records. The
 // LWW-Set's Store converge at the same 64 x 500 x 256 holds 172 MB and
 // moves ~4 x 172 MB, ~0.2 ms. The sort is (Ca + Cb) log^2 (Ca + Cb) / 4
-// compare-swaps per row in shared memory; the RGA's merge is O(Ca + Cb)
-// per row once its two rows are sorted, which every union output is.
+// compare-swaps per row in shared memory; the RGA's and the OR-Set's merge
+// is O(Ca + Cb) per row once its two rows are sorted, which every union
+// output is.
 //
 // Design: one block per row (grid-stride over rows). The records (keys,
 // position, valid and flag bits) and the payloads are staged in shared
 // memory (per record 16 bytes of sort record, 4 per payload field and 4 of
-// prefix sum: OR-Set 24, RGA 32, LWW-Set 36, 2P and edges 20), so every
-// read of the inputs
+// prefix sum: LWW-Set 36, 2P and edges 20), so every read of the inputs
 // happens before any write: the output may alias an input row (the
 // converge writes the last level into the replicas it read). The sort is
 // slot_sort::block_sort on (key0, key1, position), the stable order;
 // the kept flags are prefix-summed in shared memory to place each kept
-// record. The RGA's instantiation (MERGE, a template parameter, so the
-// other layouts compile as before) merges instead of sorting
-// (merge_row): its rows come sorted by id (a union writes them so, the
-// compaction is a stable partition, an apply mints ids above every id of
-// its row into the first free slot), so each input row is checked for a
-// descent, sorted alone only if it has one, and the two are merged along
-// the merge path, 25 bytes of shared memory a record. With `repeat` > 1
-// the row is written into each of `repeat` output replicas (the
-// converge's broadcast). Launches on the caller's stream, allocates
-// nothing, does not synchronise.
+// record. The RGA's and the OR-Set's instantiations (the Join template
+// parameter, so the other layouts compile as before) merge instead of
+// sorting (merge_row): their rows come sorted by key (a union writes them
+// so, the compaction is a stable partition, an RGA apply mints ids above
+// every id of its row into the first free slot, an OR-Set apply and the
+// captured replay leave every row they touch in tag order), so each input
+// row is checked for a descent, sorted alone only if it has one, and the
+// two are merged along the merge path, 25 bytes of shared memory a record
+// for the RGA, 17 for the OR-Set. The RGA's 2,048-record rows take a block
+// of 256 threads; the OR-Set's 512-record rows take one warp each
+// (WarpRow), WARP_ROWS rows a block, synchronised by the warp alone, so an
+// SM holds ~24 rows in flight (one 256-thread block a row held ~8). With
+// `repeat` > 1 the row is written into each of `repeat` output replicas
+// (the converge's broadcast; the OR-Set's by a block of 256 threads a
+// row, one output slot a thread). Launches on the caller's stream,
+// allocates nothing, does not synchronise.
 //
 // Row-list mode (slot_union_rows_launch, rga_union_rows_launch,
 // lww_union_rows_launch, tp_union_rows_launch, edge_union_rows_launch):
@@ -124,6 +130,94 @@ __device__ __forceinline__ bool ts_after(int hi_a, int lo_a, int hi_b,
                                          int lo_b) {
   return hi_a > hi_b || (hi_a == hi_b && (unsigned)lo_a >= (unsigned)lo_b);
 }
+
+// shared memory per staged record: the sort's int4, the payloads and the
+// prefix sum; the merge's keys, payloads, two orders and flags
+template <int NP, bool MERGE>
+__host__ __device__ constexpr size_t record_bytes() {
+  return MERGE ? 2 * sizeof(int) + NP * sizeof(int) + 2 * sizeof(short) + 1
+               : sizeof(int4) + (NP + 1) * sizeof(int);
+}
+
+// The threads that join one row. BlockRow: the whole block, one row at a
+// time (every sort, the RGA's merge, the OR-Set's broadcast). WarpRow: one
+// warp, blockDim.x / 32 rows a block side by side, each in its own slice
+// of the dynamic shared memory and synchronised by its warp alone (the
+// OR-Set's merge when it writes one replica). BATCH: the slots a thread
+// loads before it stages them (WARP_BATCH: a warp stages a 512-slot row
+// in four steps of four loads a thread in flight).
+struct BlockRow {
+  static constexpr int BATCH = 1;
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ long long first() const { return blockIdx.x; }
+  __device__ long long stride() const { return gridDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+  __device__ bool any(bool p) const { return __syncthreads_or(p); }
+  __device__ int exclusive_sum(int v, int* total) const {
+    return block_exclusive_sum(v, total);
+  }
+  template <typename T, typename Less>
+  __device__ void sort(T* a, int n, Less less) const {
+    block_sort(a, n, less);
+  }
+  // the row's first int4 of the dynamic shared memory
+  __device__ size_t slice(size_t) const { return 0; }
+};
+
+// slots a thread of a WarpRow loads before it stores them
+constexpr int WARP_BATCH = 4;
+
+struct WarpRow {
+  static constexpr int BATCH = WARP_BATCH;
+  __device__ int rank() const { return threadIdx.x & 31; }
+  __device__ int size() const { return 32; }
+  __device__ long long first() const {
+    return (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  }
+  __device__ long long stride() const {
+    return (long long)gridDim.x * (blockDim.x >> 5);
+  }
+  __device__ void sync() const { __syncwarp(); }
+  __device__ bool any(bool p) const { return __any_sync(0xffffffffu, p); }
+  __device__ int exclusive_sum(int v, int* total) const {
+    const int lane = threadIdx.x & 31;
+    int inc = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += u;
+    }
+    *total = __shfl_sync(0xffffffffu, inc, 31);
+    return inc - v;
+  }
+  // slot_sort::block_sort's network on the warp's 32 threads
+  template <typename T, typename Less>
+  __device__ void sort(T* a, int n, Less less) const {
+    int p = 1;
+    while (p < n) p <<= 1;
+    for (int k = 2; k <= p; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int t = rank(); t < (p >> 1); t += 32) {
+          const int lo = (t / j) * 2 * j + (t % j);
+          const int hi = (j == (k >> 1)) ? (lo ^ (k - 1)) : (lo + j);
+          if (hi < n) {
+            const T x = a[lo], y = a[hi];
+            if (less(y, x)) {
+              a[lo] = y;
+              a[hi] = x;
+            }
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+  // the warp's row's first int4, rows of `bytes` (a multiple of 16)
+  __device__ size_t slice(size_t bytes) const {
+    return (threadIdx.x >> 5) * (bytes / sizeof(int4));
+  }
+};
 
 // record: x, y = the keys (SENTINEL when invalid), z = position in the
 // concatenation, w = valid | flag << 1
@@ -252,26 +346,63 @@ struct LessAt {
 
 // Stage row `at` of s (c slots) at positions [base, base + c): the keys
 // (SENTINEL when invalid), valid | flag << 1, the payloads, and the
-// identity as the row's order.
-template <int NK, int NP, bool FLAG>
-__device__ __forceinline__ void stage_row(const Slots<NP>& s, long long at,
-                                          int c, int base, int n, int* kx,
-                                          int* ky, int* pay,
+// identity as the row's order. A thread of a WarpRow loads G::BATCH slots,
+// then stores them; a block's threads stage one slot at a time, in the
+// loop the RGA's merge compiled with (its batched form cost that kernel
+// four registers and a spill).
+template <int NK, int NP, bool FLAG, class G>
+__device__ __forceinline__ void stage_row(const G& grp, const Slots<NP>& s,
+                                          long long at, int c, int base,
+                                          int n, int* kx, int* ky, int* pay,
                                           unsigned short* perm,
                                           unsigned char* fl) {
-  for (int i = threadIdx.x; i < c; i += blockDim.x) {
-    const long long g = at + i;
-    const bool v = s.valid[g];
-    const bool f = FLAG && s.flag[g];
-    const int k0 = s.key[0][g];
-    const int k1 = NK == 2 ? s.key[1][g] : 0;
-    const int k = base + i;
-    kx[k] = v ? k0 : SENT;
-    ky[k] = NK == 2 ? (v ? k1 : SENT) : 0;
-    fl[k] = (unsigned char)((int)v | ((int)f << 1));
-    perm[k] = (unsigned short)k;
+  if constexpr (G::BATCH == 1) {
+    for (int i = threadIdx.x; i < c; i += blockDim.x) {
+      const long long g = at + i;
+      const bool v = s.valid[g];
+      const bool f = FLAG && s.flag[g];
+      const int k0 = s.key[0][g];
+      const int k1 = NK == 2 ? s.key[1][g] : 0;
+      const int k = base + i;
+      kx[k] = v ? k0 : SENT;
+      ky[k] = NK == 2 ? (v ? k1 : SENT) : 0;
+      fl[k] = (unsigned char)((int)v | ((int)f << 1));
+      perm[k] = (unsigned short)k;
 #pragma unroll
-    for (int p = 0; p < NP; ++p) pay[p * n + k] = s.pay[p][g];
+      for (int p = 0; p < NP; ++p) pay[p * n + k] = s.pay[p][g];
+    }
+  } else {
+    constexpr int U = G::BATCH;
+    for (int i0 = grp.rank(); i0 < c; i0 += U * grp.size()) {
+      bool v[U], f[U];
+      int k0[U], k1[U], pv[U][PAY_SLOTS<NP>];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * grp.size();
+        if (i < c) {
+          const long long g = at + i;
+          v[u] = s.valid[g];
+          f[u] = FLAG && s.flag[g];
+          k0[u] = s.key[0][g];
+          k1[u] = NK == 2 ? s.key[1][g] : 0;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) pv[u][p] = s.pay[p][g];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * grp.size();
+        if (i < c) {
+          const int k = base + i;
+          kx[k] = v[u] ? k0[u] : SENT;
+          ky[k] = NK == 2 ? (v[u] ? k1[u] : SENT) : 0;
+          fl[k] = (unsigned char)((int)v[u] | ((int)f[u] << 1));
+          perm[k] = (unsigned short)k;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) pay[p * n + k] = pv[u][p];
+        }
+      }
+    }
   }
 }
 
@@ -286,30 +417,32 @@ __device__ __forceinline__ void stage_row(const Slots<NP>& s, long long at,
 // repeat the valid key before it; the kept records' slots come from a
 // prefix sum of the runs' counts, and the writes go out by slot. Shared
 // memory per record: keys 8 bytes, 4 per payload, the row's order and the
-// merged order 2 each, flags 1 (25 for the RGA).
-template <int NK, int NP, bool FLAG, int FOLD>
-__device__ int merge_row(const Slots<NP>& a, long long a_at,
+// merged order 2 each, flags 1 (25 for the RGA, 17 for the OR-Set). `grp`
+// is the block (BlockRow) or, for the OR-Set, one warp (WarpRow).
+template <int NK, int NP, bool FLAG, int FOLD, class G>
+__device__ int merge_row(const G& grp, const Slots<NP>& a, long long a_at,
                          const Slots<NP>& b, long long b_at,
                          const OutSlots<NP>& out, long long out_at,
                          long long out_plane, int repeat, int ca, int cb,
                          int cap) {
   extern __shared__ int4 smem[];
   const int n = ca + cb;
-  int* kx = (int*)smem;                                // [n] by position
+  const size_t row_bytes = round16((size_t)n * record_bytes<NP, true>());
+  int* kx = (int*)(smem + grp.slice(row_bytes));       // [n] by position
   int* ky = kx + n;                                    // [n]
   int* pay = ky + n;                                   // [NP][n]
   unsigned short* perm = (unsigned short*)(pay + NP * n);  // [n] see below
   unsigned short* ord = perm + n;                      // [n] merged order
   unsigned char* fl = (unsigned char*)(ord + n);       // [n] valid|flag|kept
 
-  stage_row<NK, NP, FLAG>(a, a_at, ca, 0, n, kx, ky, pay, perm, fl);
-  stage_row<NK, NP, FLAG>(b, b_at, cb, ca, n, kx, ky, pay, perm, fl);
-  __syncthreads();
+  stage_row<NK, NP, FLAG>(grp, a, a_at, ca, 0, n, kx, ky, pay, perm, fl);
+  stage_row<NK, NP, FLAG>(grp, b, b_at, cb, ca, n, kx, ky, pay, perm, fl);
+  grp.sync();
 
   // perm: each row's positions in its own order (the identity unless the
   // row's keys descend somewhere)
   bool down_a = false, down_b = false;
-  for (int i = threadIdx.x + 1; i < n; i += blockDim.x) {
+  for (int i = grp.rank() + 1; i < n; i += grp.size()) {
     if (i == ca) continue;  // the seam between the rows
     if (key_less(kx[i], ky[i], kx[i - 1], ky[i - 1])) {
       if (i < ca) down_a = true;
@@ -317,10 +450,10 @@ __device__ int merge_row(const Slots<NP>& a, long long a_at,
     }
   }
   const LessAt less{kx, ky};
-  const bool sort_a = __syncthreads_or(down_a);
-  const bool sort_b = __syncthreads_or(down_b);
-  if (sort_a) block_sort(perm, ca, less);
-  if (sort_b) block_sort(perm + ca, cb, less);
+  const bool sort_a = grp.any(down_a);
+  const bool sort_b = grp.any(down_b);
+  if (sort_a) grp.sort(perm, ca, less);
+  if (sort_b) grp.sort(perm + ca, cb, less);
   // the position of a's i-th and b's j-th record in their rows' order
   // (a sorted row reads its positions directly)
   const auto at_a = [&](int i) { return sort_a ? (int)perm[i] : i; };
@@ -329,8 +462,8 @@ __device__ int merge_row(const Slots<NP>& a, long long a_at,
   };
 
   // the merge path: positions [d0, d1) of the merged order
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int d0 = min(n, (int)threadIdx.x * per), d1 = min(n, d0 + per);
+  const int per = (n + grp.size() - 1) / grp.size();
+  const int d0 = min(n, grp.rank() * per), d1 = min(n, d0 + per);
   if (d0 < d1) {
     int lo = max(0, d0 - cb), hi = min(d0, ca);
     while (lo < hi) {  // a's count among the first d0 merged
@@ -349,7 +482,7 @@ __device__ int merge_row(const Slots<NP>& a, long long a_at,
       ord[d] = (unsigned short)(take_a ? at_a(i++) : at_b(j++));
     }
   }
-  __syncthreads();
+  grp.sync();
 
   // kept: valid and not a repeat of the valid key before it (marked in fl)
   int count = 0;
@@ -366,14 +499,14 @@ __device__ int merge_row(const Slots<NP>& a, long long a_at,
     }
   }
   int kept;
-  int slot = block_exclusive_sum(count, &kept);
+  int slot = grp.exclusive_sum(count, &kept);
   // perm now maps each output slot to its merged position
   for (int d = d0; d < d1 && slot < cap; ++d)
     if (fl[ord[d]] & 4) perm[slot++] = (unsigned short)d;
-  __syncthreads();
+  grp.sync();
 
   const int fill = min(kept, cap);
-  for (int s = threadIdx.x; s < fill; s += blockDim.x) {
+  for (int s = grp.rank(); s < fill; s += grp.size()) {
     const int d = perm[s];
     const int o = ord[d];
     bool f = (fl[o] >> 1) & 1;
@@ -411,7 +544,7 @@ __device__ int merge_row(const Slots<NP>& a, long long a_at,
       out.valid[at] = 1;
     }
   }
-  for (int s = fill + threadIdx.x; s < cap; s += blockDim.x) {
+  for (int s = fill + grp.rank(); s < cap; s += grp.size()) {
     for (int p = 0; p < repeat; ++p) {
       const long long at = p * out_plane + out_at + s;
       out.key[0][at] = SENT;
@@ -422,37 +555,39 @@ __device__ int merge_row(const Slots<NP>& a, long long a_at,
       out.valid[at] = 0;
     }
   }
-  __syncthreads();
+  grp.sync();
   return kept;
 }
 
-// the layout's join: the merge for MERGE layouts, else the sort
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE>
-__device__ __forceinline__ int join_row(const Slots<NP>& a, long long a_at,
-                                        const Slots<NP>& b, long long b_at,
+// the layout's join: the merge for MERGE layouts, else the sort (whose
+// group is always the block)
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
+__device__ __forceinline__ int join_row(const G& grp, const Slots<NP>& a,
+                                        long long a_at, const Slots<NP>& b,
+                                        long long b_at,
                                         const OutSlots<NP>& out,
                                         long long out_at, long long out_plane,
                                         int repeat, int ca, int cb, int cap) {
   if constexpr (MERGE)
-    return merge_row<NK, NP, FLAG, FOLD>(a, a_at, b, b_at, out, out_at,
+    return merge_row<NK, NP, FLAG, FOLD>(grp, a, a_at, b, b_at, out, out_at,
                                          out_plane, repeat, ca, cb, cap);
   else
     return union_row<NK, NP, FLAG, FOLD>(a, a_at, b, b_at, out, out_at,
                                          out_plane, repeat, ca, cb, cap);
 }
 
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE>
-__device__ __forceinline__ void union_all(const Slots<NP>& a,
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
+__device__ __forceinline__ void union_all(const G& grp, const Slots<NP>& a,
                                           const Slots<NP>& b,
                                           const OutSlots<NP>& out,
                                           int* __restrict__ overflow,
                                           long long rows, int ca, int cb,
                                           int cap, int repeat) {
-  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+  for (long long row = grp.first(); row < rows; row += grp.stride()) {
     const int kept = join_row<NK, NP, FLAG, FOLD, MERGE>(
-        a, row * ca, b, row * cb, out, row * cap, rows * (long long)cap,
+        grp, a, row * ca, b, row * cb, out, row * cap, rows * (long long)cap,
         repeat, ca, cb, cap);
-    if (threadIdx.x == 0) overflow[row] = kept > cap ? kept - cap : 0;
+    if (grp.rank() == 0) overflow[row] = kept > cap ? kept - cap : 0;
   }
 }
 
@@ -462,24 +597,25 @@ __device__ __forceinline__ void union_all(const Slots<NP>& a,
 // `scatter` the result goes to out[r, j] ([pairs, num_keys, c] scratch);
 // with it (pairs == 1) to out[p, rows[j]] for every p < repeat, the
 // replicas of the state.
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE>
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
 __device__ __forceinline__ void union_listed(
-    const Slots<NP>& a, const Slots<NP>& b, const OutSlots<NP>& out,
-    const int* __restrict__ rows, int listed, const int* __restrict__ n_rows,
-    int pairs, int num_keys, int c, int gather, int scatter, int repeat) {
+    const G& grp, const Slots<NP>& a, const Slots<NP>& b,
+    const OutSlots<NP>& out, const int* __restrict__ rows, int listed,
+    const int* __restrict__ n_rows, int pairs, int num_keys, int c,
+    int gather, int scatter, int repeat) {
   int m = *n_rows;
   m = m < 0 ? 0 : (m > listed ? listed : m);
   const long long total = (long long)m * pairs;
   const long long plane = (long long)num_keys * c;
-  for (long long v = blockIdx.x; v < total; v += gridDim.x) {
+  for (long long v = grp.first(); v < total; v += grp.stride()) {
     const int j = (int)(v / pairs);
     const long long r = v % pairs;
     const int k = rows[j];
-    if (k < 0 || k >= num_keys) continue;  // uniform across the block
+    if (k < 0 || k >= num_keys) continue;  // uniform across the group
     const long long in_at = (r * num_keys + (gather ? k : j)) * c;
     const long long out_at = scatter ? (long long)k * c
                                      : (r * num_keys + j) * c;
-    join_row<NK, NP, FLAG, FOLD, MERGE>(a, in_at, b, in_at, out, out_at,
+    join_row<NK, NP, FLAG, FOLD, MERGE>(grp, a, in_at, b, in_at, out, out_at,
                                         plane, scatter ? repeat : 1, c, c, c);
   }
 }
@@ -488,8 +624,8 @@ template <int NK, int NP, bool FLAG, int FOLD>
 __global__ void slot_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
                                   int* __restrict__ overflow, long long rows,
                                   int ca, int cb, int cap, int repeat) {
-  union_all<NK, NP, FLAG, FOLD, false>(a, b, out, overflow, rows, ca, cb, cap,
-                                       repeat);
+  union_all<NK, NP, FLAG, FOLD, false>(BlockRow(), a, b, out, overflow, rows,
+                                       ca, cb, cap, repeat);
 }
 
 template <int NK, int NP, bool FLAG, int FOLD>
@@ -500,17 +636,17 @@ __global__ void slot_union_rows_kernel(Slots<NP> a, Slots<NP> b,
                                        const int* __restrict__ n_rows,
                                        int pairs, int num_keys, int c,
                                        int gather, int scatter, int repeat) {
-  union_listed<NK, NP, FLAG, FOLD, false>(a, b, out, rows, listed, n_rows,
-                                          pairs, num_keys, c, gather, scatter,
-                                          repeat);
+  union_listed<NK, NP, FLAG, FOLD, false>(BlockRow(), a, b, out, rows, listed,
+                                          n_rows, pairs, num_keys, c, gather,
+                                          scatter, repeat);
 }
 
-// The merge's kernels, the same but for the join, are kept to 64
+// The merge's block kernels, the same but for the join, are kept to 64
 // registers a thread (at most 1,024 threads a block), so that four blocks
-// of 256 threads fit an SM, as shared memory allows at 1,024-slot rows; a
-// broadcast (repeat > 1) runs MERGE_BROADCAST_THREADS a block, its one
+// of 256 threads fit an SM, as shared memory allows at 1,024-slot rows; an
+// RGA broadcast (repeat > 1) runs MERGE_BROADCAST_THREADS a block, its one
 // block a row spreading the writes of every output replica over more
-// warps.
+// warps (an OR-Set broadcast runs 256, one thread an output slot).
 constexpr int MERGE_BROADCAST_THREADS = 1024;
 
 template <int NK, int NP, bool FLAG, int FOLD>
@@ -518,8 +654,8 @@ __global__ void __launch_bounds__(1024)
     merge_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
                        int* __restrict__ overflow, long long rows, int ca,
                        int cb, int cap, int repeat) {
-  union_all<NK, NP, FLAG, FOLD, true>(a, b, out, overflow, rows, ca, cb, cap,
-                                      repeat);
+  union_all<NK, NP, FLAG, FOLD, true>(BlockRow(), a, b, out, overflow, rows,
+                                      ca, cb, cap, repeat);
 }
 
 template <int NK, int NP, bool FLAG, int FOLD>
@@ -529,9 +665,36 @@ __global__ void __launch_bounds__(1024)
                             const int* __restrict__ n_rows, int pairs,
                             int num_keys, int c, int gather, int scatter,
                             int repeat) {
-  union_listed<NK, NP, FLAG, FOLD, true>(a, b, out, rows, listed, n_rows,
-                                         pairs, num_keys, c, gather, scatter,
-                                         repeat);
+  union_listed<NK, NP, FLAG, FOLD, true>(BlockRow(), a, b, out, rows, listed,
+                                         n_rows, pairs, num_keys, c, gather,
+                                         scatter, repeat);
+}
+
+// The warp merge's kernels: one warp a row, WARP_ROWS rows a block (fewer
+// when a block cannot hold that many rows' shared memory). Shared memory
+// holds ~26 OR-Set rows an SM whatever the block; two rows a block spread
+// a short row list over the most SMs.
+constexpr int WARP_ROWS = 2;
+
+template <int NK, int NP, bool FLAG, int FOLD>
+__global__ void __launch_bounds__(32 * WARP_ROWS)
+    warp_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
+                      int* __restrict__ overflow, long long rows, int ca,
+                      int cb, int cap, int repeat) {
+  union_all<NK, NP, FLAG, FOLD, true>(WarpRow(), a, b, out, overflow, rows,
+                                      ca, cb, cap, repeat);
+}
+
+template <int NK, int NP, bool FLAG, int FOLD>
+__global__ void __launch_bounds__(32 * WARP_ROWS)
+    warp_union_rows_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
+                           const int* __restrict__ rows, int listed,
+                           const int* __restrict__ n_rows, int pairs,
+                           int num_keys, int c, int gather, int scatter,
+                           int repeat) {
+  union_listed<NK, NP, FLAG, FOLD, true>(WarpRow(), a, b, out, rows, listed,
+                                         n_rows, pairs, num_keys, c, gather,
+                                         scatter, repeat);
 }
 
 // fields in the entry points' order: the NK keys, the NP payloads, the
@@ -558,28 +721,62 @@ OutSlots<NP> out_slots(void* const* f) {
   return s;
 }
 
-// shared memory per staged record: the sort's int4, the payloads and the
-// prefix sum; the merge's keys, payloads, two orders and flags
-template <int NP, bool MERGE>
-constexpr size_t record_bytes() {
-  return MERGE ? 2 * sizeof(int) + NP * sizeof(int) + 2 * sizeof(short) + 1
-               : sizeof(int4) + (NP + 1) * sizeof(int);
+// How a layout joins two rows: a block sort of their concatenation (SORT:
+// the LWW-Set, 2P and edge layouts), the block merge of the two sorted rows
+// (MERGE: the RGA's 2,048-record rows), or the merge by one warp a row
+// (WARP_MERGE: the OR-Set's 512-record rows, 16 a thread; its broadcast
+// runs the block merge at 256 threads a row).
+enum Join { SORT = 0, MERGE = 1, WARP_MERGE = 2 };
+
+constexpr size_t MAX_SHARED = 232448;  // a block's most, opted in
+
+// rows a block of the warp merge holds at `row_bytes` of shared memory a
+// row: WARP_ROWS, or as many as fit
+inline int warp_rows(size_t row_bytes) {
+  const size_t fit = MAX_SHARED / row_bytes;
+  return (int)(fit < (size_t)WARP_ROWS ? fit : WARP_ROWS);
 }
 
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE = false>
+// A launch of a warp merge kernel over `rows` rows of n records each: as
+// many rows a block as fit (warp_rows), at most `most_blocks` blocks.
+template <int NP, typename Kernel, typename... Args>
+int launch_warps(Kernel kernel, int n, long long rows, long long most_blocks,
+                 cudaStream_t stream, Args... args) {
+  const size_t row = round16((size_t)n * record_bytes<NP, true>());
+  const int per = warp_rows(row);
+  if (per == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_shared(kernel, per * row);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = (rows + per - 1) / per;
+  const long long grid = need < most_blocks ? need : most_blocks;
+  kernel<<<(unsigned)grid, 32 * per, per * row, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <int NK, int NP, bool FLAG, int FOLD, int JOIN = SORT>
 int launch(const void* const* a, const void* const* b, void* const* o,
            void* overflow, long long rows, int ca, int cb, int cap,
            int repeat, cudaStream_t stream) {
   if (rows <= 0 || repeat <= 0) return (int)cudaSuccess;
-  const size_t bytes = (size_t)(ca + cb) * record_bytes<NP, MERGE>() + 16;
   void (*kernel)(Slots<NP>, Slots<NP>, OutSlots<NP>, int*, long long, int,
                  int, int, int);
-  if constexpr (MERGE) kernel = merge_union_kernel<NK, NP, FLAG, FOLD>;
+  if constexpr (JOIN == WARP_MERGE) {
+    if (repeat == 1)
+      return launch_warps<NP>(
+          warp_union_kernel<NK, NP, FLAG, FOLD>, ca + cb, rows, 132LL * 64,
+          stream, in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
+          out_slots<NK, NP, FLAG>(o), (int*)overflow, rows, ca, cb, cap,
+          repeat);
+  }
+  constexpr bool MERGED = JOIN != SORT;
+  const size_t bytes = (size_t)(ca + cb) * record_bytes<NP, MERGED>() + 16;
+  if constexpr (MERGED) kernel = merge_union_kernel<NK, NP, FLAG, FOLD>;
   else kernel = slot_union_kernel<NK, NP, FLAG, FOLD>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long grid = rows < 132LL * 64 ? rows : 132LL * 64;
-  const int threads = MERGE && repeat > 1 ? MERGE_BROADCAST_THREADS : 256;
+  const int threads =
+      JOIN == MERGE && repeat > 1 ? MERGE_BROADCAST_THREADS : 256;
   kernel<<<(unsigned)grid, threads, bytes, stream>>>(
       in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
       out_slots<NK, NP, FLAG>(o), (int*)overflow,
@@ -587,25 +784,34 @@ int launch(const void* const* a, const void* const* b, void* const* o,
   return (int)cudaGetLastError();
 }
 
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE = false>
+template <int NK, int NP, bool FLAG, int FOLD, int JOIN = SORT>
 int launch_rows(const void* const* a, const void* const* b, void* const* o,
                 const void* rows, int listed, const void* n_rows, int pairs,
                 int num_keys, int c, int gather, int scatter, int repeat,
                 cudaStream_t stream) {
   if (listed <= 0 || pairs <= 0 || repeat <= 0 || c <= 0)
     return (int)cudaSuccess;
-  const size_t bytes = (size_t)(2 * c) * record_bytes<NP, MERGE>() + 16;
   void (*kernel)(Slots<NP>, Slots<NP>, OutSlots<NP>, const int*, int,
                  const int*, int, int, int, int, int, int);
-  if constexpr (MERGE) kernel = merge_union_rows_kernel<NK, NP, FLAG, FOLD>;
+  // one wave of 8 blocks per SM; blocks past the rows to join exit at once
+  const long long most = (long long)listed * pairs;
+  if constexpr (JOIN == WARP_MERGE) {
+    if (!(scatter && repeat > 1))
+      return launch_warps<NP>(
+          warp_union_rows_kernel<NK, NP, FLAG, FOLD>, 2 * c, most, 132LL * 8,
+          stream, in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
+          out_slots<NK, NP, FLAG>(o), (const int*)rows, listed,
+          (const int*)n_rows, pairs, num_keys, c, gather, scatter, repeat);
+  }
+  constexpr bool MERGED = JOIN != SORT;
+  const size_t bytes = (size_t)(2 * c) * record_bytes<NP, MERGED>() + 16;
+  if constexpr (MERGED) kernel = merge_union_rows_kernel<NK, NP, FLAG, FOLD>;
   else kernel = slot_union_rows_kernel<NK, NP, FLAG, FOLD>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  // one wave of 8 blocks per SM; blocks past the rows to join exit at once
-  const long long most = (long long)listed * pairs;
   const long long grid = most < 132LL * 8 ? most : 132LL * 8;
   const int threads =
-      MERGE && scatter && repeat > 1 ? MERGE_BROADCAST_THREADS : 256;
+      JOIN == MERGE && scatter && repeat > 1 ? MERGE_BROADCAST_THREADS : 256;
   kernel<<<(unsigned)grid, threads, bytes, stream>>>(
       in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
       out_slots<NK, NP, FLAG>(o), (const int*)rows,
@@ -629,15 +835,16 @@ extern "C" int slot_union_launch(const void* const* a, const void* const* b,
                                  void* const* o, void* overflow,
                                  long long rows, int ca, int cb, int cap,
                                  int repeat, void* stream) {
-  return launch<2, 1, true, FOLD_KEEP>(a, b, o, overflow, rows, ca, cb, cap,
-                                       repeat, (cudaStream_t)stream);
+  return launch<2, 1, true, FOLD_KEEP, WARP_MERGE>(a, b, o, overflow, rows, ca,
+                                                   cb, cap, repeat,
+                                                   (cudaStream_t)stream);
 }
 
 extern "C" int rga_union_launch(const void* const* a, const void* const* b,
                                 void* const* o, void* overflow,
                                 long long rows, int ca, int cb, int cap,
                                 int repeat, void* stream) {
-  return launch<2, 3, true, FOLD_MAX, true>(a, b, o, overflow, rows, ca, cb,
+  return launch<2, 3, true, FOLD_MAX, MERGE>(a, b, o, overflow, rows, ca, cb,
                                             cap, repeat, (cudaStream_t)stream);
 }
 
@@ -676,10 +883,9 @@ extern "C" int slot_union_rows_launch(const void* const* a,
                                       const void* n_rows, int pairs,
                                       int num_keys, int c, int gather,
                                       int scatter, int repeat, void* stream) {
-  return launch_rows<2, 1, true, FOLD_KEEP>(a, b, o, rows, listed, n_rows,
-                                            pairs, num_keys, c, gather,
-                                            scatter, repeat,
-                                            (cudaStream_t)stream);
+  return launch_rows<2, 1, true, FOLD_KEEP, WARP_MERGE>(
+      a, b, o, rows, listed, n_rows, pairs, num_keys, c, gather, scatter,
+      repeat, (cudaStream_t)stream);
 }
 
 extern "C" int rga_union_rows_launch(const void* const* a,
@@ -688,7 +894,7 @@ extern "C" int rga_union_rows_launch(const void* const* a,
                                      const void* n_rows, int pairs,
                                      int num_keys, int c, int gather,
                                      int scatter, int repeat, void* stream) {
-  return launch_rows<2, 3, true, FOLD_MAX, true>(a, b, o, rows, listed,
+  return launch_rows<2, 3, true, FOLD_MAX, MERGE>(a, b, o, rows, listed,
                                                  n_rows, pairs, num_keys, c,
                                                  gather, scatter, repeat,
                                                  (cudaStream_t)stream);

@@ -12,7 +12,9 @@ rule; the same-key match compares raw keys.
 
 The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
 ``orset_capture_plain`` only for tensors that lie on the CPU. Both return
-new tensors.
+new tensors. One call of the kernel is four CUDA launches (count, place
+and order the adds by bucket, then capture) on scratch the wrapper
+allocates; it counts once on ``orset_capture.launches``.
 """
 from __future__ import annotations
 
@@ -101,16 +103,18 @@ def _lib():
         ptr = ctypes.c_void_p
         lib.orset_capture_launch.argtypes = [ptr] * 13 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ptr]
+            ctypes.c_int, ptr]
         lib.orset_capture_launch.restype = ctypes.c_int
+        lib.orset_capture_scratch_ints.argtypes = [ctypes.c_int] * 3
+        lib.orset_capture_scratch_ints.restype = ctypes.c_longlong
     return lib
 
 
-# adds sorted in shared memory up to this many lanes; beyond, in global
-# scratch (csrc/orset_capture.cu: 16 bytes per lane)
-SHARED_LANES = (operands.MAX_SHARED_BYTES - 1024) // 16
-# the kernel merges a lane's two prefixes in registers
+# the kernel holds a lane's prefixes one entry a thread of a warp
 MAX_RCAP = 32
+# the adds are bucketed by the row their key gathers, modulo this many
+# buckets a view (csrc/orset_capture.cu MAX_BUCKETS)
+MAX_BUCKETS = 1024
 
 
 def orset_capture(state, ops, r_cap: int):
@@ -135,10 +139,9 @@ def orset_capture(state, ops, r_cap: int):
            for _ in range(3)]
     if V * B * r_cap == 0:
         return tuple(out)
-    in_shared = B <= SHARED_LANES
-    scratch = torch.empty((0 if in_shared else V * B, 4), dtype=torch.int32,
-                          device=dev)
     lib = _lib()
+    scratch = torch.empty((lib.orset_capture_scratch_ints(V, B, K),),
+                          dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.orset_capture_launch(
@@ -146,7 +149,7 @@ def orset_capture(state, ops, r_cap: int):
             *(state[f].data_ptr() for f in ("tag_rep", "tag_ctr", "elem",
                                             "valid")),
             *(x.data_ptr() for x in out), scratch.data_ptr(),
-            V, B, K, C, r_cap, int(in_shared), stream)
+            V, B, K, C, r_cap, stream)
     build.check_launch("orset_capture", rc)
     orset_capture.launches += 1
     return tuple(out)

@@ -63,7 +63,7 @@ class Layout(NamedTuple):
 
 ORSET = Layout(orset_rows.FIELDS, orset_rows.DTYPES,
                orset_rows.fold_duplicate, 1, "slot_union_launch",
-               "slot_union_rows_launch")
+               "slot_union_rows_launch", merge=True)
 LWW = Layout(lww_rows.FIELDS, lww_rows.DTYPES, lww_rows.fold_duplicate, 4,
              "lww_union_launch", "lww_union_rows_launch", keys=1)
 TP = Layout(tp_rows.TP_FIELDS, tp_rows.DTYPES, tp_rows.fold_duplicate, 0,
@@ -119,14 +119,15 @@ def _ptrs(layout: Layout, slots):
 
 
 def shared_bytes(ca: int, cb: int, layout: Layout = ORSET) -> int:
-    """Shared memory of one block (csrc/slot_union.cu): per input record
-    a 16-byte sort record, 4 bytes per int32 payload field and 4 of prefix
-    sum (24 for the OR-Set, 36 for the LWW-Set, 20 for the 2P layouts), or
-    for a merge layout 8 bytes of keys, 4 per payload field, 2 + 2 of
-    orders and 1 of flags (25 for the RGA), and the prefix sum's 4 KB.
-    The most rows a block holds follow: Ca + Cb <= 11,410 records for the
-    2P layouts (a full join of rows up to 5,705 slots), 9,508 for the
-    OR-Set, 9,128 for the RGA."""
+    """Shared memory of one block joining one row (csrc/slot_union.cu):
+    per input record a 16-byte sort record, 4 bytes per int32 payload
+    field and 4 of prefix sum (36 for the LWW-Set, 20 for the 2P layouts),
+    or for a merge layout 8 bytes of keys, 4 per payload field, 2 + 2 of
+    orders and 1 of flags (25 for the RGA, 17 for the OR-Set), and the
+    prefix sum's 4 KB. The most rows a block holds follow: Ca + Cb <=
+    11,410 records for the 2P layouts (a full join of rows up to 5,705
+    slots), 13,423 for the OR-Set (6,711 slots), 9,128 for the RGA. (The
+    OR-Set's warp merge puts up to eight rows in a block, as many as fit.)"""
     if layout.merge:
         per = 13 + 4 * layout.payloads
     else:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""A/B of the design constants of two hand kernels on the card.
+"""A/B of the design constants of three hand kernels on the card.
 
 ``rga_compact`` (csrc/rga_compact.cu: the blocks an SM its launch bound
 asks for, ``MIN_BLOCKS``) on the rga preset's compaction at tick 3
@@ -8,16 +8,26 @@ asks for, ``MIN_BLOCKS``) on the rga preset's compaction at tick 3
 ``RING``) on a captured delta apply at the mvr_consensus phase's geometry
 (64 views, 500 keys under Zipf-0.99, V = 8, W = 64: 64 origins' blocks of
 64 writes, each captured at its origin, in a batch of 16,384 lanes a
-view). Each variant is a copy of the source with one ``constexpr int``
-set to another value, built by ``nvcc`` into
-``janus_tpu_torch/build/ab/`` with the package's flags, put in the
-loader's place for the time of its turn, and held bit-equal to the plain
-version on a slice of the inputs; the variants are then timed in turns
-(first to last, then last to first), each turn by CUDA events around
-``REPS`` calls after a warm-up. Prints one JSON line per kernel and the
-card's name and power limit:
+view), and ``slot_union`` (csrc/slot_union.cu: the rows a block of the
+OR-Set's warp merge holds, ``WARP_ROWS``, and the slots a thread of it
+loads before it stages them, ``WARP_BATCH``) on level 1 of the OR-Set
+store's converge (32 x 500 rows of 256 + 256 slots, path B's first tick)
+and on level 1 of a delta tick's row-list tree (``slot_union_rows``, the
+two-type store at mixed_delta's geometry). Each variant is a copy of the
+source with one ``constexpr int`` set to another value, built by
+``nvcc`` into ``janus_tpu_torch/build/ab/`` with the package's flags,
+put in the loader's place for the time of its turn, and held bit-equal to
+the plain version on a slice of the inputs; the variants are then timed
+in turns (first to last, then last to first), each turn by CUDA events
+around ``REPS`` calls queued behind a sleeping kernel after a warm-up.
+Prints one JSON line per kernel
+and the card's name and power limit:
 
-    python scripts/kernel_ab.py
+    python scripts/kernel_ab.py [--parent DIR]
+
+With ``--parent``, ``DIR/janus_tpu_torch/csrc/slot_union.cu`` (an earlier
+checkout, e.g. unpacked by ``git archive``) joins the slot_union turns as
+one more variant, ``parent``.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -38,8 +49,11 @@ from janus_tpu_torch.bench import workloads  # noqa: E402
 from janus_tpu_torch.kernels import build  # noqa: E402
 
 REPS = 20
+SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock
 COMPACT_VARIANTS = {f"min{b}": {"MIN_BLOCKS": b} for b in (6, 8, 4)}
 WALK_VARIANTS = {f"ring{r}": {"RING": r} for r in (8, 16)}
+UNION_VARIANTS = {**{f"rows{r}": {"WARP_ROWS": r} for r in (2, 4, 8, 16)},
+                  **{f"batch{u}": {"WARP_BATCH": u} for u in (2, 8, 16)}}
 
 
 def build_variant(name, constants, tag) -> ctypes.CDLL:
@@ -51,6 +65,13 @@ def build_variant(name, constants, tag) -> ctypes.CDLL:
                           rf"\g<1>{value};", text)
         if n != 1:
             raise ValueError(f"{name}.cu: no single constant {const}")
+    return build_text(name, text, tag)
+
+
+def build_text(name, text, tag) -> ctypes.CDLL:
+    """The source ``text`` of kernel ``name`` built with the package's
+    flags (the package's headers on the include path) into
+    ``build/ab/lib<name>_<tag>.so`` and loaded."""
     ab = build.BUILD / "ab"
     ab.mkdir(parents=True, exist_ok=True)
     src, out = ab / f"{name}_{tag}.cu", ab / f"lib{name}_{tag}.so"
@@ -60,9 +81,16 @@ def build_variant(name, constants, tag) -> ctypes.CDLL:
          str(out), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} {constants}:\n"
-                           f"{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}")
     return ctypes.CDLL(str(out))
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def use(name, lib) -> None:
@@ -75,17 +103,27 @@ def use(name, lib) -> None:
 
 
 def device_ms(fn, reps=REPS) -> float:
-    """Device milliseconds a call, by CUDA events around ``reps`` calls."""
+    """Device milliseconds a call, by CUDA events around ``reps`` calls
+    queued behind a sleeping kernel: the host queues the whole burst
+    before the device starts it, so the span holds no host time (as
+    ``chip_smoke.device_burst_ms``). Raises if the host took longer to
+    queue than the device slept."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        raise RuntimeError(f"queueing took {host_ms} ms, longer than the "
+                           f"sleep")
+    return ev[1].elapsed_time(ev[2]) / reps
 
 
 def same(a, b) -> bool:
@@ -97,9 +135,13 @@ def same(a, b) -> bool:
 
 
 def clone(tree):
+    """Clones of a nest's tensors (dicts, tuples and lists of them; other
+    leaves as they are)."""
     if isinstance(tree, dict):
         return {k: clone(v) for k, v in tree.items()}
-    return tree.clone()
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def compaction_input(dev):
@@ -146,22 +188,76 @@ def walk_input(dev):
     return views, ops
 
 
-def run_ab(name, variants, call, check):
-    """Build each variant, check it, then time all of them in turns."""
+def union_inputs(dev):
+    """(args, kwargs) of the first level-1 call of ``slot_union`` in a
+    tick of the OR-Set store at R=64, K=500, C=256, B=64 (a Zipf hot
+    window of 32 keys), and of ``slot_union_rows`` in a delta tick of the
+    two-type store at R=64, K=500, budget 64: the calls ``chip_smoke.py``
+    times, at their geometry."""
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime.engine import make_tick
+    from janus_tpu_torch.runtime.store import Store, replicated_init
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    R, K, C, B = 64, 500, 256, 64
+    rng = np.random.default_rng(9)
+    calls = {}
+    real = {n: getattr(kernels, n) for n in ("slot_union", "slot_union_rows")}
+
+    def spy(name):
+        def call(*args, **kw):
+            calls.setdefault(name, clone((args, kw)))
+            return real[name](*args, **kw)
+        return call
+
+    for name in real:
+        setattr(kernels, name, spy(name))
+    try:
+        state = replicated_init(orset.SPEC, R, device=dev, num_keys=K,
+                                capacity=C, rm_capacity=8)
+        mint = [TagMinter(i) for i in range(R)]
+        make_tick(orset.SPEC, device=dev)(state, workloads.ops_to_device(
+            workloads.orset_hot_window(rng, mint, K, B, 0, 32), dev))
+        store = Store(R, {"pnc": dict(num_keys=K, num_writers=R),
+                          "orset": dict(num_keys=K, capacity=C,
+                                        rm_capacity=8)},
+                      dirty_budget=64, device=dev)
+        mint = [TagMinter(i) for i in range(R)]
+        ops = workloads.store_delta_tick(rng, mint, K, B, 0, 32)
+        store.fused_tick({tc: workloads.ops_to_device(o, dev)
+                          for tc, o in ops.items()})
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name, fn)
+    torch.cuda.synchronize()
+    return calls["slot_union"], calls["slot_union_rows"]
+
+
+def run_ab(name, variants, calls, check, parent=None):
+    """Build each variant (and, given ``parent``, that source as one more,
+    ``parent``), check it, then time every call of ``calls`` (a dict of
+    labels to functions) under all of them in turns."""
     libs = {}
     for tag, constants in variants.items():
         libs[tag] = build_variant(name, constants, tag)
-        use(name, libs[tag])
+    if parent is not None:
+        libs["parent"] = build_text(name, pathlib.Path(parent).read_text(),
+                                    "parent")
+    for tag, lib in libs.items():
+        use(name, lib)
         if not check():
             raise AssertionError(f"{name} {tag}: differs from plain")
-    order = list(variants) + list(reversed(variants))
-    times = {tag: [] for tag in variants}
+    order = list(libs) + list(reversed(libs))
+    times = {tag: {label: [] for label in calls} for tag in libs}
     for tag in order:
         use(name, libs[tag])
-        times[tag].append(device_ms(call))
+        for label, call in calls.items():
+            times[tag][label].append(device_ms(call))
     use(name, None)
-    return {tag: {"constants": variants[tag], "device_ms": t,
-                  "mean_ms": sum(t) / len(t)} for tag, t in times.items()}
+    return {tag: {"constants": variants.get(tag, "parent source"),
+                  **{label: {"device_ms": t, "mean_ms": sum(t) / len(t)}
+                     for label, t in by.items()}}
+            for tag, by in times.items()}
 
 
 def main() -> int:
@@ -169,17 +265,18 @@ def main() -> int:
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
+    parent = None
+    if "--parent" in sys.argv:
+        parent = (pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
+                  / "janus_tpu_torch" / "csrc" / "slot_union.cu")
 
     rows = compaction_input(dev)
     part = {f: x[:8].clone() for f, x in rows.items()}
     mine = clone(rows)
     print(json.dumps({"kernel": "rga_compact", "nvidia_smi": smi, **run_ab(
         "rga_compact", COMPACT_VARIANTS,
-        lambda: kernels.rga_compact(mine, None, out=mine),
+        {"call": lambda: kernels.rga_compact(mine, None, out=mine)},
         lambda: same(kernels.rga_compact(part),
                      kernels.rga_compact_plain(part)))}), flush=True)
     del rows, mine, part
@@ -196,8 +293,23 @@ def main() -> int:
 
     mine = clone(views)
     print(json.dumps({"kernel": "mvr_apply", "nvidia_smi": smi, **run_ab(
-        "mvr_apply", WALK_VARIANTS, lambda: kernels.mvr_apply(mine, ops),
+        "mvr_apply", WALK_VARIANTS, {"call": lambda: kernels.mvr_apply(mine, ops)},
         check_walk)}), flush=True)
+    del views, ops, mine, small
+    torch.cuda.empty_cache()
+
+    (ua, ukw), (ra, rkw) = union_inputs(dev)
+    part = tuple({f: x[:2, :40].clone() for f, x in t.items()} for t in ua[:2])
+
+    def check_union():
+        return same(kernels.slot_union(*part, ua[2]),
+                    kernels.slot_union_plain(*part, ua[2]))
+
+    print(json.dumps({"kernel": "slot_union", "nvidia_smi": smi, **run_ab(
+        "slot_union", UNION_VARIANTS,
+        {"level1": lambda: kernels.slot_union(*ua, **ukw),
+         "rows_level1": lambda: kernels.slot_union_rows(*ra, **rkw)},
+        check_union, parent)}), flush=True)
     print(smi, flush=True)
     return 0
 

@@ -604,7 +604,7 @@ def test_orset_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         kernels.slot_union(st, dict(st, removed=st["removed"].to(torch.uint8)))
     with pytest.raises(ValueError, match="shared memory"):
-        kernels.slot_union(*(_slots(rng, (1,), 6000, cuda_device)
+        kernels.slot_union(*(_slots(rng, (1,), 7000, cuda_device)
                              for _ in range(2)))
     assert kernels.launches() == before
 
@@ -1053,6 +1053,104 @@ def test_rga_union_rows_merge_matches_plain(cuda_device, case, r):
         assert kernels.rga_union_rows.launches == before + (r - 1)
         _assert_outputs_equal(mine, ref)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", [
+    (4, 100, 64, 8192, 4), (2, 6, 16, 300, 4), (1, 5, 8, 257, 32),
+    (3, 4, 24, 96, 1), (1, 7, 8, 16384, 2)],
+    ids=lambda g: "V{}K{}C{}B{}r{}".format(*g))
+@pytest.mark.parametrize("case", workloads.ORSET_CAPTURE_CASES)
+def test_orset_capture_edge_cases_match_plain(cuda_device, case, geo):
+    """The capture's edge cases (``workloads.orset_capture_case``: long
+    walks of a hot key, buckets that need their sort, aliased keys, tags
+    repeated between the row and the batch, non-canonical rows) at the
+    consensus path's shape, at B past and not a multiple of one tile, at
+    r_cap 1 and 32 (> C), and at B = 16,384 in one view."""
+    v, k, c, b, r_cap = geo
+    rng = np.random.default_rng(len(case) + b)
+    st, ops = (_on(x, cuda_device) for x in
+               workloads.orset_capture_case(rng, case, (v, b), k, c))
+    before = kernels.orset_capture.launches
+    got = kernels.orset_capture(st, ops, r_cap)
+    ref = kernels.orset_capture_plain(st, ops, r_cap)
+    torch.cuda.synchronize()
+    assert kernels.orset_capture.launches == before + 1
+    _assert_outputs_equal(list(got), list(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", workloads.ORSET_UNION_CASES)
+def test_orset_union_merge_matches_plain(cuda_device, case):
+    """The warp merge of sorted rows (the OR-Set instantiation of
+    slot_union.cu) on every edge case of ``workloads.orset_union_case`` at
+    the store's C = 256: fresh outputs at a capacity below, at and above
+    one row's, ``out`` of two planes (the broadcast's block merge),
+    ``out`` aliasing ``a``, and rows of unequal widths."""
+    rng = np.random.default_rng(len(case))
+    c = 256
+    a, b = (_on(x, cuda_device) for x in
+            workloads.orset_union_case(rng, case, (48,), c))
+    before = kernels.slot_union.launches
+    for cap in (150, c, 600):
+        got, ovf = kernels.slot_union(a, b, cap)
+        ref, ref_ovf = kernels.slot_union_plain(a, b, cap)
+        _assert_outputs_equal(got, ref)
+        _assert_outputs_equal(ovf, ref_ovf)
+    ref, ref_ovf = kernels.slot_union_plain(a, b, c)
+    out = {f: torch.full((2, 48, c), 7, dtype=x.dtype, device=cuda_device)
+           for f, x in a.items()}
+    _, ovf = kernels.slot_union(a, b, c, out=out)
+    for f in ref:
+        assert torch.equal(out[f], ref[f].expand_as(out[f])), f
+    _assert_outputs_equal(ovf, ref_ovf)
+    alias = _clone(a)
+    kernels.slot_union(alias, b, c, out={f: x.unsqueeze(0)
+                                         for f, x in alias.items()})
+    _assert_outputs_equal(alias, ref)
+    narrow = {f: x[:, :100].contiguous() for f, x in b.items()}
+    got, ovf = kernels.slot_union(a, narrow, 300)
+    ref, ref_ovf = kernels.slot_union_plain(a, narrow, 300)
+    torch.cuda.synchronize()
+    assert kernels.slot_union.launches == before + 6
+    _assert_outputs_equal(got, ref)
+    _assert_outputs_equal(ovf, ref_ovf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3, 5])
+@pytest.mark.parametrize("case", workloads.ORSET_UNION_CASES)
+def test_orset_union_rows_merge_matches_plain(cuda_device, case, r):
+    """The row-list mode of the warp merge on the edge cases at C = 256,
+    K = 16 key rows of r replicas, with 0, 1 and K rows listed: the
+    converge's row-list tree through the kernel against the same tree of
+    plain versions (r = 2: one level that writes the rows it read; r = 3
+    and 5: scratch levels, then the broadcast into every replica)."""
+    from janus_tpu_torch.models import orset
+
+    rng = np.random.default_rng(len(case) + r)
+    k, c = 16, 256
+    draws = [workloads.orset_union_case(rng, case, (k,), c)
+             for _ in range((r + 1) // 2)]
+    rows_of = [x for pair in draws for x in pair][:r]
+    st = _on({f: np.stack([x[f] for x in rows_of]) for f in ORSET_FIELDS},
+             cuda_device)
+    st["_rm_cap"] = torch.zeros((r, 4, 0), dtype=torch.int32,
+                                device=cuda_device)
+    rows = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(cuda_device)
+    for n_rows in (0, 1, k):
+        n = torch.tensor(n_rows, dtype=torch.int32, device=cuda_device)
+        mine, ref = _clone(st), _clone(st)
+        before = kernels.slot_union_rows.launches
+        orset.join_replica_rows(mine, rows, n)
+        real = kernels.slot_union_rows
+        kernels.slot_union_rows = kernels.slot_union_rows_plain
+        try:
+            orset.join_replica_rows(ref, rows, n)
+        finally:
+            kernels.slot_union_rows = real
+        torch.cuda.synchronize()
+        assert kernels.slot_union_rows.launches == before + (r - 1).bit_length()
+        _assert_outputs_equal(mine, ref)
 
 @pytest.mark.cuda
 def test_dirty_rows_lean_path_refuses_what_it_did(cuda_device):

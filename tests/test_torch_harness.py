@@ -61,10 +61,10 @@ def test_presets_load_and_match_jax():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(mode="wire"), "queue 1 item 4"),
-    (dict(mode="adaptive"), "queue 1 item 1"),
-    (dict(byzantine=1), "queue 1 item 3"),
-    (dict(byzantine=1, crashed=1), "queue 1 item 3"),
+    (dict(mode="wire"), "queue 1 items 3-4"),
+    (dict(mode="adaptive"), "queue 1 item 2"),
+    (dict(byzantine=1), "queue 1 item 1"),
+    (dict(byzantine=1, crashed=1), "queue 1 item 1"),
 ])
 def test_unported_modes_raise(change, match):
     cfg = dataclasses.replace(harness.BenchConfig(**CONFIGS["pnc_small"]),
