@@ -542,6 +542,9 @@ TP_CHECKS = dict(
            ((7,), 1, 3, 2, 0.3), ((4, 3), 0, 5, 2, 0.0),
            ((16, 500), 32, 256, 32, 0.01)),
     rounds=3, ticks=2)
+# the 2P unions' edge cases (workloads.tp_union_case), both layouts:
+# `rows` key rows of each capacity; row-list trees over these replicas
+TP_UNION_EDGE = dict(rows=64, capacities=(32, 256), replicas=(2, 3, 5))
 TP_LIBRARY_NOTES = {
     "tp_union": "no single PyTorch call computes it: an elem-keyed union "
                 "with a tombstone OR and a capacity cut",
@@ -1996,21 +1999,59 @@ def check_calls(kernels, log, names, fn, what, keep=None, score=None,
     return counts
 
 
-def rows_sorted(slots, rows=None, keys=("id_ctr", "id_rep")):
-    """(rows already sorted, rows) of a slot set ``[..., C]`` (or of its
-    key rows ``rows`` of ``[P, K, C]``): a row is sorted when its two key
-    fields ``keys`` (the RGA's ids; the OR-Set's tags, ``ORSET_KEYS``),
+def row_order(slots, rows=None, keys=("id_ctr", "id_rep")):
+    """(rows already sorted, rows, tail lengths of the others) of a slot
+    set ``[..., C]`` (or of its key rows ``rows`` of ``[P, K, C]``): a row
+    is sorted when its key fields ``keys`` (one or two: the RGA's ids; the
+    OR-Set's tags, ``ORSET_KEYS``; a 2P row's elem; an edge's src, dst),
     SENTINEL for an invalid slot, never descend as signed int32, the test
-    csrc/slot_union.cu's merge makes before it sorts a row. Counted by
-    torch on the card, apart from the kernel."""
+    csrc/slot_union.cu's merge makes before it puts a row in order; an
+    unsorted row's tail is its valid records from its first descent to
+    its last valid slot (an int64 tensor, one entry an unsorted row).
+    Counted by torch on the card, apart from the kernel."""
     sent = torch.iinfo(torch.int32).max
-    x = torch.where(slots["valid"], slots[keys[0]], sent)
-    y = torch.where(slots["valid"], slots[keys[1]], sent)
+    valid = slots["valid"]
+    ks = [torch.where(valid, slots[k], sent) for k in keys]
     if rows is not None:
-        x, y = x[:, rows], y[:, rows]
-    down = (x[..., 1:] < x[..., :-1]) | ((x[..., 1:] == x[..., :-1])
-                                         & (y[..., 1:] < y[..., :-1]))
-    return int((~down.any(-1)).sum()), x[..., 0].numel()
+        ks, valid = [x[:, rows] for x in ks], valid[:, rows]
+    down = torch.zeros_like(valid[..., 1:])
+    tie = torch.ones_like(down)
+    for x in ks:
+        down |= tie & (x[..., 1:] < x[..., :-1])
+        tie &= x[..., 1:] == x[..., :-1]
+    unsorted = down.any(-1)
+    # the first descent (a True after the last pair keeps C = 1 rows)
+    first = torch.cat([down, torch.ones_like(valid[..., :1])], -1).int()
+    first = first.argmax(-1) + 1
+    at = torch.arange(valid.shape[-1], device=valid.device)
+    tail = (valid & (at >= first.unsqueeze(-1))).sum(-1)
+    return int((~unsorted).sum()), ks[0][..., 0].numel(), tail[unsorted]
+
+
+def rows_sorted(slots, rows=None, keys=("id_ctr", "id_rep")):
+    """(rows already sorted, rows) of ``row_order``."""
+    got, n, _ = row_order(slots, rows, keys)
+    return got, n
+
+
+# the bounds of the tail-length histogram of ``tail_counts``
+TAIL_BINS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def tail_counts(tails) -> dict:
+    """Counts of unsorted rows by tail length (``row_order``'s tails, a
+    list of tensors): rows with a tail of at most each bound of
+    ``TAIL_BINS`` and above the one before, more than the last, and the
+    longest."""
+    t = torch.cat(tails) if tails else torch.zeros(0, dtype=torch.long)
+    out, lo = {}, 0
+    for hi in TAIL_BINS:
+        out[f"{lo + 1}-{hi}" if hi > lo + 1 else str(hi)] = int(
+            ((t > lo) & (t <= hi)).sum())
+        lo = hi
+    out[f">{lo}"] = int((t > lo).sum())
+    out["longest"] = int(t.max()) if t.numel() else 0
+    return out
 
 
 ORSET_KEYS = ("tag_rep", "tag_ctr")
@@ -4668,6 +4709,85 @@ def tp_store_arms(dev):
                                             device=dev), True)}
 
 
+def tp_level1(name, args, kw):
+    """The tree ("tpset", "vertex" or "edge") of a call of a 2P union
+    wrapper ``name`` that is level 1 of one of ``tp_store``'s converge
+    trees, else None: the full mode's level 1 joins the two halves of
+    TP_STORE's R replicas, the row-list mode's gathers its rows from the
+    state."""
+    a = args[0]
+    if name.endswith("_rows"):
+        if not kw.get("gather", True):
+            return None
+    elif a["valid"].shape[0] != (TP_STORE["R"] + 1) // 2:
+        return None
+    if name.startswith("edge"):
+        return "edge"
+    return ("tpset" if a["valid"].shape[-1] == TP_STORE["tp_capacity"]
+            else "vertex")
+
+
+def tp_edge_cases(dev, kernels, workloads, log, rng):
+    """The 2P unions' edge cases (``workloads.tp_union_case``) for both
+    layouts at ``TP_UNION_EDGE``'s rows and capacities, kernel against
+    plain: fresh at a capacity below, at and above one row's, into two
+    planes (the broadcast), aliased (``out`` the first input, as the
+    converge's last level writes into the replicas it read), with rows of
+    unequal widths, and the row-list tree over states of 2, 3 and 5
+    replicas with 0, 1 and all rows listed (at 2 its one level writes the
+    rows it read)."""
+    from janus_tpu_torch.kernels.replica_tree import join_tree_rows
+    from janus_tpu_torch.kernels.slot_union import EDGE, TP
+
+    k = TP_UNION_EDGE["rows"]
+
+    def on(t):
+        return {f: torch.as_tensor(x, device=dev) for f, x in t.items()}
+
+    for layout, name in ((TP, "tp_union"), (EDGE, "edge_union")):
+        edges = layout is EDGE
+        for c in TP_UNION_EDGE["capacities"]:
+            for case in workloads.TP_UNION_CASES:
+                a, b = (on(t) for t in workloads.tp_union_case(
+                    rng, case, (2, k), c, edges=edges))
+                what = f"edge {case} 2x{k} C{c}"
+                for cap in (c // 2, c, 3 * c):
+                    log.add(kernels, name, (a, b, cap), f"{what} cap {cap}")
+                out = {f: torch.zeros((2, 2, k, c), dtype=x.dtype, device=dev)
+                       for f, x in a.items()}
+                log.add(kernels, name, (a, b, c), what + " out",
+                        {"out": out})
+                narrow = {f: x[..., : c // 3].contiguous()
+                          for f, x in b.items()}
+                log.add(kernels, name, (a, narrow, c), what + " narrow b")
+                mine = tree_map(torch.Tensor.clone, a)
+                kernels.WRAPPERS[name](mine, b, c, out={
+                    f: x.unsqueeze(0) for f, x in mine.items()})
+                ref, _ = plain_of(kernels, name)(a, b, c)
+                torch.cuda.synchronize()
+                err = tree_err(mine, ref)
+                check(err == 0, f"{name} {what} aliased: max_abs_err {err}")
+                log.by[name]["cases"] += 1
+                for r in TP_UNION_EDGE["replicas"]:
+                    more = workloads.tp_union_case(rng, case, (2, k), c,
+                                                   edges=edges)
+                    reps = [{f: x[i] for f, x in t.items()}
+                            for t in (a, b, *map(on, more)) for i in (0, 1)]
+                    st = {f: torch.stack([x[f] for x in reps[:r]])
+                          for f in layout.fields}
+                    rows = torch.as_tensor(
+                        rng.permutation(k).astype(np.int32), device=dev)
+                    for n_rows in (0, 1, k):
+                        n = torch.tensor(n_rows, dtype=torch.int32,
+                                         device=dev)
+                        check_calls(
+                            kernels, log, (name + "_rows",),
+                            lambda: join_tree_rows(
+                                layout.fields,
+                                getattr(kernels, name + "_rows"), st, rows, n),
+                            f"{what} rows R{r} n{n_rows}")
+
+
 def tp_kernel_checks(dev, kernels, workloads, cases):
     """The nine 2P-Set and Graph wrappers against their plain versions on
     the card, bit-equal, in-place updates, drop and overflow counts
@@ -4715,6 +4835,8 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
         log.add(kernels, name, (a, b, ca), what + " into 2 replicas",
                 {"out": out})
     lap("unions")
+    tp_edge_cases(dev, kernels, workloads, log, np.random.default_rng(44))
+    lap("edge_cases")
     for layout, p, k, c in TP_CHECKS["row_levels"]:
         edges = layout == "edge"
         name = "edge_union_rows" if edges else "tp_union_rows"
@@ -4788,7 +4910,27 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
     keep = {}
     apply_codes = {"tpset_apply": (1, 2), "tpset_capture": (1, 2),
                    "graph_apply": (1, 2, 3, 4), "graph_capture": (1, 2, 3, 4)}
-    tag = {"run": ""}
+    tag = {"run": "", "arm": ""}
+    # level 1 of each tp_store tree, per arm: its input rows already in key
+    # order, and the tail lengths of the others (row_order)
+    level1 = {}
+
+    def level1_spy(name, fn):
+        def call(*args, **kw):
+            tree = tp_level1(name, args, kw)
+            if tree is not None:
+                listed = (args[3][:int(args[4])].long()
+                          if name.endswith("_rows") else None)
+                rec = level1.setdefault(f"{tag['arm']} {tree}", [0, 0, []])
+                for x in args[:2]:
+                    got, n, tails = row_order(
+                        x, listed, ("src", "dst") if tree == "edge"
+                        else ("elem",))
+                    rec[0] += got
+                    rec[1] += n
+                    rec[2].append(tails.cpu())
+            return fn(*args, **kw)
+        return call
 
     def recorded():
         for kind, g in (("tpset", TPSET_CONS), ("graph", GRAPH_CONS)):
@@ -4801,11 +4943,19 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
             del kv
         tag["run"] = "tp_store"
         arms = tp_store_arms(dev)
-        for tick in tp_store_stream(workloads, TP_CHECKS["ticks"]):
-            batch = {tc: workloads.ops_to_device(o, dev)
-                     for tc, o in tick.items()}
-            for st, use_delta in arms.values():
-                st.fused_tick(batch, delta=use_delta)
+        inner = {n: getattr(kernels, n) for n in TP_KERNELS[:4]}
+        for n, fn in inner.items():
+            setattr(kernels, n, level1_spy(n, fn))
+        try:
+            for tick in tp_store_stream(workloads, TP_CHECKS["ticks"]):
+                batch = {tc: workloads.ops_to_device(o, dev)
+                         for tc, o in tick.items()}
+                for arm, (st, use_delta) in arms.items():
+                    tag["arm"] = arm
+                    st.fused_tick(batch, delta=use_delta)
+        finally:
+            for n, fn in inner.items():
+                setattr(kernels, n, fn)
 
     counts = check_calls(
         kernels, log, TP_KERNELS, recorded,
@@ -4819,9 +4969,15 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
     check(all(counts[n] > 0 for n in TP_KERNELS),
           f"tp_kernels: recorded calls {counts}")
     check(all(v > 0 for v in cover.values()), f"tp_kernels: coverage {cover}")
+    check(len(level1) == 6 and all(r[1] > 0 for r in level1.values()),
+          f"tp_kernels: level-1 rows of tp_store {sorted(level1)}")
     for name, rec in log.by.items():
         cases.append({"kernel": name, "case": "tp_kernels", **rec})
     emit("tp_kernels", by_kernel=log.by, coverage=cover,
+         level1_rows_sorted={
+             key: {"sorted": got, "rows": n, "share": got / n,
+                   "tails": tail_counts(tails)}
+             for key, (got, n, tails) in sorted(level1.items())},
          random_seconds=random_s, random_seconds_by_section=section_s,
          recorded_seconds=time.perf_counter() - t_start - random_s,
          recorded={"rounds": TP_CHECKS["rounds"], "ticks": TP_CHECKS["ticks"],
@@ -6351,8 +6507,13 @@ def main() -> int:
     res = build.build_all()
     ptxas = [ln.strip() for log in res["log"].values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
+    # every entry whose stack frame or spills are not 0 (ptxas -v)
+    frames = [ln.strip() for log in res["log"].values()
+              for ln in log.splitlines() if "stack frame" in ln
+              and ln.split()[0] + ln.split()[4] + ln.split()[8] != "000"]
     emit("build", seconds=res["seconds"], nvcc=build.nvcc(),
-         flags=" ".join(build.NVCC_FLAGS), ptxas=ptxas)
+         flags=" ".join(build.NVCC_FLAGS), ptxas=ptxas,
+         nonzero_frames=frames)
 
     phase_s = {"build": res["seconds"]}
 

@@ -1130,6 +1130,177 @@ def graph_slots(rng: np.random.Generator, shape, v_capacity: int,
             "e_removed": es["removed"], "e_valid": es["valid"]}
 
 
+# the 2P unions' edge cases of ``tp_union_case``
+TP_UNION_CASES = ("shared_elems", "appended_tail_1", "appended_tail_8",
+                  "appended_tail_64", "one_unsorted", "reversed", "shuffled",
+                  "hole", "triple_in_row", "sentinel_elem", "full")
+
+
+def _tp_canonical(rng: np.random.Generator, rows: int, c: int, space: int,
+                  n) -> np.ndarray:
+    """Key ids ``[rows, c]``: row r holds ``n[r]`` distinct ids of
+    ``[0, space)`` in ascending order, then ``space`` (no key)."""
+    pick = np.argsort(rng.random((rows, space)), axis=1)[:, :c]
+    ids = np.where(np.arange(c)[None, :] < n[:, None], pick, space)
+    ids.sort(axis=1)
+    return ids
+
+
+def tp_union_case(rng: np.random.Generator, case: str, shape, capacity: int,
+                  edges: bool = False) -> tuple:
+    """Rows ``a``, ``b`` ``shape + (capacity,)`` (numpy, the TP layout's
+    fields, or with ``edges`` the EDGE layout's) for one of
+    ``TP_UNION_CASES``, the edge cases of a union that merges rows sorted
+    by key after sorting the tail an apply appended to each:
+
+    - ``shared_elems``: two canonical rows drawn from one pool of keys, so
+      they share keys whose tombstones differ;
+    - ``appended_tail_<k>``: a canonical prefix, then k keys absent from it
+      in random order (at most C - 1; as a 2P-Set or Graph apply inserts
+      at the first free slot; for edges often the src of a prefix key with
+      a lower dst), then invalid slots;
+    - ``one_unsorted``: shared rows with b's slots shuffled;
+    - ``reversed``: both rows reversed;
+    - ``shuffled``: both shuffled, junk keys and tombstones in invalid
+      slots;
+    - ``hole``: canonical rows with an invalid slot (junk keys) in the
+      middle of the valid prefix;
+    - ``triple_in_row``: canonical rows with one key in three neighbouring
+      slots of a row (only the second copy's tombstone folds into the
+      kept one);
+    - ``sentinel_elem``: a canonical prefix whose last valid keys are
+      INT32_MAX (the 2P-Set's elem; an edge's src, dst or both), tying
+      with the invalid slots' key, then an appended tail of lower keys,
+      then invalid slots holding junk;
+    - ``full``: full canonical rows with distinct keys, Ca + Cb kept."""
+    c = capacity
+    rows = int(np.prod(shape, dtype=np.int64))
+    side = int(np.ceil(np.sqrt(2 * c)))
+    space = max(side * side, c) if edges else 2 * c
+    at = np.arange(c)[None, :]
+
+    def fields(ids, valid, removed, sent=None):
+        """The layout's fields of key ids (``sent``: which of the keys'
+        fields a slot holds at INT32_MAX, bit 0 the first)."""
+        keys = ({"src": ids // side, "dst": ids % side} if edges
+                else {"elem": ids})
+        if sent is not None:
+            for bit, f in enumerate(keys):
+                keys[f] = np.where((sent >> bit) & 1 == 1, SENTINEL,
+                                   keys[f])
+        out = {f: np.where(valid, k, SENTINEL) for f, k in keys.items()}
+        out["removed"] = valid & removed
+        out["valid"] = valid
+        return out
+
+    def tombs():
+        return rng.random((rows, c)) < 0.4
+
+    if case == "full":
+        ids = _tp_canonical(rng, rows, c, space, np.full(rows, c))
+        ids2 = _tp_canonical(rng, rows, c, space, np.full(rows, c))
+        full = np.ones((rows, c), bool)
+        pair = (fields(ids, full, tombs()),
+                fields(ids2 + space, full, tombs()))  # distinct, in order
+    elif case.startswith("appended_tail") or case == "sentinel_elem":
+        pair = []
+        for _ in range(2):
+            k = min(int(case.rsplit("_", 1)[1]) if case != "sentinel_elem"
+                    else 4, c - 1)
+            n_sent = 2 if case == "sentinel_elem" and c >= 4 else 0
+            k = min(k, c - 1 - n_sent) if n_sent else k
+            m = rng.integers(0, c - k - n_sent + 1, rows)
+            order = np.argsort(rng.random((rows, space)), axis=1)
+            ids = np.full((rows, c), space)
+            for r in range(rows):
+                pre = np.sort(order[r, :m[r]])
+                if edges and m[r] > 0:
+                    # absent keys on the src of the prefix's last key first
+                    row_src = pre[-1] // side
+                    near = [x for x in order[r, m[r]:] if x // side == row_src]
+                    rest = [x for x in order[r, m[r]:] if x // side != row_src]
+                    new = np.array((near[: (k + 1) // 2] + rest)[:k],
+                                   np.int64)
+                    rng.shuffle(new)
+                else:
+                    new = order[r, m[r]:m[r] + k]
+                ids[r, :m[r]] = pre
+                ids[r, m[r] + n_sent:m[r] + n_sent + k] = new
+            valid = at < (m + n_sent + k)[:, None]
+            sent = None
+            if n_sent:
+                # TP: two valid copies of elem INT32_MAX; edges: src at
+                # INT32_MAX, then both (each sorts after the one before)
+                slot = (at >= m[:, None]) & (at < (m + n_sent)[:, None])
+                sent = np.where(slot, np.where(at == m[:, None], 1, 3)
+                                if edges else 1, 0)
+            row = fields(ids, valid, tombs(), sent)
+            if case == "sentinel_elem":
+                junk = ~valid
+                for f in row:
+                    if f not in ("removed", "valid"):
+                        row[f] = np.where(junk, rng.integers(-5, 5, junk.shape),
+                                          row[f])
+            pair.append(row)
+    else:
+        n = np.where(rng.random(rows) < 0.3, c, rng.integers(0, int(0.9 * c)
+                                                              + 1, rows))
+        pool = _tp_canonical(rng, rows, c, space, n)
+        pair = []
+        for _ in range(2):
+            keep = (pool < space) & (rng.random((rows, c)) < 0.6)
+            ids = np.where(keep, pool, space)
+            ids.sort(axis=1)
+            pair.append(fields(ids, ids < space, tombs()))
+        a, b = pair
+        perm = lambda: np.argsort(rng.random((rows, c)), axis=1)  # noqa: E731
+        if case == "one_unsorted":
+            o = perm()
+            b = {f: np.take_along_axis(x, o, 1) for f, x in b.items()}
+        elif case == "reversed":
+            a, b = ({f: x[:, ::-1] for f, x in t.items()} for t in (a, b))
+        elif case == "shuffled":
+            for row in (a, b):
+                junk = ~row["valid"]
+                for f in row:
+                    if f == "removed":
+                        row[f] = row[f] | (junk & (rng.random(junk.shape)
+                                                   < 0.5))
+                    elif f != "valid":
+                        row[f] = np.where(junk, rng.integers(-5, 5, junk.shape),
+                                          row[f])
+                o = perm()
+                for f in row:
+                    row[f] = np.take_along_axis(row[f], o, 1)
+        elif case == "hole":
+            for row in (a, b):
+                nv = row["valid"].sum(-1)
+                pos = rng.integers(1, np.maximum(nv - 1, 2))
+                hole = (at == pos[:, None]) & (nv >= 3)[:, None]
+                row["valid"] = row["valid"] & ~hole
+                f0 = "src" if edges else "elem"
+                row[f0] = np.where(hole, rng.integers(-5, 5, hole.shape),
+                                   row[f0])
+        elif case == "triple_in_row":
+            for row in (a, b):
+                nv = row["valid"].sum(-1)
+                pos = rng.integers(0, np.maximum(nv - 2, 1))
+                three = (nv >= 3)[:, None] & (at > pos[:, None]) & (
+                    at <= pos[:, None] + 2)
+                for f in row:
+                    if f not in ("removed", "valid"):
+                        src = np.take_along_axis(row[f], pos[:, None], 1)
+                        row[f] = np.where(three, src, row[f])
+        elif case != "shared_elems":
+            raise ValueError(f"unknown 2P union case {case!r}")
+        pair = (a, b)
+    names = ("src", "dst", "removed", "valid") if edges else tpset.FIELDS
+    return tuple({f: np.ascontiguousarray(
+        t[f].reshape(tuple(shape) + (c,)),
+        bool if f in ("removed", "valid") else np.int32) for f in names}
+        for t in pair)
+
+
 def tp_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
                  num_elems: int, hazards: bool = True,
                  captured: bool = False) -> dict:

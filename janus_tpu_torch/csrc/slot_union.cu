@@ -35,43 +35,44 @@
 //
 // What bounds it on the H100: bytes. A row reads (Ca + Cb) slots and
 // writes cap slots per output replica (14 bytes an OR-Set slot, 22 an RGA
-// one, 21 an LWW-Set one, 6 a 2P one, 10 an edge). At the OR-Set converge of 64 replicas x 500
-// keys x 256 slots (114.7 MB of state) the halving tree reads about
-// 2 x 114.7 MB and writes 114.7 MB into its levels, then 114.7 MB into the
-// replicas, ~0.13 ms of traffic at 3.35 TB/s. At the RGA converge (rga
-// preset: R=1,024, K=128, C=1,024, 2.95 GB of state) it reads
-// ~2 x 2.95 GB and writes ~2.95 GB into its levels, then 2.95 GB into the
-// replicas, ~3.5 ms; level 1 joins 65,536 rows of 2,048 records. The
-// LWW-Set's Store converge at the same 64 x 500 x 256 holds 172 MB and
+// one, 21 an LWW-Set one, 6 a 2P one, 10 an edge). At the OR-Set converge
+// of 64 replicas x 500 keys x 256 slots (114.7 MB of state) the halving
+// tree reads about 2 x 114.7 MB and writes 114.7 MB into its levels, then
+// 114.7 MB into the replicas, ~0.13 ms of traffic at 3.35 TB/s. At the RGA
+// converge (rga preset: R=1,024, K=128, C=1,024, 2.95 GB of state) it
+// reads ~2 x 2.95 GB and writes ~2.95 GB into its levels, then 2.95 GB
+// into the replicas, ~3.5 ms; level 1 joins 65,536 rows of 2,048 records.
+// The LWW-Set's Store converge at the same 64 x 500 x 256 holds 172 MB and
 // moves ~4 x 172 MB, ~0.2 ms. The sort is (Ca + Cb) log^2 (Ca + Cb) / 4
-// compare-swaps per row in shared memory; the RGA's and the OR-Set's merge
-// is O(Ca + Cb) per row once its two rows are sorted, which every union
-// output is.
+// compare-swaps per row in shared memory; the merge is O(Ca + Cb) per row
+// once its two rows are sorted, which every union output is.
 //
 // Design: one block per row (grid-stride over rows). The records (keys,
 // position, valid and flag bits) and the payloads are staged in shared
 // memory (per record 16 bytes of sort record, 4 per payload field and 4 of
-// prefix sum: LWW-Set 36, 2P and edges 20), so every read of the inputs
-// happens before any write: the output may alias an input row (the
-// converge writes the last level into the replicas it read). The sort is
-// slot_sort::block_sort on (key0, key1, position), the stable order;
-// the kept flags are prefix-summed in shared memory to place each kept
-// record. The RGA's and the OR-Set's instantiations (the Join template
-// parameter, so the other layouts compile as before) merge instead of
-// sorting (merge_row): their rows come sorted by key (a union writes them
-// so, the compaction is a stable partition, an RGA apply mints ids above
-// every id of its row into the first free slot, an OR-Set apply and the
-// captured replay leave every row they touch in tag order), so each input
-// row is checked for a descent, sorted alone only if it has one, and the
-// two are merged along the merge path, 25 bytes of shared memory a record
-// for the RGA, 17 for the OR-Set. The RGA's 2,048-record rows take a block
-// of 256 threads; the OR-Set's 512-record rows take one warp each
-// (WarpRow), WARP_ROWS rows a block, synchronised by the warp alone, so an
-// SM holds ~24 rows in flight (one 256-thread block a row held ~8). With
-// `repeat` > 1 the row is written into each of `repeat` output replicas
-// (the converge's broadcast; the OR-Set's by a block of 256 threads a
-// row, one output slot a thread). Launches on the caller's stream,
-// allocates nothing, does not synchronise.
+// prefix sum: LWW-Set 36), so every read of the inputs happens before any
+// write: the output may alias an input row (the converge writes the last
+// level into the replicas it read). The sort is slot_sort::block_sort on
+// (key0, key1, position), the stable order; the kept flags are
+// prefix-summed in shared memory to place each kept record. Every layout
+// but the LWW-Set's (the Join template parameter, so that one compiles as
+// before) merges instead of sorting (merge_row): its rows come sorted by
+// key, or nearly (a union writes them sorted, the compaction is a stable
+// partition, an RGA apply mints ids above every id of its row into the
+// first free slot, an OR-Set apply and the captured replay leave every
+// row they touch in tag order; a 2P-Set or Graph apply inserts new keys at
+// the first free slot, after the sorted ones), so each input row is
+// checked for a descent, its tail after the first descent sorted alone and
+// merged into its prefix (order_row), and the two rows are merged along
+// the merge path, 25 bytes of shared memory a record for the RGA, 17 for
+// the OR-Set, 13 for edges, 9 for the 2P layout. The RGA's 2,048-record
+// rows take a block of 256 threads; the other layouts' rows take one warp
+// each (WarpRow), WARP_ROWS rows a block, synchronised by the warp alone,
+// so an SM holds ~24 OR-Set rows in flight (one 256-thread block a row
+// held ~8). With `repeat` > 1 the row is written into each of `repeat`
+// output replicas (the converge's broadcast; outside the RGA by a block of
+// 256 threads a row, one output slot a thread). Launches on the caller's
+// stream, allocates nothing, does not synchronise.
 //
 // Row-list mode (slot_union_rows_launch, rga_union_rows_launch,
 // lww_union_rows_launch, tp_union_rows_launch, edge_union_rows_launch):
@@ -132,29 +133,39 @@ __device__ __forceinline__ bool ts_after(int hi_a, int lo_a, int hi_b,
 }
 
 // shared memory per staged record: the sort's int4, the payloads and the
-// prefix sum; the merge's keys, payloads, two orders and flags
-template <int NP, bool MERGE>
+// prefix sum; the merge's NK keys, payloads, two orders and flags
+template <int NK, int NP, bool MERGE>
 __host__ __device__ constexpr size_t record_bytes() {
-  return MERGE ? 2 * sizeof(int) + NP * sizeof(int) + 2 * sizeof(short) + 1
+  return MERGE ? NK * sizeof(int) + NP * sizeof(int) + 2 * sizeof(short) + 1
                : sizeof(int4) + (NP + 1) * sizeof(int);
 }
 
+// the least of one int over the block's threads (every thread calls it)
+__device__ __forceinline__ int block_min(int v) {
+  __shared__ int part[32];
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int m = v;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = min(m, part[w]);
+  __syncthreads();
+  return m;
+}
+
 // The threads that join one row. BlockRow: the whole block, one row at a
-// time (every sort, the RGA's merge, the OR-Set's broadcast). WarpRow: one
+// time (every sort, the RGA's merge, a broadcast). WarpRow: one
 // warp, blockDim.x / 32 rows a block side by side, each in its own slice
 // of the dynamic shared memory and synchronised by its warp alone (the
-// OR-Set's merge when it writes one replica). BATCH: the slots a thread
-// loads before it stages them (WARP_BATCH: a warp stages a 512-slot row
-// in four steps of four loads a thread in flight).
+// warp merge when it writes one replica).
 struct BlockRow {
-  static constexpr int BATCH = 1;
+  static constexpr bool BLOCK = true;
   __device__ int rank() const { return threadIdx.x; }
   __device__ int size() const { return blockDim.x; }
   __device__ long long first() const { return blockIdx.x; }
   __device__ long long stride() const { return gridDim.x; }
   __device__ void sync() const { __syncthreads(); }
-  __device__ bool any(bool p) const { return __syncthreads_or(p); }
-  __device__ int exclusive_sum(int v, int* total) const {
+  __device__ int min_of(int v) const { return block_min(v); }
+  __device__ __forceinline__ int exclusive_sum(int v, int* total) const {
     return block_exclusive_sum(v, total);
   }
   template <typename T, typename Less>
@@ -165,11 +176,8 @@ struct BlockRow {
   __device__ size_t slice(size_t) const { return 0; }
 };
 
-// slots a thread of a WarpRow loads before it stores them
-constexpr int WARP_BATCH = 4;
-
 struct WarpRow {
-  static constexpr int BATCH = WARP_BATCH;
+  static constexpr bool BLOCK = false;
   __device__ int rank() const { return threadIdx.x & 31; }
   __device__ int size() const { return 32; }
   __device__ long long first() const {
@@ -179,8 +187,10 @@ struct WarpRow {
     return (long long)gridDim.x * (blockDim.x >> 5);
   }
   __device__ void sync() const { __syncwarp(); }
-  __device__ bool any(bool p) const { return __any_sync(0xffffffffu, p); }
-  __device__ int exclusive_sum(int v, int* total) const {
+  __device__ int min_of(int v) const {
+    return __reduce_min_sync(0xffffffffu, v);
+  }
+  __device__ __forceinline__ int exclusive_sum(int v, int* total) const {
     const int lane = threadIdx.x & 31;
     int inc = v;
 #pragma unroll
@@ -193,7 +203,7 @@ struct WarpRow {
   }
   // slot_sort::block_sort's network on the warp's 32 threads
   template <typename T, typename Less>
-  __device__ void sort(T* a, int n, Less less) const {
+  __device__ __forceinline__ void sort(T* a, int n, Less less) const {
     int p = 1;
     while (p < n) p <<= 1;
     for (int k = 2; k <= p; k <<= 1) {
@@ -328,109 +338,184 @@ __device__ int union_row(const Slots<NP>& a, long long a_at,
   return kept;
 }
 
-// the key pair (x, y) of one record before another's, as signed int32
-__device__ __forceinline__ bool key_less(int ax, int ay, int bx, int by) {
-  return ax < bx || (ax == bx && ay < by);
-}
-
-// (x, y, position) of two staged positions: an unsorted row's block sort
-struct LessAt {
+// The staged keys of a merge: NK int32 fields by position (ky unused when
+// NK == 1), compared as signed int32 in field order.
+template <int NK>
+struct Keys {
   const int* kx;
   const int* ky;
+  // the key at position p before the key at q (every field is loaded
+  // before any is compared, so the loads go out together)
+  __device__ bool lt(int p, int q) const {
+    const int xp = kx[p], xq = kx[q];
+    if constexpr (NK == 2) {
+      const int yp = ky[p], yq = ky[q];
+      return xp < xq || (xp == xq && yp < yq);
+    } else {
+      return xp < xq;
+    }
+  }
+  __device__ bool eq(int p, int q) const {
+    const int xp = kx[p], xq = kx[q];
+    if constexpr (NK == 2) {
+      const int yp = ky[p], yq = ky[q];
+      return xp == xq && yp == yq;
+    } else {
+      return xp == xq;
+    }
+  }
+  // the greatest key: SENTINEL in every field (an invalid slot's)
+  __device__ bool top(int p) const {
+    if constexpr (NK == 2) return kx[p] == SENT && ky[p] == SENT;
+    else return kx[p] == SENT;
+  }
+  // (key, position) of two staged positions: the stable order
   __device__ bool operator()(int i, int j) const {
-    if (kx[i] != kx[j]) return kx[i] < kx[j];
-    if (ky[i] != ky[j]) return ky[i] < ky[j];
+    if (lt(i, j)) return true;
+    if (lt(j, i)) return false;
     return i < j;
   }
 };
 
-// Stage row `at` of s (c slots) at positions [base, base + c): the keys
-// (SENTINEL when invalid), valid | flag << 1, the payloads, and the
-// identity as the row's order. A thread of a WarpRow loads G::BATCH slots,
-// then stores them; a block's threads stage one slot at a time, in the
-// loop the RGA's merge compiled with (its batched form cost that kernel
-// four registers and a spill).
+// Tails longer than this sort their whole row instead (order_row).
+constexpr int LONG_TAIL = 256;
+
+// The order of the staged row at positions [base, base + c) whose keys
+// first descend at d (d > 0): its positions by (key, position), written to
+// perm[base, base + c). The row is a sorted prefix [0, d) and a tail (the
+// 2P-Set's and the Graph's applies insert at the first free slot, so a
+// touched row holds its sorted records, then its new keys in apply order,
+// then invalid slots). The tail up to its last record whose key is not
+// the greatest, [d, e), is sorted alone and merged into the prefix, ties
+// to the prefix; [e, c) hold the greatest key at the highest positions
+// and stay last. Only the prefix from the first record above the tail's
+// least key moves. A tail of more than LONG_TAIL records sorts the whole
+// row. `tmp` ([base, base + c) free) takes the merged order before it is
+// copied back.
+template <int NK, class G>
+__device__ __forceinline__ void order_row(const G& grp, Keys<NK> key,
+                                          unsigned short* perm,
+                                          unsigned short* tmp, int base,
+                                          int c, int d) {
+  int last = d + 1;  // the record at d is below another: not the greatest
+  for (int i = d + 1 + grp.rank(); i < c; i += grp.size())
+    if (!key.top(base + i)) last = i + 1;
+  const int e = -grp.min_of(-last);
+  const int t = e - d;
+  // one call site of the sort, for the whole row or its tail
+  const bool whole = t > LONG_TAIL;
+  grp.sort(perm + base + (whole ? 0 : d), whole ? c : t, key);
+  grp.sync();
+  if (whole) return;
+  const unsigned short* tail = perm + base + d;
+  // s: the first prefix record above the tail's least key
+  const int least = tail[0];
+  int lo = 0, hi = d;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (key.lt(least, base + mid)) hi = mid;
+    else lo = mid + 1;
+  }
+  const int s = lo;
+  // a prefix record goes after the tail's records with a lower key
+  for (int p = s + grp.rank(); p < d; p += grp.size()) {
+    int l = 0, h = t;
+    while (l < h) {
+      const int mid = (l + h) >> 1;
+      if (key.lt(tail[mid], base + p)) l = mid + 1;
+      else h = mid;
+    }
+    tmp[base + p + l] = (unsigned short)(base + p);
+  }
+  // a tail record after the prefix's records with a key at most its own
+  for (int r = grp.rank(); r < t; r += grp.size()) {
+    const int q = tail[r];
+    int l = s, h = d;
+    while (l < h) {
+      const int mid = (l + h) >> 1;
+      if (key.lt(q, base + mid)) h = mid;
+      else l = mid + 1;
+    }
+    tmp[base + l + r] = (unsigned short)q;
+  }
+  grp.sync();
+  for (int i = base + s + grp.rank(); i < base + e; i += grp.size())
+    perm[i] = tmp[i];
+  grp.sync();
+}
+
+// Stage slot i of row `at` of s at position base + i: its NK keys
+// (SENTINEL when invalid), valid | flag << 1, its payloads, and the
+// position as the row's order.
+template <int NK, int NP, bool FLAG>
+__device__ __forceinline__ void stage_slot(const Slots<NP>& s, long long at,
+                                           int i, int base, int n, int* kx,
+                                           int* ky, int* pay,
+                                           unsigned short* perm,
+                                           unsigned char* fl) {
+  const long long g = at + i;
+  const bool v = s.valid[g];
+  const bool f = FLAG && s.flag[g];
+  const int k0 = s.key[0][g];
+  const int k1 = NK == 2 ? s.key[1][g] : 0;
+  const int k = base + i;
+  kx[k] = v ? k0 : SENT;
+  if constexpr (NK == 2) ky[k] = v ? k1 : SENT;
+  fl[k] = (unsigned char)((int)v | ((int)f << 1));
+  perm[k] = (unsigned short)k;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) pay[p * n + k] = s.pay[p][g];
+}
+
+// Stage row `at` of s (c slots) at positions [base, base + c), one slot a
+// thread at a time: a block's threads in the loop the RGA's merge compiled
+// with (its batched form cost that kernel four registers and a spill), a
+// warp's lanes 32 slots apart (four slots a lane in flight spilled every
+// warp kernel).
 template <int NK, int NP, bool FLAG, class G>
 __device__ __forceinline__ void stage_row(const G& grp, const Slots<NP>& s,
                                           long long at, int c, int base,
                                           int n, int* kx, int* ky, int* pay,
                                           unsigned short* perm,
                                           unsigned char* fl) {
-  if constexpr (G::BATCH == 1) {
-    for (int i = threadIdx.x; i < c; i += blockDim.x) {
-      const long long g = at + i;
-      const bool v = s.valid[g];
-      const bool f = FLAG && s.flag[g];
-      const int k0 = s.key[0][g];
-      const int k1 = NK == 2 ? s.key[1][g] : 0;
-      const int k = base + i;
-      kx[k] = v ? k0 : SENT;
-      ky[k] = NK == 2 ? (v ? k1 : SENT) : 0;
-      fl[k] = (unsigned char)((int)v | ((int)f << 1));
-      perm[k] = (unsigned short)k;
-#pragma unroll
-      for (int p = 0; p < NP; ++p) pay[p * n + k] = s.pay[p][g];
-    }
+  if constexpr (G::BLOCK) {
+    for (int i = threadIdx.x; i < c; i += blockDim.x)
+      stage_slot<NK, NP, FLAG>(s, at, i, base, n, kx, ky, pay, perm, fl);
   } else {
-    constexpr int U = G::BATCH;
-    for (int i0 = grp.rank(); i0 < c; i0 += U * grp.size()) {
-      bool v[U], f[U];
-      int k0[U], k1[U], pv[U][PAY_SLOTS<NP>];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * grp.size();
-        if (i < c) {
-          const long long g = at + i;
-          v[u] = s.valid[g];
-          f[u] = FLAG && s.flag[g];
-          k0[u] = s.key[0][g];
-          k1[u] = NK == 2 ? s.key[1][g] : 0;
-#pragma unroll
-          for (int p = 0; p < NP; ++p) pv[u][p] = s.pay[p][g];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * grp.size();
-        if (i < c) {
-          const int k = base + i;
-          kx[k] = v[u] ? k0[u] : SENT;
-          ky[k] = NK == 2 ? (v[u] ? k1[u] : SENT) : 0;
-          fl[k] = (unsigned char)((int)v[u] | ((int)f[u] << 1));
-          perm[k] = (unsigned short)k;
-#pragma unroll
-          for (int p = 0; p < NP; ++p) pay[p * n + k] = pv[u][p];
-        }
-      }
-    }
+    for (int i = grp.rank(); i < c; i += 32)
+      stage_slot<NK, NP, FLAG>(s, at, i, base, n, kx, ky, pay, perm, fl);
   }
 }
 
 // The same union as union_row, by a merge of two sorted rows instead of a
-// sort of their concatenation. The order on (x, y, position) is a's
-// records in their order on (x, y, position) merged with b's, ties to a;
+// sort of their concatenation. The order on (key, position) is a's
+// records in their order on (key, position) merged with b's, ties to a;
 // each row is already in that order when its keys do not descend, and a
-// row whose keys do descend is block-sorted alone first. Each thread then
+// row whose keys do descend is put in order alone first (order_row: its
+// tail sorted and merged into its sorted prefix). Each thread then
 // takes a run of `per` merged positions, finds where it starts in a and b
 // by a binary search on its diagonal (the merge path) and merges the run
 // sequentially. A merged record is kept when it is valid and does not
 // repeat the valid key before it; the kept records' slots come from a
 // prefix sum of the runs' counts, and the writes go out by slot. Shared
-// memory per record: keys 8 bytes, 4 per payload, the row's order and the
-// merged order 2 each, flags 1 (25 for the RGA, 17 for the OR-Set). `grp`
-// is the block (BlockRow) or, for the OR-Set, one warp (WarpRow).
+// memory per record: keys 4 bytes a field, 4 per payload, the row's order
+// and the merged order 2 each, flags 1 (25 for the RGA, 17 for the
+// OR-Set, 13 for edges, 9 for the 2P layout). `grp` is the block
+// (BlockRow) or one warp (WarpRow).
 template <int NK, int NP, bool FLAG, int FOLD, class G>
-__device__ int merge_row(const G& grp, const Slots<NP>& a, long long a_at,
-                         const Slots<NP>& b, long long b_at,
-                         const OutSlots<NP>& out, long long out_at,
-                         long long out_plane, int repeat, int ca, int cb,
-                         int cap) {
+__device__ __forceinline__ int merge_row(const G& grp, const Slots<NP>& a,
+                                         long long a_at, const Slots<NP>& b,
+                                         long long b_at,
+                                         const OutSlots<NP>& out,
+                                         long long out_at,
+                                         long long out_plane, int repeat,
+                                         int ca, int cb, int cap) {
   extern __shared__ int4 smem[];
   const int n = ca + cb;
-  const size_t row_bytes = round16((size_t)n * record_bytes<NP, true>());
-  int* kx = (int*)(smem + grp.slice(row_bytes));       // [n] by position
-  int* ky = kx + n;                                    // [n]
-  int* pay = ky + n;                                   // [NP][n]
+  const size_t row_bytes = round16((size_t)n * record_bytes<NK, NP, true>());
+  int* kx = (int*)(smem + grp.slice(row_bytes));       // [NK][n] by position
+  int* ky = kx + (NK - 1) * n;                         // kx when NK == 1
+  int* pay = kx + NK * n;                              // [NP][n]
   unsigned short* perm = (unsigned short*)(pay + NP * n);  // [n] see below
   unsigned short* ord = perm + n;                      // [n] merged order
   unsigned char* fl = (unsigned char*)(ord + n);       // [n] valid|flag|kept
@@ -439,21 +524,24 @@ __device__ int merge_row(const G& grp, const Slots<NP>& a, long long a_at,
   stage_row<NK, NP, FLAG>(grp, b, b_at, cb, ca, n, kx, ky, pay, perm, fl);
   grp.sync();
 
-  // perm: each row's positions in its own order (the identity unless the
-  // row's keys descend somewhere)
-  bool down_a = false, down_b = false;
+  // each row's first descent (its width when its keys never descend)
+  const Keys<NK> key{kx, ky};
+  int first_a = ca, first_b = cb;
   for (int i = grp.rank() + 1; i < n; i += grp.size()) {
     if (i == ca) continue;  // the seam between the rows
-    if (key_less(kx[i], ky[i], kx[i - 1], ky[i - 1])) {
-      if (i < ca) down_a = true;
-      else down_b = true;
+    if (key.lt(i, i - 1)) {
+      if (i < ca) first_a = min(first_a, i);
+      else first_b = min(first_b, i - ca);
     }
   }
-  const LessAt less{kx, ky};
-  const bool sort_a = grp.any(down_a);
-  const bool sort_b = grp.any(down_b);
-  if (sort_a) grp.sort(perm, ca, less);
-  if (sort_b) grp.sort(perm + ca, cb, less);
+  const int da = grp.min_of(first_a), db = grp.min_of(first_b);
+  const bool sort_a = da < ca, sort_b = db < cb;
+  // perm: each row's positions in its own order (the identity unless the
+  // row's keys descend somewhere); ord is free until the merge below
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r)  // a loop, so the rows share one sort
+    if (r ? sort_b : sort_a)
+      order_row(grp, key, perm, ord, r ? ca : 0, r ? cb : ca, r ? db : da);
   // the position of a's i-th and b's j-th record in their rows' order
   // (a sorted row reads its positions directly)
   const auto at_a = [&](int i) { return sort_a ? (int)perm[i] : i; };
@@ -469,7 +557,7 @@ __device__ int merge_row(const G& grp, const Slots<NP>& a, long long a_at,
     while (lo < hi) {  // a's count among the first d0 merged
       const int mid = (lo + hi) >> 1;
       const int pa = at_a(mid), pb = at_b(d0 - 1 - mid);
-      if (key_less(kx[pb], ky[pb], kx[pa], ky[pa])) hi = mid;
+      if (key.lt(pb, pa)) hi = mid;
       else lo = mid + 1;
     }
     int i = lo, j = d0 - lo;
@@ -477,7 +565,7 @@ __device__ int merge_row(const G& grp, const Slots<NP>& a, long long a_at,
       bool take_a = j >= cb;
       if (i < ca && j < cb) {
         const int pa = at_a(i), pb = at_b(j);
-        take_a = !key_less(kx[pb], ky[pb], kx[pa], ky[pa]);
+        take_a = !key.lt(pb, pa);
       }
       ord[d] = (unsigned short)(take_a ? at_a(i++) : at_b(j++));
     }
@@ -491,7 +579,7 @@ __device__ int merge_row(const G& grp, const Slots<NP>& a, long long a_at,
     bool keep = fl[o] & 1;
     if (keep && d > 0) {
       const int q = ord[d - 1];
-      keep = !((fl[q] & 1) && kx[q] == kx[o] && ky[q] == ky[o]);
+      keep = !((fl[q] & 1) && key.eq(q, o));
     }
     if (keep) {
       fl[o] |= 4;
@@ -537,7 +625,7 @@ __device__ int merge_row(const G& grp, const Slots<NP>& a, long long a_at,
     for (int p = 0; p < repeat; ++p) {
       const long long at = p * out_plane + out_at + s;
       out.key[0][at] = kx[o];
-      if (NK == 2) out.key[1][at] = ky[o];
+      if constexpr (NK == 2) out.key[1][at] = ky[o];
 #pragma unroll
       for (int q = 0; q < NP; ++q) out.pay[q][at] = v[q];
       if (FLAG) out.flag[at] = f;
@@ -598,6 +686,24 @@ __device__ __forceinline__ void union_all(const G& grp, const Slots<NP>& a,
 // with it (pairs == 1) to out[p, rows[j]] for every p < repeat, the
 // replicas of the state.
 template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
+__device__ __forceinline__ void join_listed(
+    const G& grp, const Slots<NP>& a, const Slots<NP>& b,
+    const OutSlots<NP>& out, const int* __restrict__ rows, int num_keys,
+    int c, int gather, int scatter, int repeat, int j, long long r) {
+  const int k = rows[j];
+  if (k < 0 || k >= num_keys) return;  // uniform across the group
+  const long long in_at = (r * num_keys + (gather ? k : j)) * c;
+  const long long out_at = scatter ? (long long)k * c
+                                   : (r * num_keys + j) * c;
+  join_row<NK, NP, FLAG, FOLD, MERGE>(grp, a, in_at, b, in_at, out, out_at,
+                                      (long long)num_keys * c,
+                                      scatter ? repeat : 1, c, c, c);
+}
+
+// The merge's virtual rows are counted in 32 bits (listed * pairs < 2^30,
+// launch_rows): a 64-bit division is a routine whose call costs the merge
+// kernels a stack frame. The sort keeps the loop it was timed with.
+template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
 __device__ __forceinline__ void union_listed(
     const G& grp, const Slots<NP>& a, const Slots<NP>& b,
     const OutSlots<NP>& out, const int* __restrict__ rows, int listed,
@@ -605,18 +711,18 @@ __device__ __forceinline__ void union_listed(
     int gather, int scatter, int repeat) {
   int m = *n_rows;
   m = m < 0 ? 0 : (m > listed ? listed : m);
-  const long long total = (long long)m * pairs;
-  const long long plane = (long long)num_keys * c;
-  for (long long v = grp.first(); v < total; v += grp.stride()) {
-    const int j = (int)(v / pairs);
-    const long long r = v % pairs;
-    const int k = rows[j];
-    if (k < 0 || k >= num_keys) continue;  // uniform across the group
-    const long long in_at = (r * num_keys + (gather ? k : j)) * c;
-    const long long out_at = scatter ? (long long)k * c
-                                     : (r * num_keys + j) * c;
-    join_row<NK, NP, FLAG, FOLD, MERGE>(grp, a, in_at, b, in_at, out, out_at,
-                                        plane, scatter ? repeat : 1, c, c, c);
+  if constexpr (MERGE) {
+    const int total = m * pairs;
+    for (int v = (int)grp.first(); v < total; v += (int)grp.stride())
+      join_listed<NK, NP, FLAG, FOLD, MERGE>(grp, a, b, out, rows, num_keys,
+                                             c, gather, scatter, repeat,
+                                             v / pairs, v % pairs);
+  } else {
+    const long long total = (long long)m * pairs;
+    for (long long v = grp.first(); v < total; v += grp.stride())
+      join_listed<NK, NP, FLAG, FOLD, MERGE>(grp, a, b, out, rows, num_keys,
+                                             c, gather, scatter, repeat,
+                                             (int)(v / pairs), v % pairs);
   }
 }
 
@@ -641,16 +747,17 @@ __global__ void slot_union_rows_kernel(Slots<NP> a, Slots<NP> b,
                                           scatter, repeat);
 }
 
-// The merge's block kernels, the same but for the join, are kept to 64
+// The merge's block kernels, the same but for the join, are bounded by the
+// threads a block launches with, THREADS. The RGA's are kept to 64
 // registers a thread (at most 1,024 threads a block), so that four blocks
 // of 256 threads fit an SM, as shared memory allows at 1,024-slot rows; an
 // RGA broadcast (repeat > 1) runs MERGE_BROADCAST_THREADS a block, its one
 // block a row spreading the writes of every output replica over more
-// warps (an OR-Set broadcast runs 256, one thread an output slot).
+// warps. The warp merge's broadcast runs 256, one thread an output slot.
 constexpr int MERGE_BROADCAST_THREADS = 1024;
 
-template <int NK, int NP, bool FLAG, int FOLD>
-__global__ void __launch_bounds__(1024)
+template <int NK, int NP, bool FLAG, int FOLD, int THREADS>
+__global__ void __launch_bounds__(THREADS)
     merge_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
                        int* __restrict__ overflow, long long rows, int ca,
                        int cb, int cap, int repeat) {
@@ -658,8 +765,8 @@ __global__ void __launch_bounds__(1024)
                                       ca, cb, cap, repeat);
 }
 
-template <int NK, int NP, bool FLAG, int FOLD>
-__global__ void __launch_bounds__(1024)
+template <int NK, int NP, bool FLAG, int FOLD, int THREADS>
+__global__ void __launch_bounds__(THREADS)
     merge_union_rows_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
                             const int* __restrict__ rows, int listed,
                             const int* __restrict__ n_rows, int pairs,
@@ -722,10 +829,11 @@ OutSlots<NP> out_slots(void* const* f) {
 }
 
 // How a layout joins two rows: a block sort of their concatenation (SORT:
-// the LWW-Set, 2P and edge layouts), the block merge of the two sorted rows
-// (MERGE: the RGA's 2,048-record rows), or the merge by one warp a row
-// (WARP_MERGE: the OR-Set's 512-record rows, 16 a thread; its broadcast
-// runs the block merge at 256 threads a row).
+// the LWW-Set), the block merge of the two sorted rows (MERGE: the RGA's
+// 2,048-record rows), or the merge by one warp a row (WARP_MERGE: the
+// OR-Set's 512-record rows, 16 a thread, and the 2P and edge layouts' rows
+// of 64 or 512 records; a broadcast runs the block merge at 256 threads a
+// row).
 enum Join { SORT = 0, MERGE = 1, WARP_MERGE = 2 };
 
 constexpr size_t MAX_SHARED = 232448;  // a block's most, opted in
@@ -739,10 +847,10 @@ inline int warp_rows(size_t row_bytes) {
 
 // A launch of a warp merge kernel over `rows` rows of n records each: as
 // many rows a block as fit (warp_rows), at most `most_blocks` blocks.
-template <int NP, typename Kernel, typename... Args>
+template <int NK, int NP, typename Kernel, typename... Args>
 int launch_warps(Kernel kernel, int n, long long rows, long long most_blocks,
                  cudaStream_t stream, Args... args) {
-  const size_t row = round16((size_t)n * record_bytes<NP, true>());
+  const size_t row = round16((size_t)n * record_bytes<NK, NP, true>());
   const int per = warp_rows(row);
   if (per == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_shared(kernel, per * row);
@@ -762,15 +870,17 @@ int launch(const void* const* a, const void* const* b, void* const* o,
                  int, int, int);
   if constexpr (JOIN == WARP_MERGE) {
     if (repeat == 1)
-      return launch_warps<NP>(
+      return launch_warps<NK, NP>(
           warp_union_kernel<NK, NP, FLAG, FOLD>, ca + cb, rows, 132LL * 64,
           stream, in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
           out_slots<NK, NP, FLAG>(o), (int*)overflow, rows, ca, cb, cap,
           repeat);
   }
   constexpr bool MERGED = JOIN != SORT;
-  const size_t bytes = (size_t)(ca + cb) * record_bytes<NP, MERGED>() + 16;
-  if constexpr (MERGED) kernel = merge_union_kernel<NK, NP, FLAG, FOLD>;
+  const size_t bytes =
+      (size_t)(ca + cb) * record_bytes<NK, NP, MERGED>() + 16;
+  constexpr int MOST = JOIN == MERGE ? MERGE_BROADCAST_THREADS : 256;
+  if constexpr (MERGED) kernel = merge_union_kernel<NK, NP, FLAG, FOLD, MOST>;
   else kernel = slot_union_kernel<NK, NP, FLAG, FOLD>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -795,17 +905,20 @@ int launch_rows(const void* const* a, const void* const* b, void* const* o,
                  const int*, int, int, int, int, int, int);
   // one wave of 8 blocks per SM; blocks past the rows to join exit at once
   const long long most = (long long)listed * pairs;
+  if (most >= (1LL << 30)) return (int)cudaErrorInvalidValue;
   if constexpr (JOIN == WARP_MERGE) {
     if (!(scatter && repeat > 1))
-      return launch_warps<NP>(
+      return launch_warps<NK, NP>(
           warp_union_rows_kernel<NK, NP, FLAG, FOLD>, 2 * c, most, 132LL * 8,
           stream, in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
           out_slots<NK, NP, FLAG>(o), (const int*)rows, listed,
           (const int*)n_rows, pairs, num_keys, c, gather, scatter, repeat);
   }
   constexpr bool MERGED = JOIN != SORT;
-  const size_t bytes = (size_t)(2 * c) * record_bytes<NP, MERGED>() + 16;
-  if constexpr (MERGED) kernel = merge_union_rows_kernel<NK, NP, FLAG, FOLD>;
+  const size_t bytes = (size_t)(2 * c) * record_bytes<NK, NP, MERGED>() + 16;
+  constexpr int MOST = JOIN == MERGE ? MERGE_BROADCAST_THREADS : 256;
+  if constexpr (MERGED)
+    kernel = merge_union_rows_kernel<NK, NP, FLAG, FOLD, MOST>;
   else kernel = slot_union_rows_kernel<NK, NP, FLAG, FOLD>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -860,23 +973,26 @@ extern "C" int tp_union_launch(const void* const* a, const void* const* b,
                                void* const* o, void* overflow,
                                long long rows, int ca, int cb, int cap,
                                int repeat, void* stream) {
-  return launch<1, 0, true, FOLD_KEEP>(a, b, o, overflow, rows, ca, cb, cap,
-                                       repeat, (cudaStream_t)stream);
+  return launch<1, 0, true, FOLD_KEEP, WARP_MERGE>(a, b, o, overflow, rows,
+                                                   ca, cb, cap, repeat,
+                                                   (cudaStream_t)stream);
 }
 
 extern "C" int edge_union_launch(const void* const* a, const void* const* b,
                                  void* const* o, void* overflow,
                                  long long rows, int ca, int cb, int cap,
                                  int repeat, void* stream) {
-  return launch<2, 0, true, FOLD_KEEP>(a, b, o, overflow, rows, ca, cb, cap,
-                                       repeat, (cudaStream_t)stream);
+  return launch<2, 0, true, FOLD_KEEP, WARP_MERGE>(a, b, o, overflow, rows,
+                                                   ca, cb, cap, repeat,
+                                                   (cudaStream_t)stream);
 }
 
 // Row-list mode. a, b: [pairs, num_keys, c]; o: [pairs, num_keys, c], or
 // with `scatter` [repeat, num_keys, c] (pairs == 1); rows: int32[listed]
-// distinct keys in [0, num_keys) (others are skipped); n_rows: int32[] on
-// the device. Contiguous on one device; with `gather` and `scatter` the
-// outputs alias the inputs row for row. Returns the launch's CUDA error.
+// distinct keys in [0, num_keys) (others are skipped), listed * pairs <
+// 2^30; n_rows: int32[] on the device. Contiguous on one device; with
+// `gather` and `scatter` the outputs alias the inputs row for row. Returns
+// the launch's CUDA error.
 extern "C" int slot_union_rows_launch(const void* const* a,
                                       const void* const* b, void* const* o,
                                       const void* rows, int listed,
@@ -918,10 +1034,9 @@ extern "C" int tp_union_rows_launch(const void* const* a,
                                     const void* n_rows, int pairs,
                                     int num_keys, int c, int gather,
                                     int scatter, int repeat, void* stream) {
-  return launch_rows<1, 0, true, FOLD_KEEP>(a, b, o, rows, listed, n_rows,
-                                            pairs, num_keys, c, gather,
-                                            scatter, repeat,
-                                            (cudaStream_t)stream);
+  return launch_rows<1, 0, true, FOLD_KEEP, WARP_MERGE>(
+      a, b, o, rows, listed, n_rows, pairs, num_keys, c, gather, scatter,
+      repeat, (cudaStream_t)stream);
 }
 
 extern "C" int edge_union_rows_launch(const void* const* a,
@@ -930,8 +1045,7 @@ extern "C" int edge_union_rows_launch(const void* const* a,
                                       const void* n_rows, int pairs,
                                       int num_keys, int c, int gather,
                                       int scatter, int repeat, void* stream) {
-  return launch_rows<2, 0, true, FOLD_KEEP>(a, b, o, rows, listed, n_rows,
-                                            pairs, num_keys, c, gather,
-                                            scatter, repeat,
-                                            (cudaStream_t)stream);
+  return launch_rows<2, 0, true, FOLD_KEEP, WARP_MERGE>(
+      a, b, o, rows, listed, n_rows, pairs, num_keys, c, gather, scatter,
+      repeat, (cudaStream_t)stream);
 }

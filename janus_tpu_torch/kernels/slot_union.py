@@ -67,9 +67,9 @@ ORSET = Layout(orset_rows.FIELDS, orset_rows.DTYPES,
 LWW = Layout(lww_rows.FIELDS, lww_rows.DTYPES, lww_rows.fold_duplicate, 4,
              "lww_union_launch", "lww_union_rows_launch", keys=1)
 TP = Layout(tp_rows.TP_FIELDS, tp_rows.DTYPES, tp_rows.fold_duplicate, 0,
-            "tp_union_launch", "tp_union_rows_launch", keys=1)
+            "tp_union_launch", "tp_union_rows_launch", keys=1, merge=True)
 EDGE = Layout(tp_rows.EDGE_FIELDS, tp_rows.DTYPES, tp_rows.fold_duplicate, 0,
-              "edge_union_launch", "edge_union_rows_launch")
+              "edge_union_launch", "edge_union_rows_launch", merge=True)
 
 
 def union_plain(layout: Layout, a, b, capacity: int | None = None, out=None):
@@ -121,15 +121,16 @@ def _ptrs(layout: Layout, slots):
 def shared_bytes(ca: int, cb: int, layout: Layout = ORSET) -> int:
     """Shared memory of one block joining one row (csrc/slot_union.cu):
     per input record a 16-byte sort record, 4 bytes per int32 payload
-    field and 4 of prefix sum (36 for the LWW-Set, 20 for the 2P layouts),
-    or for a merge layout 8 bytes of keys, 4 per payload field, 2 + 2 of
-    orders and 1 of flags (25 for the RGA, 17 for the OR-Set), and the
-    prefix sum's 4 KB. The most rows a block holds follow: Ca + Cb <=
-    11,410 records for the 2P layouts (a full join of rows up to 5,705
-    slots), 13,423 for the OR-Set (6,711 slots), 9,128 for the RGA. (The
-    OR-Set's warp merge puts up to eight rows in a block, as many as fit.)"""
+    field and 4 of prefix sum (36 for the LWW-Set), or for a merge layout
+    4 bytes per key field, 4 per payload field, 2 + 2 of orders and 1 of
+    flags (25 for the RGA, 17 for the OR-Set, 13 for edges, 9 for the TP
+    layout), and the prefix sum's 4 KB. The most rows a block holds
+    follow: Ca + Cb <= 25,355 records for the TP layout (a full join of
+    rows up to 12,677 slots), 17,553 for edges (8,776 slots), 13,423 for
+    the OR-Set (6,711 slots), 9,128 for the RGA. (The warp merge puts up
+    to ``WARP_ROWS`` rows in a block, as many as fit.)"""
     if layout.merge:
-        per = 13 + 4 * layout.payloads
+        per = 4 * layout.keys + 5 + 4 * layout.payloads
     else:
         per = 16 + 4 * (layout.payloads + 1)
     return per * (ca + cb) + 16 + operands.SCAN_SHARED_BYTES
@@ -218,6 +219,9 @@ def union_rows(layout: Layout, wrapper, a, b, out, rows, n_rows,
         return union_rows_plain(layout, a, b, out, rows, n_rows, gather,
                                 scatter)
     operands.check_shared(name, shared_bytes(C, C, layout))
+    if L * P >= 1 << 30:
+        raise ValueError(f"{name}: {L} listed rows x {P} pairs, the kernel "
+                         f"takes fewer than 2^30")
     repeat = out_lead[0]
     if P * K * C * L * repeat == 0:
         return out

@@ -9,12 +9,16 @@ asks for, ``MIN_BLOCKS``) on the rga preset's compaction at tick 3
 (64 views, 500 keys under Zipf-0.99, V = 8, W = 64: 64 origins' blocks of
 64 writes, each captured at its origin, in a batch of 16,384 lanes a
 view), and ``slot_union`` (csrc/slot_union.cu: the rows a block of the
-OR-Set's warp merge holds, ``WARP_ROWS``, and the slots a thread of it
-loads before it stages them, ``WARP_BATCH``) on level 1 of the OR-Set
+OR-Set's warp merge holds, ``WARP_ROWS``) on level 1 of the OR-Set
 store's converge (32 x 500 rows of 256 + 256 slots, path B's first tick)
 and on level 1 of a delta tick's row-list tree (``slot_union_rows``, the
-two-type store at mixed_delta's geometry). Each variant is a copy of the
-source with one ``constexpr int`` set to another value, built by
+two-type store at mixed_delta's geometry); and the 2P layouts of the same
+source (the longest tail a row sorts alone before it is merged into its
+prefix, ``LONG_TAIL``, and ``WARP_ROWS`` again) on level 1 of each tree
+of ``chip_smoke.py``'s ``tp_store`` phase (``tp_union`` on the 2P-Set's
+256-slot rows and on the Graph's 32-slot vertex rows, ``edge_union``, and
+their row-list modes) at its first two ticks. Each variant is a copy of
+the source with one ``constexpr int`` set to another value, built by
 ``nvcc`` into ``janus_tpu_torch/build/ab/`` with the package's flags,
 put in the loader's place for the time of its turn, and held bit-equal to
 the plain version on a slice of the inputs; the variants are then timed
@@ -26,8 +30,8 @@ and the card's name and power limit:
     python scripts/kernel_ab.py [--parent DIR]
 
 With ``--parent``, ``DIR/janus_tpu_torch/csrc/slot_union.cu`` (an earlier
-checkout, e.g. unpacked by ``git archive``) joins the slot_union turns as
-one more variant, ``parent``.
+checkout, e.g. unpacked by ``git archive``) joins the slot_union turns and
+the 2P turns as one more variant, ``parent``.
 """
 from __future__ import annotations
 
@@ -52,8 +56,9 @@ REPS = 20
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock
 COMPACT_VARIANTS = {f"min{b}": {"MIN_BLOCKS": b} for b in (6, 8, 4)}
 WALK_VARIANTS = {f"ring{r}": {"RING": r} for r in (8, 16)}
-UNION_VARIANTS = {**{f"rows{r}": {"WARP_ROWS": r} for r in (2, 4, 8, 16)},
-                  **{f"batch{u}": {"WARP_BATCH": u} for u in (2, 8, 16)}}
+UNION_VARIANTS = {f"rows{r}": {"WARP_ROWS": r} for r in (2, 4, 8, 16)}
+TP_VARIANTS = {**{f"tail{t}": {"LONG_TAIL": t} for t in (256, 64, 16, 0)},
+               **{f"rows{r}": {"WARP_ROWS": r} for r in (4, 8)}}
 
 
 def build_variant(name, constants, tag) -> ctypes.CDLL:
@@ -233,6 +238,45 @@ def union_inputs(dev):
     return calls["slot_union"], calls["slot_union_rows"]
 
 
+def tp_union_inputs(dev):
+    """(wrapper name, args, kwargs) of the level-1 calls of the 2P unions in
+    ``chip_smoke.py``'s ``tp_store`` phase (its streams and both arms) at
+    ticks 0 and 1: the 2P-Set's tree and the Graph's vertex and edge trees,
+    full and row-list, labelled ``<tree>_t<tick>`` and
+    ``<tree>_rows_t<tick>``."""
+    import chip_smoke
+
+    calls, tick = {}, [0]
+    names = ("tp_union", "tp_union_rows", "edge_union", "edge_union_rows")
+    real = {n: getattr(kernels, n) for n in names}
+
+    def spy(name):
+        def call(*args, **kw):
+            tree = chip_smoke.tp_level1(name, args, kw)
+            if tree is not None:
+                rows = "_rows" if name.endswith("_rows") else ""
+                calls.setdefault(f"{tree}{rows}_t{tick[0]}",
+                                 (name, clone((args, kw))))
+            return real[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(kernels, name, spy(name))
+    try:
+        arms = chip_smoke.tp_store_arms(dev)
+        for t, host in enumerate(chip_smoke.tp_store_stream(workloads, 2)):
+            tick[0] = t
+            batch = {tc: workloads.ops_to_device(o, dev)
+                     for tc, o in host.items()}
+            for st, use_delta in arms.values():
+                st.fused_tick(batch, delta=use_delta)
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name, fn)
+    torch.cuda.synchronize()
+    return dict(sorted(calls.items()))
+
+
 def run_ab(name, variants, calls, check, parent=None):
     """Build each variant (and, given ``parent``, that source as one more,
     ``parent``), check it, then time every call of ``calls`` (a dict of
@@ -310,6 +354,29 @@ def main() -> int:
         {"level1": lambda: kernels.slot_union(*ua, **ukw),
          "rows_level1": lambda: kernels.slot_union_rows(*ra, **rkw)},
         check_union, parent)}), flush=True)
+    del ua, ra, part
+    torch.cuda.empty_cache()
+
+    tp_calls = tp_union_inputs(dev)
+
+    def check_tp():
+        ok = True
+        for name, (args, kw) in tp_calls.values():
+            if name.endswith("_rows"):
+                continue  # the full mode's rows; the rows mode shares them
+            a, b = ({f: x[:2, :40].clone() for f, x in t.items()}
+                    for t in args[:2])
+            fn = getattr(kernels, name)
+            ok &= same(fn(a, b, args[2]),
+                       getattr(kernels, name + "_plain")(a, b, args[2]))
+        return ok
+
+    print(json.dumps({"kernel": "tp_union/edge_union", "nvidia_smi": smi,
+                      **run_ab("slot_union", TP_VARIANTS, {
+                          label: (lambda n=name, a=args, k=kw:
+                                  getattr(kernels, n)(*a, **k))
+                          for label, (name, (args, kw)) in tp_calls.items()},
+                          check_tp, parent)}), flush=True)
     print(smi, flush=True)
     return 0
 

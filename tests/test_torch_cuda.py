@@ -2139,3 +2139,125 @@ def test_tp_safekv_on_card_matches_cpu(cuda_device, kind):
                       for kv in kvs.values()]
             assert torch.equal(*counts), t
     assert kvs[cuda_device].stats == kvs[torch.device("cpu")].stats
+
+
+def _tp_union_merge_case(dev, edges, case, c):
+    """The warp merge of the TP or EDGE layout (slot_union.cu, a row's
+    appended tail sorted and merged into its prefix) on one edge case of
+    ``workloads.tp_union_case`` at C = c: fresh outputs at a capacity
+    below, at and above one row's, ``out`` of two planes (the broadcast's
+    block merge), ``out`` aliasing ``a``, and rows of unequal widths."""
+    fn, plain = ((kernels.edge_union, kernels.edge_union_plain) if edges
+                 else (kernels.tp_union, kernels.tp_union_plain))
+    rng = np.random.default_rng(len(case) + c + edges)
+    a, b = (_on(x, dev) for x in
+            workloads.tp_union_case(rng, case, (48,), c, edges=edges))
+    before = fn.launches
+    for cap in (c // 2 + 3, c, 3 * c):
+        got, ovf = fn(a, b, cap)
+        ref, ref_ovf = plain(a, b, cap)
+        _assert_outputs_equal(got, ref)
+        _assert_outputs_equal(ovf, ref_ovf)
+    ref, ref_ovf = plain(a, b, c)
+    out = {f: torch.full((2, 48, c), 7, dtype=x.dtype, device=dev)
+           for f, x in a.items()}
+    _, ovf = fn(a, b, c, out=out)
+    for f in ref:
+        assert torch.equal(out[f], ref[f].expand_as(out[f])), f
+    _assert_outputs_equal(ovf, ref_ovf)
+    alias = _clone(a)
+    fn(alias, b, c, out={f: x.unsqueeze(0) for f, x in alias.items()})
+    _assert_outputs_equal(alias, ref)
+    narrow = {f: x[:, : c // 3 + 1].contiguous() for f, x in b.items()}
+    got, ovf = fn(a, narrow, c + 20)
+    ref, ref_ovf = plain(a, narrow, c + 20)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 6
+    _assert_outputs_equal(got, ref)
+    _assert_outputs_equal(ovf, ref_ovf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 256])
+@pytest.mark.parametrize("case", workloads.TP_UNION_CASES)
+def test_tp_union_merge_matches_plain(cuda_device, case, c):
+    """``tp_union``'s warp merge on every 2P edge case at the Graph's
+    vertex rows (C = 32) and the 2P-Set's store rows (C = 256)."""
+    _tp_union_merge_case(cuda_device, False, case, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 256])
+@pytest.mark.parametrize("case", workloads.TP_UNION_CASES)
+def test_edge_union_merge_matches_plain(cuda_device, case, c):
+    """``edge_union``'s warp merge on every 2P edge case at C = 32 and the
+    Graph's store edge rows (C = 256)."""
+    _tp_union_merge_case(cuda_device, True, case, c)
+
+
+def _tp_union_rows_merge_case(dev, edges, case, r):
+    """The row-list mode of the TP or EDGE warp merge on one edge case at
+    C = 256, K = 16 key rows of r replicas, with 0, 1 and K rows listed:
+    the converge's row-list tree through the kernel against the same tree
+    of plain versions (r = 2: one level that writes the rows it read;
+    r = 3 and 5: scratch levels, then the broadcast into every replica)."""
+    from janus_tpu_torch.kernels.replica_tree import join_tree_rows
+    from janus_tpu_torch.kernels.slot_union import EDGE, TP
+
+    layout = EDGE if edges else TP
+    name = "edge_union_rows" if edges else "tp_union_rows"
+    rng = np.random.default_rng(len(case) + r + edges)
+    k, c = 16, 256
+    draws = [workloads.tp_union_case(rng, case, (k,), c, edges=edges)
+             for _ in range((r + 1) // 2)]
+    rows_of = [x for pair in draws for x in pair][:r]
+    st = _on({f: np.stack([x[f] for x in rows_of]) for f in layout.fields},
+             dev)
+    rows = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(dev)
+    for n_rows in (0, 1, k):
+        n = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+        mine, ref = _clone(st), _clone(st)
+        fn = getattr(kernels, name)
+        before = fn.launches
+        join_tree_rows(layout.fields, fn, mine, rows, n)
+        join_tree_rows(layout.fields, getattr(kernels, name + "_plain"), ref,
+                       rows, n)
+        torch.cuda.synchronize()
+        assert fn.launches == before + (r - 1).bit_length()
+        _assert_outputs_equal(mine, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3, 5])
+@pytest.mark.parametrize("case", workloads.TP_UNION_CASES)
+def test_tp_union_rows_merge_matches_plain(cuda_device, case, r):
+    """``tp_union_rows``' warp merge on every 2P edge case."""
+    _tp_union_rows_merge_case(cuda_device, False, case, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3, 5])
+@pytest.mark.parametrize("case", workloads.TP_UNION_CASES)
+def test_edge_union_rows_merge_matches_plain(cuda_device, case, r):
+    """``edge_union_rows``' warp merge on every 2P edge case."""
+    _tp_union_rows_merge_case(cuda_device, True, case, r)
+
+
+@pytest.mark.cuda
+def test_tp_unions_refuse_rows_past_shared_memory(cuda_device):
+    """The 2P merge's rows at the most a block holds (9 bytes a TP record,
+    13 an edge: Ca + Cb <= 25,355 and 17,553 records) join; one slot more
+    a row is refused before any launch."""
+    rng = np.random.default_rng(3)
+    for edges, fn, most in ((False, kernels.tp_union, 12677),
+                            (True, kernels.edge_union, 8776)):
+        def rows(c):
+            return _on(workloads.tp_slots(rng, (1,), c, edges=edges),
+                       cuda_device)
+        a, b = rows(most), rows(most)
+        plain = kernels.edge_union_plain if edges else kernels.tp_union_plain
+        _kernel_vs_plain(fn, plain, (a, b, most))
+        before = kernels.launches()
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(rows(most + 1), rows(most + 1))
+        assert kernels.launches() == before
