@@ -517,7 +517,9 @@ TP_STORE = dict(R=64, K=500, tp_capacity=256, v_capacity=32, e_capacity=256,
 # in range (the full-width cases, which the hazards' clamped rows would
 # turn into thousands of plain waves); masks
 # (lead, CV, CE, ids, share of endpoints at INT32_MAX); recorded: the
-# consensus phases' first rounds and tp_store's first ticks
+# consensus phases' first rounds, tp_store's first ticks and its late_tick
+# (its hot window revisits keys from tick 15 on, so edge adds find their
+# vertices; at 17 its edge rows carry the most tails)
 TP_CHECKS = dict(
     unions=((False, (3, 5), 6, 6, False), (False, (7,), 8, 8, True),
             (False, (2, 4), 5, 3, False), (False, (16, 1000), 64, 64, False),
@@ -541,7 +543,7 @@ TP_CHECKS = dict(
     masks=(((3, 5), 6, 10, 5, 0.0), ((8, 16), 6, 10, 5, 0.2),
            ((7,), 1, 3, 2, 0.3), ((4, 3), 0, 5, 2, 0.0),
            ((16, 500), 32, 256, 32, 0.01)),
-    rounds=3, ticks=2)
+    rounds=3, ticks=2, late_tick=17)
 # the 2P unions' edge cases (workloads.tp_union_case), both layouts:
 # `rows` key rows of each capacity; row-list trees over these replicas
 TP_UNION_EDGE = dict(rows=64, capacities=(32, 256), replicas=(2, 3, 5))
@@ -1961,7 +1963,7 @@ def rga_inputs(dev, workloads, rng, lead, c, depth=8, **kw):
 
 
 def check_calls(kernels, log, names, fn, what, keep=None, score=None,
-                aliased=False):
+                aliased=False, skip=None):
     """Run ``fn`` with every call of the named wrappers (module attributes
     of ``kernels``, which the model calls) first held against its plain
     version on clones of its inputs (``log.add``; ``aliased`` as there;
@@ -1969,7 +1971,9 @@ def check_calls(kernels, log, names, fn, what, keep=None, score=None,
     returning one); ``keep`` (a dict) gets the (args, kwargs) of each
     name's first call, cloned, for timing, or with ``score`` (a function
     of the name and the args) of its first call of the highest score.
-    Returns the count of calls per name."""
+    While ``skip()`` (a function of nothing) is true, calls go straight to
+    the wrappers, unchecked and uncounted. Returns the count of calls per
+    name."""
     real = {name: getattr(kernels, name) for name in names}
     counts = dict.fromkeys(names, 0)
     best = {}
@@ -1978,6 +1982,8 @@ def check_calls(kernels, log, names, fn, what, keep=None, score=None,
 
     def checked(name):
         def call(*args, **kw):
+            if skip is not None and skip():
+                return real[name](*args, **kw)
             log.add(kernels, name, args,
                     what(name, counts[name]) if callable(what) else what, kw,
                     aliased=aliased)
@@ -4798,8 +4804,9 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
     trees' row-list levels (gather, scratch, scatter), masks with the
     sentinel quirk, CV = 0, and the main paths' widths; (b) every call of
     the first rounds of tpset_consensus and graph_consensus (edge_count of
-    the prospective views after each) and of the first ticks of both
-    tp_store arms, repeated here with their seeds. Returns, per wrapper,
+    the prospective views after each) and of the first ticks and the late
+    tick of both tp_store arms, repeated here with their seeds (the ticks
+    between unchecked). Returns, per wrapper,
     one recorded main-path call to time: an apply's with the most live
     lanes, edge_mask's with the most live edges, a union's on the most
     slots (the 2P-Set's tree, where the Graph's vertex tree has the same
@@ -4910,25 +4917,30 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
     keep = {}
     apply_codes = {"tpset_apply": (1, 2), "tpset_capture": (1, 2),
                    "graph_apply": (1, 2, 3, 4), "graph_capture": (1, 2, 3, 4)}
-    tag = {"run": "", "arm": ""}
-    # level 1 of each tp_store tree, per arm: its input rows already in key
-    # order, and the tail lengths of the others (row_order)
+    tag = {"run": "", "arm": "", "ticks": "", "quiet": False}
+    # level 1 of each tp_store tree, per arm and for the first ticks and
+    # the late one: its input rows already in key order, the rows holding
+    # a valid record, and the tail lengths of the unsorted (row_order)
     level1 = {}
 
     def level1_spy(name, fn):
         def call(*args, **kw):
             tree = tp_level1(name, args, kw)
-            if tree is not None:
+            if tree is not None and not tag["quiet"]:
                 listed = (args[3][:int(args[4])].long()
                           if name.endswith("_rows") else None)
-                rec = level1.setdefault(f"{tag['arm']} {tree}", [0, 0, []])
+                rec = level1.setdefault(
+                    f"{tag['arm']} {tree} {tag['ticks']}", [0, 0, 0, []])
                 for x in args[:2]:
                     got, n, tails = row_order(
                         x, listed, ("src", "dst") if tree == "edge"
                         else ("elem",))
+                    held = (x["valid"] if listed is None
+                            else x["valid"][:, listed])
                     rec[0] += got
                     rec[1] += n
-                    rec[2].append(tails.cpu())
+                    rec[2] += int(held.any(-1).sum())
+                    rec[3].append(tails.cpu())
             return fn(*args, **kw)
         return call
 
@@ -4946,14 +4958,19 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
         inner = {n: getattr(kernels, n) for n in TP_KERNELS[:4]}
         for n, fn in inner.items():
             setattr(kernels, n, level1_spy(n, fn))
+        first, late = TP_CHECKS["ticks"], TP_CHECKS["late_tick"]
         try:
-            for tick in tp_store_stream(workloads, TP_CHECKS["ticks"]):
+            for t, tick in enumerate(tp_store_stream(workloads, late + 1)):
+                tag["quiet"] = first <= t < late
+                tag["ticks"] = (f"ticks 0-{first - 1}" if t < first
+                                else f"tick {t}")
                 batch = {tc: workloads.ops_to_device(o, dev)
                          for tc, o in tick.items()}
                 for arm, (st, use_delta) in arms.items():
                     tag["arm"] = arm
                     st.fused_tick(batch, delta=use_delta)
         finally:
+            tag["quiet"] = False
             for n, fn in inner.items():
                 setattr(kernels, n, fn)
 
@@ -4964,24 +4981,25 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
             live_lanes(args[1], apply_codes[name]) if name in apply_codes
             else int((args[0]["e_valid"] & ~args[0]["e_removed"]).sum())
             if name == "edge_mask" else args[0]["valid"].numel()),
-        aliased=True)
+        aliased=True, skip=lambda: tag["quiet"])
     torch.cuda.synchronize()
     check(all(counts[n] > 0 for n in TP_KERNELS),
           f"tp_kernels: recorded calls {counts}")
     check(all(v > 0 for v in cover.values()), f"tp_kernels: coverage {cover}")
-    check(len(level1) == 6 and all(r[1] > 0 for r in level1.values()),
+    check(len(level1) == 12 and all(r[1] > 0 for r in level1.values()),
           f"tp_kernels: level-1 rows of tp_store {sorted(level1)}")
     for name, rec in log.by.items():
         cases.append({"kernel": name, "case": "tp_kernels", **rec})
     emit("tp_kernels", by_kernel=log.by, coverage=cover,
          level1_rows_sorted={
              key: {"sorted": got, "rows": n, "share": got / n,
+                   "rows_holding_a_record": held,
                    "tails": tail_counts(tails)}
-             for key, (got, n, tails) in sorted(level1.items())},
+             for key, (got, n, held, tails) in sorted(level1.items())},
          random_seconds=random_s, random_seconds_by_section=section_s,
          recorded_seconds=time.perf_counter() - t_start - random_s,
          recorded={"rounds": TP_CHECKS["rounds"], "ticks": TP_CHECKS["ticks"],
-                   "calls": counts})
+                   "late_tick": TP_CHECKS["late_tick"], "calls": counts})
     return keep
 
 
@@ -6489,6 +6507,27 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     return out
 
 
+def nonzero_frames(logs) -> list:
+    """``source: function: frame line`` for every function whose stack
+    frame or spills are not 0 in ``build.build_all``'s compiler output (a
+    ``{source: log}`` dict; ptxas -v names the function, in a "Compiling
+    entry function" or "Function properties for" line, before its frame
+    line)."""
+    out = []
+    for src, log in logs.items():
+        fn = "?"
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1]
+            elif "Function properties for" in ln:
+                fn = ln.split("Function properties for", 1)[1].strip()
+            elif "stack frame" in ln:
+                w = ln.split()
+                if w[0] + w[4] + w[8] != "000":
+                    out.append(f"{src}: {fn}: {ln.strip()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6507,13 +6546,12 @@ def main() -> int:
     res = build.build_all()
     ptxas = [ln.strip() for log in res["log"].values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
-    # every entry whose stack frame or spills are not 0 (ptxas -v)
-    frames = [ln.strip() for log in res["log"].values()
-              for ln in log.splitlines() if "stack frame" in ln
-              and ln.split()[0] + ln.split()[4] + ln.split()[8] != "000"]
+    frames = nonzero_frames(res["log"])
     emit("build", seconds=res["seconds"], nvcc=build.nvcc(),
          flags=" ".join(build.NVCC_FLAGS), ptxas=ptxas,
          nonzero_frames=frames)
+    check(not [f for f in frames if f.startswith("slot_union: ")],
+          "build: a slot_union.cu function has a stack frame or spills")
 
     phase_s = {"build": res["seconds"]}
 

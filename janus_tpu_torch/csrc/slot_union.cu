@@ -377,9 +377,6 @@ struct Keys {
   }
 };
 
-// Tails longer than this sort their whole row instead (order_row).
-constexpr int LONG_TAIL = 256;
-
 // The order of the staged row at positions [base, base + c) whose keys
 // first descend at d (d > 0): its positions by (key, position), written to
 // perm[base, base + c). The row is a sorted prefix [0, d) and a tail (the
@@ -389,9 +386,8 @@ constexpr int LONG_TAIL = 256;
 // the greatest, [d, e), is sorted alone and merged into the prefix, ties
 // to the prefix; [e, c) hold the greatest key at the highest positions
 // and stay last. Only the prefix from the first record above the tail's
-// least key moves. A tail of more than LONG_TAIL records sorts the whole
-// row. `tmp` ([base, base + c) free) takes the merged order before it is
-// copied back.
+// least key moves. `tmp` ([base, base + c) free) takes the merged order
+// before it is copied back.
 template <int NK, class G>
 __device__ __forceinline__ void order_row(const G& grp, Keys<NK> key,
                                           unsigned short* perm,
@@ -402,11 +398,8 @@ __device__ __forceinline__ void order_row(const G& grp, Keys<NK> key,
     if (!key.top(base + i)) last = i + 1;
   const int e = -grp.min_of(-last);
   const int t = e - d;
-  // one call site of the sort, for the whole row or its tail
-  const bool whole = t > LONG_TAIL;
-  grp.sort(perm + base + (whole ? 0 : d), whole ? c : t, key);
+  grp.sort(perm + base + d, t, key);
   grp.sync();
-  if (whole) return;
   const unsigned short* tail = perm + base + d;
   // s: the first prefix record above the tail's least key
   const int least = tail[0];

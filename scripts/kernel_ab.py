@@ -13,15 +13,16 @@ OR-Set's warp merge holds, ``WARP_ROWS``) on level 1 of the OR-Set
 store's converge (32 x 500 rows of 256 + 256 slots, path B's first tick)
 and on level 1 of a delta tick's row-list tree (``slot_union_rows``, the
 two-type store at mixed_delta's geometry); and the 2P layouts of the same
-source (the longest tail a row sorts alone before it is merged into its
-prefix, ``LONG_TAIL``, and ``WARP_ROWS`` again) on level 1 of each tree
-of ``chip_smoke.py``'s ``tp_store`` phase (``tp_union`` on the 2P-Set's
-256-slot rows and on the Graph's 32-slot vertex rows, ``edge_union``, and
-their row-list modes) at its first two ticks. Each variant is a copy of
+source (``WARP_ROWS`` again) on level 1 of each tree of ``chip_smoke.py``'s
+``tp_store`` phase (``tp_union`` on the 2P-Set's 256-slot rows and on the
+Graph's 32-slot vertex rows, ``edge_union``, and their row-list modes) at
+its first two ticks and at ``TP_CHECKS["late_tick"]``, the first tick
+whose edge adds find their vertices. Each variant is a copy of
 the source with one ``constexpr int`` set to another value, built by
 ``nvcc`` into ``janus_tpu_torch/build/ab/`` with the package's flags,
 put in the loader's place for the time of its turn, and held bit-equal to
-the plain version on a slice of the inputs; the variants are then timed
+the plain version (on a slice of the inputs, or on every 2P call); the
+variants are then timed
 in turns (first to last, then last to first), each turn by CUDA events
 around ``REPS`` calls queued behind a sleeping kernel after a warm-up.
 Prints one JSON line per kernel
@@ -57,8 +58,7 @@ SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock
 COMPACT_VARIANTS = {f"min{b}": {"MIN_BLOCKS": b} for b in (6, 8, 4)}
 WALK_VARIANTS = {f"ring{r}": {"RING": r} for r in (8, 16)}
 UNION_VARIANTS = {f"rows{r}": {"WARP_ROWS": r} for r in (2, 4, 8, 16)}
-TP_VARIANTS = {**{f"tail{t}": {"LONG_TAIL": t} for t in (256, 64, 16, 0)},
-               **{f"rows{r}": {"WARP_ROWS": r} for r in (4, 8)}}
+TP_VARIANTS = {f"rows{r}": {"WARP_ROWS": r} for r in (2, 4)}
 
 
 def build_variant(name, constants, tag) -> ctypes.CDLL:
@@ -136,7 +136,9 @@ def same(a, b) -> bool:
         return all(same(a[k], b[k]) for k in a)
     if isinstance(a, (tuple, list)):
         return all(same(x, y) for x, y in zip(a, b))
-    return bool(torch.equal(a, b))
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return a == b
 
 
 def clone(tree):
@@ -241,11 +243,12 @@ def union_inputs(dev):
 def tp_union_inputs(dev):
     """(wrapper name, args, kwargs) of the level-1 calls of the 2P unions in
     ``chip_smoke.py``'s ``tp_store`` phase (its streams and both arms) at
-    ticks 0 and 1: the 2P-Set's tree and the Graph's vertex and edge trees,
-    full and row-list, labelled ``<tree>_t<tick>`` and
-    ``<tree>_rows_t<tick>``."""
+    ticks 0, 1 and ``TP_CHECKS["late_tick"]``: the 2P-Set's tree and the
+    Graph's vertex and edge trees, full and row-list, labelled
+    ``<tree>_t<tick>`` and ``<tree>_rows_t<tick>``."""
     import chip_smoke
 
+    late = chip_smoke.TP_CHECKS["late_tick"]
     calls, tick = {}, [0]
     names = ("tp_union", "tp_union_rows", "edge_union", "edge_union_rows")
     real = {n: getattr(kernels, n) for n in names}
@@ -253,7 +256,7 @@ def tp_union_inputs(dev):
     def spy(name):
         def call(*args, **kw):
             tree = chip_smoke.tp_level1(name, args, kw)
-            if tree is not None:
+            if tree is not None and tick[0] in (0, 1, late):
                 rows = "_rows" if name.endswith("_rows") else ""
                 calls.setdefault(f"{tree}{rows}_t{tick[0]}",
                                  (name, clone((args, kw))))
@@ -264,7 +267,8 @@ def tp_union_inputs(dev):
         setattr(kernels, name, spy(name))
     try:
         arms = chip_smoke.tp_store_arms(dev)
-        for t, host in enumerate(chip_smoke.tp_store_stream(workloads, 2)):
+        for t, host in enumerate(chip_smoke.tp_store_stream(workloads,
+                                                            late + 1)):
             tick[0] = t
             batch = {tc: workloads.ops_to_device(o, dev)
                      for tc, o in host.items()}
@@ -361,14 +365,11 @@ def main() -> int:
 
     def check_tp():
         ok = True
-        for name, (args, kw) in tp_calls.values():
-            if name.endswith("_rows"):
-                continue  # the full mode's rows; the rows mode shares them
-            a, b = ({f: x[:2, :40].clone() for f, x in t.items()}
-                    for t in args[:2])
-            fn = getattr(kernels, name)
-            ok &= same(fn(a, b, args[2]),
-                       getattr(kernels, name + "_plain")(a, b, args[2]))
+        for name, call in tp_calls.values():
+            (args, kw), (pargs, pkw) = clone(call), clone(call)
+            ok &= same(getattr(kernels, name)(*args, **kw),
+                       getattr(kernels, name + "_plain")(*pargs, **pkw))
+            ok &= same(args, pargs)
         return ok
 
     print(json.dumps({"kernel": "tp_union/edge_union", "nvidia_smi": smi,
