@@ -427,7 +427,8 @@ TYPED_STORE = dict(R=64, K=500, lww_capacity=256, mvr_capacity=8, B=64,
 # (a few small steps a write), the long walk once (over 2,048 writes, past
 # one window), the others in every mode at Vc = 8, W = 64 and in one mode
 # at Vc = 1 and 32; recorded: the consensus phases' first rounds and typed_store's
-# first ticks
+# first ticks and its late_tick (its hot window revisits keys from tick 16
+# on, so a tick's adds find rows that hold records)
 TYPED_CHECKS = dict(
     lww_unions=(((3, 5), 6, 6, False), ((7,), 8, 8, True),
                 ((2, 4), 5, 3, False), ((16, 1000), 64, 64, False),
@@ -458,7 +459,10 @@ TYPED_CHECKS = dict(
         ("cut", 32, 4, 256, ("captured",)), ("twins", 32, 4, 256,
                                              ("captured",)),
         ("hazards", 32, 4, 256, ("apply",))),
-    rounds=3, ticks=2)
+    rounds=3, ticks=2, late_tick=17)
+# the LWW union's edge cases (workloads.lww_union_case): `rows` key rows of
+# each capacity; row-list trees over these replicas
+LWW_UNION_EDGE = dict(rows=64, capacities=(32, 256), replicas=(2, 3, 5))
 TYPED_LIBRARY_NOTES = {
     "lww_union": "no single PyTorch call computes it: an elem-keyed union "
                  "with a timestamp-max fold and a capacity cut",
@@ -513,13 +517,18 @@ TP_STORE = dict(R=64, K=500, tp_capacity=256, v_capacity=32, e_capacity=256,
 # row-list levels (layout, pairs, K, C); 2P-Set applies (V, K, C, B, mode,
 # keys) and Graph applies (V, K, CV, CE, ids, B, mode, keys), keys
 # "hazard" in [-2K, 2K), "hot" so and then 90% of the lanes on row 1 (past
-# a walk's window; the plain walk takes one wave a lane there), or "flat"
+# a row's bucket of 32 records; the plain walk takes one wave a lane
+# there), or "flat"
 # in range (the full-width cases, which the hazards' clamped rows would
 # turn into thousands of plain waves); masks
 # (lead, CV, CE, ids, share of endpoints at INT32_MAX); recorded: the
 # consensus phases' first rounds, tp_store's first ticks and its late_tick
 # (its hot window revisits keys from tick 15 on, so edge adds find their
-# vertices; at 17 its edge rows carry the most tails)
+# vertices; at 17 its edge rows carry the most tails); the walk's edge
+# cases (workloads.graph_walk_case) at (V, K, ids, B) for each shape
+# (kind, CV or C, CE), one a source instantiation, every case in every
+# mode but the long walk (over 2,048 lanes on one row, one plain wave a
+# lane), which runs captured
 TP_CHECKS = dict(
     unions=((False, (3, 5), 6, 6, False), (False, (7,), 8, 8, True),
             (False, (2, 4), 5, 3, False), (False, (16, 1000), 64, 64, False),
@@ -543,6 +552,9 @@ TP_CHECKS = dict(
     masks=(((3, 5), 6, 10, 5, 0.0), ((8, 16), 6, 10, 5, 0.2),
            ((7,), 1, 3, 2, 0.3), ((4, 3), 0, 5, 2, 0.0),
            ((16, 500), 32, 256, 32, 0.01)),
+    walk_geometry=(2, 500, 32, 2200),
+    walks=(("graph", 32, 256), ("graph", 64, 256), ("tpset", 64, 0),
+           ("tpset", 256, 0)),
     rounds=3, ticks=2, late_tick=17)
 # the 2P unions' edge cases (workloads.tp_union_case), both layouts:
 # `rows` key rows of each capacity; row-list trees over these replicas
@@ -2058,6 +2070,30 @@ def tail_counts(tails) -> dict:
     out[f">{lo}"] = int((t > lo).sum())
     out["longest"] = int(t.max()) if t.numel() else 0
     return out
+
+
+def record_level1(level1, key, name, args, keys):
+    """Add the two input rows of a call of union wrapper ``name`` (its
+    ``args``; a row-list call's listed rows only) to ``level1[key]``,
+    ``[rows in key order, rows, rows holding a valid record, tails]`` of
+    ``row_order`` on the key fields ``keys``."""
+    listed = (args[3][:int(args[4])].long() if name.endswith("_rows")
+              else None)
+    rec = level1.setdefault(key, [0, 0, 0, []])
+    for x in args[:2]:
+        got, n, tails = row_order(x, listed, keys)
+        held = x["valid"] if listed is None else x["valid"][:, listed]
+        rec[0] += got
+        rec[1] += n
+        rec[2] += int(held.any(-1).sum())
+        rec[3].append(tails.cpu())
+
+
+def level1_report(level1) -> dict:
+    """``record_level1``'s records as a phase line reports them."""
+    return {key: {"sorted": got, "rows": n, "share": got / n,
+                  "rows_holding_a_record": held, "tails": tail_counts(tails)}
+            for key, (got, n, held, tails) in sorted(level1.items())}
 
 
 ORSET_KEYS = ("tag_rep", "tag_ctr")
@@ -3859,9 +3895,11 @@ def typed_kernel_checks(dev, kernels, workloads, cases):
     row-list levels (gather, scratch, scatter) and the main paths' shapes,
     and the MVRegister walk's edge cases (``workloads.mvr_walk_case``);
     (b) every call of the first rounds of lww_consensus and mvr_consensus
-    and of the first ticks of both typed_store arms, repeated here with
-    their seeds. Returns, per wrapper, one recorded main-path call to time
-    (the one with the most live lanes, for an apply)."""
+    and of the first ticks and the late tick of both typed_store arms,
+    repeated here with their seeds (the ticks between unchecked); the LWW
+    union's edge cases (``workloads.lww_union_case``). Returns, per
+    wrapper, one recorded main-path call to time (the one with the most
+    live lanes, for an apply)."""
     t_start = time.perf_counter()
     log = CaseLog(TYPED_KERNELS)
     rng = np.random.default_rng(41)
@@ -3887,6 +3925,7 @@ def typed_kernel_checks(dev, kernels, workloads, cases):
                for f, x in a.items()}
         log.add(kernels, "lww_union", (a, b, ca), what + " into 2 replicas",
                 {"out": out})
+    lww_edge_cases(dev, kernels, workloads, log, np.random.default_rng(45))
     for lead, va, vb, w, span, canonical in TYPED_CHECKS["mvr_merges"]:
         a = on(workloads.mvr_slots(rng, lead, va, w, canonical=canonical,
                                    span=span))
@@ -3973,7 +4012,19 @@ def typed_kernel_checks(dev, kernels, workloads, cases):
     keep = {}
     apply_codes = {"lww_apply": (1, 2), "lww_capture": (1, 2),
                    "mvr_apply": (1,), "mvr_capture": (1,)}
-    tag = {"run": ""}
+    tag = {"run": "", "arm": "", "ticks": "", "quiet": False}
+    # level 1 of typed_store's LWW tree, per arm, for the first ticks and
+    # the late one: its input rows already in elem order, the rows holding
+    # a valid record, and the tail lengths of the unsorted (row_order)
+    level1 = {}
+
+    def level1_spy(name, fn):
+        def call(*args, **kw):
+            if typed_level1(name, args, kw) and not tag["quiet"]:
+                record_level1(level1, f"{tag['arm']} {tag['ticks']}", name,
+                              args, ("elem",))
+            return fn(*args, **kw)
+        return call
 
     def recorded():
         for kind, g in (("lww", LWW_CONS), ("mvr", MVR_CONS)):
@@ -3985,30 +4036,47 @@ def typed_kernel_checks(dev, kernels, workloads, cases):
             del kv
         tag["run"] = "typed_store"
         arms = typed_store_arms(dev)
-        for tick in typed_store_stream(workloads, TYPED_CHECKS["ticks"]):
-            batch = {tc: workloads.ops_to_device(o, dev)
-                     for tc, o in tick.items()}
-            for st, use_delta in arms.values():
-                st.fused_tick(batch, delta=use_delta)
+        inner = {n: getattr(kernels, n) for n in TYPED_KERNELS[:2]}
+        for n, fn in inner.items():
+            setattr(kernels, n, level1_spy(n, fn))
+        first, late = TYPED_CHECKS["ticks"], TYPED_CHECKS["late_tick"]
+        try:
+            for t, tick in enumerate(typed_store_stream(workloads, late + 1)):
+                tag["quiet"] = first <= t < late
+                tag["ticks"] = (f"ticks 0-{first - 1}" if t < first
+                                else f"tick {t}")
+                batch = {tc: workloads.ops_to_device(o, dev)
+                         for tc, o in tick.items()}
+                for arm, (st, use_delta) in arms.items():
+                    tag["arm"] = arm
+                    st.fused_tick(batch, delta=use_delta)
+        finally:
+            tag["quiet"] = False
+            for n, fn in inner.items():
+                setattr(kernels, n, fn)
 
     counts = check_calls(
         kernels, log, TYPED_KERNELS, recorded,
         lambda name, i: f"recorded {tag['run']} call {i}", keep=keep,
         score=lambda name, args: (live_lanes(args[1], apply_codes[name])
                                   if name in apply_codes else 0),
-        aliased=True)
+        aliased=True, skip=lambda: tag["quiet"])
     torch.cuda.synchronize()
     check(all(counts[n] > 0 for n in TYPED_KERNELS),
           f"typed_kernels: recorded calls {counts}")
     check(all(v > 0 for v in cover.values()),
           f"typed_kernels: coverage {cover}")
+    check(len(level1) == 4 and all(r[1] > 0 for r in level1.values()),
+          f"typed_kernels: level-1 rows of typed_store {sorted(level1)}")
     for name, rec in log.by.items():
         cases.append({"kernel": name, "case": "typed_kernels", **rec})
     emit("typed_kernels", by_kernel=log.by, coverage=cover,
+         level1_rows_sorted=level1_report(level1),
          random_seconds=random_s,
          recorded_seconds=time.perf_counter() - t_start - random_s,
          recorded={"rounds": TYPED_CHECKS["rounds"],
-                   "ticks": TYPED_CHECKS["ticks"], "calls": counts})
+                   "ticks": TYPED_CHECKS["ticks"],
+                   "late_tick": TYPED_CHECKS["late_tick"], "calls": counts})
     return keep
 
 
@@ -4733,29 +4801,27 @@ def tp_level1(name, args, kw):
             else "vertex")
 
 
-def tp_edge_cases(dev, kernels, workloads, log, rng):
-    """The 2P unions' edge cases (``workloads.tp_union_case``) for both
-    layouts at ``TP_UNION_EDGE``'s rows and capacities, kernel against
-    plain: fresh at a capacity below, at and above one row's, into two
-    planes (the broadcast), aliased (``out`` the first input, as the
+def union_edge_cases(dev, kernels, log, rng, layouts, geo):
+    """Edge cases of warp-merge unions, kernel against plain: for each
+    ``(layout, wrapper name, cases, make)`` of ``layouts`` (``make(rng,
+    case, lead, c)`` a case's rows, numpy) at ``geo``'s rows and
+    capacities: fresh at a capacity below, at and above one row's, into
+    two planes (the broadcast), aliased (``out`` the first input, as the
     converge's last level writes into the replicas it read), with rows of
-    unequal widths, and the row-list tree over states of 2, 3 and 5
+    unequal widths, and the row-list tree over states of ``geo``'s
     replicas with 0, 1 and all rows listed (at 2 its one level writes the
     rows it read)."""
     from janus_tpu_torch.kernels.replica_tree import join_tree_rows
-    from janus_tpu_torch.kernels.slot_union import EDGE, TP
 
-    k = TP_UNION_EDGE["rows"]
+    k = geo["rows"]
 
     def on(t):
         return {f: torch.as_tensor(x, device=dev) for f, x in t.items()}
 
-    for layout, name in ((TP, "tp_union"), (EDGE, "edge_union")):
-        edges = layout is EDGE
-        for c in TP_UNION_EDGE["capacities"]:
-            for case in workloads.TP_UNION_CASES:
-                a, b = (on(t) for t in workloads.tp_union_case(
-                    rng, case, (2, k), c, edges=edges))
+    for layout, name, names, make in layouts:
+        for c in geo["capacities"]:
+            for case in names:
+                a, b = (on(t) for t in make(rng, case, (2, k), c))
                 what = f"edge {case} 2x{k} C{c}"
                 for cap in (c // 2, c, 3 * c):
                     log.add(kernels, name, (a, b, cap), f"{what} cap {cap}")
@@ -4774,9 +4840,8 @@ def tp_edge_cases(dev, kernels, workloads, log, rng):
                 err = tree_err(mine, ref)
                 check(err == 0, f"{name} {what} aliased: max_abs_err {err}")
                 log.by[name]["cases"] += 1
-                for r in TP_UNION_EDGE["replicas"]:
-                    more = workloads.tp_union_case(rng, case, (2, k), c,
-                                                   edges=edges)
+                for r in geo["replicas"]:
+                    more = make(rng, case, (2, k), c)
                     reps = [{f: x[i] for f, x in t.items()}
                             for t in (a, b, *map(on, more)) for i in (0, 1)]
                     st = {f: torch.stack([x[f] for x in reps[:r]])
@@ -4794,15 +4859,51 @@ def tp_edge_cases(dev, kernels, workloads, log, rng):
                             f"{what} rows R{r} n{n_rows}")
 
 
+def tp_edge_cases(dev, kernels, workloads, log, rng):
+    """The 2P unions' edge cases (``workloads.tp_union_case``) for both
+    layouts at ``TP_UNION_EDGE``'s rows and capacities
+    (``union_edge_cases``)."""
+    from janus_tpu_torch.kernels.slot_union import EDGE, TP
+
+    union_edge_cases(dev, kernels, log, rng, [
+        (layout, name, workloads.TP_UNION_CASES,
+         lambda rng, case, lead, c, e=layout is EDGE:
+             workloads.tp_union_case(rng, case, lead, c, edges=e))
+        for layout, name in ((TP, "tp_union"), (EDGE, "edge_union"))],
+        TP_UNION_EDGE)
+
+
+def lww_edge_cases(dev, kernels, workloads, log, rng):
+    """The LWW union's edge cases (``workloads.lww_union_case``) at
+    ``LWW_UNION_EDGE``'s rows and capacities (``union_edge_cases``)."""
+    from janus_tpu_torch.kernels.slot_union import LWW
+
+    union_edge_cases(dev, kernels, log, rng, [
+        (LWW, "lww_union", workloads.LWW_UNION_CASES,
+         workloads.lww_union_case)], LWW_UNION_EDGE)
+
+
+def typed_level1(name, args, kw):
+    """Whether a call of ``lww_union`` or ``lww_union_rows`` is level 1 of
+    ``typed_store``'s LWW converge tree: the full mode's level 1 joins the
+    two halves of TYPED_STORE's R replicas, the row-list mode's gathers its
+    rows from the state."""
+    if name.endswith("_rows"):
+        return kw.get("gather", True)
+    return args[0]["valid"].shape[0] == (TYPED_STORE["R"] + 1) // 2
+
+
 def tp_kernel_checks(dev, kernels, workloads, cases):
     """The nine 2P-Set and Graph wrappers against their plain versions on
     the card, bit-equal, in-place updates, drop and overflow counts
     included: (a) random inputs: canonical and non-canonical rows (a key
     twice in a row, one copy tombstoned), full rows that drop, hazard ops
     (keys in [-2K, 2K), op codes from -1 to 5, self-loops, endpoints at
-    INT32_MAX), rows hammered by more lanes than a walk's window, the
-    trees' row-list levels (gather, scratch, scatter), masks with the
-    sentinel quirk, CV = 0, and the main paths' widths; (b) every call of
+    INT32_MAX), rows hammered by more lanes than a row's bucket holds,
+    the trees' row-list levels (gather, scratch, scatter), masks with the
+    sentinel quirk, CV = 0, and the main paths' widths, and the walk's
+    edge cases (``workloads.graph_walk_case``, their plain versions on the
+    host) at each instantiation's widths; (b) every call of
     the first rounds of tpset_consensus and graph_consensus (edge_count of
     the prospective views after each) and of the first ticks and the late
     tick of both tp_store arms, repeated here with their seeds (the ticks
@@ -4903,6 +5004,22 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
             drop = log.add(kernels, "graph_apply", (st, dops), what)
         cover["graph_drops"] += int(drop.sum())
     lap("graph_applies")
+    v, k, nv, b = TP_CHECKS["walk_geometry"]
+    for kind, cv, ce in TP_CHECKS["walks"]:
+        fields = (("op", "key", "a0", "a1") if kind == "graph"
+                  else ("op", "key", "a0"))
+        for case in workloads.GRAPH_WALK_CASES:
+            st, ops = workloads.graph_walk_case(rng, case, v, k, cv, ce, nv,
+                                                b, edges=kind == "graph")
+            st = on(st)
+            for mode in (("captured",) if case == "long"
+                         else ("apply", "captured", "capture")):
+                o = ops if mode == "captured" else {f: ops[f] for f in fields}
+                name = f"{kind}_{'capture' if mode == 'capture' else 'apply'}"
+                log.add(kernels, name, (st, workloads.ops_to_device(o, dev)),
+                        f"walk {case} {mode} V{v} K{k} C{cv}+{ce} B{b}",
+                        host_plain=True)
+    lap("walks")
     for lead, cv, ce, nv, at_max in TP_CHECKS["masks"]:
         st = on(workloads.graph_slots(rng, lead, cv, ce, nv, canonical=False,
                                       dup_rows=0.3, at_max=at_max))
@@ -4927,20 +5044,9 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
         def call(*args, **kw):
             tree = tp_level1(name, args, kw)
             if tree is not None and not tag["quiet"]:
-                listed = (args[3][:int(args[4])].long()
-                          if name.endswith("_rows") else None)
-                rec = level1.setdefault(
-                    f"{tag['arm']} {tree} {tag['ticks']}", [0, 0, 0, []])
-                for x in args[:2]:
-                    got, n, tails = row_order(
-                        x, listed, ("src", "dst") if tree == "edge"
-                        else ("elem",))
-                    held = (x["valid"] if listed is None
-                            else x["valid"][:, listed])
-                    rec[0] += got
-                    rec[1] += n
-                    rec[2] += int(held.any(-1).sum())
-                    rec[3].append(tails.cpu())
+                record_level1(level1, f"{tag['arm']} {tree} {tag['ticks']}",
+                              name, args, ("src", "dst") if tree == "edge"
+                              else ("elem",))
             return fn(*args, **kw)
         return call
 
@@ -4991,11 +5097,7 @@ def tp_kernel_checks(dev, kernels, workloads, cases):
     for name, rec in log.by.items():
         cases.append({"kernel": name, "case": "tp_kernels", **rec})
     emit("tp_kernels", by_kernel=log.by, coverage=cover,
-         level1_rows_sorted={
-             key: {"sorted": got, "rows": n, "share": got / n,
-                   "rows_holding_a_record": held,
-                   "tails": tail_counts(tails)}
-             for key, (got, n, held, tails) in sorted(level1.items())},
+         level1_rows_sorted=level1_report(level1),
          random_seconds=random_s, random_seconds_by_section=section_s,
          recorded_seconds=time.perf_counter() - t_start - random_s,
          recorded={"rounds": TP_CHECKS["rounds"], "ticks": TP_CHECKS["ticks"],
@@ -5470,8 +5572,14 @@ def tp_kernel_rows(kernels, calls):
             row_b, lane_b, width = 6 * cv + 10 * ce, 16 + 4 * ("ok" in ops), \
                 cv + ce
             shape = f"CV{cv} CE{ce}"
+        blocks, threads = kernels.walk_occupancy(
+            not name.startswith("tpset"), width if name.startswith("tpset")
+            else state["v"].shape[-1], 0 if name.startswith("tpset")
+            else state["src"].shape[-1])
         rows.append(dict(
-            name=name, call=lambda n=name, s=state, o=ops:
+            name=name, longest_walk=longest_walk(ops, K, codes),
+            walk_blocks_per_sm=blocks, walk_threads_per_block=threads,
+            call=lambda n=name, s=state, o=ops:
                 kernels.WRAPPERS[n](s, o),
             plain=lambda n=name, s=state, o=ops: plain_of(kernels, n)(s, o),
             library=None, shape=f"{name.split('_')[0]}_consensus "
@@ -6460,7 +6568,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                                     "cells_touched", "keys_marked",
                                     "rows_read", "rows_written", "rows_joined",
                                     "rows_sorted", "buckets_sorted",
-                                    "longest_walk", "library_note")
+                                    "longest_walk", "walk_blocks_per_sm",
+                                    "walk_threads_per_block", "library_note")
                if k in kern}
         row["ms"] = time_cuda(kern["call"])
         reps, one_ms = plain_reps(kern["plain"])
@@ -6550,8 +6659,10 @@ def main() -> int:
     emit("build", seconds=res["seconds"], nvcc=build.nvcc(),
          flags=" ".join(build.NVCC_FLAGS), ptxas=ptxas,
          nonzero_frames=frames)
-    check(not [f for f in frames if f.startswith("slot_union: ")],
-          "build: a slot_union.cu function has a stack frame or spills")
+    check(not [f for f in frames
+               if f.startswith(("slot_union: ", "graph_apply: "))],
+          "build: a slot_union.cu or graph_apply.cu function has a stack "
+          "frame or spills")
 
     phase_s = {"build": res["seconds"]}
 

@@ -1301,6 +1301,93 @@ def tp_union_case(rng: np.random.Generator, case: str, shape, capacity: int,
         for t in pair)
 
 
+# the LWW union's edge cases of ``lww_union_case``: the 2P cases' key
+# orders with stamps attached, and three of the LWW-Set's own
+LWW_UNION_CASES = TP_UNION_CASES + ("equal_stamps", "extreme_stamps",
+                                    "empty")
+# stamp words: negative low words order above positive ones (unsigned)
+LWW_LOWS = (0, 1, 2, -1, -(2**31), 2**31 - 1, 7, -5)
+LWW_EXTREMES = (-(2**31), -1, 0, 1, 2**31 - 1)
+
+
+def lww_union_case(rng: np.random.Generator, case: str, shape,
+                   capacity: int) -> tuple:
+    """Rows ``a``, ``b`` ``shape + (capacity,)`` (numpy, the LWW-Set's
+    fields) for one of ``LWW_UNION_CASES``, the edge cases of a union that
+    merges rows sorted by elem after sorting the tail an apply appended to
+    each. The elems and valid slots of the first eleven are
+    ``tp_union_case``'s (sorted, appended tails of 1, 8 and 64, one row
+    shuffled, both reversed or shuffled with junk in invalid slots, a hole,
+    one elem three times in a row, elem INT32_MAX tying with invalid
+    slots, full rows that overflow), with stamps (hi, lo) of hi in [0, 2)
+    and lo among ``LWW_LOWS`` (negative low words, the int32 extremes), a
+    quarter of each polarity unstamped, junk in invalid slots of the
+    shuffled rows. The LWW-Set's own:
+
+    - ``equal_stamps``: ``triple_in_row``'s rows (one elem three times in
+      a row), each repeat holding the stamps of the copy before it, and
+      b's stamps of an elem a holds equal to a's, or equal but for the sign
+      of the low words;
+    - ``extreme_stamps``: shuffled rows whose stamp words are all drawn
+      from ``LWW_EXTREMES``;
+    - ``empty``: rows with no valid slot, junk in every field."""
+    c = capacity
+    base = {"equal_stamps": "triple_in_row", "extreme_stamps": "shuffled",
+            "empty": "shuffled"}.get(case, case)
+    pair = tp_union_case(rng, base, shape, c)
+    rows = int(np.prod(shape, dtype=np.int64))
+    out = []
+    for t in pair:
+        valid = t["valid"].reshape(rows, c)
+        elem = t["elem"].reshape(rows, c)
+        row = {"elem": elem}
+        for pol in ("add", "rm"):
+            if case == "extreme_stamps":
+                hi = rng.choice(LWW_EXTREMES, (rows, c))
+                lo = rng.choice(LWW_EXTREMES, (rows, c))
+            else:
+                hi = rng.integers(0, 2, (rows, c))
+                lo = rng.choice(LWW_LOWS, (rows, c))
+            none = rng.random((rows, c)) < 0.25
+            row[f"{pol}_hi"] = np.where(valid & ~none, hi, 0)
+            row[f"{pol}_lo"] = np.where(valid & ~none, lo, 0)
+        row["valid"] = valid
+        if case == "empty":
+            row["valid"] = np.zeros_like(valid)
+        if base == "shuffled":
+            junk = ~row["valid"]
+            for f in lwwset.FIELDS[1:-1]:
+                row[f] = np.where(junk, rng.integers(-5, 5, (rows, c)),
+                                  row[f])
+        out.append(row)
+    if case == "equal_stamps":
+        a, b = out
+        stamps = ("add_hi", "add_lo", "rm_hi", "rm_lo")
+        for r in range(rows):
+            # a copy that repeats the elem before it in its row takes that
+            # copy's stamps; b's copy of an elem a holds takes a's, its low
+            # words' sign flipped a third of the time
+            for t in (a, b):
+                for i in range(1, c):
+                    if (t["valid"][r, i] and t["valid"][r, i - 1]
+                            and t["elem"][r, i] == t["elem"][r, i - 1]):
+                        for f in stamps:
+                            t[f][r, i] = t[f][r, i - 1]
+            at = {e: i for i, e in enumerate(a["elem"][r]) if a["valid"][r, i]}
+            for j in range(c):
+                i = at.get(b["elem"][r, j]) if b["valid"][r, j] else None
+                if i is None:
+                    continue
+                flip = rng.random() < 0.3
+                for f in stamps:
+                    x = a[f][r, i]
+                    b[f][r, j] = -x if flip and f.endswith("_lo") else x
+    return tuple({f: np.ascontiguousarray(
+        t[f].reshape(tuple(shape) + (c,)),
+        bool if f == "valid" else np.int32) for f in lwwset.FIELDS}
+        for t in out)
+
+
 def tp_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
                  num_elems: int, hazards: bool = True,
                  captured: bool = False) -> dict:
@@ -1348,6 +1435,83 @@ def graph_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
     if captured:
         ops["ok"] = rng.integers(0, 2, tuple(shape) + (1,)).astype(np.int32)
     return ops
+
+
+# the Graph and 2P-Set walk's edge cases of ``graph_walk_case``
+GRAPH_WALK_CASES = ("sizes", "long", "av_only", "loops", "full", "hazards")
+# the lanes of the rows of case "sizes": a group of one lane, one short of
+# a warp, a warp, one past it
+WALK_SIZES = (1, 31, 32, 33)
+
+
+def graph_walk_case(rng: np.random.Generator, case: str, num_views: int,
+                    num_keys: int, v_capacity: int, e_capacity: int,
+                    num_vertices: int, batch: int, edges: bool = True) -> tuple:
+    """``(state, ops)`` for one of ``GRAPH_WALK_CASES``, the edge cases of
+    the Graph's sequential apply (``edges``) or the 2P-Set's (the same walk
+    over a vertex block alone): rows ``[V, K, ...]`` of ``graph_slots``
+    (``v_capacity`` vertex and ``e_capacity`` edge slots over
+    ``num_vertices`` ids; the 2P-Set's ``tp_slots`` of ``v_capacity``
+    slots), non-canonical, a key twice in some rows, and op lanes ``[V,
+    batch]`` of ``graph_mixed_ops`` (``tp_mixed_ops``: codes -1 to 5, or
+    -1 to 4) with a captured ``ok`` ``[V, batch, 1]`` (numpy int32; drop it
+    for the uncaptured apply and the capture). Keys are in range but for
+    ``hazards``.
+
+    - ``sizes``: rows 0-3 gathered by exactly 1, 31, 32 and 33 lanes
+      (``WALK_SIZES``), the other lanes on rows 4 on, all interleaved;
+    - ``long``: 95% of the lanes on row 1, more than one window of 2,048
+      lane indices when ``batch`` > 2,156;
+    - ``av_only``: every lane on the rows of the first half is an add
+      (av), so those rows see no gate;
+    - ``loops``: half of the edge lanes self-loops, a tenth of the ids
+      INT32_MAX (vertices, edge ends, the 2P-Set's elems), in the rows
+      too;
+    - ``full``: full blocks without tombstones and ids from twice the
+      rows' range, so that upserts of absent keys drop;
+    - ``hazards``: keys in [-2K, 2K) and 3% of the endpoints INT32_MAX."""
+    V, K, B = num_views, num_keys, batch
+    nv = num_vertices
+    cv = v_capacity
+    full = case == "full"
+    kw = dict(canonical=False, dup_rows=0.3, full_rows=1.0 if full else 0.3,
+              removed=0.0 if full else 0.3)
+    if edges:
+        st = graph_slots(rng, (V, K), cv, e_capacity, nv,
+                         at_max=0.1 if case == "loops" else 0.0, **kw)
+    else:
+        st = tp_slots(rng, (V, K), cv, num_elems=nv, **kw)
+    ids = 2 * nv if full else nv
+    hazards = case == "hazards"
+    if edges:
+        ops = graph_mixed_ops(rng, (V, B), K, ids, hazards=hazards,
+                              captured=True)
+    else:
+        ops = tp_mixed_ops(rng, (V, B), K, ids, hazards=hazards,
+                           captured=True)
+    key = ops["key"]
+    if case == "sizes":
+        fixed = np.repeat(np.arange(len(WALK_SIZES)), WALK_SIZES)
+        for v in range(V):
+            row = np.concatenate([fixed, rng.integers(
+                len(WALK_SIZES), K, B - fixed.size)])
+            key[v] = rng.permutation(row)
+    elif case == "long":
+        key[:] = np.where(rng.random((V, B)) < 0.95, 1, key)
+    elif case == "av_only":
+        ops["op"] = np.where(key < K // 2, 1, ops["op"]).astype(np.int32)
+    elif case == "loops":
+        a0 = ops["a0"]
+        a0[:] = np.where(rng.random((V, B)) < 0.1, SENTINEL, a0)
+        if edges:
+            a1 = ops["a1"]
+            a1[:] = np.where(rng.random((V, B)) < 0.5, a0, a1)
+            a1[:] = np.where(rng.random((V, B)) < 0.1, SENTINEL, a1)
+        else:
+            st["elem"] = np.where(st["valid"] & (rng.random(
+                st["valid"].shape) < 0.1), SENTINEL, st["elem"]).astype(
+                    np.int32)
+    return st, ops
 
 
 def ops_to_device(ops: dict, device=None) -> dict:

@@ -1,6 +1,6 @@
-// slot_union: the sorted union of two slot sets, one row per block, for
-// the OR-Set (slot_union_launch), the RGA (rga_union_launch), the LWW-Set
-// (lww_union_launch), the 2P-Set and the 2P2P Graph's vertices
+// slot_union: the sorted union of two slot sets, one row per warp or
+// block, for the OR-Set (slot_union_launch), the RGA (rga_union_launch),
+// the LWW-Set (lww_union_launch), the 2P-Set and the 2P2P Graph's vertices
 // (tp_union_launch) and the Graph's edges (edge_union_launch).
 //
 // Replaces: janus_tpu/ops/setops.py slot_union with the OR-Set fold
@@ -26,9 +26,9 @@
 //
 // The layout is a set of template parameters (NK int32 key fields, NP
 // int32 payload fields, whether a bool flag exists, and the payloads'
-// fold, the "fold selector"), so the five layouts share one sort, one
+// fold, the "fold selector"), so the five layouts share one merge, one
 // duplicate rule and one compaction; each instantiation compiles only its
-// own layout (a one-key record sorts on (key, 0, position)). The 2P
+// own layout (a one-key record orders on (key, position)). The 2P
 // layouts have no payload (NP = 0): the payload arrays are declared with
 // one unused entry there (PAY_SLOTS), a compile-time size, so every
 // payload loop is empty and the layouts with payloads compile as before.
@@ -43,36 +43,32 @@
 // reads ~2 x 2.95 GB and writes ~2.95 GB into its levels, then 2.95 GB
 // into the replicas, ~3.5 ms; level 1 joins 65,536 rows of 2,048 records.
 // The LWW-Set's Store converge at the same 64 x 500 x 256 holds 172 MB and
-// moves ~4 x 172 MB, ~0.2 ms. The sort is (Ca + Cb) log^2 (Ca + Cb) / 4
-// compare-swaps per row in shared memory; the merge is O(Ca + Cb) per row
-// once its two rows are sorted, which every union output is.
+// moves ~4 x 172 MB, ~0.2 ms. The merge is O(Ca + Cb) per row once its
+// two rows are sorted, which every union output is; a row's unsorted tail
+// of t records costs t log^2 t / 4 compare-swaps more.
 //
-// Design: one block per row (grid-stride over rows). The records (keys,
-// position, valid and flag bits) and the payloads are staged in shared
-// memory (per record 16 bytes of sort record, 4 per payload field and 4 of
-// prefix sum: LWW-Set 36), so every read of the inputs happens before any
-// write: the output may alias an input row (the converge writes the last
-// level into the replicas it read). The sort is slot_sort::block_sort on
-// (key0, key1, position), the stable order; the kept flags are
-// prefix-summed in shared memory to place each kept record. Every layout
-// but the LWW-Set's (the Join template parameter, so that one compiles as
-// before) merges instead of sorting (merge_row): its rows come sorted by
-// key, or nearly (a union writes them sorted, the compaction is a stable
-// partition, an RGA apply mints ids above every id of its row into the
-// first free slot, an OR-Set apply and the captured replay leave every
-// row they touch in tag order; a 2P-Set or Graph apply inserts new keys at
-// the first free slot, after the sorted ones), so each input row is
-// checked for a descent, its tail after the first descent sorted alone and
-// merged into its prefix (order_row), and the two rows are merged along
-// the merge path, 25 bytes of shared memory a record for the RGA, 17 for
-// the OR-Set, 13 for edges, 9 for the 2P layout. The RGA's 2,048-record
-// rows take a block of 256 threads; the other layouts' rows take one warp
-// each (WarpRow), WARP_ROWS rows a block, synchronised by the warp alone,
-// so an SM holds ~24 OR-Set rows in flight (one 256-thread block a row
-// held ~8). With `repeat` > 1 the row is written into each of `repeat`
-// output replicas (the converge's broadcast; outside the RGA by a block of
-// 256 threads a row, one output slot a thread). Launches on the caller's
-// stream, allocates nothing, does not synchronise.
+// Design: the rows are merged, not sorted (merge_row). Every layout's rows
+// come sorted by key, or nearly (a union writes them sorted, the
+// compaction is a stable partition, an RGA apply mints ids above every id
+// of its row into the first free slot, an OR-Set apply and the captured
+// replay leave every row they touch in tag order; a 2P-Set, Graph or
+// LWW-Set apply inserts new keys at the first free slot, after the sorted
+// ones), so each input row is checked for a descent, its tail after the
+// first descent sorted alone and merged into its prefix (order_row), and
+// the two rows are merged along the merge path. The records (keys,
+// payloads, the row's order and the merged order, valid and flag bits) are
+// staged in shared memory, 25 bytes a record for the RGA and the LWW-Set,
+// 17 for the OR-Set, 13 for edges, 9 for the 2P layout, so every read of
+// the inputs happens before any write: the output may alias an input row
+// (the converge writes the last level into the replicas it read). The
+// RGA's 2,048-record rows take a block of 256 threads; the other layouts'
+// rows take one warp each (WarpRow), WARP_ROWS rows a block, synchronised
+// by the warp alone, so an SM holds ~24 OR-Set rows in flight (one
+// 256-thread block a row held ~8). With `repeat` > 1 the row is written
+// into each of `repeat` output replicas (the converge's broadcast; outside
+// the RGA by a block of 256 threads a row, one output slot a thread).
+// Launches on the caller's stream, allocates nothing, does not
+// synchronise.
 //
 // Row-list mode (slot_union_rows_launch, rga_union_rows_launch,
 // lww_union_rows_launch, tp_union_rows_launch, edge_union_rows_launch):
@@ -132,12 +128,11 @@ __device__ __forceinline__ bool ts_after(int hi_a, int lo_a, int hi_b,
   return hi_a > hi_b || (hi_a == hi_b && (unsigned)lo_a >= (unsigned)lo_b);
 }
 
-// shared memory per staged record: the sort's int4, the payloads and the
-// prefix sum; the merge's NK keys, payloads, two orders and flags
-template <int NK, int NP, bool MERGE>
+// shared memory per staged record of a merge: NK keys, NP payloads, two
+// orders and the flags
+template <int NK, int NP>
 __host__ __device__ constexpr size_t record_bytes() {
-  return MERGE ? NK * sizeof(int) + NP * sizeof(int) + 2 * sizeof(short) + 1
-               : sizeof(int4) + (NP + 1) * sizeof(int);
+  return NK * sizeof(int) + NP * sizeof(int) + 2 * sizeof(short) + 1;
 }
 
 // the least of one int over the block's threads (every thread calls it)
@@ -153,7 +148,7 @@ __device__ __forceinline__ int block_min(int v) {
 }
 
 // The threads that join one row. BlockRow: the whole block, one row at a
-// time (every sort, the RGA's merge, a broadcast). WarpRow: one
+// time (the RGA's merge, a broadcast). WarpRow: one
 // warp, blockDim.x / 32 rows a block side by side, each in its own slice
 // of the dynamic shared memory and synchronised by its warp alone (the
 // warp merge when it writes one replica).
@@ -228,115 +223,6 @@ struct WarpRow {
     return (threadIdx.x >> 5) * (bytes / sizeof(int4));
   }
 };
-
-// record: x, y = the keys (SENTINEL when invalid), z = position in the
-// concatenation, w = valid | flag << 1
-//
-// The union of row `a_at` of a (ca slots) and row `b_at` of b (cb slots),
-// written at out + out_at + p * out_plane for p < repeat. Every thread of
-// the block calls it. Returns the kept count (before the cut to cap).
-template <int NK, int NP, bool FLAG, int FOLD>
-__device__ int union_row(const Slots<NP>& a, long long a_at,
-                         const Slots<NP>& b, long long b_at,
-                         const OutSlots<NP>& out, long long out_at,
-                         long long out_plane, int repeat, int ca, int cb,
-                         int cap) {
-  extern __shared__ int4 smem[];
-  const int n = ca + cb;
-  int4* rec = smem;                       // [n]
-  int* pay = (int*)(rec + n);             // [NP][n] by position
-  int* place = pay + NP * n;              // [n] kept flags -> output slot
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    // select each field's pointer, not a whole Slots: a reference chosen at
-    // run time between two kernel parameters copies both to local memory
-    const bool in_a = i < ca;
-    const long long at = in_a ? a_at + i : b_at + (i - ca);
-    const bool v = (in_a ? a.valid : b.valid)[at];
-    const bool fl = FLAG && (in_a ? a.flag : b.flag)[at];
-    const int k1 = NK == 2 ? (v ? (in_a ? a.key[1] : b.key[1])[at] : SENT) : 0;
-    rec[i] = make_int4(v ? (in_a ? a.key[0] : b.key[0])[at] : SENT, k1, i,
-                       (int)v | ((int)fl << 1));
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-      pay[p * n + i] = (in_a ? a.pay[p] : b.pay[p])[at];
-  }
-  __syncthreads();
-  block_sort(rec, n, LessXYZ());
-
-  // kept: valid and not a repeat of the valid key before it
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int4 r = rec[i];
-    bool keep = r.w & 1;
-    if (keep && i > 0) {
-      const int4 q = rec[i - 1];
-      keep = !((q.w & 1) && q.x == r.x && q.y == r.y);
-    }
-    place[i] = keep;
-  }
-  __syncthreads();
-  // keep flags are re-derived below; place[] becomes the output slot
-  const int kept = block_exclusive_scan(place, n);
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int4 r = rec[i];
-    if (!(r.w & 1)) continue;
-    if (i > 0) {
-      const int4 q = rec[i - 1];
-      if ((q.w & 1) && q.x == r.x && q.y == r.y) continue;  // a duplicate
-    }
-    const int slot = place[i];
-    if (slot >= cap) continue;
-    bool fl = (r.w >> 1) & 1;
-    int next = -1;  // position of the duplicate right after, if any
-    if (i + 1 < n) {
-      const int4 nx = rec[i + 1];
-      if ((nx.w & 1) && nx.x == r.x && nx.y == r.y) {
-        fl |= (nx.w >> 1) & 1;
-        next = nx.z;
-      }
-    }
-    int v[PAY_SLOTS<NP>];
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      v[p] = pay[p * n + r.z];
-      if (FOLD == FOLD_MAX && next >= 0) v[p] = max(v[p], pay[p * n + next]);
-    }
-    if (FOLD == FOLD_TS_MAX && next >= 0) {
-#pragma unroll
-      for (int p = 0; p + 1 < NP; p += 2) {
-        const int hi = pay[p * n + next], lo = pay[(p + 1) * n + next];
-        if (!ts_after(v[p], v[p + 1], hi, lo)) {
-          v[p] = hi;
-          v[p + 1] = lo;
-        }
-      }
-    }
-    for (int p = 0; p < repeat; ++p) {
-      const long long at = p * out_plane + out_at + slot;
-      out.key[0][at] = r.x;
-      if (NK == 2) out.key[1][at] = r.y;
-#pragma unroll
-      for (int q = 0; q < NP; ++q) out.pay[q][at] = v[q];
-      if (FLAG) out.flag[at] = fl;
-      out.valid[at] = 1;
-    }
-  }
-  for (int slot = min(kept, cap) + threadIdx.x; slot < cap;
-       slot += blockDim.x) {
-    for (int p = 0; p < repeat; ++p) {
-      const long long at = p * out_plane + out_at + slot;
-      out.key[0][at] = SENT;
-      if (NK == 2) out.key[1][at] = SENT;
-#pragma unroll
-      for (int q = 0; q < NP; ++q) out.pay[q][at] = 0;
-      if (FLAG) out.flag[at] = 0;
-      out.valid[at] = 0;
-    }
-  }
-  __syncthreads();
-  return kept;
-}
 
 // The staged keys of a merge: NK int32 fields by position (ky unused when
 // NK == 1), compared as signed int32 in field order.
@@ -480,8 +366,10 @@ __device__ __forceinline__ void stage_row(const G& grp, const Slots<NP>& s,
   }
 }
 
-// The same union as union_row, by a merge of two sorted rows instead of a
-// sort of their concatenation. The order on (key, position) is a's
+// The union of row `a_at` of a (ca slots) and row `b_at` of b (cb slots),
+// written at out + out_at + p * out_plane for p < repeat, by a merge of the
+// two rows sorted (returns the kept count before the cut to cap). Every
+// thread of the group calls it. The order on (key, position) is a's
 // records in their order on (key, position) merged with b's, ties to a;
 // each row is already in that order when its keys do not descend, and a
 // row whose keys do descend is put in order alone first (order_row: its
@@ -492,8 +380,8 @@ __device__ __forceinline__ void stage_row(const G& grp, const Slots<NP>& s,
 // repeat the valid key before it; the kept records' slots come from a
 // prefix sum of the runs' counts, and the writes go out by slot. Shared
 // memory per record: keys 4 bytes a field, 4 per payload, the row's order
-// and the merged order 2 each, flags 1 (25 for the RGA, 17 for the
-// OR-Set, 13 for edges, 9 for the 2P layout). `grp` is the block
+// and the merged order 2 each, flags 1 (25 for the RGA and the LWW-Set,
+// 17 for the OR-Set, 13 for edges, 9 for the 2P layout). `grp` is the block
 // (BlockRow) or one warp (WarpRow).
 template <int NK, int NP, bool FLAG, int FOLD, class G>
 __device__ __forceinline__ int merge_row(const G& grp, const Slots<NP>& a,
@@ -505,7 +393,7 @@ __device__ __forceinline__ int merge_row(const G& grp, const Slots<NP>& a,
                                          int ca, int cb, int cap) {
   extern __shared__ int4 smem[];
   const int n = ca + cb;
-  const size_t row_bytes = round16((size_t)n * record_bytes<NK, NP, true>());
+  const size_t row_bytes = round16((size_t)n * record_bytes<NK, NP>());
   int* kx = (int*)(smem + grp.slice(row_bytes));       // [NK][n] by position
   int* ky = kx + (NK - 1) * n;                         // kx when NK == 1
   int* pay = kx + NK * n;                              // [NP][n]
@@ -640,35 +528,30 @@ __device__ __forceinline__ int merge_row(const G& grp, const Slots<NP>& a,
   return kept;
 }
 
-// the layout's join: the merge for MERGE layouts, else the sort (whose
-// group is always the block)
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
-__device__ __forceinline__ int join_row(const G& grp, const Slots<NP>& a,
-                                        long long a_at, const Slots<NP>& b,
-                                        long long b_at,
-                                        const OutSlots<NP>& out,
-                                        long long out_at, long long out_plane,
-                                        int repeat, int ca, int cb, int cap) {
-  if constexpr (MERGE)
-    return merge_row<NK, NP, FLAG, FOLD>(grp, a, a_at, b, b_at, out, out_at,
-                                         out_plane, repeat, ca, cb, cap);
-  else
-    return union_row<NK, NP, FLAG, FOLD>(a, a_at, b, b_at, out, out_at,
-                                         out_plane, repeat, ca, cb, cap);
-}
-
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
+template <int NK, int NP, bool FLAG, int FOLD, class G>
 __device__ __forceinline__ void union_all(const G& grp, const Slots<NP>& a,
                                           const Slots<NP>& b,
                                           const OutSlots<NP>& out,
                                           int* __restrict__ overflow,
                                           long long rows, int ca, int cb,
                                           int cap, int repeat) {
-  for (long long row = grp.first(); row < rows; row += grp.stride()) {
-    const int kept = join_row<NK, NP, FLAG, FOLD, MERGE>(
-        grp, a, row * ca, b, row * cb, out, row * cap, rows * (long long)cap,
-        repeat, ca, cb, cap);
-    if (grp.rank() == 0) overflow[row] = kept > cap ? kept - cap : 0;
+  if constexpr (G::BLOCK) {
+    for (long long row = grp.first(); row < rows; row += grp.stride()) {
+      const int kept = merge_row<NK, NP, FLAG, FOLD>(
+          grp, a, row * ca, b, row * cb, out, row * cap,
+          rows * (long long)cap, repeat, ca, cb, cap);
+      if (grp.rank() == 0) overflow[row] = kept > cap ? kept - cap : 0;
+    }
+  } else {
+    // a warp counts its rows in 32 bits (rows < 2^31, launch), as the
+    // row-list mode does
+    const int n = (int)rows, step = (int)grp.stride();
+    for (int row = (int)grp.first(); row < n; row += step) {
+      const int kept = merge_row<NK, NP, FLAG, FOLD>(
+          grp, a, (long long)row * ca, b, (long long)row * cb, out,
+          (long long)row * cap, rows * (long long)cap, repeat, ca, cb, cap);
+      if (grp.rank() == 0) overflow[row] = kept > cap ? kept - cap : 0;
+    }
   }
 }
 
@@ -678,7 +561,7 @@ __device__ __forceinline__ void union_all(const G& grp, const Slots<NP>& a,
 // `scatter` the result goes to out[r, j] ([pairs, num_keys, c] scratch);
 // with it (pairs == 1) to out[p, rows[j]] for every p < repeat, the
 // replicas of the state.
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
+template <int NK, int NP, bool FLAG, int FOLD, class G>
 __device__ __forceinline__ void join_listed(
     const G& grp, const Slots<NP>& a, const Slots<NP>& b,
     const OutSlots<NP>& out, const int* __restrict__ rows, int num_keys,
@@ -688,15 +571,15 @@ __device__ __forceinline__ void join_listed(
   const long long in_at = (r * num_keys + (gather ? k : j)) * c;
   const long long out_at = scatter ? (long long)k * c
                                    : (r * num_keys + j) * c;
-  join_row<NK, NP, FLAG, FOLD, MERGE>(grp, a, in_at, b, in_at, out, out_at,
-                                      (long long)num_keys * c,
-                                      scatter ? repeat : 1, c, c, c);
+  merge_row<NK, NP, FLAG, FOLD>(grp, a, in_at, b, in_at, out, out_at,
+                                (long long)num_keys * c,
+                                scatter ? repeat : 1, c, c, c);
 }
 
-// The merge's virtual rows are counted in 32 bits (listed * pairs < 2^30,
-// launch_rows): a 64-bit division is a routine whose call costs the merge
-// kernels a stack frame. The sort keeps the loop it was timed with.
-template <int NK, int NP, bool FLAG, int FOLD, bool MERGE, class G>
+// The virtual rows are counted in 32 bits (listed * pairs < 2^30,
+// launch_rows): a 64-bit division is a routine whose call costs the
+// kernels a stack frame.
+template <int NK, int NP, bool FLAG, int FOLD, class G>
 __device__ __forceinline__ void union_listed(
     const G& grp, const Slots<NP>& a, const Slots<NP>& b,
     const OutSlots<NP>& out, const int* __restrict__ rows, int listed,
@@ -704,43 +587,13 @@ __device__ __forceinline__ void union_listed(
     int gather, int scatter, int repeat) {
   int m = *n_rows;
   m = m < 0 ? 0 : (m > listed ? listed : m);
-  if constexpr (MERGE) {
-    const int total = m * pairs;
-    for (int v = (int)grp.first(); v < total; v += (int)grp.stride())
-      join_listed<NK, NP, FLAG, FOLD, MERGE>(grp, a, b, out, rows, num_keys,
-                                             c, gather, scatter, repeat,
-                                             v / pairs, v % pairs);
-  } else {
-    const long long total = (long long)m * pairs;
-    for (long long v = grp.first(); v < total; v += grp.stride())
-      join_listed<NK, NP, FLAG, FOLD, MERGE>(grp, a, b, out, rows, num_keys,
-                                             c, gather, scatter, repeat,
-                                             (int)(v / pairs), v % pairs);
-  }
+  const int total = m * pairs;
+  for (int v = (int)grp.first(); v < total; v += (int)grp.stride())
+    join_listed<NK, NP, FLAG, FOLD>(grp, a, b, out, rows, num_keys, c, gather,
+                                    scatter, repeat, v / pairs, v % pairs);
 }
 
-template <int NK, int NP, bool FLAG, int FOLD>
-__global__ void slot_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
-                                  int* __restrict__ overflow, long long rows,
-                                  int ca, int cb, int cap, int repeat) {
-  union_all<NK, NP, FLAG, FOLD, false>(BlockRow(), a, b, out, overflow, rows,
-                                       ca, cb, cap, repeat);
-}
-
-template <int NK, int NP, bool FLAG, int FOLD>
-__global__ void slot_union_rows_kernel(Slots<NP> a, Slots<NP> b,
-                                       OutSlots<NP> out,
-                                       const int* __restrict__ rows,
-                                       int listed,
-                                       const int* __restrict__ n_rows,
-                                       int pairs, int num_keys, int c,
-                                       int gather, int scatter, int repeat) {
-  union_listed<NK, NP, FLAG, FOLD, false>(BlockRow(), a, b, out, rows, listed,
-                                          n_rows, pairs, num_keys, c, gather,
-                                          scatter, repeat);
-}
-
-// The merge's block kernels, the same but for the join, are bounded by the
+// The block kernels are bounded by the
 // threads a block launches with, THREADS. The RGA's are kept to 64
 // registers a thread (at most 1,024 threads a block), so that four blocks
 // of 256 threads fit an SM, as shared memory allows at 1,024-slot rows; an
@@ -754,7 +607,7 @@ __global__ void __launch_bounds__(THREADS)
     merge_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
                        int* __restrict__ overflow, long long rows, int ca,
                        int cb, int cap, int repeat) {
-  union_all<NK, NP, FLAG, FOLD, true>(BlockRow(), a, b, out, overflow, rows,
+  union_all<NK, NP, FLAG, FOLD>(BlockRow(), a, b, out, overflow, rows,
                                       ca, cb, cap, repeat);
 }
 
@@ -765,7 +618,7 @@ __global__ void __launch_bounds__(THREADS)
                             const int* __restrict__ n_rows, int pairs,
                             int num_keys, int c, int gather, int scatter,
                             int repeat) {
-  union_listed<NK, NP, FLAG, FOLD, true>(BlockRow(), a, b, out, rows, listed,
+  union_listed<NK, NP, FLAG, FOLD>(BlockRow(), a, b, out, rows, listed,
                                          n_rows, pairs, num_keys, c, gather,
                                          scatter, repeat);
 }
@@ -781,7 +634,7 @@ __global__ void __launch_bounds__(32 * WARP_ROWS)
     warp_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
                       int* __restrict__ overflow, long long rows, int ca,
                       int cb, int cap, int repeat) {
-  union_all<NK, NP, FLAG, FOLD, true>(WarpRow(), a, b, out, overflow, rows,
+  union_all<NK, NP, FLAG, FOLD>(WarpRow(), a, b, out, overflow, rows,
                                       ca, cb, cap, repeat);
 }
 
@@ -792,9 +645,54 @@ __global__ void __launch_bounds__(32 * WARP_ROWS)
                            const int* __restrict__ n_rows, int pairs,
                            int num_keys, int c, int gather, int scatter,
                            int repeat) {
-  union_listed<NK, NP, FLAG, FOLD, true>(WarpRow(), a, b, out, rows, listed,
+  union_listed<NK, NP, FLAG, FOLD>(WarpRow(), a, b, out, rows, listed,
                                          n_rows, pairs, num_keys, c, gather,
                                          scatter, repeat);
+}
+
+// The same two kernels bounded to one block an SM, for the LWW layout:
+// bounded by their threads alone, ptxas held its warp merge (four
+// payloads a record) to 64 registers and spilled to a stack frame; so
+// bounded they take ~110 registers and no stack, and shared memory (25.6
+// KB a block of two 512-record rows) holds them to 8 blocks an SM, as
+// those registers do.
+template <int NK, int NP, bool FLAG, int FOLD>
+__global__ void __launch_bounds__(32 * WARP_ROWS, 1)
+    wide_warp_union_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
+                           int* __restrict__ overflow, long long rows,
+                           int ca, int cb, int cap, int repeat) {
+  union_all<NK, NP, FLAG, FOLD>(WarpRow(), a, b, out, overflow, rows, ca, cb,
+                                cap, repeat);
+}
+
+template <int NK, int NP, bool FLAG, int FOLD>
+__global__ void __launch_bounds__(32 * WARP_ROWS, 1)
+    wide_warp_union_rows_kernel(Slots<NP> a, Slots<NP> b, OutSlots<NP> out,
+                                const int* __restrict__ rows, int listed,
+                                const int* __restrict__ n_rows, int pairs,
+                                int num_keys, int c, int gather,
+                                int scatter, int repeat) {
+  union_listed<NK, NP, FLAG, FOLD>(WarpRow(), a, b, out, rows, listed,
+                                   n_rows, pairs, num_keys, c, gather,
+                                   scatter, repeat);
+}
+
+// a layout's warp merge kernels: the LWW layout's bounded to one block an
+// SM (wide_*), the others' by their threads alone
+template <int NK, int NP, bool FLAG, int FOLD>
+auto warp_kernel() {
+  if constexpr (FOLD == FOLD_TS_MAX)
+    return wide_warp_union_kernel<NK, NP, FLAG, FOLD>;
+  else
+    return warp_union_kernel<NK, NP, FLAG, FOLD>;
+}
+
+template <int NK, int NP, bool FLAG, int FOLD>
+auto warp_rows_kernel() {
+  if constexpr (FOLD == FOLD_TS_MAX)
+    return wide_warp_union_rows_kernel<NK, NP, FLAG, FOLD>;
+  else
+    return warp_union_rows_kernel<NK, NP, FLAG, FOLD>;
 }
 
 // fields in the entry points' order: the NK keys, the NP payloads, the
@@ -821,13 +719,12 @@ OutSlots<NP> out_slots(void* const* f) {
   return s;
 }
 
-// How a layout joins two rows: a block sort of their concatenation (SORT:
-// the LWW-Set), the block merge of the two sorted rows (MERGE: the RGA's
-// 2,048-record rows), or the merge by one warp a row (WARP_MERGE: the
-// OR-Set's 512-record rows, 16 a thread, and the 2P and edge layouts' rows
-// of 64 or 512 records; a broadcast runs the block merge at 256 threads a
-// row).
-enum Join { SORT = 0, MERGE = 1, WARP_MERGE = 2 };
+// How a layout joins two rows: the block merge of the two sorted rows
+// (MERGE: the RGA's 2,048-record rows), or the merge by one warp a row
+// (WARP_MERGE: the OR-Set's and the LWW-Set's 512-record rows, 16 a
+// thread, and the 2P and edge layouts' rows of 64 or 512 records; a
+// broadcast runs the block merge at 256 threads a row).
+enum Join { MERGE = 1, WARP_MERGE = 2 };
 
 constexpr size_t MAX_SHARED = 232448;  // a block's most, opted in
 
@@ -843,7 +740,7 @@ inline int warp_rows(size_t row_bytes) {
 template <int NK, int NP, typename Kernel, typename... Args>
 int launch_warps(Kernel kernel, int n, long long rows, long long most_blocks,
                  cudaStream_t stream, Args... args) {
-  const size_t row = round16((size_t)n * record_bytes<NK, NP, true>());
+  const size_t row = round16((size_t)n * record_bytes<NK, NP>());
   const int per = warp_rows(row);
   if (per == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_shared(kernel, per * row);
@@ -854,27 +751,23 @@ int launch_warps(Kernel kernel, int n, long long rows, long long most_blocks,
   return (int)cudaGetLastError();
 }
 
-template <int NK, int NP, bool FLAG, int FOLD, int JOIN = SORT>
+template <int NK, int NP, bool FLAG, int FOLD, int JOIN>
 int launch(const void* const* a, const void* const* b, void* const* o,
            void* overflow, long long rows, int ca, int cb, int cap,
            int repeat, cudaStream_t stream) {
   if (rows <= 0 || repeat <= 0) return (int)cudaSuccess;
-  void (*kernel)(Slots<NP>, Slots<NP>, OutSlots<NP>, int*, long long, int,
-                 int, int, int);
   if constexpr (JOIN == WARP_MERGE) {
+    if (rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
     if (repeat == 1)
       return launch_warps<NK, NP>(
-          warp_union_kernel<NK, NP, FLAG, FOLD>, ca + cb, rows, 132LL * 64,
+          warp_kernel<NK, NP, FLAG, FOLD>(), ca + cb, rows, 132LL * 64,
           stream, in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
           out_slots<NK, NP, FLAG>(o), (int*)overflow, rows, ca, cb, cap,
           repeat);
   }
-  constexpr bool MERGED = JOIN != SORT;
-  const size_t bytes =
-      (size_t)(ca + cb) * record_bytes<NK, NP, MERGED>() + 16;
+  const size_t bytes = (size_t)(ca + cb) * record_bytes<NK, NP>() + 16;
   constexpr int MOST = JOIN == MERGE ? MERGE_BROADCAST_THREADS : 256;
-  if constexpr (MERGED) kernel = merge_union_kernel<NK, NP, FLAG, FOLD, MOST>;
-  else kernel = slot_union_kernel<NK, NP, FLAG, FOLD>;
+  const auto kernel = merge_union_kernel<NK, NP, FLAG, FOLD, MOST>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long grid = rows < 132LL * 64 ? rows : 132LL * 64;
@@ -887,32 +780,27 @@ int launch(const void* const* a, const void* const* b, void* const* o,
   return (int)cudaGetLastError();
 }
 
-template <int NK, int NP, bool FLAG, int FOLD, int JOIN = SORT>
+template <int NK, int NP, bool FLAG, int FOLD, int JOIN>
 int launch_rows(const void* const* a, const void* const* b, void* const* o,
                 const void* rows, int listed, const void* n_rows, int pairs,
                 int num_keys, int c, int gather, int scatter, int repeat,
                 cudaStream_t stream) {
   if (listed <= 0 || pairs <= 0 || repeat <= 0 || c <= 0)
     return (int)cudaSuccess;
-  void (*kernel)(Slots<NP>, Slots<NP>, OutSlots<NP>, const int*, int,
-                 const int*, int, int, int, int, int, int);
   // one wave of 8 blocks per SM; blocks past the rows to join exit at once
   const long long most = (long long)listed * pairs;
   if (most >= (1LL << 30)) return (int)cudaErrorInvalidValue;
   if constexpr (JOIN == WARP_MERGE) {
     if (!(scatter && repeat > 1))
       return launch_warps<NK, NP>(
-          warp_union_rows_kernel<NK, NP, FLAG, FOLD>, 2 * c, most, 132LL * 8,
+          warp_rows_kernel<NK, NP, FLAG, FOLD>(), 2 * c, most, 132LL * 8,
           stream, in_slots<NK, NP, FLAG>(a), in_slots<NK, NP, FLAG>(b),
           out_slots<NK, NP, FLAG>(o), (const int*)rows, listed,
           (const int*)n_rows, pairs, num_keys, c, gather, scatter, repeat);
   }
-  constexpr bool MERGED = JOIN != SORT;
-  const size_t bytes = (size_t)(2 * c) * record_bytes<NK, NP, MERGED>() + 16;
+  const size_t bytes = (size_t)(2 * c) * record_bytes<NK, NP>() + 16;
   constexpr int MOST = JOIN == MERGE ? MERGE_BROADCAST_THREADS : 256;
-  if constexpr (MERGED)
-    kernel = merge_union_rows_kernel<NK, NP, FLAG, FOLD, MOST>;
-  else kernel = slot_union_rows_kernel<NK, NP, FLAG, FOLD>;
+  const auto kernel = merge_union_rows_kernel<NK, NP, FLAG, FOLD, MOST>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long grid = most < 132LL * 8 ? most : 132LL * 8;
@@ -935,8 +823,8 @@ int launch_rows(const void* const* a, const void* const* b, void* const* o,
 // removed, valid (bool); edges src, dst (int32), removed, valid (bool).
 //
 // a: [rows, ca], b: [rows, cb], o: [repeat, rows, cap], overflow
-// int32[rows]; contiguous on one device. The outputs may alias the inputs
-// row for row. Returns the launch's CUDA error.
+// int32[rows], rows < 2^31; contiguous on one device. The outputs may
+// alias the inputs row for row. Returns the launch's CUDA error.
 extern "C" int slot_union_launch(const void* const* a, const void* const* b,
                                  void* const* o, void* overflow,
                                  long long rows, int ca, int cb, int cap,
@@ -958,8 +846,9 @@ extern "C" int lww_union_launch(const void* const* a, const void* const* b,
                                 void* const* o, void* overflow,
                                 long long rows, int ca, int cb, int cap,
                                 int repeat, void* stream) {
-  return launch<1, 4, false, FOLD_TS_MAX>(a, b, o, overflow, rows, ca, cb,
-                                          cap, repeat, (cudaStream_t)stream);
+  return launch<1, 4, false, FOLD_TS_MAX, WARP_MERGE>(a, b, o, overflow, rows,
+                                                      ca, cb, cap, repeat,
+                                                      (cudaStream_t)stream);
 }
 
 extern "C" int tp_union_launch(const void* const* a, const void* const* b,
@@ -1015,10 +904,9 @@ extern "C" int lww_union_rows_launch(const void* const* a,
                                      const void* n_rows, int pairs,
                                      int num_keys, int c, int gather,
                                      int scatter, int repeat, void* stream) {
-  return launch_rows<1, 4, false, FOLD_TS_MAX>(a, b, o, rows, listed,
-                                               n_rows, pairs, num_keys, c,
-                                               gather, scatter, repeat,
-                                               (cudaStream_t)stream);
+  return launch_rows<1, 4, false, FOLD_TS_MAX, WARP_MERGE>(
+      a, b, o, rows, listed, n_rows, pairs, num_keys, c, gather, scatter,
+      repeat, (cudaStream_t)stream);
 }
 
 extern "C" int tp_union_rows_launch(const void* const* a,

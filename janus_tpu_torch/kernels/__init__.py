@@ -39,7 +39,8 @@ from janus_tpu_torch.kernels.gc_frontier import (  # noqa: F401
     gc_clear_ring, gc_clear_ring_plain, gc_frontier, gc_frontier_plain)
 from janus_tpu_torch.kernels.graph_apply import (  # noqa: F401
     graph_apply, graph_apply_plain, graph_capture, graph_capture_plain,
-    tpset_apply, tpset_apply_plain, tpset_capture, tpset_capture_plain)
+    tpset_apply, tpset_apply_plain, tpset_capture, tpset_capture_plain,
+    walk_occupancy)
 from janus_tpu_torch.kernels.lww_apply import (  # noqa: F401
     lww_apply, lww_apply_plain, lww_capture, lww_capture_plain)
 from janus_tpu_torch.kernels.mark_members import (  # noqa: F401

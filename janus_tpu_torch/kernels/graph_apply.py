@@ -32,8 +32,12 @@ live lanes there. Its state's fields (``elem``, ``removed``, ``valid``)
 stand in for the vertex leaves.
 
 The kernel groups the live lanes (codes 1-4, or 1-2 for the 2P-Set) by
-(view, row) first (csrc/lane_buckets.cuh). One call is four CUDA launches
-(three for the grouping) and adds one to its wrapper's count. The wrappers launch the
+(view, row) first, as 16-byte records of their op fields in a bucket of
+32 a group, then walks each group with one warp, the row in registers (a
+group of more than 32 lanes from the op fields themselves). One call is
+two CUDA launches (and the zeroing of the groups' counts) and adds one to
+its wrapper's count. The kernel holds a row's blocks in registers, so it
+takes CV and CE (the 2P-Set's C) up to 256 slots. The wrappers launch the
 kernel for CUDA tensors (or raise) and run the plain versions only for
 tensors that lie on the CPU.
 """
@@ -60,8 +64,10 @@ OP_ADD, OP_REMOVE = OP_ADD_VERTEX, OP_REMOVE_VERTEX
 # the op fields the apply reads, in the C entry points' order
 OP_FIELDS = ("op", "key", "a0", "a1")
 TP_OP_FIELDS = ("op", "key", "a0")
-# lane indices one window of a row's lanes holds (csrc/graph_apply.cu WCAP)
-WINDOW = 2048
+# the widest block a row may have (csrc/graph_apply.cu: a warp's registers
+# hold the row), and the records a group's bucket holds (GROUP_RECORDS)
+MAX_SLOTS = 256
+GROUP_RECORDS = 32
 
 
 def op_gates(rows, op, a0, a1) -> torch.Tensor:
@@ -215,11 +221,18 @@ def _lib():
     return lib
 
 
-def shared_bytes(cv: int, ce: int) -> int:
-    """Shared memory of one block (csrc/graph_apply.cu): the row's 6 bytes
-    a vertex slot and 10 an edge slot, and a window of lane indices
-    (6 CV + 10 CE <= 224,256; the 2P-Set's C <= 37,376 at CE = 0)."""
-    return 6 * cv + 10 * ce + 4 * WINDOW
+def walk_occupancy(edges: bool, cv: int, ce: int):
+    """``(blocks, threads)``: the walk's blocks resident on one SM of the
+    current card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) for
+    the uncaptured apply of rows of ``cv`` vertex and ``ce`` edge slots
+    (the 2P-Set's C = ``cv`` without edges), and its threads a block."""
+    i32, out = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    fn = _lib().graph_walk_occupancy
+    fn.argtypes, fn.restype = [i32, i32, i32, out, out], i32
+    blocks, threads = i32(0), i32(0)
+    rc = fn(int(edges), cv, ce, ctypes.byref(blocks), ctypes.byref(threads))
+    build.check_launch("walk_occupancy", rc)
+    return blocks.value, threads.value
 
 
 def _launch(name, wrapper, state, ops, ok_out):
@@ -244,21 +257,27 @@ def _launch(name, wrapper, state, ops, ok_out):
         ("op field 'ok'", ok, torch.int32, (V, B, 1))])
     if dev is None:
         return None
-    operands.check_shared(name, shared_bytes(CV, CE))
+    if CV > MAX_SLOTS or CE > MAX_SLOTS:
+        raise ValueError(f"{name}: rows of {CV} + {CE} slots, the kernel "
+                         f"takes blocks of at most {MAX_SLOTS}")
+    if V * K >= 1 << 31 or V > 65535:
+        raise ValueError(f"{name}: {V} views x {K} rows, the kernel takes "
+                         f"at most 65,535 views and fewer than 2^31 rows")
     if (K == 0 or CV + CE == 0) and V * B > 0:
         raise ValueError(f"{name}: no slot rows to gather from")
     dropped = torch.zeros((V,), dtype=torch.int32, device=dev)
     if V * B == 0:
         return dropped
-    scratch = (torch.zeros((V, K), dtype=torch.int32, device=dev),
-               torch.empty((V, K + 1), dtype=torch.int32, device=dev),
-               torch.empty((V, B), dtype=torch.int32, device=dev))
+    # each group's live lanes, and its bucket of records (16 bytes a lane)
+    scratch = (torch.zeros((V * K,), dtype=torch.int32, device=dev),
+               torch.empty((V * K, GROUP_RECORDS, 4), dtype=torch.int32,
+                           device=dev))
     st = (ctypes.c_void_p * len(fields))(*(state[f].data_ptr()
                                            for f in fields))
     op = (ctypes.c_void_p * (len(op_fields) + 1))(
         *(ops[f].data_ptr() for f in op_fields),
         None if ok is None else ok.data_ptr())
-    sc = (ctypes.c_void_p * 3)(*(t.data_ptr() for t in scratch))
+    sc = (ctypes.c_void_p * 2)(*(t.data_ptr() for t in scratch))
     lib = _lib()
     geo = (V, K, CV, CE, B) if edges else (V, K, CV, B)
     with torch.cuda.device(dev):

@@ -29,7 +29,7 @@ from janus_tpu_torch.kernels.slot_union import (
     Layout, union, union_plain, union_rows, union_rows_plain)
 
 RGA = Layout(rga_rows.FIELDS, rga_rows.DTYPES, rga_rows.fold_duplicate, 3,
-             "rga_union_launch", "rga_union_rows_launch", merge=True)
+             "rga_union_launch", "rga_union_rows_launch")
 
 
 def rga_union_plain(a, b, capacity: int | None = None, out=None):

@@ -39,9 +39,9 @@ class Layout(NamedTuple):
     """A slot layout of ``csrc/slot_union.cu``: its fields in the C entry
     points' order (``keys`` int32 keys, int32 payloads, a bool flag if the
     layout has one, valid), their dtypes, the duplicate fold of the plain
-    version, the count of int32 payload fields, the two C entry points,
-    the count of key fields and whether the source's instantiation joins
-    by a merge of sorted rows (``merge_row``) instead of a sort."""
+    version, the count of int32 payload fields, the two C entry points
+    and the count of key fields. Every layout joins by a merge of sorted
+    rows (``merge_row``)."""
     fields: tuple
     dtypes: dict
     fold: Callable
@@ -49,7 +49,6 @@ class Layout(NamedTuple):
     launch: str
     rows_launch: str
     keys: int = 2
-    merge: bool = False
 
     @property
     def key_fields(self):
@@ -63,13 +62,13 @@ class Layout(NamedTuple):
 
 ORSET = Layout(orset_rows.FIELDS, orset_rows.DTYPES,
                orset_rows.fold_duplicate, 1, "slot_union_launch",
-               "slot_union_rows_launch", merge=True)
+               "slot_union_rows_launch")
 LWW = Layout(lww_rows.FIELDS, lww_rows.DTYPES, lww_rows.fold_duplicate, 4,
              "lww_union_launch", "lww_union_rows_launch", keys=1)
 TP = Layout(tp_rows.TP_FIELDS, tp_rows.DTYPES, tp_rows.fold_duplicate, 0,
-            "tp_union_launch", "tp_union_rows_launch", keys=1, merge=True)
+            "tp_union_launch", "tp_union_rows_launch", keys=1)
 EDGE = Layout(tp_rows.EDGE_FIELDS, tp_rows.DTYPES, tp_rows.fold_duplicate, 0,
-              "edge_union_launch", "edge_union_rows_launch", merge=True)
+              "edge_union_launch", "edge_union_rows_launch")
 
 
 def union_plain(layout: Layout, a, b, capacity: int | None = None, out=None):
@@ -120,19 +119,15 @@ def _ptrs(layout: Layout, slots):
 
 def shared_bytes(ca: int, cb: int, layout: Layout = ORSET) -> int:
     """Shared memory of one block joining one row (csrc/slot_union.cu):
-    per input record a 16-byte sort record, 4 bytes per int32 payload
-    field and 4 of prefix sum (36 for the LWW-Set), or for a merge layout
-    4 bytes per key field, 4 per payload field, 2 + 2 of orders and 1 of
-    flags (25 for the RGA, 17 for the OR-Set, 13 for edges, 9 for the TP
-    layout), and the prefix sum's 4 KB. The most rows a block holds
-    follow: Ca + Cb <= 25,355 records for the TP layout (a full join of
-    rows up to 12,677 slots), 17,553 for edges (8,776 slots), 13,423 for
-    the OR-Set (6,711 slots), 9,128 for the RGA. (The warp merge puts up
-    to ``WARP_ROWS`` rows in a block, as many as fit.)"""
-    if layout.merge:
-        per = 4 * layout.keys + 5 + 4 * layout.payloads
-    else:
-        per = 16 + 4 * (layout.payloads + 1)
+    per input record 4 bytes per key field, 4 per payload field, 2 + 2 of
+    orders and 1 of flags (25 for the RGA and the LWW-Set, 17 for the
+    OR-Set, 13 for edges, 9 for the TP layout), and the prefix sum's 4 KB.
+    The most rows a block holds follow: Ca + Cb <= 25,355 records for the
+    TP layout (a full join of rows up to 12,677 slots), 17,553 for edges
+    (8,776 slots), 13,423 for the OR-Set (6,711 slots), 9,128 for the RGA
+    and the LWW-Set (4,564 slots). (The warp merge puts up to
+    ``WARP_ROWS`` rows in a block, as many as fit.)"""
+    per = 4 * layout.keys + 5 + 4 * layout.payloads
     return per * (ca + cb) + 16 + operands.SCAN_SHARED_BYTES
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""A/B of the design constants of three hand kernels on the card.
+"""A/B of the design constants of five hand kernels on the card.
 
 ``rga_compact`` (csrc/rga_compact.cu: the blocks an SM its launch bound
 asks for, ``MIN_BLOCKS``) on the rga preset's compaction at tick 3
@@ -25,14 +25,26 @@ the plain version (on a slice of the inputs, or on every 2P call); the
 variants are then timed
 in turns (first to last, then last to first), each turn by CUDA events
 around ``REPS`` calls queued behind a sleeping kernel after a warm-up.
-Prints one JSON line per kernel
+The LWW layout of ``slot_union.cu`` (``WARP_ROWS`` as it is) is timed on
+level 1 of ``chip_smoke.py``'s ``typed_store`` LWW tree, full and
+row-list, at its first two ticks and at ``TYPED_CHECKS["late_tick"]``;
+and ``graph_apply.cu``'s walk (the warps a block, ``WARPS``) on the four
+walk wrappers' calls ``chip_smoke.py`` times (the delta applies and the
+captures of its graph_consensus and tpset_consensus phases) and on the
+applies of its ``tp_store`` phase at ticks 0, 1 and ``late_tick``, every
+call checked against the plain version. Prints one JSON line per kernel
 and the card's name and power limit:
 
-    python scripts/kernel_ab.py [--parent DIR]
+    python scripts/kernel_ab.py [--parent DIR] [--parts compact,mvr,...]
 
 With ``--parent``, ``DIR/janus_tpu_torch/csrc/slot_union.cu`` (an earlier
-checkout, e.g. unpacked by ``git archive``) joins the slot_union turns and
-the 2P turns as one more variant, ``parent``.
+checkout, e.g. unpacked by ``git archive``) joins the slot_union turns, the
+2P turns and the LWW turns as one more variant, ``parent``, and
+``DIR/janus_tpu_torch/csrc/graph_apply.cu`` the walk's (the source before
+the walk's redesign, called as its own wrapper called it:
+``parent_walk``). ``--parts`` picks
+the parts to run, of ``compact``, ``mvr``, ``orset``, ``tp``, ``lww`` and
+``walk`` (all by default).
 """
 from __future__ import annotations
 
@@ -59,6 +71,9 @@ COMPACT_VARIANTS = {f"min{b}": {"MIN_BLOCKS": b} for b in (6, 8, 4)}
 WALK_VARIANTS = {f"ring{r}": {"RING": r} for r in (8, 16)}
 UNION_VARIANTS = {f"rows{r}": {"WARP_ROWS": r} for r in (2, 4, 8, 16)}
 TP_VARIANTS = {f"rows{r}": {"WARP_ROWS": r} for r in (2, 4)}
+LWW_VARIANTS = {"rows2": {"WARP_ROWS": 2}}
+GRAPH_WALK_VARIANTS = {f"warps{w}": {"WARPS": w} for w in (8, 4, 16)}
+PARTS = ("compact", "mvr", "orset", "tp", "lww", "walk")
 
 
 def build_variant(name, constants, tag) -> ctypes.CDLL:
@@ -281,25 +296,144 @@ def tp_union_inputs(dev):
     return dict(sorted(calls.items()))
 
 
-def run_ab(name, variants, calls, check, parent=None):
+def lww_union_inputs(dev):
+    """(wrapper name, args, kwargs) of the level-1 calls of the LWW union
+    in ``chip_smoke.py``'s ``typed_store`` phase (its streams and both
+    arms) at ticks 0, 1 and ``TYPED_CHECKS["late_tick"]``, full and
+    row-list, labelled ``lww_t<tick>`` and ``lww_rows_t<tick>``."""
+    import chip_smoke
+
+    late = chip_smoke.TYPED_CHECKS["late_tick"]
+    calls, tick = {}, [0]
+    names = ("lww_union", "lww_union_rows")
+    real = {n: getattr(kernels, n) for n in names}
+
+    def spy(name):
+        def call(*args, **kw):
+            if chip_smoke.typed_level1(name, args, kw) and tick[0] in (
+                    0, 1, late):
+                rows = "_rows" if name.endswith("_rows") else ""
+                calls.setdefault(f"lww{rows}_t{tick[0]}",
+                                 (name, clone((args, kw))))
+            return real[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(kernels, name, spy(name))
+    try:
+        arms = chip_smoke.typed_store_arms(dev)
+        for t, host in enumerate(chip_smoke.typed_store_stream(workloads,
+                                                               late + 1)):
+            tick[0] = t
+            batch = {tc: workloads.ops_to_device(o, dev)
+                     for tc, o in host.items()}
+            for st, use_delta in arms.values():
+                st.fused_tick(batch, delta=use_delta)
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name, fn)
+    torch.cuda.synchronize()
+    return dict(sorted(calls.items()))
+
+
+def walk_inputs(dev):
+    """(wrapper name, args, kwargs) of the walk's calls: the four wrappers'
+    calls ``chip_smoke.py`` times (the delta applies and the captures with
+    the most live lanes among the first ``TP_CHECKS["rounds"]`` rounds of
+    graph_consensus and tpset_consensus), labelled by wrapper, and the
+    applies of its ``tp_store`` phase (full arm) at ticks 0, 1 and
+    ``TP_CHECKS["late_tick"]``, labelled ``<wrapper>_store_t<tick>``."""
+    import chip_smoke
+
+    codes = {"graph_apply": (1, 2, 3, 4), "tpset_apply": (1, 2),
+             "graph_capture": (1, 2, 3, 4), "tpset_capture": (1, 2)}
+    late = chip_smoke.TP_CHECKS["late_tick"]
+    best, calls, tag = {}, {}, {"run": "", "tick": -1}
+    real = {n: getattr(kernels, n) for n in codes}
+
+    def spy(name):
+        def call(state, ops):
+            if tag["run"] == "consensus":
+                live = chip_smoke.live_lanes(ops, codes[name])
+                if live > best.get(name, (-1,))[0]:
+                    best[name] = (live, (name, clone(((state, ops), {}))))
+            elif tag["tick"] in (0, 1, late):
+                calls.setdefault(f"{name}_store_t{tag['tick']}",
+                                 (name, clone(((state, ops), {}))))
+            return real[name](state, ops)
+        return call
+
+    for name in codes:
+        setattr(kernels, name, spy(name))
+    try:
+        tag["run"] = "consensus"
+        for kind, g in (("tpset", chip_smoke.TPSET_CONS),
+                        ("graph", chip_smoke.GRAPH_CONS)):
+            kv = chip_smoke.tp_kv(dev, kind, g)
+            for ops in chip_smoke.tp_stream(workloads, kind, g,
+                                            chip_smoke.TP_CHECKS["rounds"]):
+                kv.step(workloads.ops_to_device(ops, dev))
+            del kv
+        tag["run"] = "tp_store"
+        st, _ = chip_smoke.tp_store_arms(dev)["full"]
+        for t, host in enumerate(chip_smoke.tp_store_stream(workloads,
+                                                            late + 1)):
+            tag["tick"] = t
+            st.fused_tick({tc: workloads.ops_to_device(o, dev)
+                           for tc, o in host.items()})
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name, fn)
+    torch.cuda.synchronize()
+    return {**{name: call for name, (_, call) in sorted(best.items())},
+            **dict(sorted(calls.items()))}
+
+
+def check_calls(calls):
+    """Every call of ``calls`` (label: (wrapper name, (args, kwargs)))
+    through the wrapper and its plain version on clones, bit-equal, the
+    in-place updates included."""
+    ok = True
+    for name, call in calls.values():
+        (args, kw), (pargs, pkw) = clone(call), clone(call)
+        ok &= same(getattr(kernels, name)(*args, **kw),
+                   getattr(kernels, name + "_plain")(*pargs, **pkw))
+        ok &= same(args, pargs)
+    return ok
+
+
+def timed_calls(calls):
+    """Labels to functions calling each wrapper on its recorded inputs
+    (which the in-place wrappers update, as ``chip_smoke.py`` times
+    them)."""
+    return {label: (lambda n=name, a=args, k=kw: getattr(kernels, n)(*a, **k))
+            for label, (name, (args, kw)) in calls.items()}
+
+
+def run_ab(name, variants, calls, check, parent=None, parent_wrap=None):
     """Build each variant (and, given ``parent``, that source as one more,
     ``parent``), check it, then time every call of ``calls`` (a dict of
-    labels to functions) under all of them in turns."""
+    labels to functions) under all of them in turns. ``parent_wrap(lib)``,
+    where the parent's source has another C interface than the package's
+    wrapper calls, gives the parent's own ``(calls, check)`` on ``lib``."""
     libs = {}
     for tag, constants in variants.items():
         libs[tag] = build_variant(name, constants, tag)
     if parent is not None:
         libs["parent"] = build_text(name, pathlib.Path(parent).read_text(),
                                     "parent")
+    runs = {tag: (calls, check) for tag in libs}
+    if parent is not None and parent_wrap is not None:
+        runs["parent"] = parent_wrap(libs["parent"])
     for tag, lib in libs.items():
         use(name, lib)
-        if not check():
+        if not runs[tag][1]():
             raise AssertionError(f"{name} {tag}: differs from plain")
     order = list(libs) + list(reversed(libs))
     times = {tag: {label: [] for label in calls} for tag in libs}
     for tag in order:
         use(name, libs[tag])
-        for label, call in calls.items():
+        for label, call in runs[tag][0].items():
             times[tag][label].append(device_ms(call))
     use(name, None)
     return {tag: {"constants": variants.get(tag, "parent source"),
@@ -308,76 +442,148 @@ def run_ab(name, variants, calls, check, parent=None):
             for tag, by in times.items()}
 
 
+def parent_walk(lib, name, state, ops):
+    """One call of wrapper ``name`` (graph_apply, graph_capture, tpset_apply
+    or tpset_capture) through the walk of ``git show c0936e7:janus_tpu_torch
+    /csrc/graph_apply.cu`` built as ``lib``, as that checkout's wrapper
+    made it: its scratch is lane_buckets' count, start and lanes
+    (the redesigned source takes a count and a bucket of records)."""
+    from janus_tpu_torch.kernels.graph_apply import (OP_FIELDS, TP_OP_FIELDS,
+                                                     _vertices)
+    from janus_tpu_torch.kernels.tp_rows import GRAPH_FIELDS, VERTEX_LEAVES
+
+    edges, capture = name.startswith("graph"), name.endswith("capture")
+    st = state if edges else _vertices(state)
+    fields = GRAPH_FIELDS if edges else VERTEX_LEAVES
+    op_fields = OP_FIELDS if edges else TP_OP_FIELDS
+    V, K, CV = st["v"].shape
+    CE = st["src"].shape[-1] if edges else 0
+    B = ops["op"].shape[1]
+    dev = st["v"].device
+    i32 = torch.int32
+    dropped = torch.zeros((V,), dtype=i32, device=dev)
+    ok_out = torch.ones((V, B, 1), dtype=i32, device=dev) if capture else None
+    ok = None if capture else ops.get("ok")
+    scratch = (torch.zeros((V, K), dtype=i32, device=dev),
+               torch.empty((V, K + 1), dtype=i32, device=dev),
+               torch.empty((V, B), dtype=i32, device=dev))
+    ptr, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    entry = getattr(lib, f"{'graph' if edges else 'tpset'}_"
+                         f"{'capture' if capture else 'apply'}_launch")
+    geo = (V, K, CV, CE, B) if edges else (V, K, CV, B)
+    entry.argtypes = ([arr, arr] + ([ptr] if capture else []) + [ptr, arr]
+                      + [ctypes.c_int] * len(geo) + [ptr])
+    entry.restype = ctypes.c_int
+    st_p = (ptr * len(fields))(*(st[f].data_ptr() for f in fields))
+    op_p = (ptr * (len(op_fields) + 1))(
+        *(ops[f].data_ptr() for f in op_fields),
+        None if ok is None else ok.data_ptr())
+    sc = (ptr * 3)(*(x.data_ptr() for x in scratch))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    extra = [ok_out.data_ptr()] if capture else []
+    rc = entry(st_p, op_p, *extra, dropped.data_ptr(), sc, *geo, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} (parent): CUDA error {rc}")
+    return (ok_out, dropped) if capture else dropped
+
+
+def parent_walk_runs(calls):
+    """``run_ab``'s ``parent_wrap`` for the walk: the parent's calls and
+    check through ``parent_walk``."""
+    def wrap(lib):
+        timed = {label: (lambda n=name, a=args: parent_walk(lib, n, *a))
+                 for label, (name, (args, _)) in calls.items()}
+
+        def check():
+            ok = True
+            for name, call in calls.values():
+                (args, _), (pargs, _) = clone(call), clone(call)
+                ok &= same(parent_walk(lib, name, *args),
+                           getattr(kernels, name + "_plain")(*pargs))
+                ok &= same(args, pargs)
+            return ok
+        return timed, check
+    return wrap
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     smi = nvidia_smi()
-    parent = None
+    parent, walk_parent = None, None
     if "--parent" in sys.argv:
-        parent = (pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
-                  / "janus_tpu_torch" / "csrc" / "slot_union.cu")
+        root = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
+        parent = root / "janus_tpu_torch" / "csrc" / "slot_union.cu"
+        walk_parent = root / "janus_tpu_torch" / "csrc" / "graph_apply.cu"
+    parts = (sys.argv[sys.argv.index("--parts") + 1].split(",")
+             if "--parts" in sys.argv else PARTS)
 
-    rows = compaction_input(dev)
-    part = {f: x[:8].clone() for f, x in rows.items()}
-    mine = clone(rows)
-    print(json.dumps({"kernel": "rga_compact", "nvidia_smi": smi, **run_ab(
-        "rga_compact", COMPACT_VARIANTS,
-        {"call": lambda: kernels.rga_compact(mine, None, out=mine)},
-        lambda: same(kernels.rga_compact(part),
-                     kernels.rga_compact_plain(part)))}), flush=True)
-    del rows, mine, part
-    torch.cuda.empty_cache()
+    if "compact" in parts:
+        rows = compaction_input(dev)
+        part = {f: x[:8].clone() for f, x in rows.items()}
+        mine = clone(rows)
+        print(json.dumps({"kernel": "rga_compact", "nvidia_smi": smi, **run_ab(
+            "rga_compact", COMPACT_VARIANTS,
+            {"call": lambda: kernels.rga_compact(mine, None, out=mine)},
+            lambda: same(kernels.rga_compact(part),
+                         kernels.rga_compact_plain(part)))}), flush=True)
+        del rows, mine, part
+        torch.cuda.empty_cache()
 
-    views, ops = walk_input(dev)
-    small = ({f: x[:4].clone() for f, x in views.items()},
-             {f: x[:4].clone() for f, x in ops.items()})
+    if "mvr" in parts:
+        views, ops = walk_input(dev)
+        small = ({f: x[:4].clone() for f, x in views.items()},
+                 {f: x[:4].clone() for f, x in ops.items()})
 
-    def check_walk():
-        a, b = clone(small[0]), clone(small[0])
-        return same((kernels.mvr_apply(a, small[1]), a),
-                    (kernels.mvr_apply_plain(b, small[1]), b))
+        def check_walk():
+            a, b = clone(small[0]), clone(small[0])
+            return same((kernels.mvr_apply(a, small[1]), a),
+                        (kernels.mvr_apply_plain(b, small[1]), b))
 
-    mine = clone(views)
-    print(json.dumps({"kernel": "mvr_apply", "nvidia_smi": smi, **run_ab(
-        "mvr_apply", WALK_VARIANTS, {"call": lambda: kernels.mvr_apply(mine, ops)},
-        check_walk)}), flush=True)
-    del views, ops, mine, small
-    torch.cuda.empty_cache()
+        mine = clone(views)
+        print(json.dumps({"kernel": "mvr_apply", "nvidia_smi": smi, **run_ab(
+            "mvr_apply", WALK_VARIANTS,
+            {"call": lambda: kernels.mvr_apply(mine, ops)}, check_walk)}),
+            flush=True)
+        del views, ops, mine, small
+        torch.cuda.empty_cache()
 
-    (ua, ukw), (ra, rkw) = union_inputs(dev)
-    part = tuple({f: x[:2, :40].clone() for f, x in t.items()} for t in ua[:2])
+    if "orset" in parts:
+        (ua, ukw), (ra, rkw) = union_inputs(dev)
+        part = tuple({f: x[:2, :40].clone() for f, x in t.items()}
+                     for t in ua[:2])
 
-    def check_union():
-        return same(kernels.slot_union(*part, ua[2]),
-                    kernels.slot_union_plain(*part, ua[2]))
+        def check_union():
+            return same(kernels.slot_union(*part, ua[2]),
+                        kernels.slot_union_plain(*part, ua[2]))
 
-    print(json.dumps({"kernel": "slot_union", "nvidia_smi": smi, **run_ab(
-        "slot_union", UNION_VARIANTS,
-        {"level1": lambda: kernels.slot_union(*ua, **ukw),
-         "rows_level1": lambda: kernels.slot_union_rows(*ra, **rkw)},
-        check_union, parent)}), flush=True)
-    del ua, ra, part
-    torch.cuda.empty_cache()
+        print(json.dumps({"kernel": "slot_union", "nvidia_smi": smi, **run_ab(
+            "slot_union", UNION_VARIANTS,
+            {"level1": lambda: kernels.slot_union(*ua, **ukw),
+             "rows_level1": lambda: kernels.slot_union_rows(*ra, **rkw)},
+            check_union, parent)}), flush=True)
+        del ua, ra, part
+        torch.cuda.empty_cache()
 
-    tp_calls = tp_union_inputs(dev)
-
-    def check_tp():
-        ok = True
-        for name, call in tp_calls.values():
-            (args, kw), (pargs, pkw) = clone(call), clone(call)
-            ok &= same(getattr(kernels, name)(*args, **kw),
-                       getattr(kernels, name + "_plain")(*pargs, **pkw))
-            ok &= same(args, pargs)
-        return ok
-
-    print(json.dumps({"kernel": "tp_union/edge_union", "nvidia_smi": smi,
-                      **run_ab("slot_union", TP_VARIANTS, {
-                          label: (lambda n=name, a=args, k=kw:
-                                  getattr(kernels, n)(*a, **k))
-                          for label, (name, (args, kw)) in tp_calls.items()},
-                          check_tp, parent)}), flush=True)
+    for part_name, inputs, name, variants, label in (
+            ("tp", tp_union_inputs, "slot_union", TP_VARIANTS,
+             "tp_union/edge_union"),
+            ("lww", lww_union_inputs, "slot_union", LWW_VARIANTS,
+             "lww_union"),
+            ("walk", walk_inputs, "graph_apply", GRAPH_WALK_VARIANTS,
+             "graph_walk")):
+        if part_name not in parts:
+            continue
+        calls = inputs(dev)
+        walk = part_name == "walk"
+        print(json.dumps({"kernel": label, "nvidia_smi": smi, **run_ab(
+            name, variants, timed_calls(calls),
+            lambda c=calls: check_calls(c), walk_parent if walk else parent,
+            parent_walk_runs(calls) if walk else None)}), flush=True)
+        del calls
+        torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0
 

@@ -19,6 +19,9 @@ from janus_tpu.consensus import tusk as jax_tusk
 from janus_tpu_torch import convert
 from janus_tpu_torch.consensus import dag, tusk
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 N, W = 4, 8
 
 

@@ -29,6 +29,9 @@ from janus_tpu_torch.consensus import dag, tusk
 from janus_tpu_torch.models import pncounter
 from janus_tpu_torch.runtime import safecrdt
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 SHAPES = [(4, 8), (7, 6)]
 STATES = 8  # random states per shape; every fourth one wraps int32
 

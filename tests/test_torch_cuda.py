@@ -2079,6 +2079,41 @@ def test_graph_apply_and_capture_match_plain(cuda_device, v, k, cv, ce, nv, b,
     assert int(drop.sum()) > 0
 
 
+# the walk's row shapes on the card: (kind, CV or C, CE), one for each
+# instantiation of csrc/graph_apply.cu (the Graph at CV <= 32 and <= 256,
+# the 2P-Set at C <= 64 and <= 256)
+WALK_SHAPES = (("graph", 32, 256), ("graph", 64, 256), ("tpset", 64, 0),
+               ("tpset", 256, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["apply", "captured", "capture"])
+@pytest.mark.parametrize("case", workloads.GRAPH_WALK_CASES)
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_graph_walk_cases_match_plain(cuda_device, shape, case, mode):
+    """The walk's edge cases (``workloads.graph_walk_case``) through
+    graph_apply / graph_capture and tpset_apply / tpset_capture against
+    their plain versions, bit-equal, at each instantiation's widths: 2
+    views, 500 rows (a few lanes a row), 2,200 lanes a view, so rows of
+    1, 31, 32 and 33 lanes (a row's bucket holds 32), one of more than
+    2,048, rows only adds touch, self-loops and ids at INT32_MAX, full
+    blocks and the hazards are each walked in every mode."""
+    kind, cv, ce = shape
+    rng = np.random.default_rng(len(case) + cv + ce)
+    st, ops = workloads.graph_walk_case(rng, case, 2, 500, cv, ce, 32, 2200,
+                                        edges=kind == "graph")
+    name = f"{kind}_{'capture' if mode == 'capture' else 'apply'}"
+    fields = (("op", "key", "a0", "a1") if kind == "graph"
+              else ("op", "key", "a0"))
+    if mode != "captured":
+        ops = {f: ops[f] for f in fields}
+    fn = getattr(kernels, name)
+    before = fn.launches
+    _kernel_vs_plain(fn, getattr(kernels, name + "_plain"),
+                     (_on(st, cuda_device), _on(ops, cuda_device)))
+    assert fn.launches == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead,cv,ce,nv,at_max", [
     ((3, 5), 6, 10, 5, 0.0), ((8, 16), 6, 10, 5, 0.2),
@@ -2141,17 +2176,28 @@ def test_tp_safekv_on_card_matches_cpu(cuda_device, kind):
     assert kvs[cuda_device].stats == kvs[torch.device("cpu")].stats
 
 
-def _tp_union_merge_case(dev, edges, case, c):
-    """The warp merge of the TP or EDGE layout (slot_union.cu, a row's
-    appended tail sorted and merged into its prefix) on one edge case of
-    ``workloads.tp_union_case`` at C = c: fresh outputs at a capacity
-    below, at and above one row's, ``out`` of two planes (the broadcast's
-    block merge), ``out`` aliasing ``a``, and rows of unequal widths."""
-    fn, plain = ((kernels.edge_union, kernels.edge_union_plain) if edges
-                 else (kernels.tp_union, kernels.tp_union_plain))
+def _union_case(rng, layout, case, lead, c):
+    """One edge case's rows of a warp-merge layout: ``workloads.
+    tp_union_case`` for "tp" and "edge", ``lww_union_case`` for "lww"."""
+    if layout == "lww":
+        return workloads.lww_union_case(rng, case, lead, c)
+    return workloads.tp_union_case(rng, case, lead, c, edges=layout == "edge")
+
+
+UNION_WRAPPERS = {"tp": "tp_union", "edge": "edge_union", "lww": "lww_union"}
+
+
+def _tp_union_merge_case(dev, edges, case, c, layout=None):
+    """The warp merge of the TP, EDGE or LWW layout (slot_union.cu, a
+    row's appended tail sorted and merged into its prefix) on one edge case
+    at C = c: fresh outputs at a capacity below, at and above one row's,
+    ``out`` of two planes (the broadcast's block merge), ``out`` aliasing
+    ``a``, and rows of unequal widths."""
+    layout = layout or ("edge" if edges else "tp")
+    name = UNION_WRAPPERS[layout]
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     rng = np.random.default_rng(len(case) + c + edges)
-    a, b = (_on(x, dev) for x in
-            workloads.tp_union_case(rng, case, (48,), c, edges=edges))
+    a, b = (_on(x, dev) for x in _union_case(rng, layout, case, (48,), c))
     before = fn.launches
     for cap in (c // 2 + 3, c, 3 * c):
         got, ovf = fn(a, b, cap)
@@ -2195,20 +2241,21 @@ def test_edge_union_merge_matches_plain(cuda_device, case, c):
     _tp_union_merge_case(cuda_device, True, case, c)
 
 
-def _tp_union_rows_merge_case(dev, edges, case, r):
-    """The row-list mode of the TP or EDGE warp merge on one edge case at
-    C = 256, K = 16 key rows of r replicas, with 0, 1 and K rows listed:
+def _tp_union_rows_merge_case(dev, edges, case, r, kind=None):
+    """The row-list mode of the TP, EDGE or LWW warp merge on one edge case
+    at C = 256, K = 16 key rows of r replicas, with 0, 1 and K rows listed:
     the converge's row-list tree through the kernel against the same tree
     of plain versions (r = 2: one level that writes the rows it read;
     r = 3 and 5: scratch levels, then the broadcast into every replica)."""
     from janus_tpu_torch.kernels.replica_tree import join_tree_rows
-    from janus_tpu_torch.kernels.slot_union import EDGE, TP
+    from janus_tpu_torch.kernels.slot_union import EDGE, LWW, TP
 
-    layout = EDGE if edges else TP
-    name = "edge_union_rows" if edges else "tp_union_rows"
+    kind = kind or ("edge" if edges else "tp")
+    layout = {"tp": TP, "edge": EDGE, "lww": LWW}[kind]
+    name = UNION_WRAPPERS[kind] + "_rows"
     rng = np.random.default_rng(len(case) + r + edges)
     k, c = 16, 256
-    draws = [workloads.tp_union_case(rng, case, (k,), c, edges=edges)
+    draws = [_union_case(rng, kind, case, (k,), c)
              for _ in range((r + 1) // 2)]
     rows_of = [x for pair in draws for x in pair][:r]
     st = _on({f: np.stack([x[f] for x in rows_of]) for f in layout.fields},
@@ -2241,6 +2288,42 @@ def test_tp_union_rows_merge_matches_plain(cuda_device, case, r):
 def test_edge_union_rows_merge_matches_plain(cuda_device, case, r):
     """``edge_union_rows``' warp merge on every 2P edge case."""
     _tp_union_rows_merge_case(cuda_device, True, case, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 256])
+@pytest.mark.parametrize("case", workloads.LWW_UNION_CASES)
+def test_lww_union_merge_matches_plain(cuda_device, case, c):
+    """``lww_union``'s warp merge on every LWW edge case (the 2P key
+    orders with stamps, equal and extreme stamps, all-invalid rows) at
+    C = 32 and the typed store's rows (C = 256)."""
+    _tp_union_merge_case(cuda_device, False, case, c, layout="lww")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3, 5])
+@pytest.mark.parametrize("case", workloads.LWW_UNION_CASES)
+def test_lww_union_rows_merge_matches_plain(cuda_device, case, r):
+    """``lww_union_rows``' warp merge on every LWW edge case."""
+    _tp_union_rows_merge_case(cuda_device, False, case, r, kind="lww")
+
+
+@pytest.mark.cuda
+def test_lww_union_refuses_rows_past_shared_memory(cuda_device):
+    """The LWW merge's rows at the most a block holds (25 bytes a record:
+    Ca + Cb <= 9,128) join; one slot more a row is refused before any
+    launch."""
+    rng = np.random.default_rng(4)
+    most = 4564
+
+    def rows(c):
+        return _lww_rows(rng, (1,), c, cuda_device, full_rows=1.0)
+    a, b = rows(most), rows(most)
+    _kernel_vs_plain(kernels.lww_union, kernels.lww_union_plain, (a, b, most))
+    before = kernels.launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.lww_union(rows(most + 1), rows(most + 1))
+    assert kernels.launches() == before
 
 
 @pytest.mark.cuda

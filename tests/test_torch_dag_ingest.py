@@ -24,6 +24,9 @@ from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.consensus import dag
 from janus_tpu_torch.obs.metrics import Registry, get_registry
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 SHAPES = ((4, 8), (7, 6))
 
 

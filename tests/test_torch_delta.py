@@ -29,6 +29,9 @@ from janus_tpu_torch.obs.metrics import get_registry
 from janus_tpu_torch.runtime import engine, store
 from janus_tpu_torch.utils.ids import TagMinter
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 R, B, K = 4, 8, 32
 SPECS = {"pnc": (jax_pnc.SPEC, pncounter.SPEC),
          "orset": (jax_orset.SPEC, orset.SPEC)}

@@ -8,6 +8,9 @@ import textwrap
 import pytest
 import torch
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 MODULES = (
     "janus_tpu_torch",
     "janus_tpu_torch.device",

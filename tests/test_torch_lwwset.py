@@ -35,6 +35,9 @@ from janus_tpu_torch.models import base, lwwset
 from janus_tpu_torch.ops import ts_after, ts_max
 from janus_tpu_torch.runtime import safecrdt, store
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 # the JAX functions, jitted so that each shape compiles once
 J_APPLY = jax.jit(jax.vmap(jax_lww._apply_ops_impl))
 J_CAPTURE = jax.jit(jax.vmap(

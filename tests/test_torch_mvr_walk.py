@@ -26,6 +26,9 @@ from janus_tpu_torch import convert, kernels
 from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.kernels.mvr_rows import OP_FIELDS
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 CASES = workloads.MVR_WALK_CASES
 V, K, B = 2, 5, 3200
 # (values a key, clock lanes)

@@ -38,6 +38,9 @@ from janus_tpu_torch.models import base, mvregister
 from janus_tpu_torch.ops import lattice
 from janus_tpu_torch.runtime import safecrdt, store
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 # the JAX functions, jitted so that each shape compiles once
 J_APPLY = jax.jit(jax.vmap(jax_mvr._apply_ops_impl))
 J_CAPTURE = jax.jit(jax.vmap(

@@ -31,6 +31,9 @@ from janus_tpu_torch.ops.lattice import SENTINEL
 from janus_tpu_torch.runtime import engine, store
 from janus_tpu_torch.utils.ids import TagMinter
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 FIELDS = ("tag_rep", "tag_ctr", "elem", "removed", "valid")
 
 

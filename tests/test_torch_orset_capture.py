@@ -21,6 +21,9 @@ from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.models import orset
 from janus_tpu_torch.ops.lattice import SENTINEL
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 CASES = workloads.ORSET_CAPTURE_CASES
 FIELDS = ("tag_rep", "tag_ctr", "elem", "removed", "valid")
 CAPTURED = ("rm_rep", "rm_ctr", "rm_elem")

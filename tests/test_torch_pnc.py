@@ -15,6 +15,9 @@ from janus_tpu_torch import kernels
 from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.models import base, pncounter
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 K, W = 7, 5
 INT32_MAX = np.iinfo(np.int32).max
 

@@ -29,6 +29,9 @@ from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.models import base, rga
 from janus_tpu_torch.runtime import engine, store
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 # the JAX functions, jitted so that each shape compiles once
 J_APPLY = jax.jit(jax_rga.apply_ops)
 J_APPLY_IMPL = jax.jit(jax.vmap(jax_rga._apply_ops_impl))

@@ -24,6 +24,9 @@ from janus_tpu_torch import convert, kernels
 from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.models import rga
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 CASES = workloads.RGA_COMPACT_CASES
 LEAD = (3,)
 

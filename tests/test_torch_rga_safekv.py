@@ -37,6 +37,9 @@ from janus_tpu_torch.ops import setops
 from janus_tpu_torch.ops.lattice import SENTINEL
 from janus_tpu_torch.runtime import safecrdt
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 # the JAX functions, jitted so that each shape compiles once
 J_CAPTURE = jax.jit(jax.vmap(
     lambda st, o: jax_base.capture_and_apply(jax_rga.SPEC, st, o)))

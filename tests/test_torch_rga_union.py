@@ -22,6 +22,9 @@ from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.models import rga
 from janus_tpu_torch.runtime import store
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 K, C = 6, 16
 CASES = workloads.RGA_UNION_CASES
 

@@ -35,6 +35,9 @@ from janus_tpu_torch.models import base, orset, pncounter
 from janus_tpu_torch.runtime import safecrdt
 from janus_tpu_torch.utils.ids import TagMinter
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 N, W, B, K = 4, 8, 8, 6
 CAP, RM = 8, 2
 TYPES = {"pnc": (jax_pnc.SPEC, pncounter.SPEC, dict(num_writers=N)),

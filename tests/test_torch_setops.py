@@ -19,6 +19,9 @@ from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.kernels.orset_rows import KEY_FIELDS, fold_duplicate
 from janus_tpu_torch.ops import setops
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 SLOT_FIELDS = ("valid", "tag_rep", "tag_ctr", "elem", "removed")
 
 

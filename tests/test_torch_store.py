@@ -21,6 +21,9 @@ from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.models import pncounter
 from janus_tpu_torch.runtime import engine, store
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 K, W = 6, 9
 
 

@@ -25,6 +25,9 @@ from janus_tpu_torch.bench import workloads
 from janus_tpu_torch.models import graph, tpset
 from janus_tpu_torch.runtime import store
 
+# the suite's parallel test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
 K, C, CV = 6, 16, 8
 CASES = workloads.TP_UNION_CASES
 LAYOUTS = ("tp", "edge")
