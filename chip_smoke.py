@@ -8,7 +8,7 @@ checks every result; any failed check raises, so the script exits
 non-zero. Phases, one JSON line each:
 
 1. device     the card's name and power limit (nvidia-smi)
-2. build      all twenty-six kernel sources in csrc/ compiled with
+2. build      all twenty-seven kernel sources in csrc/ compiled with
               nvcc, in parallel
 3. kernels    each hand kernel against its plain PyTorch version on the
               card, bit-equal: pnc_apply and replica_join at the fast-path
@@ -219,7 +219,33 @@ non-zero. Phases, one JSON line each:
               the honest three, who keep committing
 20. split_tcp  two processes (two nodes each) of the PN-Counter cluster
               over loopback TCP (TcpPeer): the same checks, ms per step
-21. timing, the kernels line, the nvidia-smi line, and the result line.
+21. harness_adaptive  (run after harness_tensor) run_tensor_adaptive
+              through harness.run at presets orset_adaptive (saturated),
+              orset_adaptive_light and orset_fixed_light (the trickle of
+              Fig 7, 16 nodes, B up to 5,120), uncut, and the light preset
+              under a 1 ms latency target at its trickle and at 32 ops a
+              node a tick (ADAPTIVE): B within floor and ceiling on the
+              quantum, every target the controller's law on the recorded
+              observations, resizes, refusals and ring_resize launches
+              counted, views' stable states bit-equal; the saturated and
+              fixed runs hold 5,120, the tight floor run reaches the floor;
+              the block traces, safe-update p50/p99 and tick ms
+22. harness_faults  (run after harness_adaptive) run_tensor through
+              harness.run at presets byzantine (nodes 12-15 signing
+              tampered digests at 0.25 through the integrity plane),
+              byzantine0, pnc8 and crash (Fig 11), uncut: the control
+              prunes nothing and reads OK, the Byzantine run prunes, keeps
+              committing and reads DEGRADED naming an injecting node, live
+              views' stable states bit-equal, the PN-Counter against a
+              numpy sum of the accepted ops; throughput, lag p50/p99,
+              safe-update latency and the Fig 11 deltas
+23. ring_kernels  (run after the paths) ring_resize against its plain
+              version, bit-equal with its live-tail flag: random rings of
+              every type's extras, grows, clean shrinks and shrinks with a
+              live tail lane, at RING_CHECKS' geometries (the adaptive
+              presets' 47 MB OR-Set ring among them), and every call the
+              harness_adaptive runs recorded
+24. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -610,6 +636,27 @@ INGEST_CHECKS = dict(shapes=((4, 8), (7, 6), (16, 8), (33, 5), (64, 8)),
 # ticks are cut here (none is)
 HARNESS = dict(presets=("pnc", "orset", "mixed"), cut_ticks={},
                sync_rounds=4, profile_rounds=3)
+# run_tensor_adaptive (through harness.run) at these presets, uncut, and
+# the light preset again under a latency target below the card's seal
+# (a synchronous OR-Set round at 16 nodes takes ~8 ms there, under the
+# presets' 50 ms, so the presets' controller never asks for a shrink):
+# "light_tight" keeps the trickle of 256 ops a node a tick, "floor_tight"
+# offers 32, under the floor's half, so B can settle at the floor
+ADAPTIVE = dict(presets=("orset_adaptive", "orset_adaptive_light",
+                         "orset_fixed_light"),
+                variants={"light_tight": ("orset_adaptive_light",
+                                          dict(latency_target_ms=1.0)),
+                          "floor_tight": ("orset_adaptive_light",
+                                          dict(latency_target_ms=1.0,
+                                               offered_per_tick=32))})
+# run_tensor at the Fig 11 presets, uncut: the Byzantine pair through the
+# integrity plane (nodes 12-15 inject at 0.25 and at 0) and the crash pair
+FAULTS = dict(presets=("byzantine", "byzantine0", "pnc8", "crash"),
+              injecting=(12, 13, 14, 15))
+# ring_resize on random rings (W, N, B, B') of every type's extras, clean
+# and with a live tail lane on a shrink, then on the adaptive runs' calls
+RING_CHECKS = dict(geometries=((8, 4, 8, 16), (8, 4, 16, 4), (5, 3, 33, 32),
+                               (8, 16, 5120, 2560), (8, 16, 64, 704)))
 # a row-list mode or another slot layout is its kernel's source with
 # another entry point
 SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union",
@@ -666,6 +713,7 @@ REPLACES = {
     "graph_capture": "janus_tpu/models/graph.py:76",
     "edge_mask": "janus_tpu/models/graph.py:209",
     "dag_ingest": "janus_tpu/consensus/dag.py:228",
+    "ring_resize": "janus_tpu/runtime/safecrdt.py:744",
 }
 
 
@@ -5676,20 +5724,7 @@ def harness_tensor(dev, kernels, workloads, smi):
                 check(agree or (name == "prospective" and not exact),
                       f"harness {preset} {code}: views' {name} states differ")
         if "pnc" in kvs:
-            n, k = cfg.num_nodes, cfg.num_objects
-            expect = np.zeros(k, np.int64)
-            host = observe["batches"]["pnc"]
-            for code, idx, acc in observe["rounds"]:
-                if code != "pnc" or idx is None:
-                    continue
-                o = host[idx]
-                sign = np.where(o["op"] == 1, 1, np.where(o["op"] == 2, -1, 0))
-                amount = (sign * o["a0"].astype(np.int64))[acc]
-                np.add.at(expect, o["key"][acc].ravel(), amount.ravel())
-            got = kvs["pnc"].query_stable("get").cpu().numpy()
-            check((got == wrap32(expect)[None]).all(),
-                  f"harness {preset}: PN-Counter values differ from the numpy "
-                  f"sum of the accepted ops")
+            pnc_sum_check(f"harness {preset}", cfg, observe, kvs["pnc"])
         syncs = []
         for code, kv in kvs.items():
             idle = workloads.ops_to_device(
@@ -5734,6 +5769,341 @@ def harness_tensor(dev, kernels, workloads, smi):
         del observe, kvs, res
         torch.cuda.empty_cache()
     return launches
+
+
+def pnc_sum_check(what, cfg, observe, kv, views=None):
+    """The PN-Counter's stable values (of ``views``, default all) equal a
+    numpy sum of the ops of every batch a harness run's rounds accepted."""
+    expect = np.zeros(cfg.num_objects, np.int64)
+    host = observe["batches"]["pnc"]
+    for code, idx, acc in observe["rounds"]:
+        if code != "pnc" or idx is None:
+            continue
+        o = host[idx]
+        sign = np.where(o["op"] == 1, 1, np.where(o["op"] == 2, -1, 0))
+        amount = (sign * o["a0"].astype(np.int64))[acc]
+        np.add.at(expect, o["key"][acc].ravel(), amount.ravel())
+    got = kv.query_stable("get").cpu().numpy()
+    if views is not None:
+        got = got[views]
+    check((got == wrap32(expect)[None]).all(),
+          f"{what}: PN-Counter values differ from the numpy sum of the "
+          f"accepted ops")
+
+
+def views_agree(what, state, views=None) -> None:
+    """Every view (of ``views``, default all) of ``state`` bit-equal."""
+    for f, x in state.items():
+        if views is not None:
+            x = x[torch.as_tensor(views, device=x.device)]
+        check(torch.equal(x, x[:1].expand_as(x)), f"{what}: views' {f} "
+              f"differ")
+
+
+def adaptive_runs(harness):
+    """(run name, config) of the harness_adaptive phase."""
+    import dataclasses
+
+    runs = [(p, harness.PRESETS[p]) for p in ADAPTIVE["presets"]]
+    for name, (base, change) in ADAPTIVE["variants"].items():
+        cfg = harness.PRESETS[base]
+        runs.append((name, dataclasses.replace(
+            cfg, name=f"{cfg.name}_{name}", **change)))
+    return runs
+
+
+def harness_adaptive(dev, kernels, workloads, smi, ring_calls):
+    """run_tensor_adaptive through harness.run on the card at presets
+    orset_adaptive (saturated), orset_adaptive_light (the trickle, the
+    controller on) and orset_fixed_light (the trickle at fixed B), uncut,
+    and the light preset under a latency target the card's seal misses
+    (ADAPTIVE's variants). Per run: B within floor and ceiling and on the
+    quantum at every tick; every target the controller's law applied to
+    the run's recorded (backlog, seal ms) observations; every resize and
+    refusal counted, and one ring_resize launch for each; the ring at the
+    final B; every view's stable state the same after the drain (whose
+    ticks keep boarding the trickle, so prospective states may hold blocks
+    still in flight); the saturated run and the
+    fixed run holding B at 5,120, the tight trickle resizing, the tight
+    floor run reaching the floor. Prints each run's block trace, resizes,
+    refusals, safe-update p50/p99 and tick ms. Records every ring_resize
+    call (its ring cloned) into ``ring_calls`` by run. Returns the
+    launches of the runs."""
+    import dataclasses
+
+    from janus_tpu_torch.bench import harness
+    from janus_tpu_torch.obs.metrics import Registry, get_registry
+
+    launches = {name: 0 for name in kernels.WRAPPERS}
+    fig7 = {}
+    for name, cfg in adaptive_runs(harness):
+        get_registry().reset()
+        observe, out = {}, []
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rec = record_calls(kernels, ("ring_resize",), lambda: out.append(
+            harness.run(cfg, device=dev, observe=observe)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        run_launches = kernels.launches()
+        for k, v in run_launches.items():
+            launches[k] += v
+        res, kv, ticks = out[0], observe["kv"], observe["ticks"]
+        what = f"harness_adaptive {name}"
+        b_max, floor = cfg.ops_per_block, cfg.block_floor
+        quantum = min(64, b_max)
+        trace = [t[0] for t in ticks] + [kv.B]
+        check(all(floor <= b <= b_max and (b % quantum == 0 or b == floor)
+                  for b in trace), f"{what}: B off its range: {sorted(set(trace))}")
+        sched = harness.adaptive_scheduler(cfg, registry=Registry())
+        law = []
+        for i, (_, backlog, seal_ms, target, _) in enumerate(ticks):
+            sched.observe(backlog, seal_ms)
+            if cfg.adaptive and sched.maybe_adjust() != target:
+                law.append(i)
+        check(not law, f"{what}: targets off the controller's law at ticks "
+              f"{law[:8]}")
+        resized = sum(t[4] is True for t in ticks)
+        refused = sum(t[4] is False for t in ticks)
+        check(res.extra["block_resizes"] == kv.stats["block_resizes"]
+              == resized, f"{what}: resizes {res.extra['block_resizes']}, "
+              f"{kv.stats['block_resizes']}, {resized}")
+        check(res.extra["resize_refusals"] == refused, f"{what}: refusals")
+        check(run_launches["ring_resize"] == resized + refused
+              == len(rec["ring_resize"]), f"{what}: ring_resize launched "
+              f"{run_launches['ring_resize']} times for {resized} resizes and "
+              f"{refused} refusals")
+        check(all(x.shape[2] == kv.B for x in kv.ops_buffer.values())
+              and kv.safe_host.shape[2] == kv.B, f"{what}: ring not at B")
+        # the drive's drain ticks keep boarding the trickle, so the last
+        # blocks are still in flight: only the stable views must agree
+        views_agree(what, kv.stable)
+        if name in ("orset_adaptive", "orset_fixed_light"):
+            check(set(trace) == {b_max} and resized == 0,
+                  f"{what}: B left {b_max}: {sorted(set(trace))}")
+        if name == "light_tight":
+            check(resized > 0 and min(trace) < b_max,
+                  f"{what}: the controller never resized")
+        if name == "floor_tight":
+            check(min(trace) == floor, f"{what}: B never reached the floor "
+                  f"{floor}: {sorted(set(trace))}")
+        ring_calls[name] = rec["ring_resize"]
+        d = res.to_dict()
+        d.pop("reference", None)
+        seal = np.asarray([t[2] for t in ticks])
+        safe = d["latency"]["safeUpdate"]
+        fig7[name] = {"safe_p50_ms": safe.get("median_ms"),
+                      "safe_p99_ms": safe.get("p99_ms"),
+                      "tick_ms_avg": res.extra["tick_ms_avg"],
+                      "block_min": min(trace), "resizes": resized}
+        emit("harness_adaptive", run=name, nvidia_smi=smi,
+             config=dataclasses.asdict(cfg), seconds=seconds, results=d,
+             block_trace_every_tick=trace, block_min=min(trace),
+             block_resizes=resized, resize_refusals=refused,
+             safe_update_p50_ms=safe.get("median_ms"),
+             safe_update_p99_ms=safe.get("p99_ms"),
+             tick_ms_avg=res.extra["tick_ms_avg"],
+             seal_ms={"p50": float(np.percentile(seal, 50)),
+                      "p90": float(np.percentile(seal, 90)),
+                      "max": float(seal.max())},
+             slots_dropped=kv.stats["slots_dropped"],
+             launches={k: v for k, v in run_launches.items() if v})
+        del observe, out, res, kv
+        torch.cuda.empty_cache()
+    check(launches["ring_resize"] > 0, "harness_adaptive: ring_resize never "
+          "launched")
+    emit("harness_adaptive_fig7", nvidia_smi=smi, runs=fig7)
+    return launches
+
+
+def harness_faults(dev, kernels, workloads, smi):
+    """run_tensor through harness.run on the card at the Fig 11 presets,
+    uncut: byzantine (16 nodes, nodes 12-15 signing tampered digests at
+    0.25 through the integrity plane) and its control byzantine0 (the same
+    secure path at 0), pnc8 and crash (8 nodes, 2 crashed). Checks: the
+    control prunes nothing and reads health OK; the Byzantine run prunes
+    blocks, keeps committing (the GC frontier past the window) and reads
+    DEGRADED naming one of the injecting nodes, whose equivocation counts
+    are the only non-zero ones; every live view's stable state the same;
+    the PN-Counter's stable values those of a numpy sum of the accepted
+    ops. Prints throughput, commit lag p50/p99 and safe-update latency per
+    preset, and the Fig 11 deltas. Returns the launches of the runs."""
+    import dataclasses
+
+    from janus_tpu_torch.bench import harness
+    from janus_tpu_torch.obs.metrics import get_registry
+
+    launches = {name: 0 for name in kernels.WRAPPERS}
+    reads = {}
+    injecting = set(FAULTS["injecting"])
+    for preset in FAULTS["presets"]:
+        cfg = harness.PRESETS[preset]
+        get_registry().reset()
+        observe = {}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = harness.run(cfg, device=dev, observe=observe)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        run_launches = kernels.launches()
+        for k, v in run_launches.items():
+            launches[k] += v
+        what = f"harness_faults {preset}"
+        active = observe["active"]
+        views = None if active is None else np.nonzero(active)[0]
+        for code, kv in observe["kvs"].items():
+            views_agree(f"{what} {code}", kv.stable, views)
+            check(kv.stats["own_commits"] > 0, f"{what}: no commit")
+        if "pnc" in observe["kvs"]:
+            pnc_sum_check(what, cfg, observe, observe["kvs"]["pnc"], views)
+        health = res.extra.get("health")
+        if cfg.byzantine:
+            kv = observe["kvs"][cfg.type_code]
+            check(kv.base_round() > cfg.window, f"{what}: the GC frontier "
+                  f"stopped at {kv.base_round()}")
+            equiv = health["equivocation"]
+            if cfg.invalid_rate == 0:
+                check(res.extra["pruned_blocks"] == 0
+                      and health["status"] == "OK" and not equiv,
+                      f"{what}: the control pruned or degraded: {health}")
+            else:
+                named = [v for v in injecting
+                         if any(f"node {v}:" in r for r in health["reasons"])]
+                check(res.extra["pruned_blocks"] > 0
+                      and health["status"] == "DEGRADED" and named
+                      and set(equiv) <= injecting
+                      and all(c > 0 for c in equiv.values()),
+                      f"{what}: pruning or health off: "
+                      f"{res.extra['pruned_blocks']} {health}")
+        d = res.to_dict()
+        d.pop("reference", None)
+        safe = d["latency"]["safeUpdate"]
+        reads[preset] = {
+            "throughput_ops_per_sec": d["throughput_ops_per_sec"],
+            "commit_lag_ticks_p50": res.extra["commit_lag_ticks_p50"],
+            "commit_lag_ticks_p99": res.extra["commit_lag_ticks_p99"],
+            "safe_p50_ms": safe.get("median_ms"),
+            "safe_p99_ms": safe.get("p99_ms"),
+            "tick_ms_avg": res.extra["tick_ms_avg"]}
+        emit("harness_faults", preset=preset, nvidia_smi=smi,
+             config=dataclasses.asdict(cfg), seconds=seconds, results=d,
+             **reads[preset], pruned_blocks=res.extra.get("pruned_blocks"),
+             health=health,
+             stats={code: dict(kv.stats)
+                    for code, kv in observe["kvs"].items()},
+             launches={k: v for k, v in run_launches.items() if v})
+        del observe, res
+        torch.cuda.empty_cache()
+
+    def delta(a, b):
+        x, y = (reads[p]["throughput_ops_per_sec"] for p in (a, b))
+        return (x - y) / y if y else None
+    emit("harness_faults_fig11", nvidia_smi=smi,
+         byzantine_vs_control_throughput=delta("byzantine", "byzantine0"),
+         crash_vs_pnc8_throughput=delta("crash", "pnc8"), reads=reads)
+    return launches
+
+
+def ring_kernel_checks(dev, kernels, workloads, cases, ring_calls):
+    """ring_resize against its plain version on the card, bit-equal (the
+    new ring and the live-tail flag): random rings of every type's extras
+    (workloads.RING_EXTRAS) at RING_CHECKS' geometries, grows, clean
+    shrinks and shrinks with one live tail lane (refused); then every
+    ring_resize call of the harness_adaptive runs, recorded there.
+    Returns the recorded calls."""
+    log = CaseLog(("ring_resize",))
+    rng = np.random.default_rng(16)
+    refusals = 0
+    for kind, extras in sorted(workloads.RING_EXTRAS.items()):
+        for w, n, b, new_b in RING_CHECKS["geometries"]:
+            for live in ((False, True) if new_b < b else (False,)):
+                ring = workloads.ops_to_device(workloads.ring_resize_case(
+                    rng, w, n, b, new_b, extras, live), dev)
+                _, flag = log.add(kernels, "ring_resize", (ring, new_b),
+                                  f"{kind} W{w} N{n} B{b}->{new_b}"
+                                  f"{' live tail' if live else ''}")
+                check(int(flag.item()) == int(live), f"ring_resize {kind} "
+                      f"B{b}->{new_b}: flag {int(flag.item())}")
+                refusals += live
+    recorded = {}
+    for run, calls in ring_calls.items():
+        for j, (args, kw) in enumerate(calls):
+            log.add(kernels, "ring_resize", args, f"recorded {run} call {j}",
+                    kw)
+        recorded[run] = len(calls)
+    check(sum(recorded.values()) > 0, "ring_kernels: no recorded call")
+    cases.append({"kernel": "ring_resize", "case": "ring_kernels",
+                  **log.by["ring_resize"]})
+    emit("ring_kernels", by_kernel=log.by, refusals_checked=refusals,
+         recorded=recorded)
+    return ring_calls
+
+
+def ring_bytes(ring, new_b) -> int:
+    """What a resize must move: the kept lanes of every field read once
+    (and op's tail lanes on a shrink, for the live check), the new ring
+    written once."""
+    b = ring["op"].shape[2]
+    lanes = sum(x[:, :, 0].numel() for x in ring.values())
+    tail = ring["op"][:, :, 0].numel() * max(0, b - new_b)
+    return 4 * (lanes * (min(b, new_b) + new_b) + tail)
+
+
+def ring_library(ring, new_b):
+    """One PyTorch call a field: ``F.pad`` for a grow, a slice made
+    contiguous for a shrink (and the tail's any() for its check)."""
+    import torch.nn.functional as F
+
+    b = ring["op"].shape[2]
+    if new_b > b:
+        return lambda: [F.pad(x, (0, 0) * (x.dim() - 3) + (0, new_b - b))
+                        for x in ring.values()]
+    return lambda: ([x[:, :, :new_b].contiguous() for x in ring.values()],
+                    (ring["op"][:, :, new_b:] != 0).any())
+
+
+def ring_kernel_rows(kernels, ring_calls):
+    """The kernels line's ring_resize row on the largest recorded shrink
+    of the harness_adaptive runs (the 5,120-lane OR-Set ring halved), with
+    a grow timed beside it (``grow``): the largest recorded one, or, when
+    the runs grew no ring, that shrink's kept lanes grown back."""
+    calls = [c for run in ring_calls.values() for c in run]
+    size = {id(c): ring_bytes(*c[0]) for c in calls}
+    shrinks = [c for c in calls if c[0][1] < c[0][0]["op"].shape[2]]
+    grows = [c for c in calls if c[0][1] > c[0][0]["op"].shape[2]]
+    (ring, new_b), _ = max(shrinks or calls, key=lambda c: size[id(c)])
+    undone = not grows and new_b < ring["op"].shape[2]
+    if undone:
+        kept = {f: x[:, :, :new_b].contiguous() for f, x in ring.items()}
+        grows = [((kept, ring["op"].shape[2]), {})]
+        size[id(grows[0])] = 0
+    w, n, b = ring["op"].shape
+    nbytes = ring_bytes(ring, new_b)
+    row = dict(
+        name="ring_resize",
+        call=lambda: kernels.ring_resize(ring, new_b),
+        plain=lambda: kernels.ring_resize_plain(ring, new_b),
+        library=ring_library(ring, new_b),
+        shape=f"a recorded resize of harness_adaptive: W{w} N{n} "
+        f"B{b}->{new_b}, {len(ring)} fields",
+        bytes=nbytes, operations=nbytes // 4,
+        library_note="per field: a slice made contiguous (a shrink) or "
+        "F.pad (a grow), and the op tail's any()")
+    if grows:
+        (g_ring, g_b), _ = max(grows, key=lambda c: size[id(c)])
+        g_bytes = ring_bytes(g_ring, g_b)
+        gw, gn, gb = g_ring["op"].shape
+        row["grow"] = {
+            "shape": f"W{gw} N{gn} B{gb}->{g_b}"
+                     f"{', the shrink undone' if undone else ''}",
+            "ms": time_cuda(lambda: kernels.ring_resize(g_ring, g_b)),
+            "device_ms": device_burst_ms(
+                lambda: kernels.ring_resize(g_ring, g_b)),
+            "plain_ms": time_cuda(
+                lambda: kernels.ring_resize_plain(g_ring, g_b)),
+            "library_ms": time_cuda(ring_library(g_ring, g_b)),
+            "bytes": g_bytes, "bound_ms": 1e3 * g_bytes / HBM_BYTES_PER_S}
+    return [row]
 
 
 def ingest_ring(dev, rng, n, w, b, lanes, rm):
@@ -6418,7 +6788,7 @@ def split_round_fields(kernels, split_calls):
 
 def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                  orset_calls, delta_calls, rga_calls, safekv_calls,
-                 fence_calls, typed_calls, tp_calls, split_calls):
+                 fence_calls, typed_calls, tp_calls, split_calls, ring_calls):
     """Time each kernel beside its plain version, its bound and one
     PyTorch call computing the same function: pnc_apply and replica_join
     at the fast-path shape, the consensus kernels on the last recorded
@@ -6548,6 +6918,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
     kerns += typed_kernel_rows(kernels, typed_calls)
     kerns += tp_kernel_rows(kernels, tp_calls)
     kerns += split_kernel_rows(kernels, split_calls)
+    kerns += ring_kernel_rows(kernels, ring_calls)
 
     # the profiler's count of a plain torch kernel, as a control, and of
     # causal_closure profiled right after a large profile (tusk_commit's
@@ -6569,7 +6940,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                                     "rows_read", "rows_written", "rows_joined",
                                     "rows_sorted", "buckets_sorted",
                                     "longest_walk", "walk_blocks_per_sm",
-                                    "walk_threads_per_block", "library_note")
+                                    "walk_threads_per_block", "library_note",
+                                    "grow")
                if k in kern}
         row["ms"] = time_cuda(kern["call"])
         reps, one_ms = plain_reps(kern["plain"])
@@ -6687,7 +7059,7 @@ def main() -> int:
                         workloads, cases)
     timed("ingest_kernels", ingest_kernel_checks, dev, kernels, workloads,
           cases)
-    split_calls = {}
+    split_calls, ring_calls = {}, {}
     paths = {"fast_path": timed("fast_path", fast_path, dev, kernels, workloads),
              "consensus": timed("consensus", consensus_path, dev, kernels,
                                 workloads, cases),
@@ -6702,6 +7074,11 @@ def main() -> int:
              "rga_replay": timed("rga_replay", rga_replay, dev, kernels,
                                  workloads),
              "harness_tensor": timed("harness_tensor", harness_tensor, dev,
+                                     kernels, workloads, smi),
+             "harness_adaptive": timed("harness_adaptive", harness_adaptive,
+                                       dev, kernels, workloads, smi,
+                                       ring_calls),
+             "harness_faults": timed("harness_faults", harness_faults, dev,
                                      kernels, workloads, smi),
              "lww_consensus": timed("lww_consensus", lww_consensus, dev,
                                     kernels, workloads),
@@ -6722,13 +7099,16 @@ def main() -> int:
     # after the timed paths, so that nothing it keeps (clones of the
     # recorded calls, tree scratch, the allocator's growth) is there while
     # the earlier phases are timed
+    ring_calls = timed("ring_kernels", ring_kernel_checks, dev, kernels,
+                       workloads, cases, ring_calls)
     typed_calls = timed("typed_kernels", typed_kernel_checks, dev, kernels,
                         workloads, cases)
     tp_calls = timed("tp_kernels", tp_kernel_checks, dev, kernels, workloads,
                      cases)
     line = timed("kernels_line", kernels_line, dev, kernels, paths, fast_ops,
                  cases, timing_calls, orset_calls, delta_calls, rga_calls,
-                 safekv_calls, fence_calls, typed_calls, tp_calls, split_calls)
+                 safekv_calls, fence_calls, typed_calls, tp_calls, split_calls,
+                 ring_calls)
     emit("timing", seconds=time.perf_counter() - started, by_phase=phase_s)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

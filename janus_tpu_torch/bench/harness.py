@@ -10,10 +10,15 @@ framework is driven when embedded. ``BenchConfig``, ``OpStats``,
 config or preset means the same run in both packages, and a seed gives
 the same op batches (the same numpy draws in the same order).
 
-Not in this port yet: the wire modes and the overload sweep (ROADMAP
-queue 1 items 3-4), the adaptive mode (queue 1 item 2), the Byzantine runs
-through the integrity plane (queue 1 item 1), and the store_delta and RGA
-replay runners (queue 1 item 2; their paths run in ``chip_smoke.py``).
+``run_tensor`` also drives the Byzantine runs (``byzantine`` > 0) through
+the integrity plane (``consensus.integrity.SecureCluster``, one
+synchronous secure step a round), with the pruned blocks folded through
+the health watchdog; ``run_tensor_adaptive`` is the offered-rate drive
+through the AIMD block-size controller (``obs.scheduler``), which resizes
+SafeKV's blocks at runtime; ``run`` dispatches a config by its mode. Not
+in this port yet: the wire modes and the overload sweep (ROADMAP queue 1
+items 3-4), and the store_delta and RGA replay runners (queue 1 item 2;
+their paths run in ``chip_smoke.py``).
 
     python -m janus_tpu_torch.bench.harness --preset pnc [--json]
 """
@@ -209,7 +214,6 @@ UNPORTED_MODES = {
     "wire_sharded_native":
         "ROADMAP queue 1 items 3-4 (the wire plane and service)",
     "overload": "ROADMAP queue 1 items 3-4 (the wire plane and service)",
-    "adaptive": "ROADMAP queue 1 item 2 (run_tensor_adaptive)",
     "store_delta": "ROADMAP queue 1 item 2 (run_store_delta)",
 }
 
@@ -271,10 +275,10 @@ def run_tensor(cfg: BenchConfig, device=None,
         raise NotImplementedError(
             f"mode {cfg.mode!r} is not ported: "
             f"{UNPORTED_MODES.get(cfg.mode, 'only the tensor mode is')}")
-    if cfg.byzantine:
-        raise NotImplementedError(
-            "byzantine runs need the integrity plane (SecureCluster), not "
-            "ported yet: ROADMAP queue 1 item 1")
+    if cfg.byzantine and cfg.crashed:
+        raise ValueError(
+            "byzantine + crashed in one run needs SecureCluster's "
+            "fetch-mode crash modeling; configure them separately")
     if cfg.type_code not in ("pnc", "orset", "mixed"):
         raise NotImplementedError(
             f"type {cfg.type_code!r} has no tensor-mode run in the port")
@@ -301,6 +305,19 @@ def run_tensor(cfg: BenchConfig, device=None,
                                       capacity=cfg.orset_capacity,
                                       rm_capacity=cfg.orset_rm_capacity)))
     minters = [TagMinter(v) for v in range(n)]
+    planes = {}
+    if cfg.byzantine:
+        from janus_tpu_torch.consensus.integrity import (IntegrityPlane,
+                                                         SecureCluster)
+        byz = np.zeros(n, bool)
+        byz[-cfg.byzantine:] = True
+        specs = [(code, kv, SecureCluster(
+            kv, IntegrityPlane(dag, byzantine=byz,
+                               invalid_rate=cfg.invalid_rate, seed=cfg.seed)))
+            for code, kv in specs]
+        planes = {code: sc.plane for code, _, sc in specs}
+    else:
+        specs = [(code, kv, None) for code, kv in specs]
 
     def gen_batch(code: str) -> dict:
         shape = (n, B)
@@ -333,7 +350,7 @@ def run_tensor(cfg: BenchConfig, device=None,
         safe = safe & active[:, None]
 
     host_batches = {code: [gen_batch(code) for _ in range(4)]
-                    for code, _ in specs}
+                    for code, _, _ in specs}
     if active is not None:
         for blist in host_batches.values():
             for bt in blist:
@@ -343,13 +360,14 @@ def run_tensor(cfg: BenchConfig, device=None,
                for code, blist in host_batches.items()}
     idle_batch = {code: ops_to_device({f: np.zeros_like(v) for f, v in
                                        host_batches[code][0].items()}, dev)
-                  for code, _ in specs}
+                  for code, _, _ in specs}
     active_dev = None if active is None else torch.as_tensor(active, device=dev)
     # `safe` stays host numpy: it is host-side ack bookkeeping only
     # (step_dispatch never ships it to the device)
     if observe is not None:
-        observe.update(kvs=dict(specs), batches=host_batches, active=active,
-                       rounds=[])
+        observe.update(kvs={code: kv for code, kv, _ in specs},
+                       batches=host_batches, active=active, rounds=[],
+                       planes=planes)
 
     def drive(pool, ticks, record=True, idle=False, depth=DRIVE_DEPTH):
         inflight = []
@@ -362,9 +380,16 @@ def run_tensor(cfg: BenchConfig, device=None,
                 observe["rounds"].append((code, idx, info["accepted"]))
 
         for i in range(ticks):
-            for code, kv in specs:
+            for code, kv, secure in specs:
                 idx = None if idle else i % 4
                 batch = idle_batch[code] if idle else batches[code][idx]
+                if secure is not None:
+                    # the plane signs and verifies each round's blocks on
+                    # the host before the round: one synchronous step
+                    info = secure.step(batch, safe=safe, record=record)
+                    if observe is not None:
+                        observe["rounds"].append((code, idx, info["accepted"]))
+                    continue
                 packed, meta = kv.step_dispatch(batch, safe=safe,
                                                 active=active_dev,
                                                 record=record)
@@ -377,7 +402,7 @@ def run_tensor(cfg: BenchConfig, device=None,
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         drive(pool, 2 * cfg.window)  # warmup: first use of every kernel
-        for _, kv in specs:
+        for _, kv, _ in specs:
             kv.wall_latency_log.clear()
             kv.latency_log.clear()
         t0 = time.perf_counter()
@@ -389,10 +414,11 @@ def run_tensor(cfg: BenchConfig, device=None,
         drive(pool, 2 * cfg.window, record=False, idle=True)  # drain
         # throughput accounting stops here: blocks committed during the
         # latency phase below must not count against elapsed_s
-        committed_blocks = {code: len(kv.latency_log) for code, kv in specs}
+        committed_blocks = {code: len(kv.latency_log)
+                            for code, kv, _ in specs}
         # latency phase: depth-2 pipeline, so an op's commit observation
         # is not queued behind many in-flight fetches
-        for _, kv in specs:
+        for _, kv, _ in specs:
             kv.wall_latency_log.clear()
         drive(pool, min(cfg.ticks, 2 * cfg.window + 8), depth=2)
         drive(pool, 2 * cfg.window, record=False, idle=True, depth=2)
@@ -401,7 +427,7 @@ def run_tensor(cfg: BenchConfig, device=None,
     # floor report below
     rtt_floor = backend_rtt(reps=3, device=dev)
 
-    for code, kv in specs:
+    for code, kv, _ in specs:
         lats = 1e3 * np.asarray(kv.wall_latency_log)
         res.stats["safeUpdate"].latencies_ms.extend(lats.tolist())
         res.total_ops += committed_blocks[code] * B
@@ -431,8 +457,22 @@ def run_tensor(cfg: BenchConfig, device=None,
         # measured per-stage decomposition (telemetry plane), per type
         res.extra[f"stages_{code}"] = obs_stages.summarize_stages(
             kv.stage_scope)
+    if planes:
+        res.extra["pruned_blocks"] = sum(
+            len(p.pruned_blocks()) for p in planes.values())
+        # per-node pruned-block counts folded through the watchdog's
+        # equivocation detector: a byzantine run flags the injecting
+        # nodes; the invalid_rate=0 control stays OK
+        from janus_tpu_torch.obs import HealthWatchdog
+        merged: Dict[int, int] = {}
+        for p in planes.values():
+            for src, cnt in p.equivocation_counts().items():
+                merged[src] = merged.get(src, 0) + cnt
+        wd = HealthWatchdog()
+        wd.observe_equivocation(merged)
+        res.extra["health"] = wd.health()
     all_lags = np.concatenate([np.asarray(kv.latency_log)
-                               for _, kv in specs])
+                               for _, kv, _ in specs])
     res.extra["commit_lag_ticks_p50"] = int(np.percentile(all_lags, 50))
     # derived co-located commit latency: measured per-tick time x the
     # measured commit-lag distribution in TICKS (tick indices are immune
@@ -445,7 +485,8 @@ def run_tensor(cfg: BenchConfig, device=None,
     # is ~RTT/pipeline-depth, so when tick_ms_avg is within a few
     # multiples of the floor the derived values are an UPPER BOUND on the
     # co-located latency
-    obs_floor = 1e3 * rtt_floor / DRIVE_DEPTH
+    # the secure path steps synchronously: effective depth 1
+    obs_floor = 1e3 * rtt_floor / (1 if planes else DRIVE_DEPTH)
     res.extra["tick_observation_floor_ms"] = round(obs_floor, 3)
     res.extra["derived_is_upper_bound"] = bool(tick_ms < 4 * obs_floor)
     res.extra["commit_lag_ticks_p99"] = int(np.percentile(all_lags, 99))
@@ -456,6 +497,209 @@ def run_tensor(cfg: BenchConfig, device=None,
     # every counted op is applied at all n emulated nodes
     res.extra["replica_applications_per_sec"] = round(res.throughput * n, 1)
     return res
+
+
+def adaptive_scheduler(cfg: BenchConfig, registry=None):
+    """The AIMD controller ``run_tensor_adaptive`` steers ``cfg``'s blocks
+    with (the JAX harness's settings): floor ``block_floor``, ceiling
+    ``ops_per_block``, a decision every 4 ticks."""
+    from janus_tpu_torch.obs import AdaptiveTick, SchedulerConfig
+
+    b_max = cfg.ops_per_block
+    return AdaptiveTick(SchedulerConfig(
+        b_min=min(cfg.block_floor, b_max), b_max=b_max, window=cfg.window,
+        latency_target_ms=cfg.latency_target_ms,
+        grow_step=max(64, b_max // 8), adjust_every=4,
+        quantum=min(64, b_max)), b0=b_max, registry=registry)
+
+
+def run_tensor_adaptive(cfg: BenchConfig, device=None,
+                        observe: Optional[dict] = None) -> Results:
+    """Offered-rate drive through the AIMD block-size controller: each
+    tick appends ``offered_per_tick`` ops per node to a host queue,
+    boards up to the current block size B, steps synchronously (depth 1:
+    wall latencies carry no pipeline queueing), and feeds the controller
+    the backlog and the measured seal latency; a target it returns goes
+    to ``SafeKV.resize_block``. ``offered_per_tick=0`` saturates (full
+    blocks every tick). ``adaptive=False`` runs the same drive at fixed B.
+    The same draws in the same order as the JAX package's, so a seed
+    gives the same op columns. ``device`` as for ``run_tensor``;
+    ``observe``, a dict when given, receives the SafeKV (``kv``) and
+    every tick as ``(B, backlog, seal ms, target or None, resized)``
+    (``ticks``; ``resized`` None when no resize was asked)."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.device import resolve_device
+    from janus_tpu_torch.models import orset, pncounter
+    from janus_tpu_torch.obs import flight as obs_flight
+    from janus_tpu_torch.obs import stages as obs_stages
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    dev = resolve_device(device)
+    res = Results(cfg)
+    rng = np.random.default_rng(cfg.seed)
+    n, K, b_max = cfg.num_nodes, cfg.num_objects, cfg.ops_per_block
+    dag = DagConfig(cfg.num_nodes, cfg.window)
+    if cfg.type_code == "pnc":
+        kv = SafeKV(dag, pncounter.SPEC, ops_per_block=b_max,
+                    collect_logs=False, device=dev, num_keys=K, num_writers=n)
+    else:
+        kv = SafeKV(dag, orset.SPEC, ops_per_block=b_max,
+                    collect_logs=False, device=dev, num_keys=K,
+                    apply_budget=n + max(4, n // 4),
+                    capacity=cfg.orset_capacity,
+                    rm_capacity=cfg.orset_rm_capacity)
+    minters = [TagMinter(v) for v in range(n)]
+    sched = adaptive_scheduler(cfg) if cfg.adaptive else None
+    if observe is not None:
+        observe.update(kv=kv, ticks=[])
+
+    cols = ("op", "key", "a0", "a1", "a2")
+    queues = [{c: np.zeros(0, np.int32) for c in cols} for _ in range(n)]
+
+    def gen_cols(v: int, count: int) -> Dict[str, np.ndarray]:
+        keys = _keys(rng, cfg, (count,))
+        if cfg.type_code == "pnc":
+            return {"op": rng.integers(pncounter.OP_INC, pncounter.OP_DEC + 1,
+                                       count).astype(np.int32),
+                    "key": keys, "a0": rng.integers(1, 10, count).astype(
+                        np.int32),
+                    "a1": np.zeros(count, np.int32),
+                    "a2": np.zeros(count, np.int32)}
+        is_add = rng.random(count) < 0.5
+        tags = np.zeros((count, 2), np.int32)
+        lanes = np.nonzero(is_add)[0]
+        if lanes.size:
+            tags[lanes] = minters[v].mint_many(lanes.size)
+        return {"op": np.where(is_add, orset.OP_ADD,
+                               orset.OP_REMOVE).astype(np.int32),
+                "key": keys,
+                "a0": rng.integers(0, 64, count).astype(np.int32),
+                "a1": tags[:, 0], "a2": tags[:, 1]}
+
+    resize_failures = [0]
+
+    def one_tick(record: bool = True) -> int:
+        B = kv.B
+        fl = obs_flight.get_recorder()
+        t_in = time.time_ns() if fl.enabled else 0
+        offered = cfg.offered_per_tick
+        batch = {c: np.zeros((n, B), np.int32) for c in cols}
+        batch["writer"] = np.broadcast_to(
+            np.arange(n, dtype=np.int32)[:, None], (n, B)).copy()
+        boarded = np.zeros(n, np.int64)
+        backlog = 0
+        for v in range(n):
+            if offered == 0:
+                fresh = gen_cols(v, B)
+                for c in cols:
+                    batch[c][v] = fresh[c]
+                boarded[v] = B
+                backlog = max(backlog, 2 * B)  # saturated by construction
+                continue
+            fresh = gen_cols(v, offered)
+            q = queues[v]
+            for c in cols:
+                q[c] = np.concatenate([q[c], fresh[c]])
+            take = min(B, len(q["op"]))
+            for c in cols:
+                batch[c][v, :take] = q[c][:take]
+            boarded[v] = take
+        trace = None
+        if fl.enabled and record:
+            # one causal trace id per boarded block, named by the (node,
+            # tick) it boarded at; the boarding loop above is this drive
+            # mode's ingest stage
+            trace = [None] * n
+            t1w = time.time_ns()
+            for v in range(n):
+                if boarded[v] > 0:
+                    tid = f"n{v}.t{kv.tick_count}"
+                    trace[v] = tid
+                    fl.span_at(tid, "ingest", t_in, t1w)
+        t0 = time.perf_counter()
+        info = kv.step(batch, record=(np.asarray(boarded > 0) if record
+                                      else False), trace=trace)
+        seal_s = time.perf_counter() - t0
+        acc = info["accepted"]
+        done = 0
+        for v in range(n):
+            if offered == 0:
+                done += int(boarded[v]) if acc[v] else 0
+                continue
+            q = queues[v]
+            if acc[v]:
+                take = int(boarded[v])
+                for c in cols:
+                    q[c] = q[c][take:]
+                done += take
+            backlog = max(backlog, len(q["op"]))
+        target = resized = None
+        if sched is not None:
+            sched.observe(backlog, seal_s * 1e3)
+            target = sched.maybe_adjust()
+            if target is not None and target != kv.B:
+                resized = kv.resize_block(target)
+                if not resized:
+                    resize_failures[0] += 1
+        if observe is not None:
+            observe["ticks"].append((B, backlog, seal_s * 1e3, target,
+                                     resized))
+        return done
+
+    warmup = max(2 * cfg.window, 16)
+    for _ in range(warmup):
+        one_tick(record=False)
+    kv.wall_latency_log.clear()
+    kv.latency_log.clear()
+    b_trace = [kv.B]
+    total = 0
+    t0 = time.perf_counter()
+    for _ in range(cfg.ticks):
+        total += one_tick()
+        b_trace.append(kv.B)
+    res.elapsed_s = time.perf_counter() - t0
+    # drain: commits for the last boarded blocks land within ~W ticks
+    for _ in range(2 * cfg.window):
+        one_tick(record=False)
+
+    res.total_ops = total
+    lats = 1e3 * np.asarray(kv.wall_latency_log)
+    res.stats["safeUpdate"].latencies_ms.extend(lats.tolist())
+    res.extra["window"] = cfg.window
+    res.extra["adaptive"] = bool(cfg.adaptive)
+    res.extra["offered_per_tick"] = cfg.offered_per_tick
+    res.extra["block_ceiling"] = b_max
+    res.extra["block_floor"] = cfg.block_floor
+    res.extra["block_final"] = kv.B
+    res.extra["block_trace"] = (b_trace[:: max(1, len(b_trace) // 16)]
+                                + [b_trace[-1]])
+    res.extra["block_resizes"] = kv.stats["block_resizes"]
+    res.extra["resize_refusals"] = resize_failures[0]
+    res.extra["tick_ms_avg"] = round(
+        1e3 * res.elapsed_s / max(cfg.ticks, 1), 3)
+    # the measured per-stage decomposition from the telemetry plane
+    res.extra["stages"] = obs_stages.summarize_stages(kv.stage_scope)
+    return res
+
+
+def run(cfg: BenchConfig, device=None,
+        observe: Optional[dict] = None) -> Results:
+    """Run ``cfg`` by its mode, as the JAX package's ``run``: the adaptive
+    mode through ``run_tensor_adaptive``, the tensor mode through
+    ``run_tensor`` (``device`` and ``observe`` passed on); a mode or type
+    the port does not run yet raises ``NotImplementedError`` naming its
+    ROADMAP item."""
+    if cfg.type_code == "rga":
+        raise NotImplementedError(
+            "the RGA replay runner is not ported: ROADMAP queue 1 item 2 "
+            "(run_rga_replay; its path runs in chip_smoke.py)")
+    if cfg.mode in UNPORTED_MODES:
+        raise NotImplementedError(
+            f"mode {cfg.mode!r} is not ported: {UNPORTED_MODES[cfg.mode]}")
+    if cfg.mode == "adaptive":
+        return run_tensor_adaptive(cfg, device=device, observe=observe)
+    return run_tensor(cfg, device=device, observe=observe)
 
 
 PRESETS = {
@@ -690,7 +934,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg = BenchConfig.from_json(open(args.config).read())
     else:
         cfg = PRESETS[args.preset or "pnc"]
-    res = run_tensor(cfg, device=args.device)
+    res = run(cfg, device=args.device)
     if args.json:
         print(json.dumps(res.to_dict()))
     else:

@@ -1728,3 +1728,37 @@ def gc_state(rng: np.random.Generator, num_nodes: int, num_rounds: int,
     com_before = committed & (rng.random((n, w, n)) < 0.7)
     filled = rng.random((w, n)) < 0.5
     return dag, com, com_before, prosp, stable, filled
+
+
+# SafeKV ring extras of each type at the widths the presets give them
+# (the OR-Set's capture lanes at rm_capacity 4, the MVRegister's clock at
+# 8 writers, the width-1 extras of the RGA and the gated sets)
+RING_EXTRAS = {"pnc": {}, "orset": dict.fromkeys(orset.CAPTURE_FIELDS, 4),
+               "mvregister": {"wclock": 8}, "rga": {"eff_ctr": 1},
+               "lwwset": {"ok": 1}}
+
+
+def ring_resize_case(rng: np.random.Generator, num_rounds: int,
+                     num_nodes: int, b: int, new_b: int, extras: dict,
+                     live_tail: bool = False) -> dict:
+    """A SafeKV op ring ``[W, N, b]`` per op field and ``[W, N, b, width]``
+    per extra, random int32 everywhere. For a shrink (``new_b < b``) the
+    op lanes from ``new_b`` on are OP_NOOP, but for one live lane at a
+    random (slot, node) when ``live_tail``; the other fields' tail lanes
+    keep their random values (only ``op`` decides a lane's liveness)."""
+    shape = (num_rounds, num_nodes, b)
+    ring = {f: _rand_int32(rng, shape) for f in base.OP_FIELDS}
+    ring["op"] = rng.integers(0, 4, shape).astype(np.int32)
+    for name, width in extras.items():
+        ring[name] = _rand_int32(rng, shape + (width,))
+    if new_b < b:
+        ring["op"][:, :, new_b:] = base.OP_NOOP
+        if live_tail:
+            s, v = rng.integers(0, num_rounds), rng.integers(0, num_nodes)
+            ring["op"][s, v, rng.integers(new_b, b)] = 1
+    return ring
+
+
+def _rand_int32(rng: np.random.Generator, shape) -> np.ndarray:
+    return rng.integers(-(2**31), 2**31 - 1, shape, dtype=np.int64).astype(
+        np.int32)

@@ -64,6 +64,8 @@ from janus_tpu_torch.kernels.rga_apply import (  # noqa: F401
 from janus_tpu_torch.kernels.rga_compact import (  # noqa: F401
     rga_compact, rga_compact_plain)
 from janus_tpu_torch.kernels.rga_order import rga_order, rga_order_plain  # noqa: F401
+from janus_tpu_torch.kernels.ring_resize import (  # noqa: F401
+    ring_resize, ring_resize_plain)
 from janus_tpu_torch.kernels.rga_union import (  # noqa: F401
     rga_union, rga_union_plain, rga_union_rows, rga_union_rows_plain)
 from janus_tpu_torch.kernels.replica_join import (  # noqa: F401
@@ -103,7 +105,7 @@ WRAPPERS = {"pnc_apply": pnc_apply, "replica_join": replica_join,
             "edge_union_rows": edge_union_rows, "tpset_apply": tpset_apply,
             "tpset_capture": tpset_capture, "graph_apply": graph_apply,
             "graph_capture": graph_capture, "edge_mask": edge_mask,
-            "dag_ingest": dag_ingest}
+            "dag_ingest": dag_ingest, "ring_resize": ring_resize}
 
 
 def reset_launches() -> None:

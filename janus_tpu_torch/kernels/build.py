@@ -27,7 +27,7 @@ KERNELS = ("pnc_apply", "replica_join", "tusk_commit", "causal_closure",
            "rga_compact", "rga_order", "safekv_submit", "block_select",
            "state_transfer", "gc_frontier", "orset_compact",
            "mark_members", "lww_apply", "mvr_merge", "mvr_apply",
-           "graph_apply", "edge_mask", "dag_ingest")
+           "graph_apply", "edge_mask", "dag_ingest", "ring_resize")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"

@@ -46,10 +46,16 @@ prospective and stable state behind one fence, in place: the OR-Set by
 pre-compaction reference to those states.
 
 The stage histograms (``obs.stages``: seal, dag_round, commit, apply) are
-recorded as in the JAX package. ``_submit_mask`` and ``_round_step`` are
-the split cluster's seams (``net/splitnode.SplitSafeKV``). Not in this
-port yet: the split ``submit``/``tick`` path, ``resize_block``, checkpoint/restore,
-``MultiKV``, and the flight recorder.
+recorded as in the JAX package, and so are the flight recorder's causal
+spans (``obs.flight``; ``trace=`` on ``step`` / ``step_dispatch``): with
+the recorder disabled, the default, a round adds only a few tests of a
+flag and of an empty dict to its host work.
+``resize_block`` resizes the ring's block axis B at runtime (the adaptive
+scheduler's actuator) through the ``ring_resize`` kernel: one launch for
+every ring field, a shrink's live-tail check read back as 4 bytes.
+``_submit_mask`` and ``_round_step`` are the split cluster's seams
+(``net/splitnode.SplitSafeKV``). Not in this port yet: the split
+``submit``/``tick`` path, checkpoint/restore and ``MultiKV``.
 """
 from __future__ import annotations
 
@@ -64,6 +70,7 @@ from janus_tpu_torch.consensus import dag as dagmod
 from janus_tpu_torch.consensus import tusk
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.models import base
+from janus_tpu_torch.obs import flight as obs_flight
 from janus_tpu_torch.obs import stages as obs_stages
 from janus_tpu_torch.obs.metrics import get_registry
 
@@ -161,6 +168,14 @@ class SafeKV:
         self.stage_scope = getattr(spec, "type_code",
                                    getattr(spec, "name", "kv"))
         self._stage = obs_stages.stage_histograms(self.stage_scope)
+        # causal tracing: the process flight recorder (disabled by default;
+        # every hook is guarded on .enabled) and the live block -> trace
+        # map, (slot, node) -> (trace id, seal start in wall ns), held from
+        # a traced payload's seal to its own-view commit or its slot's
+        # recycle. The commit span starts at the seal span's own instant,
+        # so the two stay ordered in one clock domain.
+        self._flight = obs_flight.get_recorder()
+        self._block_traces: Dict[tuple, tuple] = {}
         # in-order absorb cursor for the dispatch/absorb step path
         self._absorb_tick = 0
 
@@ -382,13 +397,14 @@ class SafeKV:
 
     def _k_metas(self, k: int, safe_k, record) -> list:
         """Host-side metas for K dispatched rounds: one (stamp, tick,
-        safe, record-mask) tuple per round, advancing the tick counter."""
+        safe, record-mask, trace) tuple per round (no trace), advancing
+        the tick counter."""
         rec_mask = self._rec_mask(record)
         now = time.perf_counter()
         metas = []
         for j in range(k):
             safe = None if safe_k is None else np.asarray(safe_k[j], bool)
-            metas.append((now, self.tick_count, safe, rec_mask))
+            metas.append((now, self.tick_count, safe, rec_mask, None))
             self.tick_count += 1
         return metas
 
@@ -419,12 +435,25 @@ class SafeKV:
         self.commit_tick[newly] = tick_idx + 1
         self.latency_log.extend(
             (tick_idx + 1 - self.submit_tick[newly]).tolist())
+        fl = self._flight
+        traced_commits = []
         if newly.any():
             walls = (now - self.submit_wall[newly]).tolist()
             self.wall_latency_log.extend(walls)
             h_commit = self._stage["commit"]
             for wsec in walls:
                 h_commit.record_seconds(wsec)
+            if fl.enabled and self._block_traces:
+                t1w = time.time_ns()
+                for slot, v in zip(*np.nonzero(newly)):
+                    ent = self._block_traces.pop((int(slot), int(v)), None)
+                    if ent is None:
+                        continue
+                    tid, wall0 = ent
+                    # anchored where the seal span started: the duration
+                    # is the submit->commit wall latency in one clock
+                    fl.span_at(tid, "commit", min(wall0, t1w), t1w)
+                    traced_commits.append(tid)
         for log in (self.latency_log, self.wall_latency_log):
             if len(log) > self.max_latency_log:
                 del log[: len(log) - self.max_latency_log]
@@ -434,13 +463,25 @@ class SafeKV:
             self.commit_tick[rec] = -1
             self.submit_wall[rec] = np.nan
             self.safe_host[rec] = False
+            if self._block_traces:
+                # a recycled slot's trace died uncommitted, with its block
+                for key in [k for k in self._block_traces if rec[k[0]]]:
+                    tid, _ = self._block_traces.pop(key)
+                    if fl.enabled:
+                        fl.event(tid, "recycled", "I",
+                                 detail=f"slot={key[0]}")
             if update_rounds:
                 # recycling adds exactly W to a slot's round
                 self._host_slot_round[rec] += self.cfg.num_rounds
             # a GC advance is the coordination point where tombstones
             # whose ops left the window can be reclaimed
             self.maybe_compact()
-        self._stage["apply"].record(time.perf_counter_ns() - apply_t0)
+        apply_ns = time.perf_counter_ns() - apply_t0
+        self._stage["apply"].record(apply_ns)
+        if traced_commits:
+            t1w = time.time_ns()
+            for tid in traced_commits:
+                fl.span_at(tid, "apply", t1w - apply_ns, t1w)
         return newly
 
     def _compact_device(self, prospective, stable, ops_buffer):
@@ -462,18 +503,62 @@ class SafeKV:
         self.stats["compactions"] += 1
         return True
 
+    def resize_block(self, new_b: int) -> bool:
+        """Resize the op capacity B of a block at runtime (the adaptive
+        scheduler's actuator), as the JAX package's ``resize_block``:
+        a grow zero-pads (OP_NOOP) and always succeeds; a shrink is
+        refused (returns False) while a tail lane past ``new_b`` still
+        carries a live op or an unrecycled safe flag or ack; the same size
+        is a no-op that returns True. One ``ring_resize`` launch copies
+        every ring field; a shrink reads its 4-byte live-tail flag back.
+        The host masks ``safe_host`` and ``pending_safe_acks`` follow. The
+        port sizes nothing else by B ahead of a call: the compaction's flat
+        view and the kernels' scratch are taken per call. Raises while a
+        dispatched round waits for its absorb."""
+        new_b = int(new_b)
+        if new_b < 1:
+            return False
+        if new_b == self.B:
+            return True
+        if self.tick_count != self._absorb_tick:
+            raise RuntimeError(
+                f"resize_block with {self.tick_count - self._absorb_tick} "
+                f"dispatched round(s) not absorbed")
+        if new_b < self.B and (self.safe_host[:, :, new_b:].any()
+                               or self.pending_safe_acks[:, :, new_b:].any()):
+            return False
+        ring, flag = kernels.ring_resize(self.ops_buffer, new_b)
+        if new_b < self.B:
+            if int(flag.item()):
+                return False
+            self.safe_host = np.ascontiguousarray(self.safe_host[:, :, :new_b])
+            self.pending_safe_acks = np.ascontiguousarray(
+                self.pending_safe_acks[:, :, :new_b])
+        else:
+            pad = ((0, 0), (0, 0), (0, new_b - self.B))
+            self.safe_host = np.pad(self.safe_host, pad)
+            self.pending_safe_acks = np.pad(self.pending_safe_acks, pad)
+        self.ops_buffer = ring
+        self.B = new_b
+        self.stats["block_resizes"] += 1
+        return True
+
     def step_dispatch(self, ops: base.OpBatch,
                       safe: Optional[np.ndarray] = None,
                       active=None, withhold=None, record=True,
-                      invalid=None):
+                      invalid=None, trace=None):
         """Fused submit + protocol round, queued on the device with no
         host synchronisation. Returns ``(packed, meta)``; pass both to
         ``step_absorb`` in dispatch order. ``record`` (bool or [N] mask)
-        marks which nodes' blocks carry real client payload this round."""
+        marks which nodes' blocks carry real client payload this round.
+        ``trace`` (optional length-N sequence of trace-id strings, None
+        entries allowed) names the causal trace each node's batch rides
+        under: with the flight recorder enabled, an accepted payload
+        block's seal, dag_round, commit and apply spans land under it."""
         packed = self._dispatch(ops, active, withhold, invalid)
         meta = (time.perf_counter(), self.tick_count,
                 None if safe is None else np.asarray(safe, bool),
-                self._rec_mask(record))
+                self._rec_mask(record), trace)
         self.tick_count += 1
         return packed, meta
 
@@ -482,7 +567,7 @@ class SafeKV:
         the device tensor (fetched here: the round's one device-to-host
         copy) or an already-fetched numpy copy. Returns {accepted[N],
         own[W,N], recycled[W], slot[N], round[N], slots_dropped}."""
-        stamp, tick_idx, safe, rec_mask = meta
+        stamp, tick_idx, safe, rec_mask, trace = meta
         if tick_idx != self._absorb_tick:
             raise RuntimeError(
                 f"step_absorb out of order: got tick {tick_idx}, "
@@ -513,6 +598,22 @@ class SafeKV:
         self.submit_wall[s[st], vs[st]] = stamp
         if safe is not None:
             self.safe_host[s[st], vs[st]] = safe[st]
+
+        fl = self._flight
+        if fl.enabled:
+            # wall-clock bounds of this dispatch->absorb interval
+            t1w = time.time_ns()
+            t0w = t1w - max(0, round_ns)
+            if trace is not None:
+                for v in np.nonzero(st)[0]:
+                    tid = trace[v]
+                    if tid:
+                        self._block_traces[(int(s[v]), int(v))] = (tid, t0w)
+                        fl.span_at(tid, "seal", t0w, t1w)
+            if self._block_traces:
+                # every traced block still in flight rode this round
+                for tid, _ in self._block_traces.values():
+                    fl.span_at(tid, "dag_round", t0w, t1w)
 
         if self.collect_logs:
             # donor copy on transfer, then per-view ordered append using
@@ -547,10 +648,11 @@ class SafeKV:
                 "round": pre_round.copy(), "slots_dropped": dropped}
 
     def step(self, ops: base.OpBatch, safe: Optional[np.ndarray] = None,
-             active=None, withhold=None, record=True, invalid=None) -> dict:
+             active=None, withhold=None, record=True, invalid=None,
+             trace=None) -> dict:
         """Synchronous fused step: one dispatch + one fetch per round."""
         packed, meta = self.step_dispatch(ops, safe, active, withhold, record,
-                                          invalid)
+                                          invalid, trace)
         return self.step_absorb(packed, meta)
 
     def safe_acks(self) -> np.ndarray:

@@ -2344,3 +2344,105 @@ def test_tp_unions_refuse_rows_past_shared_memory(cuda_device):
         with pytest.raises(ValueError, match="shared memory"):
             fn(rows(most + 1), rows(most + 1))
         assert kernels.launches() == before
+
+
+RING_GEOMETRIES = [
+    # (W, N, B, B'): grows, shrinks, a shrink by one lane, the adaptive
+    # presets' ring halved (W 8, N 16, B 5,120)
+    (8, 4, 8, 16), (8, 4, 16, 4), (5, 3, 33, 32), (8, 16, 5120, 2560),
+    (8, 16, 64, 704)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(workloads.RING_EXTRAS))
+@pytest.mark.parametrize("geo,live_tail", [
+    (g, live) for g in RING_GEOMETRIES
+    for live in ((False, True) if g[3] < g[2] else (False,))])
+def test_ring_resize_matches_plain(cuda_device, kind, geo, live_tail):
+    """Every ring field copied or zero-filled bit-equal to the plain
+    version, and the live-tail flag (a shrink's refusal) equal to it; a
+    live tail only where a shrink has a tail."""
+    w, n, b, new_b = geo
+    rng = np.random.default_rng(w * n + b + new_b)
+    ring = workloads.ring_resize_case(rng, w, n, b, new_b,
+                                      workloads.RING_EXTRAS[kind], live_tail)
+    dring = workloads.ops_to_device(ring, cuda_device)
+    before = kernels.ring_resize.launches
+    got, flag = kernels.ring_resize(dring, new_b)
+    want, want_flag = kernels.ring_resize_plain(dring, new_b)
+    torch.cuda.synchronize()
+    assert kernels.ring_resize.launches == before + 1
+    assert int(flag.item()) == int(want_flag.item()) == int(live_tail)
+    assert got.keys() == want.keys() == dring.keys()
+    for f in got:
+        assert got[f].shape == want[f].shape
+        assert torch.equal(got[f], want[f]), f
+    # the input ring is left as it was
+    for f, x in ring.items():
+        assert np.array_equal(dring[f].cpu().numpy(), x)
+
+
+@pytest.mark.cuda
+def test_ring_resize_refuses_bad_operands(cuda_device):
+    rng = np.random.default_rng(3)
+    ring = workloads.ops_to_device(
+        workloads.ring_resize_case(rng, 4, 4, 8, 4, {}), cuda_device)
+    strided = dict(ring, key=ring["key"].transpose(0, 1).contiguous()
+                   .transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.ring_resize(strided, 4)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.ring_resize(dict(ring, a0=ring["a0"].long()), 4)
+    mixed = dict(ring, a1=ring["a1"].cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kernels.ring_resize(mixed, 4)
+    many = dict(ring, **{f"x{i}": ring["a2"].clone() for i in range(11)})
+    with pytest.raises(ValueError, match="at most 16"):
+        kernels.ring_resize(many, 4)
+
+
+@pytest.mark.cuda
+def test_safekv_resize_block_on_card_matches_cpu(cuda_device):
+    """A grow, a refused shrink and a taken one on the card, each round
+    after them bit-equal to the same run on the CPU."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime import safecrdt
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    n, w, k = 4, 8, 8
+    kvs = [safecrdt.SafeKV(DagConfig(n, w), orset.SPEC, ops_per_block=8,
+                           apply_budget=8, device=d, num_keys=k, capacity=8,
+                           rm_capacity=3) for d in (cuda_device, "cpu")]
+    rng = np.random.default_rng(9)
+    minters = [TagMinter(v) for v in range(n)]
+
+    def step(live):
+        b = kvs[0].B
+        ops = workloads.orset_add_remove(rng, minters, k, b, num_elems=6)
+        for f in ops:
+            ops[f][:, live:] = 0
+        for kv in kvs:
+            kv.step(ops)
+        for f in safecrdt.DEVICE_FIELDS:
+            a, c = (getattr(kv, f) for kv in kvs)
+            if isinstance(a, dict):
+                for x in a:
+                    assert torch.equal(a[x].cpu(), c[x]), (f, x)
+            else:
+                assert torch.equal(a.cpu(), c), f
+
+    for _ in range(3):
+        step(2)
+    assert [kv.resize_block(16) for kv in kvs] == [True, True]
+    step(16)
+    assert [kv.resize_block(4) for kv in kvs] == [False, False]
+    for _ in range(4 * w):
+        step(2)
+        done = [kv.resize_block(4) for kv in kvs]
+        assert done[0] == done[1]
+        if done[0]:
+            break
+    assert [kv.B for kv in kvs] == [4, 4]
+    step(4)
+    assert kvs[0].stats == kvs[1].stats

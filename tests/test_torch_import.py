@@ -66,9 +66,13 @@ MODULES = (
     "janus_tpu_torch.kernels.graph_apply",
     "janus_tpu_torch.kernels.edge_mask",
     "janus_tpu_torch.kernels.dag_ingest",
+    "janus_tpu_torch.kernels.ring_resize",
     "janus_tpu_torch.obs",
     "janus_tpu_torch.obs.metrics",
     "janus_tpu_torch.obs.stages",
+    "janus_tpu_torch.obs.flight",
+    "janus_tpu_torch.obs.scheduler",
+    "janus_tpu_torch.obs.watchdog",
     "janus_tpu_torch.utils.perf",
     "janus_tpu_torch.runtime",
     "janus_tpu_torch.runtime.store",
@@ -77,6 +81,7 @@ MODULES = (
     "janus_tpu_torch.consensus",
     "janus_tpu_torch.consensus.dag",
     "janus_tpu_torch.consensus.tusk",
+    "janus_tpu_torch.consensus.integrity",
     "janus_tpu_torch.bench",
     "janus_tpu_torch.bench.workloads",
     "janus_tpu_torch.bench.harness",
