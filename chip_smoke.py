@@ -67,6 +67,12 @@ non-zero. Phases, one JSON line each:
               SENTINEL keys, M = 0, T = 0 and the RGA fence's sizes, and
               every call of the rga_consensus phase's first rounds
               (rga_compact's too) and of the orset_consensus phase's runs;
+              rga_apply and rga_capture on the walk's edge cases
+              (workloads.rga_walk_case: no-op floods, negative floors
+              behind no-ops, rows only no-ops touch, key hazards, a row
+              past its bucket) at a delta apply's layout, and two of
+              those rounds' delta applies (16,384 lanes a view: no live
+              lane, the most), the plain versions run on host copies;
               lww_union, lww_union_rows, lww_apply, lww_capture,
               mvr_merge, mvr_merge_rows, mvr_apply and mvr_capture (phase
               typed_kernels, run after phase 15 so that nothing it keeps
@@ -243,8 +249,9 @@ non-zero. Phases, one JSON line each:
               version, bit-equal with its live-tail flag: random rings of
               every type's extras, grows, clean shrinks and shrinks with a
               live tail lane, at RING_CHECKS' geometries (the adaptive
-              presets' 47 MB OR-Set ring among them), and every call the
-              harness_adaptive runs recorded
+              presets' 47 MB OR-Set ring among them, and lane counts that
+              are not multiples of 4), and every call the harness_adaptive
+              runs recorded
 24. timing, the kernels line, the nvidia-smi line, and the result line.
 
 Needs a CUDA device and the repository beside it; without either it
@@ -264,11 +271,14 @@ import torch
 # non-tensor-core 32-bit rate, used for int32 max/add
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+# milliseconds of plain-version calls timed a row
+PLAIN_BUDGET_MS = 300.0
 # ~50 ms at the H100's boost clock: longer than the host takes to queue a
 # timed burst of 20 wrapper calls
 SLEEP_CYCLES = 100_000_000
-# a plain version slower than this per call is not profiled
-PLAIN_PROFILE_MAX_MS = 1000.0
+# a plain version slower than this per call is not profiled (the
+# profiler's processing of its ~10^4 small kernels took 10-20 s a row)
+PLAIN_PROFILE_MAX_MS = 200.0
 
 FAST = dict(R=256, K=1024, W=256, B=1024, ticks=80)
 CONS = dict(nodes=4, window=8, ops_per_block=4000, keys=100, rounds=64,
@@ -401,6 +411,16 @@ FENCE_CHECKS = dict(
     # r_cap, lanes), path B's rows among them
     one_lane=((5, 4, 8, 3, 1), (3, 6, 16, 16, 1), (4, 3, 4, 6, 4),
               (64, 500, 256, 8, 1)),
+    # the RGA walk's edge cases (workloads.rga_walk_case) at a delta
+    # apply's layout (V, K, C, block; 16 blocks a view; the hot row past
+    # its bucket of 128), each in the modes named: the uncaptured and
+    # captured apply, the capture (every case in every mode is a card test)
+    walk_shape=(4, 32, 256, 64),
+    walks=(("consensus", ("apply", "captured", "capture")),
+           ("negative_floors", ("apply", "capture")),
+           ("noop_rows", ("captured",)),
+           ("key_hazards", ("apply", "capture")),
+           ("hot_row", ("captured",))),
     rga_rounds=6)
 FENCE_LIBRARY_NOTES = {
     "orset_compact": "no single PyTorch call computes it: a masked min "
@@ -656,7 +676,9 @@ FAULTS = dict(presets=("byzantine", "byzantine0", "pnc8", "crash"),
 # ring_resize on random rings (W, N, B, B') of every type's extras, clean
 # and with a live tail lane on a shrink, then on the adaptive runs' calls
 RING_CHECKS = dict(geometries=((8, 4, 8, 16), (8, 4, 16, 4), (5, 3, 33, 32),
-                               (8, 16, 5120, 2560), (8, 16, 64, 704)))
+                               (8, 16, 5120, 2560), (8, 16, 64, 704),
+                               (4, 3, 13, 6), (4, 3, 6, 13),
+                               (8, 16, 5120, 2557)))
 # a row-list mode or another slot layout is its kernel's source with
 # another entry point
 SOURCES = {"replica_join_rows": "replica_join", "slot_union_rows": "slot_union",
@@ -748,11 +770,12 @@ def time_cuda(fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def plain_reps(fn, budget_ms=300.0):
+def plain_reps(fn, budget_ms=None):
     """``(calls, ms)``: the calls of ``fn`` that fit ``budget_ms``, between
     1 and 20, from one timed call (which also warms ``fn`` up), and that
     call's milliseconds (a slow plain version is timed over fewer
     calls)."""
+    budget_ms = PLAIN_BUDGET_MS if budget_ms is None else budget_ms
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -2659,9 +2682,84 @@ def rga_rows_touched(state, ops):
             torch.unique((r * K + wi)[ok]).numel())
 
 
-def rga_kernel_rows(kernels, calls):
+def rga_walk_stats(state, ops) -> dict:
+    """How one ``rga_apply`` call's lanes fall on its ``(view, row)``
+    groups (the row each lane's key gathers): the lanes, the live ones
+    (insert or delete), the in-range others (whose only effect is the
+    floor's clamp at 0), the groups any lane gathers and those a live one
+    does, the live lanes a live group holds (mean, and how many groups
+    hold up to 8, 16, ... lanes), and the longest walk: the most lanes one
+    group gathers (every code) and the most live ones."""
+    from janus_tpu_torch.models.base import gather_index, scatter_index
+
+    K = state["valid"].shape[1]
+    op, key = ops["op"], ops["key"]
+    V, B = op.shape
+    live = (op == 1) | (op == 2)
+    _, in_range = scatter_index(key, K)
+    vg = (torch.arange(V, device=key.device).view(V, 1) * K
+          + gather_index(key, K)).long()
+    every = torch.bincount(vg.flatten(), minlength=V * K)
+    walked = torch.bincount(vg[live], minlength=V * K)
+    held = walked[walked > 0]
+    bins, lo = {}, 0
+    for top in (8, 16, 32, 64, 128, 256, 1024, max(B, 1025)):
+        n = int(((held > lo) & (held <= top)).sum())
+        if n:
+            bins[f"{lo + 1}-{top}"] = n
+        lo = top
+    return dict(lanes=V * B, live=int(live.sum()),
+                nonlive_in_range=int((~live & in_range).sum()),
+                groups=V * K, groups_gathered=int((every > 0).sum()),
+                groups_live=int(held.numel()),
+                live_per_group_mean=(float(held.float().mean())
+                                     if held.numel() else 0.0),
+                live_per_group_bins=bins,
+                longest_walk_every_lane=int(every.max()),
+                longest_walk_live=int(walked.max()))
+
+
+def rga_apply_bytes(state, ops):
+    """What an ``rga_apply`` call must move: its six op fields, its drop
+    counts, and the rows its lanes gather and write back (22 bytes a slot,
+    4 of floor). Returns ``(bytes, operations, rows read, rows
+    written)``."""
+    r, k, c = state["valid"].shape
+    b = ops["op"].shape[1]
+    read, written = rga_rows_touched(state, ops)
+    return (4 * 6 * r * b + 4 * r + (22 * c + 4) * (read + written),
+            7 * c * read, read, written)
+
+
+def rga_consensus_entry(kernels, call, walk):
+    """``rga_apply`` on a recorded rga_consensus delta apply (the first
+    with the median live count among the fence check's rounds), in place, timed
+    as the kernels line times a row, with its bytes by the same rule as
+    the replay's (``rga_apply_bytes``) and its lanes a group (and
+    ``plain_host_ms``, the plain version on host copies of that call in
+    ``fence_kernel_checks``, its check's time: on the card the plain
+    version syncs once a lane, ~56 s a call)."""
+    (state, ops), kw = call
+    r, k, c = state["valid"].shape
+    b = ops["op"].shape[1]
+    nbytes, nops, read, written = rga_apply_bytes(state, ops)
+    return {
+        "shape": f"a recorded rga_consensus delta apply: V{r} K{k} C{c} "
+                 f"B{b}, captured", **walk,
+        "rows_read": read, "rows_written": written,
+        "ms": time_cuda(lambda: kernels.rga_apply(state, ops, **kw)),
+        "device_ms": device_burst_ms(
+            lambda: kernels.rga_apply(state, ops, **kw)),
+        "bytes": nbytes, "operations": nops,
+        "bound_ms": max(1e3 * nbytes / HBM_BYTES_PER_S,
+                        1e3 * nops / INT32_OPS_PER_S)}
+
+
+def rga_kernel_rows(kernels, calls, consensus=None):
     """The kernels line's entries of the five RGA wrappers, on the calls
-    ``rga_kernel_checks`` kept from the preset, with what each must move
+    ``rga_kernel_checks`` kept from the preset (``rga_apply`` also on
+    ``consensus``, a recorded rga_consensus delta apply and its walk
+    statistics, as its ``consensus`` entry), with what each must move
     (22 bytes an RGA slot): the union's two input rows read and its row
     written (level 1 of tick 1's converge: 512 x 128 rows of 1,024 +
     1,024 slots); the same per listed row for the row-list mode (level 1
@@ -2696,13 +2794,14 @@ def rga_kernel_rows(kernels, calls):
     (state, ops), kw = calls["rga_apply"]
     r, k, c = state["valid"].shape
     b = ops["op"].shape[1]
-    read, written = rga_rows_touched(state, ops)
+    nbytes, nops, read, written = rga_apply_bytes(state, ops)
     rows.append(dict(
         name="rga_apply", args=(state, ops), kw=kw,
         shape=f"the preset's apply at tick 3: R{r} K{k} C{c} B{b}",
-        rows_read=read, rows_written=written,
-        bytes=4 * 6 * r * b + 4 * r + (22 * c + 4) * (read + written),
-        operations=7 * c * read))
+        rows_read=read, rows_written=written, bytes=nbytes,
+        operations=nops))
+    if consensus is not None:
+        rows[-1]["consensus"] = rga_consensus_entry(kernels, *consensus)
     (slots, prot), kw = calls["rga_compact"]
     shape = tuple(slots["valid"].shape)
     n = int(np.prod(shape[:-1]))
@@ -3407,12 +3506,13 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
     phase's runs, repeated here with their seeds. Returns the recorded
     calls the kernels line times."""
     entries = {"orset_watermark": kernels.orset_watermark}
-    log = CaseLog(FENCE_KERNELS + ("rga_compact", "orset_apply"), entries)
+    log = CaseLog(FENCE_KERNELS + ("rga_compact", "orset_apply", "rga_apply"),
+                  entries)
     rng = np.random.default_rng(31)
     sent = torch.iinfo(torch.int32).max
     cover = {"wm_sentinel": 0, "wm_live": 0, "kept_by_wm": 0,
              "capture_drops": 0, "capture_wraps": 0, "members": 0,
-             "non_members": 0, "one_lane_drops": 0}
+             "non_members": 0, "one_lane_drops": 0, "walk_drops": 0}
 
     def t(x):
         return torch.as_tensor(np.asarray(x), device=dev)
@@ -3449,7 +3549,7 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
         ops["key"][:, : b // 4] = 1
         eff, drop = log.add(kernels, "rga_capture",
                             (st, workloads.ops_to_device(ops, dev)),
-                            f"R{r} K{k} C{c} B{b}")
+                            f"R{r} K{k} C{c} B{b}", host_plain=True)
         cover["capture_drops"] += int(drop.sum())
         cover["capture_wraps"] += int((eff == -(2**31)).sum())
         if (r, k, c) == (RGA_CONS["nodes"], RGA_CONS["keys"],
@@ -3459,7 +3559,21 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
             st["ctr_floor"] = t(i32((r, k), 0, 50))
             log.add(kernels, "rga_capture",
                     (st, workloads.ops_to_device(churn, dev)),
-                    f"churn R{r} K{k} C{c} B{b}")
+                    f"churn R{r} K{k} C{c} B{b}", host_plain=True)
+    v_, k_, c_, block = FENCE_CHECKS["walk_shape"]
+    for case, modes in FENCE_CHECKS["walks"]:
+        st_np, ops_np = workloads.rga_walk_case(rng, case, v_, k_, c_, block)
+        st = {f: t(x) for f, x in st_np.items()}
+        for mode in modes:
+            ops = workloads.ops_to_device(
+                {f: x for f, x in ops_np.items()
+                 if mode == "captured" or f != "eff_ctr"}, dev)
+            out = log.add(kernels, "rga_capture" if mode == "capture"
+                          else "rga_apply", (st, ops),
+                          f"walk {case} {mode} V{v_} K{k_} C{c_} "
+                          f"B{16 * block}", host_plain=True)
+            cover["walk_drops"] += int((out[1] if mode == "capture"
+                                        else out).sum())
     for m, n_b, span in FENCE_CHECKS["members"]:
         def keys(n):
             x = i32((2, n), -span, span)
@@ -3495,16 +3609,34 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
         cover["one_lane_drops"] += int(drop.sum())
 
     # (b) recorded runs
-    rga_names = ("rga_capture", "mark_members", "rga_compact")
+    rga_names = ("rga_capture", "mark_members", "rga_compact", "rga_apply")
     rga_calls, rga_stats = record_rga_churn(
         dev, kernels, workloads, FENCE_CHECKS["rga_rounds"], rga_names)
     advances = rga_stats["compactions"]
     counts = {name: len(c) for name, c in rga_calls.items()}
     check(advances > 0 and counts == {
         "rga_capture": FENCE_CHECKS["rga_rounds"],
-        "mark_members": 2 * advances, "rga_compact": 2 * advances},
+        "mark_members": 2 * advances, "rga_compact": 2 * advances,
+        "rga_apply": 2 * FENCE_CHECKS["rga_rounds"]},
         f"fence_kernels: rga_consensus calls {counts}, {advances} "
         f"compactions")
+    # the delta applies (16,384 lanes a view): the first with no live
+    # lane (the floor's clamps alone) and the first with the median live
+    # count (the steady state's 4 blocks a view), which the kernels line
+    # times (its plain version's time on host copies is this check's:
+    # ~35 s for the heaviest, 8 blocks a view); their lanes a group
+    applies = rga_calls.pop("rga_apply")
+    walks = [rga_walk_stats(*a) for a, _ in applies]
+    live = [w["live"] for w in walks]
+    timed = live.index(sorted(live)[len(live) // 2])
+    picked = sorted({live.index(0) if 0 in live else timed, timed})
+    check_ms = {}
+    for j in picked:
+        t0 = time.perf_counter()
+        log.add(kernels, "rga_apply", applies[j][0],
+                f"recorded rga_consensus delta apply {j}", applies[j][1],
+                aliased=True, host_plain=True)
+        check_ms[j] = 1e3 * (time.perf_counter() - t0)
     orset_names = ("orset_watermark", "orset_compact")
     orset_calls, orset_advances = record_orset_consensus(
         dev, kernels, workloads, orset_names)
@@ -3524,7 +3656,8 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
         for name, rec in calls.items():
             for j, (args, kw) in enumerate(rec):
                 out = log.add(kernels, name, args,
-                              f"recorded {tag} call {j}", kw, aliased=True)
+                              f"recorded {tag} call {j}", kw, aliased=True,
+                              host_plain=name == "rga_capture")
                 if name == "mark_members":
                     cover["members"] += int(out.sum())
     check(all(v > 0 for v in cover.values()),
@@ -3538,8 +3671,11 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
          recorded={"rga_consensus": {"rounds": FENCE_CHECKS["rga_rounds"],
                                      "compactions": advances, **counts},
                    "orset_consensus": {"compactions": orset_advances,
-                                       **o_counts}})
-    return {**{name: rga_calls[name] for name in rga_names},
+                                       **o_counts}},
+         delta_applies={"checked": picked, "walks": walks})
+    return {**rga_calls, "rga_apply_consensus": applies[timed],
+            "rga_apply_consensus_walk": {**walks[timed],
+                                         "plain_host_ms": check_ms[timed]},
             **orset_calls}
 
 
@@ -6912,7 +7048,9 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                          "observed-tag capture"))
 
     kerns += delta_kernel_rows(kernels, delta_calls)
-    kerns += rga_kernel_rows(kernels, rga_calls)
+    kerns += rga_kernel_rows(kernels, rga_calls, (
+        fence_calls["rga_apply_consensus"],
+        fence_calls["rga_apply_consensus_walk"]))
     kerns += safekv_kernel_rows(kernels, safekv_calls)
     kerns += fence_kernel_rows(kernels, fence_calls)
     kerns += typed_kernel_rows(kernels, typed_calls)
@@ -6941,11 +7079,14 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                                     "rows_sorted", "buckets_sorted",
                                     "longest_walk", "walk_blocks_per_sm",
                                     "walk_threads_per_block", "library_note",
-                                    "grow")
+                                    "grow", "consensus")
                if k in kern}
         row["ms"] = time_cuda(kern["call"])
         reps, one_ms = plain_reps(kern["plain"])
-        row["plain_ms"] = time_cuda(kern["plain"], reps=reps, warmup=0)
+        # a plain version over the budget is its one timed call (seconds
+        # of small launches: no second call for the same figure)
+        row["plain_ms"] = (one_ms if one_ms > PLAIN_BUDGET_MS else
+                           time_cuda(kern["plain"], reps=reps, warmup=0))
         row["library_ms"] = (None if kern["library"] is None
                              else time_cuda(kern["library"]))
         row["device_ms"] = device_burst_ms(kern["call"])
@@ -7032,9 +7173,10 @@ def main() -> int:
          flags=" ".join(build.NVCC_FLAGS), ptxas=ptxas,
          nonzero_frames=frames)
     check(not [f for f in frames
-               if f.startswith(("slot_union: ", "graph_apply: "))],
-          "build: a slot_union.cu or graph_apply.cu function has a stack "
-          "frame or spills")
+               if f.startswith(("slot_union: ", "graph_apply: ",
+                                "rga_apply: ", "ring_resize: "))],
+          "build: a slot_union.cu, graph_apply.cu, rga_apply.cu or "
+          "ring_resize.cu function has a stack frame or spills")
 
     phase_s = {"build": res["seconds"]}
 

@@ -1514,6 +1514,82 @@ def graph_walk_case(rng: np.random.Generator, case: str, num_views: int,
     return st, ops
 
 
+# the RGA walk's edge cases at a SafeKV delta apply's shape
+RGA_WALK_CASES = ("consensus", "negative_floors", "noop_rows", "key_hazards",
+                  "hot_row")
+
+
+def rga_walk_case(rng: np.random.Generator, case: str, num_views: int,
+                  num_keys: int, capacity: int, block: int,
+                  blocks: int = 16) -> tuple:
+    """``(state, ops)`` for one of ``RGA_WALK_CASES``, the edge cases of the
+    RGA's sequential apply at the shape of SafeKV's delta applies: rows
+    ``[V, K, capacity]`` of ``rga_slots`` (non-canonical, a tenth of the
+    ids negative) with ``ctr_floor`` ``[V, K]`` in [-2, capacity + 2), and
+    ``[V, blocks * block]`` op lanes whose first quarter are live (inserts
+    and deletes of ``rga_mixed_ops``, ids colliding with the rows') and
+    the rest not: OP_NOOP (a tenth code 3) at key 0, as the ring's cleared
+    lanes carry, or at the key of a live lane, as an applied block's
+    lanes do; with a captured ``eff_ctr`` ``[V, B, 1]`` (numpy int32;
+    drop it for the uncaptured apply and the capture).
+
+    - ``consensus``: that batch;
+    - ``negative_floors``: every floor in [-3, 0), a third of the rows
+      full of valid slots with negative counters (so a mint there reads
+      the floor, and the no-op's clamp at 0 shows), and on each of them
+      an in-range no-op followed by an uncaptured insert, the other order
+      on half of them;
+    - ``noop_rows``: a third of the rows gathered by no live lane, only by
+      no-ops in range (codes 0, 3, -1 and 5), and lanes out of range;
+    - ``key_hazards``: keys in [-K, 2K) on every lane, codes -1 to 5
+      among the first quarter;
+    - ``hot_row``: the first half of the lanes live, two thirds of them on
+      row 1 (more than a walk's bucket of 128 lanes when ``blocks *
+      block`` >= 384), no-ops on row 1 among them."""
+    V, K, C = num_views, num_keys, capacity
+    B = blocks * block
+    st = rga_slots(rng, (V, K), C, canonical=False, dup_rows=0.3,
+                   full_rows=0.3, negative=0.1)
+    st["ctr_floor"] = rng.integers(-2, C + 2, (V, K)).astype(np.int32)
+    ops = rga_mixed_ops(rng, (V, B), K, C, hazards=case == "key_hazards",
+                        captured=True)
+    n_live = B // 2 if case == "hot_row" else B // 4
+    op, key = ops["op"], ops["key"]
+    op[:, :n_live] = np.where(rng.random((V, n_live)) < 0.6, 1, 2)
+    rest = B - n_live
+    op[:, n_live:] = np.where(rng.random((V, rest)) < 0.9, 0, 3)
+    if case != "key_hazards":
+        applied = np.take_along_axis(
+            key[:, :n_live], rng.integers(0, n_live, (V, rest)), 1)
+        key[:, n_live:] = np.where(rng.random((V, rest)) < 0.5, 0, applied)
+    else:
+        op[:, :n_live] = rng.integers(-1, 6, (V, n_live))
+    if case == "negative_floors":
+        st["ctr_floor"][:] = rng.integers(-3, 0, (V, K))
+        rows = np.arange(0, K, 3)
+        st["valid"][:, rows] = True
+        st["id_ctr"][:, rows] = -rng.integers(1, 50, (V, rows.size, C))
+        for v in range(V):
+            for j, r in enumerate(rows):
+                at = np.sort(rng.choice(n_live, 2, replace=False))
+                noop, ins = (at if j % 2 == 0 else at[::-1])
+                op[v, noop], key[v, noop] = rng.choice([0, 3, -1]), r
+                op[v, ins], key[v, ins] = 1, r
+    elif case == "noop_rows":
+        quiet = np.arange(1, K, 3)
+        for v in range(V):
+            on = np.isin(key[v], quiet) & ((op[v] == 1) | (op[v] == 2))
+            key[v] = np.where(on, (key[v] + 1) % K, key[v])
+            lanes = rng.choice(B, 2 * quiet.size, replace=False)
+            key[v, lanes] = np.concatenate([quiet, quiet + 2 * K])
+            op[v, lanes] = rng.choice([0, 3, -1, 5], lanes.size)
+    elif case == "hot_row":
+        hot = rng.random((V, B)) < 2 / 3
+        hot[:, n_live:] = rng.random((V, rest)) < 0.05
+        key[:] = np.where(hot, 1, key)
+    return st, ops
+
+
 def ops_to_device(ops: dict, device=None) -> dict:
     """Move an op batch (numpy or tensors, one array per field) onto
     ``device`` as contiguous int32 tensors."""

@@ -26,8 +26,13 @@ with janus_tpu/models/rga.py ``prepare_ops``: each lane's prepare observes
 the state the earlier lanes left, which is what the uncaptured mint
 reads.
 
-The wrappers launch the CUDA kernel for CUDA tensors (or raise) and run
-the plain versions only for tensors that lie on the CPU.
+On the card the live lanes are bucketed by gathered row first and a warp
+walks each row's in lane order, so no-op lanes (most of SafeKV's delta
+applies: 16,384 lanes a view) are never walked; their one effect, the
+floor's clamp at 0, is applied where the first live lane after the
+lowest of them would see it. The wrappers launch the CUDA kernel for CUDA
+tensors (or raise) and run the plain versions only for tensors that lie
+on the CPU.
 """
 from __future__ import annotations
 
@@ -114,22 +119,31 @@ def _lib():
     lib = build.load("rga_apply")
     if lib.rga_apply_launch.argtypes is None:
         ptr, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
-        lib.rga_apply_launch.argtypes = [arr, ptr, arr, ptr, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int, ptr]
+        dims = [ctypes.c_int] * 4
+        lib.rga_apply_launch.argtypes = [arr, ptr, arr, ptr, ptr, *dims, ptr]
         lib.rga_apply_launch.restype = ctypes.c_int
-        lib.rga_capture_launch.argtypes = [arr, ptr, arr, ptr, ptr,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int, ptr]
+        lib.rga_capture_launch.argtypes = [arr, ptr, arr, ptr, ptr, ptr,
+                                           *dims, ptr]
         lib.rga_capture_launch.restype = ctypes.c_int
+        lib.rga_apply_scratch_ints.argtypes = [ctypes.c_int] * 3
+        lib.rga_apply_scratch_ints.restype = ctypes.c_longlong
     return lib
+
+
+def _scratch(lib, R, K, B, dev):
+    """The lane buckets a call at (R, K, B) walks from (csrc/rga_apply.cu),
+    uninitialised: the launch zeroes their counts."""
+    n = lib.rga_apply_scratch_ints(R, K, B)
+    if R * K >= 2**31:
+        raise ValueError(f"rga_apply: the walk takes R * K < 2^31, got "
+                         f"R={R}, K={K}")
+    return torch.empty((n,), dtype=torch.int32, device=dev)
 
 
 def shared_bytes(c: int) -> int:
     """Shared memory of one block (csrc/rga_apply.cu): the row's 22 bytes
-    a slot, the lane list of a tile of 256 ops, and the prefix count's
-    words."""
-    return 22 * c + 4 * 256 + 256
+    a slot and a bucket's 128 lanes and their fields (32 bytes each)."""
+    return 22 * c + 32 * 128
 
 
 def rga_apply(state, ops) -> torch.Tensor:
@@ -157,13 +171,16 @@ def rga_apply(state, ops) -> torch.Tensor:
     if R * K * B == 0:
         return dropped
     lib = _lib()
+    scratch = _scratch(lib, R, K, B, dev)
     st = (ctypes.c_void_p * 7)(*(state[f].data_ptr() for f in FIELDS))
     op = (ctypes.c_void_p * 7)(*(ops[f].data_ptr() for f in OP_FIELDS),
                                None if eff is None else eff.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rga_apply_launch(st, state["ctr_floor"].data_ptr(), op,
-                                  dropped.data_ptr(), R, K, C, B, stream)
+        rc = lib.rga_apply_launch(
+            st, state["ctr_floor"].data_ptr(), op, dropped.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), R, K, C, B,
+            stream)
     build.check_launch("rga_apply", rc)
     rga_apply.launches += 1
     return dropped
@@ -210,13 +227,15 @@ def rga_capture(state, ops):
     if R * B == 0:
         return eff, dropped
     lib = _lib()
+    scratch = _scratch(lib, R, K, B, dev)
     st = (ctypes.c_void_p * 7)(*(state[f].data_ptr() for f in FIELDS))
     op = (ctypes.c_void_p * 7)(*(ops[f].data_ptr() for f in OP_FIELDS), None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rga_capture_launch(st, state["ctr_floor"].data_ptr(), op,
-                                    eff.data_ptr(), dropped.data_ptr(), R, K,
-                                    C, B, stream)
+        rc = lib.rga_capture_launch(
+            st, state["ctr_floor"].data_ptr(), op, eff.data_ptr(),
+            dropped.data_ptr(), None if scratch is None else
+            scratch.data_ptr(), R, K, C, B, stream)
     build.check_launch("rga_capture", rc)
     rga_capture.launches += 1
     return eff, dropped

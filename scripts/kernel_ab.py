@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""A/B of the design constants of five hand kernels on the card.
+"""A/B of the design constants of the hand kernels on the card.
 
 ``rga_compact`` (csrc/rga_compact.cu: the blocks an SM its launch bound
 asks for, ``MIN_BLOCKS``) on the rga preset's compaction at tick 3
@@ -43,8 +43,21 @@ checkout, e.g. unpacked by ``git archive``) joins the slot_union turns, the
 ``DIR/janus_tpu_torch/csrc/graph_apply.cu`` the walk's (the source before
 the walk's redesign, called as its own wrapper called it:
 ``parent_walk``). ``--parts`` picks
-the parts to run, of ``compact``, ``mvr``, ``orset``, ``tp``, ``lww`` and
-``walk`` (all by default).
+the parts to run, of ``compact``, ``mvr``, ``orset``, ``tp``, ``lww``,
+``walk``, ``rga`` and ``ring`` (all by default).
+
+Part ``rga`` prints how the lanes of ``chip_smoke.py``'s rga_consensus
+delta applies fall on their (view, row) groups (``RGA_ROUNDS`` rounds
+recorded by ``chip_smoke.record_rga_churn``), then times ``rga_apply`` on
+the rga preset's tick-3 apply and on the heaviest delta apply under the
+package's build (``tree``), ``RGA_VARIANTS`` and, with ``--parent``, that
+checkout's ``rga_apply.cu`` called as its wrapper called it; every
+variant held bit-equal to the plain version (computed once a call). Part
+``ring`` times ``ring_resize`` on the adaptive presets' OR-Set ring
+halved and grown back, and to and from 2,557 lanes: ms a call with host
+work and device ms, the package's build and the parent's source with its
+wrapper in turns (tree, parent, parent, tree), beside the library calls
+and the bound.
 """
 from __future__ import annotations
 
@@ -73,7 +86,12 @@ UNION_VARIANTS = {f"rows{r}": {"WARP_ROWS": r} for r in (2, 4, 8, 16)}
 TP_VARIANTS = {f"rows{r}": {"WARP_ROWS": r} for r in (2, 4)}
 LWW_VARIANTS = {"rows2": {"WARP_ROWS": 2}}
 GRAPH_WALK_VARIANTS = {f"warps{w}": {"WARPS": w} for w in (8, 4, 16)}
-PARTS = ("compact", "mvr", "orset", "tp", "lww", "walk")
+# rounds of the rga_consensus phase whose delta applies are recorded
+RGA_ROUNDS = 6
+# rga_apply.cu's buckets held to 64 lanes (the heaviest recorded delta
+# apply fills them exactly)
+RGA_VARIANTS = {"lanes64": {"GROUP_LANES": 64}}
+PARTS = ("compact", "mvr", "orset", "tp", "lww", "walk", "rga", "ring")
 
 
 def build_variant(name, constants, tag) -> ctypes.CDLL:
@@ -389,6 +407,220 @@ def walk_inputs(dev):
             **dict(sorted(calls.items()))}
 
 
+def rga_apply_inputs(dev):
+    """(args, kwargs) of the ``rga_apply`` calls ``chip_smoke.py`` times:
+    the rga preset's apply at tick 3 (R=1,024, K=128, C=1,024, 32 lanes a
+    replica), labelled ``replay``, and the delta applies of the first
+    ``RGA_ROUNDS`` rounds of the rga_consensus phase (4 views, 128
+    documents of 1,024 slots, 16,384 lanes a view), as ``chip_smoke.
+    record_rga_churn`` records them, in order."""
+    import chip_smoke
+    from janus_tpu_torch.models import rga
+    from janus_tpu_torch.runtime.engine import make_tick
+    from janus_tpu_torch.runtime.store import replicated_init
+
+    R, K, L, lag = 1024, 128, 16, 2
+    cap = R * L // K * (lag + 4 + 2)
+    host = np.random.default_rng(0)
+    state = replicated_init(rga.SPEC, R, device=dev, num_keys=K, capacity=cap,
+                            max_depth=8)
+    tick = make_tick(rga.SPEC, device=dev)
+    real, kept = kernels.rga_apply, []
+
+    def spy(*args, **kw):
+        kept[:] = [clone((args, kw))]
+        return real(*args, **kw)
+
+    for t in range(4):
+        kernels.rga_apply = spy if t == 3 else real
+        try:
+            tick(state, workloads.ops_to_device(
+                workloads.rga_text_replay(host, R, K, L, lag, t), dev))
+        finally:
+            kernels.rga_apply = real
+        if t == 0:
+            rga.compact(state)
+    del state
+    calls, _ = chip_smoke.record_rga_churn(dev, kernels, workloads,
+                                           RGA_ROUNDS, ("rga_apply",))
+    torch.cuda.synchronize()
+    return kept[0], calls["rga_apply"]
+
+
+def plain_checked(calls):
+    """A check of ``calls`` as ``check_calls`` makes it, with each call's
+    plain result computed once and kept (a plain walk of 16,384 lanes a
+    view takes seconds), so that every variant is held against it."""
+    kept = {}
+
+    def check():
+        ok = True
+        for label, (name, call) in calls.items():
+            if label not in kept:
+                pargs, pkw = clone(call)
+                kept[label] = (getattr(kernels, name + "_plain")(*pargs,
+                                                                 **pkw),
+                               pargs)
+            (args, kw), (want, pargs) = clone(call), kept[label]
+            ok &= same(getattr(kernels, name)(*args, **kw), want)
+            ok &= same(args, pargs)
+        return ok
+    return check
+
+
+def parent_rga(lib, state, ops):
+    """One ``rga_apply`` call through the kernel of ``git show cd8c641:
+    janus_tpu_torch/csrc/rga_apply.cu`` built as ``lib``, as that
+    checkout's wrapper made it (no scratch: a block a (replica, row)
+    scanned every lane)."""
+    from janus_tpu_torch.kernels.rga_rows import FIELDS, OP_FIELDS
+
+    R, K, C = state["valid"].shape
+    B = ops["op"].shape[1]
+    dev = state["valid"].device
+    dropped = torch.zeros((R,), dtype=torch.int32, device=dev)
+    ptr, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    entry = lib.rga_apply_launch
+    entry.argtypes = [arr, ptr, arr, ptr] + [ctypes.c_int] * 4 + [ptr]
+    entry.restype = ctypes.c_int
+    eff = ops.get("eff_ctr")
+    st = (ptr * 7)(*(state[f].data_ptr() for f in FIELDS))
+    op = (ptr * 7)(*(ops[f].data_ptr() for f in OP_FIELDS),
+                   None if eff is None else eff.data_ptr())
+    rc = entry(st, state["ctr_floor"].data_ptr(), op, dropped.data_ptr(), R,
+               K, C, B, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rga_apply (parent): CUDA error {rc}")
+    return dropped
+
+
+def parent_rga_runs(calls):
+    """``run_ab``'s ``parent_wrap`` for rga_apply: the parent's calls and
+    check through ``parent_rga``."""
+    def wrap(lib):
+        timed = {label: (lambda a=args: parent_rga(lib, *a))
+                 for label, (_, (args, _)) in calls.items()}
+        check_plain = plain_checked(calls)
+
+        def check():
+            real = kernels.rga_apply
+            kernels.rga_apply = lambda st, ops: parent_rga(lib, st, ops)
+            try:
+                return check_plain()
+            finally:
+                kernels.rga_apply = real
+        return timed, check
+    return wrap
+
+
+def parent_ring(lib, ring, new_b):
+    """One ``ring_resize`` call through the kernel of ``git show cd8c641:
+    janus_tpu_torch/csrc/ring_resize.cu`` built as ``lib``, with that
+    checkout's wrapper's host work: the operand check, a fresh tensor a
+    field and a zeroed flag, the widths read by indexing, the device
+    switch and the stream."""
+    from janus_tpu_torch.kernels import operands
+
+    names = list(ring)
+    w, n, b = (int(x) for x in ring["op"].shape)
+    dev = operands.placement("ring_resize", [
+        (f"ring.{f}", ring[f], torch.int32,
+         (w, n, b) + tuple(ring[f].shape[3:])) for f in names])
+    out = {f: torch.empty((w, n, new_b) + tuple(ring[f].shape[3:]),
+                          dtype=torch.int32, device=dev) for f in names}
+    flag = torch.zeros((1,), dtype=torch.int32, device=dev)
+    k = len(names)
+    src = (ctypes.c_void_p * k)(*(ring[f].data_ptr() for f in names))
+    dst = (ctypes.c_void_p * k)(*(out[f].data_ptr() for f in names))
+    width = (ctypes.c_longlong * k)(*(ring[f][0, 0, 0].numel()
+                                      for f in names))
+    fn = lib.ring_resize_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(src, dst, width, k, w * n, b, new_b, names.index("op"),
+                flag.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_resize (parent): CUDA error {rc}")
+    return out, flag
+
+
+def host_ms(fn, reps=REPS) -> float:
+    """Milliseconds a call, host work included: CUDA events around
+    ``reps`` calls after a warm-up (as ``chip_smoke.time_cuda``)."""
+    for _ in range(3):
+        fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def ring_ab(parent, smi):
+    """ring_resize on the adaptive presets' OR-Set ring (W 8, N 16, 9
+    fields, 72 bytes a lane) halved (5,120 -> 2,560) and grown back, and
+    on a shrink and a grow to lane counts that are not multiples of 4
+    (5,120 -> 2,557 and 2,557 -> 5,120), under the package's build and,
+    given ``parent``, that source with its wrapper (``parent_ring``), in
+    turns (tree, parent, parent, tree): ms a call with host work, device
+    ms, both held bit-equal to the plain version; and the library calls
+    (a slice made contiguous a field and the tail's any(), or F.pad)."""
+    import chip_smoke
+    from janus_tpu_torch.kernels.ring_resize import ring_resize_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    extras = workloads.RING_EXTRAS["orset"]
+    cases = {}
+    for label, b, new_b in (("shrink", 5120, 2560), ("grow", 2560, 5120),
+                            ("shrink_odd", 5120, 2557),
+                            ("grow_odd", 2557, 5120)):
+        ring = workloads.ops_to_device(workloads.ring_resize_case(
+            rng, 8, 16, b, new_b, extras, False), dev)
+        cases[label] = (ring, new_b)
+    libs = {"tree": None}
+    if parent is not None:
+        libs["parent"] = build_text("ring_resize",
+                                    pathlib.Path(parent).read_text(),
+                                    "parent")
+
+    def call(tag, ring, new_b):
+        if tag == "tree":
+            return lambda: kernels.ring_resize(ring, new_b)
+        return lambda: parent_ring(libs[tag], ring, new_b)
+
+    for tag in libs:
+        for label, (ring, new_b) in cases.items():
+            got = call(tag, ring, new_b)()
+            want = ring_resize_plain(ring, new_b)
+            if not same(got, want):
+                raise AssertionError(f"ring_resize {tag} {label}: differs "
+                                     f"from plain")
+    out = {tag: {label: {"ms": [], "device_ms": []} for label in cases}
+           for tag in libs}
+    for tag in list(libs) + list(reversed(libs)):
+        for label, (ring, new_b) in cases.items():
+            out[tag][label]["ms"].append(host_ms(call(tag, ring, new_b)))
+            out[tag][label]["device_ms"].append(
+                device_ms(call(tag, ring, new_b)))
+    lib_ms = {label: host_ms(chip_smoke.ring_library(ring, new_b))
+              for label, (ring, new_b) in cases.items()}
+    bound = {label: 1e3 * chip_smoke.ring_bytes(ring, new_b)
+             / chip_smoke.HBM_BYTES_PER_S
+             for label, (ring, new_b) in cases.items()}
+    print(json.dumps({"kernel": "ring_resize", "nvidia_smi": smi,
+                      "library_ms": lib_ms, "bound_ms": bound, **out}),
+          flush=True)
+
+
 def check_calls(calls):
     """Every call of ``calls`` (label: (wrapper name, (args, kwargs)))
     through the wrapper and its plain version on clones, bit-equal, the
@@ -410,13 +642,15 @@ def timed_calls(calls):
             for label, (name, (args, kw)) in calls.items()}
 
 
-def run_ab(name, variants, calls, check, parent=None, parent_wrap=None):
+def run_ab(name, variants, calls, check, parent=None, parent_wrap=None,
+           own=False):
     """Build each variant (and, given ``parent``, that source as one more,
     ``parent``), check it, then time every call of ``calls`` (a dict of
     labels to functions) under all of them in turns. ``parent_wrap(lib)``,
     where the parent's source has another C interface than the package's
-    wrapper calls, gives the parent's own ``(calls, check)`` on ``lib``."""
-    libs = {}
+    wrapper calls, gives the parent's own ``(calls, check)`` on ``lib``.
+    ``own`` adds the package's own build as one more variant, ``tree``."""
+    libs = {"tree": build.load(name)} if own else {}
     for tag, constants in variants.items():
         libs[tag] = build_variant(name, constants, tag)
     if parent is not None:
@@ -512,11 +746,13 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     smi = nvidia_smi()
-    parent, walk_parent = None, None
+    parent, walk_parent, rga_parent, ring_parent = None, None, None, None
     if "--parent" in sys.argv:
         root = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
         parent = root / "janus_tpu_torch" / "csrc" / "slot_union.cu"
         walk_parent = root / "janus_tpu_torch" / "csrc" / "graph_apply.cu"
+        rga_parent = root / "janus_tpu_torch" / "csrc" / "rga_apply.cu"
+        ring_parent = root / "janus_tpu_torch" / "csrc" / "ring_resize.cu"
     parts = (sys.argv[sys.argv.index("--parts") + 1].split(",")
              if "--parts" in sys.argv else PARTS)
 
@@ -584,6 +820,27 @@ def main() -> int:
             parent_walk_runs(calls) if walk else None)}), flush=True)
         del calls
         torch.cuda.empty_cache()
+    if "rga" in parts:
+        import chip_smoke
+
+        replay, cons = rga_apply_inputs(dev)
+        stats = [chip_smoke.rga_walk_stats(*args) for args, _ in cons]
+        heavy = max(range(len(cons)), key=lambda j: stats[j]["live"])
+        print(json.dumps({"kernel": "rga_apply", "nvidia_smi": smi,
+                          "replay": chip_smoke.rga_walk_stats(*replay[0]),
+                          "consensus_calls": stats,
+                          "timed_consensus_call": heavy}), flush=True)
+        calls = {"replay": ("rga_apply", replay),
+                 "consensus": ("rga_apply", cons[heavy])}
+        print(json.dumps({"kernel": "rga_apply", "nvidia_smi": smi, **run_ab(
+            "rga_apply", RGA_VARIANTS, timed_calls(calls),
+            plain_checked(calls), rga_parent,
+            parent_rga_runs(calls) if rga_parent else None, own=True)}),
+            flush=True)
+        del replay, cons, calls
+        torch.cuda.empty_cache()
+    if "ring" in parts:
+        ring_ab(ring_parent, smi)
     print(smi, flush=True)
     return 0
 

@@ -1468,6 +1468,81 @@ def test_rga_capture_matches_plain(cuda_device, r, k, c, b, full):
     _assert_outputs_equal(st, ref)
 
 
+def _host(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host(v) for v in tree)
+    return tree
+
+
+def _kernel_vs_host_plain(fn, plain, args):
+    """The wrapper on the card and its plain version on host copies of the
+    same inputs (a walk of thousands of small steps is quicker there):
+    outputs and in-place updates bit-equal."""
+    mine, ref = _clone(args), _host(args)
+    out = fn(*mine)
+    want = plain(*ref)
+    torch.cuda.synchronize()
+    _same((mine, out), (ref, want))
+    return out
+
+
+def _walk_case(case, mode, v, k, c, block, dev):
+    rng = np.random.default_rng(17 + workloads.RGA_WALK_CASES.index(case))
+    st, ops = workloads.rga_walk_case(rng, case, v, k, c, block)
+    if mode != "captured":
+        ops = {f: x for f, x in ops.items() if f != "eff_ctr"}
+    return _on(st, dev), _on(ops, dev)
+
+
+def _walk_vs_plain(mode, st, ops):
+    fn = kernels.rga_capture if mode == "capture" else kernels.rga_apply
+    plain = (kernels.rga_capture_plain if mode == "capture"
+             else kernels.rga_apply_plain)
+    before = fn.launches
+    out = _kernel_vs_host_plain(fn, plain, (st, ops))
+    assert fn.launches == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["apply", "captured", "capture"])
+@pytest.mark.parametrize("case", workloads.RGA_WALK_CASES)
+def test_rga_walk_cases_match_plain(cuda_device, case, mode):
+    """The walk's edge cases (``workloads.rga_walk_case``) through
+    rga_apply (uncaptured and captured) and rga_capture against their
+    plain versions, bit-equal: 4 views of 32 rows of 256 slots, 16 blocks
+    of 64 lanes a view, three quarters of them no-ops at key
+    0 or at applied keys; negative floors behind in-range no-ops on full
+    rows of negative counters; rows only no-ops touch; keys in [-K, 2K)
+    with codes -1 to 5; a row of ~340 live lanes, past its bucket of 128,
+    walked from the op fields."""
+    st, ops = _walk_case(case, mode, 4, 32, 256, 64, cuda_device)
+    _walk_vs_plain(mode, st, ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("captured", [False, True])
+def test_rga_apply_at_replay_geometry_matches_plain(cuda_device, captured):
+    """The rga preset's geometry, a slice of its replicas (buckets of 32
+    lanes): 64 replicas of 128 documents of 1,024 slots, tick 3 of
+    ``rga_text_replay`` (16 inserts and 16 deletes a replica, ids of
+    earlier ticks, so deletes of absent ids land placeholders)."""
+    r, k, c = 64, 128, 1024
+    rng = np.random.default_rng(11)
+    st = _rga_state(rng, r, k, c, cuda_device, full_rows=0.02)
+    st.pop("_depth")
+    ops = workloads.rga_text_replay(np.random.default_rng(0), r, k, 16, 2, 3)
+    if captured:
+        ops["eff_ctr"] = rng.integers(1, c, ops["op"].shape + (1,)).astype(
+            np.int32)
+    _walk_vs_plain("captured" if captured else "apply", st,
+                   _on(ops, cuda_device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,t,span", [(700, 90, 4), (0, 5, 4), (9, 0, 4),
                                        (524288, 65536, 1 << 20),
@@ -2350,7 +2425,9 @@ RING_GEOMETRIES = [
     # (W, N, B, B'): grows, shrinks, a shrink by one lane, the adaptive
     # presets' ring halved (W 8, N 16, B 5,120)
     (8, 4, 8, 16), (8, 4, 16, 4), (5, 3, 33, 32), (8, 16, 5120, 2560),
-    (8, 16, 64, 704)]
+    (8, 16, 64, 704),
+    # B' (or B) not a multiple of 4: rows off the 16-byte path
+    (4, 3, 13, 6), (4, 3, 6, 13), (8, 16, 5120, 2557)]
 
 
 @pytest.mark.cuda
@@ -2380,6 +2457,28 @@ def test_ring_resize_matches_plain(cuda_device, kind, geo, live_tail):
     # the input ring is left as it was
     for f, x in ring.items():
         assert np.array_equal(dring[f].cpu().numpy(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", RING_GEOMETRIES)
+def test_ring_resize_width3_extra_matches_plain(cuda_device, geo):
+    """A capture extra of width 3 (rows of 3 B int32, a multiple of 4 only
+    when B is) beside the op fields; the new ring's fields are views of one
+    buffer, each on a 16-byte boundary, the flag after them."""
+    w, n, b, new_b = geo
+    rng = np.random.default_rng(w + b + 3 * new_b)
+    ring = workloads.ops_to_device(workloads.ring_resize_case(
+        rng, w, n, b, new_b, {"x3": 3, "x1": 1}, new_b < b), cuda_device)
+    got, flag = kernels.ring_resize(ring, new_b)
+    want, want_flag = kernels.ring_resize_plain(ring, new_b)
+    torch.cuda.synchronize()
+    assert int(flag.item()) == int(want_flag.item()) == int(new_b < b)
+    for f in want:
+        assert torch.equal(got[f], want[f]), f
+        assert got[f].is_contiguous() and got[f].data_ptr() % 16 == 0
+    assert len({x.untyped_storage().data_ptr() for x in got.values()}) == 1
+    assert flag.untyped_storage().data_ptr() == \
+        got["op"].untyped_storage().data_ptr()
 
 
 @pytest.mark.cuda
@@ -2445,4 +2544,69 @@ def test_safekv_resize_block_on_card_matches_cpu(cuda_device):
             break
     assert [kv.B for kv in kvs] == [4, 4]
     step(4)
+    assert kvs[0].stats == kvs[1].stats
+
+
+@pytest.mark.cuda
+def test_safekv_ring_views_on_card_match_cpu(cuda_device):
+    """Resizes to B not a multiple of 4 and back, each followed by rounds,
+    then state_arrays loaded into a fresh SafeKV on the card that carries
+    on: every round and every state_arrays bit-equal to the same run on
+    the CPU (whose plain version lays the ring out the same way)."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime import safecrdt
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    n, w, k = 4, 8, 8
+
+    def make(dev, b):
+        return safecrdt.SafeKV(DagConfig(n, w), orset.SPEC, ops_per_block=b,
+                               apply_budget=8, device=dev, num_keys=k,
+                               capacity=8, rm_capacity=3)
+
+    kvs = [make(cuda_device, 8), make("cpu", 8)]
+    rng = np.random.default_rng(12)
+    minters = [TagMinter(v) for v in range(n)]
+
+    def same(x, y, where):
+        if isinstance(x, dict):
+            assert x.keys() == y.keys(), where
+            for f in x:
+                if f not in ("submit_wall", "wall_latency_log"):  # clocks
+                    same(x[f], y[f], f"{where}.{f}")
+        elif isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype, where
+            np.testing.assert_array_equal(x, y, err_msg=where)
+        else:
+            assert x == y, where
+
+    def same_arrays(where):
+        same(*(kv.state_arrays() for kv in kvs), where)
+
+    def step(live):
+        ops = workloads.orset_add_remove(rng, minters, k, kvs[0].B,
+                                         num_elems=6)
+        for f in ops:
+            ops[f][:, live:] = 0
+        for kv in kvs:
+            kv.step(ops)
+
+    step(2)
+    for b in (13, 6, 16, 7):
+        for _ in range(2 * w):
+            done = [kv.resize_block(b) for kv in kvs]
+            assert done[0] == done[1]
+            if done[0]:
+                break
+            step(2)
+        assert [kv.B for kv in kvs] == [b, b]
+        step(min(3, b))
+        same_arrays(f"B {b}")
+    fresh = make(cuda_device, kvs[0].B)
+    fresh.load_state(kvs[0].state_arrays())
+    kvs[0] = fresh
+    for _ in range(3):
+        step(3)
+    same_arrays("after load_state")
     assert kvs[0].stats == kvs[1].stats

@@ -310,6 +310,16 @@ def _jax_ring_kv(kind, b):
     ("orset", 8, 7, True),        # the last lane alone is live
     ("mvregister", 6, 9, False),  # wclock extra of width num_writers
     ("mvregister", 6, 2, True),
+    # B' not a multiple of 4 (rows off the kernel's 16-byte path), the
+    # OR-Set's capture extras of width 3, grows and shrinks, tails live
+    # and clean
+    ("orset", 8, 5, False),
+    ("orset", 8, 5, True),
+    ("orset", 7, 13, False),
+    ("orset", 12, 9, True),
+    ("mvregister", 9, 6, False),
+    ("mvregister", 5, 11, False),
+    ("mvregister", 13, 3, True),
 ])
 def test_ring_resize_plain_matches_jax(kind, b, new_b, live_tail):
     import jax.numpy as jnp
@@ -344,3 +354,34 @@ def test_ring_resize_plain_matches_jax(kind, b, new_b, live_tail):
         # JAX kept its ring; the port's new ring is the kept prefix anyway
         for f, x in got.items():
             np.testing.assert_array_equal(x.numpy(), ring[f][:, :, :new_b])
+
+
+def _storages(ring):
+    return {x.untyped_storage().data_ptr() for x in ring.values()}
+
+
+def test_resize_block_shares_one_buffer_and_carries_on_like_jax():
+    """The resized ring's fields are views of one buffer (ring_layout) with
+    the flag after them: a round after each resize, a second resize of a
+    shared ring (to a B not a multiple of 4 and back), and state_arrays
+    loaded into a fresh SafeKV that carries on, all bit-equal to JAX."""
+    ref, mine = _kvs("orset", 8)
+    gen = _Ops("orset")
+    _step_both(ref, mine, gen, 2, "warm")
+    assert len(_storages(mine.ops_buffer)) == len(mine.ops_buffer)
+    for b in (11, 16, 13):
+        assert mine.resize_block(b) and ref.resize_block(b), b
+        ring = mine.ops_buffer
+        assert len(_storages(ring)) == 1
+        assert all(x.is_contiguous() and x.data_ptr() % 16 == 0
+                   for x in ring.values())
+        _assert_equal(_state(mine), _state(ref), f"after resize to {b}")
+        _step_both(ref, mine, gen, 3, f"round at B {b}")
+    arrays = mine.state_arrays()
+    _, fresh = _kvs("orset", mine.B)
+    fresh.load_state(arrays)
+    _assert_equal(_state(fresh), _state(ref), "loaded")
+    for t in range(3):
+        _step_both(ref, fresh, gen, 3, f"loaded round {t}")
+    assert fresh.resize_block(9) == ref.resize_block(9)
+    _step_both(ref, fresh, gen, 2, "after the loaded run's resize")
