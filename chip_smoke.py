@@ -306,6 +306,14 @@ ORSET_CONS = dict(nodes=4, window=8, keys=100, ops_per_block=8192,
                   cpu_rounds=5, min_idle=16, max_idle=64, profile_rounds=3,
                   recorded_rounds=6)
 ORSET_KERNELS = ("slot_union", "orset_capture", "orset_replay", "orset_apply")
+# ticks of harness preset orset whose replays orset_kernel_checks holds
+# against the plain version
+HARNESS_CHECK_TICKS = 2
+# the replay's edge cases (workloads.orset_replay_case) at (V, K, C, B, r):
+# path A's shape, rows past a warp's 256 records (a block a group), and
+# capture widths 1 and 32
+REPLAY_CASE_GEOS = ((4, 100, 64, 8192, 4), (2, 8, 64, 4096, 4),
+                    (3, 7, 8, 300, 1), (2, 5, 16, 400, 32))
 # the capture's edge cases (workloads.orset_capture_case) run at path A's
 # shape, at B = 16,384 in one view, and at r_cap 32 and 1 with B not a
 # multiple of the kernel's 256-lane tile: (V, K, C, B, r_cap)
@@ -505,6 +513,7 @@ TYPED_CHECKS = dict(
         ("cut", 32, 4, 256, ("captured",)), ("twins", 32, 4, 256,
                                              ("captured",)),
         ("hazards", 32, 4, 256, ("apply",))),
+    lww_walks=((64, 500, 64, 64), (64, 500, 256, 64), (2, 6, 300, 700)),
     rounds=3, ticks=2, late_tick=17)
 # the LWW union's edge cases (workloads.lww_union_case): `rows` key rows of
 # each capacity; row-list trees over these replicas
@@ -601,6 +610,7 @@ TP_CHECKS = dict(
     walk_geometry=(2, 500, 32, 2200),
     walks=(("graph", 32, 256), ("graph", 64, 256), ("tpset", 64, 0),
            ("tpset", 256, 0)),
+    lww_walks=((64, 500, 64, 64), (64, 500, 256, 64), (2, 6, 300, 700)),
     rounds=3, ticks=2, late_tick=17)
 # the 2P unions' edge cases (workloads.tp_union_case), both layouts:
 # `rows` key rows of each capacity; row-list trees over these replicas
@@ -838,21 +848,31 @@ def device_burst_ms(fn, reps=20):
 
 def kernel_operands(operands, fn, args):
     """(inputs, outputs): the tensors a wrapper hands its kernel, taken
-    from the operand list it passes to ``operands.placement`` (absent
-    optional inputs dropped), and the tensors it returns that are none of
-    them. Calls ``fn`` once."""
-    lists = []
-    real = operands.placement
+    from the operand list it passes to ``operands.placement`` or
+    ``operands.lean_placement`` (absent optional inputs dropped), and the
+    tensors it returns that are none of them. Calls ``fn`` once."""
+    lists, depth = [], [0]
+    real = {f: getattr(operands, f) for f in ("placement", "lean_placement")}
 
-    def spy(name, ops):
-        lists.append(list(ops))
-        return real(name, lists[-1])
+    def spy(f):
+        def call(name, ops):
+            if depth[0] == 0:  # not lean_placement's own placement call
+                lists.append(list(ops))
+                ops = lists[-1]
+            depth[0] += 1
+            try:
+                return real[f](name, ops)
+            finally:
+                depth[0] -= 1
+        return call
 
-    operands.placement = spy
+    for f in real:
+        setattr(operands, f, spy(f))
     try:
         out = fn(*args)
     finally:
-        operands.placement = real
+        for f, x in real.items():
+            setattr(operands, f, x)
     check(len(lists) == 1, f"{len(lists)} operand lists in one wrapper call")
     ins = [t for _, t, _, _ in lists[0] if t is not None]
     outs = [t for t in tensors_of(out) if not any(t is x for x in ins)]
@@ -1065,6 +1085,21 @@ def record_calls(kernels, names, fn, aliased=False, take=None):
         for name in names:
             setattr(kernels, name, real[name])
     return calls
+
+
+def checking_take(kernels, log, checked, what):
+    """``take`` for ``record_calls``: a call of a wrapper named in
+    ``checked`` (a dict of counts) is held against its plain version at
+    once (``log.add``, on clones) and not kept; any other call is cloned
+    and kept."""
+    def take(name, args, kwargs):
+        if name in checked:
+            log.add(kernels, name, args, f"{what} recorded call "
+                    f"{checked[name]}", kwargs)
+            checked[name] += 1
+            return None
+        return tree_map(torch.Tensor.clone, (args, kwargs))
+    return take
 
 
 class CaseLog:
@@ -1596,6 +1631,18 @@ def orset_kernel_checks(dev, kernels, workloads, cases):
                   f"calls in {ORSET_STORE['recorded_ticks']} ticks")
         del calls
     check(level1[2] > 0, "recorded path B: no level-1 slot_union call")
+    # (d') every replay of harness preset orset, cut to HARNESS_CHECK_TICKS
+    # ticks (the harness_tensor phase's SafeKV calls), each checked at once
+    import dataclasses
+
+    from janus_tpu_torch.bench import harness
+    checked = {"orset_replay": 0}
+    record_calls(kernels, tuple(checked), lambda: harness.run_tensor(
+        dataclasses.replace(harness.PRESETS["orset"],
+                            ticks=HARNESS_CHECK_TICKS), device=dev),
+        take=checking_take(kernels, log, checked, "harness orset"))
+    torch.cuda.synchronize()
+    check(checked["orset_replay"] > 0, "harness orset: no replay checked")
 
     # (e) the capture's edge cases
     for case in workloads.ORSET_CAPTURE_CASES:
@@ -1608,6 +1655,13 @@ def orset_kernel_checks(dev, kernels, workloads, cases):
                 count_buckets(f"edge_{case}", st, ops)
     # (f) the union's edge cases
     orset_edge_cases(dev, kernels, workloads, log, rng)
+    # (g) the replay's edge cases (workloads.orset_replay_case)
+    for case in workloads.ORSET_REPLAY_CASES:
+        for v, k_, c_, b_, r_ in REPLAY_CASE_GEOS:
+            st, ops = (on_dev(x) for x in workloads.orset_replay_case(
+                rng, case, (v, b_), k_, c_, r_))
+            log.add(kernels, "orset_replay", (st, ops),
+                    f"edge {case} V{v} K{k_} C{c_} B{b_} r{r_}")
 
     for name, rec in log.by.items():
         cases.append({"kernel": name, "case": "orset_kernels",
@@ -2717,6 +2771,103 @@ def rga_walk_stats(state, ops) -> dict:
                 live_per_group_bins=bins,
                 longest_walk_every_lane=int(every.max()),
                 longest_walk_live=int(walked.max()))
+
+
+def group_bins(held) -> dict:
+    """How many groups hold up to 8, 16, ... records (``held``: the
+    counts of the groups that hold any)."""
+    bins, lo = {}, 0
+    top_all = int(held.max()) if held.numel() else 0
+    for top in (8, 16, 32, 64, 128, 256, 1024, max(top_all, 1025)):
+        n = int(((held > lo) & (held <= top)).sum())
+        if n:
+            bins[f"{lo + 1}-{top}"] = n
+        lo = top
+    return bins
+
+
+def replay_walk_stats(state, ops, cap=None) -> dict:
+    """How one ``orset_replay`` call's op records fall on its ``(view,
+    row)`` groups: the lanes, the op records (an add's one at capture
+    lane 0, a remove's or clear's captured tags that are not SENTINEL) on
+    rows in range, on negative keys (lost, their drops counted) and past
+    the rows (ignored), the groups that hold records, the records a
+    group holds (mean, bins, the longest), the groups past a bucket of
+    ``cap`` records (the kernel's own, ``orset_replay.bucket_records``,
+    by default), and the state rows whose valid slots are not a prefix
+    in strictly ascending tag order (non-canonical: among all rows and
+    among the rows that records reach)."""
+    from janus_tpu_torch.kernels.orset_replay import bucket_records
+
+    V, K, C = state["valid"].shape
+    op, key = ops["op"], ops["key"].long()
+    B = op.shape[1]
+    cap = bucket_records(K, B) if cap is None else cap
+    R = ops["rm_rep"].shape[-1]
+    SENT = torch.iinfo(torch.int32).max
+    per_lane = torch.where(
+        op == 1, torch.full_like(op, int(R > 0)),
+        torch.where((op == 2) | (op == 3),
+                    (ops["rm_rep"] != SENT).sum(-1).to(op.dtype),
+                    torch.zeros_like(op)))
+    in_rows = (key >= 0) & (key < K)
+    vg = (torch.arange(V, device=key.device).view(V, 1) * K
+          + key.clamp(0, K - 1))
+    held_all = torch.zeros(V * K, dtype=torch.long, device=key.device)
+    held_all.index_add_(0, vg[in_rows], per_lane[in_rows].long())
+    held = held_all[held_all > 0]
+    v = state["valid"]
+    tag = state["tag_rep"].long() * 2**32 + state["tag_ctr"].long()
+    bad = ((v[..., 1:] & ~v[..., :-1]).any(-1)
+           | (v[..., 1:] & v[..., :-1] & (tag[..., 1:] <= tag[..., :-1]))
+           .any(-1)).flatten()
+    touched = held_all > 0
+    out = dict(V=V, K=K, C=C, B=B, R=R, lanes=V * B,
+               records=int(per_lane.sum()),
+               records_in_rows=int(held_all.sum()),
+               records_negative=int(per_lane[key < 0].sum()),
+               records_past_rows=int(per_lane[key >= K].sum()),
+               groups=V * K, groups_with_records=int(held.numel()),
+               records_per_group_mean=(float(held.float().mean())
+                                       if held.numel() else 0.0),
+               records_per_group_bins=group_bins(held),
+               longest_group=int(held.max()) if held.numel() else 0,
+               rows_noncanonical=int(bad.sum()),
+               touched_rows_noncanonical=int((bad & touched).sum()))
+    out["bucket_records"] = cap
+    out["groups_overflowed"] = int((held > cap).sum())
+    return out
+
+
+def lww_walk_stats(state, ops, cap=None) -> dict:
+    """How one ``lww_apply`` / ``lww_capture`` call's live lanes (add or
+    remove) fall on the ``(view, row)`` groups their keys gather: the
+    lanes, the live ones, the groups that hold any, the lanes a group
+    holds (mean, bins, the longest walk), and the groups past a bucket
+    of ``cap`` records (the kernel's own, ``lww_apply.bucket_records``,
+    by default)."""
+    from janus_tpu_torch.kernels.lww_apply import bucket_records
+    from janus_tpu_torch.models.base import gather_index
+
+    V, K, C = state["valid"].shape
+    op = ops["op"]
+    B = op.shape[1]
+    cap = bucket_records(K, B) if cap is None else cap
+    live = (op == 1) | (op == 2)
+    vg = (torch.arange(V, device=op.device).view(V, 1) * K
+          + gather_index(ops["key"], K)).long()
+    walked = torch.bincount(vg[live], minlength=V * K)
+    held = walked[walked > 0]
+    out = dict(V=V, K=K, C=C, B=B, lanes=V * B, live=int(live.sum()),
+               captured="ok" in ops, groups=V * K,
+               groups_live=int(held.numel()),
+               live_per_group_mean=(float(held.float().mean())
+                                    if held.numel() else 0.0),
+               live_per_group_bins=group_bins(held),
+               longest_walk=int(walked.max()) if walked.numel() else 0)
+    out["bucket_records"] = cap
+    out["groups_overflowed"] = int((held > cap).sum())
+    return out
 
 
 def rga_apply_bytes(state, ops):
@@ -4110,6 +4261,16 @@ def typed_kernel_checks(dev, kernels, workloads, cases):
         log.add(kernels, "lww_union", (a, b, ca), what + " into 2 replicas",
                 {"out": out})
     lww_edge_cases(dev, kernels, workloads, log, np.random.default_rng(45))
+    # the walk's edge cases (workloads.lww_walk_case) in the three modes
+    for case in workloads.LWW_WALK_CASES:
+        for v, k, c, b in TYPED_CHECKS["lww_walks"]:
+            for mode in ("apply", "captured", "capture"):
+                st, ops = (on(x) for x in workloads.lww_walk_case(
+                    rng, case, (v, b), k, c, captured=mode == "captured"))
+                log.add(kernels, "lww_capture" if mode == "capture" else
+                        "lww_apply", (st, ops),
+                        f"walk {case} {mode} V{v} K{k} C{c} B{b}",
+                        host_plain=True)
     for lead, va, vb, w, span, canonical in TYPED_CHECKS["mvr_merges"]:
         a = on(workloads.mvr_slots(rng, lead, va, w, canonical=canonical,
                                    span=span))
@@ -4890,7 +5051,8 @@ def typed_kernel_rows(kernels, calls):
             n_ops = ((0 if captured else live * c * wl)
                      + (joins if captured or capture else 0))
         extra = ({"longest_walk": longest_walk(ops, K, codes)}
-                 if name.startswith("mvr") else {})
+                 if name.startswith("mvr") else
+                 {"walk_stats": lww_walk_stats(state, ops)})
         rows.append(dict(
             name=name, **extra, call=lambda n=name, s=state, o=ops:
                 kernels.WRAPPERS[n](s, o),
@@ -6672,7 +6834,7 @@ def split_consensus(dev, kernels, workloads, cases, split_calls):
     dropped and the honest ones keep advancing."""
     from janus_tpu_torch.consensus import DagConfig
 
-    log = CaseLog(SPLIT_KERNELS)
+    log = CaseLog(SPLIT_KERNELS + ("orset_replay",))
     total = {}
     for kind, g, seed in (("pnc", SPLIT_PNC, 21), ("orset", SPLIT_ORSET, 22)):
         n = g["nodes"]
@@ -6680,8 +6842,11 @@ def split_consensus(dev, kernels, workloads, cases, split_calls):
         twin = (split_make(torch.device("cpu"), kind, g, owned)
                 if kind == "pnc" else None)
         t0 = time.perf_counter()
-        calls = record_calls(kernels, SPLIT_KERNELS, lambda: split_run(
-            dev, kernels, workloads, kind, g, seed, twin=twin))
+        checked = {"orset_replay": 0} if kind == "orset" else {}
+        calls = record_calls(
+            kernels, SPLIT_KERNELS + tuple(checked), lambda: split_run(
+                dev, kernels, workloads, kind, g, seed, twin=twin),
+            take=checking_take(kernels, log, checked, f"split {kind}"))
         torch.cuda.synchronize()
         record_s = time.perf_counter() - t0
         check(all(kw.get("owned") is not None for _, kw in calls["dag_round"]),
@@ -6691,6 +6856,8 @@ def split_consensus(dev, kernels, workloads, cases, split_calls):
                 log.add(kernels, name, args, f"split {kind} recorded call {j}",
                         kw)
         recorded = {name: len(c) for name, c in calls.items()}
+        check(kind == "pnc" or checked["orset_replay"] > 0,
+              "split orset: no orset_replay call checked")
         if kind == "pnc":
             with_blocks = [c for c in calls["dag_ingest"] if c[0][3][0] > 0]
             split_calls["dag_ingest"] = with_blocks[-1]
@@ -7029,6 +7196,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
             got, n_ = buckets_sorted(args[1], args[0]["valid"].shape[1],
                                      MAX_BUCKETS)
             extra = {"buckets_sorted": {"sorted": got, "buckets": n_}}
+        if name == "orset_replay":  # its records a (view, row) group
+            extra = {"walk_stats": replay_walk_stats(*args)}
         if name == "slot_union":  # its input rows in tag order
             got = [rows_sorted(x, keys=ORSET_KEYS) for x in args[:2]]
             extra = {"rows_sorted": {"sorted": sum(x[0] for x in got),
@@ -7078,6 +7247,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                                     "rows_read", "rows_written", "rows_joined",
                                     "rows_sorted", "buckets_sorted",
                                     "longest_walk", "walk_blocks_per_sm",
+                                    "walk_stats",
                                     "walk_threads_per_block", "library_note",
                                     "grow", "consensus")
                if k in kern}
@@ -7174,9 +7344,11 @@ def main() -> int:
          nonzero_frames=frames)
     check(not [f for f in frames
                if f.startswith(("slot_union: ", "graph_apply: ",
-                                "rga_apply: ", "ring_resize: "))],
-          "build: a slot_union.cu, graph_apply.cu, rga_apply.cu or "
-          "ring_resize.cu function has a stack frame or spills")
+                                "rga_apply: ", "ring_resize: ",
+                                "orset_replay: ", "lww_apply: "))],
+          "build: a slot_union.cu, graph_apply.cu, rga_apply.cu, "
+          "ring_resize.cu, orset_replay.cu or lww_apply.cu function has a "
+          "stack frame or spills")
 
     phase_s = {"build": res["seconds"]}
 

@@ -204,6 +204,104 @@ def with_capture_hazards(rng: np.random.Generator, ops: dict) -> dict:
     return out
 
 
+# the replay's edge cases of ``orset_replay_case``
+ORSET_REPLAY_CASES = ("mixed", "hot_key", "unsorted_rows", "four_copies",
+                      "sentinel_tags", "negative_keys", "past_rows",
+                      "exact_fill")
+
+
+def orset_replay_case(rng: np.random.Generator, case: str, shape,
+                      num_keys: int, capacity: int, r_cap: int):
+    """``(state, ops)`` for one of ``ORSET_REPLAY_CASES``: OR-Set slot rows
+    ``[V, K, C]`` and a captured op batch (``[V, B]`` fields, ``rm_rep``,
+    ``rm_ctr``, ``rm_elem`` ``[V, B, R]``) as numpy arrays, the edge cases
+    of a replay that merges each row's sorted op records into its sorted
+    state. A remove or clear captures up to R tags, most of its row's
+    (its elems with them), some of the batch's adds, 10% SENTINEL holes.
+
+    - ``mixed``: every op code, keys in [0, K), canonical rows;
+    - ``hot_key``: 90% of the lanes on key 0 (its bucket overflows);
+    - ``unsorted_rows``: shuffled rows, junk in invalid slots, a tag twice
+      in half the rows;
+    - ``four_copies``: adds of their row's state tags (with other elems),
+      and lanes 5-7 removes capturing lane 1's tag (four copies of it);
+    - ``sentinel_tags``: a valid state tag (INT32_MAX, INT32_MAX) closing
+      a third of the rows, adds of it and of (INT32_MAX, x);
+    - ``negative_keys``: every key in [-K, 0) (records lost, drops
+      counted per key value);
+    - ``past_rows``: 80% of the keys in [K, 2K) (ignored);
+    - ``exact_fill``: each row's new distinct tags fill it exactly to C
+      (even rows) or one past it (odd rows: one drop).
+    """
+    v, b = shape
+    k, c, r = num_keys, capacity, r_cap
+    canonical = case != "unsorted_rows"
+    st = orset_slots(rng, (v, k), c, canonical=canonical, full_rows=0.3,
+                     dup_rows=0.5, removed=0.3)
+    ops = orset_mixed_ops(rng, (v, b), k, c, hazards=False)
+    if case == "hot_key":
+        ops["key"][:, : 9 * b // 10] = 0
+    elif case == "negative_keys":
+        ops["key"] = rng.integers(-k, 0, (v, b)).astype(np.int32)
+    elif case == "past_rows":
+        past = rng.random((v, b)) < 0.8
+        ops["key"] = np.where(past, rng.integers(k, 2 * k, (v, b)),
+                              ops["key"]).astype(np.int32)
+    elif case == "exact_fill":
+        ops = {f: np.zeros((v, b), np.int32) for f in ops}
+        for vi in range(v):
+            lane = 0
+            for ki in range(k):
+                free = c - int(st["valid"][vi, ki].sum()) + ki % 2
+                for j in range(free):
+                    if lane >= b:
+                        break
+                    ops["op"][vi, lane] = orset.OP_ADD
+                    ops["key"][vi, lane] = ki
+                    ops["a0"][vi, lane] = j
+                    ops["a1"][vi, lane] = 9
+                    ops["a2"][vi, lane] = 1000 * ki + j
+                    lane += 1
+    vi = np.arange(v)[:, None, None]
+    row = np.clip(ops["key"], 0, k - 1)[..., None]
+    slot = rng.integers(0, c, (v, b, r)) if c else np.zeros((v, b, r), int)
+    if c:
+        got = {f: st[f][vi, row, slot] for f in ("tag_rep", "tag_ctr", "elem",
+                                                 "valid")}
+    else:
+        got = {"tag_rep": np.full((v, b, r), SENTINEL),
+               "tag_ctr": np.zeros((v, b, r)), "elem": np.zeros((v, b, r)),
+               "valid": np.zeros((v, b, r), bool)}
+    other = rng.integers(0, b, (v, b, r))
+    from_ops = rng.random((v, b, r)) < 0.2
+    rm_rep = np.where(from_ops, ops["a1"][vi, other],
+                      np.where(got["valid"], got["tag_rep"], SENTINEL))
+    rm_ctr = np.where(from_ops, ops["a2"][vi, other], got["tag_ctr"])
+    rm_elem = np.where(from_ops, ops["a0"][vi, other], got["elem"])
+    rm_rep = np.where(rng.random((v, b, r)) < 0.1, SENTINEL, rm_rep)
+    ops.update(rm_rep=rm_rep.astype(np.int32), rm_ctr=rm_ctr.astype(np.int32),
+               rm_elem=rm_elem.astype(np.int32))
+    if case == "four_copies" and b >= 8:
+        own = rng.random((v, b)) < 0.5
+        s0 = slot[..., 0]
+        ops["a1"] = np.where(own, st["tag_rep"][vi[..., 0], row[..., 0], s0],
+                             ops["a1"]).astype(np.int32)
+        ops["a2"] = np.where(own, st["tag_ctr"][vi[..., 0], row[..., 0], s0],
+                             ops["a2"]).astype(np.int32)
+        ops["a0"] = (ops["a0"] + 3).astype(np.int32)
+        ops = with_capture_hazards(rng, ops)
+    elif case == "sentinel_tags" and c:
+        n = st["valid"].sum(-1)
+        for vi_, ki in zip(*np.nonzero((n > 0) & (rng.random((v, k)) < 0.3))):
+            st["tag_rep"][vi_, ki, n[vi_, ki] - 1] = SENTINEL
+            st["tag_ctr"][vi_, ki, n[vi_, ki] - 1] = SENTINEL
+        big = rng.random((v, b)) < 0.2
+        ops["a1"] = np.where(big, SENTINEL, ops["a1"]).astype(np.int32)
+        ops["a2"] = np.where(big & (rng.random((v, b)) < 0.5), SENTINEL,
+                             ops["a2"]).astype(np.int32)
+    return st, ops
+
+
 def rga_text_replay(rng: np.random.Generator, num_replicas: int,
                     num_keys: int, lanes: int, lag: int, tick: int) -> dict:
     """One tick of the harness's RGA replay (harness preset ``rga``,
@@ -890,6 +988,52 @@ def lww_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
     if captured:
         out["ok"] = rng.integers(0, 2, tuple(shape) + (1,)).astype(np.int32)
     return out
+
+
+# the LWW-Set walk's edge cases of ``lww_walk_case``
+LWW_WALK_CASES = ("hazards", "typed_store", "long_rows", "hot_row",
+                  "full_drop")
+
+
+def lww_walk_case(rng: np.random.Generator, case: str, shape,
+                  num_keys: int, capacity: int, captured: bool = False):
+    """``(state, ops)`` for one of ``LWW_WALK_CASES``: LWW-Set rows ``[V,
+    K, C]`` and op lanes ``[V, B]`` (with ``ok`` ``[V, B, 1]`` when
+    ``captured``) as numpy arrays, the edge cases of a walk that groups
+    each view's live lanes by row and walks many rows a warp:
+
+    - ``hazards``: non-canonical rows with duplicate elems, keys in [-2K,
+      2K), every op code, equal stamps and negative low words;
+    - ``typed_store``: typed_store's traffic, keys Zipf-skewed in a hot
+      window of 32 keys, canonical rows;
+    - ``long_rows``: 8 keys, every lane live (hundreds of lanes a row,
+      past a window of records);
+    - ``hot_row``: 90% of the lanes on row 1 (its bucket overflows);
+    - ``full_drop``: full rows and adds and removes of absent elems (every
+      enabled one drops).
+    """
+    v, b = shape
+    k, c = num_keys, capacity
+    canonical = case in ("typed_store", "full_drop")
+    st = lww_slots(rng, (v, k), c, canonical=canonical, dup_rows=0.3,
+                   full_rows=1.0 if case == "full_drop" else 0.4,
+                   num_elems=2 * c)
+    if case == "typed_store":
+        ops = lww_add_remove(rng, v, k, b, 0, hot=32)
+    else:
+        ops = lww_mixed_ops(rng, (v, b), k, 2 * c,
+                            hazards=case == "hazards")
+    if case == "long_rows":
+        ops["op"] = rng.integers(1, 3, (v, b)).astype(np.int32)
+        ops["key"] = rng.integers(0, min(k, 8), (v, b)).astype(np.int32)
+    elif case == "hot_row":
+        ops["key"][:, : 9 * b // 10] = 1
+    elif case == "full_drop":
+        ops["a0"] = rng.integers(4 * c, 5 * c, (v, b)).astype(np.int32)
+    ops = {f: np.array(ops[f], np.int32) for f in base.OP_FIELDS}
+    if captured:
+        ops["ok"] = rng.integers(0, 2, (v, b, 1)).astype(np.int32)
+    return st, ops
 
 
 def mvr_slots(rng: np.random.Generator, shape, capacity: int,

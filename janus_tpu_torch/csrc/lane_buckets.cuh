@@ -1,8 +1,9 @@
 // lane_buckets: the live op lanes of every view grouped by the row their
-// key gathers, each group later walked in lane order by the apply kernels
-// of the LWW-Set and the MVRegister (lww_apply.cu, mvr_apply.cu).
+// key gathers, each group later walked in lane order by the MVRegister's
+// apply kernels (mvr_apply.cu, their one user: the LWW-Set's lww_apply.cu
+// groups its lanes in one launch of its own).
 //
-// A sequential per-row apply (the lax.scan of lwwset._apply_ops_impl and
+// A sequential per-row apply (the lax.scan of
 // mvregister._apply_ops_impl) only has to see, in lane order, the lanes
 // that gather its row; a no-op lane changes nothing. Three launches on the
 // caller's stream build the groups from op [V, B] and key [V, B]:

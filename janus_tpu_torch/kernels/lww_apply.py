@@ -21,15 +21,19 @@ normalisation changes nothing but may count a drop):
   lane's ``ok``) or on the op's ``ok`` (captured);
 - an enabled upsert of an absent elem into a full row counts one drop.
 
-The kernel groups the live lanes by (view, row) first, so no block reads
-a lane of another row (csrc/lane_buckets.cuh). One call is four CUDA
-launches (three for the grouping) and adds one to its wrapper's count.
+The kernel groups the live lanes by (view, row) first, so no warp reads
+a lane of another row, then walks many rows a warp from registers
+(csrc/lww_apply.cu). One call is two CUDA launches on the lean launch
+path (``operands.lean_placement``, ``build.LeanLaunch``), the groups'
+scratch cached per device and stream, and adds one to its wrapper's
+count.
 The wrappers launch the kernel for CUDA tensors (or raise) and run the
 plain versions only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -40,9 +44,6 @@ from janus_tpu_torch.kernels.lww_rows import (
 from janus_tpu_torch.kernels.lane_buckets import row_waves
 from janus_tpu_torch.models.base import gather_index, scatter_index
 from janus_tpu_torch.ops.setops import row_upsert
-
-# lane indices one window of a row's lanes holds (csrc/lww_apply.cu WCAP)
-WINDOW = 2048
 
 
 def _walk_plain(state, ops, ok_out=None) -> torch.Tensor:
@@ -100,68 +101,119 @@ def lww_capture_plain(state, ops):
     return ok, dropped
 
 
-def _lib():
-    lib = build.load("lww_apply")
-    if lib.lww_apply_launch.argtypes is None:
-        ptr, arr, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), \
-            ctypes.c_int
-        lib.lww_apply_launch.argtypes = [arr, arr, ptr, arr, i32, i32, i32,
-                                         i32, ptr]
-        lib.lww_apply_launch.restype = ctypes.c_int
-        lib.lww_capture_launch.argtypes = [arr, arr, ptr, ptr, arr, i32, i32,
-                                           i32, i32, ptr]
-        lib.lww_capture_launch.restype = ctypes.c_int
-    return lib
+# csrc/lww_apply.cu: the most records a group's bucket holds, the widest
+# row and the most lanes a view the walk takes
+MAX_BUCKET = 2048
+MAX_SLOTS = 512
+MAX_LANES = 2**21
+
+_ARGS = (ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p))
+_DIMS = (ctypes.c_int,) * 6
+_APPLY = build.LeanLaunch("lww_apply", "lww_apply_launch",
+                          (*_ARGS, ctypes.c_void_p,
+                           ctypes.POINTER(ctypes.c_void_p), *_DIMS))
+_CAPTURE = build.LeanLaunch("lww_apply", "lww_capture_launch",
+                            (*_ARGS, ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.POINTER(ctypes.c_void_p), *_DIMS))
+
+# (device index, stream) -> Scratch
+_SCRATCH: dict = {}
 
 
-def shared_bytes(c: int) -> int:
-    """Shared memory of one block (csrc/lww_apply.cu): the row's 21 bytes
-    a slot and a window of lane indices."""
-    return 21 * c + 4 * WINDOW
+def bucket_records(K: int, B: int) -> int:
+    """Records a group's bucket holds at K rows and B lanes a view: the
+    lanes a row on average, six of their square roots and 32 (a uniform
+    spread of live lanes stays inside), a multiple of 32, at most
+    ``MAX_BUCKET``; a group past it is walked from the op fields, 32
+    lanes at a time."""
+    mean = B / max(K, 1)
+    return min(MAX_BUCKET, int(mean + 6 * math.sqrt(mean) + 32 + 31) // 32 * 32)
 
 
-def _launch(name, wrapper, state, ops, ok_out):
-    """Check the operands, then one launch of the walk (the capture mode
-    when ``ok_out`` is given). Returns the drops per view, or None when
-    the tensors lie on the CPU."""
+class Scratch:
+    """The groups' scratch of one device and stream (csrc/lww_apply.cu):
+    the counts (zeroed once; every launch leaves them zero), the buckets
+    of 16-byte records, the list of groups with lanes and its two lengths,
+    of which a call uses ``parity`` (zero) and zeroes the other for the
+    next call."""
+
+    def __init__(self, dev):
+        def ints(n, zero=False):
+            return (torch.zeros if zero else torch.empty)(
+                n, dtype=torch.int32, device=dev)
+        self.ints = ints
+        self.count, self.rec, self.list = ints(0, True), ints(0), ints(0)
+        self.live = ints(2, True)
+        self.parity = 0
+
+    def grow(self, groups: int, records: int) -> None:
+        if self.count.numel() < groups:
+            self.count = self.ints(groups, True)
+            self.list = self.ints(groups)
+        if self.rec.numel() < 4 * records:
+            self.rec = self.ints(4 * records)
+
+
+def scratch(dev: torch.device, groups: int, records: int):
+    """The cached scratch of the current stream on ``dev``, grown to at
+    least ``groups`` groups and ``records`` bucket records. Returns (key,
+    Scratch)."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    held = _SCRATCH.get(key)
+    if held is None:
+        held = _SCRATCH[key] = Scratch(dev)
+    held.grow(groups, records)
+    return key, held
+
+
+def _launch(name, wrapper, state, ops, capture):
+    """Check the operands, then the two launches of the walk (the capture
+    mode when ``capture``). Returns ``(ok or None, drops per view)``, or
+    None when the tensors lie on the CPU."""
     if state["valid"].dim() != 3 or ops["op"].dim() != 2:
         raise ValueError(f"{name}: state must be [V, K, C] and op fields "
                          "[V, B]")
     V, K, C = state["valid"].shape
     B = ops["op"].shape[1]
-    ok = ops.get("ok") if ok_out is None else None
-    dev = operands.placement(name, [
+    ok = None if capture else ops.get("ok")
+    dev = operands.lean_placement(name, [
         *slot_operands("state.", state, (V, K, C)),
         *[(f"op field {f!r}", ops[f], torch.int32, (V, B)) for f in OP_FIELDS],
         ("op field 'ok'", ok, torch.int32, (V, B, 1))])
     if dev is None:
         return None
-    operands.check_shared(name, shared_bytes(C))
     if (K == 0 or C == 0) and V * B > 0:
         raise ValueError(f"{name}: no slot rows to gather from")
-    dropped = torch.zeros((V,), dtype=torch.int32, device=dev)
-    if V * B == 0:
-        return dropped
-    scratch = (torch.zeros((V, K), dtype=torch.int32, device=dev),
-               torch.empty((V, K + 1), dtype=torch.int32, device=dev),
-               torch.empty((V, B), dtype=torch.int32, device=dev))
+    if C > MAX_SLOTS or B >= MAX_LANES or V > 65535:
+        raise ValueError(f"{name}: the kernel takes rows of at most "
+                         f"{MAX_SLOTS} slots, fewer than {MAX_LANES} lanes "
+                         f"a view and at most 65,535 views; got C={C}, "
+                         f"B={B}, V={V}")
+    dropped = torch.empty((V,), dtype=torch.int32, device=dev)
+    ok_out = (torch.empty((V, B, 1), dtype=torch.int32, device=dev)
+              if capture else None)
+    if V == 0:
+        return ok_out, dropped
+    cap = bucket_records(K, B)
+    key, sc = scratch(dev, V * K, V * K * cap)
     st = (ctypes.c_void_p * 6)(*(state[f].data_ptr() for f in FIELDS))
     op = (ctypes.c_void_p * 6)(*(ops[f].data_ptr() for f in OP_FIELDS),
                                None if ok is None else ok.data_ptr())
-    sc = (ctypes.c_void_p * 3)(*(t.data_ptr() for t in scratch))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if ok_out is None:
-            rc = lib.lww_apply_launch(st, op, dropped.data_ptr(), sc, V, K, C,
-                                      B, stream)
+    bufs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in
+                                   (sc.count, sc.rec, sc.list, sc.live)))
+    try:
+        if capture:
+            _CAPTURE(dev, st, op, ok_out.data_ptr(), dropped.data_ptr(), bufs,
+                     V, K, C, B, cap, sc.parity)
         else:
-            rc = lib.lww_capture_launch(st, op, ok_out.data_ptr(),
-                                        dropped.data_ptr(), sc, V, K, C, B,
-                                        stream)
-    build.check_launch(name, rc)
+            _APPLY(dev, st, op, dropped.data_ptr(), bufs, V, K, C, B, cap,
+                   sc.parity)
+    except RuntimeError:
+        _SCRATCH.pop(key, None)  # the counts may not be zero any more
+        raise
+    sc.parity ^= 1
     wrapper.launches += 1
-    return dropped
+    return ok_out, dropped
 
 
 def lww_apply(state, ops) -> torch.Tensor:
@@ -169,8 +221,8 @@ def lww_apply(state, ops) -> torch.Tensor:
     the six slot fields ``[V, K, C]`` (``lww_rows.FIELDS``); op fields
     int32 ``[V, B]``, with ``ok`` int32 ``[V, B, 1]`` for captured ops.
     Returns the drop count per view, int32 ``[V]``."""
-    dropped = _launch("lww_apply", lww_apply, state, ops, None)
-    return lww_apply_plain(state, ops) if dropped is None else dropped
+    out = _launch("lww_apply", lww_apply, state, ops, False)
+    return lww_apply_plain(state, ops) if out is None else out[1]
 
 
 lww_apply.launches = 0
@@ -185,13 +237,9 @@ def lww_capture(state, ops):
     if state["valid"].dim() != 3 or ops["op"].dim() != 2:
         raise ValueError("lww_capture: state must be [V, K, C] and op "
                          "fields [V, B]")
-    V, B = ops["op"].shape
-    ok = torch.ones((V, B, 1), dtype=torch.int32, device=ops["op"].device)
-    dropped = _launch("lww_capture", lww_capture, state,
-                      {f: ops[f] for f in OP_FIELDS}, ok)
-    if dropped is None:
-        return lww_capture_plain(state, ops)
-    return ok, dropped
+    out = _launch("lww_capture", lww_capture, state,
+                  {f: ops[f] for f in OP_FIELDS}, True)
+    return lww_capture_plain(state, ops) if out is None else out
 
 
 lww_capture.launches = 0

@@ -14,7 +14,10 @@ lost, as in JAX); records with raw keys ``>= K`` are ignored.
 
 The wrapper launches the CUDA kernels for CUDA tensors (or raises) and
 runs ``orset_replay_plain`` only for tensors that lie on the CPU. Both
-return new tensors.
+return new tensors. On the card one call is two launches: the op records
+grouped by (view, row), then a warp a group (a block where rows take
+hundreds of records) merges its sorted records into its sorted row
+(csrc/orset_replay.cu).
 """
 from __future__ import annotations
 
@@ -131,59 +134,95 @@ def orset_replay_plain(state, ops):
     }, dropped
 
 
-def _lib():
-    lib = build.load("orset_replay")
-    if lib.orset_replay_launch.argtypes is None:
-        ptr = ctypes.c_void_p
-        lib.orset_replay_launch.argtypes = [ptr] * 23 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ptr]
-        lib.orset_replay_launch.restype = ctypes.c_int
-    return lib
+# csrc/orset_replay.cu: the most records a group's bucket holds and the
+# widest row the walk takes
+MAX_BUCKET = 2048
+MAX_SLOTS = 2048
+
+_LAUNCH = build.LeanLaunch(
+    "orset_replay", "orset_replay_launch",
+    [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6)
+
+# (device index, stream) -> [count int32 (zero between calls), work int32]
+_SCRATCH: dict = {}
+
+
+def bucket_records(K: int, B: int) -> int:
+    """Records a group's bucket holds at K rows and B op lanes a view:
+    twice the lanes a row on average plus 32, a multiple of 32, at most
+    ``MAX_BUCKET`` (a group past it is gathered again from the op fields;
+    the recorded consensus and harness calls hold at most 1.3 times the
+    mean, and under 900 records a group)."""
+    mean = -(-B // max(K, 1))
+    return min(MAX_BUCKET, (2 * mean + 32 + 31) // 32 * 32)
+
+
+def scratch_ints(V: int, K: int, B: int, R: int, cap: int):
+    """int32 words of a call's two scratch buffers (csrc/orset_replay.cu):
+    the groups' counts, and the work area (the views' spill cursors, the
+    buckets of 16-byte records, the spill's records and counts)."""
+    span = B * R + K + 1
+    return V * (K + 1), 4 * ((V + 3) // 4) + 4 * V * (K + 1) * cap \
+        + 5 * V * span
+
+
+def scratch(dev: torch.device, count: int, work: int):
+    """The cached scratch of the current stream on ``dev``, grown to at
+    least ``count`` and ``work`` int32 words. The counts come zeroed and
+    every launch leaves them so; the work area needs no initialisation.
+    Returns (key, count, work)."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    held = _SCRATCH.get(key)
+    if held is None:
+        held = _SCRATCH[key] = [torch.zeros(0, dtype=torch.int32, device=dev)] * 2
+    if held[0].numel() < count:
+        held[0] = torch.zeros(count, dtype=torch.int32, device=dev)
+    if held[1].numel() < work:
+        held[1] = torch.empty(work, dtype=torch.int32, device=dev)
+    return key, held[0], held[1]
 
 
 def orset_replay(state, ops):
     """Replay a captured op batch into every view's rows: returns ``(new
     state fields [V, K, C], dropped int32[V])``. ``state``: the five slot
     fields ``[V, K, C]``; op fields int32 ``[V, B]``; captured fields
-    ``rm_rep``/``rm_ctr``/``rm_elem`` int32 ``[V, B, R]``."""
+    ``rm_rep``/``rm_ctr``/``rm_elem`` int32 ``[V, B, R]``. On the card:
+    two launches (csrc/orset_replay.cu) on the lean launch path
+    (``operands.lean_placement``, ``build.LeanLaunch``), the scratch
+    cached per device and stream; rows of at most ``MAX_SLOTS`` slots."""
     if state["valid"].dim() != 3 or ops["op"].dim() != 2:
         raise ValueError("orset_replay: state must be [V, K, C] and op "
                          "fields [V, B]")
     V, K, C = state["valid"].shape
     B = ops["op"].shape[1]
     R = ops["rm_rep"].shape[-1] if ops["rm_rep"].dim() == 3 else -1
-    dev = operands.placement("orset_replay", [
+    dev = operands.lean_placement("orset_replay", [
         *slot_operands("state.", state, (V, K, C)), *op_operands(ops, (V, B)),
         *op_operands(ops, (V, B, R), CAPTURE_FIELDS)])
     if dev is None:
         return orset_replay_plain(state, ops)
-    per_view = K * C + B * R
-    if per_view >= 2**31:
-        raise ValueError(f"orset_replay: {per_view} records per view do not "
-                         f"fit int32 record ids")
+    if C > MAX_SLOTS:
+        raise ValueError(f"orset_replay: the kernel takes rows of at most "
+                         f"{MAX_SLOTS} slots, got {C}")
+    if B * R >= 2**30 or V > 65535:
+        raise ValueError(f"orset_replay: the kernel takes B * R < 2^30 and "
+                         f"V <= 65,535, got B={B}, R={R}, V={V}")
     out = {f: torch.empty((V, K, C), dtype=DTYPES[f], device=dev)
            for f in FIELDS}
-    dropped = torch.zeros((V,), dtype=torch.int32, device=dev)
-    if V * K * C == 0 and V * B * R == 0:
+    dropped = torch.empty((V,), dtype=torch.int32, device=dev)
+    if V == 0:
         return out, dropped
-    # bucket scratch: per view K+1 counts (rows, then negative raw keys),
-    # K+2 offsets, K+1 cursors, and 16 bytes per record
-    counts = torch.zeros((V, K + 1), dtype=torch.int32, device=dev)
-    offsets = torch.empty((V, K + 2), dtype=torch.int32, device=dev)
-    cursor = torch.empty((V, K + 1), dtype=torch.int32, device=dev)
-    records = torch.empty((V * per_view, 4), dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.orset_replay_launch(
-            *(state[f].data_ptr() for f in FIELDS),
-            *(ops[f].data_ptr() for f in ("op", "key", "a0", "a1", "a2")),
-            *(ops[f].data_ptr() for f in CAPTURE_FIELDS),
-            *(out[f].data_ptr() for f in FIELDS), dropped.data_ptr(),
-            counts.data_ptr(), offsets.data_ptr(), cursor.data_ptr(),
-            records.data_ptr(), V, K, C, B, R, stream)
-    build.check_launch("orset_replay", rc)
+    cap = bucket_records(K, B)
+    key, count, work = scratch(dev, *scratch_ints(V, K, B, R, cap))
+    try:
+        _LAUNCH(dev, *(state[f].data_ptr() for f in FIELDS),
+                *(ops[f].data_ptr() for f in ("op", "key", "a0", "a1", "a2")),
+                *(ops[f].data_ptr() for f in CAPTURE_FIELDS),
+                *(out[f].data_ptr() for f in FIELDS), dropped.data_ptr(),
+                count.data_ptr(), work.data_ptr(), V, K, C, B, R, cap)
+    except RuntimeError:
+        _SCRATCH.pop(key, None)  # the counts may not be zero any more
+        raise
     orset_replay.launches += 1
     return out, dropped
 

@@ -44,7 +44,8 @@ checkout, e.g. unpacked by ``git archive``) joins the slot_union turns, the
 the walk's redesign, called as its own wrapper called it:
 ``parent_walk``). ``--parts`` picks
 the parts to run, of ``compact``, ``mvr``, ``orset``, ``tp``, ``lww``,
-``walk``, ``rga`` and ``ring`` (all by default).
+``walk``, ``rga``, ``ring``, ``replay`` and ``lwwwalk`` (all by
+default).
 
 Part ``rga`` prints how the lanes of ``chip_smoke.py``'s rga_consensus
 delta applies fall on their (view, row) groups (``RGA_ROUNDS`` rounds
@@ -58,6 +59,20 @@ halved and grown back, and to and from 2,557 lanes: ms a call with host
 work and device ms, the package's build and the parent's source with its
 wrapper in turns (tree, parent, parent, tree), beside the library calls
 and the bound.
+
+Part ``replay`` records every ``orset_replay`` call of four runs
+(chip_smoke's orset_consensus phase, harness presets ``orset`` and
+``orset4``, a split OR-Set cluster) and part ``lwwwalk`` every
+``lww_apply`` / ``lww_capture`` call of lww_consensus's first
+``LWW_ROUNDS`` rounds and typed_store's first ``LWW_TICKS`` ticks; each
+prints how the calls' records fall on their (view, row) groups
+(``chip_smoke.replay_walk_stats``, ``lww_walk_stats``), holds every call
+bit-equal to the plain version under the package's build and, with
+``--parent``, that checkout's source called as its wrapper called it,
+prints each kernel's device µs a call by the profiler on the timed
+calls, then times in turns (tree, parent, parent, tree) the timed calls
+(device ms and ms a call) and each run's whole list of calls (device ms
+in bursts of ``BURST_CALLS``, and ms with host work). ~4 min for both.
 """
 from __future__ import annotations
 
@@ -91,7 +106,17 @@ RGA_ROUNDS = 6
 # rga_apply.cu's buckets held to 64 lanes (the heaviest recorded delta
 # apply fills them exactly)
 RGA_VARIANTS = {"lanes64": {"GROUP_LANES": 64}}
-PARTS = ("compact", "mvr", "orset", "tp", "lww", "walk", "rga", "ring")
+PARTS = ("compact", "mvr", "orset", "tp", "lww", "walk", "rga", "ring",
+         "replay", "lwwwalk")
+# the recorded runs of part replay; rounds of lww_consensus and ticks of
+# typed_store part lwwwalk records
+REPLAY_PRESETS = ("orset", "orset4")
+LWW_ROUNDS = 4
+LWW_TICKS = 18
+# a burst of up to BURST_CALLS of a run's calls sleeps this long first
+# (~100 ms: the host queues them meanwhile)
+BURST_SLEEP_CYCLES = 200_000_000
+BURST_CALLS = 64
 
 
 def build_variant(name, constants, tag) -> ctypes.CDLL:
@@ -133,11 +158,18 @@ def nvidia_smi() -> str:
 
 def use(name, lib) -> None:
     """Make ``lib`` the library the wrapper of ``name`` launches (None:
-    the package's own build again, at its next load)."""
+    the package's own build again, at its next load); a wrapper on the
+    lean launch path binds its entry again at its next call."""
+    import importlib
+
     if lib is None:
         build._LIBS.pop(name, None)
     else:
         build._LIBS[name] = lib
+    module = importlib.import_module(f"janus_tpu_torch.kernels.{name}")
+    for x in vars(module).values():
+        if isinstance(x, build.LeanLaunch) and x.name == name:
+            x._fn = None
 
 
 def device_ms(fn, reps=REPS) -> float:
@@ -740,6 +772,365 @@ def parent_walk_runs(calls):
     return wrap
 
 
+def burst_ms(fns, sleep=BURST_SLEEP_CYCLES) -> float:
+    """Device milliseconds of one pass over ``fns`` (a list of calls),
+    by CUDA events around the pass queued behind a sleeping kernel, as
+    ``device_ms`` times a burst of one call; the sleep doubles until the
+    host queues the pass before it ends (raises after four tries)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(sleep)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for fn in fns:
+            fn()
+        host = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2])
+        sleep *= 2
+    raise RuntimeError(f"queueing took {host} ms, longer than the sleep")
+
+
+def pass_ms(fns) -> float:
+    """Milliseconds of one pass over ``fns``, host work included, by CUDA
+    events after a warm-up pass."""
+    for fn in fns:
+        fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for fn in fns:
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def replay_inputs(dev):
+    """Every ``orset_replay`` call (args, kwargs) of the recorded runs, by
+    run: ``orset_consensus`` (``chip_smoke.record_orset_consensus``: the
+    phase's two runs, its submits and delta applies), the harness presets
+    of ``REPLAY_PRESETS`` (``run_tensor`` uncut, labelled
+    ``harness_<preset>``) and ``split_orset`` (chip_smoke's split_run of
+    the OR-Set at ``SPLIT_ORSET``: its four processes' calls)."""
+    import chip_smoke
+    from janus_tpu_torch.bench import harness
+
+    names = ("orset_replay",)
+    runs = {"orset_consensus": chip_smoke.record_orset_consensus(
+        dev, kernels, workloads, names)[0]["orset_replay"]}
+    for preset in REPLAY_PRESETS:
+        runs[f"harness_{preset}"] = chip_smoke.record_calls(
+            kernels, names, lambda p=preset: harness.run_tensor(
+                harness.PRESETS[p], device=dev), aliased=True)["orset_replay"]
+    runs["split_orset"] = chip_smoke.record_calls(
+        kernels, names, lambda: chip_smoke.split_run(
+            dev, kernels, workloads, "orset", chip_smoke.SPLIT_ORSET, 22),
+        aliased=True)["orset_replay"]
+    torch.cuda.synchronize()
+    return runs
+
+
+def lww_inputs(dev):
+    """Every ``lww_apply`` and ``lww_capture`` call of the first
+    ``LWW_ROUNDS`` rounds of chip_smoke's lww_consensus phase and the
+    first ``LWW_TICKS`` ticks of its typed_store phase (both arms), by
+    run and wrapper: ``{"lww_consensus/lww_apply": [(args, kwargs),
+    ...], ...}``."""
+    import chip_smoke
+
+    names = ("lww_apply", "lww_capture")
+    runs = {}
+
+    def consensus():
+        kv = chip_smoke.typed_kv(dev, "lww", chip_smoke.LWW_CONS)
+        for ops in chip_smoke.typed_stream(workloads, "lww",
+                                           chip_smoke.LWW_CONS, LWW_ROUNDS):
+            kv.step(workloads.ops_to_device(ops, dev))
+
+    def store():
+        arms = chip_smoke.typed_store_arms(dev)
+        for tick in chip_smoke.typed_store_stream(workloads, LWW_TICKS):
+            batch = {tc: workloads.ops_to_device(o, dev)
+                     for tc, o in tick.items()}
+            for st, use_delta in arms.values():
+                st.fused_tick(batch, delta=use_delta)
+
+    for run, fn in (("lww_consensus", consensus), ("typed_store", store)):
+        calls = chip_smoke.record_calls(kernels, names, fn, aliased=True)
+        for name in names:
+            if calls[name]:
+                runs[f"{run}/{name}"] = calls[name]
+    torch.cuda.synchronize()
+    return runs
+
+
+def parent_replay(lib, state, ops):
+    """One ``orset_replay`` call through the kernel of ``git show
+    8b328be:janus_tpu_torch/csrc/orset_replay.cu`` built as ``lib``, with
+    that checkout's wrapper's host work: the operand check, the device
+    context, five allocations (the outputs, zeroed counts, offsets,
+    cursors and a 16-byte record per state slot and op record)."""
+    from janus_tpu_torch.kernels import operands
+    from janus_tpu_torch.kernels.orset_rows import (CAPTURE_FIELDS, DTYPES,
+                                                    FIELDS, op_operands,
+                                                    slot_operands)
+
+    V, K, C = state["valid"].shape
+    B = ops["op"].shape[1]
+    R = ops["rm_rep"].shape[-1]
+    dev = operands.placement("orset_replay", [
+        *slot_operands("state.", state, (V, K, C)), *op_operands(ops, (V, B)),
+        *op_operands(ops, (V, B, R), CAPTURE_FIELDS)])
+    out = {f: torch.empty((V, K, C), dtype=DTYPES[f], device=dev)
+           for f in FIELDS}
+    dropped = torch.zeros((V,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((V, K + 1), dtype=torch.int32, device=dev)
+    offsets = torch.empty((V, K + 2), dtype=torch.int32, device=dev)
+    cursor = torch.empty((V, K + 1), dtype=torch.int32, device=dev)
+    records = torch.empty((V * (K * C + B * R), 4), dtype=torch.int32,
+                          device=dev)
+    entry = lib.orset_replay_launch
+    if entry.argtypes is None:
+        entry.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = entry(*(state[f].data_ptr() for f in FIELDS),
+                   *(ops[f].data_ptr() for f in ("op", "key", "a0", "a1",
+                                                 "a2")),
+                   *(ops[f].data_ptr() for f in CAPTURE_FIELDS),
+                   *(out[f].data_ptr() for f in FIELDS), dropped.data_ptr(),
+                   counts.data_ptr(), offsets.data_ptr(), cursor.data_ptr(),
+                   records.data_ptr(), V, K, C, B, R, stream)
+    if rc != 0:
+        raise RuntimeError(f"orset_replay (parent): CUDA error {rc}")
+    return out, dropped
+
+
+def parent_lww(lib, name, state, ops):
+    """One ``lww_apply`` or ``lww_capture`` call through the kernel of
+    ``git show 8b328be:janus_tpu_torch/csrc/lww_apply.cu`` built as
+    ``lib``, with that checkout's wrapper's host work (the operand check,
+    the device context, lane_buckets' three scratch tensors)."""
+    from janus_tpu_torch.kernels import operands
+    from janus_tpu_torch.kernels.lww_rows import (FIELDS, OP_FIELDS,
+                                                  slot_operands)
+
+    capture = name == "lww_capture"
+    V, K, C = state["valid"].shape
+    B = ops["op"].shape[1]
+    ok = None if capture else ops.get("ok")
+    dev = operands.placement(name, [
+        *slot_operands("state.", state, (V, K, C)),
+        *[(f"op field {f!r}", ops[f], torch.int32, (V, B)) for f in OP_FIELDS],
+        ("op field 'ok'", ok, torch.int32, (V, B, 1))])
+    i32 = torch.int32
+    ok_out = torch.ones((V, B, 1), dtype=i32, device=dev) if capture else None
+    dropped = torch.zeros((V,), dtype=i32, device=dev)
+    scratch = (torch.zeros((V, K), dtype=i32, device=dev),
+               torch.empty((V, K + 1), dtype=i32, device=dev),
+               torch.empty((V, B), dtype=i32, device=dev))
+    ptr, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    entry = getattr(lib, f"{name}_launch")
+    entry.argtypes = ([arr, arr] + ([ptr] if capture else []) + [ptr, arr]
+                      + [ctypes.c_int] * 4 + [ptr])
+    entry.restype = ctypes.c_int
+    st = (ptr * 6)(*(state[f].data_ptr() for f in FIELDS))
+    op = (ptr * 6)(*(ops[f].data_ptr() for f in OP_FIELDS),
+                   None if ok is None else ok.data_ptr())
+    sc = (ptr * 3)(*(t.data_ptr() for t in scratch))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        extra = [ok_out.data_ptr()] if capture else []
+        rc = entry(st, op, *extra, dropped.data_ptr(), sc, V, K, C, B, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} (parent): CUDA error {rc}")
+    return (ok_out, dropped) if capture else dropped
+
+
+def run_stats(stats) -> dict:
+    """A run's call statistics summed or maxed over its calls."""
+    if not stats:
+        return {"calls": 0}
+    out = {"calls": len(stats)}
+    for k, x in stats[0].items():
+        if (isinstance(x, bool) or not isinstance(x, (int, float))
+                or "mean" in k or k == "B"):
+            continue
+        if k.startswith(("longest", "bucket", "V", "K", "C", "R")):
+            out[f"max_{k}"] = max(s[k] for s in stats)
+        else:
+            out[k] = sum(s[k] for s in stats)
+    held = ("records_in_rows", "groups_with_records")
+    if "live" in out:
+        held = ("live", "groups_live")
+    out["per_group_mean"] = out[held[0]] / max(out[held[1]], 1)
+    bins = {}
+    for s in stats:
+        for k, n in s.get("records_per_group_bins",
+                          s.get("live_per_group_bins", {})).items():
+            bins[k] = bins.get(k, 0) + n
+    out["group_bins"] = dict(sorted(bins.items(),
+                                    key=lambda kv: int(kv[0].split("-")[0])))
+    out["B_values"] = sorted({s["B"] for s in stats})
+    return out
+
+
+def kernel_split(fn, reps=5) -> dict:
+    """Device microseconds a call of each CUDA kernel ``fn`` launches (by
+    name), by torch.profiler over ``reps`` calls after a warm-up."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return chip_smoke.device_us_by_kernel(
+        [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA], reps)
+
+
+def calls_ab(kernel, runs, timed, wrappers, parent_call, smi):
+    """The A/B of one redesigned kernel: every recorded call of ``runs``
+    (label: [(wrapper name, (args, kwargs)), ...]) held bit-equal to the
+    plain version under each variant (the package's build, ``tree``, and,
+    given ``parent_call(name, *args)``, the parent's source as its
+    wrapper called it), then in turns (tree, parent, parent, tree): each
+    of ``timed`` (label: one call) by ``device_ms`` and ``host_ms``, and
+    each run's whole list of calls by ``burst_ms`` (device) and
+    ``pass_ms`` (host work included), on fresh clones of the calls (the
+    LWW wrappers update in place)."""
+    variants = {"tree": lambda name, *a: wrappers[name](*a)}
+    if parent_call is not None:
+        variants["parent"] = parent_call
+    want = {}
+    for label, calls in runs.items():
+        for j, (name, (args, kw)) in enumerate(calls):
+            pargs = clone(args)
+            want[label, j] = (getattr(kernels, name + "_plain")(*pargs), pargs)
+    for tag, fn in variants.items():
+        for label, calls in runs.items():
+            for j, (name, (args, kw)) in enumerate(calls):
+                mine = clone(args)
+                got = fn(name, *mine)
+                if not (same(got, want[label, j][0])
+                        and same(mine, want[label, j][1])):
+                    raise AssertionError(f"{kernel} {tag}: {label} call {j} "
+                                         f"differs from plain")
+    del want
+    torch.cuda.synchronize()
+    split = {tag: {label: kernel_split(lambda n=name, a=clone(args):
+                                       fn(n, *a))
+                   for label, (name, (args, kw)) in timed.items()}
+             for tag, fn in variants.items()}
+    print(json.dumps({"kernel": kernel, "nvidia_smi": smi,
+                      "device_us_by_kernel": split}), flush=True)
+    out = {tag: {"timed": {label: {"device_ms": [], "ms": []}
+                           for label in timed},
+                 "runs": {label: {"device_ms": [], "ms": []}
+                          for label in runs}} for tag in variants}
+    for tag in list(variants) + list(reversed(variants)):
+        fn = variants[tag]
+        for label, (name, (args, kw)) in timed.items():
+            mine = clone(args)
+            call = (lambda n=name, a=mine: fn(n, *a))
+            out[tag]["timed"][label]["device_ms"].append(device_ms(call))
+            out[tag]["timed"][label]["ms"].append(host_ms(call))
+        for label, calls in runs.items():
+            mine = [(name, clone(args)) for name, (args, kw) in calls]
+            fns = [(lambda n=name, a=a: fn(n, *a)) for name, a in mine]
+            # bursts of BURST_CALLS calls: a longer one fills the launch
+            # queue, and the host then waits for the sleeping device
+            out[tag]["runs"][label]["device_ms"].append(sum(
+                burst_ms(fns[k:k + BURST_CALLS])
+                for k in range(0, len(fns), BURST_CALLS)))
+            out[tag]["runs"][label]["ms"].append(pass_ms(fns))
+            del mine, fns
+        torch.cuda.empty_cache()
+    print(json.dumps({"kernel": kernel, "nvidia_smi": smi, **out}),
+          flush=True)
+
+
+def replay_ab(dev, parent, smi):
+    """Part ``replay``: each recorded run's ``orset_replay`` calls
+    described (``chip_smoke.replay_walk_stats`` summed over the run, and
+    per call for the timed ones), then ``calls_ab`` with the timed calls
+    ``widest`` (chip_smoke's: the orset_consensus delta apply with the
+    most lanes) and each run's call with the most op records."""
+    import chip_smoke
+
+    runs = replay_inputs(dev)
+    stats = {label: [chip_smoke.replay_walk_stats(*args)
+                     for args, _ in calls] for label, calls in runs.items()}
+    cons = runs["orset_consensus"]
+    timed = {"widest": ("orset_replay", max(
+        cons, key=lambda c: c[0][1]["op"].shape[1]))}
+    for label, calls in runs.items():
+        j = max(range(len(calls)), key=lambda i: stats[label][i]["records"])
+        timed[f"{label}_most_records"] = ("orset_replay", calls[j])
+    print(json.dumps({"kernel": "orset_replay", "nvidia_smi": smi,
+                      "runs": {label: run_stats(s)
+                               for label, s in stats.items()},
+                      "timed_calls": {
+                          label: chip_smoke.replay_walk_stats(*call[1][0])
+                          for label, call in timed.items()}}), flush=True)
+    lib = (build_text("orset_replay", pathlib.Path(parent).read_text(),
+                      "parent") if parent is not None else None)
+    calls_ab("orset_replay",
+             {label: [("orset_replay", c) for c in calls]
+              for label, calls in runs.items()}, timed,
+             {"orset_replay": kernels.orset_replay},
+             None if lib is None else
+             (lambda name, *a: parent_replay(lib, *a)), smi)
+    del runs, timed
+    torch.cuda.empty_cache()
+
+
+def lww_ab(dev, parent, smi):
+    """Part ``lwwwalk``: the recorded ``lww_apply`` / ``lww_capture``
+    calls described (``chip_smoke.lww_walk_stats``), then ``calls_ab``
+    with the timed calls ``lww_apply`` and ``lww_capture`` (chip_smoke's:
+    the lww_consensus call with the most live lanes) and typed_store's
+    apply with the most live lanes."""
+    import chip_smoke
+
+    runs = lww_inputs(dev)
+    stats = {label: [chip_smoke.lww_walk_stats(*args) for args, _ in calls]
+             for label, calls in runs.items()}
+    timed = {}
+    for label, calls in runs.items():
+        j = max(range(len(calls)), key=lambda i: stats[label][i]["live"])
+        timed[label.replace("/", "_")] = (label.split("/")[1], calls[j])
+    print(json.dumps({"kernel": "lww_apply", "nvidia_smi": smi,
+                      "runs": {label: run_stats(s)
+                               for label, s in stats.items()},
+                      "timed_calls": {
+                          label: chip_smoke.lww_walk_stats(*call[1][0])
+                          for label, call in timed.items()}}), flush=True)
+    lib = (build_text("lww_apply", pathlib.Path(parent).read_text(),
+                      "parent") if parent is not None else None)
+    calls_ab("lww_apply",
+             {label: [(label.split("/")[1], c) for c in calls]
+              for label, calls in runs.items()}, timed,
+             {"lww_apply": kernels.lww_apply,
+              "lww_capture": kernels.lww_capture},
+             None if lib is None else
+             (lambda name, *a: parent_lww(lib, name, *a)), smi)
+    del runs, timed
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
@@ -747,12 +1138,15 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     parent, walk_parent, rga_parent, ring_parent = None, None, None, None
+    replay_parent, lww_parent = None, None
     if "--parent" in sys.argv:
         root = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
         parent = root / "janus_tpu_torch" / "csrc" / "slot_union.cu"
         walk_parent = root / "janus_tpu_torch" / "csrc" / "graph_apply.cu"
         rga_parent = root / "janus_tpu_torch" / "csrc" / "rga_apply.cu"
         ring_parent = root / "janus_tpu_torch" / "csrc" / "ring_resize.cu"
+        replay_parent = root / "janus_tpu_torch" / "csrc" / "orset_replay.cu"
+        lww_parent = root / "janus_tpu_torch" / "csrc" / "lww_apply.cu"
     parts = (sys.argv[sys.argv.index("--parts") + 1].split(",")
              if "--parts" in sys.argv else PARTS)
 
@@ -841,6 +1235,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "ring" in parts:
         ring_ab(ring_parent, smi)
+    if "replay" in parts:
+        replay_ab(dev, replay_parent, smi)
+    if "lwwwalk" in parts:
+        lww_ab(dev, lww_parent, smi)
     print(smi, flush=True)
     return 0
 

@@ -509,6 +509,33 @@ def test_orset_replay_kernel_matches_plain(cuda_device, v, k, c, b, r_cap,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("geo", [(2, 64, 64, 2048, 4), (3, 7, 8, 300, 1),
+                                 (2, 5, 16, 400, 32), (2, 20, 256, 1024, 8)],
+                         ids=lambda g: "V{}K{}C{}B{}r{}".format(*g))
+@pytest.mark.parametrize("case", workloads.ORSET_REPLAY_CASES)
+def test_orset_replay_cases_match_plain(cuda_device, case, geo):
+    """The replay's edge cases (``workloads.orset_replay_case``): a hot key
+    past its bucket (gathered again into the spill), rows whose state does
+    not ascend, a tag four times, the INT32_MAX tag, every record on
+    negative keys, keys past the rows, rows filled exactly to C and one
+    past it; capture widths 1 and 32."""
+    v, k, c, b, r_cap = geo
+    rng = np.random.default_rng(
+        workloads.ORSET_REPLAY_CASES.index(case) * 7 + c)
+    st, ops = (_on(x, cuda_device) for x in workloads.orset_replay_case(
+        rng, case, (v, b), k, c, r_cap))
+    before = kernels.orset_replay.launches
+    got, drop = kernels.orset_replay(st, ops)
+    ref, rdrop = kernels.orset_replay_plain(st, ops)
+    torch.cuda.synchronize()
+    assert kernels.orset_replay.launches == before + 1
+    _assert_outputs_equal(got, ref)
+    _assert_outputs_equal(drop, rdrop)
+    if case == "exact_fill":
+        assert int(rdrop.sum()) > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("r,k,c,b,canonical", [
     (3, 5, 6, 24, False), (2, 4, 8, 32, True), (4, 2, 4, 32, True),
     (8, 500, 256, 64, True)])
@@ -1831,6 +1858,48 @@ def test_lww_apply_and_capture_match_plain(cuda_device, v, k, c, b, mode,
                                 (st, dops))
         assert kernels.lww_apply.launches == before + 1
     assert int(drop.sum()) > 0
+
+
+def _walk_vs_host_plain(fn, plain, st, ops):
+    """The wrapper on the card and its plain version on host copies (a
+    plain walk is thousands of small steps, quicker there): outputs and
+    in-place updates bit-equal."""
+    mine = _clone(st)
+    ref = {f: x.cpu() for f, x in st.items()}
+    out = fn(mine, ops)
+    want = plain(ref, {f: x.cpu() for f, x in ops.items()})
+    torch.cuda.synchronize()
+    _same((mine, out), (ref, want))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["apply", "captured", "capture"])
+@pytest.mark.parametrize("case,geo", [
+    *[(case, geo) for case in workloads.LWW_WALK_CASES
+      for geo in ((64, 500, 64, 64), (64, 500, 256, 64))],
+    ("long_rows", (3, 8, 40, 2000)), ("hot_row", (2, 6, 300, 700)),
+    ("hazards", (2, 6, 300, 700)), ("full_drop", (2, 6, 512, 700)),
+    ("hazards", (2, 6, 512, 700))],
+    ids=lambda x: x if isinstance(x, str) else "V{}K{}C{}B{}".format(*x))
+def test_lww_walk_cases_match_plain(cuda_device, case, geo, mode):
+    """The walk's edge cases (``workloads.lww_walk_case``) in the three
+    modes: typed_store's 64 lanes a replica over rows of 64 and 256 slots
+    (four rows a warp, one), hundreds of lanes a row, a row past its
+    bucket (walked from the op fields), full rows that drop, and rows of
+    300 and 512 slots (16 slots a thread)."""
+    v, k, c, b = geo
+    rng = np.random.default_rng(workloads.LWW_WALK_CASES.index(case) + c)
+    st, ops = (_on(x, cuda_device) for x in workloads.lww_walk_case(
+        rng, case, (v, b), k, c, captured=mode == "captured"))
+    name = "lww_capture" if mode == "capture" else "lww_apply"
+    before = getattr(kernels, name).launches
+    out = _walk_vs_host_plain(getattr(kernels, name),
+                              getattr(kernels, name + "_plain"), st, ops)
+    assert getattr(kernels, name).launches == before + 1
+    if case == "full_drop":
+        drop = out[1] if mode == "capture" else out
+        assert (drop > 0).all()
 
 
 @pytest.mark.cuda
