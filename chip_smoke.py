@@ -513,7 +513,8 @@ TYPED_CHECKS = dict(
         ("cut", 32, 4, 256, ("captured",)), ("twins", 32, 4, 256,
                                              ("captured",)),
         ("hazards", 32, 4, 256, ("apply",))),
-    lww_walks=((64, 500, 64, 64), (64, 500, 256, 64), (2, 6, 300, 700)),
+    # (64, 500, 256, 64) too is a card test (test_lww_walk_cases_match_plain)
+    lww_walks=((64, 500, 64, 64), (2, 6, 300, 700)),
     rounds=3, ticks=2, late_tick=17)
 # the LWW union's edge cases (workloads.lww_union_case): `rows` key rows of
 # each capacity; row-list trees over these replicas
@@ -610,7 +611,6 @@ TP_CHECKS = dict(
     walk_geometry=(2, 500, 32, 2200),
     walks=(("graph", 32, 256), ("graph", 64, 256), ("tpset", 64, 0),
            ("tpset", 256, 0)),
-    lww_walks=((64, 500, 64, 64), (64, 500, 256, 64), (2, 6, 300, 700)),
     rounds=3, ticks=2, late_tick=17)
 # the 2P unions' edge cases (workloads.tp_union_case), both layouts:
 # `rows` key rows of each capacity; row-list trees over these replicas
@@ -809,6 +809,59 @@ def device_profile(fn, reps=10):
                and "memcpy" not in e.name.lower()
                and "memset" not in e.name.lower()]
     return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def graph_kernels(fn) -> int:
+    """CUDA kernels one call of ``fn`` launches: the kernel nodes of a CUDA
+    graph captured from the call on a side stream (the driver's stream
+    capture, relaxed mode), a count that does not depend on the profiler's
+    records. The call runs once on that stream first, outside the capture,
+    so that what a wrapper caches per stream exists; the groups' scratch
+    of that stream is dropped after the capture (the captured call, which
+    did not run, flipped its parity)."""
+    import ctypes
+
+    from janus_tpu_torch.kernels import lane_buckets
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, size = ctypes.c_void_p, ctypes.c_size_t
+    cu.cuStreamBeginCapture_v2.argtypes = [ptr, ctypes.c_int]
+    cu.cuStreamEndCapture.argtypes = [ptr, ctypes.POINTER(ptr)]
+    cu.cuGraphGetNodes.argtypes = [ptr, ctypes.POINTER(ptr),
+                                   ctypes.POINTER(size)]
+    cu.cuGraphNodeGetType.argtypes = [ptr, ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphDestroy.argtypes = [ptr]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    raw, graph = ptr(side.cuda_stream), ptr()
+    with torch.cuda.stream(side):
+        fn()
+        side.synchronize()
+        # mode 2: CU_STREAM_CAPTURE_MODE_RELAXED
+        rc = cu.cuStreamBeginCapture_v2(raw, 2)
+        if rc:
+            raise RuntimeError(f"graph_kernels: capture refused ({rc})")
+        try:
+            fn()
+        finally:
+            rc = cu.cuStreamEndCapture(raw, ctypes.byref(graph))
+    for key in [k for k in lane_buckets._SCRATCH if k[2] == side.cuda_stream]:
+        lane_buckets.forget_scratch(key)
+    if rc:
+        raise RuntimeError(f"graph_kernels: capture failed ({rc})")
+    try:
+        n = size(0)
+        cu.cuGraphGetNodes(graph, None, ctypes.byref(n))
+        nodes = (ptr * n.value)()
+        cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+        kinds = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            cu.cuGraphNodeGetType(node, ctypes.byref(kind))
+            kinds.append(kind.value)
+    finally:
+        cu.cuGraphDestroy(graph)
+    return sum(k == 0 for k in kinds)  # CU_GRAPH_NODE_TYPE_KERNEL
 
 
 def host_probe_ms(n=400):
@@ -2870,6 +2923,50 @@ def lww_walk_stats(state, ops, cap=None) -> dict:
     return out
 
 
+def apply_walk_stats(state, ops, cap=None) -> dict:
+    """How one ``orset_apply`` call's lanes fall on the ``(replica,
+    row)`` groups their keys gather: the lanes, the NOOP ones, those whose
+    key is out of range, the lanes the walk takes (an in-range key, or an
+    add, remove or clear, which may count a drop on its clamped row), the
+    groups that hold any, the lanes a group holds (mean, bins, the
+    longest), the groups past a bucket of ``cap`` records
+    (``lane_buckets.bucket_records`` by default), and the gathered rows
+    whose slots descend in (tag, position) order (non-canonical, invalid
+    slots keyed SENTINEL)."""
+    from janus_tpu_torch.kernels.lane_buckets import bucket_records
+    from janus_tpu_torch.models.base import gather_index
+
+    R, K, C = state["valid"].shape
+    op, key = ops["op"], ops["key"].long()
+    B = op.shape[1]
+    cap = bucket_records(K, B) if cap is None else cap
+    nk = torch.where(key < 0, key + K, key)
+    in_range = (nk >= 0) & (nk < K)
+    walked = in_range | (op == 1) | (op == 2) | (op == 3)
+    vg = (torch.arange(R, device=op.device).view(R, 1) * K
+          + gather_index(ops["key"], K)).long()
+    per = torch.bincount(vg[walked], minlength=R * K)
+    held = per[per > 0]
+    SENT = torch.iinfo(torch.int32).max
+    v = state["valid"]
+    rep = torch.where(v, state["tag_rep"], SENT).long()
+    ctr = torch.where(v, state["tag_ctr"], SENT).long()
+    tag = rep * 2**32 + ctr
+    bad = (tag[..., 1:] < tag[..., :-1]).any(-1).flatten()
+    out = dict(R=R, K=K, C=C, B=B, lanes=R * B, noop=int((op == 0).sum()),
+               out_of_range=int((~in_range).sum()), live=int(walked.sum()),
+               groups=R * K, groups_live=int(held.numel()),
+               live_per_group_mean=(float(held.float().mean())
+                                    if held.numel() else 0.0),
+               live_per_group_bins=group_bins(held),
+               longest_group=int(held.max()) if held.numel() else 0,
+               gathered_rows_noncanonical=int((bad & (per > 0)).sum()),
+               rows_noncanonical=int(bad.sum()))
+    out["bucket_records"] = cap
+    out["groups_overflowed"] = int((held > cap).sum())
+    return out
+
+
 def rga_apply_bytes(state, ops):
     """What an ``rga_apply`` call must move: its six op fields, its drop
     counts, and the rows its lanes gather and write back (22 bytes a slot,
@@ -3470,6 +3567,28 @@ def _nbytes(tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
+def select_bytes(plain, args) -> int:
+    """What one ``block_select`` call must move: ``ready`` and ``applied``
+    read, ``applied`` written, the keys' inputs read, ``idx`` and
+    ``chosen`` written, every output row written once, and each ring row
+    the call gathers read once, however many views gather it (its op
+    field only where some view chose it: an unchosen row's op lanes are
+    written as zeros). The rows gathered are this call's, from ``plain``
+    (the plain version) on a copy of ``applied``."""
+    cfg, ring, ready, applied, budget, sr, base, seq = args
+    v, w, n = ready.shape
+    a = min(budget, w * n)
+    _, idx, chosen = plain(cfg, ring, ready, applied.clone(), budget, sr,
+                           base, seq)
+    ring_row = sum(x[0, 0].numel() * x.element_size() for x in ring.values())
+    op_row = ring["op"][0, 0].numel() * ring["op"].element_size()
+    gathered = int(torch.unique(idx).numel())
+    gathered_op = int(torch.unique(idx[chosen]).numel())
+    return (3 * v * w * n + _nbytes([seq, sr, base]) + 5 * v * a
+            + v * a * ring_row + gathered * (ring_row - op_row)
+            + gathered_op * op_row)
+
+
 def safekv_kernel_rows(kernels, calls):
     """Rows of the kernels line for the SafeKV round's four wrappers, each
     timed on recorded calls of the 4-node PN-Counter run (the consensus
@@ -3479,7 +3598,8 @@ def safekv_kernel_rows(kernels, calls):
     of a round in which slots died (both repeated on the state they
     leave). Bytes: what the function must move, each input read once and
     each output written once: the accepted views' ring rows, the gathered
-    rows, the needy views' rows of every leaf, the dead slots' rows."""
+    rows (``select_bytes``), the needy views' rows of every leaf, the dead
+    slots' rows."""
     def clone(args):
         return tree_map(torch.Tensor.clone, args)
 
@@ -3510,12 +3630,11 @@ def safekv_kernel_rows(kernels, calls):
     v, w, n = ready.shape
     a = min(budget, w * n)
     ring_row = sum(x[0, 0].numel() * x.element_size() for x in ring.values())
-    nbytes = (3 * v * w * n + _nbytes([seq, sr, base]) + 5 * v * a
-              + 2 * v * a * ring_row)
+    nbytes = select_bytes(kernels.block_select_plain, args)
     rows.append(dict(
         name="block_select", call=lambda args=args: kernels.block_select(*args),
         plain=lambda args=args: kernels.block_select_plain(*args),
-        library=None,
+        library=None, max_cuda_launches=2,
         shape=f"V{v} W{w} N{n} A{a} B{ring['op'].shape[2]}: the last stable "
         f"delta apply", bytes=nbytes,
         operations=v * w * n * (2 + (seq is not None)) + v * a * ring_row // 4))
@@ -7183,7 +7302,9 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
             # (read) or writes back (written), not the whole state
             rows = args[0]
             ins = [t for t in ins if not any(t is x for x in rows.values())]
-            extra = apply_rows_touched(rows, args[1])
+            extra = dict(apply_rows_touched(rows, args[1]),
+                         max_cuda_launches=2,
+                         walk_stats=apply_walk_stats(*args))
             row_bytes = sum(x[0, 0].numel() * x.element_size()
                             for x in rows.values())
             row_elems = sum(x[0, 0].numel() for x in rows.values())
@@ -7247,7 +7368,7 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                                     "rows_read", "rows_written", "rows_joined",
                                     "rows_sorted", "buckets_sorted",
                                     "longest_walk", "walk_blocks_per_sm",
-                                    "walk_stats",
+                                    "walk_stats", "max_cuda_launches",
                                     "walk_threads_per_block", "library_note",
                                     "grow", "consensus")
                if k in kern}
@@ -7266,6 +7387,11 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         before = kernels.WRAPPERS[name].launches
         row["profiler_kernels_seen"], _ = device_profile(kern["call"], reps=20)
         row["profiled_launches"] = kernels.WRAPPERS[name].launches - before
+        if "max_cuda_launches" in kern:  # a launch limit the row states
+            got = row["cuda_launches_per_call"] = graph_kernels(kern["call"])
+            check(0 < got <= kern["max_cuda_launches"],
+                  f"{name}: {got} CUDA kernels a call (a captured graph), "
+                  f"at most {kern['max_cuda_launches']} stated")
         if "shape" in kern and (one_ms > PLAIN_PROFILE_MAX_MS
                                 or not kern.get("profile_plain", True)):
             # the profiler's processing of a plain call of ~10^5 small
@@ -7345,10 +7471,11 @@ def main() -> int:
     check(not [f for f in frames
                if f.startswith(("slot_union: ", "graph_apply: ",
                                 "rga_apply: ", "ring_resize: ",
-                                "orset_replay: ", "lww_apply: "))],
+                                "orset_replay: ", "lww_apply: ",
+                                "orset_apply: ", "block_select: "))],
           "build: a slot_union.cu, graph_apply.cu, rga_apply.cu, "
-          "ring_resize.cu, orset_replay.cu or lww_apply.cu function has a "
-          "stack frame or spills")
+          "ring_resize.cu, orset_replay.cu, lww_apply.cu, orset_apply.cu "
+          "or block_select.cu function has a stack frame or spills")
 
     phase_s = {"build": res["seconds"]}
 

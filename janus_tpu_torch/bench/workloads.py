@@ -189,6 +189,91 @@ def orset_mixed_ops(rng: np.random.Generator, shape, num_keys: int,
     return {f: v.astype(np.int32) for f, v in ops.items()}
 
 
+ORSET_APPLY_CASES = ("mixed", "hot_row", "noop_noncanonical", "untouched",
+                     "out_of_range_full", "int32_max", "exact_fill")
+
+
+def orset_apply_case(rng: np.random.Generator, case: str, shape,
+                     num_keys: int, capacity: int, r_cap: int = 0):
+    """``(state, ops)`` for one of ``ORSET_APPLY_CASES``: OR-Set rows ``[V,
+    K, C]`` and op lanes ``[V, B]`` as numpy arrays (with captured tags
+    ``rm_rep``/``rm_ctr``/``rm_elem`` ``[V, B, r_cap]`` when ``r_cap``),
+    the edge cases of an apply that groups each view's lanes by gathered
+    row and walks only those rows:
+
+    - ``mixed``: every op code, keys in [-K, 2K), SENTINEL adds,
+      non-canonical rows with duplicate tags;
+    - ``hot_row``: 90% of the lanes on row 1 (its bucket overflows);
+    - ``noop_noncanonical``: NOOP lanes on non-canonical rows, which they
+      leave canonical;
+    - ``untouched``: non-canonical rows, the lanes on the first half of
+      the rows only (the rest stay byte for byte);
+    - ``out_of_range_full``: full rows, every key out of range (clamped to
+      the first or last row): adds of absent tags drop, nothing is
+      written;
+    - ``int32_max``: valid (INT32_MAX, INT32_MAX) tags among the invalid
+      slots, and adds of that tag and of others;
+    - ``exact_fill``: rows one slot short of full, two adds of new tags a
+      row (the first fills it, the second evicts the largest tag and
+      drops).
+    """
+    v, b = shape
+    k, c = num_keys, capacity
+    canonical = case in ("out_of_range_full", "int32_max")
+    full = 1.0 if case == "out_of_range_full" else 0.4
+    st = orset_slots(rng, (v, k), c, canonical=canonical, dup_rows=0.3,
+                     full_rows=full)
+    ops = orset_mixed_ops(rng, (v, b), k, c, hazards=case == "mixed")
+    if case == "hot_row":
+        ops["key"][:, : 9 * b // 10] = min(1, k - 1)
+    elif case == "noop_noncanonical":
+        ops["op"][:] = 0
+    elif case == "untouched":
+        ops["key"] = rng.integers(0, max(k // 2, 1), (v, b)).astype(np.int32)
+    elif case == "out_of_range_full":
+        ops["key"] = np.where(rng.random((v, b)) < 0.5,
+                              rng.integers(k, 2 * k, (v, b)),
+                              rng.integers(-2 * k, -k, (v, b))
+                              ).astype(np.int32)
+        ops["a1"] = rng.integers(8, 12, (v, b)).astype(np.int32)
+    elif case == "int32_max":
+        rows = st["valid"].reshape(-1, c)
+        for f in ("tag_rep", "tag_ctr", "elem"):
+            st[f] = st[f].reshape(-1, c)
+        for r in np.nonzero(rng.random(rows.shape[0]) < 0.5)[0]:
+            free = np.nonzero(~rows[r])[0]
+            for j in free[rng.random(free.size) < 0.5]:
+                rows[r, j] = True
+                st["tag_rep"][r, j] = st["tag_ctr"][r, j] = SENTINEL
+                st["elem"][r, j] = rng.integers(0, 8)
+        st = {f: x.reshape(v, k, c) for f, x in st.items()}
+        st["valid"] = rows.reshape(v, k, c)
+        hit = rng.random((v, b)) < 0.3
+        ops["a1"] = np.where(hit, SENTINEL, ops["a1"]).astype(np.int32)
+        ops["a2"] = np.where(hit, SENTINEL, ops["a2"]).astype(np.int32)
+    elif case == "exact_fill":
+        st = orset_slots(rng, (v, k), c, full_rows=1.0)
+        st["valid"][..., -1] = st["removed"][..., -1] = False
+        st["tag_rep"][..., -1] = st["tag_ctr"][..., -1] = SENTINEL
+        st["elem"][..., -1] = 0
+        ops["op"][:] = 1
+        lane = np.arange(b)
+        ops["key"] = np.broadcast_to(rng.permutation(k)[lane // 2 % k],
+                                     (v, b)).astype(np.int32)
+        ops["a1"] = rng.integers(8, 12, (v, b)).astype(np.int32)
+        ops["a2"] = np.broadcast_to(lane + 1, (v, b)).astype(np.int32)
+    if r_cap:
+        cap = (v, b, r_cap)
+        ops["rm_rep"] = np.where(rng.random(cap) < 0.1, SENTINEL,
+                                 rng.integers(0, 4, cap)).astype(np.int32)
+        ops["rm_ctr"] = rng.integers(1, c + 2, cap).astype(np.int32)
+        ops["rm_elem"] = rng.integers(0, 8, cap).astype(np.int32)
+        if r_cap > 1:
+            for f in ("rm_rep", "rm_ctr", "rm_elem"):
+                ops[f][..., 1] = ops[f][..., 0]
+    return st, {f: np.ascontiguousarray(x, np.int32) for f, x in ops.items()}
+
+
 def with_capture_hazards(rng: np.random.Generator, ops: dict) -> dict:
     """A captured op batch (numpy, ``[..., B]`` fields with ``[..., B, R]``
     captures, B >= 8) with the replay's hazards mixed in: 10% of the

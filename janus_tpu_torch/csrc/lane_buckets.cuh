@@ -1,12 +1,11 @@
-// lane_buckets: the live op lanes of every view grouped by the row their
-// key gathers, each group later walked in lane order by the MVRegister's
-// apply kernels (mvr_apply.cu, their one user: the LWW-Set's lww_apply.cu
-// groups its lanes in one launch of its own).
+// lane_buckets: an apply's op lanes grouped by the row their key gathers,
+// each group later walked in lane order. Two schemes live here.
 //
-// A sequential per-row apply (the lax.scan of
-// mvregister._apply_ops_impl) only has to see, in lane order, the lanes
-// that gather its row; a no-op lane changes nothing. Three launches on the
-// caller's stream build the groups from op [V, B] and key [V, B]:
+// The lists (`Lists`, `build`, `sorted_windows`; mvr_apply.cu): a
+// sequential per-row apply (the lax.scan of mvregister._apply_ops_impl)
+// only has to see, in lane order, the lanes that gather its row; a no-op
+// lane changes nothing. Three launches on the caller's stream build the
+// groups from op [V, B] and key [V, B]:
 //
 //   count  one thread per lane: a live lane (its op code in `mask`) adds
 //          one to count[v, g], g = the row its key gathers (JAX's gather
@@ -17,8 +16,17 @@
 //   fill   one thread per live lane: lanes[v, start[v, g] + cursor] = b
 //
 // A group's lanes are in no order after the fill (atomics); the walk puts
-// them in lane order with `sorted_window` below. Bytes: the op and key
+// them in lane order with `sorted_windows` below. Bytes: the op and key
 // fields read twice, 4 bytes a live lane written, 8 bytes a (view, row).
+//
+// The buckets (`Groups`, `claim`, `lane_order`, `walk_records`;
+// lww_apply.cu, orset_apply.cu): one launch, a thread a lane, writes each
+// lane's 16-byte record into its group's bucket of `cap` records at the
+// group's count (`claim`) and lists each group its first lane reaches; a
+// walk then takes G threads of a warp a listed group, puts the group's
+// records in lane order (`lane_order`) and reads them back a window at a
+// time (`walk_records`). The sources keep their fill kernel (its record)
+// and the row step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -118,6 +126,129 @@ __device__ void sorted_windows(const int* list, int n, int B, int* win,
     __syncthreads();
     fn(win, m);
     __syncthreads();
+  }
+}
+
+// ---- the buckets ----
+
+constexpr int WINDOW = 32;        // records of a group read back at a time
+constexpr int MAX_BUCKET = 2048;  // the most records a bucket holds
+constexpr int PLACE_BITS = 11;    // a record's place in its bucket
+constexpr unsigned ALL_LANES = 0xffffffffu;
+
+// count[V K] (lanes a group; zero on entry, zeroed by the walk),
+// rec[V K, cap], list[V K] (the groups with lanes, in the order the fill
+// met them), hot[] (the groups past their bucket; null where the walk
+// finds those itself) and live[4] (the lengths of list, at `parity`, and
+// of hot, at 2 + `parity`: this call's zero on entry, the walk zeroes the
+// other ones for the next call)
+struct Groups {
+  int* count;
+  int4* rec;
+  int* list;
+  int* hot;
+  int* live;
+  int parity;
+  int cap;
+};
+
+// This lane's place in the bucket of its group vg (a place at cap or past
+// it has no room), the lanes `takers` of its warp (this one among them)
+// claiming theirs with it: a warp's lanes of one group by one atomic, in
+// lane order; the lane that reaches a group first lists it.
+__device__ __forceinline__ int claim(const Groups& gr, unsigned takers,
+                                     long long vg) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(takers, vg);
+  const int leader = __ffs(peers) - 1;
+  int at = 0;
+  if ((int)lane == leader) {
+    at = atomicAdd(&gr.count[vg], __popc(peers));
+    if (at == 0) gr.list[atomicAdd(&gr.live[gr.parity], 1)] = (int)vg;
+  }
+  return __shfl_sync(peers, at, leader) +
+         __popc(peers & ((1u << lane) - 1u));
+}
+
+// The (lane, place) keys of the warp's groups, G threads a group: this
+// thread's group's m records of `bucket` (the lane index at bit `shift` of
+// a record's first word) keyed into keys[(lane / G) cap, ...) in
+// ascending order, so in lane order. A bucket is in lane order unless a
+// later lane's atomic came first; the groups whose keys do not ascend are
+// sorted by the whole warp, a group at a time. Every lane calls it.
+template <int G>
+__device__ __forceinline__ void lane_order(unsigned* keys, int cap,
+                                           const int4* bucket, int m,
+                                           int shift) {
+  constexpr unsigned GROUP = G == 32 ? ALL_LANES : (1u << G) - 1u;
+  const int lane = threadIdx.x & 31, s = lane % G;
+  unsigned* mine = keys + (lane / G) * cap;
+  for (int i = s; i < m; i += G)
+    mine[i] = (unsigned)(bucket[i].x >> shift) << PLACE_BITS | i;
+  __syncwarp();
+  bool up = true;
+  for (int i = s + 1; i < m; i += G) up &= mine[i] > mine[i - 1];
+  unsigned unsorted = __ballot_sync(ALL_LANES, !up);
+  while (unsorted) {
+    const int q = (__ffs(unsorted) - 1) / G;
+    unsorted &= ~(GROUP << (q * G));
+    const int mq = __shfl_sync(ALL_LANES, m, q * G);
+    unsigned* kq = keys + q * cap;
+    int p = 1;
+    while (p < mq) p <<= 1;
+    for (int k = 2; k <= p; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int x = lane; x < (p >> 1); x += 32) {
+          const int lo = ((x & ~(j - 1)) << 1) | (x & (j - 1));
+          const int hi = j == (k >> 1) ? (lo ^ (k - 1)) : lo + j;
+          if (hi < mq) {
+            const unsigned a = kq[lo], c = kq[hi];
+            if (c < a) {
+              kq[lo] = c;
+              kq[hi] = a;
+            }
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// step(r, active) for j in [0, the most records a group of the warp
+// has): record j of this thread's group (its m records of `bucket` in the
+// order of its keys from `lane_order`; active: j < m, else r is zero),
+// read back into win[WINDOW] (this group's) a window at a time, the next
+// window's loads in flight while one is walked. G threads a group; every
+// lane calls it.
+template <int G, typename Step>
+__device__ __forceinline__ void walk_records(const int4* bucket,
+                                             const unsigned* keys, int m,
+                                             int4* win, Step step) {
+  constexpr int PW = WINDOW / G;  // a window's records a thread loads
+  const int s = (threadIdx.x & 31) % G;
+  const int steps = __reduce_max_sync(ALL_LANES, m);
+  int4 next[PW];
+  const auto fetch = [&](int j0) {
+#pragma unroll
+    for (int q = 0; q < PW; ++q) {
+      const int i = j0 + s + q * G;
+      if (i < m) next[q] = bucket[keys[i] & ((1u << PLACE_BITS) - 1u)];
+    }
+  };
+  fetch(0);
+  for (int j0 = 0; j0 < steps; j0 += WINDOW) {
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < PW; ++q)
+      if (j0 + s + q * G < m) win[s + q * G] = next[q];
+    __syncwarp();
+    if (j0 + WINDOW < steps) fetch(j0 + WINDOW);
+    const int end = min(steps - j0, WINDOW);
+    for (int j = 0; j < end; ++j) {
+      const bool active = j0 + j < m;
+      step(active ? win[j] : make_int4(0, 0, 0, 0), active);
+    }
   }
 }
 

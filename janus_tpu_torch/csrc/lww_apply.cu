@@ -33,7 +33,8 @@
 //
 // Design: many rows in flight, each walked from registers by a group of G
 // threads of a warp (graph_apply.cu's walk with the LWW row). Two
-// launches. group_fill_kernel, one thread a lane, writes each live lane
+// launches (the buckets of lane_buckets.cuh). group_fill_kernel, one
+// thread a lane, writes each live lane
 // (add or remove) of a view as a 16-byte record (lane index with the op
 // code and its in-range and ok bits, elem, the stamp's two words) into
 // the bucket of its (view, gathered row) group at an atomic count (a
@@ -63,17 +64,18 @@
 // passes the groups' scratch), does not synchronise.
 #include <cuda_runtime.h>
 
+#include "lane_buckets.cuh"
 #include "slot_sort.cuh"
 
 namespace {
 
 using namespace slot_sort;
+using lane_buckets::Groups;
+using lane_buckets::MAX_BUCKET;
+using lane_buckets::WINDOW;
 
 constexpr int WARPS = 4;          // warps a block of the walk
 constexpr int FILL_THREADS = 256;  // a fill block
-constexpr int WINDOW = 32;        // records of a group read back at a time
-constexpr int MAX_BUCKET = 2048;  // the most records a bucket holds
-constexpr int PLACE_BITS = 11;    // a record's place in its bucket
 constexpr int OP_ADD = 1, OP_REMOVE = 2;
 constexpr int MODE_APPLY = 0, MODE_CAPTURED = 1, MODE_CAPTURE = 2;
 // a record's first word: lane << 4 | flags (the op code, in range, ok)
@@ -96,19 +98,6 @@ struct Ops {
   const int* a1;
   const int* a2;
   const int* ok;  // [V, B] (captured mode) or null
-};
-
-// the groups: count[V K] (live lanes a group; zero on entry, zeroed by the
-// walk), rec[V K, cap], list[V K] (the groups with lanes, in the order the
-// fill met them) and live[2] (the list's length: this call's at `parity`,
-// zero on entry; the walk zeroes the other one for the next call)
-struct Groups {
-  int* count;
-  int4* rec;
-  int* list;
-  int* live;
-  int parity;
-  int cap;
 };
 
 // (hi_a, lo_a) >= (hi_b, lo_b), the low word unsigned
@@ -157,15 +146,7 @@ __global__ void __launch_bounds__(FILL_THREADS)
   const unsigned lives = __ballot_sync(FULL, live);
   if (!live) return;
   const long long vg = (long long)v * K + gather_row(key, K);
-  const unsigned lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(lives, vg);
-  const int leader = __ffs(peers) - 1;
-  int at = 0;
-  if ((int)lane == leader) {
-    at = atomicAdd(&gr.count[vg], __popc(peers));
-    if (at == 0) gr.list[atomicAdd(&gr.live[gr.parity], 1)] = (int)vg;
-  }
-  at = __shfl_sync(peers, at, leader) + __popc(peers & ((1u << lane) - 1u));
+  const int at = lane_buckets::claim(gr, lives, vg);
   if (at < gr.cap)
     gr.rec[vg * gr.cap + at] =
         record<MODE == MODE_CAPTURED>(ops, i, b, op, key, K);
@@ -387,8 +368,6 @@ __global__ void __launch_bounds__(32 * WARPS, WALK_MIN_BLOCKS)
                     int* __restrict__ dropped, int K, int C, int B,
                     bool vec) {
   constexpr int PER = 32 / G;  // groups a warp walks side by side
-  constexpr int PW = WINDOW / G;  // a window's records a thread loads
-  constexpr unsigned GROUP = G == 32 ? FULL : (1u << G) - 1u;
   extern __shared__ int4 smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int part = lane / G, s = lane % G;
@@ -441,39 +420,8 @@ __global__ void __launch_bounds__(32 * WARPS, WALK_MIN_BLOCKS)
           row.load(st, (long long)vk * C, C, vec, s, stamps + part * G * S);
         else
           row.clear(s, stamps + part * G * S);
-        const int4* bucket = gr.rec + (long long)(vk < 0 ? 0 : vk) * cap;
-        for (int i = s; i < m; i += G)
-          my_keys[i] = (unsigned)(bucket[i].x >> 4) << PLACE_BITS | i;
-        __syncwarp();
-        // in lane order unless a later lane's atomic came first; else each
-        // group's keys sorted by the whole warp, a group at a time
-        bool up = true;
-        for (int i = s + 1; i < m; i += G) up &= my_keys[i] > my_keys[i - 1];
-        unsigned unsorted = __ballot_sync(FULL, !up);
-        while (unsorted) {
-          const int q = (__ffs(unsorted) - 1) / G;
-          unsorted &= ~(GROUP << (q * G));
-          const int mq = __shfl_sync(FULL, m, q * G);
-          unsigned* kq = keys + q * cap;
-          int p = 1;
-          while (p < mq) p <<= 1;
-          for (int k = 2; k <= p; k <<= 1) {
-            for (int j = k >> 1; j > 0; j >>= 1) {
-              for (int x = lane; x < (p >> 1); x += 32) {
-                const int lo = ((x & ~(j - 1)) << 1) | (x & (j - 1));
-                const int hi = j == (k >> 1) ? (lo ^ (k - 1)) : lo + j;
-                if (hi < mq) {
-                  const unsigned a = kq[lo], c = kq[hi];
-                  if (c < a) {
-                    kq[lo] = c;
-                    kq[hi] = a;
-                  }
-                }
-              }
-              __syncwarp();
-            }
-          }
-        }
+        lane_buckets::lane_order<G>(
+            keys, cap, gr.rec + (long long)(vk < 0 ? 0 : vk) * cap, m, 4);
       } else {
         if (b0 >= B) {  // open the next hot group
           const int src = __ffs(hot) - 1;
@@ -507,36 +455,18 @@ __global__ void __launch_bounds__(32 * WARPS, WALK_MIN_BLOCKS)
         __syncwarp();
         m = part == 0 ? cnt : 0;
       }
-      const int steps = __reduce_max_sync(FULL, m);
       const int v = vk >= 0 ? vk / K : 0;
-      const int4* bucket = gr.rec + (long long)(vk < 0 ? 0 : vk) * cap;
-      // each group's records a window at a time, the next window's loads
-      // in flight while this one is walked
-      int4 next[PW];
-      const auto fetch = [&](int j0) {
-#pragma unroll
-        for (int q = 0; q < PW; ++q) {
-          const int i = j0 + s + q * G;
-          if (i < m)
-            next[q] = bucket[my_keys[i] & ((1u << PLACE_BITS) - 1u)];
-        }
+      const auto step = [&](const int4& r, bool active) {
+        walk_step<MODE, G, S>(row, r, active, v, B, ok_out, w);
       };
-      if (from_bucket) fetch(0);
-      for (int j0 = 0; j0 < steps; j0 += WINDOW) {
-        if (from_bucket) {
-          __syncwarp();
-#pragma unroll
-          for (int q = 0; q < PW; ++q)
-            if (j0 + s + q * G < m) my_win[s + q * G] = next[q];
-          __syncwarp();
-          if (j0 + WINDOW < steps) fetch(j0 + WINDOW);
-        }
-        const int end = min(steps - j0, WINDOW);
-        for (int j = 0; j < end; ++j) {
-          const bool active = j0 + j < m;
-          const int4 r = active ? my_win[j] : make_int4(0, 0, 0, 0);
-          walk_step<MODE, G, S>(row, r, active, v, B, ok_out, w);
-        }
+      if (from_bucket) {
+        lane_buckets::walk_records<G>(
+            gr.rec + (long long)(vk < 0 ? 0 : vk) * cap, my_keys, m, my_win,
+            step);
+      } else {  // the hot group's records are in the window already
+        const int steps = __reduce_max_sync(FULL, m);
+        for (int j = 0; j < steps; ++j)
+          step(j < m ? my_win[j] : make_int4(0, 0, 0, 0), j < m);
       }
       if (b0 >= B) {  // the walks end (a hot one's when its lanes are read)
         __syncwarp();
@@ -619,7 +549,7 @@ int launch(void* const* state, const void* const* ops, void* ok_out,
   const Ops o{(const int*)ops[0], (const int*)ops[1], (const int*)ops[2],
               (const int*)ops[3], (const int*)ops[4], (const int*)ops[5]};
   const Groups gr{(int*)scratch[0], (int4*)scratch[1], (int*)scratch[2],
-                  (int*)scratch[3], parity & 1, cap};
+                  nullptr, (int*)scratch[3], parity & 1, cap};
   const dim3 lanes((unsigned)((B + FILL_THREADS - 1) / FILL_THREADS + (B == 0)),
                    (unsigned)V);
   group_fill_kernel<MODE><<<lanes, FILL_THREADS, 0, s>>>(

@@ -11,8 +11,10 @@ rows gathered into one ``[V, A * B, ...]`` batch (unchosen lanes' op
 ``OP_NOOP``), and the choice ORed into ``applied`` in place. The type's
 apply then runs on that batch.
 
-One call is two CUDA launches (selection, gather) and adds one to
-``block_select.launches``. For CUDA tensors the wrapper launches the
+One call is two CUDA launches (the selection, a block a view; then the
+gather, launched while the selection runs and waiting for it;
+csrc/block_select.cu) and adds one to ``block_select.launches``; its
+outputs are views of one buffer. For CUDA tensors the wrapper launches the
 kernels (or raises); ``block_select_plain`` runs only for tensors that
 lie on the CPU.
 """
@@ -67,13 +69,68 @@ def block_select_plain(cfg, ops_buffer, ready, applied, budget: int,
     return batch, idx.to(torch.int32), chosen
 
 
-def _lib():
-    lib = build.load("block_select")
-    if lib.block_select_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.block_select_launch.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
-        lib.block_select_launch.restype = ctypes.c_int
-    return lib
+_LAUNCH = build.LeanLaunch(
+    "block_select", "block_select_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6)
+
+# (ring fields' names, addresses and shapes, V, A) -> Layout
+_LAYOUTS: dict = {}
+
+
+def _int32s(n: int) -> int:
+    """int32 words of n, rounded up to 16 bytes."""
+    return -(-n // 4) * 4
+
+
+class Layout:
+    """One call's outputs as views of one int32 buffer, every part 16-byte
+    aligned: each field's batch ``[V, A * B, ...]`` in the ring's field
+    order, then ``idx`` int32[V, A] and ``chosen`` bool[V, A]; and the
+    kernel's table of the ring (csrc/block_select.cu: the fields'
+    addresses, their rows' int32, their batches' offsets)."""
+
+    def __init__(self, ops_buffer, v: int, a: int):
+        self.names = list(ops_buffer)
+        rows = [x[0, 0].numel() for x in ops_buffer.values()]
+        self.views_at, offsets, at = [], [], 0
+        for (f, x), r in zip(ops_buffer.items(), rows):
+            shape = (v, a * x.shape[2]) + tuple(x.shape[3:])
+            self.views_at.append((f, shape, torch.empty(shape, device="meta")
+                                  .stride(), at))
+            offsets.append(at)
+            at += _int32s(v * a * r)
+        self.idx_at = 4 * at
+        at += _int32s(v * a)
+        self.chosen_at = 4 * at
+        self.total = at + _int32s(-(-v * a // 4))
+        self.va = (v, a)
+        self.table = (ctypes.c_longlong * (3 * len(rows)))(
+            *(x.data_ptr() for x in ops_buffer.values()), *rows, *offsets)
+        self.op_field = self.names.index("op")
+
+    def views(self, buf):
+        """``(batch, idx, chosen)`` as views of ``buf``."""
+        view = buf.as_strided
+        v, a = self.va
+        return ({f: view(shape, stride, at)
+                 for f, shape, stride, at in self.views_at},
+                view((v, a), (a, 1), self.idx_at // 4),
+                buf.view(torch.bool).as_strided((v, a), (a, 1),
+                                                self.chosen_at))
+
+
+def layout(ops_buffer, v: int, a: int) -> Layout:
+    """The cached layout of a ring (keyed on its fields' addresses and
+    shapes: ``SafeKV.resize_block`` replaces the ring) and (V, A)."""
+    key = (tuple((f, x.data_ptr(), x.shape) for f, x in ops_buffer.items()),
+           v, a)
+    held = _LAYOUTS.get(key)
+    if held is None:
+        if len(_LAYOUTS) >= 64:
+            _LAYOUTS.clear()
+        held = _LAYOUTS[key] = Layout(ops_buffer, v, a)
+    return held
 
 
 def block_select(cfg, ops_buffer, ready, applied, budget: int, slot_round,
@@ -83,49 +140,40 @@ def block_select(cfg, ops_buffer, ready, applied, budget: int, slot_round,
     ``A = min(budget, W * N)``; ``applied`` is updated in place.
     ``ops_buffer``: ring fields int32 ``[W, N, B, ...]`` (with ``op``);
     ``ready``, ``applied`` bool[V, W, N]; ``slot_round`` int32[W];
-    ``base_round`` int32[]; ``commit_seq`` int32[V, W, N] or None."""
+    ``base_round`` int32[]; ``commit_seq`` int32[V, W, N] or None. On the
+    card the outputs are views of one buffer (``Layout``), written by
+    two launches on the lean launch path (``operands.lean_placement``,
+    ``build.LeanLaunch``): the selection, then the gather by programmatic
+    dependent launch."""
     w, n = cfg.num_rounds, cfg.num_nodes
     v = ready.shape[0] if ready.dim() == 3 else -1
     a = min(budget, w * n)
-    names = list(ops_buffer)
-    if len(names) > MAX_FIELDS or "op" not in names:
-        raise ValueError(f"block_select: ring fields {names}: need 'op' and "
-                         f"at most {MAX_FIELDS}")
+    if len(ops_buffer) > MAX_FIELDS or "op" not in ops_buffer:
+        raise ValueError(f"block_select: ring fields {list(ops_buffer)}: "
+                         f"need 'op' and at most {MAX_FIELDS}")
     bl, i32 = torch.bool, torch.int32
-    dev = operands.placement("block_select", [
+    dev = operands.lean_placement("block_select", [
         ("ready", ready, bl, (v, w, n)), ("applied", applied, bl, (v, w, n)),
         ("commit_seq", commit_seq, i32, (v, w, n)),
         ("slot_round", slot_round, i32, (w,)),
         ("base_round", base_round, i32, ()),
-        *((f"ops_buffer.{f}", ops_buffer[f], i32,
-           (w, n) + tuple(ops_buffer[f].shape[2:])) for f in names)])
+        *((f"ops_buffer.{f}", x, i32, (w, n) + x.shape[2:])
+          for f, x in ops_buffer.items())])
     if dev is None:
         return block_select_plain(cfg, ops_buffer, ready, applied, budget,
                                   slot_round, base_round, commit_seq)
     if w * n > MAX_KEYS:
         raise ValueError(f"block_select: W*N = {w * n} blocks per view, at "
                          f"most {MAX_KEYS} on the card")
-    batch = {f: torch.empty((v, a * x.shape[2]) + tuple(x.shape[3:]),
-                            dtype=i32, device=dev)
-             for f, x in ops_buffer.items()}
-    idx = torch.empty((v, a), dtype=i32, device=dev)
-    chosen = torch.empty((v, a), dtype=bl, device=dev)
-    row = (ctypes.c_longlong * len(names))(
-        *(ops_buffer[f][0, 0].numel() for f in names))
-    src = (ctypes.c_void_p * len(names))(*(ops_buffer[f].data_ptr() for f in names))
-    dst = (ctypes.c_void_p * len(names))(*(batch[f].data_ptr() for f in names))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.block_select_launch(
-            ready.data_ptr(), applied.data_ptr(),
+    lay = layout(ops_buffer, v, a)
+    buf = torch.empty(lay.total, dtype=i32, device=dev)
+    _LAUNCH(dev, ready.data_ptr(), applied.data_ptr(),
             None if commit_seq is None else commit_seq.data_ptr(),
-            slot_round.data_ptr(), base_round.data_ptr(), idx.data_ptr(),
-            chosen.data_ptr(), src, dst, row, len(names), names.index("op"),
-            v, n, w, a, stream)
-    build.check_launch("block_select", rc)
+            slot_round.data_ptr(), base_round.data_ptr(), buf.data_ptr(),
+            lay.idx_at, lay.chosen_at, lay.table, len(lay.names),
+            lay.op_field, v, n, w, a)
     block_select.launches += 1
-    return batch, idx, chosen
+    return lay.views(buf)
 
 
 block_select.launches = 0

@@ -33,7 +33,6 @@ plain versions only for tensors that lie on the CPU.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -41,7 +40,8 @@ from janus_tpu_torch.kernels import build, operands
 from janus_tpu_torch.kernels.lww_rows import (
     FIELDS, KEY_FIELDS, OP_ADD, OP_FIELDS, OP_REMOVE, fold_duplicate,
     slot_live, slot_operands)
-from janus_tpu_torch.kernels.lane_buckets import row_waves
+from janus_tpu_torch.kernels.lane_buckets import (
+    bucket_records, forget_scratch, row_waves, scratch)
 from janus_tpu_torch.models.base import gather_index, scatter_index
 from janus_tpu_torch.ops.setops import row_upsert
 
@@ -101,9 +101,8 @@ def lww_capture_plain(state, ops):
     return ok, dropped
 
 
-# csrc/lww_apply.cu: the most records a group's bucket holds, the widest
-# row and the most lanes a view the walk takes
-MAX_BUCKET = 2048
+# csrc/lww_apply.cu: the widest row and the most lanes a view the walk
+# takes (its buckets: lane_buckets.bucket_records)
 MAX_SLOTS = 512
 MAX_LANES = 2**21
 
@@ -115,56 +114,6 @@ _APPLY = build.LeanLaunch("lww_apply", "lww_apply_launch",
 _CAPTURE = build.LeanLaunch("lww_apply", "lww_capture_launch",
                             (*_ARGS, ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.POINTER(ctypes.c_void_p), *_DIMS))
-
-# (device index, stream) -> Scratch
-_SCRATCH: dict = {}
-
-
-def bucket_records(K: int, B: int) -> int:
-    """Records a group's bucket holds at K rows and B lanes a view: the
-    lanes a row on average, six of their square roots and 32 (a uniform
-    spread of live lanes stays inside), a multiple of 32, at most
-    ``MAX_BUCKET``; a group past it is walked from the op fields, 32
-    lanes at a time."""
-    mean = B / max(K, 1)
-    return min(MAX_BUCKET, int(mean + 6 * math.sqrt(mean) + 32 + 31) // 32 * 32)
-
-
-class Scratch:
-    """The groups' scratch of one device and stream (csrc/lww_apply.cu):
-    the counts (zeroed once; every launch leaves them zero), the buckets
-    of 16-byte records, the list of groups with lanes and its two lengths,
-    of which a call uses ``parity`` (zero) and zeroes the other for the
-    next call."""
-
-    def __init__(self, dev):
-        def ints(n, zero=False):
-            return (torch.zeros if zero else torch.empty)(
-                n, dtype=torch.int32, device=dev)
-        self.ints = ints
-        self.count, self.rec, self.list = ints(0, True), ints(0), ints(0)
-        self.live = ints(2, True)
-        self.parity = 0
-
-    def grow(self, groups: int, records: int) -> None:
-        if self.count.numel() < groups:
-            self.count = self.ints(groups, True)
-            self.list = self.ints(groups)
-        if self.rec.numel() < 4 * records:
-            self.rec = self.ints(4 * records)
-
-
-def scratch(dev: torch.device, groups: int, records: int):
-    """The cached scratch of the current stream on ``dev``, grown to at
-    least ``groups`` groups and ``records`` bucket records. Returns (key,
-    Scratch)."""
-    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
-    held = _SCRATCH.get(key)
-    if held is None:
-        held = _SCRATCH[key] = Scratch(dev)
-    held.grow(groups, records)
-    return key, held
-
 
 def _launch(name, wrapper, state, ops, capture):
     """Check the operands, then the two launches of the walk (the capture
@@ -195,21 +144,19 @@ def _launch(name, wrapper, state, ops, capture):
     if V == 0:
         return ok_out, dropped
     cap = bucket_records(K, B)
-    key, sc = scratch(dev, V * K, V * K * cap)
+    key, sc = scratch("lww_apply", dev, V * K, V * K * cap, V * K)
     st = (ctypes.c_void_p * 6)(*(state[f].data_ptr() for f in FIELDS))
     op = (ctypes.c_void_p * 6)(*(ops[f].data_ptr() for f in OP_FIELDS),
                                None if ok is None else ok.data_ptr())
-    bufs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in
-                                   (sc.count, sc.rec, sc.list, sc.live)))
     try:
         if capture:
-            _CAPTURE(dev, st, op, ok_out.data_ptr(), dropped.data_ptr(), bufs,
-                     V, K, C, B, cap, sc.parity)
+            _CAPTURE(dev, st, op, ok_out.data_ptr(), dropped.data_ptr(),
+                     sc.ptrs, V, K, C, B, cap, sc.parity)
         else:
-            _APPLY(dev, st, op, dropped.data_ptr(), bufs, V, K, C, B, cap,
+            _APPLY(dev, st, op, dropped.data_ptr(), sc.ptrs, V, K, C, B, cap,
                    sc.parity)
     except RuntimeError:
-        _SCRATCH.pop(key, None)  # the counts may not be zero any more
+        forget_scratch(key)  # the counts may not be zero any more
         raise
     sc.parity ^= 1
     wrapper.launches += 1

@@ -19,8 +19,12 @@ normalisation changes nothing but may count a drop):
   records beyond C count as drops, even for a key out of range);
 - every op with an in-range key leaves its row canonical.
 
-The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
-``orset_apply_plain`` only for tensors that lie on the CPU.
+On the card one call is two CUDA launches: the lanes grouped by (replica,
+gathered row), then only the groups with lanes walked, no row that no
+lane gathers read (csrc/orset_apply.cu); it adds one to
+``orset_apply.launches``. The wrapper launches the kernels for CUDA
+tensors (or raises) and runs ``orset_apply_plain`` only for tensors that
+lie on the CPU.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import ctypes
 import torch
 
 from janus_tpu_torch.kernels import build, operands
+from janus_tpu_torch.kernels.lane_buckets import (bucket_records,
+                                                  forget_scratch, scratch)
 from janus_tpu_torch.kernels.orset_rows import (
     CAPTURE_FIELDS, FIELDS, KEY_FIELDS, OP_ADD, OP_CLEAR, OP_REMOVE,
     canonical_row, fold_duplicate, op_operands, slot_operands)
@@ -97,18 +103,21 @@ def orset_apply_plain(state, ops) -> torch.Tensor:
     return dropped
 
 
-def _lib():
-    lib = build.load("orset_apply")
-    if lib.orset_apply_launch.argtypes is None:
-        ptr = ctypes.c_void_p
-        lib.orset_apply_launch.argtypes = [ptr] * 13 + [ctypes.c_int, ptr] + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
-        lib.orset_apply_launch.restype = ctypes.c_int
-    return lib
+# csrc/orset_apply.cu: the widest row the warp walk holds (wider rows, and
+# the captured mode, take the block walk) and the most lanes a replica
+MAX_WARP_SLOTS = 512
+MAX_LANES = 2**21
+
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_LAUNCH = build.LeanLaunch(
+    "orset_apply", "orset_apply_launch",
+    (_PTRS, _PTRS, _PTRS, ctypes.c_int, ctypes.c_void_p, _PTRS,
+     *(ctypes.c_int,) * 6))
 
 
 def shared_bytes(c: int, r_cap: int = 0) -> int:
-    """Shared memory of one block (csrc/orset_apply.cu): a 16-byte sort
+    """Shared memory of one block of the block walk (csrc/orset_apply.cu,
+    the captured mode and rows over ``MAX_WARP_SLOTS``): a 16-byte sort
     record per slot and captured tag, two 14-byte row copies per slot, the
     lane list of a tile of 128 ops, a flag byte per record and a few
     words."""
@@ -119,7 +128,12 @@ def orset_apply(state, ops) -> torch.Tensor:
     """Apply op lanes in order to every replica's rows, in place.
     ``state``: the five slot fields ``[R, K, C]``; op fields int32 ``[R,
     B]``, with ``rm_rep``/``rm_ctr``/``rm_elem`` int32 ``[R, B, r_cap]``
-    for captured ops. Returns the drop count per replica, int32 ``[R]``."""
+    for captured ops. Returns the drop count per replica, int32 ``[R]``.
+    On the card: two launches (csrc/orset_apply.cu: the lanes bucketed by
+    (replica, gathered row), then only those groups walked, a warp's
+    threads holding a row in registers) on the lean launch path
+    (``operands.lean_placement``, ``build.LeanLaunch``), the groups'
+    scratch cached per device and stream (``lane_buckets.scratch``)."""
     if state["valid"].dim() != 3 or ops["op"].dim() != 2:
         raise ValueError("orset_apply: state must be [R, K, C] and op "
                          "fields [R, B]")
@@ -127,27 +141,37 @@ def orset_apply(state, ops) -> torch.Tensor:
     B = ops["op"].shape[1]
     captured = "rm_rep" in ops
     r_cap = ops["rm_rep"].shape[-1] if captured else 0
-    dev = operands.placement("orset_apply", [
+    dev = operands.lean_placement("orset_apply", [
         *slot_operands("state.", state, (R, K, C)), *op_operands(ops, (R, B)),
         *(op_operands(ops, (R, B, r_cap), CAPTURE_FIELDS) if captured else ())])
     if dev is None:
         return orset_apply_plain(state, ops)
-    operands.check_shared("orset_apply", shared_bytes(C, r_cap))
-    if K == 0 and R * B > 0:
-        raise ValueError("orset_apply: no key rows to gather from")
-    dropped = torch.zeros((R,), dtype=torch.int32, device=dev)
-    if R * K * B == 0:
-        return dropped
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.orset_apply_launch(
-            *(state[f].data_ptr() for f in FIELDS),
-            *(ops[f].data_ptr() for f in ("op", "key", "a0", "a1", "a2")),
-            *((ops[f].data_ptr() for f in CAPTURE_FIELDS) if captured
-              else (None,) * 3), r_cap,
-            dropped.data_ptr(), R, K, C, B, stream)
-    build.check_launch("orset_apply", rc)
+    if captured or C > MAX_WARP_SLOTS:
+        operands.check_shared("orset_apply", shared_bytes(C, r_cap))
+    if (K == 0 or C == 0) and R * B > 0:
+        raise ValueError("orset_apply: no slot rows to gather from")
+    if B >= MAX_LANES or R > 65535:
+        raise ValueError(f"orset_apply: the kernel takes fewer than "
+                         f"{MAX_LANES} lanes a replica and at most 65,535 "
+                         f"replicas, got B={B}, R={R}")
+    if R * B == 0:
+        return torch.zeros((R,), dtype=torch.int32, device=dev)
+    dropped = torch.empty((R,), dtype=torch.int32, device=dev)
+    cap = bucket_records(K, B)
+    key, sc = scratch("orset_apply", dev, R * K, R * K * cap,
+                      R * K + R * B // (cap + 1) + 1)
+    st = (ctypes.c_void_p * 5)(*(state[f].data_ptr() for f in FIELDS))
+    op = (ctypes.c_void_p * 5)(*(ops[f].data_ptr() for f in
+                                 ("op", "key", "a0", "a1", "a2")))
+    rm = ((ctypes.c_void_p * 3)(*(ops[f].data_ptr() for f in CAPTURE_FIELDS))
+          if captured else None)
+    try:
+        _LAUNCH(dev, st, op, rm, r_cap, dropped.data_ptr(), sc.ptrs, R, K, C,
+                B, cap, sc.parity)
+    except RuntimeError:
+        forget_scratch(key)  # the counts may not be zero any more
+        raise
+    sc.parity ^= 1
     orset_apply.launches += 1
     return dropped
 

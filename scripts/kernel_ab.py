@@ -44,8 +44,8 @@ checkout, e.g. unpacked by ``git archive``) joins the slot_union turns, the
 the walk's redesign, called as its own wrapper called it:
 ``parent_walk``). ``--parts`` picks
 the parts to run, of ``compact``, ``mvr``, ``orset``, ``tp``, ``lww``,
-``walk``, ``rga``, ``ring``, ``replay`` and ``lwwwalk`` (all by
-default).
+``walk``, ``rga``, ``ring``, ``replay``, ``lwwwalk``, ``orsetapply``
+and ``select`` (all by default).
 
 Part ``rga`` prints how the lanes of ``chip_smoke.py``'s rga_consensus
 delta applies fall on their (view, row) groups (``RGA_ROUNDS`` rounds
@@ -73,6 +73,16 @@ prints each kernel's device µs a call by the profiler on the timed
 calls, then times in turns (tree, parent, parent, tree) the timed calls
 (device ms and ms a call) and each run's whole list of calls (device ms
 in bursts of ``BURST_CALLS``, and ms with host work). ~4 min for both.
+
+Part ``orsetapply`` records every ``orset_apply`` call of chip_smoke's
+orset_store and store_delta phases and one at its "hot key B8192" shape,
+and prints how their lanes fall on (replica, row) groups
+(``chip_smoke.apply_walk_stats``); part ``select`` the first
+``SELECT_CALLS`` ``block_select`` calls of the consensus,
+orset_consensus and rga_consensus phases, harness presets pnc, orset and
+mixed and a split cluster, with each call's V, W, N, A, ring fields and
+chosen share (``select_stats``). Both then run ``calls_ab`` as the two
+parts above do. ~5 min for both.
 """
 from __future__ import annotations
 
@@ -107,7 +117,7 @@ RGA_ROUNDS = 6
 # apply fills them exactly)
 RGA_VARIANTS = {"lanes64": {"GROUP_LANES": 64}}
 PARTS = ("compact", "mvr", "orset", "tp", "lww", "walk", "rga", "ring",
-         "replay", "lwwwalk")
+         "replay", "lwwwalk", "orsetapply", "select")
 # the recorded runs of part replay; rounds of lww_consensus and ticks of
 # typed_store part lwwwalk records
 REPLAY_PRESETS = ("orset", "orset4")
@@ -117,6 +127,8 @@ LWW_TICKS = 18
 # (~100 ms: the host queues them meanwhile)
 BURST_SLEEP_CYCLES = 200_000_000
 BURST_CALLS = 64
+# the block_select calls part select keeps of each recorded run (its first)
+SELECT_CALLS = 64
 
 
 def build_variant(name, constants, tag) -> ctypes.CDLL:
@@ -1131,6 +1143,318 @@ def lww_ab(dev, parent, smi):
     torch.cuda.empty_cache()
 
 
+def apply_inputs(dev):
+    """Every ``orset_apply`` call (args, kwargs) of chip_smoke's
+    orset_store phase (its stream of ``ORSET_STORE["ticks"]`` + 1 ticks,
+    the warm-up first) and of its store_delta phase (the three arms'
+    OR-Set applies, tick by tick), and one call at chip_smoke's "hot key
+    B8192" shape (path A's geometry, every lane on key 0, half the rows
+    full), by run."""
+    import chip_smoke
+    from janus_tpu_torch.models import orset
+    from janus_tpu_torch.runtime.engine import make_tick
+    from janus_tpu_torch.runtime.store import Store, replicated_init
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    names = ("orset_apply",)
+    g = chip_smoke.ORSET_STORE
+
+    def store():
+        R, K, C, B = (g[x] for x in "RKCB")
+        rng = np.random.default_rng(3)
+        mint = [TagMinter(i) for i in range(R)]
+        state = replicated_init(orset.SPEC, R, device=dev, num_keys=K,
+                                capacity=C, rm_capacity=g["rm"])
+        tick = make_tick(orset.SPEC, device=dev)
+        for t in range(g["ticks"] + 1):
+            state = tick(state, workloads.ops_to_device(
+                workloads.orset_hot_window(rng, mint, K, B, t, g["hot"]), dev))
+
+    def delta():
+        d = chip_smoke.STORE_DELTA
+        R, K, C, B, D = (d[x] for x in ("R", "K", "C", "B", "budget"))
+        types = {"pnc": dict(num_keys=K, num_writers=R),
+                 "orset": dict(num_keys=K, capacity=C, rm_capacity=d["rm"])}
+        rng = np.random.default_rng(12)
+        mint = [TagMinter(i) for i in range(R)]
+        arms = [(Store(R, types, device=dev), False),
+                (Store(R, types, dirty_budget=D, device=dev), True),
+                (Store(R, types, dirty_budget=d["overflow_budget"],
+                       device=dev), True)]
+        for t in range(d["ticks"] + 1):
+            batch = {tc: workloads.ops_to_device(o, dev) for tc, o in
+                     workloads.store_delta_tick(rng, mint, K, B, t,
+                                                D // 2).items()}
+            for st, use_delta in arms:
+                st.fused_tick(batch, delta=use_delta)
+
+    runs = {label: chip_smoke.record_calls(kernels, names, fn)["orset_apply"]
+            for label, fn in (("orset_store", store), ("store_delta", delta))}
+    c = chip_smoke.ORSET_CONS
+    n, k, b, cap = (c[x] for x in ("nodes", "keys", "ops_per_block",
+                                   "capacity"))
+    rng = np.random.default_rng(9)
+    hot = workloads.orset_add_remove(rng, [TagMinter(i) for i in range(n)],
+                                     k, b)
+    hot["key"][:] = 0
+    st = {f: torch.as_tensor(np.asarray(x), device=dev) for f, x in
+          workloads.orset_slots(rng, (n, k), cap, full_rows=0.5).items()}
+    runs["hot_key"] = [((st, workloads.ops_to_device(hot, dev)), {})]
+    torch.cuda.synchronize()
+    return runs
+
+
+def parent_apply(lib, state, ops):
+    """One ``orset_apply`` call through the kernel of ``git show
+    5d2467b:janus_tpu_torch/csrc/orset_apply.cu`` built as ``lib``, with
+    that checkout's wrapper's host work: the operand check, the drop
+    counts zeroed, the device context, a 20-argument ctypes call."""
+    from janus_tpu_torch.kernels import operands
+    from janus_tpu_torch.kernels.orset_rows import (CAPTURE_FIELDS, FIELDS,
+                                                    op_operands,
+                                                    slot_operands)
+
+    R, K, C = state["valid"].shape
+    B = ops["op"].shape[1]
+    captured = "rm_rep" in ops
+    r_cap = ops["rm_rep"].shape[-1] if captured else 0
+    dev = operands.placement("orset_apply", [
+        *slot_operands("state.", state, (R, K, C)), *op_operands(ops, (R, B)),
+        *(op_operands(ops, (R, B, r_cap), CAPTURE_FIELDS) if captured
+          else ())])
+    dropped = torch.zeros((R,), dtype=torch.int32, device=dev)
+    entry = lib.orset_apply_launch
+    if entry.argtypes is None:
+        ptr = ctypes.c_void_p
+        entry.argtypes = [ptr] * 13 + [ctypes.c_int, ptr] + [
+            ctypes.c_int] * 4 + [ptr]
+        entry.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = entry(*(state[f].data_ptr() for f in FIELDS),
+                   *(ops[f].data_ptr() for f in ("op", "key", "a0", "a1",
+                                                 "a2")),
+                   *((ops[f].data_ptr() for f in CAPTURE_FIELDS) if captured
+                     else (None,) * 3), r_cap,
+                   dropped.data_ptr(), R, K, C, B, stream)
+    if rc != 0:
+        raise RuntimeError(f"orset_apply (parent): CUDA error {rc}")
+    return dropped
+
+
+def apply_ab(dev, parent, smi):
+    """Part ``orsetapply``: the recorded ``orset_apply`` calls described
+    (``chip_smoke.apply_walk_stats``), then ``calls_ab`` with the timed
+    calls ``path_b`` (orset_store's tick-1 apply: R64 K500 C256 B64, the
+    shape chip_smoke's kernels line times) and ``hot_key``."""
+    import chip_smoke
+
+    runs = apply_inputs(dev)
+    stats = {label: [chip_smoke.apply_walk_stats(*args) for args, _ in calls]
+             for label, calls in runs.items()}
+    timed = {"path_b": ("orset_apply", runs["orset_store"][1]),
+             "hot_key": ("orset_apply", runs["hot_key"][0])}
+    print(json.dumps({"kernel": "orset_apply", "nvidia_smi": smi,
+                      "runs": {label: run_stats(s)
+                               for label, s in stats.items()},
+                      "timed_calls": {
+                          label: chip_smoke.apply_walk_stats(*call[1][0])
+                          for label, call in timed.items()}}), flush=True)
+    lib = (build_text("orset_apply", pathlib.Path(parent).read_text(),
+                      "parent") if parent is not None else None)
+    calls_ab("orset_apply",
+             {label: [("orset_apply", c) for c in calls]
+              for label, calls in runs.items()}, timed,
+             {"orset_apply": kernels.orset_apply},
+             None if lib is None else
+             (lambda name, *a: parent_apply(lib, *a)), smi)
+    del runs, timed
+    torch.cuda.empty_cache()
+
+
+def select_stats(cfg, ring, ready, applied, budget, slot_round, base_round,
+                 commit_seq=None) -> dict:
+    """What one ``block_select`` call selects and gathers: V views of W x N
+    blocks, A = min(budget, W N) rows a view, the ring's fields and the
+    bytes of a row of each, whether commit order keys it, and the share
+    of the V A output rows that are chosen (the blocks ``ready &
+    ~applied``, at most A a view); the bytes the call must move
+    (``chip_smoke.select_bytes``: each ring row it gathers read once) and
+    their time at the card's memory rate."""
+    import chip_smoke
+
+    v, w, n = ready.shape
+    a = min(budget, w * n)
+    picked = (ready & ~applied).reshape(v, -1).sum(1).clamp(max=a)
+    nbytes = chip_smoke.select_bytes(kernels.block_select_plain, (
+        cfg, ring, ready, applied, budget, slot_round, base_round,
+        commit_seq))
+    return dict(V=v, W=w, N=n, A=a, commit_order=commit_seq is not None,
+                fields={f: x[0, 0].numel() * x.element_size()
+                        for f, x in ring.items()},
+                row_bytes=sum(x[0, 0].numel() * x.element_size()
+                              for x in ring.values()),
+                chosen_share=float(picked.sum()) / max(v * a, 1),
+                bytes=nbytes,
+                bound_ms=1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S)
+
+
+def select_inputs(dev):
+    """The first ``SELECT_CALLS`` ``block_select`` calls (args, kwargs) of
+    each of chip_smoke's recorded runs, by run: the consensus phase's
+    geometry (``RECORDED[0]``, node 3 crashed for some rounds),
+    orset_consensus, rga_consensus's first ``RGA_ROUNDS`` rounds, harness
+    presets pnc, orset and mixed (``run_tensor`` uncut) and a split
+    PN-Counter cluster (four processes' calls)."""
+    import chip_smoke
+    from janus_tpu_torch.bench import harness
+
+    names = ("block_select",)
+
+    def first(fn):
+        kept = []
+
+        def take(name, args, kwargs):
+            if len(kept) < SELECT_CALLS:
+                kept.append(chip_smoke.clone_aliased((args, kwargs)))
+        chip_smoke.record_calls(kernels, names, fn, take=take)
+        return kept
+
+    runs = {
+        "consensus": first(lambda: chip_smoke.run_recorded(
+            dev, workloads, chip_smoke.RECORDED[0])),
+        "orset_consensus": first(lambda: chip_smoke.record_orset_consensus(
+            dev, kernels, workloads, ())),
+        "rga_consensus": first(lambda: chip_smoke.record_rga_churn(
+            dev, kernels, workloads, RGA_ROUNDS, ())),
+    }
+    for preset in ("pnc", "orset", "mixed"):
+        runs[f"harness_{preset}"] = first(
+            lambda p=preset: harness.run_tensor(harness.PRESETS[p],
+                                                device=dev))
+    runs["split_pnc"] = first(lambda: chip_smoke.split_run(
+        dev, kernels, workloads, "pnc", chip_smoke.SPLIT_PNC, 22))
+    torch.cuda.synchronize()
+    return runs
+
+
+def parent_select(lib, cfg, ops_buffer, ready, applied, budget, slot_round,
+                  base_round, commit_seq=None):
+    """One ``block_select`` call through the kernels of ``git show
+    5d2467b:janus_tpu_torch/csrc/block_select.cu`` built as ``lib``, with
+    that checkout's wrapper's host work: the operand check, one
+    allocation per batch field and for ``idx`` and ``chosen``, three
+    ctypes arrays, the device context, a 17-argument ctypes call."""
+    from janus_tpu_torch.kernels import operands
+
+    w, n = cfg.num_rounds, cfg.num_nodes
+    v = ready.shape[0]
+    a = min(budget, w * n)
+    names = list(ops_buffer)
+    bl, i32 = torch.bool, torch.int32
+    dev = operands.placement("block_select", [
+        ("ready", ready, bl, (v, w, n)), ("applied", applied, bl, (v, w, n)),
+        ("commit_seq", commit_seq, i32, (v, w, n)),
+        ("slot_round", slot_round, i32, (w,)),
+        ("base_round", base_round, i32, ()),
+        *((f"ops_buffer.{f}", ops_buffer[f], i32,
+           (w, n) + tuple(ops_buffer[f].shape[2:])) for f in names)])
+    batch = {f: torch.empty((v, a * x.shape[2]) + tuple(x.shape[3:]),
+                            dtype=i32, device=dev)
+             for f, x in ops_buffer.items()}
+    idx = torch.empty((v, a), dtype=i32, device=dev)
+    chosen = torch.empty((v, a), dtype=bl, device=dev)
+    row = (ctypes.c_longlong * len(names))(
+        *(ops_buffer[f][0, 0].numel() for f in names))
+    src = (ctypes.c_void_p * len(names))(
+        *(ops_buffer[f].data_ptr() for f in names))
+    dst = (ctypes.c_void_p * len(names))(*(batch[f].data_ptr() for f in names))
+    entry = lib.block_select_launch
+    if entry.argtypes is None:
+        entry.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = entry(ready.data_ptr(), applied.data_ptr(),
+                   None if commit_seq is None else commit_seq.data_ptr(),
+                   slot_round.data_ptr(), base_round.data_ptr(),
+                   idx.data_ptr(), chosen.data_ptr(), src, dst, row,
+                   len(names), names.index("op"), v, n, w, a, stream)
+    if rc != 0:
+        raise RuntimeError(f"block_select (parent): CUDA error {rc}")
+    return batch, idx, chosen
+
+
+def layout_us(args, reps=2000) -> dict:
+    """Host microseconds of the wrapper's ring table for the call
+    ``args``: built (``block_select.Layout``, what a call without the
+    cache would do) and looked up in the cache (``block_select.layout``),
+    each the least of five loops of ``reps``."""
+    import importlib
+
+    bs = importlib.import_module("janus_tpu_torch.kernels.block_select")
+    cfg, ring, ready, _, budget = args[:5]
+    v, a = ready.shape[0], min(budget, cfg.num_rounds * cfg.num_nodes)
+
+    def least(fn):
+        best = float("inf")
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / reps)
+        return 1e6 * best
+
+    return {"fields": len(ring), "built": least(lambda: bs.Layout(ring, v, a)),
+            "cached": least(lambda: bs.layout(ring, v, a))}
+
+
+def select_ab(dev, parent, smi):
+    """Part ``select``: the recorded ``block_select`` calls described
+    (``select_stats``), then ``calls_ab`` with the timed calls
+    ``consensus_last`` (the consensus geometry's last stable delta apply,
+    the call chip_smoke's kernels line times) and each run's call that
+    gathers the most bytes."""
+    import chip_smoke
+
+    runs = select_inputs(dev)
+    stats = {label: [select_stats(*args) for args, _ in calls]
+             for label, calls in runs.items()}
+    timed = {"consensus_last": ("block_select", runs["consensus"][-1])}
+    for label, calls in runs.items():
+        j = max(range(len(calls)), key=lambda i: stats[label][i]["V"]
+                * stats[label][i]["A"] * stats[label][i]["row_bytes"])
+        timed[f"{label}_widest"] = ("block_select", calls[j])
+
+    def summary(s):
+        return {"calls": len(s), **{k: sorted({str(x[k]) for x in s})
+                                    for k in ("V", "W", "N", "A",
+                                              "commit_order", "fields")},
+                "max_row_bytes": max(x["row_bytes"] for x in s),
+                "chosen_share_mean": sum(x["chosen_share"] for x in s)
+                / len(s)}
+
+    print(json.dumps({"kernel": "block_select", "nvidia_smi": smi,
+                      "runs": {label: summary(s) for label, s in stats.items()},
+                      "timed_calls": {
+                          label: select_stats(*call[1][0])
+                          for label, call in timed.items()}}), flush=True)
+    print(json.dumps({"kernel": "block_select", "nvidia_smi": smi,
+                      "layout_us": layout_us(runs["consensus"][-1][0])}),
+          flush=True)
+    lib = (build_text("block_select", pathlib.Path(parent).read_text(),
+                      "parent") if parent is not None else None)
+    calls_ab("block_select",
+             {label: [("block_select", c) for c in calls]
+              for label, calls in runs.items()}, timed,
+             {"block_select": kernels.block_select},
+             None if lib is None else
+             (lambda name, *a: parent_select(lib, *a)), smi)
+    del runs, timed
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
@@ -1138,7 +1462,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     parent, walk_parent, rga_parent, ring_parent = None, None, None, None
-    replay_parent, lww_parent = None, None
+    replay_parent, lww_parent, apply_parent, select_parent = (None,) * 4
     if "--parent" in sys.argv:
         root = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
         parent = root / "janus_tpu_torch" / "csrc" / "slot_union.cu"
@@ -1147,6 +1471,8 @@ def main() -> int:
         ring_parent = root / "janus_tpu_torch" / "csrc" / "ring_resize.cu"
         replay_parent = root / "janus_tpu_torch" / "csrc" / "orset_replay.cu"
         lww_parent = root / "janus_tpu_torch" / "csrc" / "lww_apply.cu"
+        apply_parent = root / "janus_tpu_torch" / "csrc" / "orset_apply.cu"
+        select_parent = root / "janus_tpu_torch" / "csrc" / "block_select.cu"
     parts = (sys.argv[sys.argv.index("--parts") + 1].split(",")
              if "--parts" in sys.argv else PARTS)
 
@@ -1239,6 +1565,10 @@ def main() -> int:
         replay_ab(dev, replay_parent, smi)
     if "lwwwalk" in parts:
         lww_ab(dev, lww_parent, smi)
+    if "orsetapply" in parts:
+        apply_ab(dev, apply_parent, smi)
+    if "select" in parts:
+        select_ab(dev, select_parent, smi)
     print(smi, flush=True)
     return 0
 

@@ -555,6 +555,69 @@ def test_orset_apply_kernel_matches_plain(cuda_device, r, k, c, b, canonical):
     _assert_outputs_equal(drop, rdrop)
 
 
+# (R, K, C, B): 64-slot rows on the 16-byte path (G 8) with a hot row past
+# its bucket (walked at 2 slots a thread), path B's shape, a hot row past
+# its bucket at C 256, and C 512 (S 16) with one; every case at each
+ORSET_APPLY_GEOS = [(16, 50, 64, 300), (8, 500, 256, 64), (2, 20, 256, 400),
+                    (4, 40, 512, 200)]
+# rows past the warp walk (the block walk, off the main paths): three cases
+ORSET_APPLY_GRID = [
+    (case, geo) for geo in ORSET_APPLY_GEOS
+    for case in workloads.ORSET_APPLY_CASES] + [
+    (case, (2, 6, 600, 40)) for case in ("mixed", "hot_row", "int32_max")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,geo", ORSET_APPLY_GRID,
+    ids=["{}-R{}K{}C{}B{}".format(c, *g) for c, g in ORSET_APPLY_GRID])
+def test_orset_apply_walk_cases_match_plain(cuda_device, case, geo):
+    """The walk's edge cases (``workloads.orset_apply_case``): a hot row
+    past its bucket, NOOP lanes canonicalising non-canonical rows,
+    non-canonical rows no lane gathers (byte for byte), out-of-range keys
+    on full clamped rows (drops, no write), the INT32_MAX tag, rows filled
+    exactly to C and one add past it; at C 64 to 600."""
+    r, k, c, b = geo
+    rng = np.random.default_rng(31 * workloads.ORSET_APPLY_CASES.index(case)
+                                + ORSET_APPLY_GRID.index((case, geo)))
+    st, ops = workloads.orset_apply_case(rng, case, (r, b), k, c)
+    st, ops = _on(st, cuda_device), _on(ops, cuda_device)
+    ref, before_st = _clone(st), _clone(st)
+    before = kernels.orset_apply.launches
+    drop = kernels.orset_apply(st, ops)
+    ref_drop = kernels.orset_apply_plain(ref, ops)
+    torch.cuda.synchronize()
+    assert kernels.orset_apply.launches == before + 1
+    _assert_outputs_equal(st, ref)
+    _assert_outputs_equal(drop, ref_drop)
+    if case == "out_of_range_full":
+        _assert_outputs_equal(st, before_st)
+    if case == "untouched":
+        half = max(k // 2, 1)
+        _assert_outputs_equal({f: x[:, half:] for f, x in st.items()},
+                              {f: x[:, half:] for f, x in before_st.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_cap", [1, 8])
+@pytest.mark.parametrize("case", ["mixed", "out_of_range_full", "int32_max",
+                                  "noop_noncanonical"])
+def test_orset_apply_captured_cases_match_plain(cuda_device, case, r_cap):
+    """The captured mode (the block walk over the listed groups) at one
+    lane a replica and at four, on the walk's edge cases."""
+    for r, k, c, b in ((12, 6, 8, 1), (64, 50, 256, 1), (5, 4, 8, 4)):
+        rng = np.random.default_rng(r_cap + c + b)
+        st, ops = workloads.orset_apply_case(rng, case, (r, b), k, c,
+                                             r_cap=r_cap)
+        st, ops = _on(st, cuda_device), _on(ops, cuda_device)
+        ref = _clone(st)
+        drop = kernels.orset_apply(st, ops)
+        ref_drop = kernels.orset_apply_plain(ref, ops)
+        torch.cuda.synchronize()
+        _assert_outputs_equal(st, ref)
+        _assert_outputs_equal(drop, ref_drop)
+
+
 @pytest.mark.cuda
 def test_orset_tick_on_card_matches_tick_on_cpu(cuda_device):
     """The anti-entropy tick (orset_apply, then slot_union per level of the
@@ -1322,6 +1385,90 @@ def test_block_select_matches_plain(cuda_device, n, w):
                              (cfg, _ring(rng, n, w, 3, i % 2 * 4, dev), ready,
                               applied, budget, sr, base, seq))
     assert spilled > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,budget,b,width,nfields,seq", [
+    (64, 16, 1024, 3, 0, 6, "none"),      # W*N = 1,024, A = W*N
+    (64, 16, 1, 3, 0, 6, "wrap"),         # A = 1, commit keys that wrap
+    (4, 8, 32, 5, 3, 9, "none"),          # rows of 20 and 60 bytes
+    (7, 6, 9, 3, 1, 16, "wrap"),          # 16 fields
+    (16, 8, 40, 4097, 2, 7, "plain"),     # rows of several gather slices
+])
+def test_block_select_edges_match_plain(cuda_device, n, w, budget, b, width,
+                                        nfields, seq):
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(n + w + budget + nfields)
+    cfg = DagConfig(n, w)
+    dev = cuda_device
+    d, _, _ = workloads.consensus_state(rng, n, w, wrap=True)
+    sr = torch.as_tensor(d["slot_round"], device=dev)
+    base = torch.as_tensor(d["base_round"], device=dev)
+    tail = (b, width) if width else (b,)
+    ring = {"op": torch.as_tensor(_rand(rng, (w, n, b), -5, 50), device=dev)}
+    for i in range(nfields - 1):
+        ring[f"f{i}"] = torch.as_tensor(_rand(rng, (w, n) + tail), device=dev)
+    for _ in range(3):
+        ready = torch.as_tensor(rng.random((n, w, n)) < 0.7, device=dev)
+        applied = torch.as_tensor(rng.random((n, w, n)) < 0.2, device=dev)
+        keys = None
+        if seq != "none":
+            hi = 2**31 // (w * n) + (50 if seq == "wrap" else -1)
+            keys = torch.as_tensor(_rand(rng, (n, w, n), 0, hi), device=dev)
+        before = kernels.block_select.launches
+        _kernel_vs_plain(kernels.block_select, kernels.block_select_plain,
+                         (cfg, ring, ready, applied, budget, sr, base, keys))
+        assert kernels.block_select.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_block_select_ring_replaced_and_outputs_apart(cuda_device):
+    """The wrapper's cached ring table follows a ring replaced by
+    ``ring_resize`` (as ``SafeKV.resize_block`` replaces it) and one
+    allocated where a freed ring lay; and the outputs, views of one
+    buffer, are apart: a write into one field leaves the others as they
+    were."""
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(5)
+    n, w, b = 4, 8, 6
+    cfg = DagConfig(n, w)
+    dev = cuda_device
+    d, _, _ = workloads.consensus_state(rng, n, w, wrap=False)
+    sr = torch.as_tensor(d["slot_round"], device=dev)
+    base = torch.as_tensor(d["base_round"], device=dev)
+
+    def inputs():
+        return (torch.as_tensor(rng.random((n, w, n)) < 0.8, device=dev),
+                torch.as_tensor(rng.random((n, w, n)) < 0.1, device=dev))
+
+    ring = _ring(rng, n, w, b, 4, dev)
+    for step in range(4):
+        ready, applied = inputs()
+        _kernel_vs_plain(kernels.block_select, kernels.block_select_plain,
+                         (cfg, ring, ready, applied, 9, sr, base, None))
+        if step == 0:  # shrunk, then grown back, as resize_block does
+            ring, _ = kernels.ring_resize(ring, 3)
+        elif step == 1:
+            ring, _ = kernels.ring_resize(ring, 7)
+        elif step == 2:  # freed, and a ring of the same shape in its place
+            shape = {f: x.shape for f, x in ring.items()}
+            del ring
+            ring = {f: torch.as_tensor(_rand(rng, tuple(s)), device=dev)
+                    for f, s in shape.items()}
+    ready, applied = inputs()
+    batch, idx, chosen = kernels.block_select(cfg, ring, ready, applied, 9,
+                                              sr, base, None)
+    want = (_clone(batch), idx.clone(), chosen.clone())
+    batch["key"].fill_(-7)
+    batch["op"][:, -1] = 99
+    torch.cuda.synchronize()
+    for f in batch:
+        if f not in ("key", "op"):
+            assert torch.equal(batch[f], want[0][f])
+    assert torch.equal(batch["op"][:, :-1], want[0]["op"][:, :-1])
+    assert torch.equal(idx, want[1]) and torch.equal(chosen, want[2])
 
 
 @pytest.mark.cuda
