@@ -294,7 +294,7 @@ CONSENSUS_KERNELS = ("tusk_commit", "causal_closure", "dag_round")
 # each wrapper's launch count per SafeKV round (the wrappers' counters)
 ROUND_LAUNCHES = {"tusk_commit": 1, "causal_closure": 1, "dag_round": 1,
                   "safekv_submit": 2, "block_select": 2, "state_transfer": 1,
-                  "gc_frontier": 2}
+                  "gc_frontier": 1}
 # path B, the OR-Set anti-entropy store: R replicas, K keys of C slots, B
 # uncaptured ops per replica per tick, Zipf keys in a rotating hot window
 ORSET_STORE = dict(R=64, K=500, C=256, rm=8, B=64, hot=32, ticks=24,
@@ -370,12 +370,12 @@ RGA_LIBRARY_NOTES = {
                  "a tree",
 }
 # the rest of the SafeKV round: submit (accept, board), the delta applies'
-# selection and gather, the state transfer, the GC frontier (and ring clear)
+# selection and gather, the state transfer, the GC frontier (with the ring
+# clear)
 SAFEKV_KERNELS = ("safekv_submit", "block_select", "state_transfer",
                   "gc_frontier")
 # a source's second entry point, counted on its wrapper
 SECOND_ENTRIES = {"safekv_board": "safekv_submit",
-                  "gc_clear_ring": "gc_frontier",
                   "orset_watermark": "orset_compact"}
 # random checks per (N, W); recorded runs beside RECORDED's: the OR-Set at
 # ORSET_CONS and both types at harness preset mixed's 64 nodes, node N-1
@@ -1095,8 +1095,13 @@ def tree_err(a, b) -> int:
     return max(max_abs_err(x, y) for x, y in zip(ta, tb) if x.numel())
 
 
+# a wrapper whose plain version has another name: gc_frontier's call
+# with the ring clears it too
+PLAIN_NAMES = {"gc_frontier": "gc_round_plain"}
+
+
 def plain_of(kernels, name):
-    return getattr(kernels, f"{name}_plain")
+    return getattr(kernels, PLAIN_NAMES.get(name, f"{name}_plain"))
 
 
 def clone_aliased(tree):
@@ -3361,6 +3366,56 @@ def delta_kernel_rows(kernels, calls):
     return rows
 
 
+def safekv_recorded_runs(dev, workloads, rng):
+    """The SafeKV runs whose calls ``safekv_kernel_checks`` records, as
+    ``[(tag, fn)]``: the PN-Counter at each of ``RECORDED``'s geometries
+    (the consensus phase's 4 nodes, and 16), the OR-Set at the
+    orset_consensus phase's geometry, and both types at harness preset
+    mixed's 64 nodes (``SAFEKV_RECORDED``); ``rng`` draws their ops."""
+    from janus_tpu_torch.consensus import DagConfig
+    from janus_tpu_torch.models import orset, pncounter
+    from janus_tpu_torch.runtime.safecrdt import SafeKV
+    from janus_tpu_torch.utils.ids import TagMinter
+
+    def pnc_run(geo):
+        return lambda: run_recorded(dev, workloads, geo)
+
+    def orset_run():
+        g = ORSET_CONS
+        n = g["nodes"]
+        kv = SafeKV(DagConfig(n, g["window"]), orset.SPEC,
+                    ops_per_block=g["ops_per_block"], apply_budget=g["budget"],
+                    collect_logs=False, device=dev, num_keys=g["keys"],
+                    capacity=g["capacity"], rm_capacity=g["rm"])
+        minters = [TagMinter(i) for i in range(n)]
+        for _ in range(SAFEKV_RECORDED["orset_rounds"]):
+            kv.step(workloads.ops_to_device(workloads.orset_add_remove(
+                rng, minters, g["keys"], g["ops_per_block"]), dev))
+
+    def mixed_run():
+        g = SAFEKV_RECORDED["mixed"]
+        n, b, k = g["nodes"], g["ops_per_block"], g["keys"]
+        cfg = DagConfig(n, g["window"])
+        kvs = [SafeKV(cfg, pncounter.SPEC, ops_per_block=b, collect_logs=False,
+                      device=dev, num_keys=k, num_writers=n),
+               SafeKV(cfg, orset.SPEC, ops_per_block=b, collect_logs=False,
+                      device=dev, num_keys=k, apply_budget=n + max(4, n // 4),
+                      capacity=g["capacity"], rm_capacity=g["rm"])]
+        minters = [TagMinter(i) for i in range(n)]
+        lo, hi = g["crash"]
+        for rnd in range(g["rounds"]):
+            active = np.ones(n, bool)
+            active[n - 1] = not lo <= rnd < hi
+            kvs[0].step(workloads.ops_to_device(
+                workloads.pnc_uniform(rng, n, k, b), dev), active=active)
+            kvs[1].step(workloads.ops_to_device(
+                workloads.orset_add_remove(rng, minters, k, b), dev),
+                active=active)
+
+    runs = [(f"pnc N{geo['nodes']}", pnc_run(geo)) for geo in RECORDED]
+    return runs + [("orset N4", orset_run), ("mixed N64", mixed_run)]
+
+
 def safekv_kernel_checks(dev, kernels, workloads, cases):
     """safekv_submit (accept and board), block_select, state_transfer and
     gc_frontier (the frontier and the ring clear) against their plain
@@ -3377,13 +3432,9 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
     preset mixed's 64 nodes (both types). Returns, per kernel, the
     recorded calls the kernels line times."""
     from janus_tpu_torch.consensus import DagConfig
-    from janus_tpu_torch.models import orset, pncounter
     from janus_tpu_torch.models.base import OP_FIELDS
-    from janus_tpu_torch.runtime.safecrdt import SafeKV
-    from janus_tpu_torch.utils.ids import TagMinter
 
-    entries = {"safekv_board": kernels.safekv_board,
-               "gc_clear_ring": kernels.gc_clear_ring}
+    entries = {"safekv_board": kernels.safekv_board}
     log = CaseLog(SAFEKV_KERNELS, entries)
     rng = np.random.default_rng(21)
     cover = {"accepted": 0, "rejected": 0, "spilled": 0, "wrapped_keys": 0,
@@ -3466,7 +3517,8 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
             cover["donor_needy"] += bool(need[int(donor)])
             log.add(kernels, "state_transfer", (cfg, leaves, nr, base, lw, force),
                     f"N{n} W{w} state {i}")
-            # GC at a state with finished slots, with and without the logs
+            # GC at a state with finished slots, with and without the logs,
+            # the dead slots' ring rows cleared in the call
             gdag, gcom, before, pa, sa, bf = (
                 {k: t(v) for k, v in x.items()} if isinstance(x, dict) else t(x)
                 for x in workloads.gc_state(rng, n, w, wrap=wrap))
@@ -3476,65 +3528,22 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
                 kernels, "gc_frontier",
                 (cfg, gdag, gcom, before, pa, sa, bf, i32((n,), -9, 99),
                  bools((n,), 0.7), bools((n,), 0.2), i32((), 0, n), drops,
-                 logs), f"N{n} W{w} state {i} logs {logs}")
+                 logs, ring(n, w, b, r)),
+                f"N{n} W{w} state {i} logs {logs}")
             cover["collect_logs"][logs] += 1
             cover["lost"] += int(lost.any())
-            adv = int(dead.sum())
-            cover["advanced_2_plus"] += adv >= 2
-            log.add(kernels, "gc_clear_ring", (cfg, ring(n, w, b, r), dead),
-                    f"N{n} W{w} state {i} {adv} dead")
-            log.add(kernels, "gc_clear_ring",
-                    (cfg, ring(n, w, b, r), bools((w,), 0.0)),
-                    f"N{n} W{w} state {i} none dead")
+            cover["advanced_2_plus"] += int(dead.sum()) >= 2
 
     # (b) the calls of real runs
     names = SAFEKV_KERNELS + tuple(entries)
-    recorded = {}
-
-    def pnc_run(geo):
-        return lambda: run_recorded(dev, workloads, geo)
-
-    def orset_run():
-        g = ORSET_CONS
-        n = g["nodes"]
-        kv = SafeKV(DagConfig(n, g["window"]), orset.SPEC,
-                    ops_per_block=g["ops_per_block"], apply_budget=g["budget"],
-                    collect_logs=False, device=dev, num_keys=g["keys"],
-                    capacity=g["capacity"], rm_capacity=g["rm"])
-        minters = [TagMinter(i) for i in range(n)]
-        for _ in range(SAFEKV_RECORDED["orset_rounds"]):
-            kv.step(workloads.ops_to_device(workloads.orset_add_remove(
-                rng, minters, g["keys"], g["ops_per_block"]), dev))
-
-    def mixed_run():
-        g = SAFEKV_RECORDED["mixed"]
-        n, b, k = g["nodes"], g["ops_per_block"], g["keys"]
-        cfg = DagConfig(n, g["window"])
-        kvs = [SafeKV(cfg, pncounter.SPEC, ops_per_block=b, collect_logs=False,
-                      device=dev, num_keys=k, num_writers=n),
-               SafeKV(cfg, orset.SPEC, ops_per_block=b, collect_logs=False,
-                      device=dev, num_keys=k, apply_budget=n + max(4, n // 4),
-                      capacity=g["capacity"], rm_capacity=g["rm"])]
-        minters = [TagMinter(i) for i in range(n)]
-        lo, hi = g["crash"]
-        for rnd in range(g["rounds"]):
-            active = np.ones(n, bool)
-            active[n - 1] = not lo <= rnd < hi
-            kvs[0].step(workloads.ops_to_device(
-                workloads.pnc_uniform(rng, n, k, b), dev), active=active)
-            kvs[1].step(workloads.ops_to_device(
-                workloads.orset_add_remove(rng, minters, k, b), dev),
-                active=active)
-
-    runs = [(f"pnc N{geo['nodes']}", pnc_run(geo)) for geo in RECORDED]
-    runs += [("orset N4", orset_run), ("mixed N64", mixed_run)]
+    recorded, more = {}, {}
+    runs = safekv_recorded_runs(dev, workloads, rng)
     for tag, fn in runs:
         calls = record_calls(kernels, names, fn)
         torch.cuda.synchronize()
         counts = {name: len(c) for name, c in calls.items()}
         check(counts["safekv_submit"] == counts["safekv_board"] > 0
-              and counts["gc_frontier"] == counts["gc_clear_ring"]
-              == counts["state_transfer"]
+              and counts["gc_frontier"] == counts["state_transfer"]
               and counts["block_select"] == 2 * counts["gc_frontier"],
               f"recorded {tag}: calls {counts}")
         for name, rec in calls.items():
@@ -3549,6 +3558,18 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
         recorded[tag] = counts
         if tag == f"pnc N{CONS['nodes']}":
             timing = calls
+        elif tag in ("pnc N16", "mixed N64"):
+            # the kernels line's calls at 16 and 64 nodes: the last
+            # submit, and the first GC that frees a slot
+            gc = calls["gc_frontier"]
+            j = next((j for j, (a, _) in enumerate(gc)
+                      if bool(kernels.gc_round_plain(
+                          *tree_map(torch.Tensor.clone, a))[1].any())),
+                     len(gc) - 1)
+            more[tag.split()[1].lower()] = {
+                "safekv_submit": (calls["safekv_submit"][-1],
+                                  calls["safekv_board"][-1]),
+                "gc_frontier": gc[j]}
         del calls
     check(cover["rejected"] > 0 and cover["accepted"] > 0
           and cover["spilled"] > 0 and cover["wrapped_keys"] > 0
@@ -3560,6 +3581,7 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
     for name, rec in log.by.items():
         cases.append({"kernel": name, "case": "safekv_kernels", **rec})
     emit("safekv_kernels", by_kernel=log.by, coverage=cover, recorded=recorded)
+    timing["more"] = more
     return timing
 
 
@@ -3589,20 +3611,45 @@ def select_bytes(plain, args) -> int:
             + gathered_op * op_row)
 
 
+def submit_shape(a_args, b_args) -> str:
+    """The geometry of one round's accept and board."""
+    cfg, _, _, ops, _ = a_args
+    n, b = ops["op"].shape
+    return (f"N{n} W{cfg.num_rounds} B{b}: accept + board of one round, "
+            f"{int(b_args[5].sum())} views accepted")
+
+
+def gc_shape(kernels, g_args) -> str:
+    """The geometry of one round's GC (the frontier and the ring clear)."""
+    cfg = g_args[0]
+    dead = kernels.gc_round_plain(*tree_map(torch.Tensor.clone, g_args))[1]
+    return (f"N{cfg.num_nodes} W{cfg.num_rounds}: frontier + ring clear, "
+            f"{int(dead.sum())} slots dead, logs {g_args[12]}")
+
+
 def safekv_kernel_rows(kernels, calls):
     """Rows of the kernels line for the SafeKV round's four wrappers, each
     timed on recorded calls of the 4-node PN-Counter run (the consensus
     phase's geometry): safekv_submit as one round's accept and board,
     block_select on the last stable delta apply, state_transfer on a round
-    in which a view needed a transfer and gc_frontier with the ring clear
-    of a round in which slots died (both repeated on the state they
-    leave). Bytes: what the function must move, each input read once and
-    each output written once: the accepted views' ring rows, the gathered
-    rows (``select_bytes``), the needy views' rows of every leaf, the dead
-    slots' rows."""
+    in which a view needed a transfer and gc_frontier (with the ring
+    clear) on a round in which slots died (both repeated on the state
+    they leave); safekv_submit and gc_frontier are timed on the same
+    calls of the 16-node PN-Counter run and of harness preset mixed's 64
+    nodes too (``more_calls``). Bytes: what the function must move, each
+    input read once and each output written once: the accepted views'
+    ring rows, the gathered rows (``select_bytes``), the needy views' rows
+    of every leaf, the dead slots' rows."""
     def clone(args):
         return tree_map(torch.Tensor.clone, args)
 
+    def submit_calls(a_args, b_args):
+        return (lambda: (kernels.safekv_submit(*a_args),
+                         kernels.safekv_board(*b_args)),
+                lambda: (kernels.safekv_submit_plain(*a_args),
+                         kernels.safekv_board_plain(*b_args)))
+
+    more = calls["more"]
     rows = []
     # safekv_submit: accept, then board, of the last recorded round
     (a_args, _), (b_args, _) = (calls["safekv_submit"][-1],
@@ -3615,14 +3662,14 @@ def safekv_kernel_rows(kernels, calls):
     nbytes = (2 * _nbytes(ops.values()) + 2 * n + 9 * n + 4
               + (n if active is not None else 0)
               + 2 * k * row_bytes + 5 * n + 2 * k)
+    call, plain = submit_calls(a_args, b_args)
     rows.append(dict(
-        name="safekv_submit",
-        call=lambda: (kernels.safekv_submit(*a_args),
-                      kernels.safekv_board(*b_args)),
-        plain=lambda: (kernels.safekv_submit_plain(*a_args),
-                       kernels.safekv_board_plain(*b_args)),
-        library=None, shape=f"N{n} W{cfg.num_rounds} B{b}: accept + board of "
-        f"one round, {k} views accepted",
+        name="safekv_submit", call=call, plain=plain, library=None,
+        max_cuda_launches=2, shape=submit_shape(a_args, b_args),
+        more_calls={label: (submit_shape(a[0], b[0]),
+                            submit_calls(a[0], b[0])[0])
+                    for label, got in more.items()
+                    for a, b in [got["safekv_submit"]]},
         bytes=nbytes, operations=6 * n * b + k * row_bytes // 4))
     # block_select: the last (stable) delta apply
     args, _ = calls["block_select"][-1]
@@ -3664,15 +3711,15 @@ def safekv_kernel_rows(kernels, calls):
     gc_calls = calls["gc_frontier"]
     pick = len(gc_calls) - 1
     for j, (args, _) in enumerate(gc_calls):
-        if bool(calls["gc_clear_ring"][j][0][2].any()):
+        if bool(kernels.gc_round_plain(*clone(args))[1].any()):
             pick = j
             break
     g_args, _ = gc_calls[pick]
-    c_args, _ = calls["gc_clear_ring"][pick]
-    cfg, ring, dead = c_args
+    cfg, ring = g_args[0], g_args[13]
+    dead = kernels.gc_round_plain(*clone(g_args))[1]
     n, w = cfg.num_nodes, cfg.num_rounds
     d = int(dead.sum())
-    logs = g_args[-1]
+    logs = g_args[12]
     nwn = n * w * n
     reads = 4 * nwn + w * n + 17 * n + 8 * w + 8 + (4 * nwn if logs else 0)
     packed = 4 * (2 * n + n * w + w + 1 + (n + 1 + 2 * nwn + w if logs else 0))
@@ -3680,12 +3727,14 @@ def safekv_kernel_rows(kernels, calls):
     slot_ring = sum(x[0].numel() * x.element_size() for x in ring.values())
     rows.append(dict(
         name="gc_frontier",
-        call=lambda: (kernels.gc_frontier(*g_args),
-                      kernels.gc_clear_ring(*c_args)),
-        plain=lambda: (kernels.gc_frontier_plain(*g_args),
-                       kernels.gc_clear_ring_plain(*c_args)),
-        library=None, shape=f"N{n} W{w}: frontier + ring clear of round "
-        f"{pick}, {d} slots dead, logs {logs}",
+        call=lambda: kernels.gc_frontier(*g_args),
+        plain=lambda: kernels.gc_round_plain(*g_args),
+        library=None, max_cuda_launches=2,
+        shape=f"{gc_shape(kernels, g_args)}, round {pick}",
+        more_calls={label: (gc_shape(kernels, got["gc_frontier"][0]),
+                            lambda a=got["gc_frontier"][0]:
+                            kernels.gc_frontier(*a))
+                    for label, got in more.items()},
         bytes=reads + packed + n + w + recycle + d * slot_ring,
         operations=reads // 4))
     for row in rows:
@@ -7420,6 +7469,11 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         check(out[-1]["launches"] > 0, f"{name} never launched on the main path")
         if name == "dag_round":
             out[-1].update(split_round_fields(kernels, split_calls))
+        for label, (shape, call) in kern.get("more_calls", {}).items():
+            # the same wrapper on recorded calls of other geometries
+            out[-1].update({f"{label}_ms": time_cuda(call),
+                            f"{label}_device_ms": device_burst_ms(call),
+                            f"{label}_shape": shape})
     emit("profiler_check", calls=20, add_kernels_seen=control_seen,
          causal_closure_seen_after_tusk_commit_plain=after_large_seen)
     return out
@@ -7472,10 +7526,12 @@ def main() -> int:
                if f.startswith(("slot_union: ", "graph_apply: ",
                                 "rga_apply: ", "ring_resize: ",
                                 "orset_replay: ", "lww_apply: ",
-                                "orset_apply: ", "block_select: "))],
+                                "orset_apply: ", "block_select: ",
+                                "gc_frontier: ", "safekv_submit: "))],
           "build: a slot_union.cu, graph_apply.cu, rga_apply.cu, "
-          "ring_resize.cu, orset_replay.cu, lww_apply.cu, orset_apply.cu "
-          "or block_select.cu function has a stack frame or spills")
+          "ring_resize.cu, orset_replay.cu, lww_apply.cu, orset_apply.cu, "
+          "block_select.cu, gc_frontier.cu or safekv_submit.cu function has "
+          "a stack frame or spills")
 
     phase_s = {"build": res["seconds"]}
 

@@ -10,9 +10,9 @@
 //   accept  accepted[v] = block (r_v, v) not made, its slot not yet
 //           buffered, base <= r_v < base + W, and active[v]; the op batch
 //           with rejected views' lanes zeroed, written to a separate
-//           [N, B] buffer (the caller's batch is never written); and a
-//           copy of node_round, the slot each batch boards, which later
-//           phases of the round change in place.
+//           buffer (the caller's batch is never written); and a copy of
+//           node_round, the slot each batch boards, which later phases of
+//           the round change in place.
 //   board   writes every field of the captured batch into ring row
 //           [slot_of(r_v), v] of each accepted view, in place, and sets
 //           buffer_filled[s, v] and prosp_applied[v, s, v].
@@ -20,12 +20,22 @@
 // What bounds it on the H100: bytes. Each entry point moves the op batch
 // once (N * B * fields int32) and reads a few bytes of DAG state per view.
 //
-// Design: a grid-stride loop over the batch's lanes; each thread decides
-// its view's acceptance from the view's DAG bits (a few cached bytes), so
-// the mask needs no second pass. Board runs one grid row per view and
-// returns at once for a rejected view. Round arithmetic wraps as int32
-// and the slot is the floor modulo (csrc/dag_masks.cuh). Launches on the
-// caller's stream, allocates nothing, does not synchronise.
+// Design: both kernels run a block a (view, slice of CHUNK int32 of the
+// view's row) in blockIdx.x and a field in blockIdx.y, enough blocks to
+// fill the card at B of a thousand and more. An accept block decides its
+// view's acceptance once, into shared memory, and writes a rejected
+// view's lanes as zeros without reading the batch; a board block returns
+// without writing for a rejected view. The decision's loads go out
+// together (a warp reads the view's bits at every slot), and a board
+// block loads its slice of an aligned row beside them, so each kernel
+// waits on memory about twice. Moves are 16-byte loads and stores where
+// the source and the destination share their alignment (a scalar head up
+// to it and a scalar tail), scalar otherwise: a batch may be a view at
+// any int32 offset of a larger tensor, and a row of odd length puts every
+// other view's row off the 16-byte grid. No 64-bit division. Round
+// arithmetic wraps as int32 and the slot is the floor modulo
+// (csrc/dag_masks.cuh). Launches on the caller's stream, allocates
+// nothing, does not synchronise.
 #include <cuda_runtime.h>
 
 #include "dag_masks.cuh"
@@ -35,141 +45,209 @@ namespace {
 using namespace dag_masks;
 
 constexpr int MAX_FIELDS = 16;
+constexpr int THREADS = 256;
+constexpr int CHUNK = 1024;  // the int32 of a row one block moves
+static_assert(CHUNK % (4 * THREADS) == 0, "a whole int4 a thread");
 
-// src[f] / dst[f]: field f's int32 rows of `row[f]` elements per view
-struct Fields {
+struct Accept {
+  const int* src[MAX_FIELDS];  // the caller's batch fields, int32 [N, B]
+  int* out;                    // field f's accepted ops at out + f * stride
+  long long stride;
+  const unsigned char *block_exists, *buffer_filled, *active;
+  const int *node_round, *base_round;
+  unsigned char* accepted;
+  int* pre_round;
+  int n, w, b, slices;
+};
+
+// src[f]: the captured batch [N, row[f]]; dst[f]: the ring [W, N, row[f]];
+// slices[f]: the CHUNK slices of a row of field f (at least one)
+struct Board {
   const int* src[MAX_FIELDS];
   int* dst[MAX_FIELDS];
   long long row[MAX_FIELDS];
+  int slices[MAX_FIELDS];
+  const unsigned char* accepted;
+  const int* pre_round;
+  unsigned char *buffer_filled, *prosp_applied;
+  int nfields, n, w, most;  // most: the slices of the longest row
 };
 
-__device__ __forceinline__ bool accepted_of(
-    int v, const unsigned char* block_exists,
-    const unsigned char* buffer_filled, const int* node_round, int base,
-    const unsigned char* active, int n, int w) {
-  const int r = node_round[v];
-  const int s = floor_mod(r, w);
-  return !block_exists[s * n + v] && !buffer_filled[s * n + v] && r >= base &&
-         r < wrap_add(base, w) && (active == nullptr || active[v]);
+// len int32 from src to dst (zeros, unread, if `zero`) by the block:
+// 16-byte moves between a scalar head and tail when both ends share
+// their alignment
+__device__ __forceinline__ void move(int* __restrict__ dst,
+                                     const int* __restrict__ src, int len,
+                                     bool zero) {
+  int head = len;
+  if (zero || ((((size_t)dst ^ (size_t)src) & 15) == 0))
+    head = min(len, (int)(((16 - ((size_t)dst & 15)) & 15) >> 2));
+  const int body = (len - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += THREADS) dst[i] = zero ? 0 : src[i];
+  int4* d4 = (int4*)(dst + head);
+  const int4* s4 = (const int4*)(src + head);
+  for (int i = threadIdx.x; i < body; i += THREADS)
+    d4[i] = zero ? make_int4(0, 0, 0, 0) : s4[i];
+  for (int i = head + 4 * body + threadIdx.x; i < len; i += THREADS)
+    dst[i] = zero ? 0 : src[i];
 }
 
-__global__ void accept_kernel(Fields t, int nfields,
-                              const unsigned char* __restrict__ block_exists,
-                              const unsigned char* __restrict__ buffer_filled,
-                              const int* __restrict__ node_round,
-                              const int* __restrict__ base_round,
-                              const unsigned char* __restrict__ active,
-                              unsigned char* __restrict__ accepted,
-                              int* __restrict__ pre_round, int n, int w,
-                              long long b) {
-  const int base = *base_round;
-  const long long total = (long long)n * b;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const int v = (int)(i / b);
-    const bool ok = accepted_of(v, block_exists, buffer_filled, node_round,
-                                base, active, n, w);
-    for (int f = 0; f < nfields; ++f) t.dst[f][i] = ok ? t.src[f][i] : 0;
-  }
-  if (blockIdx.x == 0) {
-    for (int v = threadIdx.x; v < n; v += blockDim.x) {
-      accepted[v] = accepted_of(v, block_exists, buffer_filled, node_round,
-                                base, active, n, w);
-      pre_round[v] = node_round[v];
+// the accept of view v by the block's first warp, every load of the
+// decision issued at once: the view's round, the base, active, and the
+// view's block_exists and buffer_filled at every slot (W <= 32; above,
+// lane 0 reads its slot's after the round)
+__device__ __forceinline__ bool accepted_of(const Accept& a, int v, int* r_out) {
+  const int lane = threadIdx.x;
+  const int r = a.node_round[v], base = *a.base_round;
+  const bool act = a.active == nullptr || a.active[v];
+  bool taken = false;
+  if (a.w <= 32 && lane < a.w)
+    taken = a.block_exists[lane * a.n + v] || a.buffer_filled[lane * a.n + v];
+  const unsigned busy = __ballot_sync(0xffffffffu, taken);
+  const int s = floor_mod(r, a.w);
+  const bool blocked =
+      a.w <= 32 ? (busy >> s) & 1u
+                : a.block_exists[s * a.n + v] || a.buffer_filled[s * a.n + v];
+  *r_out = r;
+  return !blocked && r >= base && r < wrap_add(base, a.w) && act;
+}
+
+__global__ void __launch_bounds__(THREADS) accept_kernel(Accept a) {
+  __shared__ bool ok_s;
+  const int v = blockIdx.x / a.slices, z = blockIdx.x - v * a.slices;
+  const int f = blockIdx.y;
+  if (threadIdx.x < 32) {
+    int r;
+    const bool ok = accepted_of(a, v, &r);
+    if (threadIdx.x == 0) {
+      ok_s = ok;
+      if (z == 0 && f == 0) {
+        a.accepted[v] = ok;
+        a.pre_round[v] = r;
+      }
     }
   }
+  __syncthreads();
+  const int lo = z * CHUNK;
+  const long long at = (long long)v * a.b + lo;
+  move(a.out + f * a.stride + at, a.src[f] + at, min(CHUNK, a.b - lo), !ok_s);
 }
 
-// t.src[f]: the captured batch [N, row]; t.dst[f]: the ring [W, N, row]
-__global__ void board_kernel(Fields t, int nfields,
-                             const unsigned char* __restrict__ accepted,
-                             const int* __restrict__ pre_round,
-                             unsigned char* __restrict__ buffer_filled,
-                             unsigned char* __restrict__ prosp_applied, int n,
-                             int w) {
-  const int v = blockIdx.y;
-  if (!accepted[v]) return;
-  const int s = floor_mod(pre_round[v], w);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (int f = 0; f < nfields; ++f) {
-    const long long row = t.row[f];
-    const int* src = t.src[f] + (long long)v * row;
-    int* dst = t.dst[f] + ((long long)s * n + v) * row;
-    for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         j < row; j += stride)
-      dst[j] = src[j];
+// a board block: a row whose length is a multiple of 4, with both
+// fields' bases 16-byte aligned, has its slice loaded at once beside the
+// view's accepted flag and round (the ring row's address waits for the
+// round); any other row is moved after them
+__global__ void __launch_bounds__(THREADS) board_kernel(Board t) {
+  constexpr int PER = CHUNK / 4 / THREADS;  // int4 a thread
+  const int v = blockIdx.x / t.most, z = blockIdx.x - v * t.most;
+  const int f = blockIdx.y;
+  const bool mine = f < t.nfields && z < t.slices[f];
+  const long long row = mine ? t.row[f] : 0, lo = (long long)z * CHUNK;
+  const int len = (int)(row - lo < CHUNK ? row - lo : CHUNK);
+  const bool fast = mine && (row & 3) == 0 &&
+                    (((size_t)t.src[f] | (size_t)t.dst[f]) & 15) == 0;
+  int4 x[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * THREADS;
+    x[k] = fast && i < (len >> 2)
+               ? ((const int4*)(t.src[f] + (long long)v * row + lo))[i]
+               : make_int4(0, 0, 0, 0);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    buffer_filled[s * n + v] = 1;
-    prosp_applied[((long long)v * w + s) * n + v] = 1;
+  if (!t.accepted[v]) return;
+  const int s = floor_mod(t.pre_round[v], t.w);
+  if (mine) {
+    int* dst = t.dst[f] + ((long long)s * t.n + v) * row + lo;
+    if (fast) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int i = threadIdx.x + k * THREADS;
+        if (i < (len >> 2)) ((int4*)dst)[i] = x[k];
+      }
+    } else {
+      move(dst, t.src[f] + (long long)v * row + lo, len, false);
+    }
   }
-}
-
-Fields fields_of(const void* const* src, const void* const* dst,
-                 const long long* row, int nfields) {
-  Fields t = {};
-  for (int f = 0; f < nfields; ++f) {
-    t.src[f] = (const int*)src[f];
-    t.dst[f] = (int*)dst[f];
-    t.row[f] = row[f];
+  if (z == 0 && f == 0 && threadIdx.x == 0) {
+    t.buffer_filled[s * t.n + v] = 1;
+    t.prosp_applied[((long long)v * t.w + s) * t.n + v] = 1;
   }
-  return t;
 }
 
 }  // namespace
 
-// src, dst: `nfields` (<= 16) int32 [N, B] batches (the caller's fields,
-// and the accepted-op buffers); block_exists, buffer_filled bool[W, N];
-// node_round int32[N]; base_round int32[] (read on the device); active
-// bool[N] or null; accepted bool[N] and pre_round int32[N] (outputs). All
-// contiguous on one device. Returns the launch's CUDA error.
-extern "C" int safekv_accept_launch(const void* const* src,
-                                    const void* const* dst, int nfields,
+// src: `nfields` (<= 16) int32 [N, B] batches (the caller's fields), at
+// any int32 offset; out: the output buffer, field f's accepted ops int32
+// [N, B] at out + f * stride (int32); block_exists, buffer_filled bool[W,
+// N]; node_round int32[N]; base_round int32[] (read on the device);
+// active bool[N] or null; accepted bool[N] and pre_round int32[N]
+// (outputs). All contiguous on one device. Returns the launch's CUDA
+// error.
+extern "C" int safekv_accept_launch(const long long* src, int nfields,
+                                    void* out, long long stride,
                                     const void* block_exists,
                                     const void* buffer_filled,
                                     const void* node_round,
                                     const void* base_round, const void* active,
                                     void* accepted, void* pre_round, int n,
-                                    int w, long long b, void* stream) {
-  if (n <= 0 || nfields < 0 || nfields > MAX_FIELDS)
+                                    int w, int b, void* stream) {
+  if (n <= 0 || nfields <= 0 || nfields > MAX_FIELDS || b < 0)
     return (int)cudaErrorInvalidValue;
-  long long rows[MAX_FIELDS];
-  for (int f = 0; f < nfields; ++f) rows[f] = b;
-  const Fields t = fields_of(src, dst, rows, nfields);
-  const int threads = 256;
-  long long blocks = ((long long)n * b + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 1024) blocks = 1024;
-  accept_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      t, nfields, (const unsigned char*)block_exists,
-      (const unsigned char*)buffer_filled, (const int*)node_round,
-      (const int*)base_round, (const unsigned char*)active,
-      (unsigned char*)accepted, (int*)pre_round, n, w, b);
+  Accept a = {};
+  for (int f = 0; f < nfields; ++f) a.src[f] = (const int*)src[f];
+  a.out = (int*)out;
+  a.stride = stride;
+  a.block_exists = (const unsigned char*)block_exists;
+  a.buffer_filled = (const unsigned char*)buffer_filled;
+  a.active = (const unsigned char*)active;
+  a.node_round = (const int*)node_round;
+  a.base_round = (const int*)base_round;
+  a.accepted = (unsigned char*)accepted;
+  a.pre_round = (int*)pre_round;
+  a.n = n;
+  a.w = w;
+  a.b = b;
+  a.slices = b > 0 ? (b + CHUNK - 1) / CHUNK : 1;
+  if ((long long)n * a.slices >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(n * a.slices), (unsigned)nfields);
+  accept_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// src: `nfields` (<= 16) captured int32 fields [N, row[f]]; dst: the ring
-// fields [W, N, row[f]], written in place; accepted bool[N]; pre_round
+// src: `nfields` (<= 16) captured int32 fields [N, row[f]] (per call);
+// ring: 2 * nfields int64, the ring fields' addresses [W, N, row[f]]
+// (written in place) and then their slot rows' int32 (N * row[f], as
+// gc_frontier's ring table); accepted bool[N]; pre_round
 // int32[N]; buffer_filled bool[W, N] and prosp_applied bool[N, W, N], set
 // in place. Returns the launch's CUDA error.
-extern "C" int safekv_board_launch(const void* const* src,
-                                   const void* const* dst,
-                                   const long long* row, int nfields,
+extern "C" int safekv_board_launch(const long long* src,
+                                   const long long* ring, int nfields,
                                    const void* accepted, const void* pre_round,
                                    void* buffer_filled, void* prosp_applied,
                                    int n, int w, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (nfields < 0 || nfields > MAX_FIELDS) return (int)cudaErrorInvalidValue;
-  const Fields t = fields_of(src, dst, row, nfields);
-  long long longest = 1;
-  for (int f = 0; f < nfields; ++f) longest = row[f] > longest ? row[f] : longest;
-  const int threads = 256;
-  long long bx = (longest + threads * 4 - 1) / (threads * 4);
-  if (bx > 64) bx = 64;
-  const dim3 grid((unsigned)bx, (unsigned)n);
-  board_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      t, nfields, (const unsigned char*)accepted, (const int*)pre_round,
-      (unsigned char*)buffer_filled, (unsigned char*)prosp_applied, n, w);
+  Board t = {};
+  long long most = 1;
+  for (int f = 0; f < nfields; ++f) {
+    t.src[f] = (const int*)src[f];
+    t.dst[f] = (int*)ring[f];
+    t.row[f] = ring[nfields + f] / n;
+    const long long slices =
+        t.row[f] > 0 ? (t.row[f] + CHUNK - 1) / CHUNK : 1;
+    if (slices >= (1LL << 31) / n) return (int)cudaErrorInvalidValue;
+    t.slices[f] = (int)slices;
+    most = slices > most ? slices : most;
+  }
+  t.accepted = (const unsigned char*)accepted;
+  t.pre_round = (const int*)pre_round;
+  t.buffer_filled = (unsigned char*)buffer_filled;
+  t.prosp_applied = (unsigned char*)prosp_applied;
+  t.nfields = nfields;
+  t.n = n;
+  t.w = w;
+  t.most = (int)most;
+  const dim3 grid((unsigned)(n * most), (unsigned)(nfields > 0 ? nfields : 1));
+  board_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(t);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,8 @@ own counter, over the same source; so are the RGA's, the LWW-Set's and the
 two tombstone layouts' instantiations of ``slot_union.cu`` (``rga_union``,
 ``lww_union``, ``tp_union`` for the 2P-Set and the Graph's vertices,
 ``edge_union`` for the Graph's edges). A source with two entry points counts both on one
-wrapper: ``safekv_board`` on ``safekv_submit``, ``gc_clear_ring`` on
-``gc_frontier``, ``orset_watermark`` on ``orset_compact``. The capture
+wrapper: ``safekv_board`` on ``safekv_submit``, ``orset_watermark`` on
+``orset_compact``. The capture
 mode of ``rga_apply.cu`` is a wrapper of its own, ``rga_capture``; so
 are those of ``lww_apply.cu``, ``mvr_apply.cu`` and ``graph_apply.cu``
 (``lww_capture``, ``mvr_capture``, ``graph_capture``). The 2P-Set's apply
@@ -36,7 +36,7 @@ from janus_tpu_torch.kernels.dirty_rows import (  # noqa: F401
 from janus_tpu_torch.kernels.edge_mask import (  # noqa: F401
     edge_mask, edge_mask_plain)
 from janus_tpu_torch.kernels.gc_frontier import (  # noqa: F401
-    gc_clear_ring, gc_clear_ring_plain, gc_frontier, gc_frontier_plain)
+    gc_clear_ring_plain, gc_frontier, gc_frontier_plain, gc_round_plain)
 from janus_tpu_torch.kernels.graph_apply import (  # noqa: F401
     graph_apply, graph_apply_plain, graph_capture, graph_capture_plain,
     tpset_apply, tpset_apply_plain, tpset_capture, tpset_capture_plain,

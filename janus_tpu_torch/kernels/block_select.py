@@ -78,11 +78,6 @@ _LAUNCH = build.LeanLaunch(
 _LAYOUTS: dict = {}
 
 
-def _int32s(n: int) -> int:
-    """int32 words of n, rounded up to 16 bytes."""
-    return -(-n // 4) * 4
-
-
 class Layout:
     """One call's outputs as views of one int32 buffer, every part 16-byte
     aligned: each field's batch ``[V, A * B, ...]`` in the ring's field
@@ -99,11 +94,11 @@ class Layout:
             self.views_at.append((f, shape, torch.empty(shape, device="meta")
                                   .stride(), at))
             offsets.append(at)
-            at += _int32s(v * a * r)
+            at += operands.int32s(v * a * r)
         self.idx_at = 4 * at
-        at += _int32s(v * a)
+        at += operands.int32s(v * a)
         self.chosen_at = 4 * at
-        self.total = at + _int32s(-(-v * a // 4))
+        self.total = at + operands.int32s(-(-v * a // 4))
         self.va = (v, a)
         self.table = (ctypes.c_longlong * (3 * len(rows)))(
             *(x.data_ptr() for x in ops_buffer.values()), *rows, *offsets)
@@ -121,16 +116,9 @@ class Layout:
 
 
 def layout(ops_buffer, v: int, a: int) -> Layout:
-    """The cached layout of a ring (keyed on its fields' addresses and
-    shapes: ``SafeKV.resize_block`` replaces the ring) and (V, A)."""
-    key = (tuple((f, x.data_ptr(), x.shape) for f, x in ops_buffer.items()),
-           v, a)
-    held = _LAYOUTS.get(key)
-    if held is None:
-        if len(_LAYOUTS) >= 64:
-            _LAYOUTS.clear()
-        held = _LAYOUTS[key] = Layout(ops_buffer, v, a)
-    return held
+    """The cached layout of a ring and (V, A) (``operands.ring_cached``:
+    ``SafeKV.resize_block`` replaces the ring)."""
+    return operands.ring_cached(_LAYOUTS, Layout, ops_buffer, v, a)
 
 
 def block_select(cfg, ops_buffer, ready, applied, budget: int, slot_round,

@@ -1,7 +1,6 @@
 """``gc_frontier``: SafeKV's GC frontier, the recycle of the slots it
-frees and the pack of a round's host outputs, in one launch; and
-``gc_clear_ring``, which zeroes the freed ring rows (kernel source:
-csrc/gc_frontier.cu).
+frees, the pack of a round's host outputs and the clear of the freed
+ring rows, in one call (kernel source: csrc/gc_frontier.cu).
 
 Replaces the GC of janus_tpu/runtime/safecrdt.py ``SafeKV._tick_device``
 and the pack of ``_step_device``, with janus_tpu/consensus/dag.py
@@ -16,10 +15,14 @@ and with ``collect_logs`` the transfer mask ``[N]``, the donor ``[1]``,
 the fresh commits and ``commit_seq`` ``[N * W * N]`` each (pre-GC) and
 ``slot_round`` ``[W]`` (post-GC).
 
-Each entry point is one launch and adds one to ``gc_frontier.launches``;
-neither reads a value on the host. For CUDA tensors the wrapper launches
-its kernel (or raises); the ``*_plain`` versions run only for tensors that
-lie on the CPU.
+A ``gc_frontier`` call is two CUDA launches (the GC, one block; then the
+recycle, the logs and the ring clear, launched while the GC runs and
+waiting for it) on the lean launch path, its outputs views of one
+buffer. Each call adds one to ``gc_frontier.launches`` and reads no
+value on the host. For CUDA tensors the wrapper launches its kernels (or
+raises); the ``*_plain`` versions run only for tensors that lie on the
+CPU: ``gc_round_plain`` is the whole call's, ``gc_frontier_plain`` then
+``gc_clear_ring_plain``.
 """
 from __future__ import annotations
 
@@ -159,111 +162,130 @@ def gc_clear_ring_plain(cfg, ops_buffer, dead) -> None:
         x[dead] = 0
 
 
-def _lib():
-    lib = build.load("gc_frontier")
-    if lib.gc_frontier_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gc_frontier_launch.argtypes = [ptr] + [i32] * 6 + [ptr]
-        lib.gc_frontier_launch.restype = ctypes.c_int
-        lib.gc_clear_ring_launch.argtypes = [ptr, ptr, i32, ptr, i32, ptr]
-        lib.gc_clear_ring_launch.restype = ctypes.c_int
-    return lib
+def gc_round_plain(cfg, dag_state, cstate, com_before, prosp_applied,
+                   stable_applied, buffer_filled, pre_round, accepted,
+                   transferred, donor, drops, collect_logs: bool,
+                   ops_buffer):
+    """The plain versions of one ``gc_frontier`` call: the frontier
+    (``gc_frontier_plain``), then the clear of the ring's dead slots' rows
+    (``gc_clear_ring_plain``)."""
+    lost, dead, packed = gc_frontier_plain(
+        cfg, dag_state, cstate, com_before, prosp_applied, stable_applied,
+        buffer_filled, pre_round, accepted, transferred, donor, drops,
+        collect_logs)
+    gc_clear_ring_plain(cfg, ops_buffer, dead)
+    return lost, dead, packed
+
+
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_TABLE = ctypes.POINTER(ctypes.c_longlong)
+_GC = build.LeanLaunch("gc_frontier", "gc_frontier_launch",
+                       [_ptr, _TABLE] + [_int] * 7)
+# the kernel's Gc pointers, refilled by each call
+_POINTERS = (ctypes.c_void_p * 28)()
+# (N, W) -> the operands' shapes
+_SHAPES: dict = {}
+
+
+def _shapes(n: int, w: int) -> tuple:
+    held = _SHAPES.get((n, w))
+    if held is None:
+        held = _SHAPES[(n, w)] = ((w, n, n), (w, n), (n, w, n), (n,), (w,),
+                                  ())
+    return held
 
 
 def gc_frontier(cfg, dag_state, cstate, com_before, prosp_applied,
                 stable_applied, buffer_filled, pre_round, accepted,
-                transferred, donor, drops, collect_logs: bool):
+                transferred, donor, drops, collect_logs: bool,
+                ops_buffer):
     """The GC of one round: ``(lost bool[N], dead bool[W], packed
-    int32[P])``, with the recycle in place. ``dag_state``, ``cstate``: the
-    DAG and commit state after this round's commit; ``com_before``: the
-    committed masks before it; ``pre_round`` int32[N] and ``accepted``
-    bool[N] from the submit; ``transferred`` bool[N] and ``donor``
-    int32[] from the state transfer; ``drops``: the two delta applies'
-    dropped counts (int32[V] each, or None)."""
+    int32[P])``, with the recycle in place and the dead slots' rows of
+    ``ops_buffer`` (the ring, int32 ``[W, N, B, ...]`` fields) zeroed.
+    ``dag_state``, ``cstate``: the DAG and commit state after this
+    round's commit; ``com_before``: the committed masks before it;
+    ``pre_round`` int32[N] and ``accepted`` bool[N] from the submit;
+    ``transferred`` bool[N] and ``donor`` int32[] from the state transfer;
+    ``drops``: the two delta applies' dropped counts (int32[V] each, or
+    None). On the card the outputs are views of one buffer."""
     n, w = cfg.num_nodes, cfg.num_rounds
     bl, i32 = torch.bool, torch.int32
-    shapes = {"edges": (w, n, n), "block_exists": (w, n),
-              "block_seen": (n, w, n), "acks": (w, n, n),
-              "cert_exists": (w, n), "cert_seen": (n, w, n)}
+    wnn, wn, nwn, vec_n, vec_w, scalar = _shapes(n, w)
     drop_p, drop_s = drops
-    dev = operands.placement("gc_frontier", [
-        *((f, dag_state[f], bl, shapes[f]) for f in _DAG_CLEAR),
-        ("node_round", dag_state["node_round"], i32, (n,)),
-        ("slot_round", dag_state["slot_round"], i32, (w,)),
-        ("base_round", dag_state["base_round"], i32, ()),
-        ("committed", cstate["committed"], bl, (n, w, n)),
-        ("commit_seq", cstate["commit_seq"], i32, (n, w, n)),
-        ("last_wave", cstate["last_wave"], i32, (n,)),
-        ("eval_wave", cstate["eval_wave"], i32, (n,)),
-        ("commit.slot_round", cstate["slot_round"], i32, (w,)),
-        ("com_before", com_before, bl, (n, w, n)),
-        ("prosp_applied", prosp_applied, bl, (n, w, n)),
-        ("stable_applied", stable_applied, bl, (n, w, n)),
-        ("buffer_filled", buffer_filled, bl, (w, n)),
-        ("pre_round", pre_round, i32, (n,)), ("accepted", accepted, bl, (n,)),
-        ("transferred", transferred, bl, (n,)), ("donor", donor, i32, ()),
-        ("drop_p", drop_p, i32, tuple(drop_p.shape) if drop_p is not None else ()),
-        ("drop_s", drop_s, i32, tuple(drop_s.shape) if drop_s is not None else ())])
+    ring = ops_buffer.items()
+    dev = operands.lean_placement("gc_frontier", [
+        ("edges", dag_state["edges"], bl, wnn),
+        ("block_exists", dag_state["block_exists"], bl, wn),
+        ("block_seen", dag_state["block_seen"], bl, nwn),
+        ("acks", dag_state["acks"], bl, wnn),
+        ("cert_exists", dag_state["cert_exists"], bl, wn),
+        ("cert_seen", dag_state["cert_seen"], bl, nwn),
+        ("node_round", dag_state["node_round"], i32, vec_n),
+        ("slot_round", dag_state["slot_round"], i32, vec_w),
+        ("base_round", dag_state["base_round"], i32, scalar),
+        ("committed", cstate["committed"], bl, nwn),
+        ("commit_seq", cstate["commit_seq"], i32, nwn),
+        ("last_wave", cstate["last_wave"], i32, vec_n),
+        ("eval_wave", cstate["eval_wave"], i32, vec_n),
+        ("commit.slot_round", cstate["slot_round"], i32, vec_w),
+        ("com_before", com_before, bl, nwn),
+        ("prosp_applied", prosp_applied, bl, nwn),
+        ("stable_applied", stable_applied, bl, nwn),
+        ("buffer_filled", buffer_filled, bl, wn),
+        ("pre_round", pre_round, i32, vec_n), ("accepted", accepted, bl, vec_n),
+        ("transferred", transferred, bl, vec_n), ("donor", donor, i32, scalar),
+        ("drop_p", drop_p, i32, None if drop_p is None else drop_p.shape),
+        ("drop_s", drop_s, i32, None if drop_s is None else drop_s.shape),
+        *((f"ops_buffer.{f}", x, i32, (w, n) + x.shape[2:])
+          for f, x in ring)])
     if dev is None:
-        return gc_frontier_plain(cfg, dag_state, cstate, com_before,
-                                 prosp_applied, stable_applied, buffer_filled,
-                                 pre_round, accepted, transferred, donor,
-                                 drops, collect_logs)
-    operands.check_fits("gc_frontier", n, 32 * n * w)
+        return gc_round_plain(cfg, dag_state, cstate, com_before,
+                              prosp_applied, stable_applied, buffer_filled,
+                              pre_round, accepted, transferred, donor, drops,
+                              collect_logs, ops_buffer)
+    if n > operands.MAX_NODES:
+        operands.check_fits("gc_frontier", n, 0)
     if w > MAX_ROUNDS:
         raise ValueError(f"gc_frontier: window {w}, at most {MAX_ROUNDS} on "
                          f"the card")
-    lost = torch.empty((n,), dtype=bl, device=dev)
-    dead = torch.empty((w,), dtype=bl, device=dev)
-    packed = torch.empty((pack_size(cfg, collect_logs),), dtype=i32, device=dev)
-    tensors = [*(dag_state[f] for f in _DAG_CLEAR), dag_state["node_round"],
-               dag_state["slot_round"], dag_state["base_round"],
-               cstate["committed"], cstate["commit_seq"], cstate["last_wave"],
-               cstate["eval_wave"], cstate["slot_round"], com_before,
-               prosp_applied, stable_applied, buffer_filled, pre_round,
-               accepted, transferred, donor, drop_p, drop_s, lost, dead,
-               packed]
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *(None if t is None else t.data_ptr() for t in tensors))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gc_frontier_launch(
-            ptrs, 0 if drop_p is None else drop_p.numel(),
-            0 if drop_s is None else drop_s.numel(), n, w, cfg.quorum,
-            int(collect_logs), stream)
-    build.check_launch("gc_frontier", rc)
+    if len(ring) > MAX_FIELDS:
+        raise ValueError(f"gc_frontier: {len(ring)} ring fields, at most "
+                         f"{MAX_FIELDS}")
+    # one buffer: the pack, two control words (the dead masks), lost, dead
+    p = pack_size(cfg, collect_logs)
+    ctrl_at = operands.int32s(p)
+    lost_at = 4 * (ctrl_at + 4)
+    buf = torch.empty(ctrl_at + 4 + operands.int32s(
+        -(-(operands.int32s(n) * 4 + w) // 4)), dtype=i32, device=dev)
+    flags = buf.view(bl)
+    lost = flags[lost_at:lost_at + n]
+    dead_at = lost_at + 16 * -(-n // 16)
+    dead = flags[dead_at:dead_at + w]
+    base = buf.data_ptr()
+    ptrs = _POINTERS
+    ptrs[:] = (dag_state["edges"].data_ptr(),
+               dag_state["block_exists"].data_ptr(),
+               dag_state["block_seen"].data_ptr(), dag_state["acks"].data_ptr(),
+               dag_state["cert_exists"].data_ptr(),
+               dag_state["cert_seen"].data_ptr(),
+               dag_state["node_round"].data_ptr(),
+               dag_state["slot_round"].data_ptr(),
+               dag_state["base_round"].data_ptr(),
+               cstate["committed"].data_ptr(), cstate["commit_seq"].data_ptr(),
+               cstate["last_wave"].data_ptr(), cstate["eval_wave"].data_ptr(),
+               cstate["slot_round"].data_ptr(), com_before.data_ptr(),
+               prosp_applied.data_ptr(), stable_applied.data_ptr(),
+               buffer_filled.data_ptr(), pre_round.data_ptr(),
+               accepted.data_ptr(), transferred.data_ptr(), donor.data_ptr(),
+               None if drop_p is None else drop_p.data_ptr(),
+               None if drop_s is None else drop_s.data_ptr(),
+               base + lost_at, base + dead_at, base, base + 4 * ctrl_at)
+    _GC(dev, ptrs, operands.ring_table(ops_buffer), len(ring),
+        0 if drop_p is None else drop_p.numel(),
+        0 if drop_s is None else drop_s.numel(), n, w, cfg.quorum,
+        int(collect_logs))
     gc_frontier.launches += 1
-    return lost, dead, packed
-
-
-def gc_clear_ring(cfg, ops_buffer, dead) -> None:
-    """Zero the rows of every ring field (int32 ``[W, N, B, ...]``) at the
-    slots where ``dead`` (bool[W]) is set, in place; ``dead`` is read on
-    the device."""
-    w, n = cfg.num_rounds, cfg.num_nodes
-    names = list(ops_buffer)
-    dev = operands.placement("gc_clear_ring", [
-        ("dead", dead, torch.bool, (w,)),
-        *((f"ops_buffer.{f}", ops_buffer[f], torch.int32,
-           (w, n) + tuple(ops_buffer[f].shape[2:])) for f in names)])
-    if dev is None:
-        gc_clear_ring_plain(cfg, ops_buffer, dead)
-        return
-    if len(names) > MAX_FIELDS or w > MAX_ROUNDS:
-        raise ValueError(f"gc_clear_ring: {len(names)} ring fields and window "
-                         f"{w}; at most {MAX_FIELDS} and {MAX_ROUNDS}")
-    ptrs = (ctypes.c_void_p * max(1, len(names)))(
-        *(ops_buffer[f].data_ptr() for f in names))
-    rows = (ctypes.c_longlong * max(1, len(names)))(
-        *(ops_buffer[f][0].numel() for f in names))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gc_clear_ring_launch(ptrs, rows, len(names), dead.data_ptr(),
-                                      w, stream)
-    build.check_launch("gc_clear_ring", rc)
-    gc_frontier.launches += 1
+    return lost, dead, buf[:p]
 
 
 gc_frontier.launches = 0

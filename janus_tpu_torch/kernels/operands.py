@@ -1,10 +1,13 @@
-"""Operand checks shared by every kernel wrapper.
+"""Operand checks shared by every kernel wrapper, and the host tables
+the ring's wrappers cache.
 
 A wrapper runs its plain version only when every tensor lies on the CPU;
 otherwise every tensor must lie on one CUDA device with the dtype the
 kernel reads and be contiguous, or the wrapper raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -57,6 +60,43 @@ def lean_placement(name: str, operands) -> torch.device | None:
         elif t.device != dev:
             return placement(name, operands)
     return placement(name, operands) if dev is None else dev
+
+
+def int32s(n: int) -> int:
+    """int32 words of n, rounded up to 16 bytes: the step between the
+    parts of a wrapper's one output buffer."""
+    return -(-n // 4) * 4
+
+
+def ring_cached(cache: dict, make, ops_buffer, *extra):
+    """``make(ops_buffer, *extra)``, held in ``cache`` on the ring fields'
+    names, addresses and shapes and ``extra`` (``SafeKV.resize_block``
+    replaces the ring, so a new ring is a new key); a full cache (64
+    entries) is emptied."""
+    key = (tuple((f, x.data_ptr(), x.shape) for f, x in ops_buffer.items()),
+           *extra)
+    held = cache.get(key)
+    if held is None:
+        if len(cache) >= 64:
+            cache.clear()
+        held = cache[key] = make(ops_buffer, *extra)
+    return held
+
+
+def _ring_table(ops_buffer):
+    xs = list(ops_buffer.values())
+    return (ctypes.c_longlong * max(1, 2 * len(xs)))(
+        *(x.data_ptr() for x in xs), *(x[0].numel() for x in xs))
+
+
+# (ring fields' names, addresses and shapes) -> the ring's table
+_RING_TABLES: dict = {}
+
+
+def ring_table(ops_buffer):
+    """The kernels' table of a ring (int32 fields ``[W, ...]``): their
+    addresses, then each slot row's int32, cached (``ring_cached``)."""
+    return ring_cached(_RING_TABLES, _ring_table, ops_buffer)
 
 
 def check_fits(name: str, num_nodes: int, shared_bytes: int) -> None:

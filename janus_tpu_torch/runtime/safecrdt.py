@@ -26,7 +26,7 @@ by ``step_absorb``. Every phase of a round is a hand kernel:
     closure          ``causal_closure``
     delta applies    ``block_select`` (selection + gather), twice
     commit           ``tusk_commit``
-    GC + pack        ``gc_frontier`` (and ``gc_clear_ring``)
+    GC + pack        ``gc_frontier`` (with the freed ring rows' clear)
 
 and the type's apply runs through its own kernels: the PN-Counter's
 through ``pnc_apply``; the OR-Set's capture through ``orset_capture`` and
@@ -295,8 +295,9 @@ class SafeKV:
                      withhold: Optional[torch.Tensor],
                      invalid: Optional[torch.Tensor], pre_round, accepted):
         """One round after the submit: transfer, DAG round, both delta
-        applies, commit, and the GC with the round's pack
-        (``gc_frontier``). Returns the carry, ``lost`` and ``packed``."""
+        applies, commit, and the GC with the round's pack and the freed
+        ring rows' clear (``gc_frontier``). Returns the carry, ``lost``
+        and ``packed``."""
         (prospective, stable, dag_state, cstate, prosp_applied,
          stable_applied, transferred, donor) = self._state_transfer(
             prospective, stable, dag_state, cstate, prosp_applied,
@@ -321,11 +322,10 @@ class SafeKV:
         # -- GC: advance the frontier past rounds finished by the GC
         # quorum (see the JAX package for the full argument), recycle in
         # place, and pack the host outputs
-        lost, dead, packed = kernels.gc_frontier(
+        lost, _, packed = kernels.gc_frontier(
             self.cfg, dag_state, cstate, com_before, prosp_applied,
             stable_applied, buffer_filled, pre_round, accepted, transferred,
-            donor, (drop_p, drop_s), self.collect_logs)
-        kernels.gc_clear_ring(self.cfg, ops_buffer, dead)
+            donor, (drop_p, drop_s), self.collect_logs, ops_buffer)
         return (prospective, stable, dag_state, cstate, ops_buffer,
                 buffer_filled, prosp_applied, stable_applied, lost, packed)
 

@@ -44,8 +44,8 @@ checkout, e.g. unpacked by ``git archive``) joins the slot_union turns, the
 the walk's redesign, called as its own wrapper called it:
 ``parent_walk``). ``--parts`` picks
 the parts to run, of ``compact``, ``mvr``, ``orset``, ``tp``, ``lww``,
-``walk``, ``rga``, ``ring``, ``replay``, ``lwwwalk``, ``orsetapply``
-and ``select`` (all by default).
+``walk``, ``rga``, ``ring``, ``replay``, ``lwwwalk``, ``orsetapply``,
+``select`` and ``safekv`` (all by default).
 
 Part ``rga`` prints how the lanes of ``chip_smoke.py``'s rga_consensus
 delta applies fall on their (view, row) groups (``RGA_ROUNDS`` rounds
@@ -83,6 +83,20 @@ orset_consensus and rga_consensus phases, harness presets pnc, orset and
 mixed and a split cluster, with each call's V, W, N, A, ring fields and
 chosen share (``select_stats``). Both then run ``calls_ab`` as the two
 parts above do. ~5 min for both.
+
+Part ``safekv`` records the SafeKV round's accept + board
+(``safekv_submit``, ``safekv_board``) and GC (``gc_frontier`` with the
+ring clear) calls of chip_smoke's recorded SafeKV runs at 4, 16 and 64
+nodes and of its 16-node 2P-Set and Graph phases (``safekv_inputs``),
+holds every call bit-equal to the plain versions under the package's
+build, ``SAFEKV_VARIANTS`` and, with ``--parent``, that checkout's two
+sources under that checkout's own wrapper modules (``parent_module``);
+then splits each run's timed calls into their
+kernels (the profiler), the GC kernel into its phases (clock stamps at
+its barriers, ``stamped_gc``) and the operand checks' host time
+(``placement_us``), and times them in turns: device ms, ms a call and
+the host's queueing µs a call, and each run's calls in bursts (~1-2
+min).
 """
 from __future__ import annotations
 
@@ -117,7 +131,7 @@ RGA_ROUNDS = 6
 # apply fills them exactly)
 RGA_VARIANTS = {"lanes64": {"GROUP_LANES": 64}}
 PARTS = ("compact", "mvr", "orset", "tp", "lww", "walk", "rga", "ring",
-         "replay", "lwwwalk", "orsetapply", "select")
+         "replay", "lwwwalk", "orsetapply", "select", "safekv")
 # the recorded runs of part replay; rounds of lww_consensus and ticks of
 # typed_store part lwwwalk records
 REPLAY_PRESETS = ("orset", "orset4")
@@ -129,6 +143,12 @@ BURST_SLEEP_CYCLES = 200_000_000
 BURST_CALLS = 64
 # the block_select calls part select keeps of each recorded run (its first)
 SELECT_CALLS = 64
+# rounds of the tpset_consensus and graph_consensus phases part safekv
+# records
+TP_ROUNDS = 4
+# part safekv's variants of the two sources: (tag, source, constants)
+SAFEKV_VARIANTS = (("gc256", "gc_frontier", {"GC_THREADS": 256}),
+                   ("chunk2048", "safekv_submit", {"CHUNK": 2048}))
 
 
 def build_variant(name, constants, tag) -> ctypes.CDLL:
@@ -1455,6 +1475,353 @@ def select_ab(dev, parent, smi):
     torch.cuda.empty_cache()
 
 
+def safekv_inputs(dev):
+    """Every call of the SafeKV round's two redesigned pairs in
+    ``chip_smoke.safekv_recorded_runs`` (the runs ``safekv_kernel_checks``
+    records: the PN-Counter at 4 and 16 nodes, the OR-Set at 4, both
+    types at 64) and in the first ``TP_ROUNDS`` rounds of chip_smoke's
+    tpset_consensus and graph_consensus phases (16 nodes, 5,120-op
+    blocks, ring rows with the captures' extras), by run: ``{"submit":
+    [(accept args, board args)], "gc": [(gc_frontier args without the
+    ring, ring)]}``."""
+    import chip_smoke
+
+    names = ("safekv_submit", "safekv_board", "gc_frontier")
+
+    def tp_run(kind, g):
+        def run():
+            kv = chip_smoke.tp_kv(dev, kind, g)
+            for ops in chip_smoke.tp_stream(workloads, kind, g, TP_ROUNDS):
+                kv.step(workloads.ops_to_device(ops, dev))
+        return run
+
+    runs = {}
+    for tag, fn in chip_smoke.safekv_recorded_runs(
+            dev, workloads, np.random.default_rng(21)) + [
+            ("tpset N16", tp_run("tpset", chip_smoke.TPSET_CONS)),
+            ("graph N16", tp_run("graph", chip_smoke.GRAPH_CONS))]:
+        calls = chip_smoke.record_calls(kernels, names, fn, aliased=True)
+        submit = [(a, b) for (a, _), (b, _) in zip(calls["safekv_submit"],
+                                                  calls["safekv_board"])]
+        gc = [(args[:13], args[13]) for args, _ in calls["gc_frontier"]]
+        runs[tag.replace(" ", "_")] = {"submit": submit, "gc": gc}
+    torch.cuda.synchronize()
+    return runs
+
+
+def parent_module(root, name, lib, tag):
+    """The wrapper module ``janus_tpu_torch/kernels/<name>.py`` of the
+    checkout at ``root``, loaded beside the package's under a name of its
+    own, its wrappers launching ``lib`` (that checkout's source, built by
+    ``build_text``): through its ``build.load`` calls, or through its
+    lean launches, bound here to ``lib``."""
+    import importlib.util
+    import types
+
+    path = pathlib.Path(root) / "janus_tpu_torch" / "kernels" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"parent_{name}_{tag}",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.build = types.SimpleNamespace(load=lambda _: lib,
+                                         check_launch=build.check_launch)
+    held = build._LIBS.get(name)
+    build._LIBS[name] = lib
+    try:
+        for x in vars(module).values():
+            if isinstance(x, build.LeanLaunch):
+                x._bind()
+    finally:
+        build._LIBS.pop(name)
+        if held is not None:
+            build._LIBS[name] = held
+    return module
+
+
+def parent_gc(module):
+    """One round's GC through the parent's ``gc_frontier`` module: its
+    ``gc_frontier``, then its ``gc_clear_ring`` where that checkout
+    clears the ring in a call of its own."""
+    if not hasattr(module, "gc_clear_ring"):
+        return lambda g_args, ring: module.gc_frontier(*g_args, ring)
+
+    def gc(g_args, ring):
+        out = module.gc_frontier(*g_args)
+        module.gc_clear_ring(g_args[0], ring, out[1])
+        return out
+    return gc
+
+
+def parent_submit(module):
+    """One round's accept and board through the parent's
+    ``safekv_submit`` module."""
+    def submit(a_args, b_args):
+        out = module.safekv_submit(*a_args)
+        module.safekv_board(*b_args)
+        return out
+    return submit
+
+
+def gc_plain(g_args, ring):
+    """The plain versions of one round's GC: the frontier, then the ring
+    clear at its dead slots."""
+    return kernels.gc_round_plain(*g_args, ring)
+
+
+def submit_plain(a_args, b_args):
+    """The plain versions of one round's accept and board."""
+    out = kernels.safekv_submit_plain(*a_args)
+    kernels.safekv_board_plain(*b_args)
+    return out
+
+
+def tree_gc(g_args, ring):
+    """One round's GC under this checkout's wrapper (the ring cleared in
+    the same call)."""
+    return kernels.gc_frontier(*g_args, ops_buffer=ring)
+
+
+def tree_submit(a_args, b_args):
+    """One round's accept and board under this checkout's wrappers."""
+    out = kernels.safekv_submit(*a_args)
+    kernels.safekv_board(*b_args)
+    return out
+
+
+def stamped_gc(text, fn="__global__ void gc_kernel",
+               start="const int tid = threadIdx.x;") -> str:
+    """``gc_frontier.cu``'s text with a ``clock64()`` and a
+    ``%globaltimer`` stamp taken by thread 0 of the GC's block at the
+    function ``fn``'s line ``start``, after each ``__syncthreads()`` of
+    that function and at its end, into a device array that ``gc_stamps``
+    copies out (the parent's one-block ``gc_kernel``; ``gc_block`` of
+    this checkout's)."""
+    head, rest = text.split(fn, 1)
+    end = rest.index("\n}\n") + 1
+    body, tail = rest[:end], rest[end + 1:]
+    stamp = ("if (threadIdx.x == 0) { long long t_; asm volatile("
+             "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); "
+             "g_stamp[2 * n_stamp] = clock64(); g_stamp[2 * n_stamp + 1] = "
+             "t_; } ++n_stamp;")
+    body = body.replace("__syncthreads();", "__syncthreads(); " + stamp)
+    body = body.replace(start, start + " int n_stamp = 0; " + stamp, 1)
+    body = body[:-1] + stamp + "\n}"
+    return (head + "__device__ long long g_stamp[64];\n" + fn + body + tail
+            + '\nextern "C" int gc_stamps(long long* out) {\n'
+            "  return (int)cudaMemcpyFromSymbol(out, g_stamp, "
+            "sizeof(g_stamp));\n}\n")
+
+
+def gc_phases(lib, call, g_args, ring, reps=5) -> dict:
+    """The GC kernel of ``lib`` (a ``stamped_gc`` build) split into its
+    phases, ``call(g_args, ring)`` running it (the least of ``reps``
+    calls on fresh clones): cycles and ns from the kernel's start to each
+    barrier and to its end."""
+    buf = (ctypes.c_longlong * 64)()
+    lib.gc_stamps.argtypes = [ctypes.c_void_p]
+    best = None
+    for _ in range(reps):
+        a, r = clone((g_args, ring))
+        call(a, r)
+        torch.cuda.synchronize()
+        if lib.gc_stamps(buf):
+            raise RuntimeError("gc_stamps failed")
+        cyc = [buf[2 * i] - buf[0] for i in range(32)]
+        ns = [buf[2 * i + 1] - buf[1] for i in range(32)]
+        k = next((i for i in range(1, 32) if cyc[i] <= 0), 32)
+        got = {"cycles": cyc[:k], "ns": ns[:k]}
+        if best is None or got["cycles"][-1] < best["cycles"][-1]:
+            best = got
+    return best
+
+
+def placement_us(fn, name, reps=200) -> float:
+    """Host microseconds of the operand check of the wrapper call ``fn``:
+    ``operands.lean_placement`` (or ``placement``) on the operand list
+    the call passes it, captured once, the least of five loops."""
+    from janus_tpu_torch.kernels import operands
+
+    got = []
+    real = {f: getattr(operands, f) for f in ("placement", "lean_placement")}
+
+    def spy(f):
+        def check(label, ops):
+            if label == name and not got:
+                got.append((f, list(ops)))
+            return real[f](label, ops)
+        return check
+
+    for f in real:
+        setattr(operands, f, spy(f))
+    try:
+        fn()
+    finally:
+        for f, x in real.items():
+            setattr(operands, f, x)
+    f, ops = got[0]
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            real[f](name, ops)
+        best = min(best, (time.perf_counter() - t0) / reps)
+    return 1e6 * best
+
+
+def queue_us(fn, reps=REPS) -> float:
+    """Host microseconds a call spends queueing its work: ``reps`` calls
+    timed on the host clock while the device sleeps behind them (the
+    wrapper's host work, none of the device's)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * host / reps
+
+
+def safekv_ab(dev, parent, smi):
+    """Part ``safekv``: the recorded calls of the SafeKV round's two pairs
+    (``safekv_inputs``), each held bit-equal to the plain versions under
+    the package's build (``tree``, when its ``gc_frontier`` clears the
+    ring itself) and the parent's source with its wrappers (``parent``);
+    then per run the timed calls (the last submit, and the first GC that
+    frees a slot, as chip_smoke's kernels line picks them), each split by
+    the profiler into its kernels and, for the parent, its GC kernel into
+    phases by clock stamps, and timed in turns (tree, parent, parent,
+    tree): device ms (``device_ms``, on the state the call leaves), ms a
+    call (``host_ms``) and the host's queueing work a call
+    (``queue_us``); and each run's whole list of calls in bursts.
+    ``parent``: the parent checkout's root, or None."""
+    build.build_all()
+    runs = safekv_inputs(dev)
+    variants = {"tree": {"gc": tree_gc, "submit": tree_submit}}
+    libs = {}
+    text = (build.CSRC / "gc_frontier.cu").read_text()
+    stamped = {"tree": (build_text("gc_frontier", stamped_gc(
+        text, "__device__ void gc_block(",
+        "const int warps = blockDim.x >> 5;"), "stamped_tree"), tree_gc)}
+    # the design's variants under the same wrappers, each library put in
+    # the loader's place for its turn (``use``)
+    for tag, name, constants in SAFEKV_VARIANTS:
+        libs[tag] = (name, build_variant(name, constants, tag))
+        variants[tag] = {"gc": tree_gc, "submit": tree_submit}
+    if parent is not None:
+        csrc = pathlib.Path(parent) / "janus_tpu_torch" / "csrc"
+        text = (csrc / "gc_frontier.cu").read_text()
+        plib = build_text("gc_frontier", stamped_gc(text), "stamped")
+        stamped["parent"] = (plib, parent_gc(parent_module(
+            parent, "gc_frontier", plib, "stamped")))
+        slib = build_text("safekv_submit",
+                          (csrc / "safekv_submit.cu").read_text(), "parent")
+        variants["parent"] = {
+            "gc": parent_gc(parent_module(
+                parent, "gc_frontier",
+                build_text("gc_frontier", text, "parent"), "parent")),
+            "submit": parent_submit(parent_module(
+                parent, "safekv_submit", slib, "parent"))}
+
+    def turn(tag):
+        """Put the variant's library in the loader's place (or the
+        package's build back)."""
+        for name in ("gc_frontier", "safekv_submit"):
+            use(name, libs[tag][1] if tag in libs and libs[tag][0] == name
+                else None)
+    plains = {"gc": gc_plain, "submit": submit_plain}
+    checked = {}
+    for tag, fns in variants.items():
+        turn(tag)
+        for label, pairs in runs.items():
+            for kind, calls in pairs.items():
+                for j, call in enumerate(calls):
+                    mine, ref = clone(call), clone(call)
+                    got, want = fns[kind](*mine), plains[kind](*ref)
+                    if not (same(got, want) and same(mine, ref)):
+                        raise AssertionError(f"safekv {tag}: {label} {kind} "
+                                             f"call {j} differs from plain")
+                checked[f"{label}/{kind}"] = len(calls)
+    timed = {}
+    for label, pairs in runs.items():
+        timed[f"{label}/submit"] = ("submit", pairs["submit"][-1])
+        gc = pairs["gc"]
+        j = next((i for i, (_, r) in enumerate(gc)
+                  if bool(gc_plain(*clone(gc[i]))[1].any())), len(gc) - 1)
+        timed[f"{label}/gc"] = ("gc", gc[j])
+    shapes = {}
+    for key, (kind, call) in timed.items():
+        cfg = call[0][0]
+        if kind == "gc":
+            dead = gc_plain(*clone(call))[1]
+            shapes[key] = dict(N=cfg.num_nodes, W=cfg.num_rounds,
+                               dead=int(dead.sum()), logs=bool(call[0][12]),
+                               ring_fields=len(call[1]))
+        else:
+            b_args = call[1]
+            shapes[key] = dict(N=cfg.num_nodes, W=cfg.num_rounds,
+                               B=int(call[0][3]["op"].shape[1]),
+                               accepted=int(b_args[5].sum()),
+                               ring_fields=len(b_args[1]))
+    split = {}
+    for tag, fns in variants.items():
+        turn(tag)
+        split[tag] = {key: kernel_split(lambda k=kind, c=clone(call), f=fns:
+                                        f[k](*c))
+                      for key, (kind, call) in timed.items()}
+    phases = {}
+    for tag, (lib, call) in stamped.items():
+        if tag == "tree":
+            use("gc_frontier", lib)
+        phases[tag] = {key: gc_phases(lib, call, *c)
+                       for key, (kind, c) in timed.items() if kind == "gc"}
+    turn("tree")
+    checks = {}  # the operand checks' share of the host work
+    for key, (kind, call) in timed.items():
+        c = clone(call)
+        checks[key] = (
+            {"accept": placement_us(lambda: tree_submit(*c),
+                                    "safekv_submit"),
+             "board": placement_us(lambda: tree_submit(*c),
+                                   "safekv_board")}
+            if kind == "submit" else
+            {"gc": placement_us(lambda: tree_gc(*c), "gc_frontier")})
+    print(json.dumps({"kernel": "safekv", "nvidia_smi": smi,
+                      "calls_checked": checked, "timed_calls": shapes,
+                      "device_us_by_kernel": split, "gc_phases": phases,
+                      "placement_us": checks}), flush=True)
+    out = {tag: {"timed": {key: {"device_ms": [], "ms": [], "queue_us": []}
+                           for key in timed},
+                 "runs": {label: {"device_ms": [], "ms": []}
+                          for label in runs}} for tag in variants}
+    for tag in list(variants) + list(reversed(variants)):
+        fns = variants[tag]
+        turn(tag)
+        for key, (kind, call) in timed.items():
+            mine = clone(call)
+            fn = (lambda k=kind, c=mine: fns[k](*c))
+            rec = out[tag]["timed"][key]
+            rec["device_ms"].append(device_ms(fn))
+            rec["ms"].append(host_ms(fn))
+            rec["queue_us"].append(queue_us(fn))
+        for label, pairs in runs.items():
+            mine = [(kind, clone(c)) for kind in ("submit", "gc")
+                    for c in pairs[kind]]
+            calls = [(lambda k=kind, c=c: fns[k](*c)) for kind, c in mine]
+            out[tag]["runs"][label]["device_ms"].append(sum(
+                burst_ms(calls[k:k + BURST_CALLS])
+                for k in range(0, len(calls), BURST_CALLS)))
+            out[tag]["runs"][label]["ms"].append(pass_ms(calls))
+            del mine, calls
+        torch.cuda.empty_cache()
+    turn("tree")
+    print(json.dumps({"kernel": "safekv", "nvidia_smi": smi, **out}),
+          flush=True)
+    del runs, timed
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
@@ -1463,6 +1830,7 @@ def main() -> int:
     smi = nvidia_smi()
     parent, walk_parent, rga_parent, ring_parent = None, None, None, None
     replay_parent, lww_parent, apply_parent, select_parent = (None,) * 4
+    root = None
     if "--parent" in sys.argv:
         root = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
         parent = root / "janus_tpu_torch" / "csrc" / "slot_union.cu"
@@ -1569,6 +1937,8 @@ def main() -> int:
         apply_ab(dev, apply_parent, smi)
     if "select" in parts:
         select_ab(dev, select_parent, smi)
+    if "safekv" in parts:
+        safekv_ab(dev, root, smi)
     print(smi, flush=True)
     return 0
 

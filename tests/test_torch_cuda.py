@@ -1503,8 +1503,15 @@ def test_state_transfer_matches_plain(cuda_device, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,w,logs", [(4, 8, True), (4, 8, False),
-                                      (64, 8, True), (64, 16, False)])
+                                      (64, 8, True), (64, 16, False),
+                                      (16, 8, True), (16, 8, False),
+                                      (16, 32, True), (16, 32, False),
+                                      (64, 32, True), (64, 32, False)])
 def test_gc_frontier_matches_plain(cuda_device, n, w, logs):
+    """The GC with the ring cleared in the same call (its second
+    kernel), on rings of 4-byte and 16-byte rows with and without
+    extras and on a ring of no fields, at states whose frontier advances
+    by one slot or several, at the card's W 32 limit too."""
     from janus_tpu_torch.consensus import DagConfig
 
     rng = np.random.default_rng(n * w + logs)
@@ -1519,18 +1526,110 @@ def test_gc_frontier_matches_plain(cuda_device, n, w, logs):
         drops = (torch.as_tensor(_rand(rng, (n,)), device=dev),
                  None if i % 2 else torch.as_tensor(_rand(rng, (n,)),
                                                     device=dev))
-        lost, dead, _ = _kernel_vs_plain(
-            kernels.gc_frontier, kernels.gc_frontier_plain,
-            (cfg, dag, com, before, pa, sa, bf,
-             torch.as_tensor(_rand(rng, (n,), -9, 99), device=dev),
-             torch.as_tensor(rng.random(n) < 0.7, device=dev),
-             torch.as_tensor(rng.random(n) < 0.2, device=dev),
-             torch.as_tensor(np.int32(rng.integers(0, n)), device=dev),
-             drops, logs))
+        pre = torch.as_tensor(_rand(rng, (n,), -9, 99), device=dev)
+        acc = torch.as_tensor(rng.random(n) < 0.7, device=dev)
+        moved = torch.as_tensor(rng.random(n) < 0.2, device=dev)
+        donor = torch.as_tensor(np.int32(rng.integers(0, n)), device=dev)
+        ring = ({} if i == 7 else
+                _ring(rng, n, w, (37, 64, 5)[i % 3], (0, 4)[i % 2], dev))
+        count = kernels.gc_frontier.launches
+        _, dead, _ = _kernel_vs_plain(
+            kernels.gc_frontier, kernels.gc_round_plain,
+            (cfg, dag, com, before, pa, sa, bf, pre, acc, moved, donor, drops,
+             logs, ring))
+        assert kernels.gc_frontier.launches == count + 1
         advanced += int(dead.sum()) >= 2
-        _kernel_vs_plain(kernels.gc_clear_ring, kernels.gc_clear_ring_plain,
-                         (cfg, _ring(rng, n, w, 5, 4, dev), dead))
     assert advanced > 0
+
+
+@pytest.mark.cuda
+def test_safekv_submit_odd_views_and_replaced_ring(cuda_device):
+    """The accept on batch fields that are views at odd int32 offsets of
+    larger tensors (no field 16-byte aligned), at B not a multiple of 4,
+    and the board into a ring the wrapper's cached table must follow:
+    replaced by ``ring_resize`` (as ``SafeKV.resize_block`` replaces it)
+    and reallocated where a freed ring lay; both bit-equal to the plain
+    versions."""
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(20)
+    n, w = 16, 8
+    cfg = DagConfig(n, w)
+    dev = cuda_device
+    ring = _ring(rng, n, w, 37, 4, dev)
+    for step in range(4):
+        b = ring["op"].shape[2]
+        d, _, _ = workloads.consensus_state(rng, n, w, wrap=step % 2 == 1)
+        dag = {f: torch.as_tensor(v, device=dev) for f, v in d.items()}
+        filled = torch.as_tensor(rng.random((w, n)) < 0.3, device=dev)
+        ops = {}
+        for k, f in enumerate(OP_FIELDS):
+            whole = torch.as_tensor(_rand(rng, (n * b + 2 * k + 3,)),
+                                    device=dev)
+            ops[f] = whole[2 * k + 1:2 * k + 1 + n * b].view(n, b)
+        acc_ops, accepted, pre = _kernel_vs_plain(
+            kernels.safekv_submit, kernels.safekv_submit_plain,
+            (cfg, dag, filled, ops, None))
+        captured = {f: acc_ops[f] if f in acc_ops else
+                    torch.as_tensor(_rand(rng, x.shape[1:]), device=dev)
+                    for f, x in ring.items()}
+        applied = torch.as_tensor(rng.random((n, w, n)) < 0.3, device=dev)
+        _kernel_vs_plain(kernels.safekv_board, kernels.safekv_board_plain,
+                         (cfg, ring, filled, applied, captured, accepted,
+                          pre))
+        # the board writes in place: the ring the wrapper wrote is this one
+        want = _clone(ring)
+        kernels.safekv_board_plain(cfg, want, filled.clone(), applied.clone(),
+                                   captured, accepted, pre)
+        kernels.safekv_board(cfg, ring, filled.clone(), applied.clone(),
+                             captured, accepted, pre)
+        torch.cuda.synchronize()
+        _same(ring, want)
+        if step == 0:  # shrunk to an odd B, then grown, as resize_block does
+            ring, _ = kernels.ring_resize(ring, 29)
+        elif step == 1:
+            ring, _ = kernels.ring_resize(ring, 64)
+        elif step == 2:  # freed, and a ring of the same shape in its place
+            shape = {f: x.shape for f, x in ring.items()}
+            del ring
+            ring = {f: torch.as_tensor(_rand(rng, tuple(s)), device=dev)
+                    for f, s in shape.items()}
+    assert ring["op"].shape[2] == 64
+
+
+@pytest.mark.cuda
+def test_safekv_pairs_launch_at_most_two_kernels(cuda_device):
+    """The kernel nodes of a CUDA graph captured from one call (the
+    kernels line's ``max_cuda_launches`` check): the accept and the board
+    one each, the GC with its ring clear two."""
+    import chip_smoke
+    from janus_tpu_torch.consensus import DagConfig
+
+    rng = np.random.default_rng(21)
+    n, w, b = 16, 8, 100
+    cfg = DagConfig(n, w)
+    dev = cuda_device
+    d, _, _ = workloads.consensus_state(rng, n, w, wrap=False)
+    dag = {f: torch.as_tensor(v, device=dev) for f, v in d.items()}
+    filled = torch.as_tensor(rng.random((w, n)) < 0.3, device=dev)
+    ops = {f: torch.as_tensor(_rand(rng, (n, b)), device=dev)
+           for f in OP_FIELDS}
+    acc_ops, accepted, pre = kernels.safekv_submit(cfg, dag, filled, ops)
+    ring = _ring(rng, n, w, b, 0, dev)
+    applied = torch.zeros((n, w, n), dtype=torch.bool, device=dev)
+    assert chip_smoke.graph_kernels(
+        lambda: kernels.safekv_submit(cfg, dag, filled, ops)) == 1
+    assert chip_smoke.graph_kernels(lambda: kernels.safekv_board(
+        cfg, ring, filled, applied, acc_ops, accepted, pre)) == 1
+    gdag, com, before, pa, sa, bf = (
+        {k: torch.as_tensor(v, device=dev) for k, v in x.items()}
+        if isinstance(x, dict) else torch.as_tensor(x, device=dev)
+        for x in workloads.gc_state(rng, n, w))
+    args = (cfg, gdag, com, before, pa, sa, bf, pre, accepted,
+            torch.zeros(n, dtype=torch.bool, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev), (None, None), True)
+    assert chip_smoke.graph_kernels(
+        lambda: kernels.gc_frontier(*args, ops_buffer=ring)) == 2
 
 
 @pytest.mark.cuda

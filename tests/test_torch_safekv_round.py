@@ -211,11 +211,13 @@ def test_state_transfer_matches_jax(mid_run, case):
         _assert_equal(x, y, f"{tc} {case} output {i}")
 
 
-SCENARIOS = {  # nodes, crash rounds of node N-1, collect_logs
-    "n4_logs": (4, (5, 12), True),
-    "n4_nologs": (4, (3, 7), False),
-    "n64_logs": (64, (3, 9), True),
-    "n64_nologs": (64, (2, 5), False),
+SCENARIOS = {  # nodes, crash rounds of node N-1, collect_logs, window
+    "n4_logs": (4, (5, 12), True, W),
+    "n4_nologs": (4, (3, 7), False, W),
+    "n64_logs": (64, (3, 9), True, W),
+    "n64_nologs": (64, (2, 5), False, W),
+    "n16_logs": (16, (4, 10), True, W),
+    "n16_w32_nologs": (16, (3, 8), False, 32),
 }
 
 
@@ -223,12 +225,13 @@ SCENARIOS = {  # nodes, crash rounds of node N-1, collect_logs
 def test_gc_rounds_match_jax(name):
     """The GC frontier, the recycle and the pack, round by round: JAX's
     ``_step_device`` against the port's on the CPU (``gc_frontier``'s and
-    ``gc_clear_ring``'s plain versions), from the same start."""
-    n, crash, logs = SCENARIOS[name]
+    ``gc_clear_ring``'s plain versions), from the same start; at 4, 16
+    and 64 nodes, and at the card's W 32 limit."""
+    n, crash, logs, w = SCENARIOS[name]
     b, k, rounds = 4, 4, 16
-    jkv = JaxSafeKV(JaxDagConfig(n, W), jax_pnc.SPEC, ops_per_block=b,
+    jkv = JaxSafeKV(JaxDagConfig(n, w), jax_pnc.SPEC, ops_per_block=b,
                     collect_logs=logs, num_keys=k, num_writers=n)
-    kv = safecrdt.SafeKV(DagConfig(n, W), pncounter.SPEC, ops_per_block=b,
+    kv = safecrdt.SafeKV(DagConfig(n, w), pncounter.SPEC, ops_per_block=b,
                          collect_logs=logs, device="cpu", num_keys=k,
                          num_writers=n)
     rng = np.random.default_rng(5)
