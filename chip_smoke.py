@@ -58,10 +58,12 @@ non-zero. Phases, one JSON line each:
               the logs, and on every call of SafeKV runs at the consensus
               phase's geometry (4 and 16 nodes, a node crashed), the
               orset_consensus phase's and harness preset mixed's 64 nodes;
-              orset_compact (with its orset_watermark entry), rga_capture
-              and mark_members (phase fence_kernels) on random OR-Set rows
-              behind watermarks of rings with and without a live add (at
-              preset orset's state and ring), RGA captures with inserts
+              orset_compact (with its orset_watermark and fused
+              orset_compact_fences entries), rga_capture and mark_members
+              (phase fence_kernels) on random OR-Set rows behind
+              watermarks of rings with and without a live add (at preset
+              orset's state and ring), one state and two in one fused
+              call, RGA captures with inserts
               into full rows, keys in [-K, 2K), one document hammered and
               floors at INT32_MAX, memberships with duplicates, masked and
               SENTINEL keys, M = 0, T = 0 and the RGA fence's sizes, and
@@ -122,8 +124,9 @@ non-zero. Phases, one JSON line each:
               first 5 rounds bit-equal to the same run on the CPU (a GC
               advance and a compaction among them), 24 timed rounds, idle
               rounds until every view's stable state is bit-equal, rows
-              canonical with no tag twice; a GC advance's compaction at
-              most 3 CUDA kernels (orset_watermark, orset_compact x2)
+              canonical with no tag twice; a GC advance's compaction one
+              orset_compact_fences call of 2 CUDA kernels (a captured
+              graph's)
 8. rga_consensus  SafeKV for the RGA at 4 nodes, window 8, 1024-op
               blocks, 128 documents of 1,024 slots (BASELINE config 5's):
               512 inserts and 512 deletes per node per round
@@ -376,7 +379,8 @@ SAFEKV_KERNELS = ("safekv_submit", "block_select", "state_transfer",
                   "gc_frontier")
 # a source's second entry point, counted on its wrapper
 SECOND_ENTRIES = {"safekv_board": "safekv_submit",
-                  "orset_watermark": "orset_compact"}
+                  "orset_watermark": "orset_compact",
+                  "orset_compact_fences": "orset_compact"}
 # random checks per (N, W); recorded runs beside RECORDED's: the OR-Set at
 # ORSET_CONS and both types at harness preset mixed's 64 nodes, node N-1
 # crashed for rounds [crash[0], crash[1])
@@ -430,6 +434,9 @@ FENCE_CHECKS = dict(
            ("key_hazards", ("apply", "capture")),
            ("hot_row", ("captured",))),
     rga_rounds=6)
+# fresh copies of a recorded GC advance the kernels line times in turn
+# (enough for each of its timed calls)
+FENCE_COPIES = 72
 FENCE_LIBRARY_NOTES = {
     "orset_compact": "no single PyTorch call computes it: a masked min "
                      "and a stable per-row partition",
@@ -1689,18 +1696,35 @@ def orset_kernel_checks(dev, kernels, workloads, cases):
                   f"calls in {ORSET_STORE['recorded_ticks']} ticks")
         del calls
     check(level1[2] > 0, "recorded path B: no level-1 slot_union call")
-    # (d') every replay of harness preset orset, cut to HARNESS_CHECK_TICKS
-    # ticks (the harness_tensor phase's SafeKV calls), each checked at once
+    # (d') every replay and GC advance of harness preset orset, cut to
+    # HARNESS_CHECK_TICKS ticks (the harness_tensor phase's SafeKV calls),
+    # each checked at once; the last advance is kept for the kernels line
     import dataclasses
 
     from janus_tpu_torch.bench import harness
-    checked = {"orset_replay": 0}
+    checked = {"orset_replay": 0, "orset_compact_fences": 0}
+    fence_log = CaseLog(("orset_compact",), {
+        "orset_compact_fences": kernels.orset_compact_fences})
+    replays = checking_take(kernels, log, checked, "harness orset")
+
+    def take(name, args, kwargs):
+        if name == "orset_replay":
+            return replays(name, args, kwargs)
+        fence_log.add(kernels, name, args, f"harness orset recorded advance "
+                      f"{checked[name]}", kwargs, aliased=True)
+        checked[name] += 1
+        timing[name] = clone_aliased((args, kwargs))
+        return None
+
     record_calls(kernels, tuple(checked), lambda: harness.run_tensor(
         dataclasses.replace(harness.PRESETS["orset"],
                             ticks=HARNESS_CHECK_TICKS), device=dev),
-        take=checking_take(kernels, log, checked, "harness orset"))
+        take=take)
     torch.cuda.synchronize()
-    check(checked["orset_replay"] > 0, "harness orset: no replay checked")
+    check(min(checked.values()) > 0,
+          f"harness orset: calls checked {checked}, none of one wrapper")
+    cases.append({"kernel": "orset_compact", "case": "orset_kernels",
+                  **fence_log.by["orset_compact"]})
 
     # (e) the capture's edge cases
     for case in workloads.ORSET_CAPTURE_CASES:
@@ -3206,7 +3230,7 @@ def orset_consensus(dev, kernels, workloads):
     stepped = rounds + idle_rounds
     advances = kv.stats["compactions"] - stats0["compactions"]
     expect = {"orset_capture": stepped, "orset_replay": 3 * stepped,
-              "orset_compact": 3 * advances,
+              "orset_compact": advances,
               **{name: per * stepped for name, per in ROUND_LAUNCHES.items()}}
     for name, want in expect.items():
         check(launches[name] == want, f"orset_consensus: {name} launched "
@@ -3249,9 +3273,10 @@ def orset_consensus(dev, kernels, workloads):
         "compaction_at_gc": cuda_kernels_of(lambda: kv._compact_device(
             kv.prospective, kv.stable, kv.ops_buffer)),
     }
-    check(by_phase["compaction_at_gc"] <= 3, f"orset_consensus: a GC "
-          f"advance's compaction is {by_phase['compaction_at_gc']} CUDA "
-          f"kernels, more than 3")
+    fence_graph = graph_kernels(lambda: kv._compact_device(
+        kv.prospective, kv.stable, kv.ops_buffer))
+    check(fence_graph == 2, f"orset_consensus: a GC advance's compaction "
+          f"is {fence_graph} CUDA kernels (a captured graph), expected 2")
     emit("orset_consensus", nodes=n, window=w, ops_per_block=b, keys=k,
          capacity=g["capacity"], rm_capacity=g["rm"],
          apply_budget=g["budget"], warmup_rounds=warm, rounds=rounds,
@@ -3267,6 +3292,7 @@ def orset_consensus(dev, kernels, workloads):
                                                            len(extra)),
          cuda_kernels_by_phase=by_phase,
          compaction_launches_per_gc_advance=by_phase["compaction_at_gc"],
+         compaction_graph_kernels_per_gc_advance=fence_graph,
          slots_dropped=kv.stats["slots_dropped"] - stats0["slots_dropped"],
          compactions=kv.stats["compactions"] - stats0["compactions"],
          gc_advances=kv.stats["gc_advances"] - stats0["gc_advances"],
@@ -3429,13 +3455,13 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
     packs with and without the logs; (b) every call of SafeKV runs at the
     consensus phase's geometry and at 16 nodes (a node crashed for some
     rounds), at the orset_consensus phase's geometry, and at harness
-    preset mixed's 64 nodes (both types). Returns, per kernel, the
-    recorded calls the kernels line times."""
+    preset mixed's 64 nodes (both types), dag_round's among them. Returns,
+    per kernel, the recorded calls the kernels line times."""
     from janus_tpu_torch.consensus import DagConfig
     from janus_tpu_torch.models.base import OP_FIELDS
 
     entries = {"safekv_board": kernels.safekv_board}
-    log = CaseLog(SAFEKV_KERNELS, entries)
+    log = CaseLog(SAFEKV_KERNELS + ("dag_round",), entries)
     rng = np.random.default_rng(21)
     cover = {"accepted": 0, "rejected": 0, "spilled": 0, "wrapped_keys": 0,
              "need_lag": 0, "need_frontier": 0, "need_force": 0,
@@ -3534,8 +3560,9 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
             cover["lost"] += int(lost.any())
             cover["advanced_2_plus"] += int(dead.sum()) >= 2
 
-    # (b) the calls of real runs
-    names = SAFEKV_KERNELS + tuple(entries)
+    # (b) the calls of real runs (dag_round's too: its 16- and 64-node
+    # calls)
+    names = SAFEKV_KERNELS + tuple(entries) + ("dag_round",)
     recorded, more = {}, {}
     runs = safekv_recorded_runs(dev, workloads, rng)
     for tag, fn in runs:
@@ -3544,6 +3571,7 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
         counts = {name: len(c) for name, c in calls.items()}
         check(counts["safekv_submit"] == counts["safekv_board"] > 0
               and counts["gc_frontier"] == counts["state_transfer"]
+              == counts["dag_round"]
               and counts["block_select"] == 2 * counts["gc_frontier"],
               f"recorded {tag}: calls {counts}")
         for name, rec in calls.items():
@@ -3560,7 +3588,7 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
             timing = calls
         elif tag in ("pnc N16", "mixed N64"):
             # the kernels line's calls at 16 and 64 nodes: the last
-            # submit, and the first GC that frees a slot
+            # submit and round, and the first GC that frees a slot
             gc = calls["gc_frontier"]
             j = next((j for j, (a, _) in enumerate(gc)
                       if bool(kernels.gc_round_plain(
@@ -3569,7 +3597,7 @@ def safekv_kernel_checks(dev, kernels, workloads, cases):
             more[tag.split()[1].lower()] = {
                 "safekv_submit": (calls["safekv_submit"][-1],
                                   calls["safekv_board"][-1]),
-                "gc_frontier": gc[j]}
+                "gc_frontier": gc[j], "dag_round": calls["dag_round"][-1]}
         del calls
     check(cover["rejected"] > 0 and cover["accepted"] > 0
           and cover["spilled"] > 0 and cover["wrapped_keys"] > 0
@@ -3806,15 +3834,16 @@ def record_orset_consensus(dev, kernels, workloads, names):
 
 
 def fence_kernel_checks(dev, kernels, workloads, cases):
-    """orset_compact (and its orset_watermark entry), rga_capture and
-    mark_members against their plain versions on the card, bit-equal,
-    in-place updates included, and orset_apply's captured mode (JAX's
-    one-lane captured scan; full rows, non-canonical rows, a tag captured
-    twice, keys in [-K, 2K)): (a) random inputs: OR-Set rows (full and
-    non-canonical ones, tombstoned tags at SENTINEL) behind watermarks of
-    rings with and without a live add (one lane; harness preset orset's
-    655,360), with and without a protect mask, fresh and in place, at
-    preset orset's and the orset_consensus phase's state shapes; RGA
+    """orset_compact (and its orset_watermark and orset_compact_fences
+    entries), rga_capture and mark_members against their plain versions
+    on the card, bit-equal, in-place updates included, and orset_apply's
+    captured mode (JAX's one-lane captured scan; full rows, non-canonical
+    rows, a tag captured twice, keys in [-K, 2K)): (a) random inputs:
+    OR-Set rows (full and non-canonical ones, tombstoned tags at
+    SENTINEL) behind watermarks of rings with and without a live add (one
+    lane; harness preset orset's 655,360), with and without a protect
+    mask, fresh and in place, and two states in one fused call, at preset
+    orset's and the orset_consensus phase's state shapes; RGA
     captures with inserts into full rows (their counters still minted),
     keys in [-K, 2K), every op code, one document hammered, Lamport floors
     at INT32_MAX (the mint wraps), and the rga_consensus submit's shape;
@@ -3824,7 +3853,8 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
     phase's first rounds (rga_compact's too) and of the orset_consensus
     phase's runs, repeated here with their seeds. Returns the recorded
     calls the kernels line times."""
-    entries = {"orset_watermark": kernels.orset_watermark}
+    entries = {"orset_watermark": kernels.orset_watermark,
+               "orset_compact_fences": kernels.orset_compact_fences}
     log = CaseLog(FENCE_KERNELS + ("rga_compact", "orset_apply", "rga_apply"),
                   entries)
     rng = np.random.default_rng(31)
@@ -3858,6 +3888,10 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
             log.add(kernels, "orset_compact", (rows, w_, p_), tag)
             log.add(kernels, "orset_compact", (rows, w_, p_), tag + " in place",
                     {"out": rows}, aliased=True)
+        more = {f: t(x) for f, x in workloads.orset_slots(
+            rng, lead, c, canonical=True).items()}
+        log.add(kernels, "orset_compact_fences", ((rows, more), *ring),
+                what + " fused, two states", aliased=True)
     for r, k, c, b, full in FENCE_CHECKS["captures"]:
         st = {f: t(x) for f, x in workloads.rga_slots(
             rng, (r, k), c, full_rows=full, negative=0.1).items()}
@@ -3956,13 +3990,11 @@ def fence_kernel_checks(dev, kernels, workloads, cases):
                 f"recorded rga_consensus delta apply {j}", applies[j][1],
                 aliased=True, host_plain=True)
         check_ms[j] = 1e3 * (time.perf_counter() - t0)
-    orset_names = ("orset_watermark", "orset_compact")
     orset_calls, orset_advances = record_orset_consensus(
-        dev, kernels, workloads, orset_names)
+        dev, kernels, workloads, ("orset_compact_fences",))
     o_counts = {name: len(c) for name, c in orset_calls.items()}
     check(orset_advances > 0 and o_counts == {
-        "orset_watermark": orset_advances,
-        "orset_compact": 2 * orset_advances},
+        "orset_compact_fences": orset_advances},
         f"fence_kernels: orset_consensus calls {o_counts}, "
         f"{orset_advances} compactions")
     fence_sorted = [0, 0]  # rows already sorted, rows
@@ -4264,41 +4296,81 @@ def rga_consensus(dev, kernels, workloads):
     return launches
 
 
-def fence_kernel_rows(kernels, calls):
+def fence_advance(kernels, states, op, a2):
+    """One recorded GC advance's rows, the rows it changes (by the plain
+    versions) and the bytes it must move: the ring's op and a2 and every
+    slot read once, the watermark and the changed rows written once."""
+    wm = kernels.orset_watermark_plain(op, a2)
+    rows = changed = 0
+    for st in states:
+        out = kernels.orset_compact_plain(st, wm)
+        diff = torch.zeros(st["valid"].shape[:-1], dtype=torch.bool,
+                           device=op.device)
+        for f, x in st.items():
+            diff |= (out[f] != x).any(-1)
+        rows += diff.numel()
+        changed += int(diff.sum())
+    c = states[0]["valid"].shape[-1]
+    return rows, changed, 8 * op.numel() + 4 + 14 * c * (rows + changed)
+
+
+def fresh_calls(fn, args, copies):
+    """A call of no arguments that runs ``fn`` on the next of ``copies``
+    clones of ``args`` made now, so that an in-place call finds the state
+    it was recorded on (the clones are used in turn, the first again after
+    the last)."""
+    pool = [clone_aliased(args) for _ in range(copies)]
+    at = [0]
+
+    def call():
+        a = pool[at[0] % copies]
+        at[0] += 1
+        return fn(*a)
+    return call
+
+
+def fence_kernel_rows(kernels, calls, preset_call):
     """Rows of the kernels line for the three fence and capture wrappers,
     on recorded calls of the main paths: orset_compact as one GC advance
-    of the orset_consensus phase (the watermark and both states'
-    compactions, in place), rga_capture on an rga_consensus submit (the
+    of the orset_consensus phase (one orset_compact_fences call: the
+    watermark and both states' compactions, in place, each timed call on
+    a fresh copy of the recorded state, ``FENCE_COPIES`` of them) and, as
+    ``preset_orset``, the last advance of harness preset orset's checked
+    run (``preset_call``), rga_capture on an rga_consensus submit (the
     last recorded, on the state it leaves), mark_members on an
     rga_consensus fence. Bytes: what the function must move, each input
     read once and each output written once: the ring's op and a2 and each
-    slot both ways (14 bytes); the op fields, the counters written and the
-    rows the lanes gather and write back (22 bytes a slot, 4 of floor);
-    the A keys, the queries and the marks."""
+    slot read, the rows an advance changes written (14 bytes a slot); the
+    op fields, the counters written and the rows the lanes gather and
+    write back (22 bytes a slot, 4 of floor); the A keys, the queries and
+    the marks."""
     rows = []
-    wm_args, _ = calls["orset_watermark"][-1]
-    compact = calls["orset_compact"][-2:]
-    live_op, _ = wm_args
-    n_ring = live_op.numel()
-    slots = sum(a[0]["valid"].numel() for a, _ in compact)
-    shape = tuple(compact[0][0][0]["valid"].shape)
-
-    def advance(watermark, fn):
-        def go():
-            watermark(*wm_args)
-            for a, kw in compact:
-                fn(*a, **kw)
-        return go
-
+    (states, op, a2), _ = calls["orset_compact_fences"][-1]
+    (p_states, p_op, p_a2), _ = preset_call
+    n_rows, changed, nbytes = fence_advance(kernels, states, op, a2)
+    p_rows, p_changed, p_bytes = fence_advance(kernels, p_states, p_op, p_a2)
+    shape = " x ".join(map(str, states[0]["valid"].shape))
+    p_shape = " x ".join(map(str, p_states[0]["valid"].shape))
+    slots = sum(st["valid"].numel() for st in states)
+    plain_args = clone_aliased((states, op, a2))
     rows.append(dict(
         name="orset_compact",
-        call=advance(kernels.orset_watermark, kernels.orset_compact),
-        plain=advance(kernels.orset_watermark_plain,
-                      kernels.orset_compact_plain),
-        library=None, shape=f"one GC advance of orset_consensus: ring "
-        f"{n_ring} lanes, 2 states {' x '.join(map(str, shape))}, in place",
-        bytes=8 * n_ring + 4 + 2 * 14 * slots,
-        operations=2 * n_ring + 2 * slots))
+        call=fresh_calls(kernels.orset_compact_fences, (states, op, a2),
+                         FENCE_COPIES),
+        plain=lambda: kernels.orset_compact_fences_plain(*plain_args),
+        library=None, max_cuda_launches=2,
+        shape=f"one GC advance of orset_consensus: ring {op.numel()} lanes, "
+        f"2 states {shape}, in place, {changed} of {n_rows} rows changed, "
+        f"each call on a fresh copy",
+        more_calls={"preset_orset": (
+            f"one GC advance of harness preset orset: ring {p_op.numel()} "
+            f"lanes, 2 states {p_shape}, in place, {p_changed} of {p_rows} "
+            f"rows changed", fresh_calls(
+                kernels.orset_compact_fences, (p_states, p_op, p_a2),
+                FENCE_COPIES if p_changed else 1))},
+        rows_changed={"orset_consensus": changed, "preset_orset": p_changed},
+        more_bound_ms={"preset_orset": 1e3 * p_bytes / HBM_BYTES_PER_S},
+        bytes=nbytes, operations=2 * op.numel() + slots))
     (state, ops), kw = calls["rga_capture"][-1]
     r, k, c = state["valid"].shape
     b = ops["op"].shape[1]
@@ -7322,10 +7394,18 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         args, _ = timing_calls[name][-1]
         fn = kernels.WRAPPERS[name]
         ins, outs = kernel_operands(operands, fn, args)
+        extra = {}
+        if name == "dag_round":  # one kernel; its 16- and 64-node calls
+            extra = dict(max_cuda_launches=1, more_calls={
+                label: (f"N{a[0].num_nodes} W{a[0].num_rounds}, last "
+                        f"recorded SafeKV call", lambda a=a, fn=fn: fn(*a))
+                for label, got in safekv_calls["more"].items()
+                for a, _ in [got["dag_round"]]})
         kerns.append(dict(
             name=name, call=lambda fn=fn, args=args: fn(*args),
             plain=lambda name=name, args=args: plain_of(kernels, name)(*args),
-            library=None, shape=f"N{args[0].num_nodes} W{args[0].num_rounds}, "
+            library=None, **extra,
+            shape=f"N{args[0].num_nodes} W{args[0].num_rounds}, "
             f"last recorded SafeKV call",
             bytes=sum(t.numel() * t.element_size() for t in ins + outs),
             operations=sum(t.numel() for t in ins),
@@ -7391,7 +7471,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
         fence_calls["rga_apply_consensus"],
         fence_calls["rga_apply_consensus_walk"]))
     kerns += safekv_kernel_rows(kernels, safekv_calls)
-    kerns += fence_kernel_rows(kernels, fence_calls)
+    kerns += fence_kernel_rows(kernels, fence_calls,
+                               orset_calls["orset_compact_fences"])
     kerns += typed_kernel_rows(kernels, typed_calls)
     kerns += tp_kernel_rows(kernels, tp_calls)
     kerns += split_kernel_rows(kernels, split_calls)
@@ -7419,7 +7500,8 @@ def kernels_line(dev, kernels, path_launches, fast_ops, cases, timing_calls,
                                     "longest_walk", "walk_blocks_per_sm",
                                     "walk_stats", "max_cuda_launches",
                                     "walk_threads_per_block", "library_note",
-                                    "grow", "consensus")
+                                    "grow", "consensus", "rows_changed",
+                                    "more_bound_ms")
                if k in kern}
         row["ms"] = time_cuda(kern["call"])
         reps, one_ms = plain_reps(kern["plain"])
@@ -7527,11 +7609,12 @@ def main() -> int:
                                 "rga_apply: ", "ring_resize: ",
                                 "orset_replay: ", "lww_apply: ",
                                 "orset_apply: ", "block_select: ",
-                                "gc_frontier: ", "safekv_submit: "))],
+                                "gc_frontier: ", "safekv_submit: ",
+                                "dag_round: ", "orset_compact: "))],
           "build: a slot_union.cu, graph_apply.cu, rga_apply.cu, "
           "ring_resize.cu, orset_replay.cu, lww_apply.cu, orset_apply.cu, "
-          "block_select.cu, gc_frontier.cu or safekv_submit.cu function has "
-          "a stack frame or spills")
+          "block_select.cu, gc_frontier.cu, safekv_submit.cu, dag_round.cu "
+          "or orset_compact.cu function has a stack frame or spills")
 
     phase_s = {"build": res["seconds"]}
 

@@ -67,7 +67,6 @@ namespace {
 using namespace dag_masks;
 
 constexpr int MAX_W = 32;
-constexpr int MAX_N = 64;
 constexpr int MAX_FIELDS = 16;
 constexpr int GC_THREADS = 512;
 constexpr int SWEEP_THREADS = 256;
@@ -123,16 +122,6 @@ struct Sweep {
 // arithmetic shift)
 __device__ __forceinline__ int floor_div2(int x) { return x >> 1; }
 
-// bit k of the result: byte k of x is not zero
-__device__ __forceinline__ unsigned nibble(unsigned x) {
-  return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24;
-}
-
-// words of the flat bit array of `len` bool, with two words of padding
-__host__ __device__ __forceinline__ int bit_words(int len) {
-  return ((len + 31) >> 5) + 2;
-}
-
 // the four bool arrays the GC reads whole (committed, stable_applied,
 // prosp_applied [N, W, N] and cert_exists [W, N]) into flat bits (bit i
 // of an array: element i != 0), a word of each a thread: the loads of a
@@ -173,14 +162,6 @@ __device__ void mask_bits(const Gc& g, int nwn, int nw, unsigned* b_com,
       if (q < bit_words(len[a])) dst[a][q] = x;
     }
   }
-}
-
-// row r of a bool[rows, n] array held as flat bits: its mask over n <= 64
-__device__ __forceinline__ u64 row_bits(const unsigned* b, int r, int n) {
-  const int at = r * n, q = at >> 5, sh = at & 31;
-  u64 x = ((u64)b[q] | ((u64)b[q + 1] << 32)) >> sh;
-  if (sh) x |= (u64)b[q + 2] << (64 - sh);
-  return x & low_mask(n);
 }
 
 // the k-th smallest of a[0..n) (n <= 64): thread i < n of the calling

@@ -7,8 +7,8 @@ own counter, over the same source; so are the RGA's, the LWW-Set's and the
 two tombstone layouts' instantiations of ``slot_union.cu`` (``rga_union``,
 ``lww_union``, ``tp_union`` for the 2P-Set and the Graph's vertices,
 ``edge_union`` for the Graph's edges). A source with two entry points counts both on one
-wrapper: ``safekv_board`` on ``safekv_submit``, ``orset_watermark`` on
-``orset_compact``. The capture
+wrapper: ``safekv_board`` on ``safekv_submit``, ``orset_watermark`` and
+``orset_compact_fences`` on ``orset_compact``. The capture
 mode of ``rga_apply.cu`` is a wrapper of its own, ``rga_capture``; so
 are those of ``lww_apply.cu``, ``mvr_apply.cu`` and ``graph_apply.cu``
 (``lww_capture``, ``mvr_capture``, ``graph_capture``). The 2P-Set's apply
@@ -52,8 +52,8 @@ from janus_tpu_torch.kernels.mvr_merge import (  # noqa: F401
 from janus_tpu_torch.kernels.orset_apply import (  # noqa: F401
     orset_apply, orset_apply_plain)
 from janus_tpu_torch.kernels.orset_compact import (  # noqa: F401
-    orset_compact, orset_compact_plain, orset_watermark,
-    orset_watermark_plain)
+    orset_compact, orset_compact_fences, orset_compact_fences_plain,
+    orset_compact_plain, orset_watermark, orset_watermark_plain)
 from janus_tpu_torch.kernels.orset_capture import (  # noqa: F401
     orset_capture, orset_capture_plain)
 from janus_tpu_torch.kernels.orset_replay import (  # noqa: F401

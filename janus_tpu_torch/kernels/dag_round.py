@@ -16,11 +16,15 @@ template instantiation of the same source, counted on ``dag_round``.
 The wrapper launches the CUDA kernel for CUDA tensors (or raises) and runs
 ``dag_round_plain`` only for tensors that lie on the CPU. Both return a
 new state dict; ``slot_round`` and ``base_round`` are carried over as the
-same tensors, every other field is new.
+same tensors, every other field is new. On the card it takes the lean
+launch path (``operands.lean_placement``, ``build.LeanLaunch``), a block
+a ring slot, and the seven new fields are views of one buffer a call
+(the state outlives the round, so the buffer is not reused).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -81,18 +85,35 @@ def dag_round_plain(cfg, state, active: Optional[torch.Tensor] = None,
     return state
 
 
-def _lib():
-    lib = build.load("dag_round")
-    if lib.dag_round_launch.argtypes is None:
-        ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.dag_round_launch.argtypes = [ptr] * 20 + [c_int, c_int, c_int, ptr]
-        lib.dag_round_launch.restype = c_int
-    return lib
+_LAUNCH = build.LeanLaunch("dag_round", "dag_round_launch",
+                          [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int])
+# the kernel's pointers (csrc/dag_round.cu), refilled by each call
+_POINTERS = (ctypes.c_void_p * 20)()
+# (N, W) -> the operands' shapes and the output buffer's layout
+_GEOMETRY: dict = {}
 
 
-def shared_bytes(n: int, w: int, split: bool = False) -> int:
-    """Dynamic shared memory of the one block (csrc/dag_round.cu)."""
-    return 8 * (4 * w * n + 4 * w + (2 if split else 1))
+def _geometry(n: int, w: int):
+    """The operands' shapes, and the output buffer's fields: (field,
+    byte offset, shape), each at a multiple of 16 bytes, and its int32
+    words."""
+    held = _GEOMETRY.get((n, w))
+    if held is None:
+        shapes = {"edges": (w, n, n), "block_exists": (w, n),
+                  "block_seen": (n, w, n), "acks": (w, n, n),
+                  "cert_exists": (w, n), "cert_seen": (n, w, n),
+                  "node_round": (n,), "slot_round": (w,), "base_round": (),
+                  "active": (n,), "withhold": (w, n), "invalid": (w, n),
+                  "owned": (n,)}
+        fields, at = [], 0
+        for f in _OUT_FIELDS:
+            fields.append((f, at, shapes[f]))
+            at += 16 * -(-(4 * n if f == "node_round"
+                           else math.prod(shapes[f])) // 16)
+        held = _GEOMETRY[(n, w)] = (
+            {f: torch.Size(x) for f, x in shapes.items()}, fields, at // 4)
+    return held
 
 
 def dag_round(cfg, state, active: Optional[torch.Tensor] = None,
@@ -105,34 +126,34 @@ def dag_round(cfg, state, active: Optional[torch.Tensor] = None,
     ``withhold`` and ``invalid`` bool[W,N], each optional."""
     n, w = cfg.num_nodes, cfg.num_rounds
     b, i32 = torch.bool, torch.int32
-    shapes = {"edges": (w, n, n), "block_exists": (w, n),
-              "block_seen": (n, w, n), "acks": (w, n, n),
-              "cert_exists": (w, n), "cert_seen": (n, w, n)}
-    dev = operands.placement("dag_round", [
+    shapes, fields, words = _geometry(n, w)
+    dev = operands.lean_placement("dag_round", [
         *((f, state[f], b, shapes[f]) for f in _BOOL_FIELDS),
-        ("node_round", state["node_round"], i32, (n,)),
-        ("slot_round", state["slot_round"], i32, (w,)),
-        ("base_round", state["base_round"], i32, ()),
-        ("active", active, b, (n,)), ("withhold", withhold, b, (w, n)),
-        ("invalid", invalid, b, (w, n)), ("owned", owned, b, (n,))])
+        ("node_round", state["node_round"], i32, shapes["node_round"]),
+        ("slot_round", state["slot_round"], i32, shapes["slot_round"]),
+        ("base_round", state["base_round"], i32, shapes["base_round"]),
+        ("active", active, b, shapes["active"]),
+        ("withhold", withhold, b, shapes["withhold"]),
+        ("invalid", invalid, b, shapes["invalid"]),
+        ("owned", owned, b, shapes["owned"])])
     if dev is None:
         return dag_round_plain(cfg, state, active, withhold, invalid, owned)
-    operands.check_fits("dag_round", n,
-                        shared_bytes(n, w, owned is not None))
+    if n > operands.MAX_NODES:
+        operands.check_fits("dag_round", n, 0)
+    buf = torch.empty((words,), dtype=i32, device=dev)
+    flags = buf.view(b)
     out = dict(state)
-    for f in _OUT_FIELDS:
-        out[f] = torch.empty_like(state[f])
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dag_round_launch(
-            *(state[f].data_ptr() for f in _OUT_FIELDS),
-            state["slot_round"].data_ptr(), state["base_round"].data_ptr(),
-            *(None if m is None else m.data_ptr()  # null: mask absent
-              for m in (active, withhold, invalid, owned)),
-            *(out[f].data_ptr() for f in _OUT_FIELDS), n, w, cfg.quorum,
-            stream)
-    build.check_launch("dag_round", rc)
+    for f, at, shape in fields:
+        out[f] = (buf[at // 4:at // 4 + n] if f == "node_round"
+                  else flags[at:at + math.prod(shape)].view(shape))
+    base = buf.data_ptr()
+    ptrs = _POINTERS
+    ptrs[:] = (*(state[f].data_ptr() for f in _OUT_FIELDS),
+               state["slot_round"].data_ptr(), state["base_round"].data_ptr(),
+               *(None if m is None else m.data_ptr()  # null: mask absent
+                 for m in (active, withhold, invalid, owned)),
+               *(base + at for _, at, _ in fields))
+    _LAUNCH(dev, ptrs, n, w, cfg.quorum)
     dag_round.launches += 1
     return out
 

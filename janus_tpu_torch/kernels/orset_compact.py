@@ -3,7 +3,7 @@ behind the GC fence's counter watermark (kernel source:
 csrc/orset_compact.cu).
 
 Replaces janus_tpu/models/orset.py ``compact`` and ``compact_fence``
-(vmapped over the views). Two entry points, both counted on
+(vmapped over the views). Three entry points, all counted on
 ``orset_compact.launches``:
 
 - ``orset_watermark(live_op, live_a2)``: the least ``a2`` of the live
@@ -11,10 +11,13 @@ Replaces janus_tpu/models/orset.py ``compact`` and ``compact_fence``
   the device; the host never reads it, so a round stays free of syncs;
 - ``orset_compact(rows, wm, protect, out)``: keep the valid slots that are
   live, pinned by ``protect`` or at or above the watermark, in their
-  order, and fill the rest canonically; in place when ``out`` is ``rows``.
-
-A GC advance runs one watermark and one compaction per state: three
-launches for SafeKV's prospective and stable states.
+  order, and fill the rest canonically; in place when ``out`` is ``rows``
+  (then a row that would not change is not written);
+- ``orset_compact_fences(states, live_op, live_a2)``: one GC advance, in
+  place: the watermark of the ring and the compaction of every state
+  behind it, one call on the lean launch path and two CUDA launches (the
+  compaction by programmatic dependent launch). SafeKV's GC fence calls
+  it once an advance, for its prospective and stable states.
 
 The wrappers launch the CUDA kernels for CUDA tensors (or raise) and run
 the plain versions only for tensors that lie on the CPU.
@@ -34,6 +37,11 @@ from janus_tpu_torch.ops.lattice import SENTINEL
 # a zeroed ticket counter per device, which the watermark's last block
 # leaves at 0 (csrc/orset_compact.cu)
 _TICKETS: dict = {}
+# rows up to this many slots are held in a warp's registers; longer ones
+# are staged in shared memory (csrc/orset_compact.cu)
+MAX_WARP_SLOTS = 256
+# the states one fused call takes (csrc/orset_compact.cu MAX_STATES)
+MAX_STATES = 4
 
 
 def orset_watermark_plain(live_op, live_a2) -> torch.Tensor:
@@ -68,6 +76,16 @@ def orset_compact_plain(rows, wm=None, protect=None, out=None):
     return out
 
 
+def orset_compact_fences_plain(states, live_op, live_a2):
+    """Plain PyTorch version of one GC advance: ``orset_watermark_plain``,
+    then ``orset_compact_plain`` of each state in place behind it.
+    Returns the states."""
+    wm = orset_watermark_plain(live_op, live_a2)
+    for st in states:
+        orset_compact_plain(st, wm, out=st)
+    return states
+
+
 def _lib():
     lib = build.load("orset_compact")
     if lib.orset_compact_launch.argtypes is None:
@@ -84,9 +102,10 @@ def _lib():
 
 
 def shared_bytes(c: int) -> int:
-    """Shared memory of one compaction block (csrc/orset_compact.cu): the
-    row's 14 bytes a slot and a protect byte."""
-    return 15 * c
+    """Shared memory of one warp of the staged compaction, the kernel of
+    rows over 256 slots (csrc/orset_compact.cu): the three int32 of a
+    slot and a byte of its flags."""
+    return 4 * (3 * c + -(-c // 4))
 
 
 def orset_watermark(live_op, live_a2) -> torch.Tensor:
@@ -133,7 +152,8 @@ def orset_compact(rows, wm=None, protect=None, out=None):
     if dev is None:
         return orset_compact_plain(rows, wm, protect, out)
     C = shape[-1] if shape else 0
-    operands.check_shared("orset_compact", shared_bytes(C))
+    if C > MAX_WARP_SLOTS:
+        operands.check_shared("orset_compact", shared_bytes(C))
     if out is None:
         out = {f: torch.empty(shape, dtype=DTYPES[f], device=dev)
                for f in FIELDS}
@@ -154,3 +174,60 @@ def orset_compact(rows, wm=None, protect=None, out=None):
 
 
 orset_compact.launches = 0
+
+_ptr = ctypes.c_void_p
+_FENCES = build.LeanLaunch(
+    "orset_compact", "orset_compact_fences_launch",
+    [ctypes.POINTER(_ptr), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+     _ptr, _ptr, ctypes.c_longlong, _ptr, ctypes.c_int])
+# the fused call's field pointers and rows a state, refilled by each call
+_FIELDS = (_ptr * (5 * MAX_STATES))()
+_ROWS = (ctypes.c_longlong * MAX_STATES)()
+# (device index, stream) -> the fused call's scratch: the watermark
+# grid's minima a block
+_SCRATCH: dict = {}
+
+
+def _scratch(dev: torch.device):
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    held = _SCRATCH.get(key)
+    if held is None:
+        held = _SCRATCH[key] = torch.empty(
+            (_lib().orset_watermark_blocks(),), dtype=torch.int32, device=dev)
+    return held
+
+
+def orset_compact_fences(states, live_op, live_a2):
+    """One GC advance of the OR-Set, in place: the counter watermark of
+    the live ring (``live_op``, ``live_a2``: int32 of one shape) and the
+    compaction behind it of every state of ``states`` (up to four, each
+    the five slot fields ``[..., C]`` of one shape), as
+    ``orset_watermark`` then ``orset_compact(st, wm, out=st)`` each.
+    Returns the states. On the card one call, two CUDA launches."""
+    states = tuple(states)
+    if not states:
+        return states
+    shape = states[0]["valid"].shape
+    ring = live_op.shape
+    dev = operands.lean_placement("orset_compact_fences", [
+        *(op for i, st in enumerate(states)
+          for op in slot_operands(f"states[{i}].", st, shape)),
+        ("live_op", live_op, torch.int32, ring),
+        ("live_a2", live_a2, torch.int32, ring)])
+    if dev is None:
+        return orset_compact_fences_plain(states, live_op, live_a2)
+    if len(states) > MAX_STATES:
+        raise ValueError(f"orset_compact_fences: {len(states)} states, at "
+                         f"most {MAX_STATES}")
+    C = shape[-1] if len(shape) else 0
+    if C > MAX_WARP_SLOTS:
+        operands.check_shared("orset_compact_fences", shared_bytes(C))
+    rows = math.prod(shape[:-1]) if len(shape) else 0
+    fields, counts = _FIELDS, _ROWS
+    fields[:5 * len(states)] = [st[f].data_ptr() for st in states
+                                for f in FIELDS]
+    counts[:len(states)] = [rows] * len(states)
+    _FENCES(dev, fields, counts, len(states), live_op.data_ptr(),
+            live_a2.data_ptr(), live_op.numel(), _scratch(dev).data_ptr(), C)
+    orset_compact.launches += 1
+    return states

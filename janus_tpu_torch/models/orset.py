@@ -19,9 +19,11 @@ The device work runs through five hand kernels (``janus_tpu_torch.kernels``):
 - ``slot_union``     the join (``merge``) and the replica-axis converge
                      (``join_replicas``; its row-list mode
                      ``slot_union_rows`` for ``join_replica_rows``)
-- ``orset_compact``  the compaction (``compact``) and, behind the counter
-                     watermark of its ``orset_watermark`` entry point, the
-                     GC-fence compaction (``compact_fence``), in place
+- ``orset_compact``  the compaction (``compact``) and, through its
+                     ``orset_compact_fences`` entry point (the counter
+                     watermark and every state's compaction in one call),
+                     the GC-fence compaction (``compact_fence(s)``), in
+                     place
 
 The dirty rows of a delta apply are the ``dirty_rows`` kernel.
 
@@ -237,12 +239,10 @@ def compact_fences(states, live_ops: base.OpBatch):
     still ride the live window. Protection is a counter watermark: tags
     are minted with increasing counters, so a tag still ridable has ``ctr
     >=`` the least ``a2`` of the live adds (SENTINEL when none is live).
-    One ``orset_watermark`` launch computes it on the device for all the
-    states, then one ``orset_compact`` per state. Returns the states."""
-    wm = kernels.orset_watermark(live_ops["op"], live_ops["a2"])
-    for st in states:
-        rows = _slots(st)
-        kernels.orset_compact(rows, wm=wm, out=rows)
+    One ``orset_compact_fences`` call computes it on the device and
+    compacts every state behind it. Returns the states."""
+    kernels.orset_compact_fences(tuple(_slots(st) for st in states),
+                                 live_ops["op"], live_ops["a2"])
     return states
 
 

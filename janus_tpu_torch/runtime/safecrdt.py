@@ -41,7 +41,7 @@ tensors in place; ``state_arrays`` copies them out. A type with
 ``compact_fences`` is compacted whenever a round advanced the GC frontier
 (``maybe_compact``, called from ``step_absorb``), every view's
 prospective and stable state behind one fence, in place: the OR-Set by
-``orset_watermark`` and ``orset_compact`` (three launches), the RGA by
+one ``orset_compact_fences`` call (two launches), the RGA by
 ``mark_members`` and ``rga_compact`` per state. Nothing may hold a
 pre-compaction reference to those states.
 

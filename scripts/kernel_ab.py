@@ -45,7 +45,7 @@ the walk's redesign, called as its own wrapper called it:
 ``parent_walk``). ``--parts`` picks
 the parts to run, of ``compact``, ``mvr``, ``orset``, ``tp``, ``lww``,
 ``walk``, ``rga``, ``ring``, ``replay``, ``lwwwalk``, ``orsetapply``,
-``select`` and ``safekv`` (all by default).
+``select``, ``safekv`` and ``round`` (all by default).
 
 Part ``rga`` prints how the lanes of ``chip_smoke.py``'s rga_consensus
 delta applies fall on their (view, row) groups (``RGA_ROUNDS`` rounds
@@ -93,10 +93,26 @@ build, ``SAFEKV_VARIANTS`` and, with ``--parent``, that checkout's two
 sources under that checkout's own wrapper modules (``parent_module``);
 then splits each run's timed calls into their
 kernels (the profiler), the GC kernel into its phases (clock stamps at
-its barriers, ``stamped_gc``) and the operand checks' host time
+its barriers, ``stamped``) and the operand checks' host time
 (``placement_us``), and times them in turns: device ms, ms a call and
 the host's queueing µs a call, and each run's calls in bursts (~1-2
 min).
+
+Part ``round`` records every ``dag_round`` call of chip_smoke's recorded
+SafeKV runs at 4, 16 and 64 nodes and of its split PN-Counter cluster
+(``round_inputs``), and every GC advance of the OR-Set in its
+orset_consensus runs and in one run of harness preset orset
+(``fence_inputs``: the fused ``orset_compact_fences`` call, or the
+watermark and two compactions of a checkout without it), holds each
+bit-equal to the plain versions under the package's build and, with
+``--parent``, DIR's ``dag_round.cu`` and ``orset_compact.cu`` under
+DIR's own wrapper modules; prints each advance's rows, rows that drop a
+slot and rows it changes with its byte bound, the timed calls' kernels
+(profiler), dag_round's one block split into its steps by clock stamps
+(``stamped``) and the card's launch floors (an empty kernel, an empty
+pair by programmatic dependent launch), then times the calls in turns:
+device ms, ms a call, queueing µs (an advance on fresh copies, and
+repeated in place) and each run's dag_round calls in bursts (~2 min).
 """
 from __future__ import annotations
 
@@ -131,7 +147,7 @@ RGA_ROUNDS = 6
 # apply fills them exactly)
 RGA_VARIANTS = {"lanes64": {"GROUP_LANES": 64}}
 PARTS = ("compact", "mvr", "orset", "tp", "lww", "walk", "rga", "ring",
-         "replay", "lwwwalk", "orsetapply", "select", "safekv")
+         "replay", "lwwwalk", "orsetapply", "select", "safekv", "round")
 # the recorded runs of part replay; rounds of lww_consensus and ticks of
 # typed_store part lwwwalk records
 REPLAY_PRESETS = ("orset", "orset4")
@@ -1588,44 +1604,48 @@ def tree_submit(a_args, b_args):
     return out
 
 
-def stamped_gc(text, fn="__global__ void gc_kernel",
-               start="const int tid = threadIdx.x;") -> str:
-    """``gc_frontier.cu``'s text with a ``clock64()`` and a
-    ``%globaltimer`` stamp taken by thread 0 of the GC's block at the
+def stamped(text, fn="__global__ void gc_kernel",
+            start="const int tid = threadIdx.x;",
+            who="threadIdx.x == 0") -> str:
+    """A kernel source's ``text`` with a ``clock64()`` and a
+    ``%globaltimer`` stamp taken by the thread ``who`` names at the
     function ``fn``'s line ``start``, after each ``__syncthreads()`` of
-    that function and at its end, into a device array that ``gc_stamps``
-    copies out (the parent's one-block ``gc_kernel``; ``gc_block`` of
-    this checkout's)."""
+    that function and at its end, into a device array (declared at the
+    top of the source's anonymous namespace) that ``stamps_out`` copies
+    out: the parent's one-block ``gc_kernel`` and ``gc_block`` of this
+    checkout's ``gc_frontier.cu``, and ``dag_round.cu``'s block (the
+    parent's one block, block 0 of this checkout's)."""
     head, rest = text.split(fn, 1)
     end = rest.index("\n}\n") + 1
     body, tail = rest[:end], rest[end + 1:]
-    stamp = ("if (threadIdx.x == 0) { long long t_; asm volatile("
+    stamp = (f"if ({who}) {{ long long t_; asm volatile("
              "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); "
              "g_stamp[2 * n_stamp] = clock64(); g_stamp[2 * n_stamp + 1] = "
              "t_; } ++n_stamp;")
     body = body.replace("__syncthreads();", "__syncthreads(); " + stamp)
     body = body.replace(start, start + " int n_stamp = 0; " + stamp, 1)
     body = body[:-1] + stamp + "\n}"
-    return (head + "__device__ long long g_stamp[64];\n" + fn + body + tail
-            + '\nextern "C" int gc_stamps(long long* out) {\n'
+    head = head.replace("namespace {\n",
+                        "namespace {\n__device__ long long g_stamp[64];\n", 1)
+    return (head + fn + body + tail
+            + '\nextern "C" int stamps_out(long long* out) {\n'
             "  return (int)cudaMemcpyFromSymbol(out, g_stamp, "
             "sizeof(g_stamp));\n}\n")
 
 
-def gc_phases(lib, call, g_args, ring, reps=5) -> dict:
-    """The GC kernel of ``lib`` (a ``stamped_gc`` build) split into its
-    phases, ``call(g_args, ring)`` running it (the least of ``reps``
-    calls on fresh clones): cycles and ns from the kernel's start to each
+def stamp_phases(lib, call, args, reps=5) -> dict:
+    """The kernel of ``lib`` (a ``stamped`` build) split into its phases,
+    ``call(*args)`` running it (the least of ``reps`` calls on fresh
+    clones of ``args``): cycles and ns from the kernel's start to each
     barrier and to its end."""
     buf = (ctypes.c_longlong * 64)()
-    lib.gc_stamps.argtypes = [ctypes.c_void_p]
+    lib.stamps_out.argtypes = [ctypes.c_void_p]
     best = None
     for _ in range(reps):
-        a, r = clone((g_args, ring))
-        call(a, r)
+        call(*clone(args))
         torch.cuda.synchronize()
-        if lib.gc_stamps(buf):
-            raise RuntimeError("gc_stamps failed")
+        if lib.stamps_out(buf):
+            raise RuntimeError("stamps_out failed")
         cyc = [buf[2 * i] - buf[0] for i in range(32)]
         ns = [buf[2 * i + 1] - buf[1] for i in range(32)]
         k = next((i for i in range(1, 32) if cyc[i] <= 0), 32)
@@ -1701,7 +1721,7 @@ def safekv_ab(dev, parent, smi):
     variants = {"tree": {"gc": tree_gc, "submit": tree_submit}}
     libs = {}
     text = (build.CSRC / "gc_frontier.cu").read_text()
-    stamped = {"tree": (build_text("gc_frontier", stamped_gc(
+    stamped_libs = {"tree": (build_text("gc_frontier", stamped(
         text, "__device__ void gc_block(",
         "const int warps = blockDim.x >> 5;"), "stamped_tree"), tree_gc)}
     # the design's variants under the same wrappers, each library put in
@@ -1712,8 +1732,8 @@ def safekv_ab(dev, parent, smi):
     if parent is not None:
         csrc = pathlib.Path(parent) / "janus_tpu_torch" / "csrc"
         text = (csrc / "gc_frontier.cu").read_text()
-        plib = build_text("gc_frontier", stamped_gc(text), "stamped")
-        stamped["parent"] = (plib, parent_gc(parent_module(
+        plib = build_text("gc_frontier", stamped(text), "stamped")
+        stamped_libs["parent"] = (plib, parent_gc(parent_module(
             parent, "gc_frontier", plib, "stamped")))
         slib = build_text("safekv_submit",
                           (csrc / "safekv_submit.cu").read_text(), "parent")
@@ -1771,10 +1791,10 @@ def safekv_ab(dev, parent, smi):
                                         f[k](*c))
                       for key, (kind, call) in timed.items()}
     phases = {}
-    for tag, (lib, call) in stamped.items():
+    for tag, (lib, call) in stamped_libs.items():
         if tag == "tree":
             use("gc_frontier", lib)
-        phases[tag] = {key: gc_phases(lib, call, *c)
+        phases[tag] = {key: stamp_phases(lib, call, c)
                        for key, (kind, c) in timed.items() if kind == "gc"}
     turn("tree")
     checks = {}  # the operand checks' share of the host work
@@ -1819,6 +1839,345 @@ def safekv_ab(dev, parent, smi):
     print(json.dumps({"kernel": "safekv", "nvidia_smi": smi, **out}),
           flush=True)
     del runs, timed
+    torch.cuda.empty_cache()
+
+
+# part round: the recorded SafeKV runs whose dag_round calls it times
+# (chip_smoke.safekv_recorded_runs' tags), fresh copies of a GC advance
+# timed in one burst, and the markers of dag_round.cu's one-block kernel
+# for its clock stamps (this checkout's and the parent's)
+ROUND_RUNS = ("pnc N4", "pnc N16", "mixed N64")
+FENCE_REPS = 20
+DAG_STAMP_MARKERS = (
+    ("__global__ void dag_round_kernel",
+     "const int tid = threadIdx.x, nt = blockDim.x;", "threadIdx.x == 0"),
+    ("    dag_round_kernel(DagIn in, DagOut out, int n, int w, int quorum) {",
+     "const int s = blockIdx.x, tid = threadIdx.x;",
+     "threadIdx.x == 0 && blockIdx.x == 0"))
+# an empty kernel, and an empty pair the second of which is launched by
+# programmatic dependent launch: the launch floors of the card
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+__global__ void first_kernel() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
+__global__ void second_kernel() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+extern "C" int pair_launch(void* stream) {
+  first_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(32);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, second_kernel);
+}
+"""
+
+
+def round_inputs(dev):
+    """Every ``dag_round`` call of chip_smoke's recorded SafeKV runs
+    ``ROUND_RUNS`` (the PN-Counter at 4 and 16 nodes, both types at
+    harness preset mixed's 64) and of the split PN-Counter cluster's
+    pass (the split mode), by run: ``{run: [(args, kwargs)]}``."""
+    import chip_smoke
+
+    runs = {}
+    for tag, fn in chip_smoke.safekv_recorded_runs(
+            dev, workloads, np.random.default_rng(21)):
+        if tag in ROUND_RUNS:
+            runs[tag.replace(" ", "_")] = chip_smoke.record_calls(
+                kernels, ("dag_round",), fn)["dag_round"]
+    runs["split_N4"] = chip_smoke.record_calls(
+        kernels, ("dag_round",), lambda: chip_smoke.split_run(
+            dev, kernels, workloads, "pnc", chip_smoke.SPLIT_PNC, 21))[
+        "dag_round"]
+    torch.cuda.synchronize()
+    return runs
+
+
+def fence_names() -> tuple:
+    """The wrappers one GC advance of the OR-Set calls in this checkout."""
+    return (("orset_compact_fences",)
+            if hasattr(kernels, "orset_compact_fences")
+            else ("orset_watermark", "orset_compact"))
+
+
+def advances_of(calls) -> list:
+    """Recorded GC advances as ``(states, live_op, live_a2)``: the fused
+    call's arguments, or a watermark's and its two compactions' rows."""
+    if "orset_compact_fences" in calls:
+        return [(tuple(a[0]), a[1], a[2])
+                for a, _ in calls["orset_compact_fences"]]
+    wms, cps = calls["orset_watermark"], calls["orset_compact"]
+    return [((cps[2 * i][0][0], cps[2 * i + 1][0][0]), *wms[i][0])
+            for i in range(len(wms))]
+
+
+def fence_inputs(dev):
+    """Every GC advance of chip_smoke's orset_consensus runs
+    (``record_orset_consensus``: 4 views x 100 keys x C 64) and of one
+    run of harness preset orset (16 views x 1,000 keys x C 64, a ring of
+    8 x 16 x 5,120 lanes), by geometry."""
+    import chip_smoke
+    from janus_tpu_torch.bench import harness
+
+    names = fence_names()
+    calls, _ = chip_smoke.record_orset_consensus(dev, kernels, workloads,
+                                                 names)
+    out = {"orset_cons": advances_of(calls)}
+    calls = chip_smoke.record_calls(
+        kernels, names, lambda: harness.run_tensor(harness.PRESETS["orset"],
+                                                   device=dev), aliased=True)
+    out["preset_orset"] = advances_of(calls)
+    torch.cuda.synchronize()
+    return out
+
+
+def fence_plain(states, op, a2):
+    """The plain versions of one GC advance: the watermark, then each
+    state compacted in place behind it."""
+    wm = kernels.orset_watermark_plain(op, a2)
+    for st in states:
+        kernels.orset_compact_plain(st, wm, out=st)
+    return states
+
+
+def fence_call(module):
+    """One GC advance through ``module``'s wrappers: its fused call where
+    it has one, else its watermark and one compaction a state."""
+    if hasattr(module, "orset_compact_fences"):
+        return module.orset_compact_fences
+
+    def advance(states, op, a2):
+        wm = module.orset_watermark(op, a2)
+        for st in states:
+            module.orset_compact(st, wm=wm, out=st)
+        return states
+    return advance
+
+
+def fence_stats(adv) -> dict:
+    """One advance's rows, the rows that drop a slot and the rows the
+    compaction changes (plain versions), the ring's lanes, whether the
+    watermark is SENTINEL, and the bytes it must move: the ring's op and
+    a2 read, every slot read (14 bytes) and the changed rows written."""
+    states, op, a2 = adv
+    wm = kernels.orset_watermark_plain(op, a2)
+    rows = drops = changed = 0
+    row_bytes = 0
+    for st in states:
+        keep = st["valid"] & (~st["removed"] | (st["tag_ctr"] >= wm[0]))
+        drop = (st["valid"] & ~keep).any(-1)
+        out = kernels.orset_compact_plain(st, wm)
+        diff = torch.zeros_like(drop)
+        for f, x in st.items():
+            diff |= (out[f] != x).any(-1)
+        rows += drop.numel()
+        drops += int(drop.sum())
+        changed += int(diff.sum())
+        row_bytes = 14 * st["valid"].shape[-1]
+    nbytes = 8 * op.numel() + row_bytes * (rows + changed)
+    return {"rows": rows, "rows_dropping": drops, "rows_changed": changed,
+            "ring_lanes": op.numel(),
+            "wm_sentinel": int(wm[0]) == torch.iinfo(torch.int32).max,
+            "shape": list(states[0]["valid"].shape), "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / 3.35e12}
+
+
+def fresh_ms(call, adv, reps=FENCE_REPS) -> dict:
+    """One GC advance on fresh clones of ``adv`` (each call its own, made
+    beforehand): device ms a call (the calls queued behind a sleeping
+    kernel, after a warm-up call) and ms a call with host work (CUDA
+    events around the calls)."""
+    out = {}
+    for kind in ("device_ms", "ms"):
+        copies = [clone(adv) for _ in range(reps + 1)]
+        call(*copies[0])
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        if kind == "device_ms":
+            torch.cuda._sleep(SLEEP_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for c in copies[1:]:
+            call(*c)
+        host = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if kind == "device_ms" and host >= ev[0].elapsed_time(ev[1]):
+            raise RuntimeError(f"queueing took {host} ms, longer than the "
+                               f"sleep")
+        out[kind] = ev[1].elapsed_time(ev[2]) / reps
+        del copies
+    return out
+
+
+def cycling(call, adv, copies=8):
+    """A call of no arguments that runs ``call`` on the next of
+    ``copies`` fresh clones of ``adv`` (for the profiler's few calls)."""
+    pool = [clone(adv) for _ in range(copies)]
+    at = [0]
+
+    def go():
+        c = pool[at[0] % copies]
+        at[0] += 1
+        return call(*c)
+    return go
+
+
+def round_ab(dev, parent, smi):
+    """Part ``round``: ``dag_round`` on every recorded call of
+    ``round_inputs`` and one GC advance of the OR-Set on every recorded
+    advance of ``fence_inputs``, each held bit-equal to the plain
+    versions under this checkout's wrappers (``tree``) and, with
+    ``parent``, the parent checkout's two sources under its own wrapper
+    modules (``parent``). Then: each fence geometry's advances (rows,
+    rows dropping a slot, rows changed, bytes and bound); the timed calls
+    (each run's last dag_round call, each geometry's last advance) split
+    by the profiler into their kernels, dag_round's one block into its
+    phases by clock stamps (``stamped``), and timed in turns (tree,
+    parent, parent, tree): dag_round's device ms, ms a call and queueing
+    µs a call and each run's whole list of calls in bursts; the
+    advance's device ms and ms a call on fresh copies and its device ms
+    repeated in place (rows that no longer change); beside them the
+    card's launch floors (an empty kernel, and an empty pair by
+    programmatic dependent launch), timed as the kernels line's device
+    ms is."""
+    build.build_all()
+    runs = round_inputs(dev)
+    fences = fence_inputs(dev)
+    variants = {"tree": {"round": kernels.dag_round,
+                         "fence": fence_call(kernels)}}
+    def marked(text):
+        return next(m for m in DAG_STAMP_MARKERS
+                    if m[0] in text and m[1] in text)
+
+    stamps = {}
+    text = (build.CSRC / "dag_round.cu").read_text()
+    stamps["tree"] = (build_text("dag_round", stamped(text, *marked(text)),
+                                 "stamped_tree"), None)
+    if parent is not None:
+        csrc = pathlib.Path(parent) / "janus_tpu_torch" / "csrc"
+        ptext = (csrc / "dag_round.cu").read_text()
+        plib = build_text("dag_round", stamped(ptext, *marked(ptext)),
+                          "stamped")
+        stamps["parent"] = (plib, parent_module(parent, "dag_round", plib,
+                                                "stamped").dag_round)
+        variants["parent"] = {
+            "round": parent_module(parent, "dag_round", build_text(
+                "dag_round", ptext, "parent"), "parent").dag_round,
+            "fence": fence_call(parent_module(
+                parent, "orset_compact", build_text(
+                    "orset_compact", (csrc / "orset_compact.cu").read_text(),
+                    "parent"), "parent"))}
+    checked = {}
+    for tag, fns in variants.items():
+        for label, calls in runs.items():
+            for j, (args, kw) in enumerate(calls):
+                got = fns["round"](*args, **kw)
+                want = kernels.dag_round_plain(*args, **kw)
+                if not same(got, want):
+                    raise AssertionError(f"round {tag}: {label} call {j} "
+                                         f"differs from plain")
+            checked[f"dag_round/{label}"] = len(calls)
+        for label, advs in fences.items():
+            for j, adv in enumerate(advs):
+                mine, ref = clone(adv), clone(adv)
+                fns["fence"](*mine)
+                fence_plain(*ref)
+                if not same(mine, ref):
+                    raise AssertionError(f"round {tag}: {label} advance {j} "
+                                         f"differs from plain")
+            checked[f"fence/{label}"] = len(advs)
+    stats = {label: [fence_stats(a) for a in advs]
+             for label, advs in fences.items()}
+    timed = {f"dag_round/{label}": ("round", calls[-1])
+             for label, calls in runs.items()}
+    timed.update({f"fence/{label}": ("fence", advs[-1])
+                  for label, advs in fences.items()})
+    shapes = {}
+    for key, (kind, call) in timed.items():
+        if kind == "round":
+            cfg = call[0][0]
+            shapes[key] = dict(N=cfg.num_nodes, W=cfg.num_rounds,
+                               split=call[1].get("owned") is not None,
+                               masks=[x is not None for x in call[0][2:]])
+        else:
+            shapes[key] = fence_stats(call)
+    split = {}
+    for tag, fns in variants.items():
+        split[tag] = {}
+        for key, (kind, call) in timed.items():
+            if kind == "round":
+                split[tag][key] = kernel_split(
+                    lambda f=fns["round"], c=call: f(*c[0], **c[1]))
+            else:
+                split[tag][key] = kernel_split(cycling(fns["fence"], call))
+    phases = {}
+    for tag, (lib, fn) in stamps.items():
+        if fn is None:
+            use("dag_round", lib)
+            fn = kernels.dag_round
+        phases[tag] = {key: stamp_phases(
+            lib, lambda a, kw, f=fn: f(*a, **kw), call)
+            for key, (kind, call) in timed.items() if kind == "round"}
+    use("dag_round", None)
+    floor_lib = build_text("empty", EMPTY_SOURCE, "floor")
+    for entry in ("empty_launch", "pair_launch"):
+        getattr(floor_lib, entry).argtypes = [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floors = {}
+    for entry in ("empty_launch", "pair_launch"):
+        fn = (lambda e=getattr(floor_lib, entry): e(stream))
+        floors[entry] = {"device_ms": device_ms(fn), "ms": host_ms(fn),
+                         "queue_us": queue_us(fn)}
+    print(json.dumps({"kernel": "round", "nvidia_smi": smi,
+                      "calls_checked": checked, "fence_advances": stats,
+                      "timed_calls": shapes, "device_us_by_kernel": split,
+                      "dag_round_phases": phases, "launch_floors": floors}),
+          flush=True)
+    out = {tag: {"timed": {key: {} for key in timed},
+                 "runs": {label: {"device_ms": [], "ms": []}
+                          for label in runs}} for tag in variants}
+    for tag in list(variants) + list(reversed(variants)):
+        fns = variants[tag]
+        for key, (kind, call) in timed.items():
+            rec = out[tag]["timed"][key]
+            if kind == "round":
+                fn = (lambda f=fns["round"], c=call: f(*c[0], **c[1]))
+                got = {"device_ms": device_ms(fn), "ms": host_ms(fn),
+                       "queue_us": queue_us(fn)}
+            else:
+                got = fresh_ms(fns["fence"], call)
+                mine = clone(call)
+                got["in_place_device_ms"] = device_ms(
+                    lambda f=fns["fence"], c=mine: f(*c))
+                del mine
+            for k, v in got.items():
+                rec.setdefault(k, []).append(v)
+        for label, calls in runs.items():
+            fs = [(lambda f=fns["round"], c=c: f(*c[0], **c[1]))
+                  for c in calls]
+            out[tag]["runs"][label]["device_ms"].append(sum(
+                burst_ms(fs[k:k + BURST_CALLS])
+                for k in range(0, len(fs), BURST_CALLS)))
+            out[tag]["runs"][label]["ms"].append(pass_ms(fs))
+        torch.cuda.empty_cache()
+    print(json.dumps({"kernel": "round", "nvidia_smi": smi, **out}),
+          flush=True)
+    del runs, fences, timed
     torch.cuda.empty_cache()
 
 
@@ -1939,6 +2298,8 @@ def main() -> int:
         select_ab(dev, select_parent, smi)
     if "safekv" in parts:
         safekv_ab(dev, root, smi)
+    if "round" in parts:
+        round_ab(dev, root, smi)
     print(smi, flush=True)
     return 0
 

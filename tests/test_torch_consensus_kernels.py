@@ -33,6 +33,9 @@ from janus_tpu_torch.runtime import safecrdt
 torch.set_num_threads(1)
 
 SHAPES = [(4, 8), (7, 6)]
+# the round's parity also at the main path's 16 nodes and at 64 (rows of
+# a whole 64-bit mask) with a wider window
+ROUND_SHAPES = SHAPES + [(16, 8), (64, 16)]
 STATES = 8  # random states per shape; every fourth one wraps int32
 
 
@@ -79,7 +82,7 @@ def test_commit_view_matches_jax_on_random_states(n, w, steps):
     assert committed > 0
 
 
-@pytest.mark.parametrize("n,w", SHAPES)
+@pytest.mark.parametrize("n,w", ROUND_SHAPES)
 @pytest.mark.parametrize("masks", ["none", "active", "withhold", "invalid",
                                    "all"])
 def test_round_step_matches_jax_on_random_states(n, w, masks):

@@ -221,10 +221,17 @@ def test_causal_closure_kernel_matches_plain(cuda_device, n, w):
         _assert_outputs_equal(got, ref)
 
 
+# dag_round's geometries: the main path's N (4, 16, 64), a node count that
+# is no multiple of 16 (rows across words), and the widest windows at 64
+# nodes
+DAG_ROUND_SHAPES = [(4, 8), (16, 8), (33, 5), (64, 16), (64, 32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,w", [(4, 8), (16, 8)])
+@pytest.mark.parametrize("n,w", DAG_ROUND_SHAPES)
 def test_dag_round_kernel_matches_plain(cuda_device, n, w):
-    """Every combination of the three optional masks."""
+    """Every combination of the three optional masks; every third state
+    wraps int32."""
     for cfg, d, _, _, masks in _consensus_inputs(cuda_device, n, w, seed=n):
         for keep in range(8):
             sel = [m if keep >> j & 1 else None for j, m in enumerate(masks)]
@@ -237,10 +244,10 @@ def test_dag_round_kernel_matches_plain(cuda_device, n, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,w", [(4, 8), (16, 8), (7, 6)])
+@pytest.mark.parametrize("n,w", DAG_ROUND_SHAPES + [(7, 6)])
 def test_dag_round_split_mode_matches_plain(cuda_device, n, w):
     """The split instantiation (``owned`` given) under every combination
-    of the three optional masks."""
+    of the three optional masks; every third state wraps int32."""
     rng = np.random.default_rng(n + w)
     for cfg, d, _, _, masks in _consensus_inputs(cuda_device, n, w, seed=n):
         owned = torch.as_tensor(rng.random(n) < 0.5, device=cuda_device)
@@ -252,6 +259,31 @@ def test_dag_round_split_mode_matches_plain(cuda_device, n, w):
             torch.cuda.synchronize()
             assert kernels.dag_round.launches == before + 1
             _assert_outputs_equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(16, 8), (64, 8)])
+def test_dag_round_chained_rounds_match_plain(cuda_device, n, w):
+    """Rounds chained on the kernel's own outputs (views of one buffer a
+    call), node n - 1 crashed in the middle rounds, held to the plain
+    version's chain round by round; one CUDA kernel a call (a captured
+    graph's kernel nodes)."""
+    import chip_smoke
+    from janus_tpu_torch.consensus import dag as dagmod
+
+    cfg = dagmod.DagConfig(n, w)
+    got = dagmod.init(cfg, device=cuda_device)
+    ref = {f: x.clone() for f, x in got.items()}
+    for t in range(3 * w):
+        active = torch.ones(n, dtype=torch.bool, device=cuda_device)
+        active[n - 1] = not 2 <= t < w
+        got = kernels.dag_round(cfg, got, active)
+        ref = kernels.dag_round_plain(cfg, ref, active)
+        torch.cuda.synchronize()
+        _assert_outputs_equal(got, ref)
+    assert int(got["node_round"].max()) > 0
+    assert chip_smoke.graph_kernels(
+        lambda: kernels.dag_round(cfg, got, active)) == 1
 
 
 def _ingest_case(dev, rng, n, w, payload):
@@ -1712,6 +1744,65 @@ def test_orset_compact_matches_plain(cuda_device, lead, c, n_ring, adds):
     assert torch.equal(wm, ref_wm)
     assert (int(wm[0]) == INT32_MAX) == (not bool((ring["op"] == 1).any()))
     assert kernels.orset_compact.launches == before + 9
+
+
+# the fence's cases: (rows, ring) of workloads.orset_slots keywords and a
+# ring kind; and the state shapes at C 5 (a lane a slot), 64 (the main
+# path's rows) and 300 (rows staged in shared memory)
+FENCE_CASES = {
+    "mixed": (dict(canonical=False, full_rows=0.4), "adds"),
+    "nothing_drops": (dict(canonical=True, removed=0.0), "adds"),
+    "all_drop": (dict(canonical=True, full_rows=1.0, removed=1.0),
+                 "removes"),
+    "empty_ring": (dict(canonical=False, full_rows=0.4), "empty"),
+    "all_remove_ring": (dict(canonical=True, full_rows=0.5), "removes"),
+}
+FENCE_SHAPES = [((2, 7), 5), ((4, 100), 64), ((3, 5), 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FENCE_CASES))
+@pytest.mark.parametrize("lead,c", FENCE_SHAPES)
+def test_orset_compact_fences_matches_plain(cuda_device, case, lead, c):
+    """One GC advance over two states (the fused call, in place, one
+    count and two CUDA kernels) against the plain watermark and two plain
+    compactions; and each state alone through the watermark and
+    ``orset_compact``, fresh and in place (a fresh output gets every row,
+    in place only changed rows are written)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(c + len(case))
+    kw, ring_kind = FENCE_CASES[case]
+    states = tuple(_slots(rng, lead, c, cuda_device, **kw) for _ in range(2))
+    n_ring = {"adds": 4 * c + 3, "removes": 4 * c + 3, "empty": 0}[ring_kind]
+    op = (rng.integers(0, 4, n_ring) if ring_kind == "adds"
+          else np.full(n_ring, 2))
+    ring = (torch.as_tensor(op.astype(np.int32), device=cuda_device),
+            torch.as_tensor(_rand(rng, (n_ring,), 0, 2 * c),
+                            device=cuda_device))
+    ref = kernels.orset_compact_fences_plain(_clone(states), *ring)
+    before = kernels.orset_compact.launches
+    got = kernels.orset_compact_fences(_clone(states), *ring)
+    torch.cuda.synchronize()
+    assert kernels.orset_compact.launches == before + 1
+    for g, r in zip(got, ref, strict=True):
+        _assert_outputs_equal(g, r)
+    wm = kernels.orset_watermark(*ring)
+    for st, r in zip(states, ref):
+        _assert_outputs_equal(kernels.orset_compact(st, wm), r)
+        inplace = _clone(st)
+        kernels.orset_compact(inplace, wm, out=inplace)
+        torch.cuda.synchronize()
+        _assert_outputs_equal(inplace, r)
+    assert kernels.orset_compact.launches == before + 6
+    if case == "nothing_drops":  # canonical rows that keep every slot
+        for st, r in zip(states, ref):
+            _assert_outputs_equal(st, r)
+    if case == "all_drop":
+        assert not any(bool(r["valid"].any()) for r in ref)
+    mine = _clone(states)
+    assert chip_smoke.graph_kernels(
+        lambda: kernels.orset_compact_fences(mine, *ring)) == 2
 
 
 @pytest.mark.cuda

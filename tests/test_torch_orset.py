@@ -252,6 +252,27 @@ def test_compact_fence_batched_views_match_jax(live_adds):
                           else SENTINEL)
 
 
+def test_compact_fences_at_sixteen_views_without_a_live_add_match_jax():
+    """``compact_fences`` of two states of harness preset orset's 16
+    views at C 64 (few keys) behind a ring with no live add (the
+    watermark is SENTINEL: every tombstone drops but those at SENTINEL)
+    against JAX's ``compact_fence`` vmapped over the views."""
+    rng = np.random.default_rng(29)
+    sts = [_state(rng, (16,), 6, 64, 4, full_rows=0.5) for _ in range(2)]
+    for st in sts:  # tombstoned tags at SENTINEL stay
+        st["tag_ctr"][..., 0] = np.where(st["valid"][..., 0] & (
+            rng.random(st["valid"].shape[:-1]) < 0.3), SENTINEL,
+            st["tag_ctr"][..., 0])
+    live = _ops(rng, (8, 16), 40, 6, 64, hazards=False)
+    live["op"] = np.where(live["op"] == orset.OP_ADD, orset.OP_REMOVE,
+                          live["op"])
+    flat = {f: x.reshape(-1) for f, x in live.items()}
+    fence = jax.jit(jax.vmap(jax_orset.compact_fence, in_axes=(0, None)))
+    got = orset.compact_fences(tuple(_torch(st) for st in sts), _torch(flat))
+    for g, st in zip(got, sts):
+        _assert_equal(g, fence(_jax(st), _jax(flat)), "compact_fences")
+
+
 def test_watermark_protects_live_buffered_add():
     """tests/test_compact.py::test_watermark_protects_live_buffered_add:
     a tag tombstoned by a captured clear while its add may still ride the
